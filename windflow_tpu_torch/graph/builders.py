@@ -1,0 +1,196 @@
+"""Fluent operator builders (the port of ``windflow_tpu/graph/builders.py``;
+reference ``builders.hpp`` and ``builders_gpu.hpp``).  Device builders take
+the reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder`` and
+``Ffat_WindowsGPU_Builder``."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
+from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
+from windflow_tpu_torch.ops.sink import Sink
+from windflow_tpu_torch.ops.source import Source
+from windflow_tpu_torch.windows.engine import WindowSpec
+from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+
+
+class _BuilderBase:
+    _default_name = "op"
+    _closing_func: Optional[Callable] = None
+
+    def __init__(self) -> None:
+        self._name = self._default_name
+        self._parallelism = 1
+        self._output_batch_size = 0
+        self._key_extractor: Optional[Callable] = None
+
+    def __init_subclass__(cls, **kwargs):
+        # every build() applies the closing function the base owns
+        super().__init_subclass__(**kwargs)
+        orig = cls.__dict__.get("build")
+        if orig is not None:
+            def build(self, _orig=orig):
+                op = _orig(self)
+                if self._closing_func is not None:
+                    op.closing_func = self._closing_func
+                return op
+            build.__doc__ = orig.__doc__
+            cls.build = build
+
+    def withName(self, name: str):
+        self._name = name
+        return self
+
+    def withClosingFunction(self, fn: Callable):
+        """Per-replica shutdown callback, ``fn(ctx)`` or ``fn()``."""
+        self._closing_func = fn
+        return self
+
+    def withParallelism(self, parallelism: int):
+        self._parallelism = parallelism
+        return self
+
+    def withOutputBatchSize(self, size: int):
+        self._output_batch_size = size
+        return self
+
+    def withKeyBy(self, key_extractor: Callable[[Any], Any]):
+        self._key_extractor = key_extractor
+        return self
+
+    def _routing(self) -> RoutingMode:
+        return (RoutingMode.KEYBY if self._key_extractor is not None
+                else RoutingMode.FORWARD)
+
+
+class Source_Builder(_BuilderBase):
+    _default_name = "source"
+
+    def __init__(self, gen_fn: Callable) -> None:
+        super().__init__()
+        self._gen_fn = gen_fn
+        self._ts_extractor = None
+
+    def withTimestampExtractor(self, fn: Callable[[Any], int]):
+        """EVENT-time sources: the event timestamp (µs) of each item."""
+        self._ts_extractor = fn
+        return self
+
+    def withKeyBy(self, *_):
+        raise WindFlowError("a Source has no input to key by")
+
+    def build(self) -> Source:
+        return Source(self._gen_fn, name=self._name,
+                      parallelism=self._parallelism,
+                      output_batch_size=self._output_batch_size,
+                      ts_extractor=self._ts_extractor)
+
+
+class Sink_Builder(_BuilderBase):
+    _default_name = "sink"
+
+    def __init__(self, fn: Callable) -> None:
+        super().__init__()
+        self._fn = fn
+        self._columnar = False
+        self._columnar_defer = 2
+
+    def withColumnarSink(self, defer: int = 2):
+        """Deliver device→Sink batches as SoA numpy columns
+        (``SinkColumns``) instead of per-record dicts."""
+        self._columnar = True
+        self._columnar_defer = defer
+        return self
+
+    def build(self) -> Sink:
+        return Sink(self._fn, name=self._name, parallelism=self._parallelism,
+                    routing=self._routing(),
+                    key_extractor=self._key_extractor,
+                    columnar=self._columnar,
+                    columnar_defer=self._columnar_defer)
+
+
+class MapGPU_Builder(_BuilderBase):
+    _default_name = "map_gpu"
+
+    def __init__(self, fn: Callable, batch_fn: bool = False) -> None:
+        super().__init__()
+        self._fn = fn
+        self._batch_fn = batch_fn
+
+    def build(self) -> MapGPU:
+        return MapGPU(self._fn, name=self._name,
+                      parallelism=self._parallelism,
+                      batch_fn=self._batch_fn, routing=self._routing(),
+                      key_extractor=self._key_extractor)
+
+
+class FilterGPU_Builder(_BuilderBase):
+    _default_name = "filter_gpu"
+
+    def __init__(self, fn: Callable) -> None:
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> FilterGPU:
+        return FilterGPU(self._fn, name=self._name,
+                         parallelism=self._parallelism,
+                         routing=self._routing(),
+                         key_extractor=self._key_extractor)
+
+
+class Ffat_WindowsGPU_Builder(_BuilderBase):
+    """Reference ``Ffat_WindowsGPU_Builder`` (``builders_gpu.hpp:576``):
+    every window a batch completes is computed in the one step, so
+    ``withNumWinPerBatch`` has no counterpart.  Count-based windows only
+    in this package so far."""
+
+    _default_name = "ffat_windows_gpu"
+
+    def __init__(self, lift_fn, comb_fn):
+        super().__init__()
+        self._lift = lift_fn
+        self._comb = comb_fn
+        self._max_keys = 1
+        self._monoid = None
+        self._win_type = None
+        self._win_len = 0
+        self._slide = 0
+
+    def withCBWindows(self, win_len: int, slide: int):
+        self._win_type = WinType.CB
+        self._win_len, self._slide = int(win_len), int(slide)
+        return self
+
+    def withMaxKeys(self, n: int):
+        """Size of the dense device key space [0, n)."""
+        self._max_keys = int(n)
+        return self
+
+    def withSumCombiner(self):
+        """Declare the combiner leafwise addition (``withMonoidCombiner
+        ("sum")``)."""
+        self._monoid = "sum"
+        return self
+
+    def withMonoidCombiner(self, kind: str):
+        """Declare the combiner a leafwise commutative monoid — ``"sum"``,
+        ``"max"`` or ``"min"`` on every leaf.  Pane cells are then built
+        by one scatter-combine (no batch permutation) and the sliding
+        fold drops its flag lane.  The declaration must match the
+        combiner exactly."""
+        self._monoid = kind
+        return self
+
+    def build(self) -> FfatWindowsGPU:
+        if self._win_type is None:
+            raise WindFlowError("window operator needs withCBWindows")
+        if self._win_len <= 0 or self._slide <= 0:
+            raise WindFlowError("window length and slide must be > 0")
+        return FfatWindowsGPU(
+            self._lift, self._comb,
+            WindowSpec(self._win_type, self._win_len, self._slide),
+            max_keys=self._max_keys, name=self._name,
+            parallelism=self._parallelism,
+            key_extractor=self._key_extractor, monoid=self._monoid)

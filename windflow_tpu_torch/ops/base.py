@@ -1,0 +1,219 @@
+"""Operator and replica base classes (the port of ``windflow_tpu/ops/
+base.py``; reference ``Basic_Operator`` / ``Basic_Replica``).
+
+A replica is a plain object whose ``drain()`` the host's
+cooperative scheduler calls (graph/pipegraph.py); device work is enqueued
+on the card's stream and runs asynchronously.  End-of-stream follows the
+reference protocol: an EOS punctuation per input channel; when all have
+arrived, the replica flushes operator state and its emitter, forwards
+EOS, and terminates.  The monitoring planes of the JAX package are not
+ported yet: a replica keeps only the plain counters below.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Callable, List, Optional
+
+from windflow_tpu_torch.basic import (ExecutionMode, RoutingMode, TimePolicy,
+                                      WindFlowError, default_config)
+from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
+                                      WM_MAX, WM_NONE)
+from windflow_tpu_torch.context import RuntimeContext
+
+
+@dataclasses.dataclass
+class StatsRecord:
+    """Per-replica counters (reference ``stats_record.hpp:47-165``)."""
+
+    operator_name: str = ""
+    replica_index: int = 0
+    is_gpu: bool = False
+    inputs_received: int = 0
+    outputs_sent: int = 0
+    device_programs_launched: int = 0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    is_terminated: bool = False
+
+    def to_json(self) -> dict:
+        return {
+            "Replica_id": self.replica_index,
+            "Inputs_received": self.inputs_received,
+            "Outputs_sent": self.outputs_sent,
+            "Is_terminated": self.is_terminated,
+            "Device_programs_launched": self.device_programs_launched,
+            "Bytes_H2D": self.h2d_bytes,
+            "Bytes_D2H": self.d2h_bytes,
+        }
+
+
+class Replica:
+    """One logical replica of an operator (reference ``Basic_Replica``)."""
+
+    def __init__(self, op: "Operator", index: int) -> None:
+        self.op = op
+        self.index = index
+        self.context = RuntimeContext(op.parallelism, index, op.name)
+        self.inbox: deque = deque()
+        #: outstanding device batches in this inbox (the in-transit count
+        #: the scheduler throttles against)
+        self.inflight_device = 0
+        self.collector = None                       # wired by the graph
+        self.emitter = None                         # wired by the graph
+        self.config = default_config                # PipeGraph overrides
+        self.num_channels = 0
+        self._eos_channels = set()
+        self.done = False
+        self.current_wm = WM_NONE
+        self.stats = StatsRecord(operator_name=op.name, replica_index=index,
+                                 is_gpu=op.is_gpu)
+        self.mode = ExecutionMode.DEFAULT
+        self.time_policy = TimePolicy.INGRESS
+
+    # -- wiring -------------------------------------------------------------
+    def add_channel(self) -> int:
+        ch = self.num_channels
+        self.num_channels += 1
+        return ch
+
+    # -- runtime ------------------------------------------------------------
+    def receive(self, channel: int, msg) -> None:
+        self.inbox.append((channel, msg))
+        if isinstance(msg, DeviceBatch):
+            self.inflight_device += 1
+
+    def drain(self, limit: int = 0) -> bool:
+        """Process pending inbox messages (at most ``limit`` when > 0).
+        Returns True if any progress was made."""
+        progressed = False
+        n = 0
+        while self.inbox:
+            if limit and n >= limit:
+                break
+            n += 1
+            channel, msg = self.inbox.popleft()
+            if isinstance(msg, DeviceBatch):
+                self.inflight_device -= 1
+            progressed = True
+            if isinstance(msg, Punctuation) and msg.is_eos:
+                self._handle_channel_eos(channel)
+                continue
+            for ready in self.collector.on_message(channel, msg):
+                self._dispatch(ready)
+        return progressed
+
+    def _handle_channel_eos(self, channel: int) -> None:
+        if channel in self._eos_channels:
+            return
+        self._eos_channels.add(channel)
+        for ready in self.collector.on_channel_eos(channel):
+            self._dispatch(ready)
+        if len(self._eos_channels) == self.num_channels:
+            self._terminate()
+
+    def _terminate(self) -> None:
+        if self.done:
+            return
+        self.on_eos()
+        if self.emitter is not None:
+            self.emitter.flush(self.current_wm)
+            self.emitter.propagate_punctuation(WM_MAX)
+        cf = self.op.closing_func
+        if cf is not None:
+            from windflow_tpu_torch.meta import adapt
+            adapt(cf, 0)(self.context)
+        self.done = True
+        self.stats.is_terminated = True
+
+    def _dispatch(self, msg) -> None:
+        if isinstance(msg, Punctuation):
+            self._advance_wm(msg.watermark)
+            if self.emitter is not None:
+                self.emitter.propagate_punctuation(self.current_wm)
+            return
+        if isinstance(msg, DeviceBatch):
+            self._advance_wm(msg.watermark)
+            self.stats.inputs_received += msg.known_size or 0
+            self.process_device_batch(msg)
+        else:
+            if not isinstance(msg, HostBatch):
+                raise WindFlowError(
+                    f"operator '{self.op.name}' received {type(msg)}")
+            self._advance_wm(msg.watermark)
+            self.stats.inputs_received += len(msg)
+            for item, ts in zip(msg.items, msg.tss):
+                self.context._set_context(ts, msg.watermark)
+                self.process_single(item, ts, msg.watermark)
+
+    def _advance_wm(self, wm: int) -> None:
+        if wm != WM_NONE and wm > self.current_wm:
+            self.current_wm = wm
+
+    # -- operator logic (overridden by concrete replicas) --------------------
+    def process_single(self, item: Any, ts: int, wm: int) -> None:
+        raise WindFlowError(
+            f"operator '{self.op.name}' cannot consume host tuples")
+
+    def process_device_batch(self, batch: DeviceBatch) -> None:
+        raise WindFlowError(
+            f"operator '{self.op.name}' cannot consume device batches")
+
+    def on_eos(self) -> None:
+        """Flush hook: window firing, sink finalization, etc."""
+
+
+class Operator:
+    """Descriptor for one operator in the graph (reference
+    ``Basic_Operator``): name, parallelism, input routing, output batch
+    size, and whether its compute runs on the card."""
+
+    replica_class = Replica
+    is_terminal = False
+    ordinal = 0
+    closing_func = None
+
+    def __init__(self, name: str, parallelism: int,
+                 routing: RoutingMode = RoutingMode.FORWARD,
+                 output_batch_size: int = 0,
+                 is_gpu: bool = False,
+                 key_extractor: Optional[Callable] = None) -> None:
+        if parallelism < 1:
+            raise WindFlowError(
+                f"operator '{name}' must have parallelism >= 1")
+        self.name = name
+        self.parallelism = parallelism
+        self.routing = routing
+        self.output_batch_size = output_batch_size
+        self.is_gpu = is_gpu
+        self.key_extractor = key_extractor
+        self.replicas: List[Replica] = []
+        self.config = default_config
+        #: the torch.device the graph runs on, set by PipeGraph._build
+        self.device = None
+
+    @property
+    def is_keyed(self) -> bool:
+        return self.routing == RoutingMode.KEYBY
+
+    def build_replicas(self, mode: ExecutionMode,
+                       time_policy: TimePolicy) -> List[Replica]:
+        if self.is_gpu and mode != ExecutionMode.DEFAULT:
+            # reference builders reject GPU operators outside DEFAULT mode
+            raise WindFlowError(
+                f"GPU operator '{self.name}' requires DEFAULT execution mode")
+        self.replicas = [self.replica_class(self, i)
+                         for i in range(self.parallelism)]
+        for r in self.replicas:
+            r.mode = mode
+            r.time_policy = time_policy
+        return self.replicas
+
+    def dump_stats(self) -> dict:
+        return {
+            "Operator_name": self.name,
+            "Operator_type": type(self).__name__,
+            "Parallelism": self.parallelism,
+            "Replicas": [r.stats.to_json() for r in self.replicas],
+        }

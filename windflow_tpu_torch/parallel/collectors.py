@@ -1,0 +1,280 @@
+"""Collectors: per-replica input alignment for the three execution modes
+(the port's copy of ``windflow_tpu/parallel/collectors.py``).
+
+Re-design of the reference collectors, which are FastFlow multi-input nodes
+prepended to each replica (``multipipe.hpp:199-232``):
+
+* DEFAULT        → :class:`WatermarkCollector` (``watermark_collector.hpp:50-140``)
+* DETERMINISTIC  → :class:`OrderingCollector`  (``ordering_collector.hpp:51-``)
+* PROBABILISTIC  → :class:`KSlackCollector`    (``kslack_collector.hpp:52-``)
+
+Here a collector is a plain object the replica consults when draining its
+inbox: it receives ``(channel, message)`` and returns the messages that are
+ready to process, with their watermark rewritten to the alignment frontier.
+Control stays on the host — exactly as in the reference, where collectors run
+on the replica's thread before the operator logic.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+from collections import deque
+from typing import List
+
+from windflow_tpu_torch.basic import ExecutionMode
+from windflow_tpu_torch.batch import DeviceBatch, HostBatch, Punctuation, WM_NONE
+
+
+class Collector:
+    def __init__(self, num_channels: int) -> None:
+        self.num_channels = num_channels
+        self.num_dropped = 0
+
+    def on_message(self, channel: int, msg) -> List:
+        """Feed one inbound message; return messages ready for the operator."""
+        raise NotImplementedError
+
+    def on_channel_eos(self, channel: int) -> List:
+        """A channel reached end-of-stream; release anything it was holding."""
+        return []
+
+
+class WatermarkCollector(Collector):
+    """DEFAULT mode: track the max watermark per input channel and rewrite each
+    message's watermark to the min over channels that have been heard from
+    (reference ``watermark_collector.hpp:63-76,109-130``).  Data flows through
+    unchanged and unordered — out-of-order tolerance is downstream's job
+    (lateness gates on windows)."""
+
+    def __init__(self, num_channels: int) -> None:
+        super().__init__(num_channels)
+        import numpy as np
+        self._wms = np.full(num_channels, WM_NONE, np.int64)
+        # Per-channel newest frontier (DeviceBatch.frontier stamps): always
+        # >= the propagated watermark, aligned the same way so a multi-input
+        # device operator never fires ahead of a lagging sibling channel.
+        self._fronts = np.full(num_channels, WM_NONE, np.int64)
+        self._closed = np.zeros(num_channels, bool)
+
+    def _fold(self, slots) -> int:
+        """Min over OPEN channels; a channel not yet heard from holds the
+        frontier down (reference initializes per-channel maxs to zero and
+        mins over all of them, ``watermark_collector.hpp:63-76``) —
+        otherwise a fast channel's watermark fires time windows before a
+        slow sibling's older tuples arrive, silently dropping them as late.
+        Punctuation cadence keeps genuinely idle channels advancing.
+        The native fold of the JAX package is not ported: every fan-in
+        folds in a plain Python loop."""
+        lo = WM_NONE
+        for w, c in zip(slots, self._closed):
+            if c:
+                continue
+            if w == WM_NONE:
+                return WM_NONE
+            lo = w if lo == WM_NONE else min(lo, int(w))
+        return lo
+
+    def _frontier(self) -> int:
+        return self._fold(self._wms)
+
+    def on_message(self, channel, msg):
+        wm = msg.watermark
+        if wm != WM_NONE and wm > self._wms[channel]:
+            self._wms[channel] = wm
+        # Punctuations/host batches advance the channel frontier by their
+        # watermark; device batches by their (tighter) staging frontier.
+        fr = msg.frontier if isinstance(msg, DeviceBatch) else wm
+        if fr != WM_NONE and fr > self._fronts[channel]:
+            self._fronts[channel] = fr
+        f = self._frontier()
+        if isinstance(msg, DeviceBatch):
+            ff = self._fold(self._fronts)
+            if f != msg.watermark or ff != msg.frontier:
+                # Rewrite on a fresh wrapper, never in place: batches are
+                # multicast by handle (BROADCAST / device pass-through), so
+                # an in-place rewrite by one consumer would corrupt the
+                # frontier a sibling replica reads.
+                msg = DeviceBatch(msg.payload, msg.ts, msg.valid,
+                                  watermark=f,
+                                  size=msg.known_size, frontier=ff)
+        elif f != msg.watermark:
+            if isinstance(msg, HostBatch):
+                msg = dataclasses.replace(msg, watermark=f)
+            else:
+                assert isinstance(msg, Punctuation)
+                msg = Punctuation(f)
+        return [msg]
+
+    def on_channel_eos(self, channel):
+        self._closed[channel] = True
+        return []
+
+
+#: sort-key sentinel ordering id-less tuples after id-carrying ones at the
+#: same timestamp (tuple compare: any real origin ordinal < _NO_TID)
+_NO_TID = 1 << 60
+
+
+class OrderingCollector(Collector):
+    """DETERMINISTIC mode: merge the (per-channel ordered) input streams into
+    one globally timestamp-ordered stream, releasing a tuple only when every
+    open channel has something buffered — so no earlier tuple can still arrive
+    (reference ``ordering_collector.hpp:51-`` uses priority queues; also used
+    for id-ordering in WLQ / REDUCE window stages).  The k-way merge keeps a
+    heap of channel heads over per-channel deques — O(log C) per released
+    tuple — and batches each release run into one HostBatch, so long
+    DETERMINISTIC streams stay linear instead of the naive per-tuple
+    quadratic.  Ties break on (ts, origin id): origin ids are stamped at
+    sources and relayed by one-to-one/one-to-many host stages
+    (HostBatch.ids — the reference's Single_t id), so equal-timestamp
+    tuples order the same under ANY parallelism/batching configuration;
+    id-less tuples (aggregate outputs) fall back to (channel, arrival
+    seq)."""
+
+    def __init__(self, num_channels: int) -> None:
+        super().__init__(num_channels)
+        self._queues: List[deque] = [deque() for _ in range(num_channels)]
+        self._closed = [False] * num_channels
+        self._seq = 0
+        #: channels currently gating release: open with an empty queue
+        self._empty_open = num_channels
+        #: heap of (sort_key, channel) for the head of each non-empty queue
+        self._heads: List = []
+
+    def _push_head(self, ch: int) -> None:
+        heapq.heappush(self._heads, (self._queues[ch][0][0], ch))
+
+    def _drain_ready(self):
+        # release is gated while any open channel is empty — the minimum
+        # could still arrive there
+        if self._empty_open:
+            return []
+        items, tss, wms, ids = [], [], [], []
+        any_tid = False
+        shared = False
+        while self._heads and not self._empty_open:
+            _, ch = heapq.heappop(self._heads)
+            q = self._queues[ch]
+            _, item, ts, wm, sh, tid = q.popleft()
+            items.append(item)
+            tss.append(ts)
+            wms.append(wm)
+            ids.append(tid)
+            any_tid |= tid is not None
+            shared |= sh
+            if q:
+                self._push_head(ch)
+            elif not self._closed[ch]:
+                self._empty_open += 1
+        if not items:
+            return []
+        # one ordered batch per release run; the conservative min watermark
+        # (items from slower channels may carry older frontiers); ids relay
+        # so a second ordered stage can break ties the same way
+        wm = min((w for w in wms if w != WM_NONE), default=WM_NONE)
+        return [HostBatch(items, tss, wm, shared=shared,
+                          ids=ids if any_tid else None)]
+
+    def on_message(self, channel, msg):
+        if isinstance(msg, Punctuation):
+            # Watermarks are deterministic byproducts here; punctuations only
+            # matter for EOS, which arrives via on_channel_eos.
+            return []
+        assert isinstance(msg, HostBatch), \
+            "DETERMINISTIC mode supports host operators only (parity: GPU ops are DEFAULT-only)"
+        if not len(msg):
+            return []
+        q = self._queues[channel]
+        was_empty = not q
+        for item, ts, tid in zip(msg.items, msg.tss, msg.ids_or_nones()):
+            self._seq += 1
+            key = (ts, tid) if tid is not None                 else (ts, (_NO_TID, channel, self._seq))
+            q.append((key, item, ts, msg.watermark,
+                      msg.shared, tid))
+        if was_empty:
+            self._push_head(channel)
+            if not self._closed[channel]:
+                self._empty_open -= 1
+        return self._drain_ready()
+
+    def on_channel_eos(self, channel):
+        self._closed[channel] = True
+        if not self._queues[channel]:
+            self._empty_open -= 1
+        return self._drain_ready()
+
+
+class KSlackCollector(Collector):
+    """PROBABILISTIC mode: adaptive K-slack reordering buffer (reference
+    ``kslack_collector.hpp:58,120``).  K tracks the maximum observed delay
+    ``max_ts_seen - ts``; a buffered tuple is released once
+    ``ts <= max_ts_seen - K``.  Tuples arriving behind the release frontier
+    are dropped and counted (reference ``atomic_num_dropped``)."""
+
+    def __init__(self, num_channels: int) -> None:
+        super().__init__(num_channels)
+        self._heap: List = []  # (ts, seq, item, wm, shared)
+        self._seq = 0
+        self._k = 0
+        self._max_ts = WM_NONE
+        self._frontier = WM_NONE  # last released ts
+        self._open = num_channels
+
+    def _release(self, limit: int) -> List[HostBatch]:
+        # one HostBatch per release run (the OrderingCollector batches its
+        # release runs the same way): a K-slack burst must not turn into
+        # per-tuple singleton batches that tax every downstream stage.
+        # HostBatch carries ONE shared flag, so the run splits on
+        # shared-flag boundaries — OR-folding the flags would make one
+        # multicast tuple force copy-on-write deep copies of the whole
+        # run in every in-place downstream replica (ops/base.py _dispatch).
+        out = []
+        items, tss = [], []
+        cur_shared = False
+        while self._heap and self._heap[0][0] <= limit:
+            ts, _, item, _, sh = heapq.heappop(self._heap)
+            self._frontier = max(self._frontier, ts)
+            if items and sh != cur_shared:
+                out.append(HostBatch(items, tss, tss[-1],
+                                     shared=cur_shared))
+                items, tss = [], []
+            cur_shared = sh
+            items.append(item)
+            tss.append(ts)
+        if items:
+            out.append(HostBatch(items, tss, self._frontier,
+                                 shared=cur_shared))
+        return out
+
+    def on_message(self, channel, msg):
+        if isinstance(msg, Punctuation):
+            return []
+        assert isinstance(msg, HostBatch), \
+            "PROBABILISTIC mode supports host operators only"
+        for item, ts in zip(msg.items, msg.tss):
+            if ts < self._frontier:
+                self.num_dropped += 1  # too late even for the slack buffer
+                continue
+            self._max_ts = max(self._max_ts, ts)
+            self._k = max(self._k, self._max_ts - ts)
+            self._seq += 1
+            heapq.heappush(self._heap,
+                           (ts, self._seq, item, msg.watermark, msg.shared))
+        return self._release(self._max_ts - self._k)
+
+    def on_channel_eos(self, channel):
+        self._open -= 1
+        if self._open == 0 and self._heap:
+            return self._release(max(h[0] for h in self._heap))
+        return []
+
+
+def create_collector(mode: ExecutionMode, num_channels: int) -> Collector:
+    """Reference ``multipipe.hpp:199-232``: DETERMINISTIC→Ordering,
+    PROBABILISTIC→KSlack, DEFAULT→Watermark."""
+    if mode == ExecutionMode.DETERMINISTIC:
+        return OrderingCollector(num_channels)
+    if mode == ExecutionMode.PROBABILISTIC:
+        return KSlackCollector(num_channels)
+    return WatermarkCollector(num_channels)

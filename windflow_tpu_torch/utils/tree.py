@@ -1,0 +1,75 @@
+"""Record pytrees as plain nested dicts, lists and tuples of tensors.
+
+The JAX package leans on ``jax.tree``; the port needs only flatten,
+unflatten and map over the containers records are built from.  Dict keys
+are visited in sorted order, as ``jax.tree`` does, so both packages lay
+out lanes the same way.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)``: leaves in canonical order."""
+    leaves: List[Any] = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            keys = sorted(node)
+            return ("dict", keys, [walk(node[k]) for k in keys])
+        if isinstance(node, (list, tuple)):
+            return (type(node).__name__, None, [walk(c) for c in node])
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return next(it)
+        kind, keys, children = node
+        built = [build(c) for c in children]
+        if kind == "dict":
+            return dict(zip(keys, built))
+        return tuple(built) if kind == "tuple" else list(built)
+
+    return build(treedef)
+
+
+def tree_leaves(tree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` applied leafwise; ``rest`` trees must share ``tree``'s
+    structure."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def per_record(fn: Callable, payload, n: int):
+    """Apply a per-record user function to a whole batch at once.
+
+    Where the JAX package writes ``jax.vmap(fn)(payload)``, the port hands
+    ``fn`` the column dict itself: elementwise tensor code on a record
+    (``t["v"] * 2``, ``(t["k"] & 7) != 7``) computes every lane in one
+    pass.  Leaves that come back without the batch dimension (a constant,
+    a 0-d tensor) are broadcast to ``[n]`` as vmap would."""
+    import torch
+    out = fn(payload)
+    ref = tree_leaves(payload)[0]
+
+    def lane(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(x, device=ref.device)
+        if x.ndim == 0 or x.shape[0] != n:
+            x = x.expand((n,) + tuple(x.shape))
+        return x
+    return tree_map(lane, out)

@@ -1,0 +1,550 @@
+"""FFAT count-window step builders (the CB half of
+``windflow_tpu/windows/ffat_kernels.py``).
+
+Pure functions over dicts of tensors: ``make_ffat_state`` lays out the
+dense per-key state, ``make_ffat_step`` builds the per-batch program and
+``make_ffat_flush`` the EOS flush.  The arithmetic follows the JAX
+package line by line, so the two produce the same records:
+
+* ``lax.associative_scan`` has no torch twin; :func:`associative_scan`
+  ports JAX's odd/even recursion, so the generic path keeps JAX's combine
+  tree and float results match bit for bit;
+* every scatter keeps its index in range — the dump row K takes the
+  lanes JAX would drop (torch raises on an out-of-range index);
+* ``.at[].add/max/min`` become ``index_add_`` and
+  ``scatter_reduce_(include_self=True)``.  On the card the float
+  scatter-add uses atomics, so float pane sums may differ from run to
+  run in the last bits (integer-valued data stays exact);
+* every int64 lane (``pane_base``, ``win_next``, ``n_fired``, the output
+  slot iota) is int64 explicitly.
+
+``kernels=True`` (``Config.cuda_kernels`` resolved by
+``kernels.resolve_kernels``) routes the grouping and the declared-monoid
+fold through the hand-written kernels where their gates hold.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from windflow_tpu_torch.kernels import ffat_cuda as fc
+from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
+from windflow_tpu_torch.utils.dtypes import cast_state_update
+from windflow_tpu_torch.utils.tree import (per_record, tree_flatten,
+                                           tree_map, tree_unflatten)
+from windflow_tpu_torch.windows.grouping import order_and_hist
+
+
+# ---------------------------------------------------------------------------
+# scans and folds
+# ---------------------------------------------------------------------------
+
+def _slice(t: torch.Tensor, axis: int, start: int, stop=None, step: int = 1):
+    ix = [slice(None)] * t.ndim
+    ix[axis] = slice(start, stop, step)
+    return t[tuple(ix)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, axis: int) -> torch.Tensor:
+    """``out[0::2] = a``, ``out[1::2] = b`` along ``axis`` (len(a) is
+    len(b) or len(b) + 1)."""
+    shape = list(a.shape)
+    shape[axis] = a.shape[axis] + b.shape[axis]
+    out = torch.empty(shape, dtype=torch.promote_types(a.dtype, b.dtype),
+                      device=a.device)
+    ix = [slice(None)] * a.ndim
+    ix[axis] = slice(0, None, 2)
+    out[tuple(ix)] = a
+    ix[axis] = slice(1, None, 2)
+    out[tuple(ix)] = b
+    return out
+
+
+def associative_scan(fn: Callable, elems, axis: int = 0):
+    """Inclusive scan of the pytree ``elems`` with the associative ``fn``,
+    evaluated with the SAME combine tree as ``jax.lax.associative_scan``
+    (pairwise reduce, recurse on the odd half, fix up the even half)."""
+    leaves, treedef = tree_flatten(elems)
+
+    def combine(a, b):
+        c = fn(tree_unflatten(treedef, a), tree_unflatten(treedef, b))
+        return tree_flatten(c)[0]
+
+    def scan(xs):
+        n = xs[0].shape[axis]
+        if n < 2:
+            return xs
+        reduced = combine([_slice(x, axis, 0, -1, 2) for x in xs],
+                          [_slice(x, axis, 1, None, 2) for x in xs])
+        odd = scan(reduced)
+        if n % 2 == 0:
+            even = combine([_slice(e, axis, 0, -1) for e in odd],
+                           [_slice(x, axis, 2, None, 2) for x in xs])
+        else:
+            even = combine(odd, [_slice(x, axis, 2, None, 2) for x in xs])
+        even = [torch.cat([_slice(x, axis, 0, 1), r], axis)
+                for x, r in zip(xs, even)]
+        return [_interleave(e, o, axis) for e, o in zip(even, odd)]
+
+    return tree_unflatten(treedef, scan(leaves))
+
+
+def _b(mask: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Broadcast a bool mask against a leaf with trailing dims."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (ref.ndim - mask.ndim))
+
+
+def _where(mask, a, b):
+    return torch.where(_b(mask, a), a, b)
+
+
+def _group_order_hist(ids, nbuckets: int, kernels: bool):
+    """Stable grouping permutation plus the ``[nbuckets]`` histogram;
+    through the grouping kernel where its gate holds."""
+    if kernels and fc.grouping_supported(int(ids.shape[0]), nbuckets):
+        return fc.order_hist(ids, nbuckets)
+    return order_and_hist(ids, nbuckets)
+
+
+def _seg_scan(comb, flags, values):
+    """Inclusive segmented scan: within each flagged segment, fold
+    ``comb``.  ``flags`` [B] marks segment starts."""
+    def op(a, b):
+        fa, va = a
+        fb, vb = b
+        combined = comb(va, vb)
+        v = tree_map(lambda c, nb: _where(fb, nb, c), combined, vb)
+        return (fa | fb, v)
+
+    _, scanned = associative_scan(op, (flags, values))
+    return scanned
+
+
+def _flag_comb(comb):
+    """Flag-aware combine: invalid operands are skipped (an associative
+    monoid without an identity element)."""
+    def op(fa, va, fb, vb):
+        both = comb(va, vb)
+        v = tree_map(lambda c, xa, xb: _where(fb, _where(fa, c, xb), xa),
+                     both, va, vb)
+        return fa | fb, v
+    return op
+
+
+def _masked_reduce_last(comb, flags, values, axis: int):
+    """Reduce ``values`` along ``axis`` with ``comb``, skipping entries
+    whose flag is False; returns (any_flag, reduction)."""
+    fc_ = _flag_comb(comb)
+    f, v = associative_scan(lambda a, b: fc_(*a, *b), (flags, values),
+                            axis=axis)
+
+    def take(x):
+        return x.select(axis, x.shape[axis] - 1)
+    return take(f), tree_map(take, v)
+
+
+def _shift_leaf(a: torch.Tensor, k: int, axis: int, fill=0):
+    """Shift one leaf along ``axis`` by ``k`` toward higher indices,
+    filling the vacated slots with ``fill``."""
+    if k == 0:
+        return a
+    n = a.shape[axis]
+    shape = list(a.shape)
+    shape[axis] = min(k, n)
+    pad = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+    if k >= n:
+        return pad
+    return torch.cat([pad, _slice(a, axis, 0, n - k)], axis)
+
+
+def _shift_right(flags, values, k: int, axis: int):
+    if k == 0:
+        return flags, values
+    return (_shift_leaf(flags, k, axis, False),
+            tree_map(lambda a: _shift_leaf(a, k, axis), values))
+
+
+def _sliding_reduce(comb, flags, values, R: int, axis: int):
+    """``out[i] = fold(comb)`` over the valid entries among positions
+    ``[i-R+1, i]``: log2(R) dilated doublings build power-of-two window
+    aggregates, then the binary decomposition of R stitches them from
+    the newest end (the older chunk is comb's left operand)."""
+    op = _flag_comb(comb)
+    pow2 = [(flags, values)]
+    width = 1
+    while width * 2 <= R:
+        f, v = pow2[-1]
+        fs, vs = _shift_right(f, v, width, axis)
+        pow2.append(op(fs, vs, f, v))
+        width *= 2
+    res = None
+    offset = 0
+    for j in range(len(pow2) - 1, -1, -1):
+        w = 1 << j
+        if R & w:
+            f, v = _shift_right(*pow2[j], offset, axis)
+            res = (f, v) if res is None else op(f, v, *res)
+            offset += w
+    return res
+
+
+#: declared combiner monoids: kind -> elementwise combine
+_MONOID_OPS = {"sum": torch.add, "max": torch.maximum, "min": torch.minimum}
+_MONOID_KINDS = tuple(_MONOID_OPS)
+
+
+def resolve_monoid(monoid):
+    """Validate a declared monoid kind (None = generic combiner)."""
+    if monoid is not None and monoid not in _MONOID_OPS:
+        raise ValueError(f"unknown monoid {monoid!r}; "
+                         f"expected one of {_MONOID_KINDS}")
+    return monoid
+
+
+def _ident(kind: str, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(monoid_identity(kind, like.dtype), dtype=like.dtype,
+                        device=like.device)
+
+
+def _monoid_fill(kind: str, flags, values):
+    """Replace invalid entries with the monoid identity, leafwise."""
+    return tree_map(lambda a: _where(flags, a, _ident(kind, a)), values)
+
+
+def _monoid_scatter_(buf: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                     upd: torch.Tensor, kind: str) -> torch.Tensor:
+    """``buf.at[row, col].add/max/min(upd)`` in place (every index in
+    range).  On the card both run on atomics: ``index_add_`` rather than
+    ``index_put_(accumulate=True)``, whose CUDA path sorts the indices
+    first (measured ~100x slower at the main path's shapes, PERF.md)."""
+    flat = buf.view(buf.shape[0] * buf.shape[1], *buf.shape[2:])
+    cell = row * buf.shape[1] + col
+    if kind == "sum":
+        flat.index_add_(0, cell, upd)
+        return buf
+    idx = cell.reshape((-1,) + (1,) * (upd.ndim - 1)).expand(upd.shape)
+    flat.scatter_reduce_(0, idx, upd, reduce="amax" if kind == "max"
+                         else "amin", include_self=True)
+    return buf
+
+
+def _sliding_reduce_plain(comb, flags, values, R: int, axis: int,
+                          monoid: str):
+    """Flagless dilated sliding fold for declared-monoid combiners:
+    invalid entries take the monoid identity once, then the doubling runs
+    on values alone."""
+    zeroed = _monoid_fill(monoid, flags, values)
+
+    def zshift(v, k):
+        if k == 0:
+            return v
+        return tree_map(lambda a: _shift_leaf(
+            a, k, axis, fill=monoid_identity(monoid, a.dtype)), v)
+
+    pow2 = [zeroed]
+    width = 1
+    while width * 2 <= R:
+        v = pow2[-1]
+        pow2.append(comb(zshift(v, width), v))
+        width *= 2
+    res = None
+    offset = 0
+    for j in range(len(pow2) - 1, -1, -1):
+        w = 1 << j
+        if R & w:
+            v = zshift(pow2[j], offset)
+            res = v if res is None else comb(v, res)
+            offset += w
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the CB step and flush
+# ---------------------------------------------------------------------------
+
+def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
+                   lift: Callable, comb: Callable,
+                   key_fn: Optional[Callable],
+                   monoid: Optional[str] = None, kernels: bool = False):
+    """Build the FFAT per-batch step
+    ``(state, payload, ts, valid) -> (state, out, out_valid, out_ts)``.
+
+    Keys are dense ints in ``[0, K)``; invalid lanes and out-of-range keys
+    are masked.  Panes hold P tuples, windows R panes, sliding by D panes.
+    The output batch is COMPACTED: ``MAXO = capacity/(P*D) + 2K + 8``
+    slots, filled by a K-long running sum + searchsorted over the per-key
+    fired counts.
+
+    Keys are grouped by the stable counting permutation (JAX's default
+    ``rank_scatter`` grouping).  With a declared ``monoid`` ("sum" |
+    "max" | "min") the step skips the permutation: each lane's within-key
+    rank gives its pane cell and lifts scatter-COMBINE into the
+    ``[K+1, NP1]`` grid; the fold is then flagless."""
+    monoid = resolve_monoid(monoid)
+    NP1 = capacity // P + 2           # pane cells incl. continuation cell
+    MAXO = capacity // (P * D) + 2 * K + 8
+    scatter_combine = monoid is not None and K <= 4096
+
+    def step(state, payload, ts, valid):
+        B = capacity
+        dev = valid.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        if key_fn is not None:
+            keys = per_record(key_fn, payload, B).to(torch.int32)
+        else:
+            keys = torch.zeros(B, **i32)
+        ok = valid & (keys >= 0) & (keys < K)
+        skey = torch.where(ok, keys, torch.tensor(K, **i32)).contiguous()
+
+        if scatter_combine:
+            if kernels and fc.grouping_supported(B, K + 1):
+                _, rank_u, hist_k = fc.grouping_rank_hist(skey, K + 1)
+                n_k = hist_k[:K]
+            else:
+                from windflow_tpu_torch.windows.grouping import dense_rank
+                rank_p, counts, _, _ = dense_rank(skey, K + 1)
+                rank_u = rank_p[:B]
+                n_k = counts[:K]
+            lifts = per_record(lift, payload, B)
+            fill0_u = state["cur_fill"][skey.clamp(max=K - 1).long()]
+            col_u = torch.where(ok, (fill0_u + rank_u) // P,
+                                torch.tensor(0, **i32)).long()
+            row_u = skey.long()
+
+            def scat(leaf):
+                ident = _ident(monoid, leaf)
+                buf = torch.full((K + 1, NP1) + tuple(leaf.shape[1:]),
+                                 monoid_identity(monoid, leaf.dtype),
+                                 dtype=leaf.dtype, device=dev)
+                return _monoid_scatter_(buf, row_u, col_u,
+                                        _where(ok, leaf, ident), monoid)[:K]
+            cells = tree_map(scat, lifts)
+
+            # the carried partial pane merges by the declared op (empty
+            # cells hold the monoid identity)
+            def merge0(cur_leaf, cell_leaf):
+                upd = _where(state["cur_valid"], cur_leaf,
+                             _ident(monoid, cur_leaf))
+                upd = cast_state_update(upd, cell_leaf.dtype,
+                                        "FFAT pane merge")
+                cell_leaf[:, 0] = _MONOID_OPS[monoid](cell_leaf[:, 0], upd)
+                return cell_leaf
+            cells = tree_map(merge0, state["cur"], cells)
+        else:
+            # after a STABLE grouping by dense key, bucket b's lanes occupy
+            # [start_b, start_b + hist_b): the within-key rank is index
+            # arithmetic off the histogram
+            order, hist = _group_order_hist(skey, K + 1, kernels)
+            order = order.long()
+            sk = skey[order]
+            slift = tree_map(lambda a: a[order],
+                             per_record(lift, payload, B))
+            pos = torch.arange(B, device=dev)
+            bucket_start = torch.cumsum(hist, 0) - hist      # exclusive
+            rank = pos - bucket_start[sk.long()]
+            starts = rank == 0
+
+            n_k = hist[:K]
+            fill0 = state["cur_fill"][sk.clamp(max=K - 1).long()]
+            pane_rel = ((fill0 + rank) // P).to(torch.int32)
+
+            true1 = torch.ones(1, dtype=torch.bool, device=dev)
+            pane_starts = starts | torch.cat(
+                [true1, pane_rel[1:] != pane_rel[:-1]])
+            scanned = _seg_scan(comb, pane_starts, slift)
+            ends = torch.cat(
+                [(sk[1:] != sk[:-1]) | (pane_rel[1:] != pane_rel[:-1]),
+                 true1])
+            # scatter segment-end partials into dense [K+1, NP1] cells;
+            # every non-end lane lands in the dump row K
+            row = torch.where(ends, sk, torch.tensor(K, **i32)).long()
+            col = torch.where(ends, pane_rel,
+                              torch.tensor(0, **i32)).long()
+
+            def scat(leaf):
+                buf = torch.zeros((K + 1, NP1) + tuple(leaf.shape[1:]),
+                                  dtype=leaf.dtype, device=dev)
+                buf[row, col] = _where(ends, leaf,
+                                       torch.zeros((), dtype=leaf.dtype,
+                                                   device=dev))
+                return buf[:K]
+            cells = tree_map(scat, scanned)
+            has = torch.zeros((K + 1, NP1), dtype=torch.bool, device=dev)
+            has[row, col] = ends
+            cell_has = has[:K]
+
+            # merge the continuation cell with the carried partial pane;
+            # comb is a WHOLE-PYTREE combiner, so it runs once on the tree
+            cell0 = tree_map(lambda cl: cl[:, 0], cells)
+            both0 = comb(state["cur"], cell0)
+
+            def merge0(cur_leaf, cell_leaf, both_leaf):
+                use_cur = state["cur_valid"]
+                use_cell = cell_has[:, 0]
+                v = _where(use_cur & use_cell, both_leaf,
+                           _where(use_cur, cur_leaf, cell_leaf[:, 0]))
+                cell_leaf[:, 0] = cast_state_update(v, cell_leaf.dtype,
+                                                    "FFAT pane merge")
+                return cell_leaf
+            cells = tree_map(merge0, state["cur"], cells, both0)
+
+        m_k = ((state["cur_fill"] + n_k) // P).to(torch.int32)
+        new_fill = ((state["cur_fill"] + n_k) % P).to(torch.int32)
+
+        # full pane sequence: carry (R-1 trailing) + this batch's panes
+        full = tree_map(lambda c, p: torch.cat([c, p], 1),
+                        state["carry"], cells)
+        col_ix = torch.arange(NP1, device=dev)[None, :]
+        pane_valid = col_ix < m_k[:, None]
+        full_valid = torch.cat([state["carry_valid"], pane_valid], 1)
+
+        # fire windows: key k fires ends e = win_next[k] + j*D while
+        # e <= done[k] — a per-key prefix
+        done = state["pane_base"] + m_k.to(torch.int64)
+        if monoid is not None:
+            if kernels and fc.fold_supported(full, R, monoid):
+                swin = fc.sliding_fold(full, full_valid, R, monoid)
+            else:
+                swin = _sliding_reduce_plain(comb, full_valid, full, R,
+                                             axis=1, monoid=monoid)
+        else:
+            _, swin = _sliding_reduce(comb, full_valid, full, R, axis=1)
+
+        n_fired = torch.clamp((done - state["win_next"]) // D + 1, min=0)
+        new_win_next = state["win_next"] + n_fired * D
+
+        # new carry: panes [pane_base+m_k-(R-1), pane_base+m_k)
+        cidx = (m_k[:, None] + torch.arange(R - 1, dtype=torch.int32,
+                                            device=dev)[None, :]).long()
+
+        def gather_cols(a, idx):
+            idx = idx.reshape(tuple(idx.shape) + (1,) * (a.ndim - 2))
+            return torch.gather(a, 1, idx.expand(
+                tuple(idx.shape[:2]) + tuple(a.shape[2:])))
+        new_carry = tree_map(lambda a: gather_cols(a, cidx), full)
+        new_carry_valid = torch.gather(full_valid, 1, cidx)
+        new_cur = tree_map(
+            lambda c: gather_cols(c, m_k[:, None].long())[:, 0], cells)
+        new_cur_valid = new_fill > 0
+
+        new_state = {
+            "carry": new_carry,
+            "carry_valid": new_carry_valid,
+            "cur": new_cur,
+            "cur_valid": new_cur_valid,
+            "cur_fill": new_fill,
+            "pane_base": done,
+            "win_next": new_win_next,
+        }
+
+        # compacted output: slot i belongs to the key whose fired-count
+        # running sum first exceeds i
+        offs = torch.cumsum(n_fired, 0)                        # int64 [K]
+        n_out = offs[K - 1]
+        i_slot = torch.arange(MAXO, dtype=torch.int64, device=dev)
+        k_out = torch.searchsorted(offs, i_slot, right=True) \
+            .to(torch.int32)
+        k_c = k_out.clamp(max=K - 1)
+        k_l = k_c.long()
+        j_out = i_slot - (offs[k_l] - n_fired[k_l])            # rank in key
+        e_out = state["win_next"][k_l] + j_out * D
+        widx_out = torch.clamp(
+            (e_out - state["pane_base"][k_l] + (R - 2)).to(torch.int32),
+            0, R - 1 + NP1 - 1).long()
+        wvals_out = tree_map(lambda a: a[k_l, widx_out], swin)
+        out = {
+            "key": k_c,
+            "wid": torch.div(e_out - R, D, rounding_mode="floor"),
+            "value": wvals_out,
+        }
+        out_valid = i_slot < n_out
+        batch_ts = torch.where(valid, ts, torch.zeros((), dtype=ts.dtype,
+                                                       device=dev)).max()
+        out_ts = torch.where(out_valid, batch_ts,
+                             torch.zeros((), dtype=ts.dtype, device=dev))
+        return new_state, out, out_valid, out_ts
+
+    return step
+
+
+def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable):
+    """Build the CB EOS flush ``state -> (out, fired, ts)``: fire every
+    remaining partial window from the carried pane history."""
+    MWF = R // D + 2
+
+    def flush(state):
+        dev = state["cur_fill"].device
+        has_cur = state["cur_valid"]
+        total = state["pane_base"] + has_cur.to(torch.int64)
+        # available pane history: carry (R-1) + cur -> [K, R]
+        hist = tree_map(lambda c, cur: torch.cat([c, cur[:, None]], 1),
+                        state["carry"], state["cur"])
+        hist_valid = torch.cat([state["carry_valid"], has_cur[:, None]], 1)
+        # hist column i holds pane (pane_base - (R-1) + i)
+        j = torch.arange(MWF, dtype=torch.int64, device=dev)
+        e = state["win_next"][:, None] + j[None, :] * D
+        start = e - R
+        fire = start < total[:, None]
+        ar = torch.arange(R, dtype=torch.int64, device=dev)[None, None, :]
+        lidx = start[:, :, None] + ar \
+            - state["pane_base"][:, None, None] + (R - 1)
+        inb = (lidx >= 0) & (lidx < R)
+        lidx_c = torch.clamp(lidx, 0, R - 1)
+        pane_ok = torch.gather(
+            hist_valid[:, None].expand(K, MWF, R), 2, lidx_c) & inb
+        pane_abs = start[:, :, None] + ar
+        pane_ok = pane_ok & (pane_abs < total[:, None, None]) \
+            & (pane_abs >= 0)
+
+        def gather_leaf(a):
+            expanded = a[:, None].expand((K, MWF) + tuple(a.shape[1:]))
+            idx = lidx_c.reshape((K, MWF, R) + (1,) * (a.ndim - 2))
+            idx = idx.expand((K, MWF, R) + tuple(a.shape[2:]))
+            return torch.gather(expanded, 2, idx)
+        wpanes = tree_map(gather_leaf, hist)
+        any_ok, wvals = _masked_reduce_last(comb, pane_ok, wpanes, axis=2)
+        fired = fire & any_ok
+        wid = torch.div(e - R, D, rounding_mode="floor")
+        keys = torch.arange(K, dtype=torch.int32, device=dev)[:, None] \
+            .expand(K, MWF)
+        out = {
+            "key": keys.reshape(-1),
+            "wid": wid.reshape(-1),
+            "value": tree_map(
+                lambda a: a.reshape((K * MWF,) + tuple(a.shape[2:])), wvals),
+        }
+        ts = torch.zeros(K * MWF, dtype=torch.int64, device=dev)
+        return out, fired.reshape(-1), ts
+
+    return flush
+
+
+def make_ffat_state(agg_spec, K: int, R: int, device=None):
+    """Dense per-key FFAT state over a static key space ``[0, K)``;
+    ``agg_spec`` is a pytree of zero tensors with one aggregate's shape
+    and dtype."""
+    def zeros(shape):
+        return tree_map(lambda s: torch.zeros(shape + tuple(s.shape),
+                                              dtype=s.dtype, device=device),
+                        agg_spec)
+    return {
+        "carry": zeros((K, R - 1)),               # trailing R-1 panes
+        "carry_valid": torch.zeros((K, R - 1), dtype=torch.bool,
+                                   device=device),
+        "cur": zeros((K,)),                       # partial pane aggregate
+        "cur_valid": torch.zeros(K, dtype=torch.bool, device=device),
+        "cur_fill": torch.zeros(K, dtype=torch.int32, device=device),
+        "pane_base": torch.zeros(K, dtype=torch.int64, device=device),
+        "win_next": torch.full((K,), R, dtype=torch.int64, device=device),
+    }
+
+
+def agg_spec_for(lift: Callable, payload_tree) -> Any:
+    """Shape/dtype skeleton of one aggregate: ``lift`` evaluated on the
+    first lane of a batch payload."""
+    one = tree_map(lambda a: a[:1], payload_tree)
+    spec = per_record(lift, one, 1)
+    return tree_map(lambda s: torch.zeros(tuple(s.shape[1:]),
+                                          dtype=s.dtype), spec)
