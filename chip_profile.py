@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the port's count-window slice goes, on one GPU.
+"""Where the time of the port's slices goes, on one GPU.
 
     python3 chip_profile.py
 
-On the main path of ``chip_smoke.py`` (the same graph, built by
-``chip_smoke.main_path_graph``: 262,144 tuples a batch, 1,024 keys, CB
-windows 1,024/128) it measures, in one process:
+On the main paths of ``chip_smoke.py`` (the same graphs, built by
+``chip_smoke.main_path_graph`` and ``chip_smoke.reduce_graph``: 262,144
+tuples a batch, 1,024 keys; CB windows 1,024/128) it measures, in one
+process:
 
 * host: one source tick of a batch of per-record tuples through the
   staging emitter, and ``host_to_device`` alone (record stacking +
@@ -14,8 +15,14 @@ windows 1,024/128) it measures, in one process:
   combiner and ``withSumCombiner``) on staged batches, by CUDA events,
   and the egress of one window batch;
 * the kernels of one FFAT step of each kind, by ``torch.profiler``;
-* the device busy share of a whole ``PipeGraph.run()`` (sum combiner,
-  8 batches): device time of every kernel over the host wall time.
+* the ReduceGPU step on each route — (a) compacted max, (b) compacted
+  sum, (c) dense max, (d) sorted max — on a staged, filtered batch:
+  wall time on the host clock around a synchronised step (the compacted
+  step's one host read of its miss count included), device time and
+  launches by ``torch.profiler``;
+* the device busy share of a whole ``PipeGraph.run()`` (8 batches) of
+  FFAT with the sum combiner and of the reduce's route (a): device time
+  of every kernel over the host wall time.
 
 Prints one JSON object a line, then the card's name and power limit.
 Needs CUDA; exits nonzero when ``torch.profiler`` records no device time.
@@ -26,8 +33,8 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (BATCHES, CAP, KEYS, cuda_time, fail, main_path_data,
-                        main_path_graph)
+from chip_smoke import (BATCHES, CAP, KEYS, _device_us, cuda_time, fail,
+                        main_path_data, main_path_graph, reduce_graph)
 
 
 def emit(**kw):
@@ -99,9 +106,35 @@ def device_phase(staged):
     emit(phase="device", capacity=CAP, keys=KEYS, **out)
 
 
-def _device_us(event):
-    t = getattr(event, "self_device_time_total", None)
-    return getattr(event, "self_cuda_time_total", 0.0) if t is None else t
+def reduce_phase(staged):
+    """The ReduceGPU step of each route on the same staged batch, after
+    the Map|Filter chain."""
+    import torch
+    keys, vals = main_path_data(CAP, seed=5)
+    out = {}
+    for label, monoid, declare, kc in (("a_compacted_max", "max", True, True),
+                                       ("b_compacted_sum", "sum", True, True),
+                                       ("c_dense_max", "max", True, False),
+                                       ("d_sorted_max", "max", False, True)):
+        g, red = reduce_graph("cuda", monoid, declare, kc, keys, vals,
+                              lambda c: None)
+        g._build()          # config, device and compaction, as run() does
+        chain = g.pipes[0].operators[1]
+        mid = chain._step(staged)
+        for _ in range(3):
+            red._step(mid)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            red._step(mid)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[label] = {"wall_ms": 1e3 * sum(walls) / len(walls),
+                      "profile": profile_step(lambda: red._step(mid))}
+    emit(phase="reduce", capacity=CAP, keys=KEYS,
+         note="wall: host clock around one synchronised step, mean of 10",
+         **out)
 
 
 def profile_step(fn):
@@ -117,7 +150,7 @@ def profile_step(fn):
     rows = [(_device_us(e), e.key, e.count) for e in prof.key_averages()
             if e.device_type.name == "CUDA" and _device_us(e) > 0]
     if not rows:
-        fail("torch.profiler recorded no device time for the FFAT step")
+        fail("torch.profiler recorded no device time for the step")
     rows.sort(reverse=True)
     return {"device_us": sum(r[0] for r in rows),
             "kernel_launches": sum(r[2] for r in rows),
@@ -126,25 +159,35 @@ def profile_step(fn):
 
 
 def run_phase():
-    """Device busy share of one whole PipeGraph.run()."""
+    """Device busy share of one whole PipeGraph.run() of each path: FFAT
+    with the sum combiner, and the reduce's route (a), compacted max."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     keys, vals = main_path_data(CAP * BATCHES, seed=9)
-    n = [0]
-    g, _ = main_path_graph(
-        "cuda", True, keys, vals,
-        lambda t: n.__setitem__(0, n[0] + 1) if t is not None else None)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        g.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(_device_us(e) for e in prof.key_averages())
-    if busy_us <= 0:
-        fail("torch.profiler recorded no device time for PipeGraph.run()")
-    emit(phase="run", tuples=len(keys), windows=n[0], wall_s=wall,
-         device_busy_s=busy_us / 1e6,
-         device_idle_share=1 - busy_us / 1e6 / wall)
+    for path in ("ffat_sum", "reduce_compacted_max"):
+        n = [0]
+        if path == "ffat_sum":
+            g, _ = main_path_graph(
+                "cuda", True, keys, vals,
+                lambda t: n.__setitem__(0, n[0] + 1) if t is not None
+                else None)
+        else:
+            g, _ = reduce_graph(
+                "cuda", "max", True, True, keys, vals,
+                lambda c: n.__setitem__(0, n[0] + len(c)) if c is not None
+                else None)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(_device_us(e) for e in prof.key_averages())
+        if busy_us <= 0:
+            fail("torch.profiler recorded no device time for "
+                 "PipeGraph.run()")
+        emit(phase="run", path=path, tuples=len(keys), records=n[0],
+             wall_s=wall, device_busy_s=busy_us / 1e6,
+             device_idle_share=1 - busy_us / 1e6 / wall)
 
 
 def main():
@@ -158,6 +201,7 @@ def main():
     build.build_all()
     staged = host_phase(dev)
     device_phase(staged)
+    reduce_phase(staged)
     run_phase()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -8,15 +8,31 @@ Phases (each exits nonzero on failure; none is skipped):
 1. build every CUDA kernel of the port from ``windflow_tpu_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. hold each kernel against its plain torch version on the card, at the
-   main path's shapes and at the edges (exact), and time the kernel, the
-   plain version and one PyTorch call computing the same function (a
-   yardstick only: the port never calls it), with CUDA events;
-3. drive the main path — ``PipeGraph.run()`` of Source → MapGPU →
-   FilterGPU → Ffat_WindowsGPU (count windows, keyed) → Sink at the
-   repo's chip configuration (262,144 tuples a batch, 1,024 keys, windows
-   of 1,024 sliding by 128, 8 batches) — once with the generic combiner
-   and once with ``withSumCombiner()``; check every fired window against
-   a numpy oracle and that each kernel of the path was launched.
+   main paths' shapes and at the edges (exact, except the dense table's
+   f32 sums of non-integer data: rtol 1e-5 and identical bits from call
+   to call), and time the kernel, the plain version and one PyTorch call
+   computing the same function (a yardstick only: the port never calls
+   it): device time by ``torch.profiler`` (``device_ms``), with the
+   CUDA-event time of back-to-back calls printed beside it;
+3. drive the main paths through ``PipeGraph.run()`` at the repo's chip
+   configuration (262,144 tuples a batch, 1,024 keys), each with the
+   launch counts set to 0 just before and read just after:
+   * Source → MapGPU | FilterGPU → Ffat_WindowsGPU (count windows of
+     1,024 sliding by 128, keyed) → Sink, 8 batches, once with the
+     generic combiner and once with ``withSumCombiner()``; every fired
+     window against a numpy oracle;
+   * Source → MapGPU | FilterGPU → ReduceGPU (keyed, ``withMaxKeys
+     (1024)``) → Sink (columnar), every batch's records against a numpy
+     oracle of that batch: (a) declared ``max``, the bounded compacted
+     route, 8 batches; (b) declared ``sum``, 8 batches; (c) declared
+     ``max`` with ``Config(key_compaction=False)``, the dense route, 4
+     batches; (d) undeclared ``max``, the sorted route (no kernel), 4
+     batches; (e) 2 batches each with keys drawn from [0, 1040) and
+     [0, 1100) on routes (a) and (c): the overflow lane, then the
+     full-width one; (a) keeps the out-of-range keys, (c) drops and
+     counts them.
+   The paths run at full width; the reduce runs are cut in depth to the
+   batches above so that the whole stays far inside the time limit.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -62,6 +78,45 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _device_us(event):
+    t = getattr(event, "self_device_time_total", None)
+    return getattr(event, "self_cuda_time_total", 0.0) if t is None else t
+
+
+def device_ms(fn, iters=20):
+    """Mean device milliseconds of ``fn()``: the kernel time that
+    ``torch.profiler`` records over ``iters`` calls, gaps between
+    kernels left out (CUDA events over back-to-back calls measure the
+    host's issue rate instead wherever a call's Python and launch
+    overhead exceeds its device work)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    us = sum(_device_us(e) for e in evs if e.device_type.name == "CUDA")
+    if us <= 0:
+        fail("torch.profiler recorded no device time: "
+             f"{[(e.key[:40], e.device_type.name) for e in evs][:20]}")
+    return us / iters / 1e3
+
+
+def timings(label, **fns):
+    """Device ms of each named call (``device_ms``), with the CUDA-event
+    ms of back-to-back calls printed beside them."""
+    dev = {k: device_ms(fn) for k, fn in fns.items()}
+    ev = {k: cuda_time(fn) for k, fn in fns.items()}
+    print(f"{label}: " + ", ".join(
+        f"{k} {dev[k]:.5f} ms device / {ev[k]:.5f} ms events"
+        for k in fns))
+    return dev
+
+
 def bound_ms(nbytes, nops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / OPS_PER_S * 1e3
@@ -92,10 +147,12 @@ def check_grouping(dev):
     ids = torch.from_numpy(
         rng.integers(0, KEYS + 1, CAP).astype(np.int32)).to(dev)
     NB = KEYS + 1
-    ms = cuda_time(lambda: fc.grouping_rank_hist(ids, NB))
-    plain_ms = cuda_time(lambda: fc.grouping_rank_hist_plain(ids, NB))
-    lib_ms = cuda_time(lambda: (torch.sort(ids, stable=True),
-                                torch.bincount(ids, minlength=NB)))
+    t = timings(f"grouping_rank_hist at B={CAP} NB={NB}",
+                kernel=lambda: fc.grouping_rank_hist(ids, NB),
+                plain=lambda: fc.grouping_rank_hist_plain(ids, NB),
+                library=lambda: (torch.sort(ids, stable=True),
+                                 torch.bincount(ids, minlength=NB)))
+    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
     nbytes = CAP * 4 + 2 * CAP * 4 + NB * 4
     # one count and one rank per lane, plus the within-tile compares
     nops = 2 * CAP + CAP * (fc.LANE_TILE - 1) // 2
@@ -145,8 +202,6 @@ def check_fold(dev):
                 fail(f"sliding_fold {monoid} differs at K={K} N={N} R={R_}")
     x = torch.from_numpy(
         rng.standard_normal((KEYS, NPP)).astype(np.float32)).to(dev)
-    ms = cuda_time(lambda: fc.sliding_fold(x, valid, R, "sum"))
-    plain_ms = cuda_time(lambda: fc.fold_leaf_plain(x, valid, R, "sum"))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     w = torch.ones((1, 1, R), dtype=torch.float32, device=dev)
@@ -154,10 +209,14 @@ def check_fold(dev):
     def conv_sum():
         xin = torch.where(valid, x, 0.0)[:, None, :]
         return F.conv1d(F.pad(xin, (R - 1, 0)), w)
-    lib_ms = cuda_time(conv_sum)
-    pool_ms = cuda_time(lambda: F.max_pool1d(
-        F.pad(torch.where(valid, x, float("-inf"))[:, None, :], (R - 1, 0),
-              value=float("-inf")), R, stride=1))
+    t = timings(f"sliding_fold sum at [{KEYS}, {NPP}] R={R}",
+                kernel=lambda: fc.sliding_fold(x, valid, R, "sum"),
+                plain=lambda: fc.fold_leaf_plain(x, valid, R, "sum"),
+                library=conv_sum,
+                max_pool1d=lambda: F.max_pool1d(
+                    F.pad(torch.where(valid, x, float("-inf"))[:, None, :],
+                          (R - 1, 0), value=float("-inf")), R, stride=1))
+    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
     if not torch.allclose(conv_sum()[:, 0], fc.sliding_fold(x, valid, R, "sum"),
                           rtol=1e-5, atol=1e-5):
         fail("conv1d yardstick disagrees with the fold")
@@ -165,11 +224,107 @@ def check_fold(dev):
     levels = R.bit_length()
     nops = n * (levels - 1 + bin(R).count("1") - 1)
     b_ms, b_by = bound_ms(n * 4 + n * 1 + n * 4, nops)
-    print(f"fold yardstick: conv1d sum {lib_ms:.4f} ms, max_pool1d max "
-          f"{pool_ms:.4f} ms at [{KEYS}, {NPP}] R={R}")
     return {"name": "sliding_fold", "route": "cuda",
             "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
             "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def check_table(dev):
+    """Dense-table kernel vs its plain version: the reduce routes' calls
+    at the main shape (B = 262,144, S = 1,024), the edges of
+    tests/test_pallas_kernels.py, every op and dtype, rows outside
+    [0, S).  Exact, except f32 sums of non-integer data (rtol 1e-5 and
+    the same bits on two calls)."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.kernels import reduce_cuda as rc
+    from windflow_tpu_torch.parallel.compaction import _enc64
+    rng = np.random.default_rng(13)
+    I64MIN = -2 ** 63
+    keys, vals = main_path_data(CAP, seed=13, key_range=KEYS + 16)
+    vals = vals * np.float32(1.5) + np.float32(1.0)
+    keep = (keys & 7) != 7
+    ts = np.arange(CAP, dtype=np.int64) + 10 ** 15
+    k_t, v_t, ts_t = (torch.from_numpy(a).to(dev) for a in (keys, vals, ts))
+    hit = torch.from_numpy(keep & (keys < KEYS)).to(dev)
+    row = torch.where(hit, k_t, torch.full_like(k_t, KEYS)).contiguous()
+    carrier = torch.cat([_enc64(k_t)[:, None], _enc64(v_t)[:, None],
+                         ts_t[:, None]], 1).contiguous()
+    ok = torch.from_numpy(keep).to(dev)
+    drow = torch.where(ok & (k_t < KEYS), k_t,
+                       torch.full_like(k_t, KEYS)).contiguous()
+    ones = torch.ones(CAP, dtype=torch.int32, device=dev)
+    main_calls = {
+        "compacted max (packed int64 carrier [B, 3])":
+            (row, [carrier], ["max"], [I64MIN]),
+        "compacted sum (key i32, v0 f32, ts i64 max)":
+            (row, [k_t, v_t, ts_t], ["sum", "sum", "max"], [0, 0.0, I64MIN]),
+        "dense max (key, v0, count, ts)":
+            (drow, [k_t, v_t, ones, ts_t], ["max", "max", "sum", "max"],
+             [-2 ** 31, float("-inf"), 0, -1]),
+    }
+    worst = 0
+    times = {}
+    for name, args in main_calls.items():
+        got = rc.dense_monoid_table(*args, KEYS)
+        torch.cuda.synchronize()
+        want = rc.dense_monoid_table_plain(*args, KEYS)
+        for g, w in zip(got, want):
+            worst = max(worst, (g.double() - w.double()).abs().max().item())
+            if not torch.equal(g, w):
+                fail(f"dense_monoid_table differs on {name}")
+        times[name] = timings(
+            f"dense_monoid_table {name} at B={CAP} S={KEYS}",
+            kernel=lambda: rc.dense_monoid_table(*args, KEYS),
+            plain=lambda: rc.dense_monoid_table_plain(*args, KEYS))
+    for B, S in ((64, 8), (300, 17), (100, 4096), (5, 1), (262221, 4096)):
+        r = torch.from_numpy(rng.integers(-3, S + 3, B).astype(np.int32)) \
+            .to(dev)
+        leaves = [torch.from_numpy(a).to(dev) for a in (
+            rng.integers(-2 ** 40, 2 ** 40, (B, 3)),
+            rng.integers(-100, 100, B).astype(np.float32),
+            rng.integers(-1000, 1000, (B, 8)).astype(np.int32),
+            rng.random(B) < 0.3)]
+        for op in ("sum", "max", "min"):
+            inits = [fc.monoid_identity(op, l.dtype) for l in leaves]
+            got = rc.dense_monoid_table(r, leaves, [op] * 4, inits, S)
+            torch.cuda.synchronize()
+            want = rc.dense_monoid_table_plain(r, leaves, [op] * 4, inits, S)
+            for g, w in zip(got, want):
+                worst = max(worst,
+                            (g.double() - w.double()).abs().max().item())
+                if not torch.equal(g, w):
+                    fail(f"dense_monoid_table {op} differs at B={B} S={S}")
+        x = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32)) \
+            .to(dev)
+        a = rc.dense_monoid_table(r, [x], ["sum"], [0.0], S)[0]
+        b = rc.dense_monoid_table(r, [x], ["sum"], [0.0], S)[0]
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"dense_monoid_table f32 sum not deterministic at B={B}")
+        if not torch.allclose(a, rc.dense_monoid_table_plain(
+                r, [x], ["sum"], [0.0], S)[0], rtol=1e-5, atol=0):
+            fail(f"dense_monoid_table f32 sum beyond rtol 1e-5 at B={B}")
+    # the main path's call (route (a)): kernel, plain, library, bound
+    main = times["compacted max (packed int64 carrier [B, 3])"]
+    ms, plain_ms = main["kernel"], main["plain"]
+    idx = torch.where((row >= 0) & (row < KEYS), row,
+                      torch.full_like(row, KEYS)).long()[:, None] \
+        .expand(CAP, 3)
+    buf = torch.full((KEYS + 1, 3), I64MIN, dtype=torch.int64, device=dev)
+    lib_ms = timings("dense_monoid_table yardstick",
+                     library=lambda: buf.scatter_reduce_(
+                         0, idx, carrier, "amax",
+                         include_self=True))["library"]
+    if not torch.equal(buf[:KEYS], rc.dense_monoid_table(
+            row, [carrier], ["max"], [I64MIN], KEYS)[0]):
+        fail("scatter_reduce_ yardstick disagrees with the table")
+    nbytes = CAP * 4 + CAP * 3 * 8 + KEYS * 3 * 8
+    b_ms, b_by = bound_ms(nbytes, CAP * 3)
+    return {"name": "dense_monoid_table", "route": "cuda",
+            "source": "windflow_tpu_torch/csrc/dense_monoid_table.cu",
+            "replaces": "windflow_tpu/kernels/pallas_ffat.py:530",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
@@ -194,11 +349,11 @@ def oracle(keys, vals):
     return out
 
 
-def main_path_data(n, seed=2024):
-    """``n`` records of the main path: int32 keys in [0, KEYS) and
+def main_path_data(n, seed=2024, key_range=KEYS):
+    """``n`` records of the main path: int32 keys in [0, key_range) and
     integer-valued float32 values (every window sum is exact)."""
     rng = np.random.default_rng(seed)
-    keys = rng.integers(0, KEYS, n).astype(np.int32)
+    keys = rng.integers(0, key_range, n).astype(np.int32)
     vals = rng.integers(-100, 101, n).astype(np.float32)
     return keys, vals
 
@@ -262,6 +417,104 @@ def run_main_path(dev_name, sum_combiner):
     return len(rows), secs, n
 
 
+def reduce_graph(dev_name, monoid, declare, key_compaction, keys, vals,
+                 sink_fn):
+    """The reduce path as a user builds it: Source → MapGPU | FilterGPU
+    (chained) → ReduceGPU (keyed by ``key``, ``withMaxKeys(KEYS)``, the
+    leafwise ``monoid`` combiner, declared when ``declare``) → columnar
+    Sink.  Returns ``(graph, reduce operator)``."""
+    import torch
+    import windflow_tpu_torch as wf
+
+    def gen():
+        yield from ({"key": k, "v0": v} for k, v in zip(keys, vals))
+
+    op = {"max": torch.maximum, "sum": torch.add}[monoid]
+    rb = (wf.ReduceGPU_Builder(lambda a, b: {"key": op(a["key"], b["key"]),
+                                             "v0": op(a["v0"], b["v0"])})
+          .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS))
+    if declare:
+        rb = rb.withMonoidCombiner(monoid)
+    red = rb.build()
+    g = wf.PipeGraph("chip_smoke_reduce", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      key_compaction=key_compaction))
+    pipe = g.add_source(wf.Source_Builder(gen).withOutputBatchSize(CAP)
+                        .build())
+    pipe.add(wf.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    pipe.chain(wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    pipe.add(red).add_sink(wf.Sink_Builder(sink_fn)
+                           .withColumnarSink().build())
+    return g, red
+
+
+def reduce_oracle(keys, vals, monoid, max_keys=None):
+    """One batch's records, ascending keys: ``(key field, v0)`` after the
+    map and filter; ``max_keys`` drops keys outside [0, max_keys)."""
+    v = vals * np.float32(1.5) + np.float32(1.0)
+    keep = (keys & 7) != 7
+    if max_keys is not None:
+        keep &= (keys >= 0) & (keys < max_keys)
+    uk, inv = np.unique(keys[keep], return_inverse=True)
+    if monoid == "max":
+        out = np.full(len(uk), -np.inf, np.float32)
+        np.maximum.at(out, inv, v[keep])
+        return uk.astype(np.int32), out
+    sums = np.zeros(len(uk), np.float64)
+    np.add.at(sums, inv, v[keep].astype(np.float64))
+    counts = np.bincount(inv, minlength=len(uk))
+    return (uk.astype(np.int64) * counts).astype(np.int32), \
+        sums.astype(np.float32)
+
+
+def run_reduce(dev_name, monoid, declare, key_compaction, batches,
+               key_range=KEYS, seed=4048):
+    """One PipeGraph.run() of the reduce path; every batch's records
+    against the oracle.  Returns (records, seconds, tuples, stats)."""
+    import torch
+    n = CAP * batches
+    keys, vals = main_path_data(n, seed=seed, key_range=key_range)
+    got = []
+    g, red = reduce_graph(dev_name, monoid, declare, key_compaction, keys,
+                          vals, lambda c: got.append(c) if c is not None
+                          else None)
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dense = declare and not key_compaction
+    if len(got) != batches:
+        fail(f"reduce: {len(got)} sink batches for {batches} batches")
+    nrec = 0
+    for i, c in enumerate(got):
+        sl = slice(i * CAP, (i + 1) * CAP)
+        wk, wv = reduce_oracle(keys[sl], vals[sl], monoid,
+                               KEYS if dense else None)
+        gk, gv = np.asarray(c.cols["key"]), np.asarray(c.cols["v0"])
+        if not (np.array_equal(gk, wk) and np.array_equal(gv, wv)):
+            fail(f"reduce {monoid} (declared={declare}, compaction="
+                 f"{key_compaction}, keys < {key_range}) batch {i}: "
+                 f"{len(gk)} records vs {len(wk)} expected, or values "
+                 "differ")
+        if not np.isfinite(gv).all():
+            fail("non-finite reduce values")
+        nrec += len(gk)
+    keep = (keys & 7) != 7
+    n_oor = int((keep & (keys >= KEYS)).sum())
+    st = red.dump_stats()
+    if dense:
+        if st.get("Out_of_range_keys_dropped", 0) != n_oor:
+            fail(f"dense route counted {st.get('Out_of_range_keys_dropped')}"
+                 f" dropped tuples, {n_oor} expected")
+    elif declare:
+        if st.get("Out_of_range_keys_rerouted", 0) != n_oor:
+            fail(f"compacted route rerouted "
+                 f"{st.get('Out_of_range_keys_rerouted')}, {n_oor} expected")
+    return nrec, secs, n, st
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -288,7 +541,8 @@ def main():
           f"(nvcc {nvcc_s:.2f} s, {build.nvcc_runs} compilations)")
 
     # 2. kernels against their plain versions
-    rows = {r["name"]: r for r in (check_grouping(dev), check_fold(dev))}
+    rows = {r["name"]: r for r in (check_grouping(dev), check_fold(dev),
+                                   check_table(dev))}
     print("phase 2: kernels equal their plain versions at the main-path "
           "shapes and edges")
 
@@ -309,6 +563,45 @@ def main():
               f"{nrec} windows match the oracle; {n} tuples in {secs:.3f} s "
               f"= {n / secs:.0f} tuples/s (host clock, information only); "
               f"launches {counts}")
+    # the reduce path: (route, monoid, declared, key_compaction, batches,
+    # key range, the kernel launched or not)
+    from windflow_tpu_torch.parallel.compaction import overflow_cap
+    runs = [("(a) compacted", "max", True, True, BATCHES, KEYS, True),
+            ("(b) compacted sum", "sum", True, True, BATCHES, KEYS, True),
+            ("(c) dense", "max", True, False, 4, KEYS, True),
+            ("(d) sorted", "max", False, True, 4, KEYS, False),
+            ("(e) compacted, keys < 1040", "max", True, True, 2, 1040, True),
+            ("(e) compacted, keys < 1100", "max", True, True, 2, 1100, True),
+            ("(e) dense, keys < 1040", "max", True, False, 2, 1040, True),
+            ("(e) dense, keys < 1100", "max", True, False, 2, 1100, True)]
+    for label, monoid, declare, kc, nb, kr, need in runs:
+        fc.reset_launch_counts()
+        nrec, secs, n, st = run_reduce("cuda", monoid, declare, kc, nb,
+                                       key_range=kr)
+        counts = fc.launch_counts()
+        got_k = counts["dense_monoid_table"]
+        if need and got_k <= 0:
+            fail(f"reduce {label} never launched dense_monoid_table")
+        if not need and got_k:
+            fail(f"reduce {label} launched dense_monoid_table")
+        launches["dense_monoid_table"] += got_k
+        extra = ""
+        if "Key_compaction" in st:
+            kcs = st["Key_compaction"]
+            extra = (f"; rerouted {kcs['overflow_tuples']}, full-width "
+                     f"fallbacks {kcs['big_fallbacks']} (overflow lane "
+                     f"{overflow_cap(CAP)} lanes)")
+            if kr == 1040 and (kcs["overflow_tuples"] == 0
+                               or kcs["big_fallbacks"]):
+                fail(f"reduce {label} did not take the overflow lane")
+            if kr == 1100 and kcs["big_fallbacks"] != nb:
+                fail(f"reduce {label} did not take the full-width lane")
+        if "Out_of_range_keys_dropped" in st:
+            extra = f"; dropped {st['Out_of_range_keys_dropped']}"
+        print(f"phase 3: PipeGraph.run() reduce {label}: {nrec} records "
+              f"match the oracle batch by batch; {n} tuples in {secs:.3f} s "
+              f"= {n / secs:.0f} tuples/s (host clock, information only); "
+              f"launches {counts}{extra}")
     for name, r in rows.items():
         r["launches"] = launches[name]
 

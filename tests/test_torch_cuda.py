@@ -1,11 +1,16 @@
 """The port's CUDA kernels against their plain torch versions, on the
-card (windflow_tpu_torch/kernels/ffat_cuda.py).  Every test is marked
+card (windflow_tpu_torch/kernels/ffat_cuda.py and reduce_cuda.py).
+Every test is marked
 ``cuda`` and skips without an NVIDIA GPU.  This file imports no JAX, so
 it also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Both kernels are exact, so every comparison is bit for bit.
+The grouping and fold kernels are exact, so those comparisons are bit
+for bit.  The dense-table kernel is bit for bit too on max, min,
+integers, bool and integer-valued f32 sums; a random f32 sum is held to
+identical bits from call to call and to rtol 1e-5 against the plain
+scatter-add (the declared-sum reassociation tolerance).
 """
 
 import numpy as np
@@ -14,6 +19,7 @@ import torch
 
 from windflow_tpu_torch import WindFlowError
 from windflow_tpu_torch.kernels import ffat_cuda as fc
+from windflow_tpu_torch.kernels import reduce_cuda as rc
 
 
 @pytest.fixture
@@ -61,3 +67,56 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                     device=cuda_device),
                         torch.ones((4, 8), dtype=torch.bool,
                                    device=cuda_device), 2, "sum")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+@pytest.mark.parametrize("B,S", [(262144, 1024), (64, 8), (300, 17),
+                                 (100, 4096), (5, 1), (262221, 4096)])
+def test_cuda_dense_table_kernel_matches_plain(cuda_device, monoid, B, S):
+    rng = np.random.default_rng(B + S + len(monoid))
+    row = torch.from_numpy(rng.integers(-2, S + 2, B).astype(np.int32)) \
+        .to(cuda_device)
+    leaves = [rng.integers(-2**40, 2**40, (B, 3)).astype(np.int64),
+              rng.integers(-100, 100, B).astype(np.float32),
+              rng.integers(-1000, 1000, (B, 8)).astype(np.int32),
+              rng.random(B) < 0.3]
+    leaves = [torch.from_numpy(l).to(cuda_device) for l in leaves]
+    inits = [fc.monoid_identity(monoid, l.dtype) for l in leaves]
+    fc.reset_launch_counts()
+    got = rc.dense_monoid_table(row, leaves, [monoid] * 4, inits, S)
+    assert fc.launch_counts()["dense_monoid_table"] == 1
+    want = rc.dense_monoid_table_plain(row, leaves, [monoid] * 4, inits, S)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(262144, 1024), (300, 17)])
+def test_cuda_dense_table_float_sum_is_deterministic(cuda_device, B, S):
+    rng = np.random.default_rng(B)
+    row = torch.from_numpy(rng.integers(0, S + 1, B).astype(np.int32)) \
+        .to(cuda_device)
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32)) \
+        .to(cuda_device)
+    a = rc.dense_monoid_table(row, [x], ["sum"], [0.0], S)[0]
+    b = rc.dense_monoid_table(row, [x], ["sum"], [0.0], S)[0]
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = rc.dense_monoid_table_plain(row, [x], ["sum"], [0.0], S)[0]
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_table_rejects_what_the_kernel_does_not_take(cuda_device):
+    row = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(WindFlowError):
+        rc.dense_monoid_table(row, [torch.zeros(8, dtype=torch.float64,
+                                                device=cuda_device)],
+                              ["sum"], [0.0], 4)
+    with pytest.raises(WindFlowError):
+        rc.dense_monoid_table(row, [torch.zeros(8, device=cuda_device)],
+                              ["sum"], [0.0], 4097)
+    with pytest.raises(WindFlowError):
+        rc.dense_monoid_table(row.long(), [torch.zeros(8,
+                                                       device=cuda_device)],
+                              ["sum"], [0.0], 4)

@@ -1,6 +1,7 @@
 """The port's kernel modules against the JAX package
-(windflow_tpu_torch/kernels/ffat_cuda.py vs windflow_tpu/kernels/
-pallas_ffat.py and the lax compositions the Pallas kernels replace).
+(windflow_tpu_torch/kernels/ffat_cuda.py and reduce_cuda.py vs
+windflow_tpu/kernels/pallas_ffat.py and the lax compositions the Pallas
+kernels replace).
 
 On the CPU each kernel wrapper takes its plain torch version, so these
 tests hold the plain versions against the Pallas kernels run as the JAX
@@ -12,7 +13,12 @@ both packages.  Tolerances:
 * sliding fold vs the lax fold: exact — same combine tree;
 * sliding fold vs the Pallas kernel: exact for max/min, int32, and f32
   sums of integer-valued data; rtol 1e-6 for random f32 sums, whose MXU
-  banded matmul contracts in another order (pallas_ffat.py:40-46).
+  banded matmul contracts in another order (pallas_ffat.py:40-46);
+* dense slot tables vs the Pallas kernel: exact for max/min, integers,
+  bool, and f32 sums of integer-valued data; rtol 1e-5 for random f32
+  sums (the Pallas kernel sums a 256-lane tile as a tree, the plain
+  scatter-add in lane order: the same declared-sum tolerance, as
+  tests/test_pallas_kernels.py states it for the fold).
 
 tests/test_torch_cuda.py holds the CUDA kernels against these plain
 versions on the card.
@@ -29,6 +35,7 @@ from windflow_tpu.windows import ffat_kernels as jfk
 from windflow_tpu.windows import grouping as jgrouping
 from windflow_tpu_torch import Config, WindFlowError
 from windflow_tpu_torch.kernels import ffat_cuda as fc
+from windflow_tpu_torch.kernels import reduce_cuda as rc
 from windflow_tpu_torch.windows import grouping as tgrouping
 
 # one intra-op thread: these tests run at toy sizes beside other test
@@ -179,8 +186,10 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
     assert hist.tolist() == [1, 1, 0, 2]
     fc.sliding_fold(torch.ones((2, 5)), torch.ones((2, 5), dtype=torch.bool),
                     2, "sum")
-    assert fc.kernel_build_count() == before + 2
-    assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0}
+    rc.dense_monoid_table(ids, [torch.ones(4)], ["sum"], [0.0], 4)
+    assert fc.kernel_build_count() == before + 3
+    assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0,
+                                  "dense_monoid_table": 0}
 
 
 def test_kernel_entry_needs_nvcc_and_raises_without(monkeypatch):
@@ -192,3 +201,118 @@ def test_kernel_entry_needs_nvcc_and_raises_without(monkeypatch):
     monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
     with pytest.raises(WindFlowError, match="nvcc not found"):
         build.nvcc_path()
+
+
+# ---------------------------------------------------------------------------
+# dense slot tables
+# ---------------------------------------------------------------------------
+
+def _table_leaves(rng, B):
+    """One leaf of each dtype the kernel takes, packed [B, W] columns
+    included (integer-valued, so every fold is exact)."""
+    return [rng.integers(-100, 100, B).astype(np.int64),
+            rng.integers(0, 50, (B, 3)).astype(np.float32),
+            rng.integers(-1000, 1000, B).astype(np.int32),
+            rng.random(B) < 0.4,
+            rng.integers(-9, 9, (B, 8)).astype(np.int32)]
+
+
+@pytest.mark.parametrize("B,S", [(64, 8), (300, 17), (100, 4096), (5, 1),
+                                 (700, 300)])
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+def test_dense_table_plain_matches_pallas_kernel(monoid, B, S):
+    """The cases of tests/test_pallas_kernels.py:175-202, rows outside
+    [0, S) on both sides, every dtype, a ts max column with its own op
+    and init, and the count column: exact."""
+    rng = np.random.default_rng(5 + B + S)
+    row = rng.integers(-3, S + 3, B).astype(np.int32)
+    leaves = _table_leaves(rng, B)
+    ts = rng.integers(0, 10 ** 9, B).astype(np.int64)
+    vals = leaves + [ts, np.ones(B, np.int32)]
+    ops = [monoid] * len(leaves) + ["max", "sum"]
+    inits = [pk.monoid_identity_py(monoid, l.dtype) for l in leaves] \
+        + [-1, 0]
+    got = rc.dense_monoid_table(torch.from_numpy(row),
+                                [torch.from_numpy(v) for v in vals], ops,
+                                inits, S)
+    want = pk.dense_monoid_table(jnp.asarray(row),
+                                 [jnp.asarray(v) for v in vals], ops, inits,
+                                 S, True)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+def test_dense_table_random_floats(monoid):
+    rng = np.random.default_rng(17)
+    B, S = 2000, 37
+    row = rng.integers(0, S + 1, B).astype(np.int32)
+    x = rng.uniform(0.5, 1.5, (B, 2)).astype(np.float32)
+    init = pk.monoid_identity_py(monoid, np.float32)
+    got = rc.dense_monoid_table(torch.from_numpy(row), [torch.from_numpy(x)],
+                                [monoid], [init], S)[0].numpy()
+    want = np.asarray(pk.dense_monoid_table(jnp.asarray(row),
+                                            [jnp.asarray(x)], [monoid],
+                                            [init], S, True)[0])
+    if monoid == "sum":
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_routed_monoid_tables_matches_pallas_front_door():
+    """Per-leaf routing: leaves outside the gates (f64 in the port, a
+    [B, 9] leaf) keep the torch scatter; values equal the Pallas front
+    door's, with the ts column and the count."""
+    rng = np.random.default_rng(23)
+    B, S = 200, 31
+    row = rng.integers(0, S + 2, B).astype(np.int32)
+    payload = {"a": rng.integers(-50, 50, B).astype(np.int32),
+               "b": rng.integers(-50, 50, B).astype(np.float64),
+               "c": rng.integers(-5, 5, (B, 9)).astype(np.float32)}
+    ts = rng.integers(0, 10 ** 6, B).astype(np.int64)
+    for monoid in ("sum", "max"):
+        def tleaf(leaf, m=monoid):
+            return rc.table_leaf_plain(torch.from_numpy(row), leaf, m,
+                                       fc.monoid_identity(m, leaf.dtype), S)
+
+        def jleaf(leaf, m=monoid):
+            buf = jnp.full((S + 1,) + leaf.shape[1:],
+                           jfk._monoid_identity(m, leaf.dtype), leaf.dtype)
+            return jfk._monoid_scatter(buf.at[jnp.asarray(row)], m)(leaf)[:S]
+        tab, ts_t, cnt = rc.routed_monoid_tables(
+            torch.from_numpy(row), {k: torch.from_numpy(v)
+                                    for k, v in payload.items()},
+            monoid, S, lax_leaf=tleaf, ts=torch.from_numpy(ts), ts_init=-1,
+            want_count=True)
+        jtab, jts, jcnt = pk.routed_monoid_tables(
+            jnp.asarray(row), {k: jnp.asarray(v) for k, v in payload.items()},
+            monoid, S, True, lax_leaf=jleaf, ts=jnp.asarray(ts), ts_init=-1,
+            want_count=True)
+        for k in payload:
+            np.testing.assert_array_equal(tab[k].numpy(), np.asarray(jtab[k]))
+        np.testing.assert_array_equal(ts_t.numpy(), np.asarray(jts))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+    # nothing routable: the caller keeps its scatters
+    assert rc.routed_monoid_tables(
+        torch.from_numpy(row), {"b": torch.zeros(B, dtype=torch.float64)},
+        "sum", S, lax_leaf=None) is None
+    assert rc.routed_monoid_tables(torch.from_numpy(row),
+                                   {"a": torch.zeros(B)}, "sum", 5000,
+                                   lax_leaf=None) is None
+
+
+def test_table_gates():
+    for n, s in [(0, 1), (1, 0), (1, 1), (1 << 22, 4096), ((1 << 22) + 1, 8),
+                 (8, 4097)]:
+        assert rc.table_supported(n, s) == pk.table_supported(n, s)
+    for shape, dt, ok in [((8,), torch.float32, True), ((8, 8), torch.int64,
+                                                         True),
+                          ((8, 9), torch.int32, False),
+                          ((8, 2, 2), torch.int32, False),
+                          ((8,), torch.bool, True),
+                          ((8,), torch.float64, False),
+                          ((8,), torch.int16, False)]:
+        assert rc.table_leaf_ok(shape, dt) is ok

@@ -3,8 +3,9 @@
 The same dataflow API (PipeGraph, MultiPipe, fluent builders, watermarks,
 execution modes) on one NVIDIA GPU.  Device operators take the reference's
 GPU names (``MapGPU_Builder``, ``FilterGPU_Builder``,
-``Ffat_WindowsGPU_Builder``); the FFAT hot loop runs hand-written CUDA
-kernels (``windflow_tpu_torch/kernels``).  The card is the default device:
+``ReduceGPU_Builder``, ``Ffat_WindowsGPU_Builder``); the FFAT hot loop and
+the reduce's dense tables run hand-written CUDA kernels
+(``windflow_tpu_torch/kernels``).  The card is the default device:
 ``Config(device="cpu")`` runs on the CPU, where each kernel wrapper takes
 its plain torch version.  The package imports torch and numpy, never jax.
 """
@@ -15,7 +16,8 @@ from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
 from windflow_tpu_torch.context import LocalStorage, RuntimeContext
 from windflow_tpu_torch.graph.builders import (Ffat_WindowsGPU_Builder,
                                                FilterGPU_Builder,
-                                               MapGPU_Builder, Sink_Builder,
+                                               MapGPU_Builder,
+                                               ReduceGPU_Builder, Sink_Builder,
                                                Source_Builder)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.graph.pipegraph import PipeGraph
@@ -25,6 +27,6 @@ __all__ = [
     "Config", "ExecutionMode", "RoutingMode", "TimePolicy", "WindFlowError",
     "WinType", "current_time_usecs", "default_config", "LocalStorage",
     "RuntimeContext", "Ffat_WindowsGPU_Builder", "FilterGPU_Builder",
-    "MapGPU_Builder", "Sink_Builder", "Source_Builder", "MultiPipe",
+    "MapGPU_Builder", "ReduceGPU_Builder", "Sink_Builder", "Source_Builder", "MultiPipe",
     "PipeGraph", "SinkColumns",
 ]

@@ -2,7 +2,7 @@
 
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
 not imported across: the port stands alone).  ``Config`` keeps only the
-fields the count-window slice reads, plus the two the port adds:
+fields the ported slices read, plus the two the port adds:
 ``device`` (the card unless the caller asks for the CPU) and
 ``cuda_kernels`` (the kernel switch, counterpart of
 ``Config.pallas_kernels``).
@@ -76,12 +76,17 @@ class Config:
     # Extra source-tick passes per sweep after the drain phase, so batch
     # N+1 is packed on the host while the card runs batch N.
     stage_prefetch_depth: int = 1
-    # Hand-written CUDA kernels on the FFAT path (windflow_tpu_torch/
-    # kernels): "auto" launches them for CUDA tensors and runs their plain
+    # Hand-written CUDA kernels on the FFAT and reduce paths
+    # (windflow_tpu_torch/kernels): "auto" launches them for CUDA tensors and runs their plain
     # PyTorch versions for CPU tensors; "1" forces them on (the same
     # routing); "0" is the kill switch — the torch composition runs and
     # nothing is built.
     cuda_kernels: object = "auto"
+    # Device-side key compaction: a keyed ReduceGPU with withMaxKeys and
+    # a declared monoid takes the bounded compacted step (out-of-range
+    # keys ride the sorted overflow lane and are kept); off, it takes the
+    # dense step (out-of-range keys dropped and counted).
+    key_compaction: bool = True
     # Device the graph runs on.  The card is the default; without CUDA a
     # graph raises unless the caller asked for "cpu".
     device: str = "cuda"

@@ -1,7 +1,7 @@
 """Fluent operator builders (the port of ``windflow_tpu/graph/builders.py``;
 reference ``builders.hpp`` and ``builders_gpu.hpp``).  Device builders take
-the reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder`` and
-``Ffat_WindowsGPU_Builder``."""
+the reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder``,
+``ReduceGPU_Builder`` and ``Ffat_WindowsGPU_Builder``."""
 
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ from typing import Any, Callable, Optional
 
 from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
 from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
+from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.sink import Sink
 from windflow_tpu_torch.ops.source import Source
 from windflow_tpu_torch.windows.engine import WindowSpec
@@ -138,6 +139,72 @@ class FilterGPU_Builder(_BuilderBase):
                          parallelism=self._parallelism,
                          routing=self._routing(),
                          key_extractor=self._key_extractor)
+
+
+class ReduceGPU_Builder(_BuilderBase):
+    """Reference ``ReduceGPU_Builder`` (``builders_gpu.hpp``): a per-batch
+    keyed (``withKeyBy``) or global reduce on the device.  Routes, on
+    one GPU:
+
+    * no declared monoid: sorted segmented reduce over arbitrary int32
+      keys;
+    * ``withMaxKeys`` + ``withMonoidCombiner``: dense tables over
+      ``[0, max_keys)``; with ``Config.key_compaction`` on (the default)
+      out-of-range keys ride the sorted overflow lane and are kept
+      (``Out_of_range_keys_rerouted``), with it off they are dropped and
+      counted (``Out_of_range_keys_dropped``);
+    * a declared monoid WITHOUT ``withMaxKeys`` takes the sorted route
+      here (the JAX package compacts it through a ``KeyCompactor``,
+      not ported yet) — the records are the same either way."""
+
+    _default_name = "reduce_gpu"
+
+    def __init__(self, comb: Callable) -> None:
+        super().__init__()
+        self._comb = comb
+        self._max_keys = None
+        self._monoid = None
+
+    def withRebalancing(self):
+        raise WindFlowError(
+            "ReduceGPU routes by key (or reduces globally); REBALANCING "
+            "does not apply")
+
+    def withMaxKeys(self, n: int):
+        """Bound of the dense key space [0, n).  Ignored by undeclared
+        reduces (they sort arbitrary int32 keys); with
+        ``withMonoidCombiner`` it routes the reduce onto the sort-free
+        dense scatter-combine tables."""
+        self._max_keys = int(n)
+        return self
+
+    def withSumCombiner(self):
+        """Shorthand for ``withMonoidCombiner("sum")`` (strictly additive:
+        ``comb(a, b) == a + b`` on every leaf)."""
+        self._monoid = "sum"
+        return self
+
+    def withMonoidCombiner(self, kind: str):
+        """Declare the combiner a leafwise commutative monoid — ``"sum"``
+        (``a + b``), ``"max"`` (``maximum``) or ``"min"`` (``minimum``)
+        on every leaf.  With ``withMaxKeys`` the sort and segmented scan
+        are replaced by one dense scatter-combine pass.  The declared
+        operation is applied without calling ``comb``, so the declaration
+        must match the combiner exactly on every leaf (a wrong kind
+        silently computes the declared operation).  This includes a
+        record's key FIELD: under ``"sum"`` the output's key field is the
+        leafwise sum ``key * count`` — route by the key EXTRACTOR and read
+        the dense output's position (ascending key order), or prefer
+        ``"max"``/``"min"``, which are idempotent and leave a key field
+        intact."""
+        self._monoid = kind
+        return self
+
+    def build(self) -> ReduceGPU:
+        return ReduceGPU(self._comb, name=self._name,
+                         parallelism=self._parallelism,
+                         key_extractor=self._key_extractor,
+                         max_keys=self._max_keys, monoid=self._monoid)
 
 
 class Ffat_WindowsGPU_Builder(_BuilderBase):

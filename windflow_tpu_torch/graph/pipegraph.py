@@ -10,8 +10,10 @@ in-flight device batches per inbox; end of stream cascades EOS
 punctuations and flushes window state (reference
 ``PipeGraph::wait_end``).
 
-The JAX package's preflight, calibration, wire, megastep, durability,
-whole-chain fusion and monitoring planes are not ported yet.
+At build, ``Config.key_compaction`` gives every keyed declared-monoid
+``withMaxKeys`` ReduceGPU its bounded compacted step.  The JAX package's
+preflight, calibration, wire, megastep, durability, whole-chain fusion,
+monitoring planes and ``KeyCompactor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from windflow_tpu_torch.basic import (Config, ExecutionMode,
                                       default_config, resolve_device)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.ops.base import Operator
+from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.source import Source, SourceReplica
 from windflow_tpu_torch.parallel.collectors import create_collector
 from windflow_tpu_torch.parallel.emitters import create_emitter
@@ -76,6 +79,14 @@ class PipeGraph:
                 self._source_replicas.extend(op.replicas)
         for rep in self._all_replicas:
             rep.config = self.config
+        if getattr(self.config, "key_compaction", True):
+            # keyed declared-monoid withMaxKeys reduces: the bounded
+            # compacted step (parallel/compaction.py)
+            for op in self._operators:
+                if isinstance(op, ReduceGPU) and op.monoid is not None \
+                        and op.max_keys is not None \
+                        and op.key_extractor is not None:
+                    op.enable_bounded_compaction()
 
         # 2. wire edges: emitters on the producing replicas, channels on
         #    the consuming ones

@@ -31,6 +31,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {
     "grouping_rank_hist": "grouping_rank_hist.cu",
     "sliding_fold": "sliding_fold.cu",
+    "dense_monoid_table": "dense_monoid_table.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -44,6 +45,8 @@ SIGNATURES = {
                            [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
     "sliding_fold": ("wf_sliding_fold",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "dense_monoid_table": ("wf_dense_monoid_table",
+                           [_P, _I, _I, _I, _P, _P, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,8 +20,8 @@ fold's own combine tree), so kernel and plain version agree bit for bit.
 ``"auto"`` and ``"1"`` route the FFAT step through these wrappers;
 ``"0"`` is the kill switch — the torch composition of
 ``windows/grouping.py`` and ``windows/ffat_kernels.py`` runs and no
-wrapper is entered.  ``dense_monoid_table`` (the third Pallas kernel)
-is not ported yet.
+wrapper is entered.  The third kernel, ``dense_monoid_table``, lives in
+``reduce_cuda.py`` and shares the counters below.
 """
 
 from __future__ import annotations
@@ -53,11 +53,18 @@ _MONOID_CODE = {"sum": 0, "max": 1, "min": 2}
 #: enter none
 _BUILD_COUNT = 0
 #: kernel launches per wrapper since the last reset
-_LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0}
+_LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0,
+             "dense_monoid_table": 0}
 
 
 def kernel_build_count() -> int:
     return _BUILD_COUNT
+
+
+def note_entry() -> None:
+    """Count one wrapper entry (either route)."""
+    global _BUILD_COUNT
+    _BUILD_COUNT += 1
 
 
 def launch_counts() -> dict:
@@ -70,8 +77,8 @@ def reset_launch_counts() -> None:
 
 
 def resolve_kernels(config) -> bool:
-    """``Config.cuda_kernels`` -> whether the FFAT step goes through the
-    kernel wrappers ("auto" and "1": yes; "0": no).  The device is
+    """``Config.cuda_kernels`` -> whether the FFAT and reduce steps go
+    through the kernel wrappers ("auto" and "1": yes; "0": no).  The device is
     decided per tensor by the wrappers."""
     raw = getattr(config, "cuda_kernels", "auto")
     mode = {True: "1", False: "0"}.get(raw, str(raw).strip().lower())
@@ -146,8 +153,7 @@ def grouping_rank_hist(ids: torch.Tensor, nbuckets: int):
     ids, ``hist[b]`` the occurrences of ``b``, ``dest[i] =
     bucket_start[id_i] + rank[i]`` the stable counting-sort destination.
     All int32."""
-    global _BUILD_COUNT
-    _BUILD_COUNT += 1
+    note_entry()
     if ids.device.type == "cpu":
         return grouping_rank_hist_plain(ids, nbuckets)
     _check(ids, "grouping_rank_hist ids", (torch.int32,), 1)
@@ -263,8 +269,7 @@ def sliding_fold(values, valid: torch.Tensor, R: int, monoid: str):
     """``out[k, i] = fold(monoid-op, values[k, i-R+1..i])`` for every leaf
     of the ``[K, panes]`` pytree ``values``, invalid panes absorbed as the
     monoid identity (one launch per leaf)."""
-    global _BUILD_COUNT
-    _BUILD_COUNT += 1
+    note_entry()
     leaves, treedef = tree_flatten(values)
     return tree_unflatten(treedef, [_fold_leaf(l, valid, R, monoid)
                                     for l in leaves])
