@@ -22,7 +22,14 @@ process:
   launches by ``torch.profiler``;
 * the device busy share of a whole ``PipeGraph.run()`` (8 batches) of
   FFAT with the sum combiner and of the reduce's route (a): device time
-  of every kernel over the host wall time.
+  of every kernel over the host wall time;
+* the dense-table kernel alone at the reduce routes' three calls
+  (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
+  and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
+  two kernels by ``torch.profiler``;
+* the shared- and global-memory atomic instructions each kernel library
+  was compiled to (``cuobjdump -sass``), by kernel: a 64-bit fold that
+  has no native instruction shows as a compare-and-swap loop.
 
 Prints one JSON object a line, then the card's name and power limit.
 Needs CUDA; exits nonzero when ``torch.profiler`` records no device time.
@@ -190,6 +197,82 @@ def run_phase():
              device_idle_share=1 - busy_us / 1e6 / wall)
 
 
+def table_tile_phase(dev):
+    """The dense-table kernel's device time per call at three tile sizes,
+    on the inputs of chip_smoke's three main-path calls."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import reduce_cuda as rc
+    from windflow_tpu_torch.parallel.compaction import _enc64
+    keys, vals = main_path_data(CAP, seed=13, key_range=KEYS + 16)
+    vals = vals * np.float32(1.5) + np.float32(1.0)
+    keep = (keys & 7) != 7
+    k_t, v_t = (torch.from_numpy(a).to(dev) for a in (keys, vals))
+    ts_t = torch.arange(CAP, dtype=torch.int64, device=dev) + 10 ** 15
+    ok = torch.from_numpy(keep).to(dev)
+    row = torch.where(ok & (k_t < KEYS), k_t, torch.full_like(k_t, KEYS))
+    carrier = torch.cat([_enc64(k_t)[:, None], _enc64(v_t)[:, None],
+                         ts_t[:, None]], 1).contiguous()
+    ones = torch.ones(CAP, dtype=torch.int32, device=dev)
+    i64min = -2 ** 63
+    calls = {"a": ([carrier], ["max"], [i64min]),
+             "b": ([k_t, v_t, ts_t], ["sum", "sum", "max"], [0, 0.0, i64min]),
+             "c": ([k_t, v_t, ones, ts_t], ["max", "max", "sum", "max"],
+                   [-2 ** 31, float("-inf"), 0, -1])}
+    default = rc.TABLE_TILE
+    out = {}
+    try:
+        for tile in (2048, 4096, 8192):
+            rc.TABLE_TILE = tile
+            for tag, args in calls.items():
+                def call():
+                    return rc.dense_monoid_table(row, *args, KEYS)
+                call()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        call()
+                    torch.cuda.synchronize()
+                us = {}
+                for e in prof.key_averages():
+                    for kernel in ("table_pass1", "table_pass2"):
+                        if kernel in e.key and _device_us(e) > 0:
+                            us[kernel] = us.get(kernel, 0.0) + _device_us(e) / 20
+                if len(us) != 2:
+                    fail(f"torch.profiler missed a table kernel: {us}")
+                out[f"{tag}_tile{tile}"] = {"device_us": sum(us.values()),
+                                            **us}
+    finally:
+        rc.TABLE_TILE = default
+    emit(phase="table_tiles", default_tile=default, **out)
+
+
+def sass_phase():
+    """Atomic opcodes in the SASS of each built kernel library, counted
+    per kernel (``cuobjdump`` from the toolkit that built them)."""
+    import collections
+    import os
+    from windflow_tpu_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    for name in build.SOURCES:
+        r = subprocess.run([cuobjdump, "-sass", build._lib_path(name)],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            fail(f"cuobjdump failed on {name}: {r.stderr.strip()[-400:]}")
+        ops = collections.Counter()
+        kernel = None
+        for line in r.stdout.splitlines():
+            if "Function :" in line:
+                kernel = line.split("Function :")[1].strip()
+            elif "*/" in line:
+                op = line.split("*/", 1)[1].strip().split(" ")[0]
+                if op.startswith(("ATOM", "RED")):
+                    ops[f"{kernel} {op}"] += 1
+        emit(phase="sass", library=name, atomic_opcodes=dict(ops))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -203,6 +286,8 @@ def main():
     device_phase(staged)
     reduce_phase(staged)
     run_phase()
+    table_tile_phase(dev)
+    sass_phase()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

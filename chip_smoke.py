@@ -10,10 +10,13 @@ Phases (each exits nonzero on failure; none is skipped):
 2. hold each kernel against its plain torch version on the card, at the
    main paths' shapes and at the edges (exact, except the dense table's
    f32 sums of non-integer data: rtol 1e-5 and identical bits from call
-   to call), and time the kernel, the plain version and one PyTorch call
-   computing the same function (a yardstick only: the port never calls
-   it): device time by ``torch.profiler`` (``device_ms``), with the
-   CUDA-event time of back-to-back calls printed beside it;
+   to call), and time the kernel, the plain version and the PyTorch
+   calls computing the same function (a yardstick only: the port never
+   calls them): device time by ``torch.profiler`` (``device_ms``), with
+   the CUDA-event time of back-to-back calls printed beside it.  The
+   dense table is timed at each of the reduce routes' three calls, (a)
+   compacted max, (b) compacted sum and (c) dense max, each a row of its
+   own in the JSON line;
 3. drive the main paths through ``PipeGraph.run()`` at the repo's chip
    configuration (262,144 tuples a batch, 1,024 keys), each with the
    launch counts set to 0 just before and read just after:
@@ -124,23 +127,30 @@ def bound_ms(nbytes, nops):
 
 
 def check_grouping(dev):
-    """Grouping kernel vs its plain version: main shape + edges, exact."""
+    """Grouping kernel vs its plain version: main shape + edges, exact.
+    Edges: one id for every lane (the widest match-any group), NB = 4096,
+    the gate's 2^22 lanes, B not a multiple of the 2,048-lane tile."""
     import torch
     from windflow_tpu_torch.kernels import ffat_cuda as fc
     from windflow_tpu_torch.windows.grouping import invert_perm
     rng = np.random.default_rng(7)
     worst = 0
-    cases = [(CAP, KEYS + 1), (1000, 2), (CAP + 77, 4096), (255, 4096),
-             (257, 129)]
-    for B, NB in cases:
-        ids = torch.from_numpy(rng.integers(0, NB, B).astype(np.int32)).to(dev)
+    # (lanes, buckets, the one id of every lane or None for random ids)
+    cases = [(CAP, KEYS + 1, None), (1000, 2, None), (CAP + 77, 4096, None),
+             (255, 4096, None), (257, 129, None), (CAP, KEYS + 1, 7),
+             (4097, 2, 1), (4096, 4096, 4095), (1 << 22, KEYS + 1, None),
+             (1 << 22, 4096, None), (4095, 4096, None), (1, 2, 0)]
+    for B, NB, one in cases:
+        ids = rng.integers(0, NB, B) if one is None else np.full(B, one)
+        ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
         got = fc.grouping_rank_hist(ids, NB)
         torch.cuda.synchronize()
         want = fc.grouping_rank_hist_plain(ids, NB)
         for name, g, w in zip(("dest", "rank", "hist"), got, want):
             worst = max(worst, (g.long() - w.long()).abs().max().item())
             if not torch.equal(g, w):
-                fail(f"grouping_rank_hist {name} differs at B={B} NB={NB}")
+                fail(f"grouping_rank_hist {name} differs at B={B} NB={NB} "
+                     f"one={one}")
         order = invert_perm(got[0])
         if not torch.equal(order.long(), torch.sort(ids, stable=True).indices):
             fail(f"order_hist is not the stable argsort at B={B} NB={NB}")
@@ -153,15 +163,14 @@ def check_grouping(dev):
                 library=lambda: (torch.sort(ids, stable=True),
                                  torch.bincount(ids, minlength=NB)))
     ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
-    nbytes = CAP * 4 + 2 * CAP * 4 + NB * 4
-    # one count and one rank per lane, plus the within-tile compares
-    nops = 2 * CAP + CAP * (fc.LANE_TILE - 1) // 2
-    b_ms, b_by = bound_ms(nbytes, nops)
-    return {"name": "grouping_rank_hist", "route": "cuda",
-            "source": "windflow_tpu_torch/csrc/grouping_rank_hist.cu",
-            "replaces": "windflow_tpu/kernels/pallas_ffat.py:214",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    # the function's own bytes and work, whatever the design: ids in,
+    # dest and rank out, hist out; one count and one rank a lane
+    b_ms, b_by = bound_ms(CAP * 4 + 2 * CAP * 4 + NB * 4, 2 * CAP)
+    return [{"name": "grouping_rank_hist", "route": "cuda",
+             "source": "windflow_tpu_torch/csrc/grouping_rank_hist.cu",
+             "replaces": "windflow_tpu/kernels/pallas_ffat.py:214",
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
 
 
 def check_fold(dev):
@@ -224,19 +233,50 @@ def check_fold(dev):
     levels = R.bit_length()
     nops = n * (levels - 1 + bin(R).count("1") - 1)
     b_ms, b_by = bound_ms(n * 4 + n * 1 + n * 4, nops)
-    return {"name": "sliding_fold", "route": "cuda",
-            "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
-            "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    return [{"name": "sliding_fold", "route": "cuda",
+             "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
+             "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
+             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
+
+
+def table_yardstick(row, leaves, ops, inits, S):
+    """The PyTorch calls that compute the same tables as one
+    ``dense_monoid_table`` call: per leaf one ``index_add_`` (sum) or
+    ``scatter_reduce_`` (max/min) into an ``[S + 1]`` buffer whose last
+    row takes the lanes outside ``[0, S)``.  Returns ``(run, bufs)``: the
+    buffers start at the inits, and ``run()`` folds into them (max/min
+    are idempotent; a repeated sum only changes the values)."""
+    import torch
+    idx = torch.where((row >= 0) & (row < S), row,
+                      torch.full_like(row, S)).long()
+    bufs, calls = [], []
+    for l, op, init in zip(leaves, ops, inits):
+        buf = torch.full((S + 1,) + tuple(l.shape[1:]), init, dtype=l.dtype,
+                         device=l.device)
+        bufs.append(buf)
+        if op == "sum":
+            calls.append(lambda b=buf, l=l: b.index_add_(0, idx, l))
+        else:
+            ix = idx.reshape((-1,) + (1,) * (l.ndim - 1)).expand(l.shape)
+            calls.append(lambda b=buf, l=l, ix=ix, r="a" + op:
+                         b.scatter_reduce_(0, ix, l, r, include_self=True))
+
+    def run():
+        for c in calls:
+            c()
+    return run, bufs
 
 
 def check_table(dev):
-    """Dense-table kernel vs its plain version: the reduce routes' calls
-    at the main shape (B = 262,144, S = 1,024), the edges of
-    tests/test_pallas_kernels.py, every op and dtype, rows outside
-    [0, S).  Exact, except f32 sums of non-integer data (rtol 1e-5 and
-    the same bits on two calls)."""
+    """Dense-table kernel vs its plain version: the reduce routes' three
+    calls at the main shape (B = 262,144, S = 1,024), each timed beside
+    its PyTorch yardstick and its bound; the edges of
+    tests/test_pallas_kernels.py and of the kernel's design (every lane
+    in one slot, S = 4096, the gate's 2^22 lanes, B not a multiple of
+    the 2,048-lane tile), every op and dtype, rows outside [0, S).
+    Exact, except f32 sums of non-integer data (rtol 1e-5 and the same
+    bits on two calls)."""
     import torch
     from windflow_tpu_torch.kernels import ffat_cuda as fc
     from windflow_tpu_torch.kernels import reduce_cuda as rc
@@ -256,32 +296,53 @@ def check_table(dev):
     drow = torch.where(ok & (k_t < KEYS), k_t,
                        torch.full_like(k_t, KEYS)).contiguous()
     ones = torch.ones(CAP, dtype=torch.int32, device=dev)
+    # the reduce routes' calls (half-integer values: every sum is exact)
     main_calls = {
-        "compacted max (packed int64 carrier [B, 3])":
-            (row, [carrier], ["max"], [I64MIN]),
-        "compacted sum (key i32, v0 f32, ts i64 max)":
-            (row, [k_t, v_t, ts_t], ["sum", "sum", "max"], [0, 0.0, I64MIN]),
-        "dense max (key, v0, count, ts)":
-            (drow, [k_t, v_t, ones, ts_t], ["max", "max", "sum", "max"],
-             [-2 ** 31, float("-inf"), 0, -1]),
+        "a": ("compacted max (packed int64 carrier [B, 3])",
+              (row, [carrier], ["max"], [I64MIN])),
+        "b": ("compacted sum (key i32, v0 f32, ts i64 max)",
+              (row, [k_t, v_t, ts_t], ["sum", "sum", "max"],
+               [0, 0.0, I64MIN])),
+        "c": ("dense max (key, v0, count, ts)",
+              (drow, [k_t, v_t, ones, ts_t], ["max", "max", "sum", "max"],
+               [-2 ** 31, float("-inf"), 0, -1])),
     }
     worst = 0
-    times = {}
-    for name, args in main_calls.items():
+    out = []
+    for tag, (name, args) in main_calls.items():
         got = rc.dense_monoid_table(*args, KEYS)
         torch.cuda.synchronize()
         want = rc.dense_monoid_table_plain(*args, KEYS)
-        for g, w in zip(got, want):
+        lib, bufs = table_yardstick(*args, KEYS)
+        lib()
+        for g, w, b in zip(got, want, bufs):
             worst = max(worst, (g.double() - w.double()).abs().max().item())
             if not torch.equal(g, w):
                 fail(f"dense_monoid_table differs on {name}")
-        times[name] = timings(
-            f"dense_monoid_table {name} at B={CAP} S={KEYS}",
-            kernel=lambda: rc.dense_monoid_table(*args, KEYS),
-            plain=lambda: rc.dense_monoid_table_plain(*args, KEYS))
-    for B, S in ((64, 8), (300, 17), (100, 4096), (5, 1), (262221, 4096)):
-        r = torch.from_numpy(rng.integers(-3, S + 3, B).astype(np.int32)) \
-            .to(dev)
+            if not torch.equal(g, b[:KEYS]):
+                fail(f"the yardstick disagrees with the table on {name}")
+        t = timings(f"dense_monoid_table ({tag}) {name} at B={CAP} S={KEYS}",
+                    kernel=lambda: rc.dense_monoid_table(*args, KEYS),
+                    plain=lambda: rc.dense_monoid_table_plain(*args, KEYS),
+                    library=lib)
+        r, leaves = args[0], args[1]
+        nbytes = r.numel() * 4 + sum(
+            l.numel() * l.element_size() + KEYS * (l.numel() // CAP)
+            * l.element_size() for l in leaves)
+        b_ms, b_by = bound_ms(nbytes, sum(l.numel() for l in leaves))
+        out.append({"name": f"dense_monoid_table[{tag}]", "route": "cuda",
+                    "source": "windflow_tpu_torch/csrc/dense_monoid_table.cu",
+                    "replaces": "windflow_tpu/kernels/pallas_ffat.py:530",
+                    "ms": t["kernel"], "plain_ms": t["plain"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": t["library"]})
+    # (lanes, slots, the one slot of every lane or None for random rows)
+    for B, S, one in ((64, 8, None), (300, 17, None), (100, 4096, None),
+                      (5, 1, None), (262221, 4096, None), (CAP, KEYS, 5),
+                      (4097, 4096, 4095), (1 << 22, KEYS, None),
+                      (4095, 33, None)):
+        r = rng.integers(-3, S + 3, B) if one is None else np.full(B, one)
+        r = torch.from_numpy(r.astype(np.int32)).to(dev)
         leaves = [torch.from_numpy(a).to(dev) for a in (
             rng.integers(-2 ** 40, 2 ** 40, (B, 3)),
             rng.integers(-100, 100, B).astype(np.float32),
@@ -296,37 +357,29 @@ def check_table(dev):
                 worst = max(worst,
                             (g.double() - w.double()).abs().max().item())
                 if not torch.equal(g, w):
-                    fail(f"dense_monoid_table {op} differs at B={B} S={S}")
+                    fail(f"dense_monoid_table {op} differs at B={B} S={S} "
+                         f"one={one}")
+        # one f32-sum column of non-integer data: the same bits on two
+        # calls, within rtol 1e-5 of the exact sum and of the plain
+        # scatter-add (whose own f32 rounding is ~1e-5 where one slot
+        # takes 262,144 lanes, so there only the exact sum)
         x = torch.from_numpy(rng.uniform(0.5, 1.5, B).astype(np.float32)) \
             .to(dev)
         a = rc.dense_monoid_table(r, [x], ["sum"], [0.0], S)[0]
         b = rc.dense_monoid_table(r, [x], ["sum"], [0.0], S)[0]
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             fail(f"dense_monoid_table f32 sum not deterministic at B={B}")
-        if not torch.allclose(a, rc.dense_monoid_table_plain(
+        exact = rc.dense_monoid_table_plain(r, [x.double()], ["sum"], [0.0],
+                                            S)[0]
+        if not torch.allclose(a.double(), exact, rtol=1e-5, atol=0):
+            fail(f"dense_monoid_table f32 sum beyond rtol 1e-5 of the exact "
+                 f"sum at B={B} S={S}")
+        if one is None and not torch.allclose(a, rc.dense_monoid_table_plain(
                 r, [x], ["sum"], [0.0], S)[0], rtol=1e-5, atol=0):
             fail(f"dense_monoid_table f32 sum beyond rtol 1e-5 at B={B}")
-    # the main path's call (route (a)): kernel, plain, library, bound
-    main = times["compacted max (packed int64 carrier [B, 3])"]
-    ms, plain_ms = main["kernel"], main["plain"]
-    idx = torch.where((row >= 0) & (row < KEYS), row,
-                      torch.full_like(row, KEYS)).long()[:, None] \
-        .expand(CAP, 3)
-    buf = torch.full((KEYS + 1, 3), I64MIN, dtype=torch.int64, device=dev)
-    lib_ms = timings("dense_monoid_table yardstick",
-                     library=lambda: buf.scatter_reduce_(
-                         0, idx, carrier, "amax",
-                         include_self=True))["library"]
-    if not torch.equal(buf[:KEYS], rc.dense_monoid_table(
-            row, [carrier], ["max"], [I64MIN], KEYS)[0]):
-        fail("scatter_reduce_ yardstick disagrees with the table")
-    nbytes = CAP * 4 + CAP * 3 * 8 + KEYS * 3 * 8
-    b_ms, b_by = bound_ms(nbytes, CAP * 3)
-    return {"name": "dense_monoid_table", "route": "cuda",
-            "source": "windflow_tpu_torch/csrc/dense_monoid_table.cu",
-            "replaces": "windflow_tpu/kernels/pallas_ffat.py:530",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    for row_ in out:
+        row_["max_abs_err"] = worst
+    return out
 
 
 def oracle(keys, vals):
@@ -541,13 +594,12 @@ def main():
           f"(nvcc {nvcc_s:.2f} s, {build.nvcc_runs} compilations)")
 
     # 2. kernels against their plain versions
-    rows = {r["name"]: r for r in (check_grouping(dev), check_fold(dev),
-                                   check_table(dev))}
+    rows = check_grouping(dev) + check_fold(dev) + check_table(dev)
     print("phase 2: kernels equal their plain versions at the main-path "
           "shapes and edges")
 
-    # 3. the main path, counts read just after each run
-    launches = {name: 0 for name in rows}
+    # 3. the main path, counts read just after each run, by run label
+    run_counts = {}
     for sum_comb, need in ((False, ("grouping_rank_hist",)),
                            (True, ("grouping_rank_hist", "sliding_fold"))):
         fc.reset_launch_counts()
@@ -557,8 +609,7 @@ def main():
             if counts[name] <= 0:
                 fail(f"main path ({'sum' if sum_comb else 'generic'} "
                      f"combiner) never launched {name}")
-        for name in launches:
-            launches[name] += counts[name]
+        run_counts["ffat sum" if sum_comb else "ffat generic"] = counts
         print(f"phase 3: PipeGraph.run() {'withSumCombiner' if sum_comb else 'generic combiner'}: "
               f"{nrec} windows match the oracle; {n} tuples in {secs:.3f} s "
               f"= {n / secs:.0f} tuples/s (host clock, information only); "
@@ -584,7 +635,7 @@ def main():
             fail(f"reduce {label} never launched dense_monoid_table")
         if not need and got_k:
             fail(f"reduce {label} launched dense_monoid_table")
-        launches["dense_monoid_table"] += got_k
+        run_counts[label] = counts
         extra = ""
         if "Key_compaction" in st:
             kcs = st["Key_compaction"]
@@ -602,8 +653,20 @@ def main():
               f"match the oracle batch by batch; {n} tuples in {secs:.3f} s "
               f"= {n / secs:.0f} tuples/s (host clock, information only); "
               f"launches {counts}{extra}")
-    for name, r in rows.items():
-        r["launches"] = launches[name]
+    # each kernel row's launches: the runs that make its calls (the
+    # table's (e) runs make the calls of routes (a) and (c))
+    runs_of = {"grouping_rank_hist": ("ffat generic", "ffat sum"),
+               "sliding_fold": ("ffat generic", "ffat sum"),
+               "dense_monoid_table[a]": ("(a) compacted",
+                                         "(e) compacted, keys < 1040",
+                                         "(e) compacted, keys < 1100"),
+               "dense_monoid_table[b]": ("(b) compacted sum",),
+               "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
+                                         "(e) dense, keys < 1100")}
+    for r in rows:
+        counter = r["name"].split("[")[0]
+        r["launches"] = sum(run_counts[label][counter]
+                            for label in runs_of[r["name"]])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -613,8 +676,7 @@ def main():
     print(smi.stdout.strip().splitlines()[0])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows.values()]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -89,6 +89,26 @@ def test_counting_order_matches_jax_and_stable_argsort(NB):
     np.testing.assert_array_equal(got, np.argsort(ids, kind="stable"))
 
 
+@pytest.mark.parametrize("B,NB,one", [(257, 2, 1), (1000, 4096, 4095),
+                                      (300, 129, 0)])
+def test_grouping_plain_one_id_matches_pallas(B, NB, one):
+    """Every lane with one id (the kernel's widest match-any group): the
+    plain version equals the Pallas kernel and the stable argsort."""
+    ids = np.full(B, one, np.int32)
+    dest, rank, hist = (t.numpy() for t in
+                        fc.grouping_rank_hist(torch.from_numpy(ids), NB))
+    jd, jr, jh = (np.asarray(a) for a in
+                  pk.grouping_rank_hist(jnp.asarray(ids), NB,
+                                        interpret=True))
+    np.testing.assert_array_equal(dest, jd)
+    np.testing.assert_array_equal(rank, jr)
+    np.testing.assert_array_equal(hist, jh)
+    np.testing.assert_array_equal(rank, np.arange(B))
+    korder, _ = fc.order_hist(torch.from_numpy(ids), NB)
+    np.testing.assert_array_equal(korder.numpy(),
+                                  np.argsort(ids, kind="stable"))
+
+
 def test_grouping_gate_matches_pallas():
     for n, nb in [(0, 2), (1, 1), (1, 2), (1 << 22, 4096), ((1 << 22) + 1, 2),
                   (5, 4097)]:
@@ -242,6 +262,42 @@ def test_dense_table_plain_matches_pallas_kernel(monoid, B, S):
         w = np.asarray(w)
         assert g.numpy().dtype == w.dtype and g.shape == w.shape
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("S", [1, 4096])
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+def test_dense_table_plain_one_slot_matches_pallas(monoid, S):
+    """Every lane in the last slot (the kernel's widest match-any group
+    and longest f32 chain), every dtype: exact."""
+    rng = np.random.default_rng(11 + S)
+    B = 300
+    row = np.full(B, S - 1, np.int32)
+    leaves = _table_leaves(rng, B)
+    inits = [pk.monoid_identity_py(monoid, l.dtype) for l in leaves]
+    got = rc.dense_monoid_table(torch.from_numpy(row),
+                                [torch.from_numpy(v) for v in leaves],
+                                [monoid] * len(leaves), inits, S)
+    want = pk.dense_monoid_table(jnp.asarray(row),
+                                 [jnp.asarray(v) for v in leaves],
+                                 [monoid] * len(leaves), inits, S, True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_dense_table_integer_f32_sum_into_one_slot():
+    """An integer-valued f32 sum of every lane into one slot at S = 4096
+    is exact in both packages (partial sums stay below 2^24)."""
+    rng = np.random.default_rng(29)
+    B, S = 3000, 4096
+    row = np.full(B, 7, np.int32)
+    x = rng.integers(-1000, 1000, B).astype(np.float32)
+    got = rc.dense_monoid_table(torch.from_numpy(row), [torch.from_numpy(x)],
+                                ["sum"], [0.0], S)[0].numpy()
+    want = np.asarray(pk.dense_monoid_table(jnp.asarray(row), [jnp.asarray(x)],
+                                            ["sum"], [0.0], S, True)[0])
+    np.testing.assert_array_equal(got, want)
+    assert got[7] == x.astype(np.float64).sum()
+    assert not got[:7].any() and not got[8:].any()
 
 
 @pytest.mark.parametrize("monoid", ["sum", "max", "min"])

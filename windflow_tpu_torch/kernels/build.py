@@ -42,7 +42,7 @@ _I = ctypes.c_int
 #: the C signature of each library's entry point: (name, argtypes)
 SIGNATURES = {
     "grouping_rank_hist": ("wf_grouping_rank_hist",
-                           [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P]),
+                           [_P, _I, _I, _P, _P, _P, _P, _P]),
     "sliding_fold": ("wf_sliding_fold",
                      [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dense_monoid_table": ("wf_dense_monoid_table",

@@ -34,10 +34,8 @@ from windflow_tpu_torch.basic import WindFlowError
 from windflow_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
                                            tree_unflatten)
 
-#: lanes per tile of the grouping kernel (the Pallas LANE_TILE)
-LANE_TILE = 256
-#: tiles per scan segment of the grouping kernel
-SEG_TILES = 32
+#: lanes per tile of the grouping kernel (its TILE)
+GROUP_TILE = 2048
 #: bucket-space ceiling of the grouping kernel (the Pallas gate)
 MAX_BUCKETS = 4096
 #: lane-count ceiling of the grouping kernel (the Pallas gate)
@@ -163,18 +161,14 @@ def grouping_rank_hist(ids: torch.Tensor, nbuckets: int):
             f"grouping_rank_hist: {B} lanes / {NB} buckets outside the "
             "kernel gate (grouping_supported)")
     dev = ids.device
-    T = -(-B // LANE_TILE)
-    S = -(-T // SEG_TILES)
     i32 = dict(dtype=torch.int32, device=dev)
     dest = torch.empty(B, **i32)
     rank = torch.empty(B, **i32)
     hist = torch.empty(NB, **i32)
-    tilehist = torch.empty(T * NB, **i32)
-    segsum = torch.empty(S * NB, **i32)
-    bstart = torch.empty(NB, **i32)
+    tilecnt = torch.empty(-(-B // GROUP_TILE) * NB, **i32)
     _launch("grouping_rank_hist", dev, ids.data_ptr(), B, NB,
             dest.data_ptr(), rank.data_ptr(), hist.data_ptr(),
-            tilehist.data_ptr(), segsum.data_ptr(), bstart.data_ptr())
+            tilecnt.data_ptr())
     return dest, rank, hist
 
 

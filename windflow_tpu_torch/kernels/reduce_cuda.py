@@ -35,8 +35,8 @@ MAX_SLOTS = 4096
 MAX_LANES = 1 << 22
 #: widest packed [B, W] leaf the kernel takes
 MAX_WIDTH = 8
-#: lanes a tile walks at least (the kernel's CHUNK)
-TABLE_CHUNK = 2048
+#: lanes a tile (one block of the kernel's first pass) folds
+TABLE_TILE = 2048
 #: most tiles of one call
 TABLE_MAX_TILES = 256
 #: most columns of one launch (the kernel's MAX_COLS)
@@ -123,7 +123,8 @@ def dense_monoid_table(row: torch.Tensor, leaves: Sequence,
     ``[nslots, W]`` table per leaf, in the leaf's dtype.
 
     On the card one call is one entry into the library, which launches
-    both passes over all columns (a second entry per 32 columns)."""
+    both passes over all columns (a second entry per 32 columns); the
+    partial tables take at most 8 bytes a column, tile and slot."""
     fc.note_entry()
     if row.device.type == "cpu":
         return dense_monoid_table_plain(row, leaves, ops, inits, nslots)
@@ -154,7 +155,7 @@ def dense_monoid_table(row: torch.Tensor, leaves: Sequence,
     for g in range(0, len(desc), TABLE_MAX_COLS):
         group = desc[g:g + TABLE_MAX_COLS]
         ncols = len(group)
-        nt = min(-(-B // TABLE_CHUNK), TABLE_MAX_TILES,
+        nt = min(-(-B // TABLE_TILE), TABLE_MAX_TILES,
                  max(1, PARTIAL_WORDS // (S * ncols)))
         partial = torch.empty(ncols * nt * S, dtype=torch.int64,
                               device=row.device)
