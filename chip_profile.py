@@ -27,21 +27,36 @@ process:
   (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
   and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
   two kernels by ``torch.profiler``;
+* the fold kernel alone at ``chip_smoke.py`` phase 2's two masks (90% of
+  the panes valid, and the FFAT step's own) for runs of 4, 8 and 16
+  outputs a thread (``ffat_cuda.FOLD_RUN``), device time by
+  ``torch.profiler``;
 * the shared- and global-memory atomic instructions each kernel library
   was compiled to (``cuobjdump -sass``), by kernel: a 64-bit fold that
-  has no native instruction shows as a compare-and-swap loop.
+  has no native instruction shows as a compare-and-swap loop; and the
+  global load and store widths of the fold's R = 8 sum kernels
+  (``LDG.E.128`` against ``LDG.E``).
+
+    python3 chip_profile.py --only fold_tiles --package-root DIR
+
+runs the named phases only (comma-separated: host, device, reduce, run,
+table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
+under DIR (another checkout, e.g. a parent commit unpacked by ``git
+archive``) instead of the one beside this script.
 
 Prints one JSON object a line, then the card's name and power limit.
 Needs CUDA; exits nonzero when ``torch.profiler`` records no device time.
 """
 
+import argparse
 import json
 import subprocess
 import sys
 import time
 
 from chip_smoke import (BATCHES, CAP, KEYS, _device_us, cuda_time, fail,
-                        main_path_data, main_path_graph, reduce_graph)
+                        fold_inputs, main_path_data, main_path_graph,
+                        reduce_graph)
 
 
 def emit(**kw):
@@ -249,9 +264,45 @@ def table_tile_phase(dev):
     emit(phase="table_tiles", default_tile=default, **out)
 
 
+def fold_tile_phase(dev):
+    """The fold kernel's device time per call at the two masks of
+    chip_smoke's phase 2, for each run length the module offers (a
+    checkout without ``FOLD_RUN`` is timed at its one design)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    default = getattr(fc, "FOLD_RUN", None)
+    runs = (4, 8, 16) if default is not None else (None,)
+    out = {}
+    try:
+        for pattern in ("dense", "main"):
+            x, valid, R = fold_inputs(dev, np.random.default_rng(11), pattern)
+            for run in runs:
+                if run is not None:
+                    fc.FOLD_RUN = run
+                fc.sliding_fold(x, valid, R, "sum")
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(20):
+                        fc.sliding_fold(x, valid, R, "sum")
+                    torch.cuda.synchronize()
+                us = sum(_device_us(e) for e in prof.key_averages()
+                         if e.device_type.name == "CUDA") / 20
+                if us <= 0:
+                    fail("torch.profiler recorded no device time for the fold")
+                out[f"{pattern}_run{run or 'fixed'}_us"] = us
+    finally:
+        if default is not None:
+            fc.FOLD_RUN = default
+    emit(phase="fold_tiles", default_run=default, **out)
+
+
 def sass_phase():
     """Atomic opcodes in the SASS of each built kernel library, counted
-    per kernel (``cuobjdump`` from the toolkit that built them)."""
+    per kernel, and the global load/store opcodes of the fold library's
+    R = 8 sum kernels (``cuobjdump`` from the toolkit that built them)."""
     import collections
     import os
     from windflow_tpu_torch.kernels import build
@@ -262,18 +313,44 @@ def sass_phase():
         if r.returncode != 0:
             fail(f"cuobjdump failed on {name}: {r.stderr.strip()[-400:]}")
         ops = collections.Counter()
+        memops = collections.Counter()
         kernel = None
         for line in r.stdout.splitlines():
             if "Function :" in line:
                 kernel = line.split("Function :")[1].strip()
             elif "*/" in line:
-                op = line.split("*/", 1)[1].strip().split(" ")[0]
+                words = line.split("*/", 1)[1].split()
+                if words and words[0].startswith("@"):
+                    words = words[1:]
+                op = words[0] if words else ""
                 if op.startswith(("ATOM", "RED")):
                     ops[f"{kernel} {op}"] += 1
-        emit(phase="sass", library=name, atomic_opcodes=dict(ops))
+                # the sum kernels of the main path's R = 8 (both paths)
+                if op.startswith(("LDG", "STG")) and kernel and (
+                        "fold_runs_kernelILi0ELi8E" in kernel
+                        or "fold_rows_smem_kernelILi0E" in kernel):
+                    memops[f"{kernel} {op}"] += 1
+        extra = {"global_load_store_opcodes": dict(memops)} if memops else {}
+        emit(phase="sass", library=name, atomic_opcodes=dict(ops), **extra)
+
+
+PHASES = ("host", "device", "reduce", "run", "table_tiles", "fold_tiles",
+          "sass")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=",".join(PHASES),
+                    help="comma-separated phases to run")
+    ap.add_argument("--package-root", default=None,
+                    help="directory holding the windflow_tpu_torch to run")
+    args = ap.parse_args()
+    only = args.only.split(",")
+    unknown = set(only) - set(PHASES)
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+    if args.package_root:
+        sys.path.insert(0, args.package_root)
     import torch
     if not torch.cuda.is_available():
         print("chip_profile: CUDA is not available", file=sys.stderr)
@@ -282,12 +359,21 @@ def main():
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     build.build_all()
-    staged = host_phase(dev)
-    device_phase(staged)
-    reduce_phase(staged)
-    run_phase()
-    table_tile_phase(dev)
-    sass_phase()
+    staged = None
+    if {"host", "device", "reduce"} & set(only):
+        staged = host_phase(dev)
+    if "device" in only:
+        device_phase(staged)
+    if "reduce" in only:
+        reduce_phase(staged)
+    if "run" in only:
+        run_phase()
+    if "table_tiles" in only:
+        table_tile_phase(dev)
+    if "fold_tiles" in only:
+        fold_tile_phase(dev)
+    if "sass" in only:
+        sass_phase()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

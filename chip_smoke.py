@@ -14,16 +14,18 @@ Phases (each exits nonzero on failure; none is skipped):
    calls computing the same function (a yardstick only: the port never
    calls them): device time by ``torch.profiler`` (``device_ms``), with
    the CUDA-event time of back-to-back calls printed beside it.  The
-   dense table is timed at each of the reduce routes' three calls, (a)
-   compacted max, (b) compacted sum and (c) dense max, each a row of its
-   own in the JSON line;
+   fold is timed on two masks, ``sliding_fold[dense]`` (90% of the panes
+   valid) and ``sliding_fold[main]`` (the FFAT step's own: the carried
+   panes and 1-3 new ones a key); the dense table at each of the reduce
+   routes' three calls, (a) compacted max, (b) compacted sum and (c)
+   dense max; each a row of its own in the JSON line;
 3. drive the main paths through ``PipeGraph.run()`` at the repo's chip
    configuration (262,144 tuples a batch, 1,024 keys), each with the
    launch counts set to 0 just before and read just after:
    * Source → MapGPU | FilterGPU → Ffat_WindowsGPU (count windows of
      1,024 sliding by 128, keyed) → Sink, 8 batches, once with the
-     generic combiner and once with ``withSumCombiner()``; every fired
-     window against a numpy oracle;
+     generic combiner and once with ``withSumCombiner()`` (one fold
+     launch a step); every fired window against a numpy oracle;
    * Source → MapGPU | FilterGPU → ReduceGPU (keyed, ``withMaxKeys
      (1024)``) → Sink (columnar), every batch's records against a numpy
      oracle of that batch: (a) declared ``max``, the bounded compacted
@@ -173,71 +175,200 @@ def check_grouping(dev):
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
 
 
+def main_fold_mask(rng, K, NPP, R):
+    """The FFAT step's pane mask at the fold (``ffat_kernels.py``'s
+    ``full_valid``): the R-1 carried panes, then 1-3 new ones a key
+    (~256 tuples a key a batch at P = 128), and no live pane for the keys
+    that the filter ``(key & 7) != 7`` empties."""
+    live = (R - 1) + rng.integers(1, 4, K)
+    v = np.arange(NPP)[None, :] < live[:, None]
+    v[(np.arange(K) & 7) == 7] = False
+    return v
+
+
+def fold_bits(t):
+    """A fold result as int32 bits (-0.0 and 0.0 differ)."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def fold_err(got, want):
+    """Largest difference of two fold results (equal infinities count 0)."""
+    if not got.numel():
+        return 0.0
+    d = got.double() - want.double()
+    return d.masked_fill(got.double() == want.double(), 0.0).abs().max().item()
+
+
+def fold_edges(dev, rng):
+    """The fold kernel against its plain version at its edges, bit for
+    bit: -0.0 at column 0 of every case, all-invalid and all-valid rows,
+    row pitches that are and are not a multiple of 4, R = 1, 2, 7, 8, 16,
+    17, 31, 33, 512 (the register path ends at 16), N < R, K = 1, a view
+    off 16-byte alignment (the shared-memory path), runs of 4 and 16
+    outputs a thread, and pytrees of f32 and i32 leaves (one launch up to
+    four leaves).  Returns the largest difference."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    worst = 0.0
+
+    def same(got, want, what):
+        nonlocal worst
+        worst = max(worst, fold_err(got, want))
+        if not torch.equal(fold_bits(got), fold_bits(want)):
+            fail(f"sliding_fold differs from its plain version: {what}")
+
+    # (K, N, R, mask: "rows" = a third of the rows all invalid, a third
+    # all valid, the rest 80% valid; "main" = the FFAT step's)
+    cases = [(KEYS, 2056, 8, "main"), (64, 2056, 8, "rows"),
+             (33, 2057, 2, "rows"), (9, 300, 7, "rows"), (9, 300, 1, "rows"),
+             (9, 300, 16, "rows"), (9, 300, 17, "main"),
+             (9, 300, 31, "main"), (9, 300, 33, "rows"),
+             (2, 4096 - 511, 512, "rows"), (5, 5, 8, "rows"),
+             (4, 3, 33, "rows"), (1, 2057, 8, "rows"), (1, 1, 1, "rows")]
+    for K, N, R, pattern in cases:
+        if pattern == "main":
+            v = main_fold_mask(rng, K, N, R)
+        else:
+            v = rng.random((K, N)) < 0.8
+            v[0::3] = False
+            v[1::3] = True
+        v = torch.from_numpy(v).to(dev)
+        x = rng.standard_normal((K, N)) * 1000
+        x[:, 0] = -0.0
+        for dt in (torch.float32, torch.int32):
+            xt = torch.from_numpy(x).to(dt).to(dev)
+            for monoid in ("sum", "max", "min"):
+                fc.reset_launch_counts()
+                got = fc.sliding_fold(xt, v, R, monoid)
+                if fc.launch_counts()["sliding_fold"] != 1:
+                    fail("sliding_fold took more than one launch for a leaf")
+                torch.cuda.synchronize()
+                same(got, fc.fold_leaf_plain(xt, v, R, monoid),
+                     f"{monoid} {dt} K={K} N={N} R={R} {pattern}")
+    # main shape: a view 4 bytes off alignment, and every run length
+    P = int(np.gcd(WIN, SLIDE))
+    R = WIN // P
+    NPP = (R - 1) + CAP // P + 2
+    base = torch.from_numpy(rng.standard_normal((KEYS + 1, NPP))
+                            .astype(np.float32)).to(dev)
+    default_run = fc.FOLD_RUN
+    try:
+        for run in (4, 8, 16):
+            fc.FOLD_RUN = run
+            for pattern in ("dense", "main"):
+                v = torch.from_numpy(
+                    main_fold_mask(rng, KEYS, NPP, R) if pattern == "main"
+                    else rng.random((KEYS, NPP)) < 0.9).to(dev)
+                for x in (base[:KEYS], base[1:]):
+                    for monoid in ("sum", "max", "min"):
+                        same(fc.sliding_fold(x, v, R, monoid),
+                             fc.fold_leaf_plain(x, v, R, monoid),
+                             f"{monoid} run {run} {pattern} "
+                             f"offset {x.data_ptr() % 16}")
+    finally:
+        fc.FOLD_RUN = default_run
+    # pytrees: f32 and i32 leaves of one dict, four leaves a launch
+    v = torch.from_numpy(main_fold_mask(rng, KEYS, NPP, R)).to(dev)
+    for nleaves, launches in ((2, 1), (4, 1), (5, 2)):
+        tree = {f"l{i}": torch.from_numpy(
+            rng.integers(-1000, 1000, (KEYS, NPP))
+            .astype(np.float32 if i % 2 == 0 else np.int32)).to(dev)
+            for i in range(nleaves)}
+        for monoid in ("sum", "max", "min"):
+            fc.reset_launch_counts()
+            got = fc.sliding_fold(tree, v, R, monoid)
+            if fc.launch_counts()["sliding_fold"] != launches:
+                fail(f"sliding_fold took {fc.launch_counts()['sliding_fold']}"
+                     f" launches for {nleaves} leaves, {launches} expected")
+            for k, leaf in tree.items():
+                if got[k].dtype != leaf.dtype:
+                    fail("sliding_fold changed a leaf's dtype")
+                same(got[k], fc.fold_leaf_plain(leaf, v, R, monoid),
+                     f"pytree of {nleaves} leaves, {k}, {monoid}")
+    return worst
+
+
+def fold_inputs(dev, rng, pattern):
+    """The main-path call's inputs, f32 [1024, 2057] + bool mask, R = 8:
+    ``dense`` has 90% of the panes valid, ``main`` the FFAT step's mask."""
+    import torch
+    P = int(np.gcd(WIN, SLIDE))
+    R = WIN // P
+    NPP = (R - 1) + CAP // P + 2
+    if pattern == "main":
+        v = main_fold_mask(rng, KEYS, NPP, R)
+    else:
+        v = rng.random((KEYS, NPP)) < 0.9
+    x = rng.standard_normal((KEYS, NPP)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev), R)
+
+
+def fold_bound(valid, R):
+    """Bound of one f32 fold call: the mask read, the output written, and
+    the values of the 32-byte sectors that hold a valid pane; one
+    combine a level and a stitch for each output whose window holds a
+    valid pane."""
+    import torch
+    n = valid.numel()
+    flat = torch.nn.functional.pad(valid.reshape(-1).to(torch.uint8),
+                                   (0, -n % 8))
+    sectors = int(flat.reshape(-1, 8).any(1).sum())
+    c = torch.nn.functional.pad(valid.int().cumsum(1), (R, 0))
+    live = int(((c[:, R:] - c[:, :-R]) > 0).sum())
+    nops = live * (R.bit_length() - 1 + bin(R).count("1") - 1)
+    return bound_ms(n + 4 * n + 32 * sectors, nops)
+
+
 def check_fold(dev):
     """Fold kernel vs its plain version on [1024, 2057], R = 8, every
-    monoid × f32/i32, exact."""
+    monoid × f32/i32, bit for bit, at both rows' masks, plus the edges of
+    ``fold_edges``; each row timed beside its plain version, its bound and
+    ``conv1d``."""
     import torch
     import torch.nn.functional as F
     from windflow_tpu_torch.kernels import ffat_cuda as fc
     rng = np.random.default_rng(11)
-    P = int(np.gcd(WIN, SLIDE))
-    R = WIN // P
-    NPP = (R - 1) + CAP // P + 2
-    valid = torch.from_numpy(rng.random((KEYS, NPP)) < 0.9).to(dev)
-    worst = 0.0
-    for dt in (torch.float32, torch.int32):
-        if dt == torch.float32:
-            x = torch.from_numpy(
-                rng.standard_normal((KEYS, NPP)).astype(np.float32)).to(dev)
-        else:
-            x = torch.from_numpy(rng.integers(-1 << 20, 1 << 20, (KEYS, NPP))
-                                 .astype(np.int32)).to(dev)
-        for monoid in ("sum", "max", "min"):
-            got = fc.sliding_fold(x, valid, R, monoid)
-            torch.cuda.synchronize()
-            want = fc.fold_leaf_plain(x, valid, R, monoid)
-            err = (got.double() - want.double()).abs().max().item()
-            worst = max(worst, err)
-            if not torch.equal(got, want):
-                fail(f"sliding_fold {monoid} {dt} differs (max {err})")
-    # edges: R = 1, R not a power of two, ragged panes, few rows
-    for (K, N, R_) in ((3, 300, 1), (5, 257, 13), (2, 4096 - 511, 512)):
-        x = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)) \
-            .to(dev)
-        v = torch.from_numpy(rng.random((K, N)) < 0.7).to(dev)
-        for monoid in ("sum", "max", "min"):
-            if not torch.equal(fc.sliding_fold(x, v, R_, monoid),
-                               fc.fold_leaf_plain(x, v, R_, monoid)):
-                fail(f"sliding_fold {monoid} differs at K={K} N={N} R={R_}")
-    x = torch.from_numpy(
-        rng.standard_normal((KEYS, NPP)).astype(np.float32)).to(dev)
+    worst = fold_edges(dev, rng)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    w = torch.ones((1, 1, R), dtype=torch.float32, device=dev)
+    out = []
+    for pattern in ("dense", "main"):
+        x, valid, R = fold_inputs(dev, rng, pattern)
+        xi = torch.from_numpy(rng.integers(-1 << 20, 1 << 20, tuple(x.shape))
+                              .astype(np.int32)).to(dev)
+        for xt in (x, xi):
+            for monoid in ("sum", "max", "min"):
+                got = fc.sliding_fold(xt, valid, R, monoid)
+                torch.cuda.synchronize()
+                want = fc.fold_leaf_plain(xt, valid, R, monoid)
+                worst = max(worst, fold_err(got, want))
+                if not torch.equal(fold_bits(got), fold_bits(want)):
+                    fail(f"sliding_fold[{pattern}] {monoid} {xt.dtype} "
+                         "differs from its plain version")
+        w = torch.ones((1, 1, R), dtype=torch.float32, device=dev)
 
-    def conv_sum():
-        xin = torch.where(valid, x, 0.0)[:, None, :]
-        return F.conv1d(F.pad(xin, (R - 1, 0)), w)
-    t = timings(f"sliding_fold sum at [{KEYS}, {NPP}] R={R}",
-                kernel=lambda: fc.sliding_fold(x, valid, R, "sum"),
-                plain=lambda: fc.fold_leaf_plain(x, valid, R, "sum"),
-                library=conv_sum,
-                max_pool1d=lambda: F.max_pool1d(
-                    F.pad(torch.where(valid, x, float("-inf"))[:, None, :],
-                          (R - 1, 0), value=float("-inf")), R, stride=1))
-    ms, plain_ms, lib_ms = t["kernel"], t["plain"], t["library"]
-    if not torch.allclose(conv_sum()[:, 0], fc.sliding_fold(x, valid, R, "sum"),
-                          rtol=1e-5, atol=1e-5):
-        fail("conv1d yardstick disagrees with the fold")
-    n = KEYS * NPP
-    levels = R.bit_length()
-    nops = n * (levels - 1 + bin(R).count("1") - 1)
-    b_ms, b_by = bound_ms(n * 4 + n * 1 + n * 4, nops)
-    return [{"name": "sliding_fold", "route": "cuda",
-             "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
-             "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
-             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
+        def conv_sum(x=x, valid=valid, w=w, R=R):
+            xin = torch.where(valid, x, 0.0)[:, None, :]
+            return F.conv1d(F.pad(xin, (R - 1, 0)), w)
+        t = timings(f"sliding_fold[{pattern}] sum at {list(x.shape)} R={R}",
+                    kernel=lambda: fc.sliding_fold(x, valid, R, "sum"),
+                    plain=lambda: fc.fold_leaf_plain(x, valid, R, "sum"),
+                    library=conv_sum)
+        if not torch.allclose(conv_sum()[:, 0],
+                              fc.sliding_fold(x, valid, R, "sum"),
+                              rtol=1e-5, atol=1e-5):
+            fail(f"conv1d yardstick disagrees with the fold [{pattern}]")
+        b_ms, b_by = fold_bound(valid, R)
+        out.append({"name": f"sliding_fold[{pattern}]", "route": "cuda",
+                    "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
+                    "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
+                    "ms": t["kernel"], "plain_ms": t["plain"],
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": t["library"]})
+    for r in out:
+        r["max_abs_err"] = worst
+    return out
 
 
 def table_yardstick(row, leaves, ops, inits, S):
@@ -609,6 +740,9 @@ def main():
             if counts[name] <= 0:
                 fail(f"main path ({'sum' if sum_comb else 'generic'} "
                      f"combiner) never launched {name}")
+        if sum_comb and counts["sliding_fold"] != BATCHES:
+            fail(f"the sum combiner's run launched sliding_fold "
+                 f"{counts['sliding_fold']} times in {BATCHES} steps")
         run_counts["ffat sum" if sum_comb else "ffat generic"] = counts
         print(f"phase 3: PipeGraph.run() {'withSumCombiner' if sum_comb else 'generic combiner'}: "
               f"{nrec} windows match the oracle; {n} tuples in {secs:.3f} s "
@@ -656,7 +790,8 @@ def main():
     # each kernel row's launches: the runs that make its calls (the
     # table's (e) runs make the calls of routes (a) and (c))
     runs_of = {"grouping_rank_hist": ("ffat generic", "ffat sum"),
-               "sliding_fold": ("ffat generic", "ffat sum"),
+               "sliding_fold[dense]": ("ffat generic", "ffat sum"),
+               "sliding_fold[main]": ("ffat generic", "ffat sum"),
                "dense_monoid_table[a]": ("(a) compacted",
                                          "(e) compacted, keys < 1040",
                                          "(e) compacted, keys < 1100"),

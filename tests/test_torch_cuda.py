@@ -76,8 +76,98 @@ def test_cuda_fold_kernel_matches_plain(cuda_device, monoid, dtype, K, N, R):
     x = torch.from_numpy(rng.standard_normal((K, N)) * 1000).to(dtype) \
         .to(cuda_device)
     v = torch.from_numpy(rng.random((K, N)) < 0.8).to(cuda_device)
-    assert torch.equal(fc.sliding_fold(x, v, R, monoid),
-                       fc.fold_leaf_plain(x, v, R, monoid))
+    fc.reset_launch_counts()
+    got = fc.sliding_fold(x, v, R, monoid)
+    assert fc.launch_counts()["sliding_fold"] == 1
+    assert torch.equal(got, fc.fold_leaf_plain(x, v, R, monoid))
+
+
+def _fold_mask(rng, K, N, R, pattern):
+    """A [K, N] pane mask: "random" (80% valid), "main" (the FFAT step's:
+    R-1 carried panes then 1-3 new ones a key, none for keys with
+    ``key & 7 == 7``), "rows" (every third row all invalid, every third
+    all valid, the rest random)."""
+    if pattern == "main":
+        live = (R - 1) + rng.integers(1, 4, K)
+        v = np.arange(N)[None, :] < live[:, None]
+        v[(np.arange(K) & 7) == 7] = False
+        return v
+    v = rng.random((K, N)) < 0.8
+    if pattern == "rows":
+        v[0::3] = False
+        v[1::3] = True
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("K,N,R,pattern", [
+    (1024, 2057, 8, "main"), (1024, 2056, 8, "main"), (64, 2056, 8, "rows"),
+    (33, 2057, 2, "rows"), (9, 300, 7, "random"), (9, 300, 31, "main"),
+    (9, 300, 33, "random"), (2, 3585, 512, "rows"), (5, 5, 8, "random"),
+    (9, 300, 16, "rows"), (9, 300, 17, "main"),
+    (4, 3, 33, "rows"), (1, 2057, 8, "random"), (1, 1, 1, "random"),
+    (7, 13, 16, "main")])
+def test_cuda_fold_kernel_edges(cuda_device, monoid, dtype, K, N, R,
+                                pattern):
+    """The redesign's edges, bit for bit, one launch a call: the main
+    path's mask (whole warps of dead runs), row pitches that are and are
+    not a multiple of 4 (16-byte rows and runs across row starts), all-
+    invalid and all-valid rows, R on both sides of the register path's
+    16 and at the gate's 512, N < R, K = 1, and -0.0 at column 0 (the
+    identity left of it makes 0.0 + -0.0 round as the plain fold does)."""
+    rng = np.random.default_rng(K * 31 + N + R)
+    x = rng.standard_normal((K, N)) * 1000
+    x[:, 0] = -0.0
+    x = torch.from_numpy(x).to(dtype).to(cuda_device)
+    v = torch.from_numpy(_fold_mask(rng, K, N, R, pattern)).to(cuda_device)
+    fc.reset_launch_counts()
+    got = fc.sliding_fold(x, v, R, monoid)
+    assert fc.launch_counts()["sliding_fold"] == 1
+    want = fc.fold_leaf_plain(x, v, R, monoid)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [4, 8, 16])
+@pytest.mark.parametrize("pattern", ["random", "main"])
+def test_cuda_fold_kernel_runs_per_thread(cuda_device, monkeypatch, run,
+                                          pattern):
+    """Every candidate run length of the register path (FOLD_RUN) at the
+    main shape, and a view 4 bytes off 16-byte alignment (the shared-
+    memory path) at R = 8."""
+    monkeypatch.setattr(fc, "FOLD_RUN", run)
+    rng = np.random.default_rng(run)
+    K, N, R = 1024, 2057, 8
+    base = torch.from_numpy(rng.standard_normal((K + 1, N))
+                            .astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(_fold_mask(rng, K, N, R, pattern)).to(cuda_device)
+    for x in (base[:K], base[1:]):
+        for monoid in ("sum", "max", "min"):
+            assert torch.equal(fc.sliding_fold(x, v, R, monoid),
+                               fc.fold_leaf_plain(x, v, R, monoid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nleaves,launches", [(2, 1), (4, 1), (5, 2)])
+def test_cuda_fold_pytree_in_one_launch(cuda_device, nleaves, launches):
+    """f32 and i32 leaves of one pytree fold together, four a launch."""
+    rng = np.random.default_rng(nleaves)
+    K, N, R = 1024, 2057, 8
+    v = torch.from_numpy(_fold_mask(rng, K, N, R, "main")).to(cuda_device)
+    tree = {}
+    for i in range(nleaves):
+        a = rng.integers(-1000, 1000, (K, N))
+        tree[f"l{i}"] = torch.from_numpy(
+            a.astype(np.float32 if i % 2 == 0 else np.int32)).to(cuda_device)
+    for monoid in ("sum", "max", "min"):
+        fc.reset_launch_counts()
+        got = fc.sliding_fold(tree, v, R, monoid)
+        assert fc.launch_counts()["sliding_fold"] == launches
+        for k, leaf in tree.items():
+            assert got[k].dtype == leaf.dtype
+            assert torch.equal(got[k], fc.fold_leaf_plain(leaf, v, R, monoid))
 
 
 @pytest.mark.cuda
@@ -88,6 +178,11 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(WindFlowError):
         fc.sliding_fold(torch.zeros((4, 8), dtype=torch.float64,
                                     device=cuda_device),
+                        torch.ones((4, 8), dtype=torch.bool,
+                                   device=cuda_device), 2, "sum")
+    with pytest.raises(WindFlowError):
+        fc.sliding_fold({"a": torch.zeros((4, 8), device=cuda_device),
+                         "b": torch.zeros((4, 9), device=cuda_device)},
                         torch.ones((4, 8), dtype=torch.bool,
                                    device=cuda_device), 2, "sum")
 

@@ -172,6 +172,58 @@ def test_fold_plain_matches_pallas_kernel(monoid, dtype, R):
             np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("R", [1, 8, 13])
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+def test_fold_pytree_matches_pallas_kernel(monoid, R):
+    """A mixed f32/i32 dict of integer-valued leaves (one launch on the
+    card) against the Pallas kernel's pytree fold: exact."""
+    rng = np.random.default_rng(R * 3 + len(monoid))
+    K, N = 6, 70
+    tree = {"a": rng.integers(-1000, 1000, (K, N)).astype(np.float32),
+            "b": rng.integers(-1000, 1000, (K, N)).astype(np.int32),
+            "c": rng.integers(-9, 9, (K, N)).astype(np.float32)}
+    v = rng.random((K, N)) < 0.6
+    got = fc.sliding_fold({k: torch.from_numpy(a) for k, a in tree.items()},
+                          torch.from_numpy(v), R, monoid)
+    want = pk.sliding_fold({k: jnp.asarray(a) for k, a in tree.items()},
+                           jnp.asarray(v), R, monoid, interpret=True)
+    assert set(got) == set(tree)
+    for k in tree:
+        w = np.asarray(want[k])
+        assert got[k].numpy().dtype == w.dtype
+        np.testing.assert_array_equal(got[k].numpy(), w)
+
+
+@pytest.mark.parametrize("R", [1, 2, 7, 8, 17])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("monoid", ["sum", "max", "min"])
+def test_fold_plain_edges_match_lax_fold(monoid, dtype, R):
+    """The kernel's edges against ffat_kernels._sliding_reduce_plain, bit
+    for bit: -0.0 at column 0 (0.0 + -0.0 at a row's start rounds to
+    0.0), all-dead spans (rows with no valid pane, and dead columns
+    after the carried panes, as the FFAT step's mask has them) and
+    all-valid rows."""
+    rng = np.random.default_rng(R * 7 + len(monoid) + len(dtype))
+    K, N = 9, 40
+    x, _ = _fold_inputs(rng, K, N, dtype)
+    x[:, 0] = -0.0
+    live = (R - 1) + rng.integers(1, 4, K)
+    v = np.arange(N)[None, :] < live[:, None]
+    v[(np.arange(K) & 7) == 7] = False
+    v[1] = True
+    v[2] = False
+    got = fc.sliding_fold(torch.from_numpy(x), torch.from_numpy(v), R,
+                          monoid).numpy()
+    want = np.asarray(jfk._sliding_reduce_plain(
+        _JOPS[monoid], jnp.asarray(v), jnp.asarray(x), R, axis=1,
+        monoid=monoid))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    ident = np.asarray(fc.monoid_identity(monoid, torch.from_numpy(x).dtype),
+                       dtype=x.dtype)
+    np.testing.assert_array_equal(got[2].view(np.uint32),
+                                  np.full(N, ident).view(np.uint32))
+
+
 def test_fold_gate():
     x = torch.zeros((4, 100), dtype=torch.float32)
     assert fc.fold_supported(x, 8, "sum")

@@ -44,7 +44,7 @@ SIGNATURES = {
     "grouping_rank_hist": ("wf_grouping_rank_hist",
                            [_P, _I, _I, _P, _P, _P, _P, _P]),
     "sliding_fold": ("wf_sliding_fold",
-                     [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                     [_P] * 9 + [_I] * 7 + [_P]),
     "dense_monoid_table": ("wf_dense_monoid_table",
                            [_P, _I, _I, _I, _P, _P, _I, _P]),
 }

@@ -8,7 +8,8 @@ pallas_ffat.py`` that the count-window path runs:
   histogram and counting-sort destinations of dense int ids
   (``csrc/grouping_rank_hist.cu``);
 * :func:`sliding_fold` — the declared-monoid pane fold
-  ``out[k, i] = fold(op, values[k, i-R+1..i])`` (``csrc/sliding_fold.cu``).
+  ``out[k, i] = fold(op, values[k, i-R+1..i])``, up to four leaves a
+  launch (``csrc/sliding_fold.cu``).
 
 Each wrapper takes its kernel's plain torch version for a tensor on the
 CPU — the role ``interpret=True`` plays for Pallas — and for a CUDA
@@ -44,6 +45,11 @@ MAX_LANES = 1 << 22
 MAX_FOLD_R = 512
 #: pane-axis ceiling of the fold kernel (panes + R - 1)
 MAX_FOLD_PANES = 4096
+#: leaves the fold kernel takes in one launch
+FOLD_LEAVES = 4
+#: outputs a thread of the fold kernel's register path: 8, or 4 or 16
+#: at R = 8 only (compiled for chip_profile.py's fold-tile phase)
+FOLD_RUN = 8
 
 _MONOID_CODE = {"sum": 0, "max": 1, "min": 2}
 
@@ -237,33 +243,39 @@ def fold_leaf_plain(x: torch.Tensor, valid: torch.Tensor, R: int,
     return res
 
 
-def _fold_leaf(x: torch.Tensor, valid: torch.Tensor, R: int,
-               monoid: str) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return fold_leaf_plain(x, valid, R, monoid)
-    _check(x, "sliding_fold values", (torch.float32, torch.int32), 2)
+def sliding_fold(values, valid: torch.Tensor, R: int, monoid: str):
+    """``out[k, i] = fold(monoid-op, values[k, i-R+1..i])`` for every leaf
+    of the ``[K, panes]`` pytree ``values``, invalid panes absorbed as the
+    monoid identity.  On the card up to :data:`FOLD_LEAVES` leaves, f32
+    and i32 mixed, fold in one launch that reads the mask once (further
+    leaves take further launches); CPU leaves take the plain version one
+    at a time."""
+    note_entry()
+    leaves, treedef = tree_flatten(values)
+    if all(l.device.type == "cpu" for l in leaves):
+        return tree_unflatten(treedef, [fold_leaf_plain(l, valid, R, monoid)
+                                        for l in leaves])
     _check(valid, "sliding_fold valid", (torch.bool,), 2)
-    if valid.shape != x.shape:
-        raise WindFlowError(f"sliding_fold: valid {tuple(valid.shape)} vs "
-                            f"values {tuple(x.shape)}")
-    K, NPP = int(x.shape[0]), int(x.shape[1])
+    for l in leaves:
+        _check(l, "sliding_fold values", (torch.float32, torch.int32), 2)
+        if l.shape != valid.shape or l.device != valid.device:
+            raise WindFlowError(
+                f"sliding_fold: values {tuple(l.shape)} on {l.device} vs "
+                f"valid {tuple(valid.shape)} on {valid.device}")
+    K, NPP = int(valid.shape[0]), int(valid.shape[1])
     if monoid not in _MONOID_CODE or not (1 <= R <= MAX_FOLD_R) \
             or NPP + R - 1 > MAX_FOLD_PANES:
         raise WindFlowError(
             f"sliding_fold: monoid {monoid!r}, R={R}, {NPP} panes outside "
             "the kernel gate (fold_supported)")
-    out = torch.empty_like(x)
-    _launch("sliding_fold", x.device, x.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), K, NPP, int(R), _MONOID_CODE[monoid],
-            int(x.dtype == torch.int32))
-    return out
-
-
-def sliding_fold(values, valid: torch.Tensor, R: int, monoid: str):
-    """``out[k, i] = fold(monoid-op, values[k, i-R+1..i])`` for every leaf
-    of the ``[K, panes]`` pytree ``values``, invalid panes absorbed as the
-    monoid identity (one launch per leaf)."""
-    note_entry()
-    leaves, treedef = tree_flatten(values)
-    return tree_unflatten(treedef, [_fold_leaf(l, valid, R, monoid)
-                                    for l in leaves])
+    outs = [torch.empty_like(l) for l in leaves]
+    for i in range(0, len(leaves), FOLD_LEAVES):
+        group, ogroup = leaves[i:i + FOLD_LEAVES], outs[i:i + FOLD_LEAVES]
+        pad = [0] * (FOLD_LEAVES - len(group))
+        int_mask = sum(1 << j for j, l in enumerate(group)
+                       if l.dtype == torch.int32)
+        _launch("sliding_fold", valid.device, valid.data_ptr(),
+                *[l.data_ptr() for l in group], *pad,
+                *[o.data_ptr() for o in ogroup], *pad, len(group), int_mask,
+                K, NPP, int(R), _MONOID_CODE[monoid], int(FOLD_RUN))
+    return tree_unflatten(treedef, outs)
