@@ -23,6 +23,14 @@ process:
 * the device busy share of a whole ``PipeGraph.run()`` (8 batches) of
   FFAT with the sum combiner and of the reduce's route (a): device time
   of every kernel over the host wall time;
+* the time-window runs of ``chip_smoke.py`` phase 4 ((a) YSB, generic
+  and ``withSumCombiner``; (b) telemetry; (c) the grouping kernel's
+  shape), on graphs built by its ``ysb_graph`` and ``keyed_tb_graph``:
+  per batch the host time of emitting and staging the records, the
+  Map|Filter chain and TB step (wall on the host clock around a
+  synchronised step, device time and launches by ``torch.profiler``),
+  the egress of one TB output batch, and the device idle share of the
+  whole ``PipeGraph.run()``;
 * the dense-table kernel alone at the reduce routes' three calls
   (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
   and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
@@ -40,7 +48,7 @@ process:
     python3 chip_profile.py --only fold_tiles --package-root DIR
 
 runs the named phases only (comma-separated: host, device, reduce, run,
-table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
+tb, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
 under DIR (another checkout, e.g. a parent commit unpacked by ``git
 archive``) instead of the one beside this script.
 
@@ -54,9 +62,11 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (BATCHES, CAP, KEYS, _device_us, cuda_time, fail,
-                        fold_inputs, main_path_data, main_path_graph,
-                        reduce_graph)
+from chip_smoke import (BATCHES, CAP, KEYS, TBC_GAP, TBC_KEYS, TBC_WIN,
+                        TELE_KEYS, TELE_LATENESS, TELE_WIN, _device_us,
+                        cuda_time, fail, fold_inputs, keyed_tb_graph,
+                        main_path_data, main_path_graph, reduce_graph,
+                        telemetry_data, ysb_data, ysb_graph)
 
 
 def emit(**kw):
@@ -110,11 +120,11 @@ def device_phase(staged):
         for _ in range(4):    # state + first-use build; then every
             w._step(mid)      # further step fires ~2 windows a key
         state0 = {k: v.clone() if hasattr(v, "clone") else v
-                  for k, v in w._state.items()}
+                  for k, v in w._states[0].items()}
         out["chain_ms"] = cuda_time(lambda: chain._step(staged))
 
         def ffat_step():
-            w._state = dict(state0)
+            w._states[0] = dict(state0)
             return w._step(mid)
         key = "ffat_sum_ms" if sum_combiner else "ffat_generic_ms"
         out[key] = cuda_time(ffat_step, iters=10, warmup=2)
@@ -208,6 +218,117 @@ def run_phase():
             fail("torch.profiler recorded no device time for "
                  "PipeGraph.run()")
         emit(phase="run", path=path, tuples=len(keys), records=n[0],
+             wall_s=wall, device_busy_s=busy_us / 1e6,
+             device_idle_share=1 - busy_us / 1e6 / wall)
+
+
+def _tb_cases(n):
+    """(label, graph builder, records of the first ``n`` tuples) of the
+    four time-window runs of chip_smoke.py phase 4."""
+    import numpy as np
+    nn = CAP * BATCHES
+    table, ad, etype, ts_a = ysb_data(nn)
+    tk, tv, tts = telemetry_data(nn)
+    rng = np.random.default_rng(6)
+    ck = rng.integers(0, TBC_KEYS, nn).astype(np.int32)
+    cv = rng.integers(-100, 101, nn).astype(np.float32)
+    cts = np.arange(nn, dtype=np.int64) * TBC_GAP
+    ysb_items = [{"ad_id": a, "etype": e, "ts": t} for a, e, t in
+                 zip(ad[:n], etype[:n], ts_a[:n].tolist())]
+
+    def kv(keys, vals, ts):
+        return [{"key": k, "v0": v, "ts": t} for k, v, t in
+                zip(keys[:n], vals[:n], ts[:n].tolist())]
+    return [
+        ("a_ysb_generic", lambda f: ysb_graph("cuda", False, table, ad,
+                                               etype, ts_a, f), ysb_items),
+        ("a_ysb_sum", lambda f: ysb_graph("cuda", True, table, ad, etype,
+                                          ts_a, f), ysb_items),
+        ("b_telemetry", lambda f: keyed_tb_graph(
+            "cuda", "telemetry", tk, tv, tts, TELE_KEYS, TELE_WIN, f,
+            lateness=TELE_LATENESS, normalize=True), kv(tk, tv, tts)),
+        ("c_grouping_kernel", lambda f: keyed_tb_graph(
+            "cuda", "tbc", ck, cv, cts, TBC_KEYS, TBC_WIN, f),
+         kv(ck, cv, cts)),
+    ]
+
+
+def tb_phase(dev):
+    """Per batch of each time-window run: host emit + staging, the chain
+    and TB step (wall and device), egress of one output batch; then the
+    device idle share of the whole run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.batch import device_to_columns
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    from windflow_tpu_torch.utils.tree import tree_map
+    warm = 4
+    for label, build, items in _tb_cases(CAP * (warm + 1)):
+        g, win = build(lambda c: None)
+        g._build()              # config, device and replicas, as run() does
+        chain = g.pipes[0].operators[1:-2]
+        staged = []
+
+        class Inbox:
+            def receive(self, ch, msg):
+                staged.append(msg)
+        em = DeviceStageEmitter([(Inbox(), 0)], CAP, dev)
+        t0 = time.perf_counter()
+        wm = -1
+        for it in items[:CAP]:
+            wm = max(wm, it["ts"])
+            em.emit(it, it["ts"], wm)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        for it in items[CAP:]:
+            wm = max(wm, it["ts"])
+            em.emit(it, it["ts"], wm)
+        mids = []
+        for b in staged:
+            for op in chain:
+                b = op._step(b)
+            mids.append(b)
+        for b in mids[:warm]:       # ring sizing, kernel build, steady ring
+            win._step(b)
+        torch.cuda.synchronize()
+        state0 = tree_map(lambda t: t.clone(), win._states[0])
+        step_in = mids[warm]
+
+        def tb_step():
+            win._states[0] = tree_map(lambda t: t.clone(), state0)
+            win._overflow_steps = 1          # keep off the checkpoint
+            return win._step(step_in)
+        chain_ms = cuda_time(lambda: [op._step(staged[warm])
+                                      for op in chain]) if chain else 0.0
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tb_step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        cols, _ = device_to_columns(out)
+        egress_s = time.perf_counter() - t0
+        emit(phase="tb", run=label, capacity=CAP, ring_np=win.NP,
+             out_lanes=int(out.valid.shape[0]),
+             windows_per_batch=int(len(cols["key"])), host_emit_stage_s=host_s,
+             chain_ms=chain_ms, step_wall_ms=1e3 * sum(walls) / len(walls),
+             step_profile=profile_step(tb_step), egress_s=egress_s,
+             note="host clock: emit+stage one batch, step wall (mean of 10, "
+                  "state restored each time), egress; device: profiler")
+        n = [0]
+        g, _ = build(lambda c: n.__setitem__(0, n[0] + len(c))
+                     if c is not None else None)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(_device_us(e) for e in prof.key_averages())
+        if busy_us <= 0:
+            fail(f"torch.profiler recorded no device time for TB {label}")
+        emit(phase="tb_run", run=label, tuples=CAP * BATCHES, records=n[0],
              wall_s=wall, device_busy_s=busy_us / 1e6,
              device_idle_share=1 - busy_us / 1e6 / wall)
 
@@ -334,8 +455,8 @@ def sass_phase():
         emit(phase="sass", library=name, atomic_opcodes=dict(ops), **extra)
 
 
-PHASES = ("host", "device", "reduce", "run", "table_tiles", "fold_tiles",
-          "sass")
+PHASES = ("host", "device", "reduce", "run", "tb", "table_tiles",
+          "fold_tiles", "sass")
 
 
 def main():
@@ -368,6 +489,8 @@ def main():
         reduce_phase(staged)
     if "run" in only:
         run_phase()
+    if "tb" in only:
+        tb_phase(dev)
     if "table_tiles" in only:
         table_tile_phase(dev)
     if "fold_tiles" in only:

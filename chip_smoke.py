@@ -18,7 +18,10 @@ Phases (each exits nonzero on failure; none is skipped):
    valid) and ``sliding_fold[main]`` (the FFAT step's own: the carried
    panes and 1-3 new ones a key); the dense table at each of the reduce
    routes' three calls, (a) compacted max, (b) compacted sum and (c)
-   dense max; each a row of its own in the JSON line;
+   dense max; the grouping a second time at the time-window path's
+   shape, ``grouping_rank_hist[tb]`` (run (c) of phase 4: ids of 32 keys
+   × a 68-pane ring, NB = 2,177); each a row of its own in the JSON
+   line;
 3. drive the main paths through ``PipeGraph.run()`` at the repo's chip
    configuration (262,144 tuples a batch, 1,024 keys), each with the
    launch counts set to 0 just before and read just after:
@@ -37,7 +40,25 @@ Phases (each exits nonzero on failure; none is skipped):
      full-width one; (a) keeps the out-of-range keys, (c) drops and
      counts them.
    The paths run at full width; the reduce runs are cut in depth to the
-   batches above so that the whole stays far inside the time limit.
+   batches above so that the whole stays far inside the time limit;
+4. drive the time-window path, Source (EVENT time) → [MapGPU |
+   FilterGPU] → Ffat_WindowsGPU (``withTBWindows``) → columnar Sink,
+   through ``PipeGraph.run()``, 8 batches of 262,144 tuples each, every
+   window record (EOS-flushed ones included) against a numpy version of
+   the TB oracle (``tests/conftest.py`` ``tb_window_sums``), with no late
+   tuple, evicted pane cell or suppressed window:
+   * (a) YSB (``windflow_tpu/models/ad_analytics.py``, bench.py's YSB
+     leg): 1,000 ads onto 100 campaigns by a seeded table on the device,
+     views kept, 10 s tumbling windows keyed by campaign, tuples 305 µs
+     apart; the generic combiner (the radix grouping of 6,801 (key,
+     pane) ids) and ``withSumCombiner`` (the scatter placement);
+   * (b) telemetry (``windflow_tpu/models/telemetry_frames.py``): 1,024
+     sensors, 60 s windows sliding by 5 s, lateness 1 s, overflow policy
+     drop, readings 100 µs apart jittered back by up to 0.5 s; the
+     stable sort of 77,825 ids;
+   * (c) 32 keys, 4 s windows sliding by 1 s, tuples 10 µs apart: the
+     ring sizes to 68 panes, 2,177 ids, under the grouping kernel's
+     gate; the kernel must launch on every step.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -56,6 +77,16 @@ import numpy as np
 #: the repo's chip configuration (bench.py CONFIGS["tpu"])
 CAP, KEYS, WIN, SLIDE = 262144, 1024, 1024, 128
 BATCHES = 8
+#: time-window runs (EVENT time, CAP tuples a batch, BATCHES batches):
+#: (a) YSB: ads, campaigns, µs between tuples, 10 s tumbling windows
+YSB_ADS, YSB_CAMPAIGNS, YSB_GAP, YSB_WIN = 1000, 100, 305, (10 ** 7, 10 ** 7)
+#: (b) telemetry: sensors, µs between tuples, windows, lateness, jitter
+TELE_KEYS, TELE_GAP, TELE_WIN = 1024, 100, (60 * 10 ** 6, 5 * 10 ** 6)
+TELE_LATENESS, TELE_JITTER = 10 ** 6, 5 * 10 ** 5
+#: (c) the grouping kernel on the TB path: keys, µs between tuples,
+#: windows, panes a window, and the ring the first batch sizes
+TBC_KEYS, TBC_GAP, TBC_WIN, TBC_R, TBC_NP = 32, 10, (4 * 10 ** 6, 10 ** 6), \
+    4, 68
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM 32-bit rate outside the tensor cores, operations/s
@@ -173,6 +204,53 @@ def check_grouping(dev):
              "replaces": "windflow_tpu/kernels/pallas_ffat.py:214",
              "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}]
+
+
+def tb_grouping_ids(rng, K, NP, n):
+    """The (key, pane) ids of a TB step at run (c)'s shape
+    (``ffat_kernels.make_ffat_tb_step``'s ``sid``): ``key * NP + rel``
+    for the lanes of ``n`` tuples ``TBC_GAP`` µs apart, panes of 1 s, the
+    ring base one window span behind the batch."""
+    keys = rng.integers(0, K, n)
+    rel = (np.arange(n) * TBC_GAP) // TBC_WIN[1] + TBC_R
+    return (keys * NP + rel).astype(np.int32)
+
+
+def check_grouping_tb(dev):
+    """The grouping kernel at the TB path's shape, run (c): ids int32
+    [262144], NB = K*NP + 1 = 2,177; bit for bit against its plain
+    version (and its order against the stable sort), timed beside it,
+    its bound and ``sort(stable)`` + ``bincount``."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.windows.grouping import invert_perm
+    NB = TBC_KEYS * TBC_NP + 1
+    ids = torch.from_numpy(tb_grouping_ids(np.random.default_rng(17),
+                                           TBC_KEYS, TBC_NP, CAP)).to(dev)
+    got = fc.grouping_rank_hist(ids, NB)
+    torch.cuda.synchronize()
+    want = fc.grouping_rank_hist_plain(ids, NB)
+    worst = 0
+    for name, g, w in zip(("dest", "rank", "hist"), got, want):
+        worst = max(worst, (g.long() - w.long()).abs().max().item())
+        if not torch.equal(g, w):
+            fail(f"grouping_rank_hist[tb] {name} differs from its plain "
+                 "version")
+    if not torch.equal(invert_perm(got[0]).long(),
+                       torch.sort(ids, stable=True).indices):
+        fail("order_hist[tb] is not the stable argsort")
+    t = timings(f"grouping_rank_hist[tb] at B={CAP} NB={NB}",
+                kernel=lambda: fc.grouping_rank_hist(ids, NB),
+                plain=lambda: fc.grouping_rank_hist_plain(ids, NB),
+                library=lambda: (torch.sort(ids, stable=True),
+                                 torch.bincount(ids, minlength=NB)))
+    b_ms, b_by = bound_ms(CAP * 4 + 2 * CAP * 4 + NB * 4, 2 * CAP)
+    return [{"name": "grouping_rank_hist[tb]", "route": "cuda",
+             "source": "windflow_tpu_torch/csrc/grouping_rank_hist.cu",
+             "replaces": "windflow_tpu/kernels/pallas_ffat.py:214",
+             "max_abs_err": worst, "ms": t["kernel"], "plain_ms": t["plain"],
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": t["library"]}]
 
 
 def main_fold_mask(rng, K, NPP, R):
@@ -699,6 +777,230 @@ def run_reduce(dev_name, monoid, declare, key_compaction, batches,
     return nrec, secs, n, st
 
 
+def tb_oracle(keys, ts, vals, win, slide):
+    """numpy version of the TB oracle (tests/conftest.py
+    ``tb_window_sums``): the sum of every window ``[w*slide, w*slide +
+    win)`` that holds a tuple, per key, EOS-flushed windows included.
+    Returns ``(codes, sums)`` sorted by ``code = key * WIDS + wid``
+    (float64: exact for integer-valued data).  ``win`` is a multiple of
+    ``slide`` here, so a tuple lies in windows ``ts // slide - o`` for
+    ``o`` in ``[0, win / slide)``."""
+    last = ts // slide
+    ks, ws, vs = [], [], []
+    for o in range(win // slide):
+        w = last - o
+        m = w >= 0
+        ks.append(keys[m])
+        ws.append(w[m])
+        vs.append(vals[m])
+    k, w = np.concatenate(ks).astype(np.int64), np.concatenate(ws)
+    codes, inv = np.unique(k * tb_wids(ts, slide) + w, return_inverse=True)
+    return codes, np.bincount(inv, weights=np.concatenate(vs)
+                              .astype(np.float64))
+
+
+def tb_wids(ts, slide):
+    return int(ts.max()) // slide + 1
+
+
+def check_tb_records(label, cols, keys, ts, vals, win, slide):
+    """The run's window records (columnar sink batches) against
+    ``tb_oracle``, record for record; returns the record count."""
+    codes, sums = tb_oracle(keys, ts, vals, win, slide)
+    if not cols:
+        fail(f"TB {label}: no window records")
+    k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
+    w = np.concatenate([np.asarray(c.cols["wid"]) for c in cols])
+    v = np.concatenate([np.asarray(c.cols["value"]) for c in cols])
+    got = k.astype(np.int64) * tb_wids(ts, slide) + w
+    order = np.argsort(got, kind="stable")
+    if len(np.unique(got)) != len(got):
+        fail(f"TB {label}: duplicate (key, wid) records")
+    if not np.array_equal(got[order], codes):
+        fail(f"TB {label}: {len(got)} windows fired, {len(codes)} expected,"
+             " or other (key, wid)s")
+    if not np.isfinite(v).all():
+        fail(f"TB {label}: non-finite window values")
+    bad = np.flatnonzero(v[order].astype(np.float64) != sums)
+    if len(bad):
+        i = bad[0]
+        fail(f"TB {label}: {len(bad)} window sums differ, e.g. (key, wid) "
+             f"code {codes[i]}: {v[order][i]} vs {sums[i]}")
+    return len(got)
+
+
+def ysb_data(n, seed=3):
+    """(a): ad ids over 1,000 ads, event types uniform over {0, 1, 2},
+    timestamps YSB_GAP µs apart in event-time order, and the seeded
+    ad → campaign table."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, YSB_CAMPAIGNS, YSB_ADS).astype(np.int32)
+    ad = rng.integers(0, YSB_ADS, n).astype(np.int32)
+    etype = rng.integers(0, 3, n).astype(np.int32)
+    ts = np.arange(n, dtype=np.int64) * YSB_GAP
+    return table, ad, etype, ts
+
+
+def ysb_graph(dev_name, sum_combiner, table, ad, etype, ts, sink_fn):
+    """(a) as a user builds it (windflow_tpu/models/ad_analytics.py,
+    bench.py's YSB leg): Source (EVENT time) → FilterGPU (views) |
+    MapGPU (ad → campaign, a gather from the table on the device) →
+    Ffat_WindowsGPU (10 s tumbling TB counts, keyed by campaign) →
+    columnar Sink.  Returns ``(graph, window operator)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    dev_table = torch.from_numpy(table).to(dev_name)
+
+    def gen():
+        yield from ({"ad_id": a, "etype": e, "ts": t}
+                    for a, e, t in zip(ad, etype, ts.tolist()))
+
+    win = (wf.Ffat_WindowsGPU_Builder(lambda e: e["one"], lambda a, b: a + b)
+           .withTBWindows(*YSB_WIN).withKeyBy(lambda e: e["campaign"])
+           .withMaxKeys(YSB_CAMPAIGNS))
+    if sum_combiner:
+        win = win.withSumCombiner()
+    win = win.build()
+    g = wf.PipeGraph("chip_smoke_ysb", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    pipe = g.add_source(wf.Source_Builder(gen)
+                        .withTimestampExtractor(lambda e: e["ts"])
+                        .withOutputBatchSize(CAP).build())
+    pipe.add(wf.FilterGPU_Builder(lambda e: e["etype"] == 1).build())
+    pipe.chain(wf.MapGPU_Builder(
+        lambda e: {"campaign": dev_table[e["ad_id"].long()], "one": 1})
+        .build())
+    pipe.add(win).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                           .build())
+    return g, win
+
+
+def telemetry_data(n, seed=5):
+    """(b): sensors uniform over TELE_KEYS, integer-valued float32
+    readings, timestamps TELE_GAP µs apart in arrival order, each
+    jittered back by up to TELE_JITTER (inside the lateness)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, TELE_KEYS, n).astype(np.int32)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    ts = np.maximum(np.arange(n, dtype=np.int64) * TELE_GAP
+                    - rng.integers(0, TELE_JITTER + 1, n), 0)
+    return keys, vals, ts
+
+
+def keyed_tb_graph(dev_name, name, keys, vals, ts, max_keys, win, sink_fn,
+                   lateness=0, policy="drop", normalize=False):
+    """Source (EVENT time) of ``{"key", "v0", "ts"}`` records → [MapGPU
+    normalize | FilterGPU drop-NaN, as windflow_tpu/models/
+    telemetry_frames.py builds them] → Ffat_WindowsGPU (TB ``win``,
+    keyed, generic ``a + b``) → columnar Sink.  Returns ``(graph, window
+    operator)``."""
+    import windflow_tpu_torch as wf
+
+    def gen():
+        yield from ({"key": k, "v0": v, "ts": t}
+                    for k, v, t in zip(keys, vals, ts.tolist()))
+
+    win_op = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                         lambda a, b: a + b)
+              .withTBWindows(*win).withKeyBy(lambda t: t["key"])
+              .withMaxKeys(max_keys).withLateness(lateness)
+              .withOverflowPolicy(policy).build())
+    g = wf.PipeGraph(name, wf.ExecutionMode.DEFAULT, wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    pipe = g.add_source(wf.Source_Builder(gen)
+                        .withTimestampExtractor(lambda t: t["ts"])
+                        .withOutputBatchSize(CAP).build())
+    if normalize:
+        pipe.add(wf.MapGPU_Builder(
+            lambda t: {"key": t["key"], "v0": t["v0"]}).build())
+        pipe.chain(wf.FilterGPU_Builder(lambda t: t["v0"] == t["v0"])
+                   .build())
+    pipe.add(win_op).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                              .build())
+    return g, win_op
+
+
+def tb_run(label, build, keys, ts, vals, win):
+    """One PipeGraph.run() of a TB graph built by ``build(sink_fn)``;
+    every window record against the oracle, and no late tuple, evicted
+    pane cell or suppressed window.  Returns (records, seconds, NP)."""
+    import torch
+    cols = []
+    g, op = build(lambda c: cols.append(c) if c is not None else None)
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nrec = check_tb_records(label, cols, keys, ts, vals, *win)
+    st = op.dump_stats()
+    counts = [st[k] for k in ("Late_tuples_dropped", "Pane_cells_evicted",
+                              "Windows_dropped_on_overflow")]
+    if counts != [0, 0, 0]:
+        fail(f"TB {label}: late / evicted / dropped {counts}, 0 expected")
+    return nrec, secs, op.NP
+
+
+def tb_runs(dev_name="cuda"):
+    """Phase 4: the three time-window runs; returns their launch counts
+    by label."""
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    n = CAP * BATCHES
+    table, ad, etype, ts_a = ysb_data(n)
+    views = etype == 1
+    keys_a = table[ad[views]]
+    ones = np.ones(int(views.sum()))
+    tk, tv, tts = telemetry_data(n)
+    rng = np.random.default_rng(6)
+    ck = rng.integers(0, TBC_KEYS, n).astype(np.int32)
+    cv = rng.integers(-100, 101, n).astype(np.float32)
+    cts = np.arange(n, dtype=np.int64) * TBC_GAP
+    runs = [
+        ("(a) YSB generic", YSB_CAMPAIGNS, YSB_WIN,
+         lambda f: ysb_graph(dev_name, False, table, ad, etype, ts_a, f),
+         (keys_a, ts_a[views], ones)),
+        ("(a) YSB withSumCombiner", YSB_CAMPAIGNS, YSB_WIN,
+         lambda f: ysb_graph(dev_name, True, table, ad, etype, ts_a, f),
+         (keys_a, ts_a[views], ones)),
+        ("(b) telemetry", TELE_KEYS, TELE_WIN,
+         lambda f: keyed_tb_graph(dev_name, "chip_smoke_telemetry", tk, tv,
+                                  tts, TELE_KEYS, TELE_WIN, f,
+                                  lateness=TELE_LATENESS, policy="drop",
+                                  normalize=True),
+         (tk, tts, tv)),
+        ("(c) grouping kernel", TBC_KEYS, TBC_WIN,
+         lambda f: keyed_tb_graph(dev_name, "chip_smoke_tbc", ck, cv, cts,
+                                  TBC_KEYS, TBC_WIN, f),
+         (ck, cts, cv)),
+    ]
+    out = {}
+    for label, K, win, build, (keys, ts, vals) in runs:
+        fc.reset_launch_counts()
+        nrec, secs, NP = tb_run(label, build, keys, ts, vals, win)
+        counts = fc.launch_counts()
+        out[label] = counts
+        print(f"phase 4: PipeGraph.run() TB {label}: ring NP {NP}, "
+              f"K*NP+1 {K * NP + 1} (key, pane) ids; {nrec} windows match "
+              f"the oracle, no late, evicted or dropped; {n} tuples in "
+              f"{secs:.3f} s = {n / secs:.0f} tuples/s (host clock, "
+              f"information only); launches {counts}")
+        if label.startswith("(c)"):
+            if NP != TBC_NP:
+                fail(f"TB (c): ring NP {NP}, {TBC_NP} expected")
+            if K * NP + 1 > fc.MAX_BUCKETS:
+                fail("TB (c): (key, pane) ids beyond the kernel gate")
+            if counts["grouping_rank_hist"] < BATCHES:
+                fail(f"TB (c): grouping_rank_hist launched "
+                     f"{counts['grouping_rank_hist']} times in {BATCHES} "
+                     "steps")
+        elif any(counts.values()):
+            # radix, scatter and stable-sort placements: no kernel
+            fail(f"TB {label} launched a kernel off its path: {counts}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -725,7 +1027,8 @@ def main():
           f"(nvcc {nvcc_s:.2f} s, {build.nvcc_runs} compilations)")
 
     # 2. kernels against their plain versions
-    rows = check_grouping(dev) + check_fold(dev) + check_table(dev)
+    rows = check_grouping(dev) + check_grouping_tb(dev) + check_fold(dev) \
+        + check_table(dev)
     print("phase 2: kernels equal their plain versions at the main-path "
           "shapes and edges")
 
@@ -787,9 +1090,12 @@ def main():
               f"match the oracle batch by batch; {n} tuples in {secs:.3f} s "
               f"= {n / secs:.0f} tuples/s (host clock, information only); "
               f"launches {counts}{extra}")
+    # 4. the time-window runs, counts read just after each run
+    run_counts.update(tb_runs())
     # each kernel row's launches: the runs that make its calls (the
     # table's (e) runs make the calls of routes (a) and (c))
     runs_of = {"grouping_rank_hist": ("ffat generic", "ffat sum"),
+               "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": ("ffat generic", "ffat sum"),
                "sliding_fold[main]": ("ffat generic", "ffat sum"),
                "dense_monoid_table[a]": ("(a) compacted",

@@ -7,7 +7,10 @@ it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The grouping and fold kernels are exact, so those comparisons are bit
-for bit.  The dense-table kernel is bit for bit too on max, min,
+for bit.  The time-window checks at the end run a TB graph whose (key,
+pane) ids stay under the grouping kernel's gate: its records equal the
+kill switch's, the kernel launches on every step, and a step makes no
+host read.  The dense-table kernel is bit for bit too on max, min,
 integers, bool and integer-valued f32 sums; a random f32 sum is held to
 identical bits from call to call and to rtol 1e-5 against the plain
 scatter-add (the declared-sum reassociation tolerance).
@@ -285,3 +288,93 @@ def test_cuda_dense_table_rejects_what_the_kernel_does_not_take(cuda_device):
         rc.dense_monoid_table(row.long(), [torch.zeros(8,
                                                        device=cuda_device)],
                               ["sum"], [0.0], 4)
+
+
+# ---------------------------------------------------------------------------
+# time-based windows on the card
+# ---------------------------------------------------------------------------
+
+#: 8 keys, 4,096 tuples a batch 10 µs apart, 4 ms windows sliding by 1 ms:
+#: the first batch sizes the ring to 343 panes, 8 * 343 + 1 = 2,745 ids
+TB_K, TB_CAP, TB_GAP = 8, 4096, 10
+
+
+def _tb_data(n_batches, seed=31):
+    rng = np.random.default_rng(seed)
+    n = TB_CAP * n_batches
+    keys = rng.integers(0, TB_K, n).astype(np.int32)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    ts = np.arange(n, dtype=np.int64) * TB_GAP
+    return [{"key": k, "v0": v, "ts": t}
+            for k, v, t in zip(keys, vals, ts.tolist())]
+
+
+def _tb_graph(items, cuda_kernels, sink_fn):
+    import windflow_tpu_torch as wt
+    win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withTBWindows(4_000, 1_000).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(TB_K).build())
+    g = wt.PipeGraph("tb_cuda", wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT,
+                     config=wt.Config(device="cuda", cuda_kernels=cuda_kernels,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wt.Source_Builder(lambda: iter(items))
+                 .withTimestampExtractor(lambda t: t["ts"])
+                 .withOutputBatchSize(TB_CAP).build()) \
+        .add(win).add_sink(wt.Sink_Builder(sink_fn).build())
+    return g, win
+
+
+def _tb_run(items, cuda_kernels):
+    got = []
+    g, win = _tb_graph(items, cuda_kernels, lambda r: got.append(
+        (r["key"], r["wid"], r["value"])) if r is not None else None)
+    g.run()
+    return sorted(got), win
+
+
+@pytest.mark.cuda
+def test_cuda_tb_graph_under_the_kernel_gate_equals_the_kill_switch(
+        cuda_device):
+    items = _tb_data(5)
+    on, win = _tb_run(items, "auto")
+    assert win.max_keys * win.NP + 1 <= fc.MAX_BUCKETS
+    off, _ = _tb_run(items, "0")
+    assert on == off and len(on) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_tb_step_launches_the_grouping_kernel(cuda_device):
+    items = _tb_data(4)
+    fc.reset_launch_counts()
+    _, win = _tb_run(items, "auto")
+    # one launch a step: the four batches' steps, then the EOS flush
+    assert win._overflow_steps == 4
+    assert fc.launch_counts()["grouping_rank_hist"] >= 4
+
+
+@pytest.mark.cuda
+def test_cuda_tb_step_makes_no_host_read(cuda_device):
+    """One TB step, away from the 32-step checkpoint, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call."""
+    from windflow_tpu_torch.batch import HostBatch, host_to_device
+    items = _tb_data(3)
+    g, win = _tb_graph(items, "auto", lambda r: None)
+    g._build()
+    batches = []
+    for i in range(3):
+        chunk = items[i * TB_CAP:(i + 1) * TB_CAP]
+        tss = [t["ts"] for t in chunk]
+        batches.append(host_to_device(HostBatch(chunk, tss, watermark=tss[0]),
+                                      TB_CAP, cuda_device,
+                                      frontier=tss[-1]))
+    win._step(batches[0])        # ring sizing and the kernel build
+    win._step(batches[1])
+    torch.cuda.synchronize()
+    assert win._overflow_steps % 32 != 31
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = win._step(batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(out.valid.any())

@@ -72,19 +72,27 @@ class DeviceBatch:
     ``ts`` int64 ``[capacity]``; ``valid`` bool ``[capacity]``.
     ``watermark`` is the min-folded stamp safe to propagate; ``frontier``
     the newest watermark at staging (valid only for the consumer's own
-    place-then-fire decision)."""
+    place-then-fire decision).  ``ts_min``/``ts_max`` are the data
+    timestamp extrema of the staged lanes, known on the host at staging
+    (``None`` for device-born batches): outer bounds that stay valid
+    through mask-only stages, which the time-window ring sizes itself
+    from without reading the device."""
 
     __slots__ = ("payload", "ts", "valid", "watermark", "_frontier",
-                 "_size")
+                 "_size", "ts_max", "ts_min")
 
     def __init__(self, payload, ts, valid, watermark: int = WM_NONE,
-                 size: Optional[int] = None, frontier: Optional[int] = None):
+                 size: Optional[int] = None, frontier: Optional[int] = None,
+                 ts_max: Optional[int] = None,
+                 ts_min: Optional[int] = None):
         self.payload = payload
         self.ts = ts
         self.valid = valid
         self.watermark = watermark
         self._frontier = frontier
         self._size = size
+        self.ts_max = ts_max
+        self.ts_min = ts_min
 
     @property
     def frontier(self) -> int:
@@ -177,6 +185,7 @@ def unpack_body(dtypes, capacity: int):
 def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
                  device, watermark: int = WM_NONE,
                  frontier: Optional[int] = None,
+                 ts_max: Optional[int] = None, ts_min: Optional[int] = None,
                  pool=None) -> DeviceBatch:
     """ONE host→device copy of a packed staging buffer into a
     DeviceBatch.  For a CUDA target the copy is ``non_blocking`` from
@@ -194,32 +203,37 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
     if pool is not None:
         pool.release(buf, gate=gate)
     return DeviceBatch(tree_unflatten(treedef, cols), ts, valid,
-                       watermark=watermark, size=n, frontier=frontier)
+                       watermark=watermark, size=n, frontier=frontier,
+                       ts_max=ts_max, ts_min=ts_min)
 
 
 def _stage_soa(soa, tss, n: int, capacity: int, watermark: int,
                device, frontier: Optional[int] = None) -> DeviceBatch:
     """Pad an SoA numpy pytree + timestamps to ``capacity`` and stage it.
     Packable 1-D lanes ride one packed copy; anything else goes lane by
-    lane."""
+    lane.  The data timestamp extrema ride along as host metadata
+    (``DeviceBatch.ts_min``/``ts_max``)."""
+    tss = np.asarray(tss, dtype=np.int64)
+    ts_max = int(tss[:n].max()) if n else None
+    ts_min = int(tss[:n].min()) if n else None
     leaves, treedef = tree_flatten(soa)
     if all(l.ndim == 1 and staging.packable_dtype(l.dtype) for l in leaves):
         dtypes = tuple(str(np.dtype(l.dtype)) for l in leaves)
         pool = staging.pool_for(device)
         b = staging.PackedBatchBuilder(dtypes, capacity, pool=pool)
-        b.append(leaves, np.asarray(tss, dtype=np.int64))
+        b.append(leaves, tss)
         return stage_packed(b.finish(), treedef, dtypes, capacity, n,
                             device, watermark=watermark, frontier=frontier,
-                            pool=pool)
+                            ts_max=ts_max, ts_min=ts_min, pool=pool)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(
             _pad_leading(a, capacity))).to(device)
     payload = tree_map(lambda a: put(np.asarray(a)), soa)
-    ts = put(np.asarray(tss, dtype=np.int64))
+    ts = put(tss)
     valid = torch.arange(capacity, device=device) < n
     return DeviceBatch(payload, ts, valid, watermark=watermark, size=n,
-                       frontier=frontier)
+                       frontier=frontier, ts_max=ts_max, ts_min=ts_min)
 
 
 def host_to_device(batch: HostBatch, capacity: Optional[int], device,

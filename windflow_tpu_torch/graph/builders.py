@@ -210,8 +210,9 @@ class ReduceGPU_Builder(_BuilderBase):
 class Ffat_WindowsGPU_Builder(_BuilderBase):
     """Reference ``Ffat_WindowsGPU_Builder`` (``builders_gpu.hpp:576``):
     every window a batch completes is computed in the one step, so
-    ``withNumWinPerBatch`` has no counterpart.  Count-based windows only
-    in this package so far."""
+    ``withNumWinPerBatch`` has no counterpart.  Count-based windows (rank
+    panes) and time-based windows (time-quantum panes on a ring, fired by
+    the watermark; lateness applies)."""
 
     _default_name = "ffat_windows_gpu"
 
@@ -224,10 +225,24 @@ class Ffat_WindowsGPU_Builder(_BuilderBase):
         self._win_type = None
         self._win_len = 0
         self._slide = 0
+        self._lateness = 0
+        self._pane_capacity = None
+        self._overflow_policy = "drop"
 
     def withCBWindows(self, win_len: int, slide: int):
         self._win_type = WinType.CB
         self._win_len, self._slide = int(win_len), int(slide)
+        return self
+
+    def withTBWindows(self, win_usec: int, slide_usec: int):
+        self._win_type = WinType.TB
+        self._win_len, self._slide = int(win_usec), int(slide_usec)
+        return self
+
+    def withLateness(self, lateness_usec: int):
+        """TB only: how far behind the watermark (µs) a tuple may arrive
+        and still count; windows fire that much later."""
+        self._lateness = int(lateness_usec)
         return self
 
     def withMaxKeys(self, n: int):
@@ -243,21 +258,42 @@ class Ffat_WindowsGPU_Builder(_BuilderBase):
 
     def withMonoidCombiner(self, kind: str):
         """Declare the combiner a leafwise commutative monoid — ``"sum"``,
-        ``"max"`` or ``"min"`` on every leaf.  Pane cells are then built
-        by one scatter-combine (no batch permutation) and the sliding
-        fold drops its flag lane.  The declaration must match the
-        combiner exactly."""
+        ``"max"`` or ``"min"`` on every leaf.  Count-based pane cells are
+        then built by one scatter-combine (no batch permutation) and the
+        sliding fold drops its flag lane; time-based placement needs no
+        grouping at all.  The declaration must match the combiner
+        exactly."""
         self._monoid = kind
+        return self
+
+    def withPaneCapacity(self, n: int):
+        """TB only: length of the pane ring (window span panes plus slack
+        for the time spread of a batch and the lateness); by default it
+        is sized from the first batch and grows as needed."""
+        self._pane_capacity = int(n)
+        return self
+
+    def withOverflowPolicy(self, policy: str):
+        """TB ring overflow: ``"drop"`` (default: suppress windows that
+        lost data panes, counted in Windows_dropped_on_overflow),
+        ``"count"`` (fire them over the surviving panes: wrong
+        aggregates, counted in Pane_cells_evicted) or ``"error"`` (raise
+        at the next host checkpoint)."""
+        self._overflow_policy = policy
         return self
 
     def build(self) -> FfatWindowsGPU:
         if self._win_type is None:
-            raise WindFlowError("window operator needs withCBWindows")
+            raise WindFlowError(
+                "window operator needs withCBWindows or withTBWindows")
         if self._win_len <= 0 or self._slide <= 0:
             raise WindFlowError("window length and slide must be > 0")
         return FfatWindowsGPU(
             self._lift, self._comb,
-            WindowSpec(self._win_type, self._win_len, self._slide),
+            WindowSpec(self._win_type, self._win_len, self._slide,
+                       self._lateness),
             max_keys=self._max_keys, name=self._name,
             parallelism=self._parallelism,
-            key_extractor=self._key_extractor, monoid=self._monoid)
+            key_extractor=self._key_extractor,
+            pane_capacity=self._pane_capacity,
+            overflow_policy=self._overflow_policy, monoid=self._monoid)

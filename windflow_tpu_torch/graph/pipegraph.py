@@ -200,8 +200,10 @@ class PipeGraph:
 
     # -- introspection -------------------------------------------------------
     def get_num_dropped_tuples(self) -> int:
-        """Tuples the PROBABILISTIC collectors dropped as too late."""
-        return sum(c.num_dropped for c in self._collectors)
+        """Tuples dropped as too late: by the PROBABILISTIC collectors and
+        by the operators (time windows' late tuples)."""
+        return sum(c.num_dropped for c in self._collectors) \
+            + sum(op.num_dropped_tuples() for op in self._operators)
 
     def stats(self) -> dict:
         return {

@@ -5,6 +5,10 @@
   lays out (``carry``, ``carry_valid``, ``cur``, ``cur_valid``,
   ``cur_fill``, ``pane_base``, ``win_next``), its leaves as numpy
   arrays — into the port's state;
+* ``ffat_tb_state_from_numpy`` does the same for a time-window pane
+  ring (``make_ffat_tb_state``: the ``cells`` pytree, ``cell_valid``,
+  the int64 scalars ``base``, ``win_next`` and ``max_seen``, ``horizon``
+  [K] and the counters ``n_late``, ``n_evicted``, ``n_win_dropped``);
 * ``cstats_from_numpy`` does the same for the compacted reduce's stats
   (``windflow_tpu.parallel.compaction.cstats_init``: ``hits``,
   ``misses``, ``batches``, ``big``, ``cand``).
@@ -23,6 +27,8 @@ from windflow_tpu_torch.utils.tree import tree_map
 
 _KEYS = ("carry", "carry_valid", "cur", "cur_valid", "cur_fill",
          "pane_base", "win_next")
+_TB_KEYS = ("cells", "cell_valid", "base", "win_next", "max_seen",
+            "horizon", "n_late", "n_evicted", "n_win_dropped")
 _CSTATS_KEYS = ("hits", "misses", "batches", "big", "cand")
 
 
@@ -37,6 +43,16 @@ def ffat_state_from_numpy(state: dict, device="cpu") -> dict:
         raise WindFlowError(f"not an FFAT CB state: missing {missing}")
     return {k: tree_map(lambda a: _conv(a, device), state[k])
             for k in _KEYS}
+
+
+def ffat_tb_state_from_numpy(state: dict, device="cpu") -> dict:
+    """The port's FFAT TB pane ring from a JAX TB state given as numpy
+    arrays."""
+    missing = [k for k in _TB_KEYS if k not in state]
+    if missing:
+        raise WindFlowError(f"not an FFAT TB state: missing {missing}")
+    return {k: tree_map(lambda a: _conv(a, device), state[k])
+            for k in _TB_KEYS}
 
 
 def cstats_from_numpy(cstats: dict, device="cpu") -> dict:

@@ -210,6 +210,11 @@ class Operator:
             r.time_policy = time_policy
         return self.replicas
 
+    def num_dropped_tuples(self) -> int:
+        """Tuples this operator dropped as too late (time windows);
+        folded into ``PipeGraph.get_num_dropped_tuples``."""
+        return 0
+
     def dump_stats(self) -> dict:
         return {
             "Operator_name": self.name,

@@ -39,7 +39,8 @@ class ChainedGPU(Operator):
         return DeviceBatch(payload, batch.ts, valid,
                            watermark=batch.watermark,
                            size=None if filtered else batch._size,
-                           frontier=batch.frontier)
+                           frontier=batch.frontier, ts_max=batch.ts_max,
+                           ts_min=batch.ts_min)
 
 
 def chainable(op: Operator) -> bool:

@@ -63,7 +63,8 @@ class MapGPU(Operator):
         out_payload, _ = self.apply(batch.payload, batch.valid)
         return DeviceBatch(out_payload, batch.ts, batch.valid,
                            watermark=batch.watermark, size=batch._size,
-                           frontier=batch.frontier)
+                           frontier=batch.frontier, ts_max=batch.ts_max,
+                           ts_min=batch.ts_min)
 
 
 class FilterGPU(Operator):
@@ -86,6 +87,9 @@ class FilterGPU(Operator):
 
     def _step(self, batch: DeviceBatch) -> DeviceBatch:
         _, new_valid = self.apply(batch.payload, batch.valid)
+        # survivor count unknown until read; the ts extrema stay outer
+        # bounds of the surviving lanes
         return DeviceBatch(batch.payload, batch.ts, new_valid,
                            watermark=batch.watermark, frontier=batch.frontier,
-                           size=None)  # survivor count unknown until read
+                           size=None, ts_max=batch.ts_max,
+                           ts_min=batch.ts_min)

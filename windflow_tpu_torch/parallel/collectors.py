@@ -97,7 +97,8 @@ class WatermarkCollector(Collector):
                 # frontier a sibling replica reads.
                 msg = DeviceBatch(msg.payload, msg.ts, msg.valid,
                                   watermark=f,
-                                  size=msg.known_size, frontier=ff)
+                                  size=msg.known_size, frontier=ff,
+                                  ts_max=msg.ts_max, ts_min=msg.ts_min)
         elif f != msg.watermark:
             if isinstance(msg, HostBatch):
                 msg = dataclasses.replace(msg, watermark=f)

@@ -137,7 +137,10 @@ class DeviceStageEmitter(Emitter):
     DeviceBatch of fixed capacity ``output_batch_size`` onto ``device``
     with ONE packed copy (``batch.host_to_device``), and round-robins
     destinations.  The fixed capacity keeps every staged batch at one
-    shape."""
+    shape.  The open batch's data timestamp extrema come from the one
+    vectorised pass staging makes over its timestamps and ride on the
+    batch (``DeviceBatch.ts_min``/``ts_max``), for the time-window ring
+    downstream."""
 
     def __init__(self, dests, output_batch_size, device):
         if output_batch_size <= 0:

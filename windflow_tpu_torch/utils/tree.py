@@ -67,7 +67,10 @@ def per_record(fn: Callable, payload, n: int):
     ref = tree_leaves(payload)[0]
 
     def lane(x):
-        if not isinstance(x, torch.Tensor):
+        if isinstance(x, (bool, int, float)):
+            # a fill on the device: no host-to-device copy
+            x = torch.full((), x, device=ref.device)
+        elif not isinstance(x, torch.Tensor):
             x = torch.as_tensor(x, device=ref.device)
         if x.ndim == 0 or x.shape[0] != n:
             x = x.expand((n,) + tuple(x.shape))

@@ -1,7 +1,8 @@
 """Window specification (the port of ``WindowSpec`` from
 ``windflow_tpu/windows/engine.py``).  Window ``w`` covers domain values
-``[w*slide, w*slide + win_len)``; the host window engine itself is not
-ported yet."""
+``[w*slide, w*slide + win_len)``: tuple ranks for count-based windows,
+event times in µs for time-based ones (both run on the card, in
+``windows/ffat_gpu.py``).  The host window engine is not ported yet."""
 
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
-"""FFAT count-window step builders (the CB half of
-``windflow_tpu/windows/ffat_kernels.py``).
+"""FFAT step builders (the port of ``windflow_tpu/windows/
+ffat_kernels.py``).
 
-Pure functions over dicts of tensors: ``make_ffat_state`` lays out the
-dense per-key state, ``make_ffat_step`` builds the per-batch program and
-``make_ffat_flush`` the EOS flush.  The arithmetic follows the JAX
-package line by line, so the two produce the same records:
+Pure functions over dicts of tensors.  Count-based windows:
+``make_ffat_state`` lays out the dense per-key state, ``make_ffat_step``
+builds the per-batch program and ``make_ffat_flush`` the EOS flush.
+Time-based windows: ``make_ffat_tb_state`` lays out the pane ring and
+``make_ffat_tb_step`` builds its per-batch program (the operator's EOS
+flush loops it with an infinite watermark).  The arithmetic follows the
+JAX package line by line, so the two produce the same records:
 
 * ``lax.associative_scan`` has no torch twin; :func:`associative_scan`
   ports JAX's odd/even recursion, so the generic path keeps JAX's combine
@@ -34,7 +37,7 @@ from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.utils.dtypes import cast_state_update
 from windflow_tpu_torch.utils.tree import (per_record, tree_flatten,
                                            tree_map, tree_unflatten)
-from windflow_tpu_torch.windows.grouping import order_and_hist
+from windflow_tpu_torch.windows.grouping import auto_order, order_and_hist
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +101,16 @@ def _b(mask: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def _where(mask, a, b):
     return torch.where(_b(mask, a), a, b)
+
+
+def _group_order(ids, nbuckets: int, kernels: bool):
+    """Stable grouping permutation of int32 ids in ``[0, nbuckets)``:
+    through the grouping kernel where its gate holds, else the counting
+    permutation up to DIGIT^2 buckets and the stable sort beyond
+    (bit-identical either way: all order by (id, arrival))."""
+    if kernels and fc.grouping_supported(int(ids.shape[0]), nbuckets):
+        return fc.order_hist(ids, nbuckets)[0]
+    return auto_order(ids, nbuckets)
 
 
 def _group_order_hist(ids, nbuckets: int, kernels: bool):
@@ -519,6 +532,266 @@ def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable):
         return out, fired.reshape(-1), ts
 
     return flush
+
+
+# ---------------------------------------------------------------------------
+# the TB state and step
+# ---------------------------------------------------------------------------
+
+#: the TB step's pane sentinels (JAX: ``1 << 60``)
+_FAR = 1 << 60
+
+
+def make_ffat_tb_state(agg_spec, K: int, NP: int, device=None):
+    """Dense pane-ring state for time-based FFAT: column ``i`` of
+    ``cells`` holds the aggregate of time pane ``base + i`` (pane =
+    ``ts // P_usec``) for each key.  All keys share the pane clock, so
+    ``base``, ``win_next`` and ``max_seen`` are 0-d int64 tensors on the
+    device; ``horizon`` is the per-key overflow taint and the last three
+    fields count late tuples, evicted pane cells and suppressed
+    windows."""
+    def i64(v, shape=()):
+        return torch.full(shape, v, dtype=torch.int64, device=device)
+    return {
+        "cells": tree_map(lambda s: torch.zeros((K, NP) + tuple(s.shape),
+                                                dtype=s.dtype, device=device),
+                          agg_spec),
+        "cell_valid": torch.zeros((K, NP), dtype=torch.bool, device=device),
+        "base": i64(0),                  # pane index of column 0
+        "win_next": i64(0),              # next unfired window id
+        "max_seen": i64(-_FAR),          # newest data pane ever placed
+        "horizon": i64(-_FAR, (K,)),     # one past the newest evicted pane
+        "n_late": i64(0),
+        "n_evicted": i64(0),
+        "n_win_dropped": i64(0),
+    }
+
+
+def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
+                      NP: int, lift: Callable, comb: Callable,
+                      key_fn: Optional[Callable],
+                      drop_tainted: bool = False,
+                      monoid: Optional[str] = None, kernels: bool = False):
+    """Build the time-based FFAT per-batch step ``(state, payload, ts,
+    valid, wm_pane) -> (state, out, fired, out_ts, n_advanced)``
+    (``make_ffat_tb_step`` of the JAX package, pass for pass).
+
+    Window ``w`` covers panes ``[w*D, w*D + R)`` and fires once the
+    lateness-adjusted watermark ``wm_pane`` (a host int) passes its end.
+    Two fire passes A run before placement, against ``min(wm_pane,
+    oldest batch pane)``; the capacity roll then makes room for the
+    batch's newest pane (evicted data panes count in ``n_evicted`` and
+    taint their key's ``horizon``); the batch is placed; pass B fires
+    what it completed.  ``drop_tainted`` suppresses (and counts) windows
+    that lost a data pane to an eviction.
+
+    Where JAX folds under ``lax.cond`` only when a pass fires, this step
+    folds on every pass: reading ``n_fired`` on the host would stall the
+    stream three times a step.  With nothing fired every ``fired`` lane
+    is False and the counters are those of the no-fold branch; only the
+    values of unfired lanes differ, and egress never emits them.  Nothing
+    here reads the device on the host: ``base``, ``win_next`` and
+    ``max_seen`` stay 0-d tensors, the rolls gather by a device
+    ``arange``, and every scalar operand is a Python number.
+
+    Placement: a declared ``monoid`` scatter-combines lifts straight
+    into the ring (a TB pane cell is timestamp arithmetic, no grouping);
+    otherwise the batch is grouped by its (key, pane) id — the grouping
+    kernel for ``K*NP + 1 <= 4096`` ids under ``kernels``, the radix
+    counting sort up to DIGIT^2, the stable sort beyond (int64 ids at
+    ``K*NP + 1 >= 2^31``) — and a segmented scan folds each run."""
+    monoid = resolve_monoid(monoid)
+    MW = NP // D + 2
+    N_PASSES = 3                     # A1, A2 (pre-place), B (post-place)
+    NIDS = K * NP + 1
+
+    def roll_left(flags, values, k):
+        # advance the ring by the device scalar k; the vacated tail is
+        # invalid and holds copies of the last column, as JAX's clipped
+        # take leaves it
+        idx = torch.arange(NP, dtype=torch.int64, device=flags.device) + k
+        idxc = torch.clamp(idx, 0, NP - 1)
+        f = flags.index_select(1, idxc) & (idx < NP)[None, :]
+        v = tree_map(lambda a: a.index_select(1, idxc), values)
+        return f, v
+
+    def fire_pass(cells, cell_valid, base, win_next, frontier, max_seen,
+                  horizon):
+        """Fire windows ending <= frontier whose end pane is in the ring
+        and that start at or before the newest data pane; returns the
+        rolled ring and the pass's outputs."""
+        j = torch.arange(MW, dtype=torch.int64, device=cell_valid.device)
+        w = win_next + j
+        end_local = w * D + R - 1 - base                       # [MW]
+        fire = ((w * D + R) <= frontier) & (end_local < NP) \
+            & (w * D <= max_seen)                              # a prefix
+        # end_local < 0 only when a capacity roll evicted the whole
+        # window: it advances but never emits
+        emitable = fire & (end_local >= 0)
+        eidx = torch.clamp(end_local, 0, NP - 1)
+        n_fired = fire.sum(dtype=torch.int64)
+        sflag, swin = _sliding_reduce(comb, cell_valid, cells, R, axis=1)
+        wvals = tree_map(lambda a: a.index_select(1, eidx), swin)
+        f = emitable[None, :] & sflag.index_select(1, eidx)
+        n_drop = torch.zeros((), dtype=torch.int64, device=f.device)
+        if drop_tainted:
+            clean = (w * D)[None, :] >= horizon[:, None]
+            gone = (fire & ~emitable)[None, :] & ~clean
+            n_drop = (f & ~clean).sum(dtype=torch.int64) \
+                + gone.sum(dtype=torch.int64)
+            f = f & clean
+        new_next = win_next + n_fired
+        shift = torch.clamp(new_next * D - base, 0, NP)
+        cell_valid, cells = roll_left(cell_valid, cells, shift)
+        return (cells, cell_valid, base + shift, new_next,
+                f, wvals, w, n_fired, n_drop)
+
+    def step(state, payload, ts, valid, wm_pane: int):
+        B = capacity
+        dev = valid.device
+        if key_fn is not None:
+            keys = per_record(key_fn, payload, B).to(torch.int32)
+        else:
+            keys = torch.zeros(B, dtype=torch.int32, device=dev)
+        ok = valid & (keys >= 0) & (keys < K)
+        pane = torch.div(ts.to(torch.int64), P_usec, rounding_mode="floor")
+        if D > R:
+            # hopping windows with gaps: pane p belongs to a window iff
+            # p mod D < R; the others are never placed or counted
+            ok = ok & (torch.remainder(pane, D) < R)
+
+        # 1. pass A (twice): fire everything no tuple of this batch can
+        # touch; the second pass reaches the ends the first one's roll
+        # brought into the ring
+        min_pane = torch.where(ok, pane, _FAR).min()
+        frontier_a = torch.clamp(min_pane, max=wm_pane)
+        cells, cell_valid = state["cells"], state["cell_valid"]
+        base, win_next = state["base"], state["win_next"]
+        passes = []
+        n_win_dropped = state["n_win_dropped"]
+        for _ in range(2):
+            (cells, cell_valid, base, win_next,
+             fired_i, wvals_i, w_i, n_i, nd_i) = fire_pass(
+                cells, cell_valid, base, win_next, frontier_a,
+                state["max_seen"], state["horizon"])
+            passes.append((fired_i, wvals_i, w_i, n_i))
+            n_win_dropped = n_win_dropped + nd_i
+
+        # 2. capacity roll: make room for this batch's newest pane
+        max_pane = torch.where(ok, pane, base).max()
+        max_seen = torch.maximum(state["max_seen"],
+                                 torch.where(ok, pane, -_FAR).max())
+        shift_cap = torch.clamp(max_pane - base - (NP - 1), min=0)
+        col = torch.arange(NP, dtype=torch.int64, device=dev)[None, :]
+        evict_mask = cell_valid & (col < shift_cap)
+        evicted = evict_mask.sum(dtype=torch.int64)
+        horizon = torch.maximum(
+            state["horizon"],
+            torch.where(evict_mask, base + col + 1, -_FAR).amax(dim=1))
+        cell_valid, cells = roll_left(cell_valid, cells, shift_cap)
+        base = base + shift_cap
+
+        # 3. place the batch
+        rel = pane - base
+        late = ok & (rel < 0)
+        ok = ok & (rel >= 0)
+        rel_c = torch.clamp(rel, 0, NP - 1)
+        lifts = per_record(lift, payload, B)
+        if monoid is not None:
+            # a pane cell is timestamp arithmetic: lifts scatter-combine
+            # straight into the ring, absent cells hold the identity
+            row_u = torch.where(ok, keys.to(torch.int64), K)
+            col_u = torch.where(ok, rel_c, 0)
+
+            def scat(leaf):
+                ident = monoid_identity(monoid, leaf.dtype)
+                buf = torch.full((K + 1, NP) + tuple(leaf.shape[1:]), ident,
+                                 dtype=leaf.dtype, device=dev)
+                return _monoid_scatter_(buf, row_u, col_u,
+                                        _where(ok, leaf, ident), monoid)[:K]
+            partial = tree_map(scat, lifts)
+            has = torch.zeros((K + 1) * NP, dtype=torch.int32, device=dev)
+            has.index_add_(0, row_u * NP + col_u, ok.to(torch.int32))
+            partial_has = has.view(K + 1, NP)[:K] > 0
+            mop = _MONOID_OPS[monoid]
+
+            def merge_m(old_leaf, new_leaf):
+                old = _where(cell_valid, old_leaf,
+                             monoid_identity(monoid, old_leaf.dtype))
+                return mop(new_leaf, old)
+            cells = tree_map(merge_m, cells, partial)
+        else:
+            sid = torch.where(ok, keys.to(torch.int64) * NP + rel_c, K * NP)
+            if NIDS < (1 << 31):         # counting ids are int32
+                order = _group_order(sid.to(torch.int32).contiguous(), NIDS,
+                                     kernels).long()
+            else:
+                order = torch.sort(sid, stable=True).indices
+            ssid = sid[order]
+            slift = tree_map(lambda a: a[order], lifts)
+            true1 = torch.ones(1, dtype=torch.bool, device=dev)
+            brk = ssid[1:] != ssid[:-1]
+            scanned = _seg_scan(comb, torch.cat([true1, brk]), slift)
+            ends = torch.cat([brk, true1])
+            row = torch.where(ends, torch.div(ssid, NP, rounding_mode="floor"),
+                              K)
+            col_e = torch.where(ends, torch.remainder(ssid, NP), 0)
+
+            def scat(leaf):
+                buf = torch.zeros((K + 1, NP) + tuple(leaf.shape[1:]),
+                                  dtype=leaf.dtype, device=dev)
+                buf[row, col_e] = _where(ends, leaf, 0)
+                return buf[:K]
+            partial = tree_map(scat, scanned)
+            has = torch.zeros((K + 1, NP), dtype=torch.bool, device=dev)
+            has[row, col_e] = ends
+            partial_has = has[:K]
+            # comb is a whole-pytree combiner: it runs once on the tree
+            both_cells = comb(cells, partial)
+
+            def merge(old_leaf, new_leaf, both_leaf):
+                return _where(cell_valid & partial_has, both_leaf,
+                              _where(partial_has, new_leaf, old_leaf))
+            cells = tree_map(merge, cells, partial, both_cells)
+        cell_valid = cell_valid | partial_has
+
+        # 4. pass B: fire what this batch completed under the watermark
+        (cells, cell_valid, base, win_next,
+         fired_b, wvals_b, w_b, n_b, nd_b) = fire_pass(
+            cells, cell_valid, base, win_next, wm_pane, max_seen, horizon)
+        passes.append((fired_b, wvals_b, w_b, n_b))
+        n_win_dropped = n_win_dropped + nd_b
+
+        new_state = {
+            "cells": cells,
+            "cell_valid": cell_valid,
+            "base": base,
+            "win_next": win_next,
+            "max_seen": max_seen,
+            "horizon": horizon,
+            "n_late": state["n_late"] + late.sum(dtype=torch.int64),
+            "n_evicted": state["n_evicted"] + evicted,
+            "n_win_dropped": n_win_dropped,
+        }
+        # outputs: passes A1, A2, then B, [K, N_PASSES*MW] flattened
+        NM = N_PASSES * MW
+        w2 = torch.cat([p[2] for p in passes])
+        fired = torch.cat([p[0] for p in passes], 1)
+        wvals = tree_map(lambda *leaves: torch.cat(leaves, 1),
+                         *[p[1] for p in passes])
+        out_ts = (w2 * D + R) * P_usec - 1                     # end - 1
+        out = {
+            "key": torch.arange(K, dtype=torch.int32, device=dev)[:, None]
+            .expand(K, NM).reshape(-1),
+            "wid": w2[None, :].expand(K, NM).reshape(-1),
+            "value": tree_map(
+                lambda a: a.reshape((K * NM,) + tuple(a.shape[2:])), wvals),
+        }
+        n_adv = passes[0][3] + passes[1][3] + passes[2][3]
+        return new_state, out, fired.reshape(-1), \
+            out_ts[None, :].expand(K, NM).reshape(-1), n_adv
+
+    return step
 
 
 def make_ffat_state(agg_spec, K: int, R: int, device=None):

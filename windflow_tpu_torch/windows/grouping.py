@@ -74,8 +74,8 @@ def _single_digit_order_counts(ids: torch.Tensor, nbuckets: int):
     Bp = pos.shape[0]
     # padding lanes sit in the bucket after every real one, so they take
     # the tail of the permutation and ``order[:B]`` holds the real lanes
-    allc = torch.cat([counts, torch.tensor([Bp - B], dtype=torch.int32,
-                                           device=ids.device)])
+    allc = torch.cat([counts, torch.full((1,), Bp - B, dtype=torch.int32,
+                                         device=ids.device)])
     start = torch.cumsum(allc, 0, dtype=torch.int32) - allc
     dest = start[idsp.long()] + rank
     order = invert_perm(dest)
