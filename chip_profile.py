@@ -31,6 +31,21 @@ process:
   synchronised step, device time and launches by ``torch.profiler``),
   the egress of one TB output batch, and the device idle share of the
   whole ``PipeGraph.run()``;
+* the columnar ingest runs of ``chip_smoke.py`` phase 5, (i) frames
+  into the count windows (generic and ``withSumCombiner``) and (ii) the
+  YSB frames into the time windows, on graphs built by its
+  ``frames_cb_graph`` and ``ysb_frames_graph``: per batch the host time
+  of parsing the frames (``FrameSourceReplica._ingest``: parse, key
+  narrowing, value cast), of packing the columns into the staging
+  buffer (``emit_columns``) and of the copy (the finalize, its
+  non-blocking copy and a synchronise); the chain and window step
+  (wall on the host clock around a synchronised step, device time and
+  launches by ``torch.profiler``); the egress of one output batch; and
+  the whole ``PipeGraph.run()`` of 16 batches: wall, tuples/s, device
+  idle share.  Beside them, from the same process, the record path on
+  the same records: per batch one ``emit`` a record through the staging
+  emitter, and its whole run (``chip_smoke.main_path_graph``,
+  ``ysb_graph``);
 * the dense-table kernel alone at the reduce routes' three calls
   (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
   and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
@@ -48,7 +63,7 @@ process:
     python3 chip_profile.py --only fold_tiles --package-root DIR
 
 runs the named phases only (comma-separated: host, device, reduce, run,
-tb, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
+tb, columnar, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
 under DIR (another checkout, e.g. a parent commit unpacked by ``git
 archive``) instead of the one beside this script.
 
@@ -62,11 +77,14 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (BATCHES, CAP, KEYS, TBC_GAP, TBC_KEYS, TBC_WIN,
-                        TELE_KEYS, TELE_LATENESS, TELE_WIN, _device_us,
-                        cuda_time, fail, fold_inputs, keyed_tb_graph,
+from chip_smoke import (BATCHES, CAP, CHUNK_BYTES, COL_BATCHES, KEYS,
+                        TBC_GAP, TBC_KEYS, TBC_WIN, TELE_KEYS, TELE_LATENESS,
+                        TELE_WIN, _device_us, cuda_time, fail, fold_inputs,
+                        frame_blob, frames_cb_graph,
+                        keyed_frames_tb_graph, keyed_tb_graph,
                         main_path_data, main_path_graph, reduce_graph,
-                        telemetry_data, ysb_data, ysb_graph)
+                        telemetry_data, ysb_data, ysb_frames,
+                        ysb_frames_graph, ysb_graph)
 
 
 def emit(**kw):
@@ -333,6 +351,225 @@ def tb_phase(dev):
              device_idle_share=1 - busy_us / 1e6 / wall)
 
 
+class _Inbox:
+    """A destination that keeps what an emitter sends."""
+
+    def __init__(self):
+        self.got = []
+
+    def receive(self, ch, msg):
+        self.got.append(msg)
+
+
+def _whole_run(build):
+    """Two ``run()``s of fresh graphs from ``build()``: the first on the
+    host clock alone (wall, tuples/s), the second under
+    ``torch.profiler`` (device busy time over that run's wall: the idle
+    share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    n = CAP * COL_BATCHES
+    g = build()
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g = build()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    busy = sum(_device_us(e) for e in prof.key_averages()) / 1e6
+    if busy <= 0:
+        fail("torch.profiler recorded no device time for PipeGraph.run()")
+    return {"wall_s": wall, "tuples_per_s": n / wall,
+            "profiled_wall_s": pwall, "device_busy_s": busy,
+            "device_idle_share": 1 - busy / pwall}
+
+
+def _columnar_host_split(dev, blob, policy, batches=2):
+    """Host seconds per batch of the columnar path, the mean over
+    ``batches`` batches of frames after one warm-up batch (the staging
+    pool's first pinned allocations and the first pinned copy): parse
+    (the replica's ``_ingest`` into a recording emitter), pack
+    (``emit_columns`` into an open builder) and copy (finalize: the
+    non-blocking copy, then a synchronise)."""
+    import torch
+    from windflow_tpu_torch.io import FrameSource
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+
+    class Record:
+        def __init__(self):
+            self.blocks = []
+
+        def emit_columns(self, cols, tss, wm, row_wms=None):
+            self.blocks.append((cols, tss, wm, row_wms))
+    src = FrameSource(lambda: iter(()), nv=1, output_batch_size=CAP)
+    rep = src.replica_class(src, 0)
+    rep.time_policy = policy
+    rec = Record()
+    rep.emitter = rec
+    per = CAP * 24
+    split = {"parse_s": 0.0, "pack_s": 0.0, "copy_s": 0.0}
+    for b in range(batches + 1):
+        chunk = blob[b * per:(b + 1) * per]
+        rec.blocks = []
+        t = [time.perf_counter()]
+        for lo in range(0, len(chunk), CHUNK_BYTES):
+            rep._ingest(rep._carry + chunk[lo:lo + CHUNK_BYTES])
+        t.append(time.perf_counter())
+        # one lane of room more than the batch: the pack does not ship
+        em = DeviceStageEmitter([(_Inbox(), 0)], CAP + 1, dev)
+        for cols, tss, wm, row_wms in rec.blocks:
+            em.emit_columns(cols, tss, wm, row_wms=row_wms)
+        t.append(time.perf_counter())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        em.flush(rec.blocks[-1][2])
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if b:
+            split["parse_s"] += t[1] - t[0]
+            split["pack_s"] += t[2] - t[1]
+            split["copy_s"] += t[4] - t[3]
+    return {k: v / batches for k, v in split.items()}
+
+
+def _step_split(chain, win, staged_batches, warm):
+    """Chain and window step of one batch after ``warm`` steps: wall on
+    the host clock (mean of 10, state restored each time), device time
+    and launches (``profile_step``); and the egress of its output."""
+    import torch
+    from windflow_tpu_torch.batch import device_to_columns
+    from windflow_tpu_torch.utils.tree import tree_map
+    mids = []
+    for b in staged_batches:
+        for op in chain:
+            b = op._step(b)
+        mids.append(b)
+    for b in mids[:warm]:
+        win._step(b)
+    torch.cuda.synchronize()
+    state0 = tree_map(lambda t: t.clone(), win._states[0])
+    step_in = mids[warm]
+
+    def step():
+        win._states[0] = tree_map(lambda t: t.clone(), state0)
+        win._overflow_steps = 1          # keep off the TB checkpoint
+        return win._step(step_in)
+    chain_ms = cuda_time(lambda: [op._step(staged_batches[warm])
+                                  for op in chain]) if chain else 0.0
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    cols, _ = device_to_columns(out)
+    egress = time.perf_counter() - t0
+    return {"chain_ms": chain_ms, "step_wall_ms": 1e3 * sum(walls) / 10,
+            "step_profile": profile_step(step), "egress_s": egress,
+            "out_records": int(len(cols["key"]))}
+
+
+def _record_emit_s(dev, items, tss):
+    """Host seconds of one batch of records through the staging emitter
+    (one ``emit`` a record, the packed copy and a synchronise)."""
+    import torch
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+    t0 = time.perf_counter()
+    for it, t in zip(items, tss):
+        em.emit(it, t, t)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def columnar_phase(dev):
+    """The columnar runs (i) and (ii) beside the record path on the same
+    records (see the module docstring)."""
+    import numpy as np
+    from windflow_tpu_torch.basic import TimePolicy
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    n = CAP * COL_BATCHES
+    warm = 4
+    rng = np.random.default_rng(2025)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob = frame_blob(keys, np.arange(n), vals)
+    k32 = keys.astype(np.int32)
+    for sum_combiner in (False, True):
+        label = "i_frames_" + ("sum" if sum_combiner else "generic")
+        split = _columnar_host_split(dev, blob, TimePolicy.INGRESS)
+        g, _ = frames_cb_graph("cuda", sum_combiner, blob, lambda c: None)
+        g._build()
+        chain, win = g.pipes[0].operators[1:-2], g.pipes[0].operators[-2]
+        em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+        for b in range(warm + 1):
+            sl = slice(b * CAP, (b + 1) * CAP)
+            em.emit_columns({"key": k32[sl], "v0": vals[sl]},
+                            np.arange(b * CAP, (b + 1) * CAP), b * CAP)
+        steps = _step_split(chain, win, em.dests[0][0].got, warm)
+        whole = _whole_run(lambda: frames_cb_graph(
+            "cuda", sum_combiner, blob, lambda c: None)[0])
+        emit(phase="columnar", run=label, capacity=CAP, batches=COL_BATCHES,
+             host_per_batch=split, **steps, whole_run=whole)
+        items = [{"key": k, "v0": v} for k, v in zip(k32[:CAP], vals[:CAP])]
+        rec = {"host_emit_stage_s": _record_emit_s(dev, items,
+                                                   list(range(CAP)))}
+        rec["whole_run"] = _whole_run(lambda: main_path_graph(
+            "cuda", sum_combiner, k32, vals, lambda t: None)[0])
+        emit(phase="columnar_record_path", run=label, **rec)
+    table, ad, ts, etype = ysb_frames(n)
+    blob = frame_blob(ad, ts, etype.astype(np.float64))
+    split = _columnar_host_split(dev, blob, TimePolicy.EVENT)
+    g, _, win = ysb_frames_graph("cuda", table, blob, lambda c: None)
+    g._build()
+    chain = g.pipes[0].operators[1:-2]
+    em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+    ad32 = ad.astype(np.int32)
+    ev = etype.astype(np.float32)
+    for b in range(warm + 1):
+        sl = slice(b * CAP, (b + 1) * CAP)
+        em.emit_columns({"key": ad32[sl], "v0": ev[sl]}, ts[sl],
+                        int(ts[sl][-1]))
+    steps = _step_split(chain, win, em.dests[0][0].got, warm)
+    whole = _whole_run(lambda: ysb_frames_graph(
+        "cuda", table, blob, lambda c: None)[0])
+    emit(phase="columnar", run="ii_ysb_frames_sum", capacity=CAP,
+         batches=COL_BATCHES, ring_np=win.NP, host_per_batch=split, **steps,
+         whole_run=whole)
+    items = [{"ad_id": a, "etype": e, "ts": t}
+             for a, e, t in zip(ad32[:CAP], etype[:CAP].astype(np.int32),
+                                ts[:CAP].tolist())]
+    rec = {"host_emit_stage_s": _record_emit_s(dev, items,
+                                               ts[:CAP].tolist())}
+    rec["whole_run"] = _whole_run(lambda: ysb_graph(
+        "cuda", True, table, ad32, etype.astype(np.int32), ts,
+        lambda c: None)[0])
+    emit(phase="columnar_record_path", run="ii_ysb_frames_sum", **rec)
+    # the YSB lift is an integer count (atomics); the ordered f32 sum of
+    # the TB step: chip_smoke's float TB graph (100 keys, 10 s windows)
+    fk = rng.integers(0, 100, n)
+    fv = rng.standard_normal(n).astype(np.float32)
+    fts = np.arange(n, dtype=np.int64) * 152
+    g = keyed_frames_tb_graph("cuda", frame_blob(fk, fts, fv),
+                              lambda c: None)
+    g._build()
+    win = g.pipes[0].operators[-2]
+    em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+    for b in range(warm + 1):
+        sl = slice(b * CAP, (b + 1) * CAP)
+        em.emit_columns({"key": fk[sl].astype(np.int32), "v0": fv[sl]},
+                        fts[sl], int(fts[sl][-1]))
+    steps = _step_split([], win, em.dests[0][0].got, warm)
+    emit(phase="columnar", run="tb_f32_sum_step", capacity=CAP,
+         ring_np=win.NP, **steps)
+
+
 def table_tile_phase(dev):
     """The dense-table kernel's device time per call at three tile sizes,
     on the inputs of chip_smoke's three main-path calls."""
@@ -455,8 +692,8 @@ def sass_phase():
         emit(phase="sass", library=name, atomic_opcodes=dict(ops), **extra)
 
 
-PHASES = ("host", "device", "reduce", "run", "tb", "table_tiles",
-          "fold_tiles", "sass")
+PHASES = ("host", "device", "reduce", "run", "tb", "columnar",
+          "table_tiles", "fold_tiles", "sass")
 
 
 def main():
@@ -491,6 +728,8 @@ def main():
         run_phase()
     if "tb" in only:
         tb_phase(dev)
+    if "columnar" in only:
+        columnar_phase(dev)
     if "table_tiles" in only:
         table_tile_phase(dev)
     if "fold_tiles" in only:

@@ -60,6 +60,27 @@ Phases (each exits nonzero on failure; none is skipped):
      ring sizes to 68 panes, 2,177 ids, under the grouping kernel's
      gate; the kernel must launch on every step.
 
+5. drive the columnar ingest path through ``PipeGraph.run()``, 16
+   batches of 262,144 tuples each (bench.py ``CONFIGS["tpu"]``'s
+   ``e2e_tuples``), each run against its oracle and with the launch
+   counts set to 0 just before and read just after:
+   * (i) bench.py's e2e leg: a seeded blob of 4,194,304 binary frames
+     (96 MiB) read in 1 MiB chunks → ``FrameSource`` → MapGPU | FilterGPU
+     → the keyed count windows of phase 3 → columnar Sink (``defer=4``),
+     with the generic combiner and with ``withSumCombiner``; every batch
+     must stage packed (16 packed batches, no record batch);
+   * (ii) bench.py's YSB leg: frames of (ad, event time, event type) →
+     ``FrameSource`` → FilterGPU (views) | MapGPU (ad → campaign, a
+     seeded table on the device) → 10 s tumbling time windows,
+     ``withSumCombiner``, EVENT time, event times over ~64 windows; 16
+     packed batches, no late tuple, evicted pane or suppressed window;
+   * (iii) bench.py's device-source leg: ``DeviceSource`` batches born
+     on the card (the bench's lane hash, in int64) into the graph of (i),
+     both combiners;
+   then the declared f32 sums repeat bit for bit: a CB and a TB graph
+   with ``withSumCombiner`` over random float values, each run twice,
+   give the same bits and stay within rtol 1e-5 of a float64 oracle.
+
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -87,6 +108,8 @@ TELE_LATENESS, TELE_JITTER = 10 ** 6, 5 * 10 ** 5
 #: windows, panes a window, and the ring the first batch sizes
 TBC_KEYS, TBC_GAP, TBC_WIN, TBC_R, TBC_NP = 32, 10, (4 * 10 ** 6, 10 ** 6), \
     4, 68
+#: columnar runs (phase 5): batches a run, and bytes a FrameSource chunk
+COL_BATCHES, CHUNK_BYTES = 16, 1 << 20
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM 32-bit rate outside the tensor cores, operations/s
@@ -119,27 +142,32 @@ def _device_us(event):
     return getattr(event, "self_cuda_time_total", 0.0) if t is None else t
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, attempts=3):
     """Mean device milliseconds of ``fn()``: the kernel time that
     ``torch.profiler`` records over ``iters`` calls, gaps between
     kernels left out (CUDA events over back-to-back calls measure the
     host's issue rate instead wherever a call's Python and launch
-    overhead exceeds its device work)."""
+    overhead exceeds its device work).  A trace that holds no device
+    record at all (the profiler now and then delivers none) is taken
+    again, up to ``attempts`` traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = prof.key_averages()
-    us = sum(_device_us(e) for e in evs if e.device_type.name == "CUDA")
-    if us <= 0:
-        fail("torch.profiler recorded no device time: "
-             f"{[(e.key[:40], e.device_type.name) for e in evs][:20]}")
-    return us / iters / 1e3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        us = sum(_device_us(e) for e in evs if e.device_type.name == "CUDA")
+        if us > 0:
+            return us / iters / 1e3
+        print(f"chip_smoke: torch.profiler recorded no device time "
+              f"(trace {attempt} of {attempts})", file=sys.stderr)
+    fail("torch.profiler recorded no device time: "
+         f"{[(e.key[:40], e.device_type.name) for e in evs][:20]}")
 
 
 def timings(label, **fns):
@@ -1001,6 +1029,316 @@ def tb_runs(dev_name="cuda"):
     return out
 
 
+def frame_blob(keys, ts, vals):
+    """Binary frames (LE ``int64 key, int64 ts, float64 v0``) of the
+    given columns."""
+    rec = np.empty(len(keys), dtype=[("k", "<i8"), ("t", "<i8"),
+                                     ("v", "<f8")])
+    rec["k"], rec["t"], rec["v"] = keys, ts, vals
+    return rec.tobytes()
+
+
+def chunked(blob, step=CHUNK_BYTES):
+    """A FrameSource chunk generator over ``blob``: ``step`` bytes a
+    chunk, records split across chunks."""
+    def gen():
+        for lo in range(0, len(blob), step):
+            yield blob[lo:lo + step]
+    return gen
+
+
+def cb_tail(pipe, sum_combiner, sink_fn):
+    """The e2e leg's operators after its source: MapGPU ``v0*1.5+1`` |
+    FilterGPU ``(key & 7) != 7`` (chained) → keyed count windows →
+    columnar Sink (``defer=4``)."""
+    import windflow_tpu_torch as wf
+    pipe.add(wf.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    pipe.chain(wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    wb = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(KEYS))
+    if sum_combiner:
+        wb = wb.withSumCombiner()
+    pipe.add(wb.build()).add_sink(wf.Sink_Builder(sink_fn)
+                                  .withColumnarSink(defer=4).build())
+
+
+def frames_cb_graph(dev_name, sum_combiner, blob, sink_fn):
+    """(i): FrameSource over ``blob`` → ``cb_tail``, INGRESS time as
+    bench.py's e2e leg.  Returns ``(graph, source)``."""
+    import windflow_tpu_torch as wf
+    src = wf.FrameSource(chunked(blob), nv=1, fmt="frames",
+                         output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)})
+    g = wf.PipeGraph("chip_smoke_frames", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.INGRESS,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    cb_tail(g.add_source(src), sum_combiner, sink_fn)
+    return g, src
+
+
+def device_batch(i, dev):
+    """(iii): batch ``i`` of bench.py's device-source leg, born on the
+    card: lane-derived keys and values, mixed by the batch index (the
+    hash in int64, then narrowed, so it does not wrap in int32)."""
+    import torch
+    lane = torch.arange(CAP, dtype=torch.int64, device=dev)
+    mixed = (lane * 2654435761 + i * 40503) & 0x7FFFFFFF
+    return {"key": (mixed % KEYS).to(torch.int32),
+            "v0": (mixed % 1024).to(torch.float32) / 1024.0}
+
+
+def device_batch_numpy(n_batches):
+    """The records of ``device_batch`` 0..n_batches-1, in order."""
+    lane = np.arange(CAP, dtype=np.int64)
+    mixed = np.concatenate([(lane * 2654435761 + i * 40503) & 0x7FFFFFFF
+                            for i in range(n_batches)])
+    return ((mixed % KEYS).astype(np.int32),
+            (mixed % 1024).astype(np.float32) / np.float32(1024.0))
+
+
+def devsrc_cb_graph(dev_name, sum_combiner, sink_fn):
+    """(iii): DeviceSource → ``cb_tail``.  Returns ``(graph, source)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    dev = torch.device(dev_name)
+    src = (wf.DeviceSource_Builder(lambda i: device_batch(i, dev))
+           .withCapacity(CAP).withNumBatches(COL_BATCHES).build())
+    g = wf.PipeGraph("chip_smoke_devsrc", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.INGRESS,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    cb_tail(g.add_source(src), sum_combiner, sink_fn)
+    return g, src
+
+
+def ysb_frames(n, seed=3):
+    """(ii): bench.py's YSB records: ad ids over 1,000 ads as the frame
+    key, event times spread over ~64 windows, event types uniform over
+    {0, 1, 2} as the value; and the seeded ad → campaign table."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, YSB_CAMPAIGNS, YSB_ADS).astype(np.int32)
+    ad = rng.integers(0, YSB_ADS, n)
+    ts = np.arange(n, dtype=np.int64) * max(1, 64 * YSB_WIN[0] // n)
+    etype = rng.integers(0, 3, n)
+    return table, ad, ts, etype
+
+
+def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True):
+    """(ii) as bench.py builds it: FrameSource (EVENT time) → FilterGPU
+    (views) | MapGPU (ad → campaign) → tumbling TB counts keyed by
+    campaign → columnar Sink.  Returns ``(graph, source, windows)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    dev_table = torch.from_numpy(table).to(dev_name)
+    src = wf.FrameSource(chunked(blob), nv=1, fmt="frames",
+                         output_batch_size=CAP)
+    win = (wf.Ffat_WindowsGPU_Builder(lambda e: e["one"], lambda a, b: a + b)
+           .withTBWindows(*YSB_WIN).withKeyBy(lambda e: e["campaign"])
+           .withMaxKeys(YSB_CAMPAIGNS))
+    if sum_combiner:
+        win = win.withSumCombiner()
+    win = win.build()
+    g = wf.PipeGraph("chip_smoke_ysb_frames", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    pipe = g.add_source(src)
+    pipe.add(wf.FilterGPU_Builder(lambda e: e["v0"] == 1.0).build())
+    pipe.chain(wf.MapGPU_Builder(
+        lambda e: {"campaign": dev_table[e["key"].long()], "one": 1})
+        .build())
+    pipe.add(win).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                           .build())
+    return g, src, win
+
+
+def check_cb_columns(label, cols, keys, vals, exact=True):
+    """A CB run's columnar sink batches against ``oracle`` (after the map
+    and filter): the same (key, wid)s, and sums equal (``exact``) or
+    within rtol 1e-5."""
+    k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
+    w = np.concatenate([np.asarray(c.cols["wid"]) for c in cols])
+    v = np.concatenate([np.asarray(c.cols["value"]) for c in cols])
+    keep = (keys & 7) != 7
+    want = oracle(keys[keep], vals[keep] * np.float32(1.5) + np.float32(1.0))
+    got = dict(zip(zip(k.tolist(), w.tolist()), v.tolist()))
+    if len(got) != len(k):
+        fail(f"{label}: duplicate (key, wid) records")
+    if set(got) != set(want):
+        fail(f"{label}: {len(got)} windows fired, {len(want)} expected")
+    g = np.array([got[x] for x in want])
+    e = np.array(list(want.values()))
+    if not np.isfinite(g).all():
+        fail(f"{label}: non-finite window values")
+    bad = np.flatnonzero(g != e) if exact else \
+        np.flatnonzero(~np.isclose(g, e, rtol=1e-5, atol=1e-3))
+    if len(bad):
+        fail(f"{label}: {len(bad)} window sums differ, e.g. "
+             f"{list(want)[bad[0]]}: {g[bad[0]]} vs {e[bad[0]]}")
+    return len(k)
+
+
+def collect():
+    """A columnar sink function and the list it fills."""
+    out = []
+    return out, (lambda c: out.append(c) if c is not None else None)
+
+
+def staged_only_packed(label, src, batches):
+    """The FrameSource's staging emitter staged ``batches`` packed
+    batches and nothing on the record or chunk routes."""
+    em = src.replicas[0].emitter
+    got = (em.packed_batches, em.chunked_batches, em.record_batches)
+    if got != (batches, 0, 0):
+        fail(f"{label}: staged (packed, chunked, record) batches {got}, "
+             f"({batches}, 0, 0) expected")
+
+
+def float_sum_repeats(dev_name):
+    """C2 on the card: the declared f32 sums of a CB and a TB graph over
+    random float values (4 batches each), each run twice: the same bits,
+    and within rtol 1e-5 of the float64 oracle."""
+    import torch
+    nb = 4
+    rng = np.random.default_rng(41)
+    n = CAP * nb
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.standard_normal(n).astype(np.float32)
+    blob = frame_blob(keys, np.arange(n), vals)
+    outs = []
+    for _ in range(2):
+        cols, sink = collect()
+        g, _ = frames_cb_graph(dev_name, True, blob, sink)
+        g.run()
+        torch.cuda.synchronize()
+        check_cb_columns("C2 CB f32 sum", cols, keys.astype(np.int32), vals,
+                         exact=False)
+        outs.append(b"".join(np.asarray(c.cols[f]).tobytes()
+                             for c in cols for f in ("key", "wid", "value")))
+    if outs[0] != outs[1]:
+        fail("C2: the CB declared f32 sum differs between two runs")
+    tk = rng.integers(0, YSB_CAMPAIGNS, n)
+    tts = np.arange(n, dtype=np.int64) * 152
+    tv = rng.standard_normal(n).astype(np.float32)
+    blob = frame_blob(tk, tts, tv)
+    outs = []
+    for _ in range(2):
+        cols, sink = collect()
+        g = keyed_frames_tb_graph(dev_name, blob, sink)
+        g.run()
+        torch.cuda.synchronize()
+        codes, sums = tb_oracle(tk, tts, tv.astype(np.float64), *YSB_WIN)
+        k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
+        w = np.concatenate([np.asarray(c.cols["wid"]) for c in cols])
+        v = np.concatenate([np.asarray(c.cols["value"]) for c in cols])
+        got = k.astype(np.int64) * tb_wids(tts, YSB_WIN[1]) + w
+        order = np.argsort(got, kind="stable")
+        if not np.array_equal(got[order], codes) or not np.allclose(
+                v[order], sums, rtol=1e-5, atol=1e-3):
+            fail("C2: the TB declared f32 sum disagrees with its oracle")
+        outs.append(k.tobytes() + w.tobytes() + v.tobytes())
+    if outs[0] != outs[1]:
+        fail("C2: the TB declared f32 sum differs between two runs")
+    print(f"phase 5: C2 declared f32 sums repeat bit for bit: CB "
+          f"{n} tuples, TB {n} tuples, within rtol 1e-5 of float64")
+
+
+def keyed_frames_tb_graph(dev_name, blob, sink_fn):
+    """FrameSource (EVENT time) → 10 s tumbling TB windows summing v0,
+    ``withSumCombiner``, keyed by the frame key (100 keys) → columnar
+    Sink.  Returns the graph."""
+    import windflow_tpu_torch as wf
+    g = wf.PipeGraph("chip_smoke_tb_f32", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                output_batch_size=CAP)) \
+        .add(wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+             .withTBWindows(*YSB_WIN).withKeyBy(lambda t: t["key"])
+             .withMaxKeys(YSB_CAMPAIGNS).withSumCombiner().build()) \
+        .add_sink(wf.Sink_Builder(sink_fn).withColumnarSink().build())
+    return g
+
+
+def columnar_runs(dev_name="cuda"):
+    """Phase 5: runs (i)-(iii) against their oracles; returns their
+    launch counts by label."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2025)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob_i = frame_blob(keys, np.arange(n), vals)
+    keys32 = keys.astype(np.int32)
+    dk, dv = device_batch_numpy(COL_BATCHES)
+    table, ad, ts_y, etype = ysb_frames(n)
+    blob_ii = frame_blob(ad, ts_y, etype.astype(np.float64))
+    views = etype == 1
+    out = {}
+    for label, kind, sum_comb in (
+            ("(i) frames generic", "frames", False),
+            ("(i) frames sum", "frames", True),
+            ("(iii) device source generic", "device", False),
+            ("(iii) device source sum", "device", True),
+            ("(ii) YSB frames sum", "ysb", True)):
+        cols, sink = collect()
+        if kind == "frames":
+            g, src = frames_cb_graph(dev_name, sum_comb, blob_i, sink)
+        elif kind == "device":
+            g, src = devsrc_cb_graph(dev_name, sum_comb, sink)
+        else:
+            g, src, win = ysb_frames_graph(dev_name, table, blob_ii, sink)
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = fc.launch_counts()
+        out[label] = counts
+        if kind == "ysb":
+            nrec = check_tb_records(label, cols, table[ad[views]],
+                                    ts_y[views], np.ones(int(views.sum())),
+                                    *YSB_WIN)
+            st = win.dump_stats()
+            bad = [st[k] for k in ("Late_tuples_dropped",
+                                   "Pane_cells_evicted",
+                                   "Windows_dropped_on_overflow")]
+            if bad != [0, 0, 0]:
+                fail(f"{label}: late / evicted / dropped {bad}")
+            if any(counts.values()):
+                # K*NP+1 (key, pane) ids beyond the kernel gate: the sort
+                fail(f"{label} launched a kernel off its path: {counts}")
+            extra = f"; ring NP {win.NP}"
+        else:
+            nrec = check_cb_columns(label, cols,
+                                    keys32 if kind == "frames" else dk,
+                                    vals if kind == "frames" else dv)
+            need = ("grouping_rank_hist", "sliding_fold") if sum_comb \
+                else ("grouping_rank_hist",)
+            for name in need:
+                if counts[name] <= 0:
+                    fail(f"{label} never launched {name}")
+            if sum_comb and counts["sliding_fold"] != COL_BATCHES:
+                fail(f"{label} launched sliding_fold "
+                     f"{counts['sliding_fold']} times in {COL_BATCHES} steps")
+            extra = ""
+        if kind != "device":
+            staged_only_packed(label, src, COL_BATCHES)
+            extra += f"; {COL_BATCHES} packed batches, no record batch"
+        print(f"phase 5: PipeGraph.run() {label}: {nrec} windows match the "
+              f"oracle; {n} tuples in {secs:.3f} s = {n / secs:.0f} "
+              f"tuples/s (host clock, information only); launches "
+              f"{counts}{extra}")
+    float_sum_repeats(dev_name)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1092,12 +1430,19 @@ def main():
               f"launches {counts}{extra}")
     # 4. the time-window runs, counts read just after each run
     run_counts.update(tb_runs())
+    # 5. the columnar ingest runs, counts read just after each run
+    run_counts.update(columnar_runs())
+    if "jax" in sys.modules or "windflow_tpu" in sys.modules:
+        fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
     # table's (e) runs make the calls of routes (a) and (c))
-    runs_of = {"grouping_rank_hist": ("ffat generic", "ffat sum"),
+    cb_runs = ("ffat generic", "ffat sum", "(i) frames generic",
+               "(i) frames sum", "(iii) device source generic",
+               "(iii) device source sum")
+    runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
-               "sliding_fold[dense]": ("ffat generic", "ffat sum"),
-               "sliding_fold[main]": ("ffat generic", "ffat sum"),
+               "sliding_fold[dense]": cb_runs,
+               "sliding_fold[main]": cb_runs,
                "dense_monoid_table[a]": ("(a) compacted",
                                          "(e) compacted, keys < 1040",
                                          "(e) compacted, keys < 1100"),

@@ -309,11 +309,12 @@ def _tb_data(n_batches, seed=31):
             for k, v, t in zip(keys, vals, ts.tolist())]
 
 
-def _tb_graph(items, cuda_kernels, sink_fn):
+def _tb_graph(items, cuda_kernels, sink_fn, sum_combiner=False):
     import windflow_tpu_torch as wt
-    win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
-           .withTBWindows(4_000, 1_000).withKeyBy(lambda t: t["key"])
-           .withMaxKeys(TB_K).build())
+    wb = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withTBWindows(4_000, 1_000).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(TB_K))
+    win = (wb.withSumCombiner() if sum_combiner else wb).build()
     g = wt.PipeGraph("tb_cuda", wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT,
                      config=wt.Config(device="cuda", cuda_kernels=cuda_kernels,
                                       punctuation_interval_usec=10 ** 12))
@@ -353,12 +354,16 @@ def test_cuda_tb_step_launches_the_grouping_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_tb_step_makes_no_host_read(cuda_device):
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_tb_step_makes_no_host_read(cuda_device, sum_combiner):
     """One TB step, away from the 32-step checkpoint, under
-    ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call."""
+    ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call;
+    with ``withSumCombiner`` over the f32 values, the ordered sum's
+    grouping and doubling steps included."""
     from windflow_tpu_torch.batch import HostBatch, host_to_device
     items = _tb_data(3)
-    g, win = _tb_graph(items, "auto", lambda r: None)
+    g, win = _tb_graph(items, "auto", lambda r: None,
+                       sum_combiner=sum_combiner)
     g._build()
     batches = []
     for i in range(3):
@@ -378,3 +383,144 @@ def test_cuda_tb_step_makes_no_host_read(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(out.valid.any())
+
+
+# ---------------------------------------------------------------------------
+# count-window steps, declared f32 sums and columnar staging on the card
+# ---------------------------------------------------------------------------
+
+#: 64 keys, 8,192 tuples a batch, count windows of 64 sliding by 16
+CB_K, CB_CAP = 64, 8192
+
+
+def _cb_batches(device, n, seed=51, floats=False):
+    from windflow_tpu_torch.batch import columns_to_device
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        v = (rng.standard_normal(CB_CAP) if floats
+             else rng.integers(-100, 101, CB_CAP)).astype(np.float32)
+        cols = {"key": rng.integers(0, CB_K, CB_CAP).astype(np.int32),
+                "v0": v}
+        ts = np.arange(i * CB_CAP, (i + 1) * CB_CAP, dtype=np.int64)
+        out.append(columns_to_device(cols, ts, CB_CAP, device,
+                                     watermark=int(ts[-1])))
+    return out
+
+
+def _cb_op(sum_combiner):
+    import windflow_tpu_torch as wt
+    wb = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(CB_K))
+    if sum_combiner:
+        wb = wb.withSumCombiner()
+    g = wt.PipeGraph("cb_cuda", config=wt.Config(device="cuda"))
+    op = wb.build()
+    g.add_source(wt.Source_Builder(lambda: iter(())).withOutputBatchSize(
+        CB_CAP).build()).add(op).add_sink(wt.Sink_Builder(lambda t: None)
+                                          .build())
+    g._build()
+    return op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_cb_step_makes_no_host_read(cuda_device, sum_combiner):
+    """One CB step, generic and ``withSumCombiner``, under
+    ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call
+    (no copy of a Python scalar to the card, no host read)."""
+    op = _cb_op(sum_combiner)
+    batches = _cb_batches(cuda_device, 3)
+    op._step(batches[0])         # state and the kernels' first build
+    op._step(batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = op._step(batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(out.valid.any())
+
+
+def _f32_sum_bits(op_factory, batches, step):
+    """Outputs of every step of a fresh operator over ``batches``, as
+    bytes."""
+    op = op_factory()
+    parts = []
+    for b in batches:
+        out = step(op, b)
+        parts += [out.payload["key"], out.payload["wid"],
+                  out.payload["value"], out.valid]
+    torch.cuda.synchronize()
+    return b"".join(p.cpu().numpy().tobytes() for p in parts)
+
+
+@pytest.mark.cuda
+def test_cuda_declared_f32_sums_repeat_bit_for_bit(cuda_device):
+    """C2: the CB and the TB step with ``withSumCombiner`` over random
+    float values give the same bits on two runs (the declared float sum
+    takes no atomics)."""
+    import windflow_tpu_torch as wt
+    cb = _cb_batches(cuda_device, 4, floats=True)
+
+    def cb_step(op, b):
+        return op._step(b)
+    assert _f32_sum_bits(lambda: _cb_op(True), cb, cb_step) \
+        == _f32_sum_bits(lambda: _cb_op(True), cb, cb_step)
+
+    def tb_op():
+        win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                          lambda a, b: a + b)
+               .withTBWindows(40_000, 10_000).withKeyBy(lambda t: t["key"])
+               .withMaxKeys(CB_K).withSumCombiner().build())
+        g = wt.PipeGraph("tb_f32", wt.ExecutionMode.DEFAULT,
+                         wt.TimePolicy.EVENT,
+                         config=wt.Config(device="cuda"))
+        g.add_source(wt.Source_Builder(lambda: iter(()))
+                     .withTimestampExtractor(lambda t: 0)
+                     .withOutputBatchSize(CB_CAP).build()) \
+            .add(win).add_sink(wt.Sink_Builder(lambda t: None).build())
+        g._build()
+        return win
+    for i, b in enumerate(cb):      # 8 tuples a µs: dense panes
+        b.ts = b.ts // 8
+        b.ts_min, b.ts_max = i * CB_CAP // 8, ((i + 1) * CB_CAP - 1) // 8
+        b.watermark = b.ts_max
+    assert _f32_sum_bits(tb_op, cb, cb_step) == _f32_sum_bits(tb_op, cb,
+                                                              cb_step)
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_staging_buffers_not_reused_in_flight(cuda_device):
+    """Twice the pool depth of columnar batches stage behind a busy
+    stream with no synchronise: every staged batch holds its own rows, so
+    no pinned buffer was refilled while its copy was still queued."""
+    from windflow_tpu_torch import staging
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+
+    class Inbox:
+        def __init__(self):
+            self.got = []
+
+        def receive(self, ch, msg):
+            self.got.append(msg)
+    cap = 1 << 20
+    inbox = Inbox()
+    em = DeviceStageEmitter([(inbox, 0)], cap, cuda_device)
+    n = 2 * staging.DEFAULT_DEPTH + 1
+    rng = np.random.default_rng(61)
+    want = [rng.integers(0, 1 << 30, cap).astype(np.int32)
+            for _ in range(n)]
+    torch.cuda._sleep(200_000_000)     # hold the stream while we stage
+    for i, k in enumerate(want):
+        em.emit_columns({"key": k, "v0": k.astype(np.float32)},
+                        np.full(cap, i, np.int64), i)
+    torch.cuda.synchronize()
+    assert em.packed_batches == n == len(inbox.got)
+    for i, (db, k) in enumerate(zip(inbox.got, want)):
+        assert np.array_equal(db.payload["key"].cpu().numpy(), k), i
+        assert np.array_equal(db.payload["v0"].cpu().numpy(),
+                              k.astype(np.float32)), i
+        assert bool((db.ts == i).all()) and db.watermark == i

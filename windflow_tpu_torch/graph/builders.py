@@ -72,10 +72,17 @@ class Source_Builder(_BuilderBase):
         super().__init__()
         self._gen_fn = gen_fn
         self._ts_extractor = None
+        self._record_spec = None
 
     def withTimestampExtractor(self, fn: Callable[[Any], int]):
         """EVENT-time sources: the event timestamp (µs) of each item."""
         self._ts_extractor = fn
+        return self
+
+    def withRecordSpec(self, example: Any):
+        """Declare the records this source emits with an example record
+        (static metadata, never fed to the generator)."""
+        self._record_spec = example
         return self
 
     def withKeyBy(self, *_):
@@ -85,7 +92,67 @@ class Source_Builder(_BuilderBase):
         return Source(self._gen_fn, name=self._name,
                       parallelism=self._parallelism,
                       output_batch_size=self._output_batch_size,
-                      ts_extractor=self._ts_extractor)
+                      ts_extractor=self._ts_extractor,
+                      record_spec=self._record_spec)
+
+
+class DeviceSource_Builder(_BuilderBase):
+    """Source whose batches are generated on the card
+    (``io/device_source.py``): ``batch_fn(i)`` maps the Python int batch
+    index to a payload pytree of ``[capacity]`` tensors on the graph's
+    device."""
+
+    _default_name = "device_source"
+
+    def __init__(self, batch_fn: Callable) -> None:
+        super().__init__()
+        self._batch_fn = batch_fn
+        self._capacity = 0
+        self._n_batches = 0
+        self._ts_fn = None
+        self._wm_fn = None
+        self._ts_bounds_fn = None
+
+    def withCapacity(self, n: int):
+        """Lanes per generated batch."""
+        self._capacity = n
+        return self
+
+    def withNumBatches(self, n: int):
+        """Total batches across all replicas (replicas stride the
+        index)."""
+        self._n_batches = n
+        return self
+
+    def withTimestampFn(self, ts_fn: Callable, wm_fn: Callable[[int], int]):
+        """EVENT time: ``ts_fn(i)`` an int64 ``[capacity]`` lane on the
+        card, ``wm_fn(i) -> int`` the batch's frontier on the host."""
+        self._ts_fn = ts_fn
+        self._wm_fn = wm_fn
+        return self
+
+    def withTimestampBounds(self, ts_bounds_fn: Callable):
+        """Host fn ``i -> (ts_min, ts_max)`` bounding batch ``i``'s event
+        timestamps (``DeviceBatch.ts_min``/``ts_max``; EVENT time)."""
+        self._ts_bounds_fn = ts_bounds_fn
+        return self
+
+    def withKeyBy(self, *_):
+        raise WindFlowError("a Source has no input to key by")
+
+    def withRebalancing(self):
+        raise WindFlowError("a Source has no input to rebalance")
+
+    def withOutputBatchSize(self, n: int):
+        raise WindFlowError(
+            "DeviceSource batch size IS its capacity (withCapacity)")
+
+    def build(self):
+        from windflow_tpu_torch.io.device_source import DeviceSource
+        return DeviceSource(self._batch_fn, self._capacity, self._n_batches,
+                            name=self._name, parallelism=self._parallelism,
+                            ts_fn=self._ts_fn, wm_fn=self._wm_fn,
+                            ts_bounds_fn=self._ts_bounds_fn)
 
 
 class Sink_Builder(_BuilderBase):

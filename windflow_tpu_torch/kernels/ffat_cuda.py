@@ -222,8 +222,7 @@ def fold_leaf_plain(x: torch.Tensor, valid: torch.Tensor, R: int,
     then ``_sliding_reduce_plain``'s schedule (pow2 doubling + binary
     stitching from the newest end)."""
     ident = monoid_identity(monoid, x.dtype)
-    filled = torch.where(valid, x, torch.tensor(ident, dtype=x.dtype,
-                                                device=x.device))
+    filled = torch.where(valid, x, ident)
     op = {"sum": torch.add, "max": torch.maximum,
           "min": torch.minimum}[monoid]
     pow2 = [filled]

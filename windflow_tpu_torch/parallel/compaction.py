@@ -109,7 +109,7 @@ def cstats_update(st, keys, hit, miss, big=None):
         "hits": st["hits"] + hit.sum(dtype=torch.int64),
         "misses": st["misses"] + miss.sum(dtype=torch.int64),
         "batches": st["batches"] + 1,
-        "big": st["big"] + (0 if big is None else big.to(torch.int64)),
+        "big": st["big"] + (0 if big is None else big),
         "cand": cand,
     }
 
@@ -344,8 +344,7 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
             out_payload, out_ts, out_valid = ovf_big()
         else:
             out_payload, out_ts, out_valid = ovf_small()
-        cst = cstats_update(cst, keys, hit, miss,
-                            big=torch.tensor(big, device=dev))
+        cst = cstats_update(cst, keys, hit, miss, big=int(big))
         return out_payload, out_ts, out_valid, cst
 
     return body

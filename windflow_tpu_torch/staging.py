@@ -6,9 +6,13 @@ The port of ``windflow_tpu/staging.py``:
   buffers reused across batches.  For a CUDA target the buffers are
   PINNED host memory, so the one copy per batch runs as an asynchronous
   ``cudaMemcpyAsync``.  A released buffer carries a *gate*: the CUDA
-  event recorded right after the copy that reads it.  Re-acquiring a
-  buffer whose copy is still in flight waits on that event — the
-  recycling queue's blocking pop (reference ``recycling_gpu.hpp:88-126``).
+  event recorded right after the copy that reads it.  ``acquire`` takes
+  a pooled buffer whose copy has finished, allocates while fewer than
+  ``depth`` buffers of the size are pooled, and only then waits on the
+  oldest gate — the recycling queue's blocking pop (reference
+  ``recycling_gpu.hpp:88-126``).  A buffer is never freed while a copy
+  may still read it: pinned memory freed early could be handed to the
+  next allocation and overwritten under the copy.
 * :class:`PackedBatchBuilder` — streams SoA rows into one pooled buffer
   at their final packed offsets: every payload lane, the timestamp lane
   and the fill count ride ONE host buffer and ONE host→device copy.
@@ -75,17 +79,26 @@ class StagingPool:
                            pin_memory=True).numpy().view(np.uint32)
 
     def acquire(self, nwords: int) -> np.ndarray:
-        """A ``uint32[nwords]`` host buffer: recycled when one is pooled
-        (waiting on its gate only if the copy reading it is still in
-        flight), freshly allocated otherwise.  Contents are undefined."""
+        """A ``uint32[nwords]`` host buffer: a pooled one whose copy has
+        finished; else a fresh one while fewer than ``depth`` are pooled;
+        else the oldest pooled one, after waiting on its gate.  Contents
+        are undefined."""
         entry = None
         with self._lock:
             dq = self._slots.get(nwords)
             if dq:
-                entry = dq.popleft()
-                self._held_bytes -= nwords * 4
-                self.hits += 1
-            else:
+                for i, (buf, gate) in enumerate(dq):
+                    if gate is None or gate.query():
+                        entry = (buf, None)
+                        del dq[i]
+                        break
+                else:
+                    if len(dq) >= self.depth:
+                        entry = dq.popleft()
+                if entry is not None:
+                    self._held_bytes -= nwords * 4
+                    self.hits += 1
+            if entry is None:
                 self.misses += 1
         if entry is None:
             return self._alloc(nwords)
@@ -97,14 +110,17 @@ class StagingPool:
     def release(self, buf: np.ndarray, gate=None) -> None:
         """Return a buffer for reuse; ``gate`` is a ``torch.cuda.Event``
         recorded after the copy that reads ``buf`` (None when nothing
-        reads it asynchronously)."""
+        reads it asynchronously).  A pool at capacity drops the buffer,
+        after its copy has finished."""
         with self._lock:
             dq = self._slots.setdefault(buf.shape[0], deque())
-            if len(dq) >= self.depth \
-                    or self._held_bytes + buf.nbytes > self.max_bytes:
-                return              # at capacity: drop, never block
-            dq.append((buf, gate))
-            self._held_bytes += buf.nbytes
+            if len(dq) < self.depth \
+                    and self._held_bytes + buf.nbytes <= self.max_bytes:
+                dq.append((buf, gate))
+                self._held_bytes += buf.nbytes
+                return
+        if gate is not None:
+            gate.synchronize()
 
 
 _pools = {}
@@ -149,6 +165,11 @@ class PackedBatchBuilder:
         self.buf = self.pool.acquire(self.total)
         self.n = 0
 
+    @property
+    def room(self) -> int:
+        """Rows still free."""
+        return self.capacity - self.n
+
     def append(self, lanes: Sequence[np.ndarray], tss: np.ndarray) -> None:
         """Write ``len(tss)`` rows: ``lanes`` are 1-D payload columns in
         ``dtypes`` order, ``tss`` the int64 timestamps."""
@@ -169,3 +190,7 @@ class PackedBatchBuilder:
                 self.buf[off + w * self.n:off + w * self.capacity] = 0
         self.buf[-1] = self.n
         return self.buf
+
+    def abandon(self) -> None:
+        """Return the unused buffer to the pool (nothing read it)."""
+        self.pool.release(self.buf, None)

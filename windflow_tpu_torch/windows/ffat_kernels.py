@@ -15,9 +15,14 @@ JAX package line by line, so the two produce the same records:
 * every scatter keeps its index in range — the dump row K takes the
   lanes JAX would drop (torch raises on an out-of-range index);
 * ``.at[].add/max/min`` become ``index_add_`` and
-  ``scatter_reduce_(include_self=True)``.  On the card the float
-  scatter-add uses atomics, so float pane sums may differ from run to
-  run in the last bits (integer-valued data stays exact);
+  ``scatter_reduce_(include_self=True)`` for integer sums and for
+  max/min, whose result no arrival order changes.  A declared
+  floating-point sum does not go through atomics, whose order varies
+  from run to run on the card: the lifts are put in a stable (cell,
+  arrival) order and each cell's run is summed by a fixed doubling tree
+  (:func:`_run_sums`), so the bits repeat from run to run (exactly-once
+  replay needs that); they differ from JAX's sequential scatter-add by
+  reassociation only;
 * every int64 lane (``pane_base``, ``win_next``, ``n_fired``, the output
   slot iota) is int64 explicitly.
 
@@ -37,7 +42,8 @@ from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.utils.dtypes import cast_state_update
 from windflow_tpu_torch.utils.tree import (per_record, tree_flatten,
                                            tree_map, tree_unflatten)
-from windflow_tpu_torch.windows.grouping import auto_order, order_and_hist
+from windflow_tpu_torch.windows.grouping import (auto_order, invert_perm,
+                                                 order_and_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +222,10 @@ def resolve_monoid(monoid):
     return monoid
 
 
-def _ident(kind: str, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(monoid_identity(kind, like.dtype), dtype=like.dtype,
-                        device=like.device)
+def _ident(kind: str, like: torch.Tensor):
+    """The monoid identity for ``like``'s dtype as a Python scalar: a
+    ``torch.where`` operand, never a host-to-device copy."""
+    return monoid_identity(kind, like.dtype)
 
 
 def _monoid_fill(kind: str, flags, values):
@@ -241,6 +248,56 @@ def _monoid_scatter_(buf: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     flat.scatter_reduce_(0, idx, upd, reduce="amax" if kind == "max"
                          else "amin", include_self=True)
     return buf
+
+
+def _run_sums(vals: torch.Tensor, runs: torch.Tensor, max_run: int):
+    """Inclusive sums of ``vals`` along dim 0, in place, within the runs
+    of equal ids of the nondecreasing ``runs``, in a fixed order:
+    ``ceil(log2(max_run))`` doubling steps, each lane adding the partial
+    that ends ``d`` lanes back when that lane lies in its own run (+0.0
+    otherwise).  A run's last lane then holds its sum for runs of up to
+    ``max_run`` lanes.  No atomics: the same input gives the same bits
+    on every run."""
+    B = vals.shape[0]
+    dev = vals.device
+    steps = (min(max_run, B) - 1).bit_length()
+    if steps <= 0:
+        return vals
+    # a lane's distance from its run's first lane (a binary search: the
+    # 1-D int64 cummax is one block on the card, ~0.7 ms at 262,144),
+    # against every step's reach at once
+    dist = torch.arange(B, device=dev) - torch.searchsorted(runs, runs)
+    reach = dist[None, :] >= (1 << torch.arange(steps, device=dev))[:, None]
+    for j in range(steps):
+        d = 1 << j
+        # the partials d lanes back are read before the in-place add
+        vals[d:].add_(_where(reach[j, d:], vals[:-d], 0))
+    return vals
+
+
+def _ordered_cell_sums(leaf: torch.Tensor, order: torch.Tensor,
+                       scell: torch.Tensor, ncells: int, dump: int,
+                       max_run: int) -> torch.Tensor:
+    """The declared floating-point sum of ``leaf``'s lanes into ``ncells``
+    flat cells, repeatable bit for bit: ``order`` gathers the lanes into
+    (cell, arrival) order, ``scell`` [B] is each sorted lane's cell
+    (nondecreasing; lanes to drop sit in the ``dump`` cell), each run is
+    summed by :func:`_run_sums` and its last lane written to its cell.
+    Empty cells hold 0."""
+    sums = _run_sums(leaf[order], scell, max_run)
+    true1 = torch.ones(1, dtype=torch.bool, device=leaf.device)
+    ends = torch.cat([scell[1:] != scell[:-1], true1])
+    buf = torch.zeros((ncells,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                      device=leaf.device)
+    # a run's end lane is the only write to its cell (dump excepted)
+    buf[torch.where(ends, scell, dump)] = _where(ends, sums, 0)
+    return buf
+
+
+def _ordered_sum_leaf(monoid: Optional[str], leaf: torch.Tensor) -> bool:
+    """Whether a leaf's declared fold takes the ordered route: floating
+    sums only (integer sums and max/min are order-independent)."""
+    return monoid == "sum" and leaf.dtype.is_floating_point
 
 
 def _sliding_reduce_plain(comb, flags, values, R: int, axis: int,
@@ -294,7 +351,9 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
     ``rank_scatter`` grouping).  With a declared ``monoid`` ("sum" |
     "max" | "min") the step skips the permutation: each lane's within-key
     rank gives its pane cell and lifts scatter-COMBINE into the
-    ``[K+1, NP1]`` grid; the fold is then flagless."""
+    ``[K+1, NP1]`` grid (a floating-point sum instead goes through the
+    grouping's destinations and sums each cell's run in a fixed order,
+    :func:`_ordered_cell_sums`); the fold is then flagless."""
     monoid = resolve_monoid(monoid)
     NP1 = capacity // P + 2           # pane cells incl. continuation cell
     MAXO = capacity // (P * D) + 2 * K + 8
@@ -309,24 +368,38 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
         else:
             keys = torch.zeros(B, **i32)
         ok = valid & (keys >= 0) & (keys < K)
-        skey = torch.where(ok, keys, torch.tensor(K, **i32)).contiguous()
+        skey = torch.where(ok, keys, K).contiguous()
 
         if scatter_combine:
             if kernels and fc.grouping_supported(B, K + 1):
-                _, rank_u, hist_k = fc.grouping_rank_hist(skey, K + 1)
-                n_k = hist_k[:K]
+                dest, rank_u, hist = fc.grouping_rank_hist(skey, K + 1)
             else:
                 from windflow_tpu_torch.windows.grouping import dense_rank
-                rank_p, counts, _, _ = dense_rank(skey, K + 1)
+                rank_p, hist, _, _ = dense_rank(skey, K + 1)
                 rank_u = rank_p[:B]
-                n_k = counts[:K]
+                dest = None
+            n_k = hist[:K]
             lifts = per_record(lift, payload, B)
             fill0_u = state["cur_fill"][skey.clamp(max=K - 1).long()]
-            col_u = torch.where(ok, (fill0_u + rank_u) // P,
-                                torch.tensor(0, **i32)).long()
+            col_u = torch.where(ok, (fill0_u + rank_u) // P, 0).long()
             row_u = skey.long()
+            ordered = any(_ordered_sum_leaf(monoid, l)
+                          for l in tree_flatten(lifts)[0])
+            if ordered:
+                # the stable grouping's destinations put each (key, pane)
+                # cell's lanes in one run, in arrival order; a cell holds
+                # at most P lanes
+                if dest is None:
+                    dest = (torch.cumsum(hist, 0) - hist)[skey.long()] \
+                        + rank_u
+                order = invert_perm(dest).long()
+                scell = (row_u * NP1 + col_u)[order]
 
             def scat(leaf):
+                if _ordered_sum_leaf(monoid, leaf):
+                    return _ordered_cell_sums(
+                        leaf, order, scell, (K + 1) * NP1, K * NP1,
+                        P).view((K + 1, NP1) + tuple(leaf.shape[1:]))[:K]
                 ident = _ident(monoid, leaf)
                 buf = torch.full((K + 1, NP1) + tuple(leaf.shape[1:]),
                                  monoid_identity(monoid, leaf.dtype),
@@ -372,9 +445,8 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
                  true1])
             # scatter segment-end partials into dense [K+1, NP1] cells;
             # every non-end lane lands in the dump row K
-            row = torch.where(ends, sk, torch.tensor(K, **i32)).long()
-            col = torch.where(ends, pane_rel,
-                              torch.tensor(0, **i32)).long()
+            row = torch.where(ends, sk, K).long()
+            col = torch.where(ends, pane_rel, 0).long()
 
             def scat(leaf):
                 buf = torch.zeros((K + 1, NP1) + tuple(leaf.shape[1:]),
@@ -595,7 +667,10 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
     ``arange``, and every scalar operand is a Python number.
 
     Placement: a declared ``monoid`` scatter-combines lifts straight
-    into the ring (a TB pane cell is timestamp arithmetic, no grouping);
+    into the ring (a TB pane cell is timestamp arithmetic, no grouping),
+    except a floating-point sum, which orders the lanes by (key, pane)
+    id first (the grouping kernel under its gate, the stable sort
+    beyond) and sums each run in a fixed order (:func:`_ordered_cell_sums`);
     otherwise the batch is grouped by its (key, pane) id — the grouping
     kernel for ``K*NP + 1 <= 4096`` ids under ``kernels``, the radix
     counting sort up to DIGIT^2, the stable sort beyond (int64 ids at
@@ -702,8 +777,25 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
             # straight into the ring, absent cells hold the identity
             row_u = torch.where(ok, keys.to(torch.int64), K)
             col_u = torch.where(ok, rel_c, 0)
+            if any(_ordered_sum_leaf(monoid, l)
+                   for l in tree_flatten(lifts)[0]):
+                # (key, pane) cells in arrival order: the grouping kernel
+                # under its gate, the stable sort beyond
+                sid = row_u * NP + col_u
+                if kernels and fc.grouping_supported(B, NIDS):
+                    order = fc.order_hist(sid.to(torch.int32).contiguous(),
+                                          NIDS)[0].long()
+                else:
+                    order = torch.sort(
+                        sid.to(torch.int32) if NIDS < (1 << 31) else sid,
+                        stable=True).indices
+                ssid = sid[order]
 
             def scat(leaf):
+                if _ordered_sum_leaf(monoid, leaf):
+                    return _ordered_cell_sums(
+                        leaf, order, ssid, (K + 1) * NP, K * NP,
+                        B).view((K + 1, NP) + tuple(leaf.shape[1:]))[:K]
                 ident = monoid_identity(monoid, leaf.dtype)
                 buf = torch.full((K + 1, NP) + tuple(leaf.shape[1:]), ident,
                                  dtype=leaf.dtype, device=dev)
