@@ -46,6 +46,13 @@ process:
   the same records: per batch one ``emit`` a record through the staging
   emitter, and its whole run (``chip_smoke.main_path_graph``,
   ``ysb_graph``);
+* fusion: the four graphs of ``chip_smoke.py`` phase 6 (a) fused and
+  unfused (``Config.whole_chain_fusion``), on the same staged batch: the
+  hop's device work as each graph runs it (Map, Filter and tail steps;
+  or the tail's step with the prelude inside), wall on the host clock
+  around a synchronised call, device time and launches by
+  ``torch.profiler``; and whole runs of 16 batches in the order
+  unfused, fused, fused, unfused (tuples/s);
 * the dense-table kernel alone at the reduce routes' three calls
   (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
   and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
@@ -63,7 +70,7 @@ process:
     python3 chip_profile.py --only fold_tiles --package-root DIR
 
 runs the named phases only (comma-separated: host, device, reduce, run,
-tb, columnar, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
+tb, columnar, fusion, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
 under DIR (another checkout, e.g. a parent commit unpacked by ``git
 archive``) instead of the one beside this script.
 
@@ -80,12 +87,18 @@ import time
 from chip_smoke import (BATCHES, CAP, CHUNK_BYTES, COL_BATCHES, KEYS,
                         TBC_GAP, TBC_KEYS, TBC_WIN, TELE_KEYS, TELE_LATENESS,
                         TELE_WIN, _device_us, cuda_time, fail, fold_inputs,
-                        frame_blob, frames_cb_graph,
+                        frame_blob, frames_cb_graph, frames_reduce_graph,
                         keyed_frames_tb_graph, keyed_tb_graph,
                         main_path_data, main_path_graph, reduce_graph,
                         telemetry_data, ysb_data, ysb_frames,
                         ysb_frames_graph, ysb_graph)
 
+
+
+def _unfused(g):
+    """Time the Map|Filter chain and the tail's step apart: build the
+    graph without whole-chain fusion, so the tail's step is its own."""
+    g.config.whole_chain_fusion = False
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
@@ -132,6 +145,7 @@ def device_phase(staged):
     for sum_combiner in (False, True):
         g, pipe = main_path_graph("cuda", sum_combiner, keys, vals,
                                   lambda t: None)
+        _unfused(g)
         g._build()               # config, device and replicas, as run() does
         chain, w = pipe.operators[1], pipe.operators[2]
         mid = chain._step(staged)
@@ -168,6 +182,7 @@ def reduce_phase(staged):
                                        ("d_sorted_max", "max", False, True)):
         g, red = reduce_graph("cuda", monoid, declare, kc, keys, vals,
                               lambda c: None)
+        _unfused(g)
         g._build()          # config, device and compaction, as run() does
         chain = g.pipes[0].operators[1]
         mid = chain._step(staged)
@@ -283,6 +298,7 @@ def tb_phase(dev):
     warm = 4
     for label, build, items in _tb_cases(CAP * (warm + 1)):
         g, win = build(lambda c: None)
+        _unfused(g)
         g._build()              # config, device and replicas, as run() does
         chain = g.pipes[0].operators[1:-2]
         staged = []
@@ -505,6 +521,7 @@ def columnar_phase(dev):
         label = "i_frames_" + ("sum" if sum_combiner else "generic")
         split = _columnar_host_split(dev, blob, TimePolicy.INGRESS)
         g, _ = frames_cb_graph("cuda", sum_combiner, blob, lambda c: None)
+        _unfused(g)
         g._build()
         chain, win = g.pipes[0].operators[1:-2], g.pipes[0].operators[-2]
         em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
@@ -527,6 +544,7 @@ def columnar_phase(dev):
     blob = frame_blob(ad, ts, etype.astype(np.float64))
     split = _columnar_host_split(dev, blob, TimePolicy.EVENT)
     g, _, win = ysb_frames_graph("cuda", table, blob, lambda c: None)
+    _unfused(g)
     g._build()
     chain = g.pipes[0].operators[1:-2]
     em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
@@ -558,6 +576,7 @@ def columnar_phase(dev):
     fts = np.arange(n, dtype=np.int64) * 152
     g = keyed_frames_tb_graph("cuda", frame_blob(fk, fts, fv),
                               lambda c: None)
+    _unfused(g)
     g._build()
     win = g.pipes[0].operators[-2]
     em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
@@ -568,6 +587,123 @@ def columnar_phase(dev):
     steps = _step_split([], win, em.dests[0][0].got, warm)
     emit(phase="columnar", run="tb_f32_sum_step", capacity=CAP,
          ring_np=win.NP, **steps)
+
+
+def _fusion_graph(kind, fuse, blobs, dev_name):
+    """One graph of ``chip_smoke.py`` phase 6 (a), built with
+    ``.add(map).add(filter)``, fused or not; returns ``(graph, [the two
+    chain operators, the tail])``."""
+    blob_i, blob_ii, table = blobs
+    if kind.startswith("cb"):
+        g, _ = frames_cb_graph(dev_name, kind == "cb_sum", blob_i,
+                               lambda c: None, chain=False, fuse=fuse)
+    elif kind == "ysb_sum":
+        g = ysb_frames_graph(dev_name, table, blob_ii, lambda c: None,
+                             chain=False, fuse=fuse)[0]
+    else:
+        return frames_reduce_graph(dev_name, blob_i, lambda c: None, fuse)
+    return g, g.pipes[0].operators[1:4]
+
+
+def _fusion_hop(ops, fuse, staged, warm):
+    """The hop's device work on ``staged[warm]`` after ``warm`` steps, as
+    the graph runs it: unfused, the chain's steps then the tail's; fused,
+    the tail's step alone (the prelude inside).  Returns ``{"step": fn}``;
+    ``fn`` restores the window state first."""
+    import torch
+    from windflow_tpu_torch.utils.tree import tree_map
+    chain, tail = ([] if fuse else ops[:2]), ops[2]
+
+    def hop(b):
+        for op in chain:
+            b = op._step(b)
+        return tail._step(b)
+    for b in staged[:warm]:
+        hop(b)
+    torch.cuda.synchronize()
+    state0 = tree_map(lambda t: t.clone(), tail._states[0]) \
+        if hasattr(tail, "_states") else None
+
+    def step():
+        if state0 is not None:
+            tail._states[0] = tree_map(lambda t: t.clone(), state0)
+            tail._overflow_steps = 1     # keep off the TB checkpoint
+        return hop(staged[warm])
+    return {"step": step}
+
+
+def _mean_wall_ms(fn, iters=10):
+    """Mean host-clock ms of ``fn`` between two synchronises."""
+    import torch
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return 1e3 * sum(walls) / len(walls)
+
+
+def fusion_phase(dev):
+    """Fused against unfused hops (``Config.whole_chain_fusion``) on the
+    four graphs of ``chip_smoke.py`` phase 6 (a): on the same staged
+    batch, after ``warm`` steps, the hop's device work as the graph runs
+    it — unfused, the Map step, the Filter step and the tail's step;
+    fused, the tail's step with the prelude inside — wall on the host
+    clock around it with a synchronise (mean of 10, state restored,
+    taken in the order unfused, fused, fused, unfused), and device time
+    and launches by ``torch.profiler``; then whole ``PipeGraph.run()``s
+    of 16 batches in the same order: tuples/s on the host clock."""
+    import numpy as np
+    import torch
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    n = CAP * COL_BATCHES
+    warm = 4
+    rng = np.random.default_rng(2025)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    table, ad, ts_y, etype = ysb_frames(n)
+    blobs = (frame_blob(keys, np.arange(n), vals),
+             frame_blob(ad, ts_y, etype.astype(np.float64)), table)
+    for kind in ("cb_generic", "cb_sum", "ysb_sum", "reduce_max"):
+        if kind == "ysb_sum":
+            cols = {"key": ad.astype(np.int32),
+                    "v0": etype.astype(np.float32)}
+            ts = ts_y
+        else:
+            cols = {"key": keys.astype(np.int32), "v0": vals}
+            ts = np.arange(n, dtype=np.int64)
+        em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+        for b in range(warm + 1):
+            sl = slice(b * CAP, (b + 1) * CAP)
+            em.emit_columns({k: v[sl] for k, v in cols.items()}, ts[sl],
+                            int(ts[sl][-1]))
+        staged = em.dests[0][0].got
+        hops = {}
+        for fuse in (False, True):
+            g, ops = _fusion_graph(kind, fuse, blobs, dev.type)
+            g._build()
+            hops[fuse] = _fusion_hop(ops, fuse, staged, warm)
+            hops[fuse]["segments"] = [sg["name"]
+                                      for sg in g._fused_segments]
+        walls = {False: [], True: []}
+        for fuse in (False, True, True, False):
+            walls[fuse].append(_mean_wall_ms(hops[fuse]["step"]))
+        out = {("fused" if fuse else "unfused"): {
+            "segments": h["segments"], "hop_wall_ms": walls[fuse],
+            "hop_profile": profile_step(h["step"])}
+            for fuse, h in hops.items()}
+        whole = []
+        for fuse in (False, True, True, False):
+            g, _ = _fusion_graph(kind, fuse, blobs, dev.type)
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            whole.append({"fused": fuse,
+                          "tuples_per_s": n / (time.perf_counter() - t0)})
+        emit(phase="fusion", run=kind, capacity=CAP, batches=COL_BATCHES,
+             whole_runs=whole, **out)
 
 
 def table_tile_phase(dev):
@@ -692,7 +828,7 @@ def sass_phase():
         emit(phase="sass", library=name, atomic_opcodes=dict(ops), **extra)
 
 
-PHASES = ("host", "device", "reduce", "run", "tb", "columnar",
+PHASES = ("host", "device", "reduce", "run", "tb", "columnar", "fusion",
           "table_tiles", "fold_tiles", "sass")
 
 
@@ -730,6 +866,8 @@ def main():
         tb_phase(dev)
     if "columnar" in only:
         columnar_phase(dev)
+    if "fusion" in only:
+        fusion_phase(dev)
     if "table_tiles" in only:
         table_tile_phase(dev)
     if "fold_tiles" in only:

@@ -79,7 +79,37 @@ Phases (each exits nonzero on failure; none is skipped):
      both combiners;
    then the declared f32 sums repeat bit for bit: a CB and a TB graph
    with ``withSumCombiner`` over random float values, each run twice,
-   give the same bits and stay within rtol 1e-5 of a float64 oracle.
+   give the same bits and stay within rtol 1e-5 of a float64 oracle;
+6. drive whole-chain fusion, keyed routing, split and merge through
+   ``PipeGraph.run()`` at 262,144 tuples a batch and 16 batches, each
+   run against its oracle, launch counts set to 0 just before and read
+   just after:
+   * (a) three graphs built with ``.add(map).add(filter)``, each run
+     fused and unfused (``Config.whole_chain_fusion``) in this process:
+     (i)'s columnar CB graph (both combiners), (ii)'s YSB graph and
+     phase 3 (a)'s bounded compacted reduce fed by ``FrameSource``.
+     Fused records equal unfused and the oracle; fused, the Map and
+     Filter replicas run no step and the tail one step a batch; each
+     run's tuples/s, step wall and launches are printed (information
+     only);
+   * (b) two ``DeviceSource``s (seeds 1, 2) merged → MapGPU →
+     ``ReduceGPU`` keyed at parallelism 4, ``withMaxKeys(1024)``,
+     declared max, then declared sum on integer values
+     (merge_tests_gpu's shape): the per-key max / sum over all records
+     equals the oracle over both streams, every replica steps, the table
+     kernel launches on every replica step;
+   * (c) (i)'s frames → MapGPU → split by ``key & 1`` (split_tests_gpu's
+     shape): branch 0 keyed CB windows, ``withSumCombiner``, parallelism
+     2 behind the device keyby (grouping and fold kernels on both
+     replicas); branch 1 FilterGPU → keyed ``ReduceGPU`` sum; each
+     against its oracle, the split on the mask route;
+   * (d) ``FrameSource`` → ``ReduceGPU`` keyed at parallelism 2 through
+     ``KeyedDeviceStageEmitter.emit_columns``: every batch stages packed
+     and every output batch equals its partition's oracle;
+   * (e) device placement (``place_torch``) equals the host's
+     ``splitmix64_int`` mod n, n in {2, 3, 4, 7}, over the int32 edges
+     and 262,144 random keys;
+   * (f) the port's ``entry()`` step on the card equals it on the CPU.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -1047,14 +1077,16 @@ def chunked(blob, step=CHUNK_BYTES):
     return gen
 
 
-def cb_tail(pipe, sum_combiner, sink_fn):
+def cb_tail(pipe, sum_combiner, sink_fn, chain=True):
     """The e2e leg's operators after its source: MapGPU ``v0*1.5+1`` |
-    FilterGPU ``(key & 7) != 7`` (chained) → keyed count windows →
-    columnar Sink (``defer=4``)."""
+    FilterGPU ``(key & 7) != 7`` (chained, or added as a hop of its own
+    when not ``chain``) → keyed count windows → columnar Sink
+    (``defer=4``)."""
     import windflow_tpu_torch as wf
     pipe.add(wf.MapGPU_Builder(
         lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
-    pipe.chain(wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    (pipe.chain if chain else pipe.add)(
+        wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
     wb = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
           .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
           .withMaxKeys(KEYS))
@@ -1064,9 +1096,11 @@ def cb_tail(pipe, sum_combiner, sink_fn):
                                   .withColumnarSink(defer=4).build())
 
 
-def frames_cb_graph(dev_name, sum_combiner, blob, sink_fn):
+def frames_cb_graph(dev_name, sum_combiner, blob, sink_fn, chain=True,
+                    fuse=True):
     """(i): FrameSource over ``blob`` → ``cb_tail``, INGRESS time as
-    bench.py's e2e leg.  Returns ``(graph, source)``."""
+    bench.py's e2e leg (``fuse``: ``Config.whole_chain_fusion``).
+    Returns ``(graph, source)``."""
     import windflow_tpu_torch as wf
     src = wf.FrameSource(chunked(blob), nv=1, fmt="frames",
                          output_batch_size=CAP,
@@ -1075,8 +1109,9 @@ def frames_cb_graph(dev_name, sum_combiner, blob, sink_fn):
     g = wf.PipeGraph("chip_smoke_frames", wf.ExecutionMode.DEFAULT,
                      wf.TimePolicy.INGRESS,
                      config=wf.Config(device=dev_name,
-                                      punctuation_interval_usec=10 ** 12))
-    cb_tail(g.add_source(src), sum_combiner, sink_fn)
+                                      punctuation_interval_usec=10 ** 12,
+                                      whole_chain_fusion=fuse))
+    cb_tail(g.add_source(src), sum_combiner, sink_fn, chain=chain)
     return g, src
 
 
@@ -1127,10 +1162,12 @@ def ysb_frames(n, seed=3):
     return table, ad, ts, etype
 
 
-def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True):
+def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True,
+                     chain=True, fuse=True):
     """(ii) as bench.py builds it: FrameSource (EVENT time) → FilterGPU
-    (views) | MapGPU (ad → campaign) → tumbling TB counts keyed by
-    campaign → columnar Sink.  Returns ``(graph, source, windows)``."""
+    (views) | MapGPU (ad → campaign; added as a hop of its own when not
+    ``chain``) → tumbling TB counts keyed by campaign → columnar Sink.
+    Returns ``(graph, source, windows)``."""
     import torch
     import windflow_tpu_torch as wf
     dev_table = torch.from_numpy(table).to(dev_name)
@@ -1145,10 +1182,11 @@ def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True):
     g = wf.PipeGraph("chip_smoke_ysb_frames", wf.ExecutionMode.DEFAULT,
                      wf.TimePolicy.EVENT,
                      config=wf.Config(device=dev_name,
-                                      punctuation_interval_usec=10 ** 12))
+                                      punctuation_interval_usec=10 ** 12,
+                                      whole_chain_fusion=fuse))
     pipe = g.add_source(src)
     pipe.add(wf.FilterGPU_Builder(lambda e: e["v0"] == 1.0).build())
-    pipe.chain(wf.MapGPU_Builder(
+    (pipe.chain if chain else pipe.add)(wf.MapGPU_Builder(
         lambda e: {"campaign": dev_table[e["key"].long()], "one": 1})
         .build())
     pipe.add(win).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
@@ -1339,6 +1377,463 @@ def columnar_runs(dev_name="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: fusion, keyed routing, split and merge
+# ---------------------------------------------------------------------------
+
+def step_probe(ops):
+    """Wrap each operator's per-batch step: ``{name: [steps, host
+    seconds]}`` (the host clock around the call, no synchronise: the time
+    to enqueue the hop's device work)."""
+    probe = {}
+    for op in ops:
+        rec = probe.setdefault(op.name, [0, 0.0])
+        orig = op._step
+
+        def step(batch, *args, _orig=orig, _rec=rec):
+            t0 = time.perf_counter()
+            out = _orig(batch, *args)
+            _rec[1] += time.perf_counter() - t0
+            _rec[0] += 1
+            return out
+        op._step = step
+    return probe
+
+
+def frames_reduce_graph(dev_name, blob, sink_fn, fuse):
+    """Phase 3 (a)'s reduce fed by FrameSource: MapGPU ``v0*1.5+1`` →
+    FilterGPU ``(key & 7) != 7`` (added, not chained) → ReduceGPU keyed,
+    ``withMaxKeys(1024)``, declared max (the bounded compacted route) →
+    columnar Sink.  Returns ``(graph, [map, filter, reduce])``."""
+    import torch
+    import windflow_tpu_torch as wf
+    m = wf.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build()
+    f = wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build()
+    red = (wf.ReduceGPU_Builder(
+        lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                      "v0": torch.maximum(a["v0"], b["v0"])})
+        .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS)
+        .withMonoidCombiner("max").build())
+    g = wf.PipeGraph("chip_smoke_fused_reduce", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      whole_chain_fusion=fuse))
+    pipe = g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                       output_batch_size=CAP))
+    pipe.add(m).add(f).add(red).add_sink(
+        wf.Sink_Builder(sink_fn).withColumnarSink().build())
+    return g, [m, f, red]
+
+
+def batch_records(cols):
+    """A columnar run's output as sorted rows of (key field, value)
+    arrays, one row a record."""
+    k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
+    v = np.concatenate([np.asarray(c.cols["v0"] if "v0" in c.cols
+                                   else c.cols["value"]) for c in cols])
+    extra = [np.concatenate([np.asarray(c.cols["wid"]) for c in cols])] \
+        if "wid" in cols[0].cols else []
+    rows = np.stack([k.astype(np.float64)] + [e.astype(np.float64)
+                                              for e in extra]
+                    + [v.astype(np.float64)], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def fusion_runs(dev_name, blob_i, keys, vals, blob_ii, table, ad, ts_y,
+                views):
+    """6 (a): three graphs built with ``.add(map).add(filter)``, each run
+    fused and unfused in this process: records identical to each other
+    and to the oracle; fused, the Map and Filter replicas run no step and
+    the tail runs one step a batch.  Returns launch counts by label."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    n = CAP * COL_BATCHES
+    out = {}
+    for kind in ("cb generic", "cb sum", "ysb sum", "reduce max"):
+        recs = {}
+        for fuse in (False, True):
+            cols, sink = collect()
+            if kind.startswith("cb"):
+                g, _ = frames_cb_graph(dev_name, kind == "cb sum", blob_i,
+                                       sink, chain=False, fuse=fuse)
+                ops = g.pipes[0].operators[1:4]
+            elif kind == "ysb sum":
+                g, _, win = ysb_frames_graph(dev_name, table, blob_ii, sink,
+                                             chain=False, fuse=fuse)
+                ops = g.pipes[0].operators[1:4]
+            else:
+                g, ops = frames_reduce_graph(dev_name, blob_i, sink, fuse)
+            probe = step_probe(ops)
+            fc.reset_launch_counts()
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = fc.launch_counts()
+            label = f"6(a) {kind} {'fused' if fuse else 'unfused'}"
+            out[label] = counts
+            segs = [sg["name"] for sg in g._fused_segments]
+            steps = {nm: st[0] for nm, st in probe.items()}
+            tail = ops[2].name
+            if fuse:
+                if segs != ["|".join(op.name for op in ops)]:
+                    fail(f"{label}: fused segments {segs}")
+                if steps != {ops[0].name: 0, ops[1].name: 0,
+                             tail: COL_BATCHES}:
+                    fail(f"{label}: steps {steps}, {COL_BATCHES} tail "
+                         "steps and none on the members expected")
+            elif segs or set(steps.values()) != {COL_BATCHES}:
+                fail(f"{label}: segments {segs}, steps {steps}")
+            if kind.startswith("cb"):
+                nrec = check_cb_columns(label, cols, keys, vals)
+            elif kind == "ysb sum":
+                nrec = check_tb_records(label, cols, table[ad[views]],
+                                        ts_y[views],
+                                        np.ones(int(views.sum())), *YSB_WIN)
+            else:
+                nrec = 0
+                for i, c in enumerate(cols):
+                    sl = slice(i * CAP, (i + 1) * CAP)
+                    wk, wv = reduce_oracle(keys[sl], vals[sl], "max")
+                    if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                            and np.array_equal(np.asarray(c.cols["v0"]),
+                                               wv)):
+                        fail(f"{label}: batch {i} differs from the oracle")
+                    nrec += len(wk)
+                if len(cols) != COL_BATCHES:
+                    fail(f"{label}: {len(cols)} sink batches")
+            if not counts["grouping_rank_hist" if kind.startswith("cb")
+                          else "dense_monoid_table"] \
+                    and kind != "ysb sum":
+                fail(f"{label}: its kernel never launched: {counts}")
+            recs[fuse] = batch_records(cols)
+            wall = sum(st[1] for st in probe.values()) / COL_BATCHES
+            print(f"phase 6 (a): PipeGraph.run() {label}: {nrec} records "
+                  f"match the oracle; segments {segs}; steps {steps}; "
+                  f"{n} tuples in {secs:.3f} s = {n / secs:.0f} tuples/s; "
+                  f"step wall {wall * 1e3:.3f} ms a batch (host clock "
+                  "around the hop's steps, no synchronise; information "
+                  f"only); launches {counts}")
+        if not np.array_equal(recs[False], recs[True]):
+            fail(f"6(a) {kind}: fused records differ from unfused")
+    return out
+
+
+def merged_source(i, dev, seed):
+    """6 (b): batch ``i`` of a DeviceSource born on the card: lane- and
+    seed-mixed keys in [0, KEYS), integer values in [-100, 100]."""
+    import torch
+    lane = torch.arange(CAP, dtype=torch.int64, device=dev)
+    mixed = (lane * 2654435761 + i * 40503 + seed * 7919) & 0x7FFFFFFF
+    return {"key": (mixed % KEYS).to(torch.int32),
+            "v0": ((mixed >> 10) % 201 - 100).to(torch.float32),
+            "n": torch.ones(CAP, dtype=torch.int32, device=dev)}
+
+
+def merged_source_numpy(n_batches, seed):
+    lane = np.arange(CAP, dtype=np.int64)
+    mixed = np.concatenate([(lane * 2654435761 + i * 40503 + seed * 7919)
+                            & 0x7FFFFFFF for i in range(n_batches)])
+    return (mixed % KEYS).astype(np.int32), \
+        ((mixed >> 10) % 201 - 100).astype(np.float32)
+
+
+def merge_runs(dev_name):
+    """6 (b): two DeviceSources (seeds 1 and 2, COL_BATCHES / 2 batches
+    each) merged → MapGPU → ReduceGPU keyed at parallelism 4,
+    ``withMaxKeys(1024)``, declared max and then declared sum → columnar
+    Sink (merge_tests_gpu's shape)."""
+    import torch
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    dev = torch.device(dev_name)
+    nb = COL_BATCHES // 2
+    ks, vs = zip(*(merged_source_numpy(nb, s) for s in (1, 2)))
+    keys, vals = np.concatenate(ks), np.concatenate(vs)
+    v2 = vals.astype(np.float64) * 2 + 1
+    out = {}
+    for monoid in ("max", "sum"):
+        op = {"max": torch.maximum, "sum": torch.add}[monoid]
+        cols, sink = collect()
+        g = wf.PipeGraph("chip_smoke_merge", wf.ExecutionMode.DEFAULT,
+                         config=wf.Config(device=dev_name,
+                                          punctuation_interval_usec=10 ** 12))
+        pipes = [g.add_source(
+            wf.DeviceSource_Builder(lambda i, _s=s: merged_source(i, dev, _s))
+            .withCapacity(CAP).withNumBatches(nb).withName(f"src{s}")
+            .build()) for s in (1, 2)]
+        merged = pipes[0].merge(pipes[1])
+        merged.add(wf.MapGPU_Builder(
+            lambda t: {"key": t["key"], "v0": t["v0"] * 2.0 + 1.0,
+                       "n": t["n"]}).build())
+        red = (wf.ReduceGPU_Builder(lambda a, b: {
+            k: op(a[k], b[k]) for k in ("key", "v0", "n")})
+            .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS)
+            .withMonoidCombiner(monoid).withParallelism(4).build())
+        merged.add(red).add_sink(wf.Sink_Builder(sink).withColumnarSink()
+                                 .build())
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = fc.launch_counts()
+        label = f"6(b) merge reduce {monoid}"
+        out[label] = counts
+        k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
+        v = np.concatenate([np.asarray(c.cols["v0"]) for c in cols])
+        cnt = np.concatenate([np.asarray(c.cols["n"]) for c in cols])
+        if monoid == "max":
+            want = np.full(KEYS, -np.inf)
+            np.maximum.at(want, keys, v2)
+            got = np.full(KEYS, -np.inf)
+            np.maximum.at(got, k, v.astype(np.float64))
+        else:
+            # a declared sum sums the key field too: key = field / n
+            if np.any(k % cnt):
+                fail(f"{label}: key fields not multiples of the counts")
+            k = k // cnt
+            want = np.bincount(keys, weights=v2, minlength=KEYS)
+            got = np.bincount(k, weights=v.astype(np.float64),
+                              minlength=KEYS)
+            if not np.array_equal(np.bincount(k, weights=cnt,
+                                              minlength=KEYS),
+                                  np.bincount(keys, minlength=KEYS)):
+                fail(f"{label}: per-key tuple counts differ")
+        if not np.array_equal(got, want):
+            fail(f"{label}: per-key {monoid} differs from the oracle over "
+                 f"both streams ({int((got != want).sum())} keys)")
+        steps = [r.stats.device_programs_launched for r in red.replicas]
+        if min(steps) <= 0:
+            fail(f"{label}: a replica received no batch: {steps}")
+        if counts["dense_monoid_table"] < sum(steps):
+            fail(f"{label}: {counts['dense_monoid_table']} table launches "
+                 f"for {sum(steps)} replica steps")
+        print(f"phase 6 (b): PipeGraph.run() {label}: per-key {monoid} of "
+              f"{len(k)} records over {len(cols)} batches equals the "
+              f"oracle over both streams; replica steps {steps}; "
+              f"{len(keys)} tuples in {secs:.3f} s = {len(keys) / secs:.0f}"
+              f" tuples/s (information only); launches {counts}")
+    return out
+
+
+def split_run(dev_name, blob_i, keys, vals):
+    """6 (c): FrameSource → MapGPU → split by ``key & 1`` (split_tests_gpu's
+    shape).  Branch 0: keyed CB windows, ``withSumCombiner``, parallelism
+    2 behind the device keyby; branch 1: FilterGPU → keyed ReduceGPU,
+    ``withMaxKeys(1024)``, declared sum.  Each against its oracle; the
+    split takes the mask route."""
+    import torch
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.parallel.emitters import (DeviceKeyByEmitter,
+                                                      SplittingEmitter)
+    cols0, sink0 = collect()
+    cols1, sink1 = collect()
+    src = wf.FrameSource(chunked(blob_i), nv=1, output_batch_size=CAP)
+    g = wf.PipeGraph("chip_smoke_split", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    p = g.add_source(src)
+    p.add(wf.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    p.split(lambda t: t["key"] & 1, 2)
+    win = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(KEYS).withSumCombiner().withParallelism(2).build())
+    p.select(0).add(win).add_sink(wf.Sink_Builder(sink0)
+                                  .withColumnarSink().build())
+    red = (wf.ReduceGPU_Builder(lambda a, b: {"key": a["key"] + b["key"],
+                                              "v0": a["v0"] + b["v0"]})
+           .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS)
+           .withSumCombiner().build())
+    p.select(1).add(wf.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7)
+                    .build()).add(red) \
+        .add_sink(wf.Sink_Builder(sink1).withColumnarSink().build())
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    em = g.pipes[0].operators[1].replicas[0].emitter
+    if not isinstance(em, SplittingEmitter) \
+            or list(em._device_split.values()) != [True] \
+            or not isinstance(em.branches[0], DeviceKeyByEmitter):
+        fail("6(c): the split did not take the mask route into the device "
+             "keyby")
+    # branch 0: every CB window of the even keys (no filter on it)
+    v15 = vals * np.float32(1.5) + np.float32(1.0)
+    even = (keys & 1) == 0
+    want = oracle(keys[even], v15[even])
+    k = np.concatenate([np.asarray(c.cols["key"]) for c in cols0])
+    w = np.concatenate([np.asarray(c.cols["wid"]) for c in cols0])
+    v = np.concatenate([np.asarray(c.cols["value"]) for c in cols0])
+    got = dict(zip(zip(k.tolist(), w.tolist()), v.tolist()))
+    if len(got) != len(k) or got != want:
+        fail(f"6(c) branch 0: {len(got)} windows vs {len(want)} expected, "
+             "or sums differ")
+    steps = [r.stats.device_programs_launched for r in win.replicas]
+    if min(steps) < COL_BATCHES:
+        fail(f"6(c) branch 0: replica steps {steps}")
+    # branch 1: each batch's odd keys, filtered, reduced
+    if len(cols1) != COL_BATCHES:
+        fail(f"6(c) branch 1: {len(cols1)} sink batches")
+    for i, c in enumerate(cols1):
+        sl = slice(i * CAP, (i + 1) * CAP)
+        odd = (keys[sl] & 1) == 1
+        wk, wv = reduce_oracle(keys[sl][odd], vals[sl][odd], "sum")
+        if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                and np.array_equal(np.asarray(c.cols["v0"]), wv)):
+            fail(f"6(c) branch 1: batch {i} differs from the oracle")
+    for name in ("grouping_rank_hist", "sliding_fold", "dense_monoid_table"):
+        if counts[name] <= 0:
+            fail(f"6(c): {name} never launched")
+    if counts["sliding_fold"] < 2 * COL_BATCHES:
+        fail(f"6(c): sliding_fold launched {counts['sliding_fold']} times "
+             f"for {2 * COL_BATCHES} replica steps")
+    print(f"phase 6 (c): PipeGraph.run() split: branch 0 {len(k)} windows "
+          f"(parallelism 2, replica steps {steps}) and branch 1 "
+          f"{len(cols1)} batches match their oracles; mask split, no "
+          f"record crossed to the host; {len(keys)} tuples in {secs:.3f} s "
+          f"(information only); launches {counts}")
+    return {"6(c) split": counts}
+
+
+def keyed_staging_run(dev_name, blob_i, keys, vals):
+    """6 (d): FrameSource → ReduceGPU keyed at parallelism 2 (declared
+    max, ``withMaxKeys(1024)``) through
+    ``KeyedDeviceStageEmitter.emit_columns``: every batch stages packed,
+    and each output batch equals the oracle of the rows its partition
+    staged (splitmix64 placement, CAP rows a batch)."""
+    import torch
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.parallel.emitters import (
+        KeyedDeviceStageEmitter, splitmix64_np)
+    cols, sink = collect()
+    src = wf.FrameSource(chunked(blob_i), nv=1, output_batch_size=CAP)
+    red = (wf.ReduceGPU_Builder(
+        lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                      "v0": torch.maximum(a["v0"], b["v0"])})
+        .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS)
+        .withMonoidCombiner("max").withParallelism(2).build())
+    g = wf.PipeGraph("chip_smoke_keyed_staging", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(src).add(red).add_sink(wf.Sink_Builder(sink)
+                                        .withColumnarSink().build())
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    em = src.replicas[0].emitter
+    if not isinstance(em, KeyedDeviceStageEmitter):
+        fail("6(d): the source's edge is not the keyed staging emitter")
+    dest = (splitmix64_np(keys) % np.uint64(2)).astype(np.int64)
+    n_batches = sum(-(-int((dest == d).sum()) // CAP) for d in range(2))
+    got = (em.packed_batches, em.chunked_batches, em.record_batches)
+    if got != (n_batches, 0, 0):
+        fail(f"6(d): staged (packed, chunked, record) {got}, "
+             f"({n_batches}, 0, 0) expected")
+    want = []
+    for d in range(2):
+        idx = np.flatnonzero(dest == d)
+        for lo in range(0, len(idx), CAP):
+            sel = idx[lo:lo + CAP]
+            uk, inv = np.unique(keys[sel], return_inverse=True)
+            mx = np.full(len(uk), -np.inf, np.float32)
+            np.maximum.at(mx, inv, vals[sel])
+            want.append((uk.tolist(), mx.tolist()))
+    have = [(np.asarray(c.cols["key"]).tolist(),
+             np.asarray(c.cols["v0"]).tolist()) for c in cols]
+    if sorted(have) != sorted(want):
+        fail(f"6(d): {len(have)} output batches vs {len(want)} expected, "
+             "or records differ")
+    if counts["dense_monoid_table"] < n_batches:
+        fail(f"6(d): table launched {counts['dense_monoid_table']} times")
+    print(f"phase 6 (d): PipeGraph.run() keyed staging: {n_batches} packed "
+          f"batches over 2 partitions, every output batch equals its "
+          f"oracle; {len(keys)} tuples in {secs:.3f} s (information "
+          f"only); launches {counts}")
+    return {"6(d) keyed staging": counts}
+
+
+def placement_check(dev):
+    """6 (e): ``place_torch`` on the card equals ``splitmix64_int`` on the
+    host for n in {2, 3, 4, 7}, over the int32 edges and 262,144 random
+    keys."""
+    import torch
+    from windflow_tpu_torch.parallel.emitters import (place_torch,
+                                                      splitmix64_int)
+    rng = np.random.default_rng(77)
+    ranges = [np.arange(-2 ** 31, -2 ** 31 + 4096),
+              np.arange(-4096, 4096), np.arange(2 ** 31 - 4096, 2 ** 31),
+              rng.integers(-2 ** 31, 2 ** 31, CAP)]
+    keys = np.concatenate(ranges).astype(np.int32)
+    host = np.array([splitmix64_int(int(k)) for k in keys.tolist()],
+                    dtype=np.uint64)
+    lane = torch.from_numpy(keys).to(dev)
+    for n in (2, 3, 4, 7):
+        got = place_torch(lane, n).cpu().numpy()
+        if not np.array_equal(got, (host % np.uint64(n)).astype(np.int64)):
+            fail(f"6(e): device placement mod {n} differs from the host's")
+    print(f"phase 6 (e): splitmix64 placement on the card equals the "
+          f"host's for n in (2, 3, 4, 7) over {len(keys)} keys (int32 "
+          "edges, -1 and 0, random)")
+
+
+def entry_check():
+    """6 (f): the port's ``entry()`` step on the card equals the same step
+    on the CPU, ten steps from the zero state."""
+    from windflow_tpu_torch.entry import entry
+    gstep, gargs = entry(device="cuda")
+    cstep, cargs = entry(device="cpu")
+    gst, cst = gargs[0], cargs[0]
+    fired_total = 0
+    for _ in range(10):
+        gst, gout, gfired, gts = gstep(gst, *gargs[1:])
+        cst, cout, cfired, cts = cstep(cst, *cargs[1:])
+        f = cfired.numpy()
+        if not np.array_equal(gfired.cpu().numpy(), f):
+            fail("6(f): entry() fired masks differ between card and CPU")
+        for name in ("key", "wid", "value"):
+            if not np.array_equal(gout[name].cpu().numpy()[f],
+                                  cout[name].numpy()[f]):
+                fail(f"6(f): entry() fired {name} differs, card vs CPU")
+        if not np.array_equal(gts.cpu().numpy()[f], cts.numpy()[f]):
+            fail("6(f): entry() fired timestamps differ, card vs CPU")
+        fired_total += int(f.sum())
+    if fired_total == 0:
+        fail("6(f): entry() fired no window in ten steps")
+    print(f"phase 6 (f): entry() step on the card equals the CPU's: ten "
+          f"steps, {fired_total} fired windows, bit for bit")
+
+
+def routing_runs(dev_name="cuda"):
+    """Phase 6: every run above; returns launch counts by label."""
+    import torch
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2025)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob_i = frame_blob(keys, np.arange(n), vals)
+    table, ad, ts_y, etype = ysb_frames(n)
+    blob_ii = frame_blob(ad, ts_y, etype.astype(np.float64))
+    keys32 = keys.astype(np.int32)
+    out = fusion_runs(dev_name, blob_i, keys32, vals, blob_ii, table, ad,
+                      ts_y, etype == 1)
+    out.update(merge_runs(dev_name))
+    out.update(split_run(dev_name, blob_i, keys32, vals))
+    out.update(keyed_staging_run(dev_name, blob_i, keys32, vals))
+    placement_check(torch.device(dev_name))
+    entry_check()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1432,21 +1927,32 @@ def main():
     run_counts.update(tb_runs())
     # 5. the columnar ingest runs, counts read just after each run
     run_counts.update(columnar_runs())
+    # 6. fusion, keyed routing, split and merge, counts read just after
+    #    each run
+    run_counts.update(routing_runs())
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
     # table's (e) runs make the calls of routes (a) and (c))
     cb_runs = ("ffat generic", "ffat sum", "(i) frames generic",
                "(i) frames sum", "(iii) device source generic",
-               "(iii) device source sum")
+               "(iii) device source sum", "6(a) cb generic unfused",
+               "6(a) cb generic fused", "6(a) cb sum unfused",
+               "6(a) cb sum fused", "6(c) split")
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
                "sliding_fold[main]": cb_runs,
                "dense_monoid_table[a]": ("(a) compacted",
                                          "(e) compacted, keys < 1040",
-                                         "(e) compacted, keys < 1100"),
-               "dense_monoid_table[b]": ("(b) compacted sum",),
+                                         "(e) compacted, keys < 1100",
+                                         "6(a) reduce max unfused",
+                                         "6(a) reduce max fused",
+                                         "6(b) merge reduce max",
+                                         "6(d) keyed staging"),
+               "dense_monoid_table[b]": ("(b) compacted sum",
+                                         "6(b) merge reduce sum",
+                                         "6(c) split"),
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")}
     for r in rows:

@@ -524,3 +524,121 @@ def test_cuda_pinned_staging_buffers_not_reused_in_flight(cuda_device):
         assert np.array_equal(db.payload["v0"].cpu().numpy(),
                               k.astype(np.float32)), i
         assert bool((db.ts == i).all()) and db.watermark == i
+
+
+# ---------------------------------------------------------------------------
+# whole-chain fusion and the mask-only fan-outs on the card
+# ---------------------------------------------------------------------------
+
+def _fused_tail_graph(tail, event=False):
+    """Source → MapGPU → FilterGPU → ``tail`` → Sink on the card, built
+    (not run): fusion installs the Map|Filter prelude on ``tail``."""
+    import windflow_tpu_torch as wt
+    src = wt.Source_Builder(lambda: iter(())).withOutputBatchSize(CB_CAP)
+    if event:
+        src = src.withTimestampExtractor(lambda t: 0)
+    g = wt.PipeGraph("fused_cuda", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT if event else wt.TimePolicy.INGRESS,
+                     config=wt.Config(device="cuda"))
+    g.add_source(src.build()) \
+        .add(wt.MapGPU_Builder(lambda t: {"key": t["key"],
+                                          "v0": t["v0"] * 2.0}).build()) \
+        .add(wt.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build()) \
+        .add(tail).add_sink(wt.Sink_Builder(lambda t: None).build())
+    g._build()
+    assert tail._fused_prelude is not None
+    return tail
+
+
+def _no_host_read(step, batches):
+    """Two warm steps, then one under ``set_sync_debug_mode("error")``."""
+    step(batches[0])
+    step(batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step(batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_fused_cb_step_makes_no_host_read(cuda_device, sum_combiner):
+    """The fused Map|Filter|FFAT CB step, generic and
+    ``withSumCombiner``: the prelude runs inside the step, which makes no
+    synchronising call."""
+    import windflow_tpu_torch as wt
+    wb = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(CB_K))
+    op = _fused_tail_graph((wb.withSumCombiner() if sum_combiner
+                            else wb).build())
+    out = _no_host_read(op._step, _cb_batches(cuda_device, 3))
+    assert bool(out.valid.any())
+
+
+@pytest.mark.cuda
+def test_cuda_fused_tb_step_makes_no_host_read(cuda_device):
+    """The fused Map|Filter|FFAT TB step, away from the 32-step
+    checkpoint (the first step's ring sizing reads the device, on
+    purpose)."""
+    import windflow_tpu_torch as wt
+    op = _fused_tail_graph(
+        wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+        .withTBWindows(400, 100).withKeyBy(lambda t: t["key"])
+        .withMaxKeys(CB_K).build(), event=True)
+    batches = _cb_batches(cuda_device, 3)
+    for i, b in enumerate(batches):      # 8 tuples a µs
+        b.ts = b.ts // 8
+        b.ts_min, b.ts_max = i * CB_CAP // 8, ((i + 1) * CB_CAP - 1) // 8
+        b.watermark = b._frontier = b.ts_max
+    out = _no_host_read(op._step, batches)
+    assert op._overflow_steps == 3
+    assert bool(out.valid.any())
+
+
+@pytest.mark.cuda
+def test_cuda_device_keyby_split_makes_no_host_read(cuda_device):
+    """``DeviceKeyByEmitter.split`` on the card: one mask a destination,
+    no synchronising call, and the masks partition the valid lanes by the
+    host's splitmix64 placement."""
+    from windflow_tpu_torch.parallel import emitters as te
+    em = te.DeviceKeyByEmitter([(None, 0)] * 4, lambda t: t["key"])
+    batches = _cb_batches(cuda_device, 3)
+    keys, masks = _no_host_read(em.split, batches)
+    b = batches[2]
+    total = torch.stack(masks).to(torch.int32).sum(0)
+    assert torch.equal(total, b.valid.to(torch.int32))
+    k = b.payload["key"].cpu().numpy()
+    dest = torch.stack(masks).to(torch.int64).argmax(0).cpu().numpy()
+    want = (te.splitmix64_np(k) % np.uint64(4)).astype(np.int64)
+    assert np.array_equal(dest, want)
+
+
+@pytest.mark.cuda
+def test_cuda_device_split_makes_no_host_read(cuda_device):
+    """The device ``SplittingEmitter``: a torch split function takes the
+    mask-only route (probed once on meta tensors), with no synchronising
+    call on the batch."""
+    from windflow_tpu_torch.parallel.emitters import SplittingEmitter
+
+    class Branch:
+        def __init__(self):
+            self.got = []
+
+        def emit_device_batch(self, batch):
+            self.got.append(batch)
+    branches = [Branch(), Branch()]
+    em = SplittingEmitter(lambda t: t["key"] & 1, branches)
+    batches = _cb_batches(cuda_device, 3)
+    _no_host_read(em.emit_device_batch, batches)
+    assert list(em._device_split.values()) == [True]
+    b0, b1 = branches[0].got[2], branches[1].got[2]
+    # both branches hold the same buffers, each with its own mask
+    assert b0.payload["key"] is b1.payload["key"]
+    k = batches[2].payload["key"]
+    assert torch.equal(b0.valid, (k & 1) == 0)
+    assert torch.equal(b1.valid, (k & 1) == 1)

@@ -3,7 +3,11 @@
 The same dataflow API (PipeGraph, MultiPipe, fluent builders, watermarks,
 execution modes) on one NVIDIA GPU.  Device operators take the reference's
 GPU names (``MapGPU_Builder``, ``FilterGPU_Builder``,
-``ReduceGPU_Builder``, ``Ffat_WindowsGPU_Builder``); the FFAT hot loop and
+``ReduceGPU_Builder``, ``Ffat_WindowsGPU_Builder``) beside the host ones
+(``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder``,
+``Reduce_Builder``); MultiPipes split, select and merge, keyed edges
+route to several replicas, and whole-chain fusion runs each operator
+chain as one hop (``windflow_tpu_torch/fusion``).  The FFAT hot loop and
 the reduce's dense tables run hand-written CUDA kernels
 (``windflow_tpu_torch/kernels``).  The bulk sources ``FrameSource``
 and ``DeviceSource`` (``windflow_tpu_torch/io``) feed the card
@@ -14,24 +18,33 @@ version.  The package imports torch and numpy, never jax.
 
 from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
                                       TimePolicy, WindFlowError, WinType,
-                                      current_time_usecs, default_config)
+                                      current_time_usecs, default_config,
+                                      stable_hash)
 from windflow_tpu_torch.context import LocalStorage, RuntimeContext
 from windflow_tpu_torch.graph.builders import (DeviceSource_Builder,
                                                Ffat_WindowsGPU_Builder,
+                                               Filter_Builder,
                                                FilterGPU_Builder,
-                                               MapGPU_Builder,
+                                               FlatMap_Builder, Map_Builder,
+                                               MapGPU_Builder, Reduce_Builder,
                                                ReduceGPU_Builder, Sink_Builder,
                                                Source_Builder)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.graph.pipegraph import PipeGraph
 from windflow_tpu_torch.io import DeviceSource, FrameSource
+from windflow_tpu_torch.ops.filter_op import Filter
+from windflow_tpu_torch.ops.flatmap_op import FlatMap, Shipper
+from windflow_tpu_torch.ops.map_op import Map
+from windflow_tpu_torch.ops.reduce_op import Reduce
 from windflow_tpu_torch.ops.sink import SinkColumns
 
 __all__ = [
     "Config", "ExecutionMode", "RoutingMode", "TimePolicy", "WindFlowError",
-    "WinType", "current_time_usecs", "default_config", "LocalStorage",
-    "RuntimeContext", "DeviceSource", "DeviceSource_Builder", "FrameSource",
-    "Ffat_WindowsGPU_Builder", "FilterGPU_Builder", "MapGPU_Builder",
-    "ReduceGPU_Builder", "Sink_Builder", "Source_Builder", "MultiPipe",
+    "WinType", "current_time_usecs", "default_config", "stable_hash",
+    "LocalStorage", "RuntimeContext", "DeviceSource", "DeviceSource_Builder",
+    "FrameSource", "Ffat_WindowsGPU_Builder", "Filter_Builder",
+    "FilterGPU_Builder", "FlatMap_Builder", "Map_Builder", "MapGPU_Builder",
+    "Reduce_Builder", "ReduceGPU_Builder", "Sink_Builder", "Source_Builder",
+    "Filter", "FlatMap", "Map", "Reduce", "Shipper", "MultiPipe",
     "PipeGraph", "SinkColumns",
 ]

@@ -5,7 +5,8 @@ not imported across: the port stands alone).  ``Config`` keeps only the
 fields the ported slices read, plus the two the port adds:
 ``device`` (the card unless the caller asks for the CPU) and
 ``cuda_kernels`` (the kernel switch, counterpart of
-``Config.pallas_kernels``).
+``Config.pallas_kernels``).  ``stable_hash`` and ``int32_key`` are the
+port's own copies of the JAX package's key rules.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
+import zlib
 
 
 class ExecutionMode(enum.Enum):
@@ -87,6 +89,13 @@ class Config:
     # keys ride the sorted overflow lane and are kept); off, it takes the
     # dense step (out-of-range keys dropped and counted).
     key_compaction: bool = True
+    # Whole-chain fusion (windflow_tpu_torch/fusion): at graph build each
+    # maximal run of stateless device operators (map / filter / chained)
+    # ending in at most one window or reduce tail runs as ONE hop whose
+    # step applies the members' record transforms ahead of the tail's own
+    # step; the interior batches, emitters and queue hops go away.  Off,
+    # every hop runs its own step (the JAX package's WF_TPU_FUSE=0).
+    whole_chain_fusion: bool = True
     # Device the graph runs on.  The card is the default; without CUDA a
     # graph raises unless the caller asked for "cpu".
     device: str = "cuda"
@@ -98,6 +107,34 @@ default_config = Config()
 
 class WindFlowError(RuntimeError):
     """Raised for user/API misuse."""
+
+
+#: Sentinel key of non-keyed stateful operators (reference ``empty_key_t``,
+#: basic.hpp:306-318).
+EMPTY_KEY = 0
+
+
+def stable_hash(key) -> int:
+    """Deterministic key hash of the host KEYBY edge (reference
+    ``std::hash``, ``keyby_emitter.hpp:216``).  Python's ``hash`` is salted
+    for str/bytes, so those take crc32 and placement stays the same from
+    process to process."""
+    if isinstance(key, int):
+        return key
+    if isinstance(key, str):
+        return zlib.crc32(key.encode())
+    if isinstance(key, bytes):
+        return zlib.crc32(key)
+    return hash(key)
+
+
+def int32_key(k) -> int:
+    """Wrap a numeric key to the int32 value the device state collapses to
+    (device key extractors are cast to int32 on the card).  Keyed routing
+    must collapse exactly the keys the state collapses, or one logical key
+    would straddle replicas."""
+    i = int(k) & 0xFFFFFFFF
+    return i - (1 << 32) if i >= (1 << 31) else i
 
 
 def resolve_device(config) -> "object":

@@ -76,18 +76,23 @@ class DeviceBatch:
     timestamp extrema of the staged lanes, known on the host at staging
     (``None`` for device-born batches): outer bounds that stay valid
     through mask-only stages, which the time-window ring sizes itself
-    from without reading the device."""
+    from without reading the device.  ``keys`` is the optional int32
+    ``[capacity]`` key lane of a KEYBY edge: the producer extracted the
+    consumer's keys from THESE records (a chain forwarding them, a device
+    keyby split), so the consumer need not extract them again.  It is
+    edge-scoped: a stage that rewrites the records drops it."""
 
-    __slots__ = ("payload", "ts", "valid", "watermark", "_frontier",
+    __slots__ = ("payload", "ts", "valid", "keys", "watermark", "_frontier",
                  "_size", "ts_max", "ts_min")
 
     def __init__(self, payload, ts, valid, watermark: int = WM_NONE,
                  size: Optional[int] = None, frontier: Optional[int] = None,
                  ts_max: Optional[int] = None,
-                 ts_min: Optional[int] = None):
+                 ts_min: Optional[int] = None, keys=None):
         self.payload = payload
         self.ts = ts
         self.valid = valid
+        self.keys = keys
         self.watermark = watermark
         self._frontier = frontier
         self._size = size

@@ -1,6 +1,8 @@
 """Fluent operator builders (the port of ``windflow_tpu/graph/builders.py``;
-reference ``builders.hpp`` and ``builders_gpu.hpp``).  Device builders take
-the reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder``,
+reference ``builders.hpp`` and ``builders_gpu.hpp``).  Host builders:
+``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder`` (each with
+``withBroadcast``), ``Reduce_Builder``; device builders take the
+reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder``,
 ``ReduceGPU_Builder`` and ``Ffat_WindowsGPU_Builder``."""
 
 from __future__ import annotations
@@ -8,7 +10,11 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
+from windflow_tpu_torch.ops.filter_op import Filter
+from windflow_tpu_torch.ops.flatmap_op import FlatMap
 from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
+from windflow_tpu_torch.ops.map_op import Map
+from windflow_tpu_torch.ops.reduce_op import Reduce
 from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.sink import Sink
 from windflow_tpu_torch.ops.source import Source
@@ -60,9 +66,38 @@ class _BuilderBase:
         self._key_extractor = key_extractor
         return self
 
+    def withRebalancing(self):
+        """Round-robin input distribution, even after an upstream KEYBY
+        (reference REBALANCING routing, ``basic.hpp:87``).  Mutually
+        exclusive with withKeyBy."""
+        self._rebalancing = True
+        return self
+
     def _routing(self) -> RoutingMode:
+        if getattr(self, "_broadcast", False):
+            if self._key_extractor is not None \
+                    or getattr(self, "_rebalancing", False):
+                raise WindFlowError(
+                    "withBroadcast is mutually exclusive with withKeyBy "
+                    "and withRebalancing")
+            return RoutingMode.BROADCAST
+        if getattr(self, "_rebalancing", False):
+            if self._key_extractor is not None:
+                raise WindFlowError(
+                    "withRebalancing and withKeyBy are mutually exclusive")
+            return RoutingMode.REBALANCING
         return (RoutingMode.KEYBY if self._key_extractor is not None
                 else RoutingMode.FORWARD)
+
+
+class _BroadcastMixin:
+    """withBroadcast for the operators the reference offers it on
+    (Map/Filter/FlatMap/Sink, ``builders.hpp:252-1471``): every replica of
+    the built operator receives every input tuple."""
+
+    def withBroadcast(self):
+        self._broadcast = True
+        return self
 
 
 class Source_Builder(_BuilderBase):
@@ -87,6 +122,9 @@ class Source_Builder(_BuilderBase):
 
     def withKeyBy(self, *_):
         raise WindFlowError("a Source has no input to key by")
+
+    def withRebalancing(self):
+        raise WindFlowError("a Source has no input to rebalance")
 
     def build(self) -> Source:
         return Source(self._gen_fn, name=self._name,
@@ -155,7 +193,74 @@ class DeviceSource_Builder(_BuilderBase):
                             ts_bounds_fn=self._ts_bounds_fn)
 
 
-class Sink_Builder(_BuilderBase):
+class Map_Builder(_BroadcastMixin, _BuilderBase):
+    _default_name = "map"
+
+    def __init__(self, fn: Callable) -> None:
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> Map:
+        return Map(self._fn, name=self._name, parallelism=self._parallelism,
+                   routing=self._routing(),
+                   output_batch_size=self._output_batch_size,
+                   key_extractor=self._key_extractor)
+
+
+class Filter_Builder(_BroadcastMixin, _BuilderBase):
+    _default_name = "filter"
+
+    def __init__(self, fn: Callable) -> None:
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> Filter:
+        return Filter(self._fn, name=self._name,
+                      parallelism=self._parallelism,
+                      routing=self._routing(),
+                      output_batch_size=self._output_batch_size,
+                      key_extractor=self._key_extractor)
+
+
+class FlatMap_Builder(_BroadcastMixin, _BuilderBase):
+    _default_name = "flatmap"
+
+    def __init__(self, fn: Callable) -> None:
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> FlatMap:
+        return FlatMap(self._fn, name=self._name,
+                       parallelism=self._parallelism,
+                       routing=self._routing(),
+                       output_batch_size=self._output_batch_size,
+                       key_extractor=self._key_extractor)
+
+
+class Reduce_Builder(_BuilderBase):
+    """Host per-key rolling reduce: ``fn(tuple, state) -> state`` (or
+    ``None`` after mutating ``state``), from ``initial_state``."""
+
+    _default_name = "reduce"
+
+    def __init__(self, fn: Callable, initial_state: Any) -> None:
+        super().__init__()
+        self._fn = fn
+        self._initial_state = initial_state
+
+    def withRebalancing(self):
+        raise WindFlowError(
+            "Reduce routes by key (or runs non-replicated); REBALANCING "
+            "does not apply")
+
+    def build(self) -> Reduce:
+        return Reduce(self._fn, self._initial_state, name=self._name,
+                      parallelism=self._parallelism,
+                      key_extractor=self._key_extractor,
+                      output_batch_size=self._output_batch_size)
+
+
+class Sink_Builder(_BroadcastMixin, _BuilderBase):
     _default_name = "sink"
 
     def __init__(self, fn: Callable) -> None:

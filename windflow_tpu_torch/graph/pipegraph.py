@@ -10,10 +10,14 @@ in-flight device batches per inbox; end of stream cascades EOS
 punctuations and flushes window state (reference
 ``PipeGraph::wait_end``).
 
-At build, ``Config.key_compaction`` gives every keyed declared-monoid
-``withMaxKeys`` ReduceGPU its bounded compacted step.  The JAX package's
-preflight, calibration, wire, megastep, durability, whole-chain fusion,
-monitoring planes and ``KeyCompactor`` are not ported yet.
+The graph is a DAG of MultiPipes (splits and merges).  ``_edges`` walks
+it once; replica construction, the build-time capacity check, the fusion
+planner (``windflow_tpu_torch/fusion``) and the wiring all read that one
+walk.  At build, ``Config.key_compaction`` gives every keyed
+declared-monoid ``withMaxKeys`` ReduceGPU its bounded compacted step, and
+``Config.whole_chain_fusion`` runs each executable operator chain as one
+hop.  The JAX package's preflight, calibration, wire, megastep,
+durability, monitoring planes and ``KeyCompactor`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,15 +25,20 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
-from windflow_tpu_torch.basic import (Config, ExecutionMode,
+from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
                                       TimePolicy, WindFlowError,
                                       default_config, resolve_device)
+from windflow_tpu_torch.fusion.chains import edge_degrees
+from windflow_tpu_torch.fusion.executor import (apply_fusion,
+                                                attribute_member_stats)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.ops.base import Operator
+from windflow_tpu_torch.ops.chained import ChainedGPU
 from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.source import Source, SourceReplica
 from windflow_tpu_torch.parallel.collectors import create_collector
-from windflow_tpu_torch.parallel.emitters import create_emitter
+from windflow_tpu_torch.parallel.emitters import (SplittingEmitter,
+                                                  create_emitter)
 
 
 class PipeGraph:
@@ -42,6 +51,9 @@ class PipeGraph:
         self.time_policy = time_policy
         self.config = config or dataclasses.replace(default_config)
         self.pipes: List[MultiPipe] = []
+        self._merges: List[MultiPipe] = []
+        #: fused segments installed at build (fusion/executor.py)
+        self._fused_segments: List[dict] = []
         self._started = False
         self._collectors = []
         self._all_replicas = []
@@ -60,25 +72,87 @@ class PipeGraph:
         self.pipes.append(mp)
         return mp
 
+    def _register_merge(self, mp: MultiPipe) -> None:
+        self._merges.append(mp)
+        self.pipes.append(mp)
+
+    # -- the DAG walk --------------------------------------------------------
+    def _all_pipes(self) -> List[MultiPipe]:
+        """Every MultiPipe, split branches included (the one traversal of
+        replica construction and edge wiring)."""
+        out = []
+
+        def collect(mp: MultiPipe):
+            out.append(mp)
+            for child in mp.split_children:
+                collect(child)
+
+        for mp in self.pipes:
+            collect(mp)
+        return out
+
+    def _edges(self):
+        """Every graph edge in topological order of the MultiPipe DAG:
+        ``("op", a, b)`` for an operator edge (merges included) and
+        ``("split", mp)`` for a split point."""
+        edges = []
+        for mp in self._all_pipes():
+            ops = mp.operators
+            for a, b in zip(ops, ops[1:]):
+                edges.append(("op", a, b))
+            if mp.split_children:
+                edges.append(("split", mp))
+        for merged in self._merges:
+            if not merged.operators:
+                raise WindFlowError(
+                    "a merged MultiPipe has no operators — add an operator "
+                    "(and a sink) to the merge result")
+            for parent in merged.merge_parents:
+                if not parent.operators:
+                    raise WindFlowError("cannot merge an empty MultiPipe")
+                edges.append(("op", parent.operators[-1],
+                              merged.operators[0]))
+        return edges
+
+    def _topo_operators(self) -> List[Operator]:
+        """Every distinct operator, in the build's enumeration order."""
+        seen, out = set(), []
+        for mp in self._all_pipes():
+            for op in mp.operators:
+                if id(op) not in seen:
+                    seen.add(id(op))
+                    out.append(op)
+        return out
+
+    def _check_fixed_capacity_ops(self) -> None:
+        """Fixed-capacity device operators (``fixed_capacity_label``) fed
+        through a merge must see ONE batch capacity: the mismatch raises
+        here, with the sizes, instead of mid-run."""
+        for op, label, caps in capacity_conflicts(self._edges()):
+            raise WindFlowError(
+                f"'{op.name}' ({label}) compiles for one fixed batch "
+                f"capacity but its upstream paths deliver {sorted(caps)}; "
+                "give the merged branches equal withOutputBatchSize")
+
     # -- wiring --------------------------------------------------------------
     def _build(self) -> None:
         # the device first: without CUDA a cuda graph raises here, before
         # any replica exists (no silent CPU fallback)
         self.device = resolve_device(self.config)
         # 1. instantiate replicas
-        for mp in self.pipes:
-            for op in mp.operators:
-                op.ordinal = len(self._operators)
-                self._operators.append(op)
-                op.config = self.config
-                op.device = self.device
-                op.build_replicas(self.mode, self.time_policy)
+        for op in self._topo_operators():
+            op.ordinal = len(self._operators)
+            self._operators.append(op)
+            op.config = self.config
+            op.device = self.device
+            op.build_replicas(self.mode, self.time_policy)
         for op in self._operators:
             self._all_replicas.extend(op.replicas)
             if isinstance(op, Source):
                 self._source_replicas.extend(op.replicas)
         for rep in self._all_replicas:
             rep.config = self.config
+        self._check_fixed_capacity_ops()
         if getattr(self.config, "key_compaction", True):
             # keyed declared-monoid withMaxKeys reduces: the bounded
             # compacted step (parallel/compaction.py)
@@ -88,17 +162,79 @@ class PipeGraph:
                         and op.key_extractor is not None:
                     op.enable_bounded_compaction()
 
+        # 1b. whole-chain fusion, installed before wiring so each segment
+        # is wired as one hop
+        if getattr(self.config, "whole_chain_fusion", True):
+            self._fused_segments = apply_fusion(self)
+        fused_host = {}          # id(member) -> the segment's host op
+        fused_edge_skip = set()  # interior (src, dst) id pairs
+        for seg in self._fused_segments:
+            members = seg["members"]
+            for m in members[:-1]:
+                fused_host[id(m)] = members[-1]
+            for fa, fb in zip(members, members[1:]):
+                fused_edge_skip.add((id(fa), id(fb)))
+
         # 2. wire edges: emitters on the producing replicas, channels on
-        #    the consuming ones
-        for mp in self.pipes:
-            for a, b in zip(mp.operators, mp.operators[1:]):
-                for src_rep in a.replicas:
-                    dests = [(dst_rep, dst_rep.add_channel())
-                             for dst_rep in b.replicas]
-                    src_rep.emitter = create_emitter(
-                        b.routing, dests, a.output_batch_size,
-                        src_is_gpu=a.is_gpu, dst_is_gpu=b.is_gpu,
-                        device=self.device)
+        #    the consuming ones.  ``route_op`` carries the edge's routing
+        #    contract, ``dst_op`` owns the consuming replicas: they differ
+        #    when a fused segment's head hands its edge to the host
+        def wire_edge(src_op, route_op, dst_op):
+            emitters = []
+            for _ in src_op.replicas:
+                dests = [(dst_rep, dst_rep.add_channel())
+                         for dst_rep in dst_op.replicas]
+                emitters.append(create_emitter(
+                    route_op.routing, dests, src_op.output_batch_size,
+                    src_is_gpu=src_op.is_gpu, dst_is_gpu=dst_op.is_gpu,
+                    device=self.device,
+                    key_extractor=route_op.key_extractor))
+            return emitters
+
+        # a stateless chain feeding exactly one KEYBY device consumer
+        # extracts the consumer's keys itself and ships them on the
+        # batch's keys lane (not when the consumer heads a fused segment:
+        # its prelude rewrites the records, so it extracts again)
+        edges = self._edges()
+        fanout = edge_degrees(edges)[0]
+        key_forward = {}
+        for edge in edges:
+            if edge[0] == "op":
+                _, a, b = edge
+                if (id(a), id(b)) in fused_edge_skip:
+                    continue    # interior to a fused segment: no hop
+                if b.routing == RoutingMode.KEYBY and b.is_gpu \
+                        and b.key_extractor is not None \
+                        and fanout.get(id(a)) == 1 \
+                        and id(a) not in fused_host \
+                        and id(b) not in fused_host:
+                    key_forward[id(a)] = (a, b.key_extractor)
+                for rep, em in zip(a.replicas,
+                                   wire_edge(a, b, fused_host.get(id(b), b))):
+                    rep.emitter = em
+            else:  # split point: one SplittingEmitter a source replica
+                _, mp = edge
+                src_op = mp.operators[-1]
+                heads = [child.operators[0] for child in mp.split_children]
+                per_branch = [wire_edge(src_op, h, fused_host.get(id(h), h))
+                              for h in heads]
+                for i, rep in enumerate(src_op.replicas):
+                    rep.emitter = SplittingEmitter(
+                        mp.split_fn, [per_branch[b][i]
+                                      for b in range(len(heads))])
+        for a, kx in key_forward.values():
+            if a._fusion_exec is not None:
+                a._fusion_exec.set_downstream_key_extractor(kx)
+            elif isinstance(a, ChainedGPU):
+                a.set_downstream_key_extractor(kx)
+
+        # 2b. fused members are inert: no channels (interior edges are
+        # skipped) and no EOS cascade, so they read as terminated
+        for seg in self._fused_segments:
+            for m in seg["members"][:-1]:
+                for rep in m.replicas:
+                    rep.done = True
+                    rep.stats.is_terminated = True
 
         # 3. collectors: one per replica with input channels
         for rep in self._all_replicas:
@@ -108,8 +244,10 @@ class PipeGraph:
             if rep.emitter is not None:
                 rep.emitter.bind_stats(rep.stats)
 
-        # every non-sink replica must have an emitter
+        # every live non-sink replica must have an emitter
         for op in self._operators:
+            if op._fused_into is not None:
+                continue
             for rep in op.replicas:
                 if rep.emitter is None and not op.is_terminal:
                     raise WindFlowError(
@@ -205,7 +343,12 @@ class PipeGraph:
         return sum(c.num_dropped for c in self._collectors) \
             + sum(op.num_dropped_tuples() for op in self._operators)
 
+    #: the reference's camelCase name
+    def getNumDroppedTuples(self) -> int:
+        return self.get_num_dropped_tuples()
+
     def stats(self) -> dict:
+        attribute_member_stats(self)
         return {
             "PipeGraph_name": self.name,
             "Device": str(self.device),
@@ -216,3 +359,59 @@ class PipeGraph:
                 "max_inflight_device": self._max_inflight_device_seen,
             },
         }
+
+
+# ---------------------------------------------------------------------------
+# the build-time capacity walk (the port's copy of capacity_conflicts,
+# windflow_tpu/analysis/preflight.py:130; preflight itself is ROADMAP A9)
+# ---------------------------------------------------------------------------
+
+def _upstream_map(edges) -> dict:
+    """id(op) -> (op, [upstream ops]) over every edge, split fan-outs
+    included."""
+    ups: dict = {}
+    for edge in edges:
+        if edge[0] == "op":
+            _, a, b = edge
+            ups.setdefault(id(b), (b, []))[1].append(a)
+        else:
+            _, mp = edge
+            src = mp.operators[-1]
+            for child in mp.split_children:
+                if child.operators:
+                    head = child.operators[0]
+                    ups.setdefault(id(head), (head, []))[1].append(src)
+    return ups
+
+
+def _effective_caps(op, ups, seen=None) -> set:
+    """Batch capacities a device batch can arrive with at ``op``: a host
+    operator (or a device source) stamps its ``output_batch_size``;
+    device operators pass their input capacity through."""
+    seen = seen if seen is not None else set()
+    if id(op) in seen:
+        return set()
+    seen.add(id(op))
+    if not op.is_gpu or isinstance(op, Source):
+        return {op.output_batch_size}
+    caps = set()
+    for up in ups.get(id(op), (None, []))[1]:
+        caps |= _effective_caps(up, ups, seen)
+    return caps
+
+
+def capacity_conflicts(edges) -> list:
+    """``[(op, label, caps)]``: fixed-capacity device operators whose
+    upstream paths deliver unequal batch capacities."""
+    ups = _upstream_map(edges)
+    out = []
+    for op, preds in ups.values():
+        label = op.fixed_capacity_label
+        if label is None:
+            continue
+        caps = set()
+        for up in preds:
+            caps |= _effective_caps(up, ups)
+        if len(caps) > 1:
+            out.append((op, label, caps))
+    return out

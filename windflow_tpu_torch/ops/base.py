@@ -12,6 +12,7 @@ ported yet: a replica keeps only the plain counters below.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import deque
 from typing import Any, Callable, List, Optional
@@ -52,6 +53,10 @@ class StatsRecord:
 class Replica:
     """One logical replica of an operator (reference ``Basic_Replica``)."""
 
+    #: replicas whose user function may mutate its input copy a shared
+    #: (multicast) tuple first (reference ``copyOnWrite``, map.hpp:57-215)
+    copy_on_shared = False
+
     def __init__(self, op: "Operator", index: int) -> None:
         self.op = op
         self.index = index
@@ -71,6 +76,10 @@ class Replica:
                                  is_gpu=op.is_gpu)
         self.mode = ExecutionMode.DEFAULT
         self.time_policy = TimePolicy.INGRESS
+        #: origin id of the input being processed (HostBatch.ids): relays
+        #: pass it on so DETERMINISTIC ordering breaks timestamp ties the
+        #: same way under any parallelism (reference Single_t id)
+        self.cur_tid = None
 
     # -- wiring -------------------------------------------------------------
     def add_channel(self) -> int:
@@ -143,9 +152,17 @@ class Replica:
                     f"operator '{self.op.name}' received {type(msg)}")
             self._advance_wm(msg.watermark)
             self.stats.inputs_received += len(msg)
-            for item, ts in zip(msg.items, msg.tss):
+            # a multicast batch is shared by sibling replicas: an
+            # in-place-capable operator mutates a private copy
+            cow = msg.shared and self.copy_on_shared
+            for item, ts, tid in zip(msg.items, msg.tss,
+                                     msg.ids_or_nones()):
+                if cow:
+                    item = copy.deepcopy(item)
+                self.cur_tid = tid
                 self.context._set_context(ts, msg.watermark)
                 self.process_single(item, ts, msg.watermark)
+            self.cur_tid = None
 
     def _advance_wm(self, wm: int) -> None:
         if wm != WM_NONE and wm > self.current_wm:
@@ -173,6 +190,21 @@ class Operator:
     is_terminal = False
     ordinal = 0
     closing_func = None
+    #: non-None on device operators whose state layout is tied to ONE
+    #: batch capacity: the graph build refuses merged upstream paths
+    #: that deliver unequal capacities (the label names it in the error)
+    fixed_capacity_label = None
+    #: whole-chain fusion (windflow_tpu_torch/fusion): on a fused
+    #: segment's MEMBERS, the name of the hop they folded into (their
+    #: replicas are inert; stats are attributed from the hop)
+    _fused_into = None
+    #: on a segment's stateful TAIL: the members' record transform,
+    #: ``(payload, valid) -> (payload, valid)``, which the tail applies
+    #: ahead of its own step
+    _fused_prelude = None
+    #: on an all-stateless segment's last member: the FusedStatelessExec
+    #: its replicas run instead of their own step
+    _fusion_exec = None
 
     def __init__(self, name: str, parallelism: int,
                  routing: RoutingMode = RoutingMode.FORWARD,
@@ -216,9 +248,14 @@ class Operator:
         return 0
 
     def dump_stats(self) -> dict:
-        return {
+        st = {
             "Operator_name": self.name,
             "Operator_type": type(self).__name__,
             "Parallelism": self.parallelism,
             "Replicas": [r.stats.to_json() for r in self.replicas],
         }
+        if self._fused_into is not None:
+            # this operator's work runs inside a fused hop; the counters
+            # above are attributed from that hop
+            st["Fused_into"] = self._fused_into
+        return st

@@ -20,13 +20,18 @@ from typing import Callable
 from windflow_tpu_torch.basic import RoutingMode
 from windflow_tpu_torch.batch import DeviceBatch
 from windflow_tpu_torch.ops.base import Operator, Replica
-from windflow_tpu_torch.utils.tree import per_record
+from windflow_tpu_torch.utils.tree import per_record, tree_map
 
 
 class _GPUReplica(Replica):
     """Shared device-batch plumbing for device operator replicas."""
 
     def _op_step(self, batch: DeviceBatch):
+        fx = self.op._fusion_exec
+        if fx is not None:
+            # the last member of an all-stateless fused segment runs the
+            # whole chain (fusion/executor.py)
+            return fx.step(batch)
         return self.op._step(batch)
 
     def process_device_batch(self, batch: DeviceBatch) -> None:
@@ -56,7 +61,8 @@ class MapGPU(Operator):
     def apply(self, payload, valid):
         """The record transform over one batch: ``(payload, valid)``."""
         if self.batch_fn:
-            return self.fn(payload, valid), valid
+            # its own containers: the payload may be shared by a fan-out
+            return self.fn(tree_map(lambda a: a, payload), valid), valid
         return per_record(self.fn, payload, valid.shape[0]), valid
 
     def _step(self, batch: DeviceBatch) -> DeviceBatch:

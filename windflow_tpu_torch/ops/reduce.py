@@ -17,9 +17,14 @@ batches to a single record.  Three routes, picked per operator:
   in-range keys, out-of-range keys on the sorted overflow lane
   (``parallel/compaction.py``); the records equal the sorted route's.
 
-Cross-batch aggregation is the windows' job, as in the reference.  The
-mesh route, ``KeyCompactor`` (compaction of undeclared key spaces) and
-durable state are not ported yet.
+Every route takes the batch's keys lane when an upstream chain forwarded
+it, and, as the tail of a fused segment, applies the members' prelude
+first (``op._fused_prelude``; the keys are then extracted from the
+prelude's output).  At parallelism > 1 the replicas step the one
+operator: its steps and the compacted route's counters are per operator,
+as in the JAX package.  Cross-batch aggregation is the windows' job, as
+in the reference.  The mesh route, ``KeyCompactor`` (compaction of
+undeclared key spaces) and durable state are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 
 from windflow_tpu_torch.basic import RoutingMode, WindFlowError
 from windflow_tpu_torch.batch import DeviceBatch
+from windflow_tpu_torch.fusion.executor import prelude_out_payload
 from windflow_tpu_torch.kernels import reduce_cuda as rc
 from windflow_tpu_torch.kernels.ffat_cuda import (monoid_identity,
                                                   resolve_kernels)
@@ -125,6 +131,8 @@ class ReduceGPU(Operator):
         self.comb = comb
         #: bound of the dense key space [0, max_keys)
         self.max_keys = max_keys
+        if max_keys is not None:
+            self.fixed_capacity_label = "ReduceGPU[withMaxKeys]"
         try:
             self.monoid = resolve_monoid(monoid)
         except ValueError as e:
@@ -158,14 +166,26 @@ class ReduceGPU(Operator):
         return per_record(self.key_extractor, payload,
                           capacity).to(torch.int32)
 
+    def _prelude_keys(self, keys, payload, valid, capacity: int):
+        """A fused tail's prelude, then the key lane: the forwarded one,
+        unless the prelude rewrote the records, else extracted here."""
+        prelude = self._fused_prelude
+        if prelude is not None:
+            payload, valid = prelude(payload, valid)
+            keys = None
+        if keys is None:
+            keys = self._keys(payload, capacity, valid.device)
+        return keys, payload, valid
+
     def _get_step(self, capacity: int):
         """The sorted route."""
         step = self._steps.get(capacity)
         if step is None:
             comb = self.comb
 
-            def step(payload, ts, valid):
-                keys = self._keys(payload, capacity, valid.device)
+            def step(keys, payload, ts, valid):
+                keys, payload, valid = self._prelude_keys(keys, payload,
+                                                          valid, capacity)
                 return _segmented_reduce(keys, payload, ts, valid, comb,
                                          capacity)
             self._steps[capacity] = step
@@ -181,9 +201,10 @@ class ReduceGPU(Operator):
             monoid = self.monoid
             kernels = resolve_kernels(self.config)
 
-            def step(payload, ts, valid):
+            def step(keys, payload, ts, valid):
                 dev = valid.device
-                keys = self._keys(payload, capacity, dev)
+                keys, payload, valid = self._prelude_keys(keys, payload,
+                                                          valid, capacity)
                 in_range = (keys >= 0) & (keys < K)
                 ok = valid & in_range
                 n_drop = (valid & ~in_range).sum(dtype=torch.int64)
@@ -220,10 +241,15 @@ class ReduceGPU(Operator):
         step = self._steps.get(("compact", capacity))
         if step is None:
             from windflow_tpu_torch.parallel import compaction
-            step = compaction.make_compacted_reduce(
+            inner = compaction.make_compacted_reduce(
                 capacity, self.max_keys, self.monoid, self.comb,
                 self.key_extractor, bounded=True,
                 kernels=resolve_kernels(self.config))
+
+            def step(keys, payload, ts, valid, cst):
+                keys, payload, valid = self._prelude_keys(keys, payload,
+                                                          valid, capacity)
+                return inner(keys, payload, ts, valid, cst)
             self._steps[("compact", capacity)] = step
         return step
 
@@ -308,7 +334,12 @@ class ReduceGPU(Operator):
 
     def _step(self, batch: DeviceBatch) -> DeviceBatch:
         if not self._checked:
-            self._check_comb_contract(batch.payload)
+            payload = batch.payload
+            if self._fused_prelude is not None:
+                # fused: the combiner folds the prelude's OUTPUT records
+                payload = prelude_out_payload(self._fused_prelude, payload,
+                                              batch.valid)
+            self._check_comb_contract(payload)
             self._checked = True
         cap = batch.capacity
         if self.bounded_compaction:
@@ -319,7 +350,7 @@ class ReduceGPU(Operator):
                     cstats_init
                 self._cstats = cstats_init(batch.valid.device)
             out_payload, out_ts, out_valid, self._cstats = \
-                self._get_compacted_step(cap)(None, batch.payload,
+                self._get_compacted_step(cap)(batch.keys, batch.payload,
                                               batch.ts, batch.valid,
                                               self._cstats)
             return DeviceBatch(out_payload, out_ts, out_valid,
@@ -329,7 +360,7 @@ class ReduceGPU(Operator):
             # dense tables: a [max_keys] batch of distinct-key records in
             # ascending key order (the order the sorted route emits)
             table, ts_out, has, n_drop = self._get_dense_step(cap)(
-                batch.payload, batch.ts, batch.valid)
+                batch.keys, batch.payload, batch.ts, batch.valid)
             self._dropped = n_drop if self._dropped is None \
                 else self._dropped + n_drop
             self._drop_steps += 1
@@ -342,7 +373,7 @@ class ReduceGPU(Operator):
                                watermark=batch.watermark, size=None,
                                frontier=batch.frontier)
         _, out_payload, out_ts, out_valid = self._get_step(cap)(
-            batch.payload, batch.ts, batch.valid)
+            batch.keys, batch.payload, batch.ts, batch.valid)
         return DeviceBatch(out_payload, out_ts, out_valid,
                            watermark=batch.watermark, size=None,
                            frontier=batch.frontier)

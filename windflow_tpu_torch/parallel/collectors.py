@@ -98,7 +98,8 @@ class WatermarkCollector(Collector):
                 msg = DeviceBatch(msg.payload, msg.ts, msg.valid,
                                   watermark=f,
                                   size=msg.known_size, frontier=ff,
-                                  ts_max=msg.ts_max, ts_min=msg.ts_min)
+                                  ts_max=msg.ts_max, ts_min=msg.ts_min,
+                                  keys=msg.keys)
         elif f != msg.watermark:
             if isinstance(msg, HostBatch):
                 msg = dataclasses.replace(msg, watermark=f)

@@ -1,41 +1,120 @@
-"""Emitters: output routing per edge (the port of the classes of
-``windflow_tpu/parallel/emitters.py`` that the count-window path creates).
+"""Emitters: output routing per edge (the port of
+``windflow_tpu/parallel/emitters.py``; reference ``*_emitter.hpp`` and
+``*_emitter_gpu.hpp``).
 
 * :class:`ForwardEmitter` — host tuples round-robin, batched per
   destination (reference ``forward_emitter.hpp``).
+* :class:`KeyByEmitter` — host tuples by ``stable_hash(key) % n``
+  (reference ``keyby_emitter.hpp``).
+* :class:`BroadcastEmitter` — every destination sees every host tuple.
 * :class:`DeviceStageEmitter` — host→device boundary: accumulates records
   into one packed staging buffer of fixed capacity and ships it with one
   copy (reference ``Forward_Emitter_GPU``); bulk sources hand it whole
   columns (``emit_columns``), which stream into pooled staging buffers
   with no per-tuple work.
-* :class:`DevicePassEmitter` — device→device edge: batches move by handle.
+* :class:`KeyedDeviceStageEmitter` — host→device KEYBY: tuples (or column
+  rows) partitioned by ``splitmix64(key) % n`` into one staging emitter a
+  destination.
+* :class:`DevicePassEmitter` — device→device edge: batches move by handle
+  (round-robin, or to every destination under BROADCAST).
+* :class:`DeviceKeyByEmitter` — device→device KEYBY: one mask a
+  destination over the same buffers (no sort, gather or host read).
 * :class:`DeviceToHostEmitter` — device→host boundary: one packed copy
   back, then the whole HostBatch goes to an inner host emitter.
+* :class:`SplittingEmitter` — a MultiPipe split point: the device-native
+  mask split when the split function evaluates on a whole batch, else the
+  host per-tuple route.
 
-Keyed routing to several replicas (``KeyedDeviceStageEmitter``,
-``DeviceKeyByEmitter``, ``KeyByEmitter``) and broadcast are not ported
-yet; :func:`create_emitter` names a keyed multi-replica edge instead of
-mis-routing it.
+Keyed placement is splitmix64 of the int32-wrapped key, bit-identical on
+the host record path (:func:`splitmix64_int`), numpy columns
+(:func:`splitmix64_np`) and the card (:func:`splitmix64_torch`), so a
+keyed operator fed by a host edge and a device edge at once (a merge)
+sees each key on one replica.  Not ported: the shard-plane sketches on
+these emitters (ROADMAP A8), the key compactor's placement override,
+reshard overrides and hot-key pre-aggregation (A5 and serving), and the
+mesh's ``AlignedMeshStageEmitter`` (A10).
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
 from windflow_tpu_torch import staging
-from windflow_tpu_torch.basic import RoutingMode, WindFlowError
+from windflow_tpu_torch.basic import (RoutingMode, WindFlowError, int32_key,
+                                      stable_hash)
 from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
                                       WM_NONE, columns_to_device,
                                       device_to_host, host_to_device,
                                       stage_packed, transfer_nbytes)
 from windflow_tpu_torch.utils.tree import tree_flatten
 
+_M64 = (1 << 64) - 1
+_SM_ADD = 0x9E3779B97F4A7C15
+_SM_MUL1 = 0xBF58476D1CE4E5B9
+_SM_MUL2 = 0x94D049BB133111EB
+
+
+def splitmix64_int(k: int) -> int:
+    """splitmix64 of a Python int (taken mod 2^64): the host record path's
+    placement hash."""
+    x = (k + _SM_ADD) & _M64
+    x = ((x ^ (x >> 30)) * _SM_MUL1) & _M64
+    x = ((x ^ (x >> 27)) * _SM_MUL2) & _M64
+    return x ^ (x >> 31)
+
+
+def splitmix64_np(keys) -> np.ndarray:
+    """splitmix64 over an int key column (sign-extended to int64, then
+    taken as uint64): the columnar path's placement hash, equal to
+    :func:`splitmix64_int` lane for lane."""
+    x = np.asarray(keys).astype(np.int64).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(_SM_ADD)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(_SM_MUL1)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(_SM_MUL2)
+    return x ^ (x >> np.uint64(31))
+
+
+def _signed64(c: int) -> int:
+    """A 64-bit constant as the int64 of the same bits."""
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+def _srl(x, s: int):
+    """Logical right shift of an int64 tensor: ``>>`` on int64 is
+    arithmetic, so the sign-filled top ``s`` bits are masked off."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64_torch(keys):
+    """splitmix64 of an int key lane as torch int64 ops, with the same bits
+    as :func:`splitmix64_int` of the sign-extended key: additions and
+    multiplications wrap mod 2^64, the multipliers above 2^63 are written
+    as their int64 two's complements, and the shifts are logical."""
+    import torch
+    x = keys.to(torch.int64) + _signed64(_SM_ADD)
+    x = (x ^ _srl(x, 30)) * _signed64(_SM_MUL1)
+    x = (x ^ _srl(x, 27)) * _signed64(_SM_MUL2)
+    return x ^ _srl(x, 31)
+
+
+def place_torch(keys, n: int):
+    """``splitmix64(key) mod n`` as an unsigned remainder, in int64 torch
+    ops: ``x = 2 * (x >>> 1) + (x & 1)``, and both parts are reduced mod n
+    without a negative operand."""
+    h = splitmix64_torch(keys)
+    return ((_srl(h, 1) % n) * 2 + (h & 1)) % n
+
 
 class Emitter:
     """Base emitter: owns destination inboxes and per-destination channel
     ids (reference ``Basic_Emitter``)."""
+
+    #: whether this emitter takes host tuples (``emit``); device-only
+    #: emitters say False so a split's host route can refuse up front
+    can_emit_host_items = True
 
     def __init__(self, dests: Sequence[Tuple[Any, int]],
                  output_batch_size: int) -> None:
@@ -50,6 +129,9 @@ class Emitter:
 
     def emit(self, item: Any, ts: int, wm: int,
              shared: bool = False, tid=None) -> None:
+        """``shared`` marks an item also delivered elsewhere (a split's
+        multicast): in-place consumers copy it before mutating.  ``tid``
+        is the origin id relayed for DETERMINISTIC tie-breaking."""
         raise NotImplementedError
 
     def emit_device_batch(self, batch: DeviceBatch) -> None:
@@ -150,6 +232,69 @@ class ForwardEmitter(Emitter):
     def flush(self, wm):
         for d in range(len(self.dests)):
             self._flush_dest(d)
+
+
+class KeyByEmitter(Emitter):
+    """KEYBY routing of host tuples: ``stable_hash(key) % n`` per tuple,
+    per-destination open batches (reference ``keyby_emitter.hpp:216-257``)."""
+
+    def __init__(self, dests, output_batch_size,
+                 key_extractor: Callable[[Any], Any]):
+        super().__init__(dests, output_batch_size)
+        self.key_extractor = key_extractor
+        self._open = [_OpenBatch() for _ in dests]
+
+    def emit(self, item, ts, wm, shared=False, tid=None):
+        d = stable_hash(self.key_extractor(item)) % len(self.dests)
+        ob = self._open[d]
+        ob.add(item, ts, wm, shared, tid)
+        if len(ob.items) >= max(1, self.output_batch_size):
+            self._flush_dest(d)
+
+    def _flush_dest(self, d):
+        ob = self._open[d]
+        if ob.items:
+            self._send(d, HostBatch(ob.items, ob.tss, ob.wm,
+                                    shared=ob.shared,
+                                    ids=ob.ids_or_none()))
+            self._open[d] = _OpenBatch()
+
+    def flush(self, wm):
+        for d in range(len(self.dests)):
+            self._flush_dest(d)
+
+
+class BroadcastEmitter(Emitter):
+    """BROADCAST routing of host tuples: every destination sees every
+    tuple (reference ``broadcast_emitter.hpp``).  One batch object is
+    delivered to every inbox, marked shared, so in-place consumers copy
+    before mutating."""
+
+    def __init__(self, dests, output_batch_size):
+        super().__init__(dests, output_batch_size)
+        self._ob = _OpenBatch()
+
+    def emit(self, item, ts, wm, shared=False, tid=None):
+        self._ob.add(item, ts, wm, shared, tid)
+        if len(self._ob.items) >= max(1, self.output_batch_size):
+            self.flush(wm)
+
+    def flush(self, wm):
+        if self._ob.items:
+            b = HostBatch(self._ob.items, self._ob.tss, self._ob.wm,
+                          shared=len(self.dests) > 1 or self._ob.shared,
+                          ids=self._ob.ids_or_none())
+            for d in range(len(self.dests)):
+                self._send(d, b)
+            self._ob = _OpenBatch()
+
+    def emit_host_batch(self, hb):
+        self.flush(hb.watermark)
+        if len(self.dests) > 1:
+            hb = HostBatch(hb.items, hb.tss, hb.watermark, shared=True,
+                           ids=hb.ids)
+        for d in range(len(self.dests)):
+            self._send(d, hb)
 
 
 def _concat(arrs):
@@ -363,24 +508,161 @@ class DeviceStageEmitter(Emitter):
         self._ship(db)
 
 
-class DevicePassEmitter(Emitter):
-    """Device→device edge: batches move by handle (no copies),
-    round-robin over destinations."""
+def _key_column(key_extractor, cols, n: int) -> np.ndarray:
+    """The int32-wrapped key of every row of a column block, as int64.
+    The extractor is a per-record function: it runs on the numpy columns
+    when it can, else on CPU torch views of them, else row by row."""
+    import torch
+    for wrap in (lambda a: a, torch.from_numpy):
+        try:
+            k = key_extractor({nm: wrap(np.asarray(v))
+                               for nm, v in cols.items()})
+            k = k.numpy() if isinstance(k, torch.Tensor) else np.asarray(k)
+        except Exception:  # noqa: BLE001 -- a probe of a user function:
+            # any failure means "not columnar", handled below
+            continue
+        if k.shape == (n,):
+            # the device's int32 cast first, so routing collapses exactly
+            # the keys the state collapses
+            return k.astype(np.int64).astype(np.int32).astype(np.int64)
+    return np.array([int32_key(key_extractor(
+        {nm: np.asarray(v)[i].item() for nm, v in cols.items()}))
+        for i in range(n)], np.int64)
 
-    def __init__(self, dests):
+
+class KeyedDeviceStageEmitter(Emitter):
+    """Host→device boundary with KEYBY routing (reference CPU→GPU
+    ``KeyBy_Emitter_GPU``, ``keyby_emitter_gpu.hpp:400-476``): tuples are
+    partitioned by ``splitmix64(key) % n`` into one single-destination
+    :class:`DeviceStageEmitter` a destination, so every key's tuples flow
+    through one replica in arrival order.  Columns partition by the numpy
+    hash and reuse the inner emitters' packed route and per-row frontier
+    lanes (the row frontier is global, so each partition's slice of it
+    stays a valid stamp)."""
+
+    def __init__(self, dests, output_batch_size, key_extractor, device):
+        super().__init__(dests, output_batch_size)
+        self.key_extractor = key_extractor
+        self._inner = [DeviceStageEmitter([d], output_batch_size, device)
+                       for d in dests]
+
+    def bind_stats(self, stats):
+        super().bind_stats(stats)
+        for e in self._inner:
+            e.bind_stats(stats)
+
+    @property
+    def packed_batches(self) -> int:
+        return sum(e.packed_batches for e in self._inner)
+
+    @property
+    def chunked_batches(self) -> int:
+        return sum(e.chunked_batches for e in self._inner)
+
+    @property
+    def record_batches(self) -> int:
+        return sum(e.record_batches for e in self._inner)
+
+    def emit(self, item, ts, wm, shared=False, tid=None):
+        k32 = int32_key(self.key_extractor(item))
+        self._inner[splitmix64_int(k32) % len(self.dests)].emit(item, ts, wm)
+
+    def emit_columns(self, cols, tss, wm, row_wms=None):
+        n = len(self.dests)
+        keys = _key_column(self.key_extractor, cols, len(tss))
+        dest = (splitmix64_np(keys) % np.uint64(n)).astype(np.int64)
+        counts = np.bincount(dest, minlength=n)
+        for d in range(n):
+            if counts[d]:
+                idx = np.nonzero(dest == d)[0]
+                self._inner[d].emit_columns(
+                    {k: np.asarray(v)[idx] for k, v in cols.items()},
+                    np.asarray(tss)[idx], wm,
+                    row_wms[idx] if row_wms is not None else None)
+
+    def emit_device_batch(self, batch):
+        raise WindFlowError(
+            "keyed staging emitter received a device batch; device-to-"
+            "device keyed edges use DeviceKeyByEmitter")
+
+    def flush(self, wm):
+        for e in self._inner:
+            e.flush(wm)
+
+    def propagate_punctuation(self, wm):
+        for e in self._inner:
+            e.propagate_punctuation(wm)
+
+
+def _mask_view(batch: DeviceBatch, mask, keys=None) -> DeviceBatch:
+    """One destination's batch of a mask-only fan-out: the SAME payload,
+    ts (and keys) tensors, its own validity mask.  Consumers never write
+    into these tensors, so siblings stay intact."""
+    return DeviceBatch(batch.payload, batch.ts, mask, keys=keys,
+                       watermark=batch.watermark, size=None,
+                       frontier=batch.frontier, ts_max=batch.ts_max,
+                       ts_min=batch.ts_min)
+
+
+class DevicePassEmitter(Emitter):
+    """Device→device edge: batches move by handle (no copies): round-robin
+    over destinations, or to every destination under BROADCAST."""
+
+    can_emit_host_items = False
+
+    def __init__(self, dests, routing: RoutingMode = RoutingMode.FORWARD):
         super().__init__(dests, output_batch_size=0)
+        self.routing = routing
         self._next = 0
 
     def emit_device_batch(self, batch: DeviceBatch):
+        if self.routing == RoutingMode.BROADCAST:
+            for d in range(len(self.dests)):
+                self._send(d, batch)
+            return
         d = self._next
         self._next = (self._next + 1) % len(self.dests)
         self._send(d, batch)
 
 
+class DeviceKeyByEmitter(Emitter):
+    """Device→device KEYBY edge (reference GPU→GPU ``KeyBy_Emitter_GPU``,
+    ``keyby_emitter_gpu.hpp:519-583``): ``dest = where(valid,
+    splitmix64(key) mod n, n)`` and one mask ``dest == d`` a destination,
+    all over the same payload/ts/keys tensors.  No sort, gather or host
+    read; empty partitions still ship (an all-invalid mask), since
+    skipping them would need the partition counts on the host.  The
+    batch's keys lane (a chain forwarding them) is used when present."""
+
+    can_emit_host_items = False
+
+    def __init__(self, dests, key_extractor):
+        super().__init__(dests, output_batch_size=0)
+        self.key_extractor = key_extractor
+
+    def split(self, batch: DeviceBatch):
+        """``(keys, masks)``: the int32 key lane and one bool mask a
+        destination."""
+        import torch
+        from windflow_tpu_torch.utils.tree import per_record
+        n = len(self.dests)
+        keys = batch.keys
+        if keys is None:
+            keys = per_record(self.key_extractor, batch.payload,
+                              batch.capacity).to(torch.int32)
+        dest = torch.where(batch.valid, place_torch(keys, n), n)
+        return keys, [dest == d for d in range(n)]
+
+    def emit_device_batch(self, batch):
+        keys, masks = self.split(batch)
+        for d, mask in enumerate(masks):
+            self._send(d, _mask_view(batch, mask, keys))
+
+
 class DeviceToHostEmitter(Emitter):
     """Device→host boundary: the batch comes back in one packed copy
     (``device_to_host``) and the whole HostBatch goes through the inner
-    host emitter."""
+    host emitter (per tuple only under KEYBY)."""
 
     def __init__(self, inner: Emitter):
         super().__init__(inner.dests, inner.output_batch_size)
@@ -411,25 +693,139 @@ class DeviceToHostEmitter(Emitter):
 
 
 def create_emitter(routing: RoutingMode, dests, output_batch_size: int,
-                   src_is_gpu: bool, dst_is_gpu: bool, device) -> Emitter:
+                   src_is_gpu: bool, dst_is_gpu: bool, device,
+                   key_extractor: Optional[Callable] = None) -> Emitter:
     """Pick the emitter for an edge from (routing, src-on-device,
     dst-on-device), mirroring the reference's dispatch
     (``multipipe.hpp:236-350``)."""
-    if routing == RoutingMode.KEYBY and len(dests) > 1:
-        raise WindFlowError(
-            "keyed routing to several replicas is not ported yet "
-            "(KeyedDeviceStageEmitter / DeviceKeyByEmitter / KeyByEmitter); "
-            "use parallelism 1 on keyed operators")
     if dst_is_gpu:
+        if routing == RoutingMode.KEYBY and len(dests) > 1 \
+                and key_extractor is not None:
+            # each key's tuples reach one replica, in arrival order
+            if src_is_gpu:
+                return DeviceKeyByEmitter(dests, key_extractor)
+            return KeyedDeviceStageEmitter(dests, output_batch_size,
+                                           key_extractor, device)
         if src_is_gpu:
-            return DevicePassEmitter(dests)
+            return DevicePassEmitter(dests, routing)
         return DeviceStageEmitter(dests, output_batch_size, device)
-    if src_is_gpu and dests \
+    if src_is_gpu and routing != RoutingMode.KEYBY and dests \
             and all(getattr(r.op, "columnar", False) for r, _ in dests):
         # columnar sinks consume DeviceBatches whole (bulk copy inside
-        # the sink replica)
-        return DevicePassEmitter(dests)
-    inner = ForwardEmitter(dests, output_batch_size)
+        # the sink replica); keyed ones take the record path below
+        return DevicePassEmitter(dests, routing)
+    if routing == RoutingMode.KEYBY:
+        inner = KeyByEmitter(dests, output_batch_size, key_extractor)
+    elif routing == RoutingMode.BROADCAST:
+        inner = BroadcastEmitter(dests, output_batch_size)
+    else:
+        inner = ForwardEmitter(dests, output_batch_size)
     if src_is_gpu:
         return DeviceToHostEmitter(inner)
     return inner
+
+
+class SplittingEmitter(Emitter):
+    """A MultiPipe split point (reference ``splitting_emitter.hpp``): the
+    user function maps a tuple to one branch index or an iterable of
+    them; one inner emitter a branch.
+
+    A device batch takes the mask-only split (reference
+    ``Splitting_Emitter_GPU``, ``splitting_emitter_gpu.hpp:53``) when the
+    split function, handed the batch's column dict, returns an integer
+    ``[capacity]`` lane: every branch then shares the same buffers with a
+    mask of its own.  Whether it does is probed once on ``meta`` tensors
+    (no device work; a function that fails there takes the host route).
+    A Python-level or multicast split function takes the host per-tuple
+    route, which refuses to hand a tuple to a device-only branch."""
+
+    def __init__(self, split_fn: Callable, branch_emitters: Sequence[Emitter]):
+        super().__init__([], output_batch_size=0)
+        self.split_fn = split_fn
+        self.branches = list(branch_emitters)
+        #: capacity -> True (mask split) / False (host route)
+        self._device_split = {}
+
+    def bind_stats(self, stats):
+        super().bind_stats(stats)
+        for b in self.branches:
+            b.bind_stats(stats)
+
+    def emit(self, item, ts, wm, shared=False, tid=None):
+        self._route(item, ts, wm, self.split_fn(item), shared, tid)
+
+    def _route(self, item, ts, wm, dest, shared, tid):
+        if isinstance(dest, (int, np.integer)):
+            self.branches[int(dest)].emit(item, ts, wm, shared, tid=tid)
+            return
+        dest = list(dest)
+        # multicast: every branch sees the same object, marked shared so
+        # in-place consumers copy it first
+        multi = shared or len(dest) > 1
+        for d in dest:
+            # the copies need distinct origin ids if a DETERMINISTIC stage
+            # merges the branches again
+            btid = tid + (-1, d) if tid is not None else None
+            self.branches[d].emit(item, ts, wm, multi, tid=btid)
+
+    def _splits_on_device(self, batch: DeviceBatch) -> bool:
+        import torch
+        from windflow_tpu_torch.utils.tree import tree_map
+        ok = self._device_split.get(batch.capacity)
+        if ok is None:
+            meta = tree_map(lambda a: torch.empty_like(a, device="meta"),
+                            batch.payload)
+            try:
+                out = self.split_fn(meta)
+                ok = (isinstance(out, torch.Tensor)
+                      and tuple(out.shape) == (batch.capacity,)
+                      and not out.dtype.is_floating_point
+                      and out.dtype != torch.bool
+                      and not out.dtype.is_complex)
+            except Exception:  # noqa: BLE001 -- a probe of a user
+                # function: any failure means the host route
+                ok = False
+            self._device_split[batch.capacity] = ok
+        return ok
+
+    def split_masks(self, batch: DeviceBatch):
+        """One mask a branch: ``where(valid, split_fn(payload), n) == b``."""
+        import torch
+        n = len(self.branches)
+        idx = self.split_fn(batch.payload).to(torch.int32)
+        dest = torch.where(batch.valid, idx, n)
+        return [dest == b for b in range(n)]
+
+    def emit_device_batch(self, batch: DeviceBatch):
+        if self._splits_on_device(batch):
+            for b, mask in enumerate(self.split_masks(batch)):
+                self.branches[b].emit_device_batch(_mask_view(batch, mask))
+            return
+        # host route: a device-only branch may not be handed a tuple, but
+        # only a tuple actually routed there is an error
+        host_ok = [em.can_emit_host_items for em in self.branches]
+        hb = device_to_host(batch)
+        for item, ts in zip(hb.items, hb.tss):
+            dest = self.split_fn(item)
+            if not isinstance(dest, (int, np.integer)):
+                dest = list(dest)
+            for b in ((dest,) if isinstance(dest, (int, np.integer))
+                      else dest):
+                if not host_ok[int(b)]:
+                    raise WindFlowError(
+                        "split after a GPU stage routed a tuple to a GPU "
+                        f"branch (branch {int(b)}) through the host route, "
+                        "so the split function must evaluate on the "
+                        "batch's columns (torch ops) and return one branch "
+                        "a tuple (got a Python-level or multicast split "
+                        "function); make it a torch expression or insert "
+                        "a host stage before the GPU branch")
+            self._route(item, ts, hb.watermark, dest, False, None)
+
+    def propagate_punctuation(self, wm):
+        for b in self.branches:
+            b.propagate_punctuation(wm)
+
+    def flush(self, wm):
+        for b in self.branches:
+            b.flush(wm)

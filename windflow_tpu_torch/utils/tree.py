@@ -61,9 +61,14 @@ def per_record(fn: Callable, payload, n: int):
     ``fn`` the column dict itself: elementwise tensor code on a record
     (``t["v"] * 2``, ``(t["k"] & 7) != 7``) computes every lane in one
     pass.  Leaves that come back without the batch dimension (a constant,
-    a 0-d tensor) are broadcast to ``[n]`` as vmap would."""
+    a 0-d tensor) are broadcast to ``[n]`` as vmap would.
+
+    ``fn`` gets its own copy of the containers (never of the tensors): a
+    keyed or split fan-out hands several consumers the same payload, and
+    a function that assigns into its record dict must not change what a
+    sibling sees."""
     import torch
-    out = fn(payload)
+    out = fn(tree_map(lambda a: a, payload))
     ref = tree_leaves(payload)[0]
 
     def lane(x):

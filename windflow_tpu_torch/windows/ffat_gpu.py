@@ -21,10 +21,18 @@ R = W/P panes per window, fired every D = S/P panes.
   an eviction does.  The step itself never reads the device on the host;
   the first batch's ring sizing, the 32-step checkpoint and EOS do.
 
-Key compaction, durable state and the mesh path are not ported yet.
-Keyed operators at parallelism > 1 need the keyed emitters, which are not
-ported either: the graph build refuses them, and TB state is kept per
-replica index (``_states`` by ``_sidx``) for when they are.
+Keyed at parallelism > 1 (the keyed emitters route each key to one
+replica): TB state is kept per replica (``_states`` by ``_sidx``: each
+partition has its own watermark frontier), CB state is shared (index 0)
+and the replicas step it one after another on the one stream, as the JAX
+package does.  As the tail of a fused segment the step applies the
+members' prelude first (``_build_step``; a ring regrow rebuilds it with
+the prelude) and the aggregate state is sized from the post-prelude
+records.  The TB ring's first sizing reads the batch the operator is
+handed, as the JAX package does: fused, that is the mask BEFORE the
+prelude's filters, so the ring may differ in size from the unfused
+run's; the records do not.  Key compaction, durable state and the mesh
+path are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 
 from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
 from windflow_tpu_torch.batch import WM_NONE, DeviceBatch
+from windflow_tpu_torch.fusion.executor import prelude_out_payload
 from windflow_tpu_torch.kernels.ffat_cuda import resolve_kernels
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.gpu import _GPUReplica
@@ -99,6 +108,7 @@ class _LateRead:
 
 class FfatWindowsGPU(Operator):
     replica_class = FfatGPUReplica
+    fixed_capacity_label = "FfatWindowsGPU"
 
     def __init__(self, lift: Callable, comb: Callable, spec: WindowSpec, *,
                  max_keys: int, name: str = "ffat_windows_gpu",
@@ -182,15 +192,27 @@ class FfatWindowsGPU(Operator):
         # the kernel switch resolves once per step build
         kernels = resolve_kernels(self.config)
         if self.is_tb:
-            return make_ffat_tb_step(
+            step = make_ffat_tb_step(
                 capacity, self.max_keys, self.P, self.R, self.D, self.NP,
                 self.lift, self.comb, self.key_extractor,
                 drop_tainted=self.overflow_policy == "drop",
                 monoid=self.monoid, kernels=kernels)
-        return make_ffat_step(capacity, self.max_keys, self.P, self.R,
-                              self.D, self.lift, self.comb,
-                              self.key_extractor, monoid=self.monoid,
-                              kernels=kernels)
+        else:
+            step = make_ffat_step(capacity, self.max_keys, self.P, self.R,
+                                  self.D, self.lift, self.comb,
+                                  self.key_extractor, monoid=self.monoid,
+                                  kernels=kernels)
+        prelude = self._fused_prelude
+        if prelude is None:
+            return step
+        inner = step
+
+        def step(state, payload, ts, valid, *rest):
+            # whole-chain fusion: the segment's stateless members run
+            # first, inside this step (fusion/executor.py)
+            payload, valid = prelude(payload, valid)
+            return inner(state, payload, ts, valid, *rest)
+        return step
 
     @property
     def _per_replica_state(self) -> bool:
@@ -215,7 +237,12 @@ class FfatWindowsGPU(Operator):
                 "FfatWindowsGPU requires a fixed upstream batch capacity "
                 f"({self._capacity}), got {batch.capacity}")
         if sidx not in self._states:
-            spec = agg_spec_for(self.lift, batch.payload)
+            payload = batch.payload
+            if self._fused_prelude is not None:
+                # fused: the lift sees the prelude's OUTPUT records
+                payload = prelude_out_payload(self._fused_prelude, payload,
+                                              batch.valid)
+            spec = agg_spec_for(self.lift, payload)
             dev = batch.valid.device
             self._states[sidx] = (
                 make_ffat_tb_state(spec, self.max_keys, self.NP, device=dev)
