@@ -53,6 +53,14 @@ process:
   around a synchronised call, device time and launches by
   ``torch.profiler``; and whole runs of 16 batches in the order
   unfused, fused, fused, unfused (tuples/s);
+* stateful: the steps of ``chip_smoke.py`` phase 7 on staged batches of
+  its data: (a) the dense fraud scorer's wavefront (with its depth and
+  the share of its device time its slot grouping ``auto_order`` takes),
+  (c) the associative running count and sum on a uniform and a Zipf
+  stream, (b) the scorer over arbitrary card ids, compacted and
+  interned, (d) the unbounded compacted reduce: wall on the host clock
+  around a synchronised step (mean of 10, state restored), device time
+  and launches by ``torch.profiler``;
 * the dense-table kernel alone at the reduce routes' three calls
   (``chip_smoke.py`` phase 2's inputs) for lane tiles of 2,048, 4,096
   and 8,192 (``reduce_cuda.TABLE_TILE``), device time of each of its
@@ -70,7 +78,8 @@ process:
     python3 chip_profile.py --only fold_tiles --package-root DIR
 
 runs the named phases only (comma-separated: host, device, reduce, run,
-tb, columnar, fusion, table_tiles, fold_tiles, sass), on the ``windflow_tpu_torch`` package
+tb, columnar, fusion, stateful, table_tiles, fold_tiles, sass), on the
+``windflow_tpu_torch`` package
 under DIR (another checkout, e.g. a parent commit unpacked by ``git
 archive``) instead of the one beside this script.
 
@@ -828,8 +837,122 @@ def sass_phase():
         emit(phase="sass", library=name, atomic_opcodes=dict(ops), **extra)
 
 
+def _stage(dev, cols, n_batches):
+    """``n_batches`` batches of ``cols`` staged by a DeviceStageEmitter."""
+    import numpy as np
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    em = DeviceStageEmitter([(_Inbox(), 0)], CAP, dev)
+    for b in range(n_batches):
+        sl = slice(b * CAP, (b + 1) * CAP)
+        ts = np.arange(b * CAP, (b + 1) * CAP, dtype=np.int64)
+        em.emit_columns({k: v[sl] for k, v in cols.items()}, ts,
+                        int(ts[-1]))
+    return em.dests[0][0].got
+
+
+def _stateful_case(op, batches, warm):
+    """``op``'s step on ``batches[warm]`` after ``warm`` steps, its state
+    (and compaction stats) restored before every call: wall (mean of 10,
+    synchronised), device time and launches by ``torch.profiler``."""
+    import torch
+    from windflow_tpu_torch.utils.tree import tree_map
+    for b in batches[:warm]:
+        op._step(b)
+    torch.cuda.synchronize()
+    saved = {a: tree_map(lambda t: t.clone(), getattr(op, a))
+             for a in ("_state", "_cstats") if getattr(op, a, None)
+             is not None}
+
+    def step():
+        for a, v in saved.items():
+            setattr(op, a, tree_map(lambda t: t.clone(), v))
+        return op._step(batches[warm])
+    return {"step_wall_ms": _mean_wall_ms(step),
+            "step_profile": profile_step(step)}
+
+
+def stateful_phase(dev):
+    """The stateful steps and the compacted reduce of ``chip_smoke.py``
+    phase 7 on staged batches of its data (262,144 tuples, after 4 warm
+    steps): (a) the dense fraud scorer (the wavefront; its depth, and the
+    device time of its slot grouping ``auto_order`` alone on the same
+    slots, as a share of the step's); (c) the associative running count
+    and sum on the uniform and the Zipf stream; (b) the scorer over
+    arbitrary card ids, compacted (keys admitted first) and interned;
+    (d) the unbounded compacted reduce (max).  Wall on the host clock
+    around a synchronised step (mean of 10), device time and launches by
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from chip_smoke import (FRAUD_CARDS, assoc_graph, fraud_data,
+                            fraud_graph, kc_reduce_graph, zipf_draws,
+                            zipf_shift_keys)
+    from windflow_tpu_torch.ops.gpu_stateful import _sort_by_slot
+    warm = 4
+    n = CAP * (warm + 1)
+    rng = np.random.default_rng(2026)
+    table, cards, etype, card_ids = fraud_data(rng, n)
+    # (a): the scorer behind the cast map, unfused
+    g, scorer = fraud_graph(dev.type, b"", table, lambda c: None,
+                            fuse=False)
+    g._build()
+    cast = g.pipes[0].operators[1]
+    staged = [cast._step(b) for b in _stage(
+        dev, {"key": cards.astype(np.int32),
+              "v0": etype.astype(np.float32)}, warm + 1)]
+    res = _stateful_case(scorer, staged, warm)
+    b = staged[warm]
+    keys = b.payload["card"]
+    valid = b.valid & (keys >= 0) & (keys < FRAUD_CARDS)
+    res["wavefront_depth"] = scorer.last_depth
+    res["auto_order"] = profile_step(
+        lambda: _sort_by_slot(valid, keys, FRAUD_CARDS))
+    res["auto_order_share"] = res["auto_order"]["device_us"] \
+        / res["step_profile"]["device_us"]
+    emit(phase="stateful", run="(a) fraud dense, wavefront", capacity=CAP,
+         slots=FRAUD_CARDS, **res)
+    # (c): the associative update, uniform and Zipf
+    for dist in ("uniform", "zipf"):
+        if dist == "uniform":
+            keys = rng.integers(0, FRAUD_CARDS, n)
+        else:
+            keys = rng.permutation(FRAUD_CARDS)[
+                zipf_draws(rng, n, FRAUD_CARDS)]
+        g, op = assoc_graph(dev.type, b"", lambda c: None)
+        g._build()
+        batches = _stage(dev, {"key": keys.astype(np.int32),
+                               "v0": rng.integers(0, 4, n)
+                               .astype(np.float32)}, warm + 1)
+        hot = int(np.bincount(keys[warm * CAP:], minlength=1).max())
+        emit(phase="stateful", run=f"(c) assoc {dist}", capacity=CAP,
+             slots=FRAUD_CARDS, hottest_key_lanes=hot,
+             **_stateful_case(op, batches, warm))
+    # (b): arbitrary card ids, compacted and interned
+    cols = {"key": card_ids, "v0": etype.astype(np.float32)}
+    for kc in (True, False):
+        g, scorer = fraud_graph(dev.type, b"", table, lambda c: None,
+                                dense=False, key_compaction=kc)
+        g._build()
+        if kc:
+            scorer._compactor.observe(card_ids)
+        emit(phase="stateful",
+             run=f"(b) fraud ids, {'compacted' if kc else 'interned'}",
+             capacity=CAP, slots=FRAUD_CARDS,
+             **_stateful_case(scorer, _stage(dev, cols, warm + 1), warm))
+    # (d): the unbounded compacted reduce
+    keys = zipf_shift_keys(rng, n)
+    g, red = kc_reduce_graph(dev.type, "max", b"", lambda c: None)
+    g._build()
+    red._compactor.observe(keys[:CAP])
+    res = _stateful_case(red, _stage(
+        dev, {"key": keys, "v0": rng.integers(-100, 101, n)
+              .astype(np.float32)}, warm + 1), warm)
+    emit(phase="stateful", run="(d) compacted reduce max", capacity=CAP,
+         compactor=red._compactor.summary(), **res)
+
+
 PHASES = ("host", "device", "reduce", "run", "tb", "columnar", "fusion",
-          "table_tiles", "fold_tiles", "sass")
+          "stateful", "table_tiles", "fold_tiles", "sass")
 
 
 def main():
@@ -868,6 +991,8 @@ def main():
         columnar_phase(dev)
     if "fusion" in only:
         fusion_phase(dev)
+    if "stateful" in only:
+        stateful_phase(dev)
     if "table_tiles" in only:
         table_tile_phase(dev)
     if "fold_tiles" in only:

@@ -109,7 +109,35 @@ Phases (each exits nonzero on failure; none is skipped):
    * (e) device placement (``place_torch``) equals the host's
      ``splitmix64_int`` mod n, n in {2, 3, 4, 7}, over the int32 edges
      and 262,144 random keys;
-   * (f) the port's ``entry()`` step on the card equals it on the CPU.
+   * (f) the port's ``entry()`` step on the card equals it on the CPU;
+7. drive the stateful operators and key compaction through
+   ``PipeGraph.run()`` at 262,144 tuples a batch and 16 batches, each run
+   against a numpy oracle that applies the function key by key in
+   arrival order, launch counts set to 0 just before and read just
+   after (``stateful_runs``):
+   * (a) fraud detection (``models/fraud_detection.py``) on frames of
+     (card in [0, 16384), type in [0, 8)), a seeded 8 x 8 transition
+     table: FrameSource → MapGPU ``cast`` → the stateful scorer (dense
+     card ids, the wavefront) → the flag filter (score < 0.05) →
+     columnar Sink, fused (one segment ``cast|markov_score``) and
+     unfused, records equal; the wavefront depth of each batch printed;
+   * (b) the same on 16,384 distinct random int32 card ids, the scorer
+     fed by the staging: with ``Config.key_compaction`` the compacted
+     route (a pinned compactor of 16,384 slots, hit rate 1), without it
+     the interning route; records equal;
+   * (c) a running count and an integer-valued running sum by
+     ``withAssociativeUpdate`` (dense keys, 16,384 slots) on a uniform
+     and a Zipf s = 1.1 stream (the hottest key ~15% of a batch); both
+     step walls printed;
+   * (d) the unbounded compacted ``ReduceGPU`` (declared max, then sum;
+     no ``withMaxKeys``: 1,024 slots, reseeded every 4 batches) on keys
+     drawn Zipf s = 1.1 over 1,048,576 ids whose ranking changes at
+     batch 8, against each batch's oracle; ``dense_monoid_table``
+     launches every batch;
+   * (e) count windows of 1,024 sliding by 128 keyed by 1,000 random
+     int32 ids with ``withCompactedKeys()``, both combiners, fed by the
+     FrameSource; every window against the oracle with the user keys in
+     the output; the grouping (and fold) kernels launch.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -1834,6 +1862,419 @@ def routing_runs(dev_name="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: stateful operators and key compaction
+# ---------------------------------------------------------------------------
+
+#: fraud detection: cards, transaction types, flag threshold
+FRAUD_CARDS, FRAUD_TYPES, FRAUD_THRESHOLD = 16384, 8, 0.05
+#: (d): the key space the Zipf draws map into, the exponent, the reseed
+#: cadence (batches) and the batch at which the key ranking changes
+ZIPF_KEYS, ZIPF_S, KC_RESEED, KC_SHIFT = 1 << 20, 1.1, 4, 8
+#: (e): distinct random int32 window keys
+FFAT_IDS = 1000
+
+
+def zipf_draws(rng, n, k, s=ZIPF_S):
+    """``n`` ranks in [0, k) drawn with probability proportional to
+    ``(rank + 1) ** -s``."""
+    p = np.arange(1, k + 1, dtype=np.float64) ** -s
+    return rng.choice(k, n, p=p / p.sum())
+
+
+def fraud_oracle(keys, etype, table):
+    """Every transaction's Markov score in arrival order: the transition
+    probability from the card's previous type, 1.0 for a first one."""
+    order = np.argsort(keys, kind="stable")
+    sk, se = keys[order], etype[order]
+    prev_s = np.r_[-1, se[:-1]]
+    prev_s[np.r_[True, sk[1:] != sk[:-1]]] = -1
+    prev = np.empty_like(prev_s)
+    prev[order] = prev_s
+    score = np.where(prev < 0, np.float32(1.0),
+                     table[np.clip(prev, 0, None), etype])
+    return score.astype(np.float32)
+
+
+def fraud_graph(dev_name, blob, transition, sink_fn, dense=True,
+                key_compaction=True, fuse=True):
+    """Fraud detection (``windflow_tpu_torch/models/fraud_detection.py``)
+    on frames of (card, ts, transaction type).  ``dense``: FrameSource →
+    MapGPU ``cast`` (card, type to int32) → the model's stateful scorer
+    (dense card ids) → its flag filter → columnar Sink; else the scorer
+    keys arbitrary card ids straight from the staging (host-fed: the
+    compacted route under ``key_compaction``, else interning).  Returns
+    ``(graph, scorer)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.models.fraud_detection import scoring_ops
+    fields = ({"card": "card", "etype": "etype"} if dense
+              else {"card": "key", "etype": "v0"})
+    scorer, flag = scoring_ops(transition, torch.device(dev_name),
+                               max_cards=FRAUD_CARDS,
+                               threshold=FRAUD_THRESHOLD, dense=dense,
+                               **fields)
+    g = wf.PipeGraph("chip_smoke_fraud", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      key_compaction=key_compaction,
+                                      whole_chain_fusion=fuse))
+    pipe = g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                       output_batch_size=CAP))
+    if dense:
+        pipe.add(wf.MapGPU_Builder(
+            lambda t: {"card": t["key"].to(torch.int32),
+                       "etype": t["v0"].to(torch.int32)})
+            .withName("cast").build())
+    pipe.add(scorer)
+    pipe.chain(flag)
+    pipe.add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
+                  .build())
+    return g, scorer
+
+
+def assoc_graph(dev_name, blob, sink_fn):
+    """(c): FrameSource → stateful MapGPU with ``withAssociativeUpdate``
+    (dense keys, 16,384 slots): per key the running count and the running
+    sum of v0, projected onto each record → columnar Sink.  Returns
+    ``(graph, operator)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    op = (wf.MapGPU_Builder(lambda t, s: (t, s)).withName("running")
+          .withKeyBy(lambda t: t["key"])
+          .withInitialState({"n": np.int32(0), "sum": np.float32(0.0)})
+          .withNumKeySlots(FRAUD_CARDS).withDenseKeys()
+          .withAssociativeUpdate(
+              lift=lambda t: {"n": torch.ones_like(t["key"]),
+                              "sum": t["v0"]},
+              comb=lambda a, b: {"n": a["n"] + b["n"],
+                                 "sum": a["sum"] + b["sum"]},
+              project=lambda t, s: {"key": t["key"], "n": s["n"],
+                                    "sum": s["sum"]})
+          .build())
+    g = wf.PipeGraph("chip_smoke_assoc", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP)) \
+        .add(op).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
+                          .build())
+    return g, op
+
+
+def kc_reduce_graph(dev_name, monoid, blob, sink_fn):
+    """(d): FrameSource → ReduceGPU keyed, the leafwise ``monoid``
+    combiner declared, no ``withMaxKeys`` (the unbounded compacted route:
+    a compactor of ``Config.key_compaction_slots`` = 1,024 slots, reseeded
+    every ``KC_RESEED`` batches) → columnar Sink.  Returns ``(graph,
+    reduce operator)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    op = {"max": torch.maximum, "sum": torch.add}[monoid]
+    red = (wf.ReduceGPU_Builder(lambda a, b: {"key": op(a["key"], b["key"]),
+                                              "v0": op(a["v0"], b["v0"])})
+           .withKeyBy(lambda t: t["key"]).withMonoidCombiner(monoid)
+           .withName("kc_reduce").build())
+    g = wf.PipeGraph("chip_smoke_kc_reduce", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      key_compaction_reseed=KC_RESEED))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP)) \
+        .add(red).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                           .build())
+    return g, red
+
+
+def kc_ffat_graph(dev_name, sum_combiner, blob, sink_fn):
+    """(e): FrameSource → keyed count windows (1,024 sliding by 128) over
+    arbitrary int32 keys, ``withCompactedKeys()`` in place of
+    ``withMaxKeys`` → columnar Sink.  The windows are fed by the staging
+    itself: a window behind a device stage sees no host admission.
+    Returns ``(graph, windows operator)``."""
+    import windflow_tpu_torch as wf
+    wb = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+          .withCompactedKeys().withName("kc_windows"))
+    if sum_combiner:
+        wb = wb.withSumCombiner()
+    win = wb.build()
+    g = wf.PipeGraph("chip_smoke_kc_ffat", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP)) \
+        .add(win).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
+                           .build())
+    return g, win
+
+
+def sync_probe(op, depth=False):
+    """Wrap ``op``'s step: ``[steps, seconds, depths]`` with the host
+    clock around the step between two synchronises (the step's wall on
+    the card), and the wavefront depth of each step."""
+    import torch
+    rec = [0, 0.0, []]
+    orig = op._step
+
+    def step(batch, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(batch, *args)
+        torch.cuda.synchronize()
+        rec[1] += time.perf_counter() - t0
+        rec[0] += 1
+        if depth:
+            rec[2].append(op.last_depth)
+        return out
+    op._step = step
+    return rec
+
+
+def timed_run(g):
+    """``g.run()`` on the host clock, to a synchronise; with the launch
+    counts reset just before and read just after."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    g.run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, fc.launch_counts()
+
+
+def cat_cols(cols, name):
+    return np.concatenate([np.asarray(c.cols[name]) for c in cols])
+
+
+def check_fraud(label, cols, keys, etype, table):
+    """The flagged records, in arrival order, against the oracle."""
+    score = fraud_oracle(keys, etype, table)
+    flag = score < np.float32(FRAUD_THRESHOLD)
+    got = (cat_cols(cols, "card").astype(np.int64),
+           cat_cols(cols, "etype").astype(np.int64), cat_cols(cols, "score"))
+    want = (keys[flag].astype(np.int64), etype[flag].astype(np.int64),
+            score[flag])
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail(f"{label}: {len(got[0])} flagged records, {len(want[0])} "
+             "expected, or they differ")
+    return len(got[0])
+
+
+def running_oracle(keys, vals):
+    """Per lane, in arrival order: the key's running count and running
+    sum (float64; exact for the small integer values)."""
+    n = len(keys)
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    start = np.maximum.accumulate(np.where(
+        np.r_[True, sk[1:] != sk[:-1]], np.arange(n), 0))
+    cnt = np.empty(n, np.int64)
+    cnt[order] = np.arange(n) - start + 1
+    cs = np.cumsum(vals[order].astype(np.float64))
+    run_sum = np.empty(n)
+    run_sum[order] = cs - np.r_[0.0, cs][start]
+    return cnt, run_sum
+
+
+def batch_reduce_oracle(keys, vals, monoid):
+    """One batch's records of the plain keyed reduce, ascending keys; a
+    summed key field is key * count (int32 arithmetic)."""
+    uk, inv = np.unique(keys, return_inverse=True)
+    if monoid == "max":
+        wv = np.full(len(uk), -np.inf, np.float32)
+        np.maximum.at(wv, inv, vals)
+        return uk, wv
+    wv = np.zeros(len(uk))
+    np.add.at(wv, inv, vals.astype(np.float64))
+    wk = (uk.astype(np.int64) * np.bincount(inv, minlength=len(uk)))
+    return wk.astype(np.int32), wv.astype(np.float32)
+
+
+def fraud_data(rng, n):
+    """(a)'s cards and types, (b)'s card ids and the transition table."""
+    table = rng.dirichlet(np.ones(FRAUD_TYPES), FRAUD_TYPES) \
+        .astype(np.float32)
+    cards = rng.integers(0, FRAUD_CARDS, n)
+    etype = rng.integers(0, FRAUD_TYPES, n)
+    ids = rng.choice(2 ** 31 - 1, FRAUD_CARDS, replace=False)
+    return table, cards, etype, ids[cards].astype(np.int32)
+
+
+def zipf_shift_keys(rng, n):
+    """(d)'s keys: Zipf ranks over ZIPF_KEYS ids, the rank -> id map
+    changing at batch KC_SHIFT."""
+    ranks = zipf_draws(rng, n, ZIPF_KEYS)
+    perms = (rng.permutation(ZIPF_KEYS), rng.permutation(ZIPF_KEYS))
+    return np.where(np.arange(n) < KC_SHIFT * CAP, perms[0][ranks],
+                    perms[1][ranks]).astype(np.int32)
+
+
+def stateful_runs(dev_name="cuda"):
+    """Phase 7: (a) fraud detection with dense card ids, fused and
+    unfused; (b) arbitrary card ids, compacted and interned; (c) the
+    associative running count and sum on a uniform and a Zipf stream;
+    (d) the unbounded compacted reduce, max and sum, on a Zipf stream
+    whose ranking changes mid-run; (e) compacted window keys, both
+    combiners.  Each run against its numpy oracle; returns the launch
+    counts by label."""
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2026)
+    out = {}
+
+    # (a) and (b): fraud detection
+    table, cards, etype, card_ids = fraud_data(rng, n)
+    blob_a = frame_blob(cards, np.arange(n), etype.astype(np.float64))
+    flagged = {}
+    for fuse in (False, True):
+        label = f"7(a) fraud dense {'fused' if fuse else 'unfused'}"
+        cols, sink = collect()
+        g, scorer = fraud_graph(dev_name, blob_a, table, sink, fuse=fuse)
+        probe = sync_probe(scorer, depth=True)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        segs = [sg["name"] for sg in g._fused_segments]
+        if segs != (["cast|markov_score"] if fuse else []):
+            fail(f"{label}: fused segments {segs}")
+        if probe[0] != COL_BATCHES:
+            fail(f"{label}: {probe[0]} scorer steps")
+        nrec = check_fraud(label, cols, cards, etype, table)
+        flagged[fuse] = (cat_cols(cols, "card"), cat_cols(cols, "score"))
+        print(f"phase 7: PipeGraph.run() {label}: {nrec} flagged records "
+              f"match the oracle; segments {segs}; {n} tuples in "
+              f"{secs:.3f} s = {n / secs:.0f} tuples/s; scorer step wall "
+              f"{1e3 * probe[1] / probe[0]:.3f} ms a batch (synchronised; "
+              f"information only); wavefront depth a batch {probe[2]}; "
+              f"launches {counts}")
+    if not all(np.array_equal(a, b) for a, b in zip(flagged[False],
+                                                    flagged[True])):
+        fail("7(a): fused records differ from unfused")
+    blob_b = frame_blob(card_ids, np.arange(n), etype.astype(np.float64))
+    res = {}
+    for kc in (True, False):
+        label = f"7(b) fraud ids {'compacted' if kc else 'interned'}"
+        cols, sink = collect()
+        g, scorer = fraud_graph(dev_name, blob_b, table, sink, dense=False,
+                                key_compaction=kc)
+        probe = sync_probe(scorer)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        nrec = check_fraud(label, cols, card_ids, etype, table)
+        comp = scorer._compactor
+        if kc:
+            if comp is None or not comp.active:
+                fail(f"{label}: the compacted route did not run")
+            s = comp.summary()
+            if s["hit_rate"] != 1.0 or len(scorer._interner):
+                fail(f"{label}: hit rate {s['hit_rate']}, "
+                     f"{len(scorer._interner)} interned keys")
+            extra = f"; compactor {s}"
+        else:
+            if comp is not None or len(scorer._interner) != FRAUD_CARDS:
+                fail(f"{label}: the interning route did not run")
+            extra = f"; {len(scorer._interner)} keys interned"
+        res[kc] = (cat_cols(cols, "card"), cat_cols(cols, "score"))
+        print(f"phase 7: PipeGraph.run() {label}: {nrec} flagged records "
+              f"match the oracle; {n} tuples in {secs:.3f} s = "
+              f"{n / secs:.0f} tuples/s; scorer step wall "
+              f"{1e3 * probe[1] / probe[0]:.3f} ms a batch (synchronised; "
+              f"information only); launches {counts}{extra}")
+    if not all(np.array_equal(a, b) for a, b in zip(res[True], res[False])):
+        fail("7(b): compacted records differ from interned")
+
+    # (c): the associative update, uniform and Zipf
+    walls = {}
+    for dist in ("uniform", "zipf"):
+        label = f"7(c) assoc {dist}"
+        if dist == "uniform":
+            keys = rng.integers(0, FRAUD_CARDS, n)
+        else:
+            keys = rng.permutation(FRAUD_CARDS)[
+                zipf_draws(rng, n, FRAUD_CARDS)]
+        vals = rng.integers(0, 4, n).astype(np.float32)
+        cols, sink = collect()
+        g, op = assoc_graph(dev_name, frame_blob(keys, np.arange(n), vals),
+                            sink)
+        probe = sync_probe(op)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        cnt, run_sum = running_oracle(keys, vals)
+        if not (np.array_equal(cat_cols(cols, "key"), keys)
+                and np.array_equal(cat_cols(cols, "n"), cnt)
+                and np.array_equal(cat_cols(cols, "sum"), run_sum)):
+            fail(f"{label}: running counts or sums differ from the oracle")
+        hot = np.bincount(keys[:CAP], minlength=FRAUD_CARDS).max()
+        walls[dist] = probe[1] / probe[0]
+        print(f"phase 7: PipeGraph.run() {label}: {n} records match the "
+              f"oracle; hottest key {hot} of the first batch's {CAP} lanes; "
+              f"{n} tuples in {secs:.3f} s = {n / secs:.0f} tuples/s; step "
+              f"wall {1e3 * walls[dist]:.3f} ms a batch (synchronised; "
+              f"information only); launches {counts}")
+    print(f"phase 7: (c) step wall zipf / uniform = "
+          f"{walls['zipf'] / walls['uniform']:.2f}")
+
+    # (d): the unbounded compacted reduce on a shifting Zipf stream
+    keys = zipf_shift_keys(rng, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob_d = frame_blob(keys, np.arange(n), vals)
+    for monoid in ("max", "sum"):
+        label = f"7(d) compacted reduce {monoid}"
+        cols, sink = collect()
+        g, red = kc_reduce_graph(dev_name, monoid, blob_d, sink)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        if len(cols) != COL_BATCHES:
+            fail(f"{label}: {len(cols)} sink batches")
+        nrec = 0
+        for i, c in enumerate(cols):
+            sl = slice(i * CAP, (i + 1) * CAP)
+            wk, wv = batch_reduce_oracle(keys[sl], vals[sl], monoid)
+            if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                    and np.array_equal(np.asarray(c.cols["v0"]), wv)):
+                fail(f"{label}: batch {i} differs from the oracle")
+            nrec += len(wk)
+        s = red._compactor.summary()
+        if red._compactor.bounded or s["batches"] != COL_BATCHES \
+                or s["reseeds"] != COL_BATCHES // KC_RESEED:
+            fail(f"{label}: compactor {s}")
+        if counts["dense_monoid_table"] != COL_BATCHES:
+            fail(f"{label}: dense_monoid_table launched "
+                 f"{counts['dense_monoid_table']} times in {COL_BATCHES} "
+                 "steps")
+        print(f"phase 7: PipeGraph.run() {label}: {nrec} records match the "
+              f"oracle batch by batch; {n} tuples in {secs:.3f} s = "
+              f"{n / secs:.0f} tuples/s (information only); launches "
+              f"{counts}; compactor {s}")
+
+    # (e): compacted window keys
+    ids = rng.choice(2 ** 32 - 1, FFAT_IDS, replace=False) - 2 ** 31
+    keys = ids[rng.integers(0, FFAT_IDS, n)].astype(np.int32)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob_e = frame_blob(keys, np.arange(n), vals)
+    want = oracle(keys, vals)
+    for sum_comb in (False, True):
+        label = f"7(e) compacted windows {'sum' if sum_comb else 'generic'}"
+        cols, sink = collect()
+        g, win = kc_ffat_graph(dev_name, sum_comb, blob_e, sink)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        k, w, v = (cat_cols(cols, nm) for nm in ("key", "wid", "value"))
+        got = dict(zip(zip(k.tolist(), w.tolist()), v.tolist()))
+        if len(got) != len(k) or got != want:
+            fail(f"{label}: {len(got)} windows fired, {len(want)} expected, "
+                 "or sums or keys differ")
+        s = win._compactor.summary()
+        if s["hit_rate"] != 1.0 or s["occupied"] != FFAT_IDS:
+            fail(f"{label}: compactor {s}")
+        need = ("grouping_rank_hist", "sliding_fold") if sum_comb \
+            else ("grouping_rank_hist",)
+        for name in need:
+            if counts[name] <= 0:
+                fail(f"{label} never launched {name}")
+        print(f"phase 7: PipeGraph.run() {label}: {len(k)} windows match "
+              f"the oracle, user keys in the output; {n} tuples in "
+              f"{secs:.3f} s = {n / secs:.0f} tuples/s (information only); "
+              f"launches {counts}; compactor hit rate {s['hit_rate']}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1930,6 +2371,11 @@ def main():
     # 6. fusion, keyed routing, split and merge, counts read just after
     #    each run
     run_counts.update(routing_runs())
+    # 7. stateful operators and key compaction, counts read just after
+    #    each run
+    t7 = time.perf_counter()
+    run_counts.update(stateful_runs())
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -1938,7 +2384,9 @@ def main():
                "(i) frames sum", "(iii) device source generic",
                "(iii) device source sum", "6(a) cb generic unfused",
                "6(a) cb generic fused", "6(a) cb sum unfused",
-               "6(a) cb sum fused", "6(c) split")
+               "6(a) cb sum fused", "6(c) split",
+               "7(e) compacted windows generic",
+               "7(e) compacted windows sum")
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
@@ -1949,10 +2397,12 @@ def main():
                                          "6(a) reduce max unfused",
                                          "6(a) reduce max fused",
                                          "6(b) merge reduce max",
-                                         "6(d) keyed staging"),
+                                         "6(d) keyed staging",
+                                         "7(d) compacted reduce max"),
                "dense_monoid_table[b]": ("(b) compacted sum",
                                          "6(b) merge reduce sum",
-                                         "6(c) split"),
+                                         "6(c) split",
+                                         "7(d) compacted reduce sum"),
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")}
     for r in rows:

@@ -13,7 +13,12 @@ kill switch's, the kernel launches on every step, and a step makes no
 host read.  The dense-table kernel is bit for bit too on max, min,
 integers, bool and integer-valued f32 sums; a random f32 sum is held to
 identical bits from call to call and to rtol 1e-5 against the plain
-scatter-add (the declared-sum reassociation tolerance).
+scatter-add (the declared-sum reassociation tolerance).  The stateful
+and key-compaction checks at the end run the dense associative step,
+the compacted stateful step and the compacted count-window step with no
+synchronising call, count the dense wavefront's one read of its rank
+counts, and check a compacted reduce run's table-kernel launches; the
+running sums are integer-valued, so exact.
 """
 
 import numpy as np
@@ -642,3 +647,164 @@ def test_cuda_device_split_makes_no_host_read(cuda_device):
     k = batches[2].payload["key"]
     assert torch.equal(b0.valid, (k & 1) == 0)
     assert torch.equal(b1.valid, (k & 1) == 1)
+
+
+# ---------------------------------------------------------------------------
+# stateful operators and key compaction on the card
+# ---------------------------------------------------------------------------
+
+def _op_graph(op, compact=True):
+    """Source → ``op`` → Sink, built on the card (no run): the graph
+    attaches what ``Config.key_compaction`` gives ``op``."""
+    import windflow_tpu_torch as wt
+    g = wt.PipeGraph("op_cuda", config=wt.Config(device="cuda",
+                                                 key_compaction=compact))
+    g.add_source(wt.Source_Builder(lambda: iter(())).withOutputBatchSize(
+        CB_CAP).build()).add(op).add_sink(wt.Sink_Builder(lambda t: None)
+                                          .build())
+    g._build()
+    return op
+
+
+def _stateful_op(dense, assoc):
+    import windflow_tpu_torch as wt
+    b = (wt.MapGPU_Builder(
+            lambda t, s: ({"key": t["key"], "v0": s + t["v0"]}, s + t["v0"]))
+         .withKeyBy(lambda t: t["key"]).withInitialState(np.float32(0.0))
+         .withNumKeySlots(CB_K))
+    if dense:
+        b = b.withDenseKeys()
+    if assoc:
+        b = b.withAssociativeUpdate(
+            lift=lambda t: t["v0"], comb=lambda a, b: a + b,
+            project=lambda t, s: {"key": t["key"], "v0": s})
+    return _op_graph(b.build())
+
+
+def _running_sum_check(op, batches, out):
+    """The last batch's outputs are the per-key running sums over every
+    batch stepped so far (integer-valued f32: exact)."""
+    keys = np.concatenate([b.payload["key"].cpu().numpy() for b in batches])
+    vals = np.concatenate([b.payload["v0"].cpu().numpy() for b in batches])
+    order = np.argsort(keys, kind="stable")
+    run = np.empty_like(vals)
+    sk, sv = keys[order], vals[order].astype(np.float64)
+    starts = np.r_[True, sk[1:] != sk[:-1]]
+    cs = np.cumsum(sv)
+    base = np.maximum.accumulate(np.where(starts, np.arange(len(sk)), 0))
+    run[order] = cs - np.r_[0.0, cs][base]
+    want = run[-CB_CAP:]
+    assert np.array_equal(out.payload["v0"].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_assoc_stateful_step_makes_no_host_read(cuda_device):
+    """The dense-keys associative step (the segmented scan) under
+    ``set_sync_debug_mode("error")``: no synchronising call."""
+    op = _stateful_op(dense=True, assoc=True)
+    batches = _cb_batches(cuda_device, 3)
+    out = _no_host_read(op._step, batches)
+    _running_sum_check(op, batches, out)
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_stateful_step_makes_no_host_read(cuda_device):
+    """The compacted stateful step (host-fed, key compaction on; the
+    associative body): the remap lookup, the stats update and the body
+    make no synchronising call once the keys are admitted."""
+    op = _stateful_op(dense=False, assoc=True)
+    assert op._compactor is not None
+    batches = _cb_batches(cuda_device, 3)
+    op._compactor.observe(np.arange(CB_K))
+    out = _no_host_read(op._step, batches)
+    assert op._compactor.summary()["hit_rate"] == 1.0
+    assert len(op._interner) == 0
+    _running_sum_check(op, batches, out)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_wavefront_step_reads_the_rank_counts_once(cuda_device):
+    """The dense wavefront step makes exactly one synchronising call, the
+    read of its per-rank lane counts (``set_sync_debug_mode("warn")``
+    counts them), and equals the running sums."""
+    import warnings
+    op = _stateful_op(dense=True, assoc=False)
+    batches = _cb_batches(cuda_device, 3)
+    op._step(batches[0])
+    op._step(batches[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = op._step(batches[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in rec if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert op.last_depth > 1
+    _running_sum_check(op, batches, out)
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_cb_step_makes_no_host_read(cuda_device):
+    """The compacted FFAT CB step (``withCompactedKeys``): lookup, stats,
+    the window kernels and the inverse remap of the output keys make no
+    synchronising call; the output carries the user's keys."""
+    import windflow_tpu_torch as wt
+    op = _op_graph(wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                              lambda a, b: a + b)
+                   .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+                   .withCompactedKeys().withSumCombiner().build())
+    assert op._compactor is not None and op.max_keys == 1024
+    batches = _cb_batches(cuda_device, 3)
+    for b in batches:              # user keys far from the slots
+        b.payload["key"] = b.payload["key"] * 1000 + 7
+    op._compactor.observe(np.arange(CB_K) * 1000 + 7)
+    fc.reset_launch_counts()
+    out = _no_host_read(op._step, batches)
+    assert fc.launch_counts()["sliding_fold"] == 3
+    keys = out.payload["key"][out.valid].cpu().numpy()
+    assert keys.size and set(keys.tolist()) <= set(range(7, CB_K * 1000, 1000))
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_reduce_run_launches_the_table_kernel(cuda_device):
+    """A graph run of the unbounded compacted reduce with
+    ``cuda_kernels="auto"``: ``dense_monoid_table`` launches every batch
+    and the records equal the kill switch's and the numpy oracle."""
+    import windflow_tpu_torch as wt
+    rng = np.random.default_rng(8)
+    n, cap = 4 * CB_CAP, CB_CAP
+    keys = (rng.integers(0, 300, n) * 7919 + 13).astype(np.int32)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    items = [{"key": k, "v0": v} for k, v in zip(keys, vals)]
+
+    def run(cuda_kernels):
+        got = []
+        op = (wt.ReduceGPU_Builder(
+                lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                              "v0": torch.maximum(a["v0"], b["v0"])})
+              .withKeyBy(lambda t: t["key"]).withMonoidCombiner("max")
+              .build())
+        g = wt.PipeGraph("red_cuda", config=wt.Config(
+            device="cuda", cuda_kernels=cuda_kernels,
+            punctuation_interval_usec=10 ** 12))
+        g.add_source(wt.Source_Builder(lambda: iter(items))
+                     .withOutputBatchSize(cap).build()).add(op).add_sink(
+            wt.Sink_Builder(lambda r: got.append(
+                (int(r["key"]), float(r["v0"]))) if r else None).build())
+        fc.reset_launch_counts()
+        g.run()
+        return got, fc.launch_counts()["dense_monoid_table"], op
+    got, launched, op = run("auto")
+    ref, none, _ = run("0")
+    assert launched == n // cap and none == 0
+    assert got == ref
+    assert op._compactor is not None and not op._compactor.bounded
+    want = []
+    for lo in range(0, n, cap):
+        k, v = keys[lo:lo + cap], vals[lo:lo + cap]
+        for u in np.unique(k):
+            want.append((int(u), float(v[k == u].max())))
+    assert got == want

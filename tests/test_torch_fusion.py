@@ -7,9 +7,10 @@ through the JAX package's fused graph, built the way
 tests/test_fusion.py builds it (``.add(map).add(filter)``, not
 ``.chain``).  Families: count windows (generic and ``withSumCombiner``),
 time windows, the keyed reduce on its sorted, dense and bounded
-compacted routes, and an all-stateless chain; a split graph and merged
-sources; the segment names; one tail step a batch and none on the
-members; the kill switch; the keys lane a chain forwards into a KEYBY
+compacted routes, the dense-key stateful tail and the interning one
+(whose stateless prefix alone fuses), and an all-stateless chain; a
+split graph and merged sources; the segment names; one tail step a
+batch and none on the members; the kill switch; the keys lane a chain forwards into a KEYBY
 consumer at one and several replicas; member stats; closing functions;
 the port's ``entry()`` step against ``__graft_entry__.entry()``'s.
 
@@ -108,6 +109,16 @@ def _tail(pkg, kind, par=1):
         if kind in ("reduce_dense", "reduce_compacted"):
             rb = rb.withMaxKeys(N_KEYS).withMonoidCombiner("max")
         return rb.build()
+    if kind.startswith("stateful"):
+        # dense keys fuse as a tail; the interning tail does not (its
+        # distinct keys go to the host before the step): the prefix fuses
+        sb = (_dev(pkg, "Map")(
+            lambda t, s: ({"key": t["key"], "v": t["v"] + s}, s + 1.0))
+            .withInitialState(np.float32(0.0))
+            .withKeyBy(lambda t: t["key"]).withNumKeySlots(N_KEYS * 2)
+            .withParallelism(par).withName("sm"))
+        return (sb.withDenseKeys() if kind == "stateful_dense"
+                else sb).build()
     assert kind == "stateless"
     return None
 
@@ -141,7 +152,8 @@ def _close(a, b):
 
 
 KINDS = ["cb_window", "cb_window_sum", "tb_window", "reduce_sorted",
-         "reduce_dense", "reduce_compacted", "stateless"]
+         "reduce_dense", "reduce_compacted", "stateful_dense",
+         "stateful_intern", "stateless"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -155,12 +167,20 @@ def test_fused_equals_unfused_and_the_jax_package(kind):
     # the segment names of tests/test_fusion.py:128-140, and the JAX
     # package's own
     assert segs == [s["name"] for s in gj._fused_segments]
-    if kind == "stateless":
-        assert segs == ["ma|fb"]
+    if kind in ("stateless", "stateful_intern"):
+        assert segs == ["ma|fb"]    # stateful_intern: the prefix only
     else:
         assert len(segs) == 1 and segs[0].startswith("ma|fb|")
     if kind == "reduce_compacted":
         assert g._operators[-2].bounded_compaction
+    if kind == "stateful_dense":
+        assert segs == ["ma|fb|sm"]
+        assert g._operators[-2]._fused_prelude is not None
+    if kind == "stateful_intern":
+        sm = g._operators[-2]
+        # the tail keeps its own hop; fed by a device edge, it interns
+        assert sm._fused_prelude is None and sm._compactor is None
+        assert len(sm._interner) == N_KEYS // 2
 
 
 @pytest.mark.parametrize("kind", ["cb_window", "reduce_sorted",
@@ -243,7 +263,7 @@ def _count_steps(op):
 
 
 @pytest.mark.parametrize("kind", ["cb_window", "tb_window",
-                                  "reduce_compacted"])
+                                  "reduce_compacted", "stateful_dense"])
 def test_one_tail_step_a_batch_and_none_on_members(kind):
     for fuse in (True, False):
         g = wt.PipeGraph("steps", wt.ExecutionMode.DEFAULT,

@@ -468,16 +468,16 @@ def test_bounded_route_with_fewer_lanes_than_keys():
 
 
 def test_declared_reduce_without_max_keys_keeps_records():
-    """A declared monoid without withMaxKeys takes the sorted route in
-    the port and the compacted one in JAX (tests/test_key_compaction.py
-    :73): the records are the same; an undeclared reduce never compacts
-    (:93)."""
+    """A declared monoid without withMaxKeys takes the unbounded compacted
+    route in both packages (tests/test_key_compaction.py :73): the
+    records are the same; an undeclared reduce never compacts (:93)."""
     stream = _stream(512, lambda i: (i * 7) % 23 + 1000,
                      lambda i: -2.0 - ((i * 29) % 83) / 7.0)
     a, op_a = _reduce_graph(wf, stream, "max")
     b, op_b = _reduce_graph(wt, stream, "max")
     assert a == b and len(b) > 0
-    assert op_a._compactor is not None and not op_b.bounded_compaction
+    assert op_a._compactor is not None and op_b._compactor is not None
+    assert not op_b.bounded_compaction
     c, op_c = _reduce_graph(wt, stream, "max", max_keys=2000, declare=False)
     assert not op_c.bounded_compaction and c == b
 

@@ -5,9 +5,13 @@ execution modes) on one NVIDIA GPU.  Device operators take the reference's
 GPU names (``MapGPU_Builder``, ``FilterGPU_Builder``,
 ``ReduceGPU_Builder``, ``Ffat_WindowsGPU_Builder``) beside the host ones
 (``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder``,
-``Reduce_Builder``); MultiPipes split, select and merge, keyed edges
-route to several replicas, and whole-chain fusion runs each operator
-chain as one hop (``windflow_tpu_torch/fusion``).  The FFAT hot loop and
+``Reduce_Builder``); ``MapGPU_Builder`` / ``FilterGPU_Builder`` with
+``withInitialState`` build the keyed stateful operators
+(``StatefulMapGPU``, ``StatefulFilterGPU``).  MultiPipes split, select
+and merge, keyed edges route to several replicas, whole-chain fusion
+runs each operator chain as one hop (``windflow_tpu_torch/fusion``),
+and key compaction maps arbitrary int32 keys onto dense slots
+(``windflow_tpu_torch/parallel/compaction.py``).  The FFAT hot loop and
 the reduce's dense tables run hand-written CUDA kernels
 (``windflow_tpu_torch/kernels``).  The bulk sources ``FrameSource``
 and ``DeviceSource`` (``windflow_tpu_torch/io``) feed the card
@@ -34,6 +38,8 @@ from windflow_tpu_torch.graph.pipegraph import PipeGraph
 from windflow_tpu_torch.io import DeviceSource, FrameSource
 from windflow_tpu_torch.ops.filter_op import Filter
 from windflow_tpu_torch.ops.flatmap_op import FlatMap, Shipper
+from windflow_tpu_torch.ops.gpu_stateful import (StatefulFilterGPU,
+                                                 StatefulMapGPU)
 from windflow_tpu_torch.ops.map_op import Map
 from windflow_tpu_torch.ops.reduce_op import Reduce
 from windflow_tpu_torch.ops.sink import SinkColumns
@@ -46,5 +52,5 @@ __all__ = [
     "FilterGPU_Builder", "FlatMap_Builder", "Map_Builder", "MapGPU_Builder",
     "Reduce_Builder", "ReduceGPU_Builder", "Sink_Builder", "Source_Builder",
     "Filter", "FlatMap", "Map", "Reduce", "Shipper", "MultiPipe",
-    "PipeGraph", "SinkColumns",
+    "PipeGraph", "SinkColumns", "StatefulFilterGPU", "StatefulMapGPU",
 ]

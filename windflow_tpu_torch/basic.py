@@ -2,7 +2,8 @@
 
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
 not imported across: the port stands alone).  ``Config`` keeps only the
-fields the ported slices read, plus the two the port adds:
+fields the ported slices read (with the JAX package's defaults and no
+environment knobs), plus the two the port adds:
 ``device`` (the card unless the caller asks for the CPU) and
 ``cuda_kernels`` (the kernel switch, counterpart of
 ``Config.pallas_kernels``).  ``stable_hash`` and ``int32_key`` are the
@@ -84,11 +85,23 @@ class Config:
     # routing); "0" is the kill switch — the torch composition runs and
     # nothing is built.
     cuda_kernels: object = "auto"
-    # Device-side key compaction: a keyed ReduceGPU with withMaxKeys and
-    # a declared monoid takes the bounded compacted step (out-of-range
-    # keys ride the sorted overflow lane and are kept); off, it takes the
-    # dense step (out-of-range keys dropped and counted).
+    # Device-side key compaction (parallel/compaction.py): the graph
+    # build attaches a KeyCompactor to every keyed declared-monoid
+    # ReduceGPU (withMaxKeys: the bounded step, out-of-range keys ride
+    # the sorted overflow lane and are kept; without it: a remap of
+    # hot keys to dense slots, the cold tail on the overflow lane), to
+    # host-fed interning stateful operators (the remap replaces the
+    # per-batch intern read) and to withCompactedKeys windows.  Off,
+    # nothing attaches: the dense reduce drops and counts out-of-range
+    # keys, and a compacted window raises at its first batch.
     key_compaction: bool = True
+    # Dense slots of a compacted reduce or window (the remap table's
+    # size); stateful operators use their withNumKeySlots instead.
+    key_compaction_slots: int = 1024
+    # Reseed cadence in consumer batches: every N-th batch the compactor
+    # reads its consumers' miss rings (one device read) and admits the
+    # candidates into free slots.
+    key_compaction_reseed: int = 64
     # Whole-chain fusion (windflow_tpu_torch/fusion): at graph build each
     # maximal run of stateless device operators (map / filter / chained)
     # ending in at most one window or reduce tail runs as ONE hop whose

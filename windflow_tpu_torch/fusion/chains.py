@@ -7,8 +7,8 @@ replace the whole run.  An edge ``a -> b`` ends a chain at a fan-out
 (split or several consumers), a fan-in (merge), a change of
 parallelism, a KEYBY edge to more than one replica, or any other
 routing than FORWARD; a single-replica KEYBY edge is a relay and joins.
-A window or reduce operator ends a chain too: its output is a different
-stream.  The JAX package's fusion advisor ranks these chains by
+A window, reduce or stateful operator ends a chain too: its output is a
+different stream, or depends on per-key state.  The JAX package's fusion advisor ranks these chains by
 projected savings (``plan``); that part waits for the port's analysis
 plane (ROADMAP A9).
 """
@@ -48,10 +48,12 @@ def _chain_boundary(a, b, fanout: Dict[int, int],
 
 def _terminal(op) -> bool:
     """Operators that end a chain even when linkable: their output is a
-    different stream (window results, reduced batches)."""
+    different stream (window results, reduced batches), or it depends on
+    per-key state (a stateful map or filter)."""
+    from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
     from windflow_tpu_torch.ops.reduce import ReduceGPU
     from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
-    return isinstance(op, (ReduceGPU, FfatWindowsGPU))
+    return isinstance(op, (ReduceGPU, FfatWindowsGPU, _StatefulGPUBase))
 
 
 def edge_degrees(edges):

@@ -3,13 +3,14 @@
 
 At ``PipeGraph._build`` every executable chain — a run of stateless
 device stages (map / filter / chained pairs), optionally ending in one
-window or reduce tail — is routed as ONE hop:
+window, reduce or dense-key stateful tail — is routed as ONE hop:
 
 * **Prelude** — :func:`build_prelude` folds the stateless members'
   record transforms into one ``(payload, valid) -> (payload, valid)``
-  function.  A window or reduce tail applies it ahead of its own step
-  (``FfatWindowsGPU._build_step``, ``ReduceGPU``'s three step builders
-  consult ``op._fused_prelude``), so the tail's host machinery — TB ring
+  function.  A window, reduce or dense-key stateful tail applies it
+  ahead of its own step (``FfatWindowsGPU._build_step``, ``ReduceGPU``'s
+  step builders and ``_StatefulGPUBase._get_step`` consult
+  ``op._fused_prelude``), so the tail's host machinery — TB ring
   regrow and rebase, EOS flush, overflow policy — keeps working with the
   prelude inside; a ring regrow rebuilds the step with it.
 * **Stateless host** — an all-stateless chain has no tail step to extend:
@@ -32,7 +33,7 @@ Not ported, as they have no torch twin or wait for a later item: XLA
 input-buffer donation (``donation_aliases_cleanly``,
 ``input_donation_safe``, ``enable_input_donation``; the port's steps
 update their state in place already), the shard-plane sketch
-(``attach_shard_sketch``, ROADMAP A8) and stateful tails (ROADMAP A4).
+(``attach_shard_sketch``, ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -54,11 +55,22 @@ def _is_stateless(op) -> bool:
 
 
 def _tail_supported(op) -> bool:
-    """Chain tails that take a prelude: count and time windows, and the
-    reduce on all three routes."""
+    """Chain tails that take a prelude: count and time windows over a
+    declared key space, the reduce on every route, and a stateful
+    operator with dense keys.  An interning stateful tail is left out
+    (its distinct keys go to the host before the step, which the
+    prelude's output would have to reach mid-step): the prefix fuses
+    and the tail does not.  So is a compacted window (its keys are
+    admitted at the host staging boundary, which a prelude would move
+    behind the chain)."""
+    from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
     from windflow_tpu_torch.ops.reduce import ReduceGPU
     from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
-    return isinstance(op, (FfatWindowsGPU, ReduceGPU))
+    if isinstance(op, FfatWindowsGPU):
+        return op.max_keys is not None
+    if isinstance(op, _StatefulGPUBase):
+        return bool(op.dense_keys)
+    return isinstance(op, ReduceGPU)
 
 
 def build_prelude(members):

@@ -2,8 +2,9 @@
 reference ``builders.hpp`` and ``builders_gpu.hpp``).  Host builders:
 ``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder`` (each with
 ``withBroadcast``), ``Reduce_Builder``; device builders take the
-reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder``,
-``ReduceGPU_Builder`` and ``Ffat_WindowsGPU_Builder``."""
+reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder`` (both
+stateful with ``withInitialState``), ``ReduceGPU_Builder`` and
+``Ffat_WindowsGPU_Builder``."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
 from windflow_tpu_torch.ops.filter_op import Filter
 from windflow_tpu_torch.ops.flatmap_op import FlatMap
 from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
+from windflow_tpu_torch.ops.gpu_stateful import (StatefulFilterGPU,
+                                                 StatefulMapGPU)
 from windflow_tpu_torch.ops.map_op import Map
 from windflow_tpu_torch.ops.reduce_op import Reduce
 from windflow_tpu_torch.ops.reduce import ReduceGPU
@@ -284,7 +287,72 @@ class Sink_Builder(_BroadcastMixin, _BuilderBase):
                     columnar_defer=self._columnar_defer)
 
 
-class MapGPU_Builder(_BuilderBase):
+class _StatefulGPUMixin:
+    """The stateful clauses of ``MapGPU_Builder`` / ``FilterGPU_Builder``
+    (the JAX package's ``_StatefulTPUMixin``; the reference selects its
+    stateful variants by the functor's (tuple, state) signature,
+    ``builders_gpu.hpp:54-673``; here the per-key initial state is
+    explicit)."""
+
+    _initial_state = None
+    _num_key_slots = 4096
+    _dense_keys = False
+    _assoc = None
+
+    def withInitialState(self, state):
+        """Per-key initial state prototype: switches the operator to the
+        stateful keyed path (needs ``withKeyBy``).
+
+        Skew warning: the default body applies each key's tuples in order
+        by a rank wavefront, one application a rank, so a batch whose
+        hottest key holds r tuples costs r sequential device steps (and
+        one host read of the per-rank counts).  For an ASSOCIATIVE update,
+        ``withAssociativeUpdate`` switches to a segmented scan that no
+        skew slows (``ops/gpu_stateful.py``)."""
+        self._initial_state = state
+        return self
+
+    def withNumKeySlots(self, n: int):
+        """Capacity of the dense state table (most distinct keys)."""
+        self._num_key_slots = n
+        return self
+
+    def withDenseKeys(self):
+        """The key extractor already returns slots in [0, num_key_slots):
+        no host interning, so a batch is device work with no host read
+        but the wavefront's rank counts.  Out-of-range keys are masked
+        invalid, as in the windows."""
+        self._dense_keys = True
+        return self
+
+    def withAssociativeUpdate(self, lift, comb, project):
+        """Declare the update associative: ``state' = comb(state,
+        lift(record))``, the output ``project(record, state including
+        this record)`` (a filter's project returns the keep bool).  A
+        segmented scan then replaces the wavefront, so a hot key costs
+        what uniform keys cost.  The function given to the builder is
+        not called."""
+        self._assoc = (lift, comb, project)
+        return self
+
+    def _stateful(self, cls, batch_fn: bool = False):
+        if batch_fn:
+            raise WindFlowError(
+                "batch_fn is not supported for stateful MapGPU: the "
+                "stateful function operates per record as "
+                "fn(record, state) -> (record, state)")
+        if getattr(self, "_rebalancing", False):
+            raise WindFlowError(
+                "stateful GPU operators route by key; REBALANCING does not "
+                "apply")
+        return cls(self._fn, self._initial_state, name=self._name,
+                   parallelism=self._parallelism,
+                   key_extractor=self._key_extractor,
+                   num_key_slots=self._num_key_slots,
+                   dense_keys=self._dense_keys, assoc=self._assoc)
+
+
+class MapGPU_Builder(_StatefulGPUMixin, _BuilderBase):
     _default_name = "map_gpu"
 
     def __init__(self, fn: Callable, batch_fn: bool = False) -> None:
@@ -292,21 +360,25 @@ class MapGPU_Builder(_BuilderBase):
         self._fn = fn
         self._batch_fn = batch_fn
 
-    def build(self) -> MapGPU:
+    def build(self):
+        if self._initial_state is not None:
+            return self._stateful(StatefulMapGPU, self._batch_fn)
         return MapGPU(self._fn, name=self._name,
                       parallelism=self._parallelism,
                       batch_fn=self._batch_fn, routing=self._routing(),
                       key_extractor=self._key_extractor)
 
 
-class FilterGPU_Builder(_BuilderBase):
+class FilterGPU_Builder(_StatefulGPUMixin, _BuilderBase):
     _default_name = "filter_gpu"
 
     def __init__(self, fn: Callable) -> None:
         super().__init__()
         self._fn = fn
 
-    def build(self) -> FilterGPU:
+    def build(self):
+        if self._initial_state is not None:
+            return self._stateful(StatefulFilterGPU)
         return FilterGPU(self._fn, name=self._name,
                          parallelism=self._parallelism,
                          routing=self._routing(),
@@ -325,9 +397,11 @@ class ReduceGPU_Builder(_BuilderBase):
       out-of-range keys ride the sorted overflow lane and are kept
       (``Out_of_range_keys_rerouted``), with it off they are dropped and
       counted (``Out_of_range_keys_dropped``);
-    * a declared monoid WITHOUT ``withMaxKeys`` takes the sorted route
-      here (the JAX package compacts it through a ``KeyCompactor``,
-      not ported yet) — the records are the same either way."""
+    * a declared monoid WITHOUT ``withMaxKeys``: with
+      ``Config.key_compaction`` on, the unbounded compacted route (a
+      ``KeyCompactor`` of ``Config.key_compaction_slots`` remaps hot keys
+      to dense slots, the cold tail rides the overflow lane); off, the
+      sorted route.  The records are the same either way."""
 
     _default_name = "reduce_gpu"
 
@@ -420,6 +494,18 @@ class Ffat_WindowsGPU_Builder(_BuilderBase):
     def withMaxKeys(self, n: int):
         """Size of the dense device key space [0, n)."""
         self._max_keys = int(n)
+        return self
+
+    def withCompactedKeys(self):
+        """Arbitrary int32 keys through key compaction
+        (``parallel/compaction.py``): the graph build attaches a pinned
+        key -> slot remap of ``Config.key_compaction_slots`` slots, so the
+        dense pane state works without a declared key bound.  Keys are
+        admitted at the host staging boundary; keys beyond the slot budget
+        (or never admitted) are masked invalid and counted.  Needs
+        ``withKeyBy`` and ``Config.key_compaction`` on; the fired records
+        carry the user's keys."""
+        self._max_keys = None
         return self
 
     def withSumCombiner(self):

@@ -13,11 +13,14 @@ punctuations and flushes window state (reference
 The graph is a DAG of MultiPipes (splits and merges).  ``_edges`` walks
 it once; replica construction, the build-time capacity check, the fusion
 planner (``windflow_tpu_torch/fusion``) and the wiring all read that one
-walk.  At build, ``Config.key_compaction`` gives every keyed
-declared-monoid ``withMaxKeys`` ReduceGPU its bounded compacted step, and
-``Config.whole_chain_fusion`` runs each executable operator chain as one
-hop.  The JAX package's preflight, calibration, wire, megastep,
-durability, monitoring planes and ``KeyCompactor`` are not ported yet.
+walk.  At build, ``Config.whole_chain_fusion`` runs each executable
+operator chain as one hop, and after the wiring ``Config.key_compaction``
+attaches a ``KeyCompactor`` to every keyed declared-monoid ReduceGPU,
+every host-fed interning stateful operator and every
+``withCompactedKeys`` window, and wires their feeding emitters for
+admission (``parallel/compaction.attach_compaction``).  The JAX
+package's preflight, calibration, wire, megastep, durability and
+monitoring planes are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ from windflow_tpu_torch.fusion.executor import (apply_fusion,
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.chained import ChainedGPU
-from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.source import Source, SourceReplica
 from windflow_tpu_torch.parallel.collectors import create_collector
 from windflow_tpu_torch.parallel.emitters import (SplittingEmitter,
@@ -153,14 +155,6 @@ class PipeGraph:
         for rep in self._all_replicas:
             rep.config = self.config
         self._check_fixed_capacity_ops()
-        if getattr(self.config, "key_compaction", True):
-            # keyed declared-monoid withMaxKeys reduces: the bounded
-            # compacted step (parallel/compaction.py)
-            for op in self._operators:
-                if isinstance(op, ReduceGPU) and op.monoid is not None \
-                        and op.max_keys is not None \
-                        and op.key_extractor is not None:
-                    op.enable_bounded_compaction()
 
         # 1b. whole-chain fusion, installed before wiring so each segment
         # is wired as one hop
@@ -235,6 +229,13 @@ class PipeGraph:
                 for rep in m.replicas:
                     rep.done = True
                     rep.stats.is_terminated = True
+
+        # 2c. key compaction: after fusion (preludes installed) and the
+        # wiring (the emitters exist), before any step
+        if getattr(self.config, "key_compaction", True):
+            from windflow_tpu_torch.parallel.compaction import \
+                attach_compaction
+            attach_compaction(self)
 
         # 3. collectors: one per replica with input channels
         for rep in self._all_replicas:

@@ -205,6 +205,9 @@ class Operator:
     #: on an all-stateless segment's last member: the FusedStatelessExec
     #: its replicas run instead of their own step
     _fusion_exec = None
+    #: key compaction (parallel/compaction.py): the KeyCompactor the
+    #: graph build attached to this keyed consumer, else None
+    _compactor = None
 
     def __init__(self, name: str, parallelism: int,
                  routing: RoutingMode = RoutingMode.FORWARD,

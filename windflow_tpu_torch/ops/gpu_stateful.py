@@ -1,0 +1,509 @@
+"""Keyed stateful device operators: per-key state on the card (the
+single-card port of ``windflow_tpu/ops/tpu_stateful.py``; reference
+stateful ``Map_GPU`` / ``Filter_GPU``, ``map_gpu.hpp:78-102``,
+``filter_gpu.hpp:119``).
+
+The state is a dense pytree of ``[num_key_slots, ...]`` tensors on the
+OPERATOR, shared by its replicas (the keyed edges send each key to one
+replica, and the host scheduler steps replicas one at a time: the role
+of the reference's spinlock).  A key reaches its slot by one of three
+routes, picked per operator as in the JAX package:
+
+* **dense keys** (``withDenseKeys``): the extractor returns the slot;
+  out-of-range keys are masked invalid;
+* **compacted** (a host-fed operator under ``Config.key_compaction``,
+  ``parallel/compaction.py``): a pinned ``KeyCompactor`` admits every
+  key on the host before its batch ships and the step looks the slots
+  up in its tables, so the per-batch intern read goes away;
+* **interned**: the batch's keys and mask come to the host, a
+  :class:`~windflow_tpu_torch.parallel.emitters.KeyInterner` gives each
+  distinct key a slot, and the sorted key/slot tables go back in one
+  copy.
+
+Two bodies apply the user function in each key's arrival order:
+
+* :func:`_wavefront_body` (``fn(record, state) -> (record, state)``, or
+  ``(keep, state)`` for a filter): lanes sorted by slot, each lane's
+  rank among its key's lanes (its sorted position less the start of its
+  key's run), and one application a rank — lanes of one
+  rank hold distinct keys, so their state rows gather and scatter
+  without conflict.  Eager PyTorch has no device loop: the per-rank lane
+  counts come to the host in one read (a second only when one key holds
+  more than ``RANK_READ`` lanes of a batch), the live lanes are ordered
+  by (rank, slot), and ``fn`` runs on each rank's contiguous slice only.
+  That is O(capacity) work where a masked full-width loop would be
+  O(depth x capacity); the depth is the hottest key's lane count, so a
+  skewed stream wants:
+* :func:`_assoc_body` (``withAssociativeUpdate(lift, comb, project)``):
+  ``state' = comb(state, lift(record))`` folded per key by a segmented
+  inclusive scan with ``lax.associative_scan``'s combine tree, then
+  ``project(record, state including the record)``.  No host read, and a
+  hot key costs what a uniform stream costs.
+
+Not ported yet: the mesh path (``_get_sharded_step``,
+``_sharded_stateful_step``; ROADMAP A10) and ``snapshot_state`` /
+``restore_state`` (A7; ``interop.stateful_state_from_numpy`` carries a
+JAX operator's state across).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from windflow_tpu_torch.basic import RoutingMode, WindFlowError
+from windflow_tpu_torch.batch import DeviceBatch
+from windflow_tpu_torch.ops.base import Operator
+from windflow_tpu_torch.ops.gpu import _GPUReplica
+from windflow_tpu_torch.parallel.emitters import KeyInterner
+from windflow_tpu_torch.utils.dtypes import cast_state_update as _cast_update
+from windflow_tpu_torch.utils.tree import (per_record, per_record2,
+                                           tree_flatten, tree_map,
+                                           tree_unflatten)
+from windflow_tpu_torch.windows.ffat_kernels import _b, associative_scan
+from windflow_tpu_torch.windows.grouping import (auto_order, invert_perm,
+                                                order_and_hist)
+
+#: pads the interning route's sorted key table
+KEY_SENTINEL = 2**31 - 1
+#: per-rank lane counts taken by the wavefront's first (usually only)
+#: host read
+RANK_READ = 1024
+
+
+def _as_tensor(x) -> torch.Tensor:
+    """A state prototype leaf as a tensor, with numpy's dtype rules for
+    Python and numpy scalars (``0.0`` float64, ``0`` int64), which are the
+    JAX package's under its process-wide x64."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x))
+
+
+def _broadcast_state(proto, num_slots: int, device=None):
+    """The ``[S, ...]`` state table from one per-key prototype."""
+    def rep(x):
+        a = _as_tensor(x).to(device)
+        return a.unsqueeze(0).repeat((num_slots,) + (1,) * a.ndim)
+    return tree_map(rep, proto)
+
+
+def _slot_key(valid, slots, S: int):
+    """The grouping id of every lane: its slot, or ``S`` (the trailing
+    bucket) for invalid and out-of-range lanes."""
+    return torch.where(valid & (slots < S), slots.to(torch.int32), S)
+
+
+def _sort_by_slot(valid, slots, S: int):
+    """The stable grouping of lanes by slot: ``(order, sorted slots)``."""
+    sort_key = _slot_key(valid, slots, S)
+    order = auto_order(sort_key, S + 1).long()
+    return order, sort_key[order]
+
+
+def _seg_starts(s_slots):
+    starts = torch.ones_like(s_slots, dtype=torch.bool)
+    starts[1:] = s_slots[1:] != s_slots[:-1]
+    return starts
+
+
+def _update_rows(state, new, idx, what: str) -> None:
+    """Write the ``[n]`` rows ``new`` into ``state`` at the distinct slots
+    ``idx``, in place, cast under the state dtype policy."""
+    st_leaves, st_def = tree_flatten(state)
+    nw_leaves, nw_def = tree_flatten(new)
+    if st_def != nw_def:
+        raise WindFlowError(
+            f"{what} returned a state of another structure than the "
+            f"initial state ({nw_def} vs {st_def})")
+    for a, u in zip(st_leaves, nw_leaves):
+        a.index_copy_(0, idx, _cast_update(u, a.dtype, what).reshape(
+            (idx.shape[0],) + tuple(a.shape[1:])))
+
+
+def _rank_counts(cnt: torch.Tensor) -> list:
+    """The nonzero prefix of the per-rank lane counts (non-increasing in
+    the rank): one host read, a second only past ``RANK_READ`` ranks."""
+    head = cnt[:RANK_READ].cpu().numpy()
+    if head.shape[0] == RANK_READ and head[-1] > 0:
+        head = np.concatenate([head, cnt[RANK_READ:].cpu().numpy()])
+    return head[:int(np.count_nonzero(head))].tolist()
+
+
+def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
+                    is_filter: bool):
+    """``(state, payload, valid, slots) -> (state, payload, valid)``: the
+    rank-wavefront apply over resolved slots (lanes with a slot >=
+    num_slots are ignored).  The state comes back as a new table; the
+    body's ``last_depth`` is the batch's wavefront depth."""
+    S = num_slots
+    what = "stateful function"
+    spec = {}          # the output carry's structure, from the first call
+
+    def out_spec(payload, state):
+        """The result structure of ``fn`` (the JAX package's
+        ``jax.eval_shape``): from ``fn`` on one lane, once."""
+        if "def" not in spec:
+            one = tree_map(lambda a: a[:1], payload)
+            cur = tree_map(lambda a: a[:1], state)
+            res, _ = per_record2(fn, one, cur, 1)
+            leaves, treedef = tree_flatten(res)
+            spec["def"] = treedef
+            spec["leaves"] = [(l.dtype, tuple(l.shape[1:])) for l in leaves]
+        return spec["def"], spec["leaves"]
+
+    def body_fn(state, payload, valid, slots):
+        dev = valid.device
+        sort_key = _slot_key(valid, slots, S)
+        order, hist = order_and_hist(sort_key, S + 1)
+        order = order.long()
+        s_slots = sort_key[order]
+        live = s_slots < S
+        # rank = the lane's occurrence index within its key's run: its
+        # sorted position less the run's start (the histogram's
+        # exclusive running sum)
+        start = torch.cumsum(hist, 0) - hist
+        rank = torch.arange(capacity, device=dev) - start[s_slots.long()]
+        rank = torch.where(live, rank, capacity)
+        cnt = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+        cnt.index_add_(0, rank, torch.ones_like(rank, dtype=torch.int32))
+        counts = _rank_counts(cnt[:capacity])      # the step's host read
+        body_fn.last_depth = len(counts)
+        # live lanes by (rank, slot): each wavefront a contiguous slice
+        w = order[torch.sort(rank, stable=True).indices]
+        w_slots = slots.to(torch.int64)[w]
+        w_payload = tree_map(lambda a: a[w], payload)
+        st = tree_map(torch.clone, state)
+        outs = []
+        off = 0
+        for c in counts:
+            sl_slots = w_slots[off:off + c]
+            cur = tree_map(lambda a: a[sl_slots], st)
+            rec = tree_map(lambda a: a[off:off + c], w_payload)
+            res, new = per_record2(fn, rec, cur, c)
+            # slots within a rank are distinct: no write conflicts
+            _update_rows(st, new, sl_slots, what)
+            outs.append(res)
+            off += c
+        n_live = off
+        dest = w[:n_live]
+        if is_filter:
+            keep = torch.ones(capacity, dtype=torch.bool, device=dev)
+            if outs:
+                keep.index_copy_(0, dest, torch.cat(
+                    [r.to(torch.bool).reshape(-1) for r in outs]))
+            return st, payload, valid & keep
+        treedef, leaf_spec = out_spec(payload, state)
+        leaves = []
+        for i, (dt, trail) in enumerate(leaf_spec):
+            full = torch.zeros((capacity,) + trail, dtype=dt, device=dev)
+            if outs:
+                full.index_copy_(0, dest, torch.cat(
+                    [tree_flatten(r)[0][i].to(dt) for r in outs]))
+            leaves.append(full)
+        return st, tree_unflatten(treedef, leaves), valid
+
+    body_fn.last_depth = 0
+    return body_fn
+
+
+def _assoc_body(lift: Callable, comb: Callable, project: Callable,
+                capacity: int, num_slots: int, is_filter: bool):
+    """The log-depth body for an associative state update
+    (``state' = comb(state, lift(record))``): a segmented inclusive scan
+    folds each key's lifts in arrival order, ``project(record,
+    state_incl)`` sees the state including the record's own lift (the
+    keep bool for a filter), and each run's last lane writes the key's
+    final state.  No host read; the segment-end scatter writes into a
+    ``[S + 1]`` buffer whose last row takes every other lane."""
+    S = num_slots
+
+    def body_fn(state, payload, valid, slots):
+        order, s_slots = _sort_by_slot(valid, slots, S)
+        s_payload = tree_map(lambda a: a[order], payload)
+        lifts = per_record(lift, s_payload, capacity)
+        starts = _seg_starts(s_slots)
+
+        def op(a, b):
+            sa, va = a
+            sb, vb = b
+            combined = comb(va, vb)
+            v = tree_map(lambda c, x: torch.where(_b(sb, c), x, c),
+                         combined, vb)
+            return sa | sb, v
+
+        # invalid lanes all sit in the trailing sentinel segment
+        _, prefix = associative_scan(op, (starts, lifts))
+        gather = torch.clamp(s_slots, 0, S - 1).long()
+        init = tree_map(lambda a: a[gather], state)
+        state_incl = comb(init, prefix)
+        s_out = per_record2(project, s_payload, state_incl, capacity)
+        ends = torch.ones_like(starts)
+        ends[:-1] = s_slots[:-1] != s_slots[1:]
+        scat = torch.where(ends & (s_slots < S), s_slots, S).long()
+
+        def persist(a, u):
+            buf = torch.cat([a, a[:1]])
+            buf.index_copy_(0, scat, _cast_update(u, a.dtype).reshape(
+                (capacity,) + tuple(a.shape[1:])))
+            return buf[:S]
+
+        new_state = tree_map(persist, state, state_incl)
+        inv = invert_perm(order).long()
+        if is_filter:
+            return new_state, payload, valid & s_out[inv].to(torch.bool)
+        return new_state, tree_map(lambda a: a[inv], s_out), valid
+
+    return body_fn
+
+
+class _StatefulGPUBase(Operator):
+    """Shared machinery: the state table and the interner live on the
+    operator, shared by its replicas."""
+
+    _is_filter = False
+    replica_class = _GPUReplica
+
+    @property
+    def fixed_capacity_label(self):
+        # the interning tables are padded to one batch capacity
+        return type(self).__name__
+
+    def __init__(self, fn: Callable, initial_state: Any, name: str,
+                 parallelism: int, key_extractor: Callable,
+                 num_key_slots: int = 4096, dense_keys: bool = False,
+                 assoc: Optional[tuple] = None) -> None:
+        if key_extractor is None:
+            raise WindFlowError(
+                f"stateful GPU operator '{name}' requires a key extractor "
+                "(reference: stateful Map_GPU/Filter_GPU are keyed-only)")
+        super().__init__(name, parallelism, routing=RoutingMode.KEYBY,
+                         is_gpu=True, key_extractor=key_extractor)
+        self.fn = fn
+        self.num_key_slots = num_key_slots
+        #: the extractor already returns slots in [0, num_key_slots): no
+        #: interning and no host read (out-of-range keys masked invalid)
+        self.dense_keys = dense_keys
+        #: (lift, comb, project): the associative body replaces the
+        #: wavefront; ``fn`` is then unused
+        self.assoc = assoc
+        self._state = _broadcast_state(initial_state, num_key_slots)
+        self._interner = KeyInterner()
+        self._steps = {}      # per-capacity step cache
+        self._bodies = {}
+        #: compaction stats of the compacted route (device tensors)
+        self._cstats = None
+
+    # -- key compaction --------------------------------------------------------
+    def enable_compaction(self, comp) -> None:
+        """Attach a pinned KeyCompactor (graph build): the card-resident
+        interner.  Keys are admitted on the host before their batch
+        ships, the step looks the slots up, and a full table deactivates
+        the compactor so the interner raises ``withNumKeySlots``'s error."""
+        self._compactor = comp
+        comp.register_device_stats(lambda: self._cstats)
+
+    def _adopt_compactor_mapping(self) -> None:
+        """After deactivation: fold the remap's key -> slot dict into the
+        interner (slots were assigned contiguously in admission order),
+        so the interning route keeps indexing the same state rows."""
+        comp, self._compactor = self._compactor, None
+        self._interner._ids.update(comp.export_mapping())
+
+    # -- host key -> slot assignment -------------------------------------------
+    def _intern(self, uniq: np.ndarray) -> np.ndarray:
+        interner = self._interner
+        slots = np.empty(len(uniq), np.int32)
+        for i, k in enumerate(uniq):
+            slots[i] = interner.intern(int(k))
+        if len(interner) > self.num_key_slots:
+            raise WindFlowError(
+                f"operator '{self.name}': distinct keys exceed "
+                f"num_key_slots={self.num_key_slots}; raise it via "
+                "withNumKeySlots")
+        return slots
+
+    def _body(self, capacity: int):
+        body = self._bodies.get(capacity)
+        if body is None:
+            if self.assoc is not None:
+                lift, comb, project = self.assoc
+                body = _assoc_body(lift, comb, project, capacity,
+                                   self.num_key_slots, self._is_filter)
+            else:
+                body = _wavefront_body(self.fn, capacity, self.num_key_slots,
+                                       self._is_filter)
+            self._bodies[capacity] = body
+        return body
+
+    @property
+    def last_depth(self) -> int:
+        """The last wavefront's depth (the hottest key's lanes in the
+        batch); 0 on the associative body."""
+        return max((getattr(b, "last_depth", 0)
+                    for b in self._bodies.values()), default=0)
+
+    def _keys(self, payload, capacity: int):
+        return per_record(self.key_extractor, payload,
+                          capacity).to(torch.int32)
+
+    def _get_step(self, capacity: int):
+        """The dense-keys step ``(state, payload, valid, keys)`` or the
+        interning step ``(state, payload, valid, keys, uniq_keys,
+        uniq_slots)``."""
+        step = self._steps.get(capacity)
+        if step is None:
+            body = self._body(capacity)
+            S = self.num_key_slots
+            prelude = self._fused_prelude
+            if prelude is not None and not self.dense_keys:
+                # the planner fuses dense-key tails only: interning reads
+                # the distinct keys on the host before the step
+                raise WindFlowError(
+                    f"stateful operator '{self.name}': whole-chain "
+                    "fusion requires withDenseKeys")
+            if self.dense_keys:
+                def step(state, payload, valid, keys):
+                    if prelude is not None:
+                        # fused: the members run first; the edge's keys
+                        # describe the pre-chain records
+                        payload, valid = prelude(payload, valid)
+                        keys = None
+                    if keys is None:
+                        keys = self._keys(payload, capacity)
+                    ok = valid & (keys >= 0) & (keys < S)
+                    return body(state, payload, ok, keys)
+            else:
+                def step(state, payload, valid, keys, uniq_keys, uniq_slots):
+                    pos = torch.clamp(torch.searchsorted(uniq_keys, keys),
+                                      0, capacity - 1)
+                    return body(state, payload, valid, uniq_slots[pos])
+            self._steps[capacity] = step
+        return step
+
+    def _get_compact_step(self, capacity: int):
+        """The compacted step ``(state, payload, valid, keys, table_keys,
+        table_slots, cstats)``: misses (keys the host never admitted) are
+        masked invalid and counted."""
+        step = self._steps.get(("compact", capacity))
+        if step is None:
+            from windflow_tpu_torch.parallel import compaction
+            body = self._body(capacity)
+
+            def step(state, payload, valid, keys, tk, tsl, cst):
+                if keys is None:
+                    keys = self._keys(payload, capacity)
+                slots, hit = compaction.lookup_slots(tk, tsl, keys, valid)
+                cst = compaction.cstats_update(cst, keys, hit, valid & ~hit)
+                st, out, ov = body(state, payload, hit, slots)
+                return st, out, ov, cst
+            self._steps[("compact", capacity)] = step
+        return step
+
+    def key_space(self):
+        """Dense extractors are bounded by the slot table; interned key
+        spaces are unbounded."""
+        return self.num_key_slots if self.dense_keys else None
+
+    def _stateful_step(self, batch: DeviceBatch):
+        cap = batch.capacity
+        dev = batch.valid.device
+        if tree_flatten(self._state)[0][0].device != dev:
+            self._state = tree_map(lambda a: a.to(dev), self._state)
+        if self.dense_keys:
+            # no interning: no host read but the wavefront's rank counts
+            return self._get_step(cap)(self._state, batch.payload,
+                                       batch.valid, batch.keys)
+        comp = self._compactor
+        if comp is not None:
+            if not comp.active:
+                # a host observation path died: intern from here on,
+                # keeping the slots already assigned
+                self._adopt_compactor_mapping()
+            else:
+                from windflow_tpu_torch.parallel import compaction
+                comp.on_batch()
+                if self._cstats is None:
+                    self._cstats = compaction.cstats_init(dev)
+                tk, tsl = comp.tables()
+                st, out, ov, self._cstats = self._get_compact_step(cap)(
+                    self._state, batch.payload, batch.valid, batch.keys,
+                    tk, tsl, self._cstats)
+                return st, out, ov
+        keys, uniq_keys, uniq_slots = self._intern_batch(batch)
+        return self._get_step(cap)(self._state, batch.payload, batch.valid,
+                                   keys, uniq_keys, uniq_slots)
+
+    def _intern_batch(self, batch: DeviceBatch):
+        """The interning route's host round trip: the key lane and the
+        mask come to the host (one copy each), the distinct keys are
+        interned, and their sorted key/slot tables (padded with the
+        sentinel key and slot ``num_key_slots``) go back in one copy."""
+        cap = batch.capacity
+        keys = batch.keys if batch.keys is not None \
+            else self._keys(batch.payload, cap)
+        keys_np = keys.cpu().numpy()
+        valid_np = batch.valid.cpu().numpy()
+        uniq = np.unique(keys_np[valid_np])
+        uniq_slots = self._intern(uniq)
+        from windflow_tpu_torch.parallel.compaction import upload_pair
+        uk = np.full(cap, KEY_SENTINEL, np.int32)
+        us = np.full(cap, self.num_key_slots, np.int32)
+        uk[:len(uniq)] = uniq
+        us[:len(uniq)] = uniq_slots
+        return (keys.contiguous(),) + upload_pair(uk, us, keys.device)
+
+    def dump_stats(self) -> dict:
+        st = super().dump_stats()
+        if self._compactor is not None:
+            st["Key_compaction"] = self._compactor.summary()
+        return st
+
+
+class StatefulMapGPU(_StatefulGPUBase):
+    """Keyed stateful map on the card (reference stateful ``Map_GPU``):
+    ``fn(record, state) -> (record, state)`` applied to each key's tuples
+    in arrival order; the output record may add or drop fields."""
+
+    _is_filter = False
+
+    def __init__(self, fn, initial_state, name: str = "map_gpu",
+                 parallelism: int = 1, key_extractor=None,
+                 num_key_slots: int = 4096, dense_keys: bool = False,
+                 assoc=None) -> None:
+        super().__init__(fn, initial_state, name, parallelism, key_extractor,
+                         num_key_slots, dense_keys=dense_keys, assoc=assoc)
+
+    def _step(self, batch: DeviceBatch) -> DeviceBatch:
+        self._state, out_payload, valid = self._stateful_step(batch)
+        # fused chains may filter inside the step: the survivors are then
+        # unknown until read
+        size = None if self._fused_prelude is not None else batch._size
+        return DeviceBatch(out_payload, batch.ts, valid,
+                           watermark=batch.watermark, size=size,
+                           frontier=batch.frontier, ts_max=batch.ts_max,
+                           ts_min=batch.ts_min)
+
+
+class StatefulFilterGPU(_StatefulGPUBase):
+    """Keyed stateful filter on the card (reference stateful
+    ``Filter_GPU``): ``fn(record, state) -> (keep, state)``; dropped
+    tuples leave the mask, their state updates still apply in order."""
+
+    _is_filter = True
+
+    def __init__(self, fn, initial_state, name: str = "filter_gpu",
+                 parallelism: int = 1, key_extractor=None,
+                 num_key_slots: int = 4096, dense_keys: bool = False,
+                 assoc=None) -> None:
+        super().__init__(fn, initial_state, name, parallelism, key_extractor,
+                         num_key_slots, dense_keys=dense_keys, assoc=assoc)
+
+    def _step(self, batch: DeviceBatch) -> DeviceBatch:
+        self._state, out_payload, valid = self._stateful_step(batch)
+        return DeviceBatch(out_payload, batch.ts, valid,
+                           watermark=batch.watermark, size=None,
+                           frontier=batch.frontier, ts_max=batch.ts_max,
+                           ts_min=batch.ts_min)

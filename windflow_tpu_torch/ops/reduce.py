@@ -12,10 +12,15 @@ batches to a single record.  Three routes, picked per operator:
   off, or non-keyed): one scatter-combine pass into ``[max_keys]``
   tables through the ``dense_monoid_table`` kernel; keys outside
   ``[0, max_keys)`` are dropped and counted;
-* **bounded compacted** (``withMaxKeys`` + a declared monoid in a graph
-  with ``Config.key_compaction`` on, the default): the dense tables for
-  in-range keys, out-of-range keys on the sorted overflow lane
-  (``parallel/compaction.py``); the records equal the sorted route's.
+* **compacted** (a declared monoid, keyed, in a graph with
+  ``Config.key_compaction`` on, the default; ``parallel/compaction.py``):
+  the graph build attaches a ``KeyCompactor``.  With ``withMaxKeys`` it
+  is the bounded one: the dense tables for in-range keys, out-of-range
+  keys on the sorted overflow lane.  Without, the unbounded one: keys
+  the compactor admitted (on the host, before their batch ships) fold
+  into ``Config.key_compaction_slots`` dense slots through its tables,
+  the cold tail rides the overflow lane.  The records equal the sorted
+  route's either way.
 
 Every route takes the batch's keys lane when an upstream chain forwarded
 it, and, as the tail of a fused segment, applies the members' prelude
@@ -23,8 +28,8 @@ first (``op._fused_prelude``; the keys are then extracted from the
 prelude's output).  At parallelism > 1 the replicas step the one
 operator: its steps and the compacted route's counters are per operator,
 as in the JAX package.  Cross-batch aggregation is the windows' job, as
-in the reference.  The mesh route, ``KeyCompactor`` (compaction of
-undeclared key spaces) and durable state are not ported yet.
+in the reference.  The mesh route and durable state are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -139,10 +144,7 @@ class ReduceGPU(Operator):
             raise WindFlowError(str(e)) from None
         self._steps = {}
         self._checked = False
-        #: the bounded compacted route, set at graph build
-        #: (Config.key_compaction)
-        self.bounded_compaction = False
-        #: compaction stats of the bounded route (device tensors)
+        #: compaction stats of the compacted route (device tensors)
         self._cstats = None
         #: device int64 scalar of dense-route key drops, read only at
         #: stats time
@@ -153,11 +155,19 @@ class ReduceGPU(Operator):
         self._drop_steps = 0
         self._pending_drop = None
 
-    def enable_bounded_compaction(self) -> None:
-        """Graph build, ``Config.key_compaction``: a keyed declared-monoid
-        ``withMaxKeys`` reduce reroutes out-of-range keys to the sorted
-        overflow lane instead of dropping them."""
-        self.bounded_compaction = True
+    def enable_compaction(self, comp) -> None:
+        """Attach a KeyCompactor (graph build, ``Config.key_compaction``):
+        a declared-monoid reduce over an undeclared int32 key space folds
+        its hot keys into dense slots through the remap, the cold tail on
+        the sorted lane of the same step; a ``withMaxKeys`` one reroutes
+        out-of-range keys to that lane instead of dropping them."""
+        self._compactor = comp
+        comp.register_device_stats(lambda: self._cstats)
+
+    @property
+    def bounded_compaction(self) -> bool:
+        """True on the bounded compacted route (``withMaxKeys``)."""
+        return self._compactor is not None and self._compactor.bounded
 
     # -- step builders -------------------------------------------------------
     def _keys(self, payload, capacity: int, device):
@@ -237,19 +247,22 @@ class ReduceGPU(Operator):
         return step
 
     def _get_compacted_step(self, capacity: int):
-        """The bounded compacted route (parallel/compaction.py)."""
+        """The compacted route (parallel/compaction.py): ``(keys, payload,
+        ts, valid, cstats)`` bounded, ``(keys, payload, ts, valid,
+        table_keys, table_slots, cstats)`` unbounded."""
         step = self._steps.get(("compact", capacity))
         if step is None:
             from windflow_tpu_torch.parallel import compaction
+            bounded = self._compactor.bounded
             inner = compaction.make_compacted_reduce(
-                capacity, self.max_keys, self.monoid, self.comb,
-                self.key_extractor, bounded=True,
+                capacity, self.max_keys if bounded else self._compactor.slots,
+                self.monoid, self.comb, self.key_extractor, bounded=bounded,
                 kernels=resolve_kernels(self.config))
 
-            def step(keys, payload, ts, valid, cst):
+            def step(keys, payload, ts, valid, *rest):
                 keys, payload, valid = self._prelude_keys(keys, payload,
                                                           valid, capacity)
-                return inner(keys, payload, ts, valid, cst)
+                return inner(keys, payload, ts, valid, *rest)
             self._steps[("compact", capacity)] = step
         return step
 
@@ -275,16 +288,15 @@ class ReduceGPU(Operator):
 
     def dump_stats(self) -> dict:
         st = super().dump_stats()
-        if self._cstats is not None:
-            cs = {k: int(v) for k, v in self._cstats.items() if k != "cand"}
-            st["Key_compaction"] = {
-                "bounded": True, "batches": cs["batches"],
-                "hits": cs["hits"], "overflow_tuples": cs["misses"],
-                "big_fallbacks": cs["big"]}
-            if cs["misses"]:
+        comp = self._compactor
+        if comp is not None:
+            summary = comp.summary()
+            st["Key_compaction"] = summary
+            if comp.bounded and summary["overflow_tuples"]:
                 # keys outside [0, max_keys) were rerouted to the sorted
                 # overflow lane (kept, not dropped)
-                st["Out_of_range_keys_rerouted"] = cs["misses"]
+                st["Out_of_range_keys_rerouted"] = \
+                    summary["overflow_tuples"]
         if self._dropped is not None:
             dropped = self.num_dropped_tuples()
             st["Out_of_range_keys_dropped"] = dropped
@@ -342,17 +354,19 @@ class ReduceGPU(Operator):
             self._check_comb_contract(payload)
             self._checked = True
         cap = batch.capacity
-        if self.bounded_compaction:
-            # in-range keys on the dense tables, the rest on the sorted
-            # overflow lane; records equal the sorted route's
+        comp = self._compactor
+        if comp is not None:
+            # admitted (or in-range) keys on the dense tables, the rest on
+            # the sorted overflow lane; records equal the sorted route's
+            from windflow_tpu_torch.parallel.compaction import cstats_init
+            comp.on_batch()
             if self._cstats is None:
-                from windflow_tpu_torch.parallel.compaction import \
-                    cstats_init
                 self._cstats = cstats_init(batch.valid.device)
+            tables = () if comp.bounded else comp.tables()
             out_payload, out_ts, out_valid, self._cstats = \
                 self._get_compacted_step(cap)(batch.keys, batch.payload,
                                               batch.ts, batch.valid,
-                                              self._cstats)
+                                              *tables, self._cstats)
             return DeviceBatch(out_payload, out_ts, out_valid,
                                watermark=batch.watermark, size=None,
                                frontier=batch.frontier)

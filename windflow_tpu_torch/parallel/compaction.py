@@ -1,20 +1,34 @@
-"""Device-side key compaction for the keyed reduce: the program pieces of
-``windflow_tpu/parallel/compaction.py`` (``:75-472``).
+"""Device-side key compaction: the port of
+``windflow_tpu/parallel/compaction.py``.
 
-``make_compacted_reduce`` builds the compacted keyed-reduce step: lanes
-whose key has a dense slot fold into a ``[table_size]`` monoid table
-(through the ``dense_monoid_table`` kernel where its gates hold), the
-other lanes (misses) run the sorted segmented reduce, over a
-``capacity // 32`` overflow lane when they fit and over the full batch
-when they do not, and both result sets merge by key rank into the
-sorted path's output: distinct keys ascending, compacted to the front
-of a ``[capacity]`` batch.
-
-The ``bounded`` step (``withMaxKeys``) is the one a graph builds: the
-remap is the identity over ``[0, max_keys)`` and out-of-range keys ride
-the overflow lane instead of being dropped.  The unbounded step takes a
-sorted key table and its slots as operands; the host ``KeyCompactor``
-that owns such tables is not ported yet.
+* **Program pieces** (``:75-472``).  ``make_compacted_reduce`` builds the
+  compacted keyed-reduce step: lanes whose key has a dense slot fold
+  into a ``[table_size]`` monoid table (through the ``dense_monoid_table``
+  kernel where its gates hold), the other lanes (misses) run the sorted
+  segmented reduce, over a ``capacity // 32`` overflow lane when they
+  fit and over the full batch when they do not, and both result sets
+  merge by key rank into the sorted path's output: distinct keys
+  ascending, compacted to the front of a ``[capacity]`` batch.  The
+  ``bounded`` step (``withMaxKeys``) remaps by the identity over
+  ``[0, max_keys)``; the unbounded one takes a sorted key table and its
+  slots as operands.  ``lookup_slots``, ``cstats_update`` and
+  ``slots_to_user_keys`` are the pieces the stateful and window steps
+  share.
+* **The host compactor** (``:479-895``).  :class:`KeyCompactor` owns one
+  consumer's ``key -> stable slot`` dict and its sorted key/slot
+  mirror, uploaded to the card (:meth:`KeyCompactor.tables`) only when
+  admission changed it.  Keys are admitted on the host where the
+  feeding edge already holds them (the keyed staging emitter, the plain
+  staging emitter's :class:`~windflow_tpu_torch.monitoring.shard_ledger.
+  HostKeyProbe`), and, every ``reseed_every`` batches, from the steps'
+  miss rings (one device read).  Pinned compactors (stateful, windows:
+  slots index live state) never evict; evictable ones (the per-batch
+  reduce) recycle their coldest slots when a shard sketch ranks them.
+  The shard sketch is ROADMAP A8, so no port graph binds one yet: a
+  reseed only fills free slots, and ``churn`` stays 0.
+* **Graph attachment** (``:896-1013``).  :func:`attach_compaction` gives
+  every qualifying keyed consumer its compactor and wires the feeding
+  emitters for admission and placement.
 
 What differs from JAX, for torch on the card:
 
@@ -27,16 +41,23 @@ What differs from JAX, for torch on the card:
   device positions (no host sync);
 * the rank merge scatters into a ``[capacity + 1]`` index buffer whose
   last row takes every dead lane (torch's ``index_put_`` with duplicate
-  indices is nondeterministic on CUDA; only the dump row sees them).
+  indices is nondeterministic on CUDA; only the dump row sees them);
+* the tables go to the card in one non-blocking copy from pinned
+  memory; the miss rings and counters are read only at the reseed
+  cadence and at stats time;
+* the mesh routes (placement override of the mesh reduce) and
+  ``snapshot``/``restore`` are ROADMAP A10 and A7.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from windflow_tpu_torch.basic import int32_key
 from windflow_tpu_torch.kernels import reduce_cuda as rc
 from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.ops.reduce import _bshape, _segmented_reduce
@@ -46,6 +67,7 @@ from windflow_tpu_torch.utils.tree import per_record, tree_flatten, \
 #: remap sentinel: pads the sorted key table (a real key equal to it is
 #: never admitted and rides the overflow lane)
 KEY_SENTINEL = np.int32(2**31 - 1)
+_SENT = int(KEY_SENTINEL)
 #: miss-candidate ring geometry
 MISS_RING = 64
 MISS_PER_BATCH = 8
@@ -71,6 +93,17 @@ def lookup_slots(table_keys, table_slots, keys, valid):
     cand = table_slots[pos]
     hit = valid & (table_keys[pos] == k32) & (cand < size)
     return torch.where(hit, cand, torch.full_like(cand, size)), hit
+
+
+def slots_to_user_keys(key_lane, table_keys, table_slots):
+    """The inverse remap of an output key lane holding slots: ``inv[slot]
+    = key`` over a ``[T + 1]`` buffer whose last row takes the sentinel
+    pads (they all write the sentinel), then a gather."""
+    T = int(table_keys.shape[0])
+    inv = torch.zeros(T + 1, dtype=table_keys.dtype,
+                      device=table_keys.device)
+    inv[table_slots.long()] = table_keys
+    return inv[torch.clamp(key_lane, 0, T).long()].to(key_lane.dtype)
 
 
 def cstats_init(device=None):
@@ -348,3 +381,451 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
         return out_payload, out_ts, out_valid, cst
 
     return body
+
+
+# ---------------------------------------------------------------------------
+# the host-side compactor
+# ---------------------------------------------------------------------------
+
+class _PinnedFull(Exception):
+    """Internal admission signal: a full pinned table whose consumer has
+    a lossless host-interning escape (never escapes ``observe*``)."""
+
+
+def upload_pair(tk: np.ndarray, tsl: np.ndarray, device):
+    """Two int32 ``[n]`` host tables on ``device``: for the card, one
+    non-blocking copy of both from a fresh pinned buffer (the caching
+    host allocator keeps it until the copy has run), never a
+    synchronising copy."""
+    n = tk.shape[0]
+    both = np.concatenate([tk, tsl])
+    if device is None or torch.device(device).type != "cuda":
+        t = torch.from_numpy(both)
+    else:
+        host = torch.empty(2 * n, dtype=torch.int32, pin_memory=True)
+        host.copy_(torch.from_numpy(both))
+        t = host.to(device, non_blocking=True)
+    return t[:n], t[n:]
+
+
+class KeyCompactor:
+    """Key -> dense-slot remap for ONE compacted consumer operator.
+
+    Host state is the authoritative ``key -> stable slot`` dict plus the
+    sorted key / slot mirror arrays; :meth:`tables` hands the consumer's
+    step their device copies, uploaded again only after admission
+    changed them.  A ``pinned`` compactor (stateful, windows: slots index
+    live state) never evicts; on a full pinned table an
+    ``intern_fallback`` compactor deactivates, so the stateful consumer
+    adopts the mapping into its host interner, which raises its own
+    ``num_key_slots`` error on the overflowing key, while a plain pinned
+    table (windows) counts ``full_rejects`` and the consumer masks and
+    counts the key's lanes.  An evictable compactor (the per-batch
+    reduce) may recycle its coldest slots at the reseed cadence, which
+    is safe because a reduce rebuilds its dense table every batch.
+    Sibling host emitter replicas may admit concurrently: admission,
+    reseed and the table and placement reads hold ``_lock``."""
+
+    def __init__(self, slots: int, *, pinned: bool = False,
+                 bounded: bool = False, reseed_every: int = 64,
+                 placement_override: bool = False,
+                 intern_fallback: bool = False, name: str = "",
+                 device=None) -> None:
+        self.slots = int(slots)
+        self.pinned = pinned
+        #: withMaxKeys mode: the remap is the identity over [0, max_keys);
+        #: no table, only the stats surface and the overflow reroute
+        self.bounded = bounded
+        self.reseed_every = max(1, int(reseed_every))
+        #: keyed placement override: slotted keys go to ``slot % n``
+        #: (hot keys balanced deterministically); per-batch consumers
+        #: only, since moving a key between replicas mid-stream would
+        #: break per-key order for stateful state
+        self.placement_override = placement_override
+        #: the consumer has a lossless host-interning fallback: a
+        #: sentinel-valued key (2^31-1, never admissible) or a full
+        #: table deactivates the compactor instead of losing records
+        self.intern_fallback = intern_fallback
+        self.name = name
+        #: the device the tables are uploaded to
+        self.device = device
+        #: False after a host observation path failed: consumers fall
+        #: back to their own path
+        self.active = True
+        self._lock = threading.Lock()
+        self._key_slot: dict = {}
+        self._free = list(range(self.slots - 1, -1, -1))
+        self._tk = np.full(self.slots, KEY_SENTINEL, np.int32)
+        self._tsl = np.full(self.slots, self.slots, np.int32)
+        self._dev = None          # (table_keys, table_slots) on the device
+        self.admits = 0
+        self.churn = 0
+        self.reseeds = 0
+        self.full_rejects = 0     # table full at admission time
+        self.sentinel_rejects = 0  # real keys equal to KEY_SENTINEL seen
+        self._batches = 0
+        self._sketch = None       # shard sketch (ROADMAP A8): ranks keys
+        self._stats_getters = []  # the consumers' device cstats
+
+    # -- wiring --------------------------------------------------------------
+    def bind_sketch(self, sketch) -> None:
+        """A shard sketch (``hot_candidates(limit)``, ``_estimate(key)``)
+        to seed and rank from at reseed."""
+        self._sketch = sketch
+
+    def register_device_stats(self, getter) -> None:
+        """Register one step site's live cstats getter; read at every
+        summary and reseed."""
+        self._stats_getters.append(getter)
+
+    # -- device mirrors ------------------------------------------------------
+    def _rebuild(self) -> None:
+        n = len(self._key_slot)
+        tk = np.full(self.slots, KEY_SENTINEL, np.int32)
+        tsl = np.full(self.slots, self.slots, np.int32)
+        if n:
+            ks = np.fromiter(self._key_slot.keys(), np.int32, count=n)
+            sl = np.fromiter(self._key_slot.values(), np.int32, count=n)
+            order = np.argsort(ks, kind="stable")
+            tk[:n] = ks[order]
+            tsl[:n] = sl[order]
+        self._tk, self._tsl = tk, tsl
+        self._dev = None          # uploaded again at the next table read
+
+    def tables(self):
+        """The ``(table_keys, table_slots)`` device operands for this
+        batch, uploaded only when admission changed them (under the lock,
+        so a sibling's rebuild never pairs new keys with stale slots)."""
+        dev = self._dev
+        if dev is None:
+            with self._lock:
+                dev = self._dev
+                if dev is None:
+                    dev = self._dev = upload_pair(self._tk, self._tsl,
+                                                  self.device)
+        return dev
+
+    # -- admission (host-visible key paths) ----------------------------------
+    def _admit(self, k32: int) -> bool:
+        if k32 == _SENT:
+            # reserved: rides the overflow lane (reduce); a compacted
+            # window masks and counts it, so the encounter is counted
+            self.sentinel_rejects += 1
+            return False
+        if k32 in self._key_slot:
+            return False
+        if not self._free:
+            if self.pinned and self.intern_fallback:
+                raise _PinnedFull
+            self.full_rejects += 1
+            return False
+        self._key_slot[k32] = self._free.pop()
+        self.admits += 1
+        return True
+
+    def observe(self, keys: np.ndarray) -> None:
+        """Bulk admission from a key column: new keys get slots BEFORE
+        their batch ships, so host-fed consumers see a miss-free remap."""
+        if not self.active:
+            return
+        u = np.unique(np.asarray(keys).astype(np.int64).astype(np.int32))
+        if self.intern_fallback and u.size and u[-1] == KEY_SENTINEL:
+            self.deactivate()   # sorted unique: the sentinel is last
+            return
+        full = False
+        with self._lock:
+            n = len(self._key_slot)
+            if n and u.size:
+                # keys already seated are the steady state: drop them in
+                # one vectorized lookup before the per-key admission
+                tk = self._tk[:n]
+                pos = np.minimum(np.searchsorted(tk, u), n - 1)
+                u = u[tk[pos] != u]
+            changed = False
+            for k in u:
+                try:
+                    changed |= self._admit(int(k))
+                except _PinnedFull:
+                    full = True
+                    break
+            if changed:
+                # keys admitted before the table filled still reach the
+                # device mirror
+                self._rebuild()
+        if full:
+            # the consumer adopts the mapping; its interner raises the
+            # num_key_slots error on this batch
+            self.deactivate()
+
+    def observe_one(self, k32: int) -> None:
+        """Scalar admission for the per-tuple emit path: a lock-free dict
+        read in the admitted steady state; only a new key takes the
+        lock, and a full evictable or plain pinned table never does."""
+        if not self.active:
+            return
+        k = int32_key(k32)
+        if k == _SENT:
+            if self.intern_fallback:
+                self.deactivate()
+            else:
+                self.sentinel_rejects += 1
+            return
+        if k in self._key_slot:
+            return
+        if not self._free and not (self.pinned and self.intern_fallback):
+            # only a reseed can seat the key: keep the per-tuple path
+            # lock-free (_free only shrinks; the counter is telemetry)
+            self.full_rejects += 1
+            return
+        try:
+            with self._lock:
+                if self._admit(k):
+                    self._rebuild()
+        except _PinnedFull:
+            self.deactivate()
+
+    def deactivate(self) -> None:
+        """A host observation path failed: consumers fall back to their
+        own path at their next step."""
+        self.active = False
+
+    def export_mapping(self) -> dict:
+        """key -> slot, for a consumer falling back to host interning
+        (its state rows keep meaning the same keys)."""
+        with self._lock:
+            return dict(self._key_slot)
+
+    # -- placement -----------------------------------------------------------
+    def slot_of(self, k32: int) -> Optional[int]:
+        return self._key_slot.get(int(np.int32(k32)))
+
+    def place_np(self, keys: np.ndarray, n_dests: int) -> np.ndarray:
+        """Keyed placement with the remap override: slotted keys go to
+        ``slot % n``, the cold tail keeps the splitmix placement."""
+        from windflow_tpu_torch.parallel.emitters import splitmix64_np
+        k = np.asarray(keys, np.int64)
+        k32 = k.astype(np.int32)
+        with self._lock:
+            tk, tsl, n = self._tk, self._tsl, len(self._key_slot)
+        pos = np.searchsorted(tk[:max(1, n)], k32)
+        pos = np.clip(pos, 0, max(0, n - 1))
+        found = (n > 0) & (tk[pos] == k32) & (tsl[pos] < self.slots)
+        slot = tsl[pos].astype(np.int64)
+        h = (splitmix64_np(k) % np.uint64(n_dests)).astype(np.int64)
+        return np.where(found, slot % n_dests, h).astype(np.intp)
+
+    def place_one(self, k32: int, n_dests: int) -> Optional[int]:
+        s = self.slot_of(k32)
+        return None if s is None else s % n_dests
+
+    # -- reseed cadence ------------------------------------------------------
+    def on_batch(self) -> None:
+        """Per-consumer-step hook: counts batches and reseeds on the
+        cadence (the plane's one device read)."""
+        self._batches += 1
+        if self._batches % self.reseed_every == 0 and not self.bounded:
+            self.reseed()
+
+    def _miss_candidates(self) -> list:
+        out = []
+        sentinel = np.iinfo(np.int32).min
+        for getter in self._stats_getters:
+            st = getter()
+            if st is None:
+                continue
+            ring = st["cand"].cpu().numpy().astype(np.int64)
+            out.extend(int(k) for k in ring if k != sentinel)
+        return out
+
+    def reseed(self) -> None:
+        """Fold the sketch's hot candidates (when a sketch is bound) and
+        the steps' miss rings into the table.  Pinned tables only admit;
+        evictable ones recycle their coldest slots for candidates at
+        least twice as hot (the ``churn`` counter)."""
+        self.reseeds += 1
+        cands = self._miss_candidates()
+        est = {}
+        if self._sketch is not None:
+            for k, e in self._sketch.hot_candidates(self.slots):
+                est[int(np.int32(int(k)))] = int(e)
+        for k in cands:
+            # miss-ring candidates carry no estimate: admitted only into
+            # free slots, never past the eviction hysteresis
+            est.setdefault(k, 0)
+        with self._lock:
+            fresh = [k for k in est
+                     if k not in self._key_slot and k != _SENT]
+            if not fresh:
+                return
+            fresh.sort(key=lambda k: est.get(k, 0), reverse=True)
+            changed = False
+            residents = None
+            ri = 0
+            for k in fresh:
+                if self._free:
+                    changed |= self._admit(k)
+                    continue
+                if self.pinned:
+                    break         # pinned tables never evict live state
+                if residents is None:
+                    # one estimation pass over the residents, coldest
+                    # first; candidates walk it hottest first
+                    residents = self._resident_coldness()
+                if residents is None or ri >= len(residents):
+                    break
+                cold_est, coldest = residents[ri]
+                if est.get(k, 0) < 2 * max(1, cold_est):
+                    break         # 2x hysteresis; later ones are colder
+                ri += 1
+                changed = True
+                self._key_slot[k] = self._key_slot.pop(coldest)
+                self.admits += 1
+                self.churn += 1
+            if changed:
+                self._rebuild()
+
+    def _resident_coldness(self) -> Optional[list]:
+        """``(estimate, key)`` for every resident key, coldest first, or
+        None (no sketch: nothing to rank by, so nothing is evicted)."""
+        if self._sketch is None or not self._key_slot:
+            return None
+        out = sorted((self._sketch._estimate(k), k) for k in self._key_slot)
+        return out
+
+    # -- read path -----------------------------------------------------------
+    def summary(self) -> dict:
+        """Host and device counters for ``dump_stats``: hit rate,
+        overflow share, churn, occupancy (device reads: stats time)."""
+        hits = misses = big = batches = 0
+        for getter in self._stats_getters:
+            st = getter()
+            if st is None:
+                continue
+            hits += int(st["hits"])
+            misses += int(st["misses"])
+            big += int(st["big"])
+            batches += int(st["batches"])
+        total = hits + misses
+        out = {
+            "slots": self.slots,
+            "occupied": len(self._key_slot),
+            "pinned": self.pinned,
+            "bounded": self.bounded,
+            "batches": batches,
+            "tuples": total,
+            "hits": hits,
+            "hit_rate": round(hits / total, 4) if total else None,
+            "overflow_share": round(misses / total, 4) if total else None,
+            "overflow_tuples": misses,
+            "big_fallbacks": big,
+            "admits": self.admits,
+            "churn": self.churn,
+            "churn_per_sweep": round(self.churn / batches, 4)
+            if batches else 0.0,
+            "reseeds": self.reseeds,
+            "placement_override": self.placement_override,
+        }
+        if self.full_rejects:
+            out["full_rejects"] = self.full_rejects
+        if self.sentinel_rejects:
+            out["sentinel_rejects"] = self.sentinel_rejects
+        if not self.active:
+            out["deactivated"] = True
+        return out
+
+
+# ---------------------------------------------------------------------------
+# graph attachment (PipeGraph._build, after fusion and wiring)
+# ---------------------------------------------------------------------------
+
+def attach_compaction(graph) -> None:
+    """Attach a KeyCompactor to every qualifying keyed consumer and wire
+    the feeding emitters for host admission and placement.  Runs after
+    fusion (preludes installed) and the wiring, before any step; with
+    ``Config.key_compaction`` off it never runs."""
+    from windflow_tpu_torch.graph.pipegraph import _upstream_map
+    from windflow_tpu_torch.monitoring.shard_ledger import HostKeyProbe
+    from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
+    from windflow_tpu_torch.ops.reduce import ReduceGPU
+    from windflow_tpu_torch.parallel.emitters import (DeviceKeyByEmitter,
+                                                      DeviceStageEmitter,
+                                                      DeviceToHostEmitter,
+                                                      KeyedDeviceStageEmitter,
+                                                      SplittingEmitter)
+    from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+
+    cfg = graph.config
+    slots = max(2, int(getattr(cfg, "key_compaction_slots", 1024)))
+    reseed = max(1, int(getattr(cfg, "key_compaction_reseed", 64)))
+    upstreams = _upstream_map(graph._edges())
+
+    def host_fed(op) -> bool:
+        ups = upstreams.get(id(op), (op, []))[1]
+        return bool(ups) and all(not u.is_gpu for u in ups)
+
+    for op in graph._operators:
+        comp = None
+        if isinstance(op, ReduceGPU):
+            if op.key_extractor is None or op.monoid is None:
+                continue
+            bounded = op.max_keys is not None
+            comp = KeyCompactor(
+                op.max_keys if bounded else slots, bounded=bounded,
+                reseed_every=reseed,
+                # slot % n placement is per-batch-safe only, and means
+                # nothing for the identity (bounded) remap
+                placement_override=not bounded and op.parallelism > 1,
+                name=op.name, device=graph.device)
+        elif isinstance(op, _StatefulGPUBase):
+            # the device-resident interner: needs every feeding edge
+            # host-staged (admission sees every key before its batch
+            # ships) and no fused prelude (post-prelude keys are never
+            # on the host)
+            if op.dense_keys or op._fused_prelude is not None \
+                    or not host_fed(op) or len(op._interner):
+                continue
+            comp = KeyCompactor(op.num_key_slots, pinned=True,
+                                reseed_every=reseed, intern_fallback=True,
+                                name=op.name, device=graph.device)
+        elif isinstance(op, FfatWindowsGPU):
+            if op.max_keys is not None or op.key_extractor is None:
+                continue
+            comp = KeyCompactor(slots, pinned=True, reseed_every=reseed,
+                                name=op.name, device=graph.device)
+        if comp is None:
+            continue
+        op.enable_compaction(comp)
+
+    def visit(em):
+        if em is None:
+            return
+        if isinstance(em, SplittingEmitter):
+            for b in em.branches:
+                visit(b)
+            return
+        if isinstance(em, DeviceToHostEmitter):
+            visit(em.inner)
+            return
+        if not em.dests:
+            return
+        consumer = em.dests[0][0].op
+        comp = consumer._compactor
+        if comp is None or comp.bounded:
+            return
+        if isinstance(em, KeyedDeviceStageEmitter):
+            # a fused tail extracts its keys after the prelude: admitting
+            # the pre-prelude keys here would seat keys it never looks up
+            if consumer._fused_prelude is None:
+                em._compactor = comp
+        elif isinstance(em, DeviceKeyByEmitter):
+            if comp.placement_override:
+                em.attach_compactor(comp)
+        elif isinstance(em, DeviceStageEmitter):
+            kx = consumer.key_extractor
+            if kx is not None and consumer._fused_prelude is None:
+                em._shard_probe = HostKeyProbe(None, kx, compactor=comp)
+
+    for op in graph._operators:
+        for rep in op.replicas:
+            visit(rep.emitter)
+

@@ -29,10 +29,18 @@ Keyed placement is splitmix64 of the int32-wrapped key, bit-identical on
 the host record path (:func:`splitmix64_int`), numpy columns
 (:func:`splitmix64_np`) and the card (:func:`splitmix64_torch`), so a
 keyed operator fed by a host edge and a device edge at once (a merge)
-sees each key on one replica.  Not ported: the shard-plane sketches on
-these emitters (ROADMAP A8), the key compactor's placement override,
-reshard overrides and hot-key pre-aggregation (A5 and serving), and the
-mesh's ``AlignedMeshStageEmitter`` (A10).
+sees each key on one replica.
+
+Key compaction (``parallel/compaction.py``) hooks in at three places,
+wired by ``attach_compaction``: the keyed staging emitter admits every
+key it routes (record and columnar paths) and, for an evictable
+compactor at parallelism > 1, places slotted keys by ``slot % n``; the
+device keyby applies the same placement on the card; the plain staging
+emitter admits through its key probe
+(``monitoring/shard_ledger.HostKeyProbe``).  :class:`KeyInterner` is the
+stateful operators' host key -> slot map.  Not ported: the shard-plane
+sketches on these emitters (ROADMAP A8), reshard overrides and hot-key
+pre-aggregation (A11), and the mesh's ``AlignedMeshStageEmitter`` (A10).
 """
 
 from __future__ import annotations
@@ -106,6 +114,33 @@ def place_torch(keys, n: int):
     without a negative operand."""
     h = splitmix64_torch(keys)
     return ((_srl(h, 1) % n) * 2 + (h & 1)) % n
+
+
+class KeyInterner:
+    """Host map from arbitrary user keys to dense int slots, assigned in
+    arrival order: the stateful operators' per-key state lives in dense
+    ``[num_slots, ...]`` tables indexed by them (the reference copies the
+    batch's distinct keys to the host at the keyby boundary too,
+    ``dist_keys_cpu``, ``keyby_emitter_gpu.hpp:519-583``)."""
+
+    def __init__(self) -> None:
+        self._ids = {}
+
+    def intern(self, key: Any) -> int:
+        i = self._ids.get(key)
+        if i is None:
+            i = len(self._ids)
+            self._ids[key] = i
+        return i
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def keys_by_slot(self) -> list:
+        out = [None] * len(self._ids)
+        for k, i in self._ids.items():
+            out[i] = k
+        return out
 
 
 class Emitter:
@@ -350,6 +385,10 @@ class DeviceStageEmitter(Emitter):
         self.packed_batches = 0
         self.chunked_batches = 0
         self.record_batches = 0
+        #: key probe (monitoring/shard_ledger.HostKeyProbe), attached at
+        #: graph build when this edge feeds a compacted keyed consumer:
+        #: it admits the consumer's keys before each batch ships
+        self._shard_probe = None
 
     def _advance_frontier(self, wm):
         if wm != WM_NONE and wm > self._frontier:
@@ -371,6 +410,8 @@ class DeviceStageEmitter(Emitter):
         builder; anything else (or anything after a chunk is buffered)
         takes the chunk-accumulate route, after the open builder ships, so
         arrival order is kept."""
+        if self._shard_probe is not None:
+            self._shard_probe.columns(cols, len(tss))
         if not self._col_chunks:
             leaves, treedef = tree_flatten(
                 {nm: np.asarray(a) for nm, a in cols.items()})
@@ -498,6 +539,8 @@ class DeviceStageEmitter(Emitter):
         self._advance_frontier(wm)
         if not self._ob.items:
             return
+        if self._shard_probe is not None:
+            self._shard_probe.items(self._ob.items)
         hb = HostBatch(self._ob.items, self._ob.tss, self._ob.wm)
         self._ob = _OpenBatch()
         db = host_to_device(hb, capacity=self.output_batch_size,
@@ -508,23 +551,34 @@ class DeviceStageEmitter(Emitter):
         self._ship(db)
 
 
-def _key_column(key_extractor, cols, n: int) -> np.ndarray:
+def host_keys(key_fn, cols, n: int) -> np.ndarray:
     """The int32-wrapped key of every row of a column block, as int64.
-    The extractor is a per-record function: it runs on the numpy columns
-    when it can, else on CPU torch views of them, else row by row."""
+    The extractor is a per-record torch function: it runs on the numpy
+    columns when it can, else on CPU torch views of them.  Raises
+    ``ValueError`` when neither gives one key a row."""
     import torch
-    for wrap in (lambda a: a, torch.from_numpy):
+
+    from windflow_tpu_torch.utils.tree import tree_map
+    for wrap in (np.asarray, lambda a: torch.from_numpy(np.asarray(a))):
         try:
-            k = key_extractor({nm: wrap(np.asarray(v))
-                               for nm, v in cols.items()})
-            k = k.numpy() if isinstance(k, torch.Tensor) else np.asarray(k)
-        except Exception:  # noqa: BLE001 -- a probe of a user function:
-            # any failure means "not columnar", handled below
+            k = key_fn(tree_map(wrap, cols))
+        except Exception:  # noqa: BLE001 -- a probe of a user function
             continue
+        k = k.numpy() if isinstance(k, torch.Tensor) else np.asarray(k)
         if k.shape == (n,):
             # the device's int32 cast first, so routing collapses exactly
             # the keys the state collapses
             return k.astype(np.int64).astype(np.int32).astype(np.int64)
+    raise ValueError("the key extractor is not elementwise over columns")
+
+
+def _key_column(key_extractor, cols, n: int) -> np.ndarray:
+    """:func:`host_keys`, else the extractor row by row (a constant or
+    Python-level extractor)."""
+    try:
+        return host_keys(key_extractor, cols, n)
+    except ValueError:
+        pass
     return np.array([int32_key(key_extractor(
         {nm: np.asarray(v)[i].item() for nm, v in cols.items()}))
         for i in range(n)], np.int64)
@@ -545,6 +599,11 @@ class KeyedDeviceStageEmitter(Emitter):
         self.key_extractor = key_extractor
         self._inner = [DeviceStageEmitter([d], output_batch_size, device)
                        for d in dests]
+        #: key compactor of the consumer (attached at graph build): every
+        #: routed key is admitted here before its batch ships, and an
+        #: evictable compactor with placement_override routes slotted
+        #: keys by ``slot % n`` instead of the splitmix hash
+        self._compactor = None
 
     def bind_stats(self, stats):
         super().bind_stats(stats)
@@ -565,12 +624,37 @@ class KeyedDeviceStageEmitter(Emitter):
 
     def emit(self, item, ts, wm, shared=False, tid=None):
         k32 = int32_key(self.key_extractor(item))
-        self._inner[splitmix64_int(k32) % len(self.dests)].emit(item, ts, wm)
+        comp = self._compactor
+        d = None
+        if comp is not None:
+            try:
+                comp.observe_one(k32)
+                if comp.placement_override:
+                    d = comp.place_one(k32, len(self.dests))
+            except Exception:  # noqa: BLE001 -- admission must never
+                # take routing down: the plane deactivates instead
+                comp.deactivate()
+                self._compactor = None
+        if d is None:
+            d = splitmix64_int(k32) % len(self.dests)
+        self._inner[d].emit(item, ts, wm)
 
     def emit_columns(self, cols, tss, wm, row_wms=None):
         n = len(self.dests)
         keys = _key_column(self.key_extractor, cols, len(tss))
-        dest = (splitmix64_np(keys) % np.uint64(n)).astype(np.int64)
+        comp = self._compactor
+        if comp is not None:
+            try:
+                # admission before the batch ships: a host-fed compacted
+                # consumer never sees a remap miss
+                comp.observe(keys)
+            except Exception:  # noqa: BLE001 -- as in emit()
+                comp.deactivate()
+                comp = self._compactor = None
+        if comp is not None and comp.placement_override:
+            dest = comp.place_np(keys, n).astype(np.int64)
+        else:
+            dest = (splitmix64_np(keys) % np.uint64(n)).astype(np.int64)
         counts = np.bincount(dest, minlength=n)
         for d in range(n):
             if counts[d]:
@@ -632,13 +716,22 @@ class DeviceKeyByEmitter(Emitter):
     all over the same payload/ts/keys tensors.  No sort, gather or host
     read; empty partitions still ship (an all-invalid mask), since
     skipping them would need the partition counts on the host.  The
-    batch's keys lane (a chain forwarding them) is used when present."""
+    batch's keys lane (a chain forwarding them) is used when present.
+    With a compactor attached (an evictable one at parallelism > 1), a
+    slotted key goes to ``slot % n`` instead, the keyed staging
+    emitter's placement."""
 
     can_emit_host_items = False
 
     def __init__(self, dests, key_extractor):
         super().__init__(dests, output_batch_size=0)
         self.key_extractor = key_extractor
+        self._compactor = None
+
+    def attach_compactor(self, comp) -> None:
+        """The remap placement override (graph build): the compactor's
+        tables ride the split as two read-only operands."""
+        self._compactor = comp
 
     def split(self, batch: DeviceBatch):
         """``(keys, masks)``: the int32 key lane and one bool mask a
@@ -650,7 +743,13 @@ class DeviceKeyByEmitter(Emitter):
         if keys is None:
             keys = per_record(self.key_extractor, batch.payload,
                               batch.capacity).to(torch.int32)
-        dest = torch.where(batch.valid, place_torch(keys, n), n)
+        h = place_torch(keys, n)
+        if self._compactor is not None:
+            from windflow_tpu_torch.parallel.compaction import lookup_slots
+            tk, tsl = self._compactor.tables()
+            slot, hit = lookup_slots(tk, tsl, keys, batch.valid)
+            h = torch.where(hit, (slot % n).to(h.dtype), h)
+        dest = torch.where(batch.valid, h, n)
         return keys, [dest == d for d in range(n)]
 
     def emit_device_batch(self, batch):

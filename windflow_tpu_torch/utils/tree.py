@@ -67,17 +67,30 @@ def per_record(fn: Callable, payload, n: int):
     keyed or split fan-out hands several consumers the same payload, and
     a function that assigns into its record dict must not change what a
     sibling sees."""
-    import torch
     out = fn(tree_map(lambda a: a, payload))
-    ref = tree_leaves(payload)[0]
+    return batch_lanes(out, n, tree_leaves(payload)[0].device)
+
+
+def per_record2(fn: Callable, payload, state, n: int):
+    """:func:`per_record` of a two-argument function ``fn(record,
+    state)`` (the stateful operators' ``jax.vmap(fn)(payload, state)``):
+    ``state`` is the ``[n]``-leading pytree of the lanes' state rows."""
+    out = fn(tree_map(lambda a: a, payload), tree_map(lambda a: a, state))
+    return batch_lanes(out, n, tree_leaves(payload)[0].device)
+
+
+def batch_lanes(tree, n: int, device):
+    """Every leaf of a function's result as a ``[n, ...]`` tensor: Python
+    scalars become device fills (no host-to-device copy), and leaves
+    without the batch dimension are broadcast."""
+    import torch
 
     def lane(x):
         if isinstance(x, (bool, int, float)):
-            # a fill on the device: no host-to-device copy
-            x = torch.full((), x, device=ref.device)
+            x = torch.full((), x, device=device)
         elif not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(x, device=ref.device)
+            x = torch.as_tensor(x, device=device)
         if x.ndim == 0 or x.shape[0] != n:
             x = x.expand((n,) + tuple(x.shape))
         return x
-    return tree_map(lane, out)
+    return tree_map(lane, tree)

@@ -31,8 +31,20 @@ the prelude) and the aggregate state is sized from the post-prelude
 records.  The TB ring's first sizing reads the batch the operator is
 handed, as the JAX package does: fused, that is the mask BEFORE the
 prelude's filters, so the ring may differ in size from the unfused
-run's; the records do not.  Key compaction, durable state and the mesh
-path are not ported yet.
+run's; the records do not.
+
+Compacted keys (``withCompactedKeys``, ``max_keys=None``): the graph
+build attaches a pinned ``KeyCompactor`` (``parallel/compaction.py``)
+and ``max_keys`` becomes its slot count.  The step looks each lane's
+key up in the compactor's tables (``lookup_slots``), runs the window
+kernels over ``{"rec": record, "slot": slot}`` lanes keyed by the slot,
+counts hits and misses (``cstats_update``; unadmitted keys are masked
+and counted) and maps the output key lane back to the user's keys
+(``slots_to_user_keys``), at EOS too.  A compacted window has no
+lossless fallback: once its host admission path died the next step
+raises.  Compacted windows do not fuse (their keys are admitted at the
+host staging boundary).  Durable state and the mesh path are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from windflow_tpu_torch.fusion.executor import prelude_out_payload
 from windflow_tpu_torch.kernels.ffat_cuda import resolve_kernels
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.gpu import _GPUReplica
-from windflow_tpu_torch.utils.tree import tree_map
+from windflow_tpu_torch.utils.tree import per_record, tree_map
 from windflow_tpu_torch.windows.engine import WindowSpec
 from windflow_tpu_torch.windows.ffat_kernels import (agg_spec_for,
                                                      make_ffat_flush,
@@ -121,7 +133,12 @@ class FfatWindowsGPU(Operator):
                    else RoutingMode.FORWARD)
         super().__init__(name, parallelism, routing=routing, is_gpu=True,
                          key_extractor=key_extractor)
-        if max_keys is None or max_keys < 1:
+        if max_keys is None and key_extractor is None:
+            raise WindFlowError(
+                f"FfatWindowsGPU '{name}': a compacted key space "
+                "(withCompactedKeys) requires withKeyBy — non-keyed "
+                "windows use withMaxKeys(1)")
+        if max_keys is not None and max_keys < 1:
             raise WindFlowError(
                 f"FfatWindowsGPU '{name}': withMaxKeys(n >= 1) is required")
         self.lift = lift
@@ -186,22 +203,39 @@ class FfatWindowsGPU(Operator):
         self._payload_zero = None      # all-invalid batch for the TB flush
         self._flushed = False
         self._eos_replicas = 0
+        #: compaction stats of a compacted key space (device tensors)
+        self._cstats = None
+
+    def enable_compaction(self, comp) -> None:
+        """Attach a pinned KeyCompactor (graph build): ``max_keys`` becomes
+        the slot bound, and the pane state stays dense over the slots."""
+        self._compactor = comp
+        self.max_keys = comp.slots
+        comp.register_device_stats(lambda: self._cstats)
 
     # -- per-batch program ---------------------------------------------------
     def _build_step(self, capacity: int):
         # the kernel switch resolves once per step build
         kernels = resolve_kernels(self.config)
+        lift, key_fn = self.lift, self.key_extractor
+        if self._compactor is not None:
+            # the kernels see {"rec": record, "slot": slot} lanes keyed by
+            # the slot the wrapper (_compacted) looked up
+            user_lift = self.lift
+            lift = lambda r: user_lift(r["rec"])  # noqa: E731
+            key_fn = lambda r: r["slot"]          # noqa: E731
         if self.is_tb:
             step = make_ffat_tb_step(
                 capacity, self.max_keys, self.P, self.R, self.D, self.NP,
-                self.lift, self.comb, self.key_extractor,
+                lift, self.comb, key_fn,
                 drop_tainted=self.overflow_policy == "drop",
                 monoid=self.monoid, kernels=kernels)
         else:
             step = make_ffat_step(capacity, self.max_keys, self.P, self.R,
-                                  self.D, self.lift, self.comb,
-                                  self.key_extractor, monoid=self.monoid,
-                                  kernels=kernels)
+                                  self.D, lift, self.comb, key_fn,
+                                  monoid=self.monoid, kernels=kernels)
+        if self._compactor is not None:
+            step = self._compacted(step)
         prelude = self._fused_prelude
         if prelude is None:
             return step
@@ -212,6 +246,26 @@ class FfatWindowsGPU(Operator):
             # first, inside this step (fusion/executor.py)
             payload, valid = prelude(payload, valid)
             return inner(state, payload, ts, valid, *rest)
+        return step
+
+    def _compacted(self, kernel):
+        """Wrap a window step for a compacted key space: ``(state,
+        payload, ts, valid, *args, table_keys, table_slots, cstats) ->
+        (*outs, cstats')``, the output key lane mapped back to user keys."""
+        from windflow_tpu_torch.parallel import compaction
+        user_key = self.key_extractor
+
+        def step(state, payload, ts, valid, *rest):
+            *kargs, tk, tsl, cst = rest
+            raw = per_record(user_key, payload,
+                             int(valid.shape[0])).to(torch.int32)
+            slots, hit = compaction.lookup_slots(tk, tsl, raw, valid)
+            cst = compaction.cstats_update(cst, raw, hit, valid & ~hit)
+            outs = kernel(state, {"rec": payload, "slot": slots}, ts,
+                          valid & hit, *kargs)
+            out = dict(outs[1])
+            out["key"] = compaction.slots_to_user_keys(out["key"], tk, tsl)
+            return (outs[0], out) + tuple(outs[2:]) + (cst,)
         return step
 
     @property
@@ -226,6 +280,12 @@ class FfatWindowsGPU(Operator):
 
     def _ensure(self, batch: DeviceBatch, sidx: int) -> None:
         if self._capacity is None:
+            if self.max_keys is None:
+                raise WindFlowError(
+                    f"FfatWindowsGPU '{self.name}': compacted key space "
+                    "(withCompactedKeys) needs Config.key_compaction on "
+                    "and a graph build to assign slots; declare "
+                    "withMaxKeys to run without compaction")
             self._capacity = batch.capacity
             if self.is_tb:
                 self._size_ring(batch)
@@ -272,9 +332,30 @@ class FfatWindowsGPU(Operator):
         self._auto_np = True
 
     def _run_step(self, sidx: int, payload, ts, valid, *args):
-        outs = self._step_fn(self._states[sidx], payload, ts, valid, *args)
+        comp = self._compactor
+        if comp is None:
+            outs = self._step_fn(self._states[sidx], payload, ts, valid,
+                                 *args)
+            self._states[sidx] = outs[0]
+            return outs[1:]
+        if not comp.active:
+            # no lossless fallback (max_keys bounds the SLOT space):
+            # running on would mask every key not admitted yet
+            raise WindFlowError(
+                f"FfatWindowsGPU '{self.name}': the compacted key space "
+                "lost its host admission path (the key extractor failed "
+                "on the staging probe, or admission errored) — declare "
+                "withMaxKeys or make the extractor batch-applicable")
+        from windflow_tpu_torch.parallel import compaction
+        comp.on_batch()
+        if self._cstats is None:
+            self._cstats = compaction.cstats_init(valid.device)
+        tk, tsl = comp.tables()
+        outs = self._step_fn(self._states[sidx], payload, ts, valid, *args,
+                             tk, tsl, self._cstats)
         self._states[sidx] = outs[0]
-        return outs[1:]
+        self._cstats = outs[-1]
+        return outs[1:-1]
 
     def _wm_pane(self, wm: int) -> int:
         """Lateness-adjusted watermark in panes: the firing frontier the
@@ -320,6 +401,13 @@ class FfatWindowsGPU(Operator):
         self._flushed = True
         out, fired, ts = make_ffat_flush(self.max_keys, self.P, self.R,
                                          self.D, self.comb)(self._states[0])
+        if self._compactor is not None:
+            # partial windows fired at EOS carry slots too
+            from windflow_tpu_torch.parallel.compaction import \
+                slots_to_user_keys
+            out = dict(out)
+            out["key"] = slots_to_user_keys(out["key"],
+                                            *self._compactor.tables())
         return [DeviceBatch(out, ts, fired, watermark=0, size=None)]
 
     def _flush_tb(self, ridx: int) -> list:
@@ -516,6 +604,8 @@ class FfatWindowsGPU(Operator):
 
     def dump_stats(self) -> dict:
         st = super().dump_stats()
+        if self._compactor is not None:
+            st["Key_compaction"] = self._compactor.summary()
         if self.is_tb and self._states:
             st["Late_tuples_dropped"] = self._tb_counter("n_late")
             st["Pane_cells_evicted"] = self._tb_counter("n_evicted")
