@@ -69,6 +69,15 @@ process:
   the panes valid, and the FFAT step's own) for runs of 4, 8 and 16
   outputs a thread (``ffat_cuda.FOLD_RUN``), device time by
   ``torch.profiler``;
+* megastep: the CB generic step (phase 5 (i)'s count-window graph) and
+  the TB generic step (the YSB frames graph, generic combiner) fed
+  finalized packets at ``megastep_sweeps`` 1 and 8: wall a logical batch
+  on the host clock from the hand-over to a synchronise (copy, unpack and
+  step; at K = 8 the super-buffer, the graph replay and the clones), and
+  by ``torch.profiler`` device time, kernels and launch calls
+  (``cudaLaunchKernel``, ``cudaGraphLaunch``, ``cudaMemcpyAsync``) a
+  logical batch; then the eager unpack of one batch with the wire off
+  and on (its launches, wire and logical bytes a tuple, the host encode);
 * the shared- and global-memory atomic instructions each kernel library
   was compiled to (``cuobjdump -sass``), by kernel: a 64-bit fold that
   has no native instruction shows as a compare-and-swap loop; and the
@@ -78,7 +87,8 @@ process:
     python3 chip_profile.py --only fold_tiles --package-root DIR
 
 runs the named phases only (comma-separated: host, device, reduce, run,
-tb, columnar, fusion, stateful, table_tiles, fold_tiles, sass), on the
+tb, columnar, fusion, stateful, table_tiles, fold_tiles, sass, megastep),
+on the
 ``windflow_tpu_torch`` package
 under DIR (another checkout, e.g. a parent commit unpacked by ``git
 archive``) instead of the one beside this script.
@@ -951,8 +961,197 @@ def stateful_phase(dev):
          compactor=red._compactor.summary(), **res)
 
 
+class _Drop:
+    """A tail emitter that drops what it is handed (no sink work)."""
+
+    def emit_device_batch(self, batch):
+        pass
+
+    def flush(self, wm):
+        pass
+
+    def propagate_punctuation(self, wm):
+        pass
+
+
+def _packets(cols_of, n_batches, pool, wire):
+    """``n_batches`` finalized packets of ``cols_of(i) -> (cols, tss)``,
+    packed (and wire-encoded when ``wire``) ahead of the timed window, as
+    the staging emitter finalizes them; the host encode seconds; and the
+    logical (unencoded) bytes of a batch."""
+    import numpy as np
+    from windflow_tpu_torch import staging
+    from windflow_tpu_torch.parallel.emitters import _StagedPacket
+    from windflow_tpu_torch.utils.tree import tree_flatten
+    from windflow_tpu_torch.wire import WireEncoder
+    out, enc, enc_s = [], None, 0.0
+    for i in range(n_batches):
+        cols, tss = cols_of(i)
+        leaves, treedef = tree_flatten(cols)
+        dtypes = tuple(str(l.dtype) for l in leaves)
+        b = staging.PackedBatchBuilder(dtypes, CAP, pool=pool)
+        b.append(leaves, tss)
+        buf = b.finish()
+        logical = buf.nbytes
+        fmt = None
+        if wire:
+            enc = enc or WireEncoder(dtypes, CAP)
+            t0 = time.perf_counter()
+            buf, fmt = enc.encode(buf, pool=pool)
+            enc_s += time.perf_counter() - t0
+        wm = int(tss[-1])
+        out.append(_StagedPacket(buf, fmt, wm, wm, int(tss.min()),
+                                 int(tss.max()), CAP, pool, treedef,
+                                 dtypes, CAP))
+    return out, enc_s, logical
+
+
+def _launch_profile(fn, per):
+    """``fn()`` under ``torch.profiler``: device µs, kernels run and
+    launch calls made (kernel launches, graph launches, copies), each over
+    ``per`` logical batches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and _device_us(e) > 0]
+    api = {}
+    for ev in prof.events():
+        if ev.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cudaGraphLaunch", "cudaMemcpyAsync"):
+            api[ev.name] = api.get(ev.name, 0) + 1
+    if not kern:
+        fail("torch.profiler recorded no device time for the megastep case")
+    return {"device_us_a_batch": sum(_device_us(e) for e in kern) / per,
+            "kernels_a_batch": sum(e.count for e in kern) / per,
+            "launch_calls_a_batch": {k: v / per for k, v in api.items()}}
+
+
+def _megastep_case(label, build, cols_of, k, dev, groups=3):
+    """One tail at ``megastep_sweeps=k``, fed finalized packets directly:
+    one warm-up batch, one group (the capture; at K = 1 eight batches),
+    then ``groups`` timed groups of 8 logical batches.  Wall: host clock
+    from the packets' hand-over (copy, unpack, step; at K = 8 the
+    super-buffer stack, replay and clones) to a synchronise; then one
+    more group under ``torch.profiler``."""
+    import torch
+    from windflow_tpu_torch import staging
+    g, tail_op = build(megastep_sweeps=k, wire_compression=False)
+    g._build()
+    em = g._source_replicas[0].emitter
+    rep = em.dests[0][0]
+    rep.emitter = _Drop()
+    edge = em._megastep
+    if (edge is not None) != (k > 1):
+        fail(f"{label} K={k}: megastep edge {edge}")
+    total = 1 + 8 + 8 * (groups + 1)
+    # room for every packet: a full pool would wait on each released
+    # buffer's copy inside the timed window
+    pool = staging.StagingPool(depth=total, max_bytes=1 << 31, pinned=True)
+    pkts = _packets(cols_of, total, pool, wire=False)[0]
+
+    def feed(batch_pkts):
+        for p in batch_pkts:
+            if edge is None or not edge.offer(p):
+                em._ship_packed(p)
+            rep.drain()
+    feed(pkts[:9])
+    torch.cuda.synchronize()
+    walls = []
+    for gi in range(groups):
+        lo = 9 + 8 * gi
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed(pkts[lo:lo + 8])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 8)
+    lo = 9 + 8 * groups
+    before = edge.megasteps if edge is not None else 0
+    prof = _launch_profile(lambda: feed(pkts[lo:lo + 8]), 8)
+    graph_launches = 8 * prof["launch_calls_a_batch"].get(
+        "cudaGraphLaunch", 0)
+    ran = (edge.megasteps if edge is not None else 0) - before
+    if graph_launches != ran or ran != (1 if k > 1 else 0):
+        fail(f"{label} K={k}: {graph_launches} cudaGraphLaunch for {ran} "
+             "megasteps in the profiled group")
+    out = {"case": label, "k": k, "wall_ms_a_batch":
+           1e3 * sum(walls) / len(walls),
+           "wall_ms_groups": [1e3 * w for w in walls], **prof}
+    if edge is not None:
+        out["megastep"] = edge.summary()
+        if edge.megasteps != groups + 2:
+            fail(f"{label} K={k}: {edge.megasteps} megasteps, "
+                 f"{groups + 2} expected")
+    return out
+
+
+def megastep_phase(dev):
+    """The megastep plane: CB generic (the frames count-window graph of
+    phase 5 (i)) and TB generic (the YSB frames graph, generic combiner)
+    steps at K = 1 against K = 8 a logical batch — wall, device time,
+    kernels and launch calls; then the eager unpack's launches with the
+    wire off and on, and the host encode a batch."""
+    import numpy as np
+    from windflow_tpu_torch import staging
+    from windflow_tpu_torch.batch import stage_packed
+    rng = np.random.default_rng(2031)
+    n_max = CAP * 48
+    keys = rng.integers(0, KEYS, n_max).astype(np.int32)
+    vals = rng.integers(-100, 101, n_max).astype(np.float32)
+    table, ad, ts_y, etype = ysb_frames(n_max)
+
+    def cb_cols(i):
+        sl = slice(i * CAP, (i + 1) * CAP)
+        return ({"key": keys[sl], "v0": vals[sl]},
+                np.arange(i * CAP, (i + 1) * CAP, dtype=np.int64))
+
+    def ysb_cols(i):
+        sl = slice(i * CAP, (i + 1) * CAP)
+        return ({"key": ad[sl].astype(np.int32),
+                 "v0": etype[sl].astype(np.float32)}, ts_y[sl])
+
+    def cb_build(**cfg):
+        g, _ = frames_cb_graph("cuda", False, b"", lambda c: None,
+                               event=True, **cfg)
+        return g, g.pipes[0].operators[-2]
+
+    def ysb_build(**cfg):
+        g, _, win = ysb_frames_graph("cuda", table, b"", lambda c: None,
+                                     sum_combiner=False, **cfg)
+        return g, win
+
+    for label, build, cols_of in (("CB generic", cb_build, cb_cols),
+                                  ("TB generic", ysb_build, ysb_cols)):
+        rows = [_megastep_case(label, build, cols_of, k, dev)
+                for k in (1, 8)]
+        for r in rows:
+            emit(phase="megastep", **r)
+        emit(phase="megastep", case=label, wall_k1_over_k8=
+             rows[0]["wall_ms_a_batch"] / rows[1]["wall_ms_a_batch"])
+    # the eager unpack with the wire off and on (the decode's own ops)
+    pool = staging.StagingPool(depth=8, pinned=True)
+    for label, cols_of in (("CB frames", cb_cols), ("YSB frames", ysb_cols)):
+        for wire in (False, True):
+            pkts, enc_s, logical = _packets(cols_of, 3, pool, wire)
+
+            def unpack(p=pkts[2]):
+                stage_packed(p.buf, p.treedef, p.dtypes, CAP, p.n, dev,
+                             pool=None, wire=p.fmt)
+            unpack(pkts[1])             # warm
+            prof = _launch_profile(unpack, 1)
+            emit(phase="megastep_unpack", case=label, wire=wire,
+                 wire_bytes_a_tuple=pkts[2].buf.nbytes / CAP,
+                 logical_bytes_a_tuple=logical / CAP,
+                 fmt=None if pkts[2].fmt is None else
+                 [tuple(c) for c in pkts[2].fmt.codecs],
+                 encode_ms_a_batch=1e3 * enc_s / 3, **prof)
+
+
 PHASES = ("host", "device", "reduce", "run", "tb", "columnar", "fusion",
-          "stateful", "table_tiles", "fold_tiles", "sass")
+          "stateful", "table_tiles", "fold_tiles", "sass", "megastep")
 
 
 def main():
@@ -999,6 +1198,8 @@ def main():
         fold_tile_phase(dev)
     if "sass" in only:
         sass_phase()
+    if "megastep" in only:
+        megastep_phase(dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

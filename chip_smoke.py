@@ -138,6 +138,26 @@ Phases (each exits nonzero on failure; none is skipped):
      int32 ids with ``withCompactedKeys()``, both combiners, fed by the
      FrameSource; every window against the oracle with the user keys in
      the output; the grouping (and fold) kernels launch.
+8. drive the wire plane and the megastep plane through
+   ``PipeGraph.run()`` at 262,144 tuples a batch and 16 batches a run
+   (``megastep_runs``), each run under ``torch.profiler``'s CUDA activity
+   with the launch counts set to 0 just before and read just after:
+   (i)'s count windows (both combiners, the frames' own timestamps) and
+   (ii)'s YSB time windows, each at ``Config.megastep_sweeps`` 1 and 8,
+   wire off and on (the sources declare their record spec); a dense and
+   a sorted ``ReduceGPU`` fed by the frames and 7 (c)'s associative
+   running sums at K = 1 and K = 8.  Every run equals its oracle; K = 8
+   equals K = 1 record for record and launches each kernel as often
+   (replays counted); at K = 8 ``megasteps`` >= (16 - warm-up -
+   remainder) / 8 and > 0, one ``cudaGraphLaunch`` a megastep, and the
+   route's hand kernels launch inside the graph.  Printed for
+   information: per-batch step wall and group wall a batch, captures and
+   their time, kernel launches a group, wire and logical bytes a tuple,
+   host encode a batch, tuples/s.  One more run, (i) under INGRESS time
+   with the wire on at K = 8, shows that no group forms when the ts
+   lane's codec changes every batch (records still equal the oracle).
+   Phases 3–7 run under the new defaults: K = 8 and the wire on where a
+   source declares its spec.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -1125,20 +1145,21 @@ def cb_tail(pipe, sum_combiner, sink_fn, chain=True):
 
 
 def frames_cb_graph(dev_name, sum_combiner, blob, sink_fn, chain=True,
-                    fuse=True):
+                    fuse=True, event=False, **cfg):
     """(i): FrameSource over ``blob`` → ``cb_tail``, INGRESS time as
-    bench.py's e2e leg (``fuse``: ``Config.whole_chain_fusion``).
-    Returns ``(graph, source)``."""
+    bench.py's e2e leg, or the frames' own timestamps when ``event``
+    (``fuse``: ``Config.whole_chain_fusion``; ``cfg``: further ``Config``
+    fields).  Returns ``(graph, source)``."""
     import windflow_tpu_torch as wf
     src = wf.FrameSource(chunked(blob), nv=1, fmt="frames",
                          output_batch_size=CAP,
                          record_spec={"key": np.int32(0),
                                       "v0": np.float32(0.0)})
     g = wf.PipeGraph("chip_smoke_frames", wf.ExecutionMode.DEFAULT,
-                     wf.TimePolicy.INGRESS,
+                     wf.TimePolicy.EVENT if event else wf.TimePolicy.INGRESS,
                      config=wf.Config(device=dev_name,
                                       punctuation_interval_usec=10 ** 12,
-                                      whole_chain_fusion=fuse))
+                                      whole_chain_fusion=fuse, **cfg))
     cb_tail(g.add_source(src), sum_combiner, sink_fn, chain=chain)
     return g, src
 
@@ -1191,16 +1212,21 @@ def ysb_frames(n, seed=3):
 
 
 def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True,
-                     chain=True, fuse=True):
+                     chain=True, fuse=True, spec=False, **cfg):
     """(ii) as bench.py builds it: FrameSource (EVENT time) → FilterGPU
     (views) | MapGPU (ad → campaign; added as a hop of its own when not
-    ``chain``) → tumbling TB counts keyed by campaign → columnar Sink.
-    Returns ``(graph, source, windows)``."""
+    ``chain``) → tumbling TB counts keyed by campaign → columnar Sink
+    (``spec``: the source declares its record spec, so the wire plane may
+    compress its edge; ``cfg``: further ``Config`` fields).  Returns
+    ``(graph, source, windows)``."""
     import torch
     import windflow_tpu_torch as wf
     dev_table = torch.from_numpy(table).to(dev_name)
     src = wf.FrameSource(chunked(blob), nv=1, fmt="frames",
-                         output_batch_size=CAP)
+                         output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)}
+                         if spec else None)
     win = (wf.Ffat_WindowsGPU_Builder(lambda e: e["one"], lambda a, b: a + b)
            .withTBWindows(*YSB_WIN).withKeyBy(lambda e: e["campaign"])
            .withMaxKeys(YSB_CAMPAIGNS))
@@ -1211,7 +1237,7 @@ def ysb_frames_graph(dev_name, table, blob, sink_fn, sum_combiner=True,
                      wf.TimePolicy.EVENT,
                      config=wf.Config(device=dev_name,
                                       punctuation_interval_usec=10 ** 12,
-                                      whole_chain_fusion=fuse))
+                                      whole_chain_fusion=fuse, **cfg))
     pipe = g.add_source(src)
     pipe.add(wf.FilterGPU_Builder(lambda e: e["v0"] == 1.0).build())
     (pipe.chain if chain else pipe.add)(wf.MapGPU_Builder(
@@ -1504,9 +1530,14 @@ def fusion_runs(dev_name, blob_i, keys, vals, blob_ii, table, ad, ts_y,
             segs = [sg["name"] for sg in g._fused_segments]
             steps = {nm: st[0] for nm, st in probe.items()}
             tail = ops[2].name
+            # batches the megastep plane ran in groups (Config's "auto"
+            # K = 8 on the card) are tail steps too, made inside a replay
+            folded = sum(e["batches"] for e in
+                         g.stats()["Megastep"]["edges"])
             if fuse:
                 if segs != ["|".join(op.name for op in ops)]:
                     fail(f"{label}: fused segments {segs}")
+                steps[tail] += folded
                 if steps != {ops[0].name: 0, ops[1].name: 0,
                              tail: COL_BATCHES}:
                     fail(f"{label}: steps {steps}, {COL_BATCHES} tail "
@@ -1536,12 +1567,14 @@ def fusion_runs(dev_name, blob_i, keys, vals, blob_ii, table, ad, ts_y,
                     and kind != "ysb sum":
                 fail(f"{label}: its kernel never launched: {counts}")
             recs[fuse] = batch_records(cols)
-            wall = sum(st[1] for st in probe.values()) / COL_BATCHES
+            wall = sum(st[1] for st in probe.values()) / max(
+                1, sum(steps.values()) - folded)
             print(f"phase 6 (a): PipeGraph.run() {label}: {nrec} records "
                   f"match the oracle; segments {segs}; steps {steps}; "
                   f"{n} tuples in {secs:.3f} s = {n / secs:.0f} tuples/s; "
-                  f"step wall {wall * 1e3:.3f} ms a batch (host clock "
-                  "around the hop's steps, no synchronise; information "
+                  f"step wall {wall * 1e3:.3f} ms a per-batch step (host "
+                  "clock around the hop's steps, no synchronise; "
+                  f"{folded} batches ran in megastep groups; information "
                   f"only); launches {counts}")
         if not np.array_equal(recs[False], recs[True]):
             fail(f"6(a) {kind}: fused records differ from unfused")
@@ -1933,7 +1966,7 @@ def fraud_graph(dev_name, blob, transition, sink_fn, dense=True,
     return g, scorer
 
 
-def assoc_graph(dev_name, blob, sink_fn):
+def assoc_graph(dev_name, blob, sink_fn, **cfg):
     """(c): FrameSource → stateful MapGPU with ``withAssociativeUpdate``
     (dense keys, 16,384 slots): per key the running count and the running
     sum of v0, projected onto each record → columnar Sink.  Returns
@@ -1954,7 +1987,8 @@ def assoc_graph(dev_name, blob, sink_fn):
           .build())
     g = wf.PipeGraph("chip_smoke_assoc", wf.ExecutionMode.DEFAULT,
                      config=wf.Config(device=dev_name,
-                                      punctuation_interval_usec=10 ** 12))
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
     g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP)) \
         .add(op).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
                           .build())
@@ -2275,6 +2309,279 @@ def stateful_runs(dev_name="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the wire plane and the megastep
+# ---------------------------------------------------------------------------
+
+def frames_plain_reduce_graph(dev_name, declare, blob, sink_fn, **cfg):
+    """Phase 8's reduces: FrameSource → ReduceGPU keyed by the frame key,
+    per key the max of each field → columnar Sink; ``declare``: the dense
+    route (``withMaxKeys(KEYS)`` + a declared max, key compaction off),
+    else the sorted route.  Returns ``(graph, reduce operator)``."""
+    import torch
+    import windflow_tpu_torch as wf
+    rb = (wf.ReduceGPU_Builder(
+        lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                      "v0": torch.maximum(a["v0"], b["v0"])})
+        .withKeyBy(lambda t: t["key"]))
+    if declare:
+        rb = rb.withMaxKeys(KEYS).withMonoidCombiner("max")
+    red = rb.build()
+    g = wf.PipeGraph("chip_smoke_ms_reduce", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      key_compaction=False, **cfg))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP,
+                                record_spec={"key": np.int32(0),
+                                             "v0": np.float32(0.0)})) \
+        .add(red).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                           .build())
+    return g, red
+
+
+def group_probe(g, rec):
+    """Wrap every megastep edge of the started graph ``g``: per group the
+    wall of ``run`` between two synchronises, and apart from it the
+    capture and the emission downstream (host clock)."""
+    import torch
+    for e in g._megastep_plane.edges:
+        o_run, o_cap, o_emit = e.run, e._capture, e._emit
+
+        def run(_e=e, _o=o_run):
+            before = _e.megasteps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _o()
+            torch.cuda.synchronize()
+            if _e.megasteps > before:
+                rec["groups"] += 1
+                rec["group_s"] += time.perf_counter() - t0
+
+        def cap(*a, _o=o_cap):
+            t0 = time.perf_counter()
+            out = _o(*a)
+            rec["capture_s"] += time.perf_counter() - t0
+            return out
+
+        def emit(*a, _o=o_emit):
+            t0 = time.perf_counter()
+            _o(*a)
+            rec["emit_s"] += time.perf_counter() - t0
+        e.run, e._capture, e._emit = run, cap, emit
+
+
+def megastep_run(label, build, k, wire, folds=True):
+    """One phase-8 run of ``build(sink, megastep_sweeps=k,
+    wire_compression=wire)`` -> ``(graph, tail operator)``, under
+    ``torch.profiler``'s CUDA activity (to count ``cudaGraphLaunch``):
+    ``(sink batches, facts)``.  At K > 1 the run must fold groups unless
+    ``folds`` is False; every batch is accounted for either way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    cols, sink = collect()
+    g, op = build(sink, megastep_sweeps=k, wire_compression=wire)
+    steps = sync_probe(op)
+    rec = {"groups": 0, "group_s": 0.0, "capture_s": 0.0, "emit_s": 0.0}
+    fc.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.start()
+        group_probe(g, rec)
+        g.wait_end()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    graph_launches = sum(1 for ev in prof.events()
+                         if ev.name == "cudaGraphLaunch")
+    st = g.stats()
+    sec = st["Megastep"]
+    edge = sec["edges"][0] if sec["edges"] else None
+    if k == 1 and (sec["edges"] or graph_launches):
+        fail(f"{label} K=1: megastep edges {sec['edges']}, "
+             f"{graph_launches} graph launches")
+    if k > 1:
+        if edge is None:
+            fail(f"{label} K={k}: no megastep edge ({sec})")
+        least = (COL_BATCHES - edge["warmup_batches"]
+                 - edge["fallback_batches"]) // k
+        if edge["megasteps"] < (max(1, least) if folds else least) \
+                or edge["batches"] + edge["warmup_batches"] \
+                + edge["fallback_batches"] != COL_BATCHES:
+            fail(f"{label} K={k}: {edge}")
+        if graph_launches != edge["megasteps"]:
+            fail(f"{label} K={k}: {graph_launches} cudaGraphLaunch for "
+                 f"{edge['megasteps']} megasteps")
+    ws = st["Staging"]["Wire"]
+    if wire and not ws["batches"]:
+        fail(f"{label}: wire on, but no batch was compressed ({ws})")
+    if not wire and ws["encoders"]:
+        fail(f"{label}: wire off, but {ws['encoders']} encoders attached")
+    n = CAP * COL_BATCHES
+    per = steps[1] / steps[0] if steps[0] else None
+    grouped = (rec["group_s"] - rec["capture_s"] - rec["emit_s"]) \
+        / (k * rec["groups"]) if rec["groups"] else None
+    facts = {
+        "tuples_per_s": n / secs, "secs": secs, "launches": counts,
+        "per_batch_step_ms": None if per is None else 1e3 * per,
+        "per_batch_steps": steps[0],
+        "group_ms_a_batch": None if grouped is None else 1e3 * grouped,
+        "capture_ms": 1e3 * rec["capture_s"],
+        "megastep": edge, "graph_launches": graph_launches,
+        "wire_bytes_a_tuple": st["Bytes_H2D_total"] / n,
+        "logical_bytes_a_tuple": st["Bytes_H2D_logical_total"] / n,
+        "encode_ms_a_batch": ws["encode_usec"] / 1e3 / ws["batches"]
+        if ws["batches"] else None,
+    }
+    return cols, facts
+
+
+def megastep_runs(dev_name="cuda"):
+    """Phase 8: (i) frames into the count windows (both combiners) and
+    (ii) the YSB frames into the time windows, each at K = 1 and K = 8
+    forced, wire off and on; the dense and the sorted reduce and 7 (c)'s
+    associative running sums at K = 1 and K = 8; every run against its
+    oracle, K = 8 record for record against K = 1.  Returns launch counts
+    by label."""
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2029)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob_i = frame_blob(keys, np.arange(n), vals)
+    keys32 = keys.astype(np.int32)
+    table, ad, ts_y, etype = ysb_frames(n)
+    blob_ii = frame_blob(ad, ts_y, etype.astype(np.float64))
+    views = etype == 1
+    akeys = rng.integers(0, FRAUD_CARDS, n)
+    avals = rng.integers(0, 4, n).astype(np.float32)
+    blob_a = frame_blob(akeys, np.arange(n), avals)
+
+    def cb(sum_comb, event=True):
+        def build(sink, **cfg):
+            g, _ = frames_cb_graph(dev_name, sum_comb, blob_i, sink,
+                                   event=event, **cfg)
+            return g, g.pipes[0].operators[-2]
+        return build
+
+    def ysb(sink, **cfg):
+        g, _, win = ysb_frames_graph(dev_name, table, blob_ii, sink,
+                                     spec=True, **cfg)
+        return g, win
+
+    def red(declare):
+        def build(sink, **cfg):
+            return frames_plain_reduce_graph(dev_name, declare, blob_i,
+                                             sink, **cfg)
+        return build
+
+    def assoc(sink, **cfg):
+        return assoc_graph(dev_name, blob_a, sink, **cfg)
+
+    def check_cb(label, cols):
+        return check_cb_columns(label, cols, keys32, vals)
+
+    def check_ysb(label, cols):
+        return check_tb_records(label, cols, table[ad[views]], ts_y[views],
+                                np.ones(int(views.sum())), *YSB_WIN)
+
+    def check_reduce(label, cols):
+        if len(cols) != COL_BATCHES:
+            fail(f"{label}: {len(cols)} sink batches")
+        nrec = 0
+        for i, c in enumerate(cols):
+            sl = slice(i * CAP, (i + 1) * CAP)
+            wk, wv = batch_reduce_oracle(keys32[sl], vals[sl], "max")
+            if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                    and np.array_equal(np.asarray(c.cols["v0"]), wv)):
+                fail(f"{label}: batch {i} differs from the oracle")
+            nrec += len(wk)
+        return nrec
+
+    def check_assoc(label, cols):
+        cnt, run_sum = running_oracle(akeys, avals)
+        if not (np.array_equal(cat_cols(cols, "key"), akeys)
+                and np.array_equal(cat_cols(cols, "n"), cnt)
+                and np.array_equal(cat_cols(cols, "sum"), run_sum)):
+            fail(f"{label}: running counts or sums differ from the oracle")
+        return n
+
+    # (i) under the frames' own timestamps: the count windows do not read
+    # time, and the ts lane keeps one wire codec (delta2) from batch to
+    # batch; INGRESS stamps (one a chunk) reseed the lane's dictionary
+    # every batch, every batch then has another wire format, and no group
+    # of K same-format batches forms — the run below shows it
+    cases = [("8 (i) frames generic", cb(False), check_cb, (False, True),
+              ("grouping_rank_hist",)),
+             ("8 (i) frames sum", cb(True), check_cb, (False, True),
+              ("grouping_rank_hist", "sliding_fold")),
+             ("8 (ii) YSB frames sum", ysb, check_ysb, (False, True), ()),
+             ("8 dense reduce", red(True), check_reduce, (False,),
+              ("dense_monoid_table",)),
+             ("8 sorted reduce", red(False), check_reduce, (False,), ()),
+             ("8 7(c) assoc", assoc, check_assoc, (False,), ())]
+    out = {}
+    tag = "8 (i) frames generic INGRESS wire on K=8"
+    cols, f = megastep_run(tag, cb(False, event=False), 8, True,
+                           folds=False)
+    nrec = check_cb(tag, cols)
+    e = f["megastep"]
+    print(f"phase 8: PipeGraph.run() {tag}: {nrec} records match the "
+          f"oracle; megasteps {e['megasteps']}, warm-up "
+          f"{e['warmup_batches']}, fallback {e['fallback_batches']} (each "
+          f"batch's wire format differs from its predecessor's); "
+          f"{f['tuples_per_s']:.0f} tuples/s (information only)")
+    out[tag] = f["launches"]
+    for label, build, check, wires, need in cases:
+        for wire in wires:
+            base = None
+            for k in (1, 8):
+                tag = f"{label} wire {'on' if wire else 'off'} K={k}"
+                cols, f = megastep_run(tag, build, k, wire)
+                nrec = check(tag, cols)
+                recs = batch_records(cols) if check is not check_assoc \
+                    else np.stack([cat_cols(cols, "key"),
+                                   cat_cols(cols, "n"),
+                                   cat_cols(cols, "sum")])
+                counts = f["launches"]
+                for name in need:
+                    if counts[name] <= 0:
+                        fail(f"{tag} never launched {name}")
+                if k == 1:
+                    base = (recs, counts)
+                else:
+                    if not np.array_equal(recs, base[0]):
+                        fail(f"{tag}: records differ from K=1's")
+                    if counts != base[1]:
+                        fail(f"{tag}: kernel launches {counts}, at K=1 "
+                             f"{base[1]} (replays must count)")
+                    e = f["megastep"]
+                    if need and e["kernel_launches_per_group"] <= 0:
+                        fail(f"{tag}: no hand kernel inside the graph")
+                out[tag] = counts
+                e = f["megastep"] or {}
+                print(f"phase 8: PipeGraph.run() {tag}: {nrec} records "
+                      f"match the oracle{' and K=1' if k > 1 else ''}; "
+                      f"megasteps {e.get('megasteps', 0)} "
+                      f"(cudaGraphLaunch {f['graph_launches']}), warm-up "
+                      f"{e.get('warmup_batches', 0)}, fallback "
+                      f"{e.get('fallback_batches', 0)}, captures "
+                      f"{e.get('captures', 0)} ({f['capture_ms']:.1f} ms), "
+                      f"kernel launches a group "
+                      f"{e.get('kernel_launches_per_group', 0)}; per-batch "
+                      f"step wall {f['per_batch_step_ms']} ms over "
+                      f"{f['per_batch_steps']} steps, group wall a batch "
+                      f"{f['group_ms_a_batch']} ms (stack + copy + replay "
+                      "+ clones, synchronised); wire "
+                      f"{f['wire_bytes_a_tuple']:.3f} B/tuple against "
+                      f"logical {f['logical_bytes_a_tuple']:.3f}, host "
+                      f"encode {f['encode_ms_a_batch']} ms a batch; "
+                      f"{n} tuples in {f['secs']:.3f} s = "
+                      f"{f['tuples_per_s']:.0f} tuples/s (host clock, "
+                      "under the profiler's CUDA activity; information "
+                      f"only); launches {counts}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2376,6 +2683,10 @@ def main():
     t7 = time.perf_counter()
     run_counts.update(stateful_runs())
     print(f"phase 7: {time.perf_counter() - t7:.1f} s")
+    # 8. the wire plane and the megastep, counts read just after each run
+    t8 = time.perf_counter()
+    run_counts.update(megastep_runs())
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -2387,6 +2698,9 @@ def main():
                "6(a) cb sum fused", "6(c) split",
                "7(e) compacted windows generic",
                "7(e) compacted windows sum")
+    # phase 8's runs (their K = 8 launches counted through the replays)
+    ms8 = [t for t in run_counts if t.startswith("8 ")]
+    cb_runs += tuple(t for t in ms8 if t.startswith("8 (i)"))
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
@@ -2404,7 +2718,8 @@ def main():
                                          "6(c) split",
                                          "7(d) compacted reduce sum"),
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
-                                         "(e) dense, keys < 1100")}
+                                         "(e) dense, keys < 1100")
+               + tuple(t for t in ms8 if t.startswith("8 dense"))}
     for r in rows:
         counter = r["name"].split("[")[0]
         r["launches"] = sum(run_counts[label][counter]

@@ -18,7 +18,14 @@ and key-compaction checks at the end run the dense associative step,
 the compacted stateful step and the compacted count-window step with no
 synchronising call, count the dense wavefront's one read of its rank
 counts, and check a compacted reduce run's table-kernel launches; the
-running sums are integer-valued, so exact.
+running sums are integer-valued, so exact.  The wire and megastep checks
+at the end decode the 13-lane adversarial matrix on the card to the CPU
+decode's bits, replay CB, TB, dense-reduce, associative and
+sorted-reduce megasteps with no synchronising call (records equal to
+K = 1's and the CPU's, kernel launches counted through replays), count
+one ``cudaGraphLaunch`` a megastep, check that emitted batches never
+alias the graph's outputs, recapture on a TB ring regrow, and run the
+sorted and dense reduce steps with no synchronising call.
 """
 
 import numpy as np
@@ -808,3 +815,332 @@ def test_cuda_compacted_reduce_run_launches_the_table_kernel(cuda_device):
         for u in np.unique(k):
             want.append((int(u), float(v[k == u].max())))
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the wire decode and the megastep's captured groups on the card
+# ---------------------------------------------------------------------------
+
+_WRNG = np.random.default_rng(0)
+_WCAP = 2048
+#: tests/test_wire.py's adversarial matrix (the same seed and draws; this
+#: file imports no JAX, so the matrix is built here again)
+WIRE_LANES = {
+    "constant_i32": np.full(_WCAP, -7, np.int32),
+    "all_null_i32": np.zeros(_WCAP, np.int32),
+    "all_null_f32": np.zeros(_WCAP, np.float32),
+    "random_i32": _WRNG.integers(-2**31, 2**31, _WCAP).astype(np.int32),
+    "random_f32": _WRNG.random(_WCAP, dtype=np.float32),
+    "nan_inf_f32": np.tile(np.array([np.nan, np.inf, -np.inf, -0.0],
+                                    np.float32), _WCAP // 4),
+    "low_card_i32": _WRNG.integers(0, 61, _WCAP).astype(np.int32),
+    "sorted_gaps_i64": np.sort(
+        _WRNG.integers(0, 10**9, _WCAP)).astype(np.int64),
+    "cadence_i64": np.arange(_WCAP, dtype=np.int64) * 1_000 + 5,
+    "extremes_i64": np.tile(np.array(
+        [np.iinfo(np.int64).min, np.iinfo(np.int64).max, 0, -1],
+        np.int64), _WCAP // 4),
+    "extremes_i32": np.tile(np.array(
+        [np.iinfo(np.int32).min, np.iinfo(np.int32).max], np.int32),
+        _WCAP // 2),
+    "big_u64": _WRNG.integers(0, 2**63, _WCAP).astype(np.uint64)
+    + np.uint64(2**63 - 1),
+    "uint32_full": _WRNG.integers(0, 2**32, _WCAP).astype(np.uint32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIRE_LANES))
+def test_cuda_wire_decode_equals_the_cpu_decode(cuda_device, name):
+    """Every adversarial lane's wire words decode on the card to the CPU
+    decode's bits and the input's (the int64 cumsum of delta/delta2 wraps
+    two's-complement on the card too: ``extremes_i64``, ``big_u64``)."""
+    from windflow_tpu_torch import staging, wire
+    lane = WIRE_LANES[name]
+    dt = str(lane.dtype)
+    tss = np.arange(_WCAP, dtype=np.int64) * 17
+    b = staging.PackedBatchBuilder((dt,), _WCAP)
+    b.append([lane], tss)
+    wbuf, fmt = wire.WireEncoder((dt,), _WCAP, reseed_every=4).encode(
+        b.finish().copy())
+    if fmt is None:
+        pytest.skip(f"{name}: compression lost, the logical buffer ships")
+    words = torch.from_numpy(wbuf.view(np.int32))
+    dec = wire.build_wire_decode(fmt, (dt,), _WCAP)
+    cpu = dec(words)
+    card = dec(words.to(cuda_device))
+    torch.cuda.synchronize()
+    for c, g in zip(cpu, card):
+        assert c.dtype == g.dtype
+        assert np.array_equal(c.numpy().view(np.uint8),
+                              g.cpu().numpy().view(np.uint8)), name
+    assert np.array_equal(card[0].cpu().numpy().view(np.uint8),
+                          lane.view(np.uint8))
+    assert np.array_equal(card[1].cpu().numpy(), tss)
+
+
+#: megastep runs on the card: frames of MS_N tuples, batches of MS_CAP
+MS_N, MS_CAP, MS_KEYS = 16 * 4096, 4096, 64
+
+
+def _ms_blob(gaps=None, seed=71):
+    rng = np.random.default_rng(seed)
+    rec = np.zeros(MS_N, dtype=[("k", "<i8"), ("ts", "<i8"), ("v", "<f8")])
+    rec["k"] = rng.integers(0, MS_KEYS, MS_N)
+    rec["ts"] = np.arange(MS_N, dtype=np.int64) * 50 if gaps is None \
+        else np.cumsum(gaps)
+    rec["v"] = rng.integers(-100, 101, MS_N)
+    return rec.tobytes()
+
+
+def _ms_tail(family):
+    import windflow_tpu_torch as wt
+    if family == "cb":
+        return (wt.Ffat_WindowsGPU_Builder(lambda t: t["v"],
+                                           lambda a, b: a + b)
+                .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+                .withMaxKeys(MS_KEYS).withName("w").build())
+    if family == "tb":
+        return (wt.Ffat_WindowsGPU_Builder(lambda t: t["v"],
+                                           lambda a, b: a + b)
+                .withTBWindows(40_000, 10_000).withKeyBy(lambda t: t["key"])
+                .withMaxKeys(MS_KEYS).withName("w").build())
+    if family == "dense":
+        return (wt.ReduceGPU_Builder(lambda a, b: a)
+                .withKeyBy(lambda t: t["key"]).withMaxKeys(MS_KEYS)
+                .withSumCombiner().withName("w").build())
+    if family == "sorted":
+        return (wt.ReduceGPU_Builder(
+                    lambda a, b: {"key": a["key"], "v": a["v"] + b["v"]})
+                .withKeyBy(lambda t: t["key"]).withName("w").build())
+    return (wt.MapGPU_Builder(lambda t, s: (t, s)).withName("w")
+            .withKeyBy(lambda t: t["key"])
+            .withInitialState({"acc": np.float32(0.0)})
+            .withNumKeySlots(MS_KEYS).withDenseKeys()
+            .withAssociativeUpdate(
+                lift=lambda t: {"acc": t["v"]},
+                comb=lambda a, b: {"acc": a["acc"] + b["acc"]},
+                project=lambda t, s: {"key": t["key"], "v": s["acc"]})
+            .build())
+
+
+def _ms_run(family, k, device="cuda", wire=False, gaps=None, tap=None):
+    """FrameSource → one foldable tail → Sink at ``megastep_sweeps=k``:
+    (sorted records, Megastep section, graph).  ``tap(graph)`` runs after
+    the build, before the first batch."""
+    import windflow_tpu_torch as wt
+    out = []
+    blob = _ms_blob(gaps)
+    step = MS_CAP * 24 * 3 // 2
+
+    def chunks():
+        for i in range(0, len(blob), step):
+            yield blob[i:i + step]
+    src = wt.FrameSource(chunks, nv=1, fields=["v"],
+                         output_batch_size=MS_CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v": np.float32(0.0)})
+    g = wt.PipeGraph("ms_cuda", time_policy=wt.TimePolicy.EVENT,
+                     config=wt.Config(device=device, megastep_sweeps=k,
+                                      wire_compression=wire,
+                                      key_compaction=False,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(src).add(_ms_tail(family)).add_sink(wt.Sink_Builder(
+        lambda r: out.append(tuple(sorted(
+            (n, np.asarray(v).item()) for n, v in r.items())))
+        if r is not None else None).build())
+    if tap is not None:
+        g.start()
+        tap(g)
+        g.wait_end()
+    else:
+        g.run()
+    torch.cuda.synchronize()
+    return sorted(out), g.stats()["Megastep"], g
+
+
+def _strict_replays(monkeypatch):
+    """Run every group whose graph is already captured under
+    ``set_sync_debug_mode("error")``: copy-in, the super-buffer copy, the
+    replay and the drain's clones make no synchronising call.  The
+    emission downstream (a record sink copies to the host) and the
+    cadence hooks run outside it.  Returns the count of such groups."""
+    from windflow_tpu_torch import megastep as ms
+    orig = ms.MegastepEdge.run
+    seen = [0]
+
+    def relaxed(fn):
+        def call(self, *args):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(self, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+    monkeypatch.setattr(ms.MegastepEdge, "_emit",
+                        relaxed(ms.MegastepEdge._emit))
+    monkeypatch.setattr(ms.MegastepEdge, "_post_hooks",
+                        relaxed(ms.MegastepEdge._post_hooks))
+
+    def run(self):
+        q = self._q
+        cached = (len(q) >= self.k and self._group is not None
+                  and self._group_step is self._step(q[0].capacity)
+                  and self._group_sig == self._sig(q[0])
+                  and not self.rep.inbox and not self.rep.done)
+        if not cached:
+            return orig(self)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            orig(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen[0] += 1
+    monkeypatch.setattr(ms.MegastepEdge, "run", run)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["cb", "tb", "dense", "assoc", "sorted"])
+@pytest.mark.parametrize("wire", [False, True])
+def test_cuda_megastep_replays_sync_free_and_equals_k1(cuda_device,
+                                                       monkeypatch, family,
+                                                       wire):
+    """A CB, a TB, a dense-reduce, an associative and a sorted-reduce
+    megastep at K = 4 on the card, wire off and on: every group after the
+    capture replays with no synchronising call, the records equal K = 1's
+    and the CPU's, each kernel launches as often as at K = 1 (replays
+    counted, the capture's warm-up not), and the counts add up."""
+    fc.reset_launch_counts()
+    base, _, _ = _ms_run(family, 1, wire=wire)
+    launches1 = fc.launch_counts()
+    seen = _strict_replays(monkeypatch)
+    fc.reset_launch_counts()
+    got, sec, _ = _ms_run(family, 4, wire=wire)
+    launches4 = fc.launch_counts()
+    e = sec["edges"][0]
+    assert base and got == base
+    assert e["megasteps"] >= 2 and seen[0] >= 1 and e["captures"] == 1
+    assert e["batches"] + e["warmup_batches"] + e["fallback_batches"] \
+        == MS_N // MS_CAP
+    assert launches4 == launches1
+    # the hand kernels of the route run inside the replays (the TB ring's
+    # 64-key (key, pane) ids are beyond the grouping kernel's gate: no
+    # kernel on that route at this shape)
+    if family in ("cb", "dense"):
+        assert e["kernel_launches_per_group"] > 0
+    cpu, _, _ = _ms_run(family, 4, device="cpu", wire=wire)
+    assert cpu == base
+
+
+@pytest.mark.cuda
+def test_cuda_one_graph_launch_per_megastep(cuda_device):
+    """``torch.profiler`` sees exactly one ``cudaGraphLaunch`` per
+    megastep of the run."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, sec, _ = _ms_run("cb", 4)
+    launches = sum(1 for ev in prof.events()
+                   if ev.name == "cudaGraphLaunch")
+    assert sec["edges"][0]["megasteps"] >= 2
+    assert launches == sec["edges"][0]["megasteps"]
+
+
+@pytest.mark.cuda
+def test_cuda_megastep_outputs_do_not_alias_the_graph(cuda_device):
+    """Every batch a group emits is its own memory: the first group's
+    records, snapshotted at emission, are unchanged after the later
+    replays overwrote the graph's outputs."""
+    from windflow_tpu_torch.utils.tree import tree_leaves
+    kept = []
+
+    def tap(g):
+        rep = g.pipes[0].operators[1].replicas[0]
+        em = rep.emitter
+        orig = em.emit_device_batch
+
+        def emit(batch):
+            leaves = tree_leaves(batch.payload) + [batch.ts, batch.valid]
+            kept.append((leaves, [t.clone() for t in leaves]))
+            orig(batch)
+        em.emit_device_batch = emit
+    _, sec, g = _ms_run("cb", 4, tap=tap)
+    e = sec["edges"][0]
+    assert e["megasteps"] >= 2 and len(kept) >= e["batches"]
+    for leaves, snaps in kept:
+        for t, s in zip(leaves, snaps):
+            assert torch.equal(t, s)
+
+
+@pytest.mark.cuda
+def test_cuda_tb_ring_regrow_recaptures_records_equal(cuda_device):
+    """A stream whose time spread grows mid-run regrows the TB ring: the
+    step is rebuilt and the group recaptured, and the records equal
+    K = 1's and the CPU's."""
+    gaps = np.r_[np.full(MS_N // 2, 50), np.full(MS_N // 2, 2_000)]
+    base, _, _ = _ms_run("tb", 1, gaps=gaps)
+    got, sec, g = _ms_run("tb", 4, gaps=gaps)
+    e = sec["edges"][0]
+    assert base and got == base
+    assert e["captures"] >= 2 and e["megasteps"] >= 1
+    cpu, _, _ = _ms_run("tb", 4, device="cpu", gaps=gaps)
+    assert cpu == base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sorted", "dense"])
+def test_cuda_reduce_step_makes_no_host_read(cuda_device, route):
+    """The sorted and the dense ``ReduceGPU`` steps under
+    ``set_sync_debug_mode("error")``: no synchronising call (both run
+    inside captured megastep groups)."""
+    import windflow_tpu_torch as wt
+    b = wt.ReduceGPU_Builder(
+        lambda a, c: {"key": a["key"], "v0": a["v0"] + c["v0"]}) \
+        .withKeyBy(lambda t: t["key"])
+    if route == "dense":
+        b = b.withMaxKeys(CB_K).withSumCombiner()
+    op = _op_graph(b.build(), compact=False)
+    batches = _cb_batches(cuda_device, 3)
+    out = _no_host_read(op._step, batches)
+    keys = batches[2].payload["key"].cpu().numpy()
+    vals = batches[2].payload["v0"].cpu().numpy()
+    want = np.bincount(keys, weights=vals, minlength=CB_K)
+    got_k = out.payload["key"][out.valid].cpu().numpy()
+    got_v = out.payload["v0"][out.valid].cpu().numpy()
+    if route == "dense":
+        got_k = np.nonzero(out.valid.cpu().numpy())[0]
+    assert np.array_equal(got_v, want[got_k].astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_megastep_capture_failure_raises(cuda_device):
+    """A tail step that reads the device on the host runs per batch but
+    cannot be captured: the first group raises ``WindFlowError`` naming
+    the step, never falling back to the per-batch path.  (Last in this
+    file: a failed capture may leave the thread's stream state behind.)"""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.basic import WindFlowError as WFE
+
+    def lift(t):
+        # a host read of the batch: legal eagerly, illegal while capturing
+        return t["v"] + 0.0 * float(t["v"].sum().item())
+    blob = _ms_blob()
+    step = MS_CAP * 24
+
+    def chunks():
+        for i in range(0, len(blob), step):
+            yield blob[i:i + step]
+    g = wt.PipeGraph("ms_fail", time_policy=wt.TimePolicy.EVENT,
+                     config=wt.Config(device="cuda", megastep_sweeps=4,
+                                      key_compaction=False,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wt.FrameSource(chunks, nv=1, fields=["v"],
+                                output_batch_size=MS_CAP)) \
+        .add(wt.Ffat_WindowsGPU_Builder(lift, lambda a, b: a + b)
+             .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+             .withMaxKeys(MS_KEYS).withName("w").build()) \
+        .add_sink(wt.Sink_Builder(lambda r: None).build())
+    with pytest.raises(WFE, match="capturing the ffat_cb step of 'w'"):
+        g.run()

@@ -15,9 +15,12 @@ and key compaction maps arbitrary int32 keys onto dense slots
 the reduce's dense tables run hand-written CUDA kernels
 (``windflow_tpu_torch/kernels``).  The bulk sources ``FrameSource``
 and ``DeviceSource`` (``windflow_tpu_torch/io``) feed the card
-columnar.  The card is the default device: ``Config(device="cpu")``
-runs on the CPU, where each kernel wrapper takes its plain torch
-version.  The package imports torch and numpy, never jax.
+columnar.  On the card a staged edge ships wire-compressed batches
+(``windflow_tpu_torch/wire.py``) and runs K of them as one captured
+CUDA graph (``windflow_tpu_torch/megastep.py``).  The card is the
+default device: ``Config(device="cpu")`` runs on the CPU, where each
+kernel wrapper takes its plain torch version.  The package imports
+torch and numpy, never jax.
 """
 
 from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,

@@ -3,7 +3,8 @@
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
 not imported across: the port stands alone).  ``Config`` keeps only the
 fields the ported slices read (with the JAX package's defaults and no
-environment knobs), plus the two the port adds:
+environment knobs: ``wire_compression`` and ``megastep_sweeps`` resolve
+"auto" from ``device``), plus the two the port adds:
 ``device`` (the card unless the caller asks for the CPU) and
 ``cuda_kernels`` (the kernel switch, counterpart of
 ``Config.pallas_kernels``).  ``stable_hash`` and ``int32_key`` are the
@@ -109,6 +110,17 @@ class Config:
     # step; the interior batches, emitters and queue hops go away.  Off,
     # every hop runs its own step (the JAX package's WF_TPU_FUSE=0).
     whole_chain_fusion: bool = True
+    # Wire plane (windflow_tpu_torch/wire.py): "auto" compresses the packed
+    # staging buffers of every edge with a declared or inferred record
+    # spec exactly when the device is CUDA (decoded on the card in the
+    # unpack); True/False force it either way.
+    wire_compression: object = "auto"
+    # Megastep plane (windflow_tpu_torch/megastep.py): K staged batches of
+    # an eligible edge run as one group — one captured CUDA graph replay
+    # on the card, an eager loop on the CPU.  "auto" is K = 8 on CUDA
+    # and 1 (off) on the CPU; an integer forces K anywhere; K <= 1 is
+    # the kill switch.
+    megastep_sweeps: object = "auto"
     # Device the graph runs on.  The card is the default; without CUDA a
     # graph raises unless the caller asked for "cpu".
     device: str = "cuda"

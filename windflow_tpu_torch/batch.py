@@ -159,30 +159,41 @@ def _pad_leading(arr: np.ndarray, capacity: int) -> np.ndarray:
     return np.pad(arr, pad)
 
 
-def unpack_body(dtypes, capacity: int):
+def unpack_body(dtypes, capacity: int, wire=None):
     """The device unpack of one packed staging buffer (int32 words):
     ``b -> (payload_cols, ts, valid)``.  4-byte lanes are bit views of
     the buffer; 8-byte integer lanes are rebuilt from their lo/hi words;
     the validity mask comes from the trailing fill-count word, on the
-    device (no extra transfer)."""
-    specs = [np.dtype(dt) for dt in tuple(dtypes) + ("int64",)]
+    device (no extra transfer).  ``wire`` (a ``wire.WireFormat``) marks
+    a wire-compressed buffer: its columnar decode
+    (``wire.build_wire_decode``) runs ahead of the mask derivation.  The
+    megastep (``megastep.py``) runs this same body inside its group."""
+    if wire is not None:
+        from windflow_tpu_torch.wire import build_wire_decode
+        decode = build_wire_decode(wire, dtypes, capacity)
+    else:
+        specs = [np.dtype(dt) for dt in tuple(dtypes) + ("int64",)]
+
+        def decode(b: torch.Tensor):
+            cols, off = [], 0
+            for d in specs:
+                if d.itemsize == 8:
+                    seg = b[off:off + 2 * capacity]
+                    lo = seg[0::2].to(torch.int64) & 0xFFFFFFFF
+                    hi = seg[1::2].to(torch.int64)
+                    v = (hi << 32) | lo
+                    cols.append(v if d == np.int64
+                                else v.view(torch_dtype(d)))
+                    off += 2 * capacity
+                else:
+                    cols.append(b[off:off + capacity].view(torch_dtype(d)))
+                    off += capacity
+            return cols
 
     def unpack_fn(b: torch.Tensor):
-        cols, off = [], 0
-        for d in specs:
-            if d.itemsize == 8:
-                seg = b[off:off + 2 * capacity]
-                lo = seg[0::2].to(torch.int64) & 0xFFFFFFFF
-                hi = seg[1::2].to(torch.int64)
-                v = (hi << 32) | lo
-                cols.append(v if d == np.int64 else v.view(torch_dtype(d)))
-                off += 2 * capacity
-            else:
-                cols.append(b[off:off + capacity].view(torch_dtype(d)))
-                off += capacity
-        n_valid = b[-1]
+        cols = decode(b)
         valid = torch.arange(capacity, dtype=torch.int32,
-                             device=b.device) < n_valid
+                             device=b.device) < b[-1]
         return cols[:-1], cols[-1], valid
     return unpack_fn
 
@@ -191,11 +202,13 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
                  device, watermark: int = WM_NONE,
                  frontier: Optional[int] = None,
                  ts_max: Optional[int] = None, ts_min: Optional[int] = None,
-                 pool=None) -> DeviceBatch:
+                 pool=None, wire=None) -> DeviceBatch:
     """ONE host→device copy of a packed staging buffer into a
     DeviceBatch.  For a CUDA target the copy is ``non_blocking`` from
     pinned memory and ``buf`` is recycled gated on an event recorded
-    after it; for the CPU the words are copied out before recycling."""
+    after it; for the CPU the words are copied out before recycling.
+    ``wire`` marks ``buf`` as wire-compressed: its decode runs in the
+    unpack."""
     hbuf = torch.from_numpy(buf.view(np.int32))
     gate = None
     if device.type == "cuda":
@@ -204,7 +217,7 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
         gate.record(torch.cuda.current_stream(device))
     else:
         dbuf = hbuf.clone()
-    cols, ts, valid = unpack_body(dtypes, capacity)(dbuf)
+    cols, ts, valid = unpack_body(dtypes, capacity, wire=wire)(dbuf)
     if pool is not None:
         pool.release(buf, gate=gate)
     return DeviceBatch(tree_unflatten(treedef, cols), ts, valid,

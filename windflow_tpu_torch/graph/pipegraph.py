@@ -18,9 +18,13 @@ operator chain as one hop, and after the wiring ``Config.key_compaction``
 attaches a ``KeyCompactor`` to every keyed declared-monoid ReduceGPU,
 every host-fed interning stateful operator and every
 ``withCompactedKeys`` window, and wires their feeding emitters for
-admission (``parallel/compaction.attach_compaction``).  The JAX
-package's preflight, calibration, wire, megastep, durability and
-monitoring planes are not ported yet.
+admission (``parallel/compaction.attach_compaction``).  Then the wire
+plane (``wire.attach_wire``: compressed staging on edges with a record
+spec) and the megastep plane (``megastep.attach_plane``: K staged
+batches of an eligible edge as one group, one CUDA graph replay on the
+card) attach, and under an active plane each source tick pulls K
+batches' worth.  The JAX package's preflight, calibration, durability
+and monitoring planes are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class PipeGraph:
         self._throttle_events = 0
         self._max_inbox_seen = 0
         self._max_inflight_device_seen = 0
+        #: the megastep plane (megastep.py), attached by _build
+        self._megastep_plane = None
 
     # -- construction --------------------------------------------------------
     def add_source(self, source: Source) -> MultiPipe:
@@ -237,6 +243,19 @@ class PipeGraph:
                 attach_compaction
             attach_compaction(self)
 
+        # 2d. wire plane, then the megastep plane: after fusion (the tail
+        # may be a fused segment's host) and compaction (a compacted tail
+        # is ineligible), before anything stages; the group body runs
+        # the same wire decode as the per-batch unpack
+        from windflow_tpu_torch.megastep import (attach_plane,
+                                                 round_epoch_to_megastep)
+        from windflow_tpu_torch.wire import attach_wire, wire_enabled
+        if wire_enabled(self.config):
+            attach_wire(self)
+        self._megastep_plane = attach_plane(self.config,
+                                            self._source_replicas)
+        round_epoch_to_megastep(self.config, self._megastep_plane)
+
         # 3. collectors: one per replica with input channels
         for rep in self._all_replicas:
             if rep.num_channels > 0:
@@ -317,8 +336,14 @@ class PipeGraph:
         return progress
 
     def _tick_chunk(self, sr) -> int:
-        return self.config.source_tick_chunk \
+        chunk = self.config.source_tick_chunk \
             or sr.op.output_batch_size or 256
+        plane = self._megastep_plane
+        if plane is not None and plane.active \
+                and getattr(sr.emitter, "_megastep", None) is not None:
+            # K-granular pacing: a tick stages a whole group's batches
+            chunk *= plane.k
+        return chunk
 
     def _backpressured(self) -> bool:
         """True when any replica inbox is at the in-transit cap."""
@@ -349,7 +374,10 @@ class PipeGraph:
         return self.get_num_dropped_tuples()
 
     def stats(self) -> dict:
+        from windflow_tpu_torch.wire import wire_section
         attribute_member_stats(self)
+        plane = self._megastep_plane
+        reps = self._all_replicas
         return {
             "PipeGraph_name": self.name,
             "Device": str(self.device),
@@ -359,6 +387,14 @@ class PipeGraph:
                 "max_inbox_depth": self._max_inbox_seen,
                 "max_inflight_device": self._max_inflight_device_seen,
             },
+            # wire bytes (the transfers) and logical bytes (the decoded
+            # lanes): equal unless the wire plane compressed
+            "Bytes_H2D_total": sum(r.stats.h2d_bytes for r in reps),
+            "Bytes_H2D_logical_total": sum(r.stats.h2d_logical_bytes
+                                           for r in reps),
+            "Staging": {"Wire": wire_section(self)},
+            "Megastep": (plane.summary() if plane is not None
+                         else {"k": 1, "edges": [], "refused": []}),
         }
 
 

@@ -27,6 +27,7 @@ wrapper is entered.  The third kernel, ``dense_monoid_table``, lives in
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -56,7 +57,9 @@ _MONOID_CODE = {"sum": 0, "max": 1, "min": 2}
 #: wrapper entries since import (either route) — the kill switch must
 #: enter none
 _BUILD_COUNT = 0
-#: kernel launches per wrapper since the last reset
+#: kernel launches per wrapper since the last reset.  A wrapper counts
+#: the launch it makes; a call made while a CUDA graph captures launches
+#: nothing then, and counts once a replay (:class:`CountedGraph`)
 _LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0,
              "dense_monoid_table": 0}
 
@@ -78,6 +81,60 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name`` (called by ``_launch`` after the C
+    entry point returned success)."""
+    _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside leave the counters as they were: a graph's warm-up
+    on scratch data (``megastep.py``) runs kernels that serve no batch."""
+    before = launch_counts()
+    try:
+        yield
+    finally:
+        _LAUNCHES.update(before)
+
+
+class CountedGraph:
+    """A captured CUDA graph and the kernel launches it holds.
+
+    The wrappers count Python calls, so a replay would launch the
+    captured kernels uncounted, and the capture itself would count
+    launches that did not run.  ``capture(ctx)`` runs the capture
+    context ``ctx`` (a ``torch.cuda.graph``), records the calls made
+    inside it on ``self.launches`` and takes them back off the counters;
+    every ``replay()`` adds them again."""
+
+    def __init__(self, graph) -> None:
+        self.graph = graph
+        #: kernel name -> calls captured (launched once a replay)
+        self.launches = {}
+
+    @contextlib.contextmanager
+    def capture(self, ctx):
+        before = launch_counts()
+        try:
+            with ctx:
+                yield self
+        finally:
+            after = launch_counts()
+            self.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+            for k, v in self.launches.items():
+                _LAUNCHES[k] -= v
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, v in self.launches.items():
+            _LAUNCHES[k] += v
+
+    def launches_per_replay(self) -> int:
+        return sum(self.launches.values())
 
 
 def resolve_kernels(config) -> bool:
@@ -126,7 +183,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise WindFlowError(f"{name}: CUDA error {rc} at launch")
-    _LAUNCHES[name] += 1
+    count_launch(name)
 
 
 # ---------------------------------------------------------------------------

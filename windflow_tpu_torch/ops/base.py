@@ -34,7 +34,11 @@ class StatsRecord:
     inputs_received: int = 0
     outputs_sent: int = 0
     device_programs_launched: int = 0
+    #: bytes actually copied host→device (the wire bytes)
     h2d_bytes: int = 0
+    #: bytes the staged lanes occupy decoded (equal to ``h2d_bytes``
+    #: unless the wire plane compressed the transfer)
+    h2d_logical_bytes: int = 0
     d2h_bytes: int = 0
     is_terminated: bool = False
 
@@ -46,6 +50,7 @@ class StatsRecord:
             "Is_terminated": self.is_terminated,
             "Device_programs_launched": self.device_programs_launched,
             "Bytes_H2D": self.h2d_bytes,
+            "Bytes_H2D_logical": self.h2d_logical_bytes,
             "Bytes_D2H": self.d2h_bytes,
         }
 

@@ -11,7 +11,9 @@
   into one packed staging buffer of fixed capacity and ships it with one
   copy (reference ``Forward_Emitter_GPU``); bulk sources hand it whole
   columns (``emit_columns``), which stream into pooled staging buffers
-  with no per-tuple work.
+  with no per-tuple work.  With the wire plane on (``wire.py``) each
+  finished buffer is re-encoded before its copy; with a megastep edge
+  attached (``megastep.py``) each finished batch is offered to it first.
 * :class:`KeyedDeviceStageEmitter` — host→device KEYBY: tuples (or column
   rows) partitioned by ``splitmix64(key) % n`` into one staging emitter a
   destination.
@@ -336,6 +338,33 @@ def _concat(arrs):
     return arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
 
 
+class _StagedPacket:
+    """One finalized packed batch before its copy: everything the
+    per-batch ship stamps, captured at finalize time, so the megastep
+    plane (``megastep.py``) can queue K of them and either fold them into
+    one group or replay the per-batch ship (``_ship_packed``) in FIFO
+    order.  ``wm_pane`` is filled in by the megastep edge for a
+    time-window tail."""
+
+    __slots__ = ("buf", "fmt", "wm", "frontier", "ts_min", "ts_max", "n",
+                 "pool", "treedef", "dtypes", "capacity", "wm_pane")
+
+    def __init__(self, buf, fmt, wm, frontier, ts_min, ts_max, n, pool,
+                 treedef, dtypes, capacity):
+        self.buf = buf
+        self.fmt = fmt
+        self.wm = wm
+        self.frontier = frontier
+        self.ts_min = ts_min
+        self.ts_max = ts_max
+        self.n = n
+        self.pool = pool
+        self.treedef = treedef
+        self.dtypes = dtypes
+        self.capacity = capacity
+        self.wm_pane = None
+
+
 class DeviceStageEmitter(Emitter):
     """Host→device boundary: stages DeviceBatches of fixed capacity
     ``output_batch_size`` onto ``device`` and round-robins destinations.
@@ -356,7 +385,16 @@ class DeviceStageEmitter(Emitter):
     ``flush`` ships the open columnar builder, then the buffered chunks,
     then the record path's open batch.  ``packed_batches``,
     ``chunked_batches`` and ``record_batches`` count what each route
-    staged."""
+    staged.
+
+    Wire plane (``wire.py``, enabled by ``wire.attach_wire``): a finished
+    packed buffer is re-encoded lane by lane into a pooled wire buffer,
+    decoded on the card in the unpack; the record path then stacks its
+    open batch into columns and takes the packed route.  Megastep plane
+    (``megastep.py``, attached by ``PipeGraph._build``): each finalized
+    packed batch is offered to ``self._megastep``, which queues K of
+    them for one group; ``flush`` (the external entry: EOS, punctuation)
+    drains that queue per batch after shipping what is open."""
 
     def __init__(self, dests, output_batch_size, device):
         if output_batch_size <= 0:
@@ -389,10 +427,33 @@ class DeviceStageEmitter(Emitter):
         #: graph build when this edge feeds a compacted keyed consumer:
         #: it admits the consumer's keys before each batch ships
         self._shard_probe = None
+        # wire plane: off leaves one flag check a finalize
+        self._wire_on = False
+        self._wire_reseed = 64
+        self._wire_encoders = {}
+        #: the megastep edge this emitter feeds (megastep.MegastepEdge),
+        #: or None: the per-batch ship
+        self._megastep = None
 
     def _advance_frontier(self, wm):
         if wm != WM_NONE and wm > self._frontier:
             self._frontier = wm
+
+    def enable_wire(self, reseed_every: int = 64) -> None:
+        """Turn on wire compression of this emitter's packed staging
+        (``wire.attach_wire``, at graph build)."""
+        self._wire_on = True
+        self._wire_reseed = max(1, reseed_every)
+
+    def _wire_encoder(self, dtypes, capacity: int):
+        key = (dtypes, capacity)
+        enc = self._wire_encoders.get(key)
+        if enc is None:
+            from windflow_tpu_torch.wire import WireEncoder
+            enc = WireEncoder(dtypes, capacity,
+                              reseed_every=self._wire_reseed)
+            self._wire_encoders[key] = enc
+        return enc
 
     def _ship(self, db):
         d = self._next
@@ -403,7 +464,8 @@ class DeviceStageEmitter(Emitter):
         self._advance_frontier(wm)
         self._ob.add(item, ts, wm)
         if len(self._ob.items) >= self.output_batch_size:
-            self.flush(wm)
+            # capacity flush: internal, so a megastep edge keeps its queue
+            self._flush_impl(wm)
 
     def emit_columns(self, cols, tss, wm, row_wms=None):
         """Columnar route: packable 1-D lanes stream into the packed
@@ -461,8 +523,8 @@ class DeviceStageEmitter(Emitter):
                 self._finalize_builder()
 
     def _finalize_builder(self, fallback_wm: int = WM_NONE) -> None:
-        """Ship the open packed batch: one non-blocking copy; the pooled
-        buffer is recycled behind the copy's event (``stage_packed``)."""
+        """Finish the open packed batch (wire-encoded when the plane is
+        on), offer it to the megastep edge, else ship it."""
         b, self._builder = self._builder, None
         if b is None:
             return
@@ -472,14 +534,36 @@ class DeviceStageEmitter(Emitter):
         wm = self._b_wm if self._b_wm != WM_NONE else fallback_wm
         self._advance_frontier(wm)
         buf = b.finish()
+        logical_nbytes = buf.nbytes
+        fmt = None
+        if self._wire_on:
+            # a batch compression cannot shrink ships the logical buffer
+            # unchanged (fmt None)
+            enc = self._wire_encoder(self._b_dtypes, b.capacity)
+            buf, fmt = enc.encode(buf, pool=b.pool)
         if self.stats is not None:
             self.stats.h2d_bytes += buf.nbytes
-        db = stage_packed(buf, self._b_treedef, self._b_dtypes, b.capacity,
-                          b.n, self.device, watermark=wm,
-                          frontier=self._frontier, ts_max=self._b_ts_max,
-                          ts_min=self._b_ts_min, pool=b.pool)
+            self.stats.h2d_logical_bytes += logical_nbytes
         self.packed_batches += 1
-        self._ship(db)
+        pkt = _StagedPacket(buf, fmt, wm, self._frontier, self._b_ts_min,
+                            self._b_ts_max, b.n, b.pool, self._b_treedef,
+                            self._b_dtypes, b.capacity)
+        ms = self._megastep
+        if ms is not None and ms.offer(pkt):
+            return
+        self._ship_packed(pkt)
+
+    def _ship_packed(self, pkt: _StagedPacket) -> None:
+        """The per-batch ship of one finalized packed batch: one
+        non-blocking copy, the pooled buffer recycled behind the copy's
+        event (``stage_packed``).  Stamps come from the packet, never
+        from the emitter: a queued batch shipped later must not borrow a
+        frontier that advanced past it."""
+        self._ship(stage_packed(
+            pkt.buf, pkt.treedef, pkt.dtypes, pkt.capacity, pkt.n,
+            self.device, watermark=pkt.wm, frontier=pkt.frontier,
+            ts_max=pkt.ts_max, ts_min=pkt.ts_min, pool=pkt.pool,
+            wire=pkt.fmt))
 
     def _emit_columns_chunked(self, cols, tss, wm, row_wms=None):
         """Chunk-accumulate route (non-packable lanes): full batches go
@@ -518,10 +602,20 @@ class DeviceStageEmitter(Emitter):
                                frontier=self._frontier)
         if self.stats is not None:
             self.stats.h2d_bytes += transfer_nbytes(db)
+            self.stats.h2d_logical_bytes += transfer_nbytes(db)
         self.chunked_batches += 1
         self._ship(db)
 
     def flush(self, wm):
+        """External flush (EOS, punctuation): ship everything open, then
+        drain the megastep queue per batch, so a watermark never
+        overtakes batches parked for a future group."""
+        self._flush_impl(wm)
+        ms = self._megastep
+        if ms is not None:
+            ms.drain_remainder()
+
+    def _flush_impl(self, wm):
         if self._builder is not None:
             self._finalize_builder(fallback_wm=wm)
         if self._col_chunks:
@@ -541,14 +635,45 @@ class DeviceStageEmitter(Emitter):
             return
         if self._shard_probe is not None:
             self._shard_probe.items(self._ob.items)
+        if self._wire_on and self._ship_records_packed():
+            return
         hb = HostBatch(self._ob.items, self._ob.tss, self._ob.wm)
         self._ob = _OpenBatch()
         db = host_to_device(hb, capacity=self.output_batch_size,
                             device=self.device, frontier=self._frontier)
         if self.stats is not None:
             self.stats.h2d_bytes += transfer_nbytes(db)
+            self.stats.h2d_logical_bytes += transfer_nbytes(db)
         self.record_batches += 1
         self._ship(db)
+
+    def _ship_records_packed(self) -> bool:
+        """The record path's wire route: stack the open batch into columns
+        and ship it through the packed (wire) route, stamped exactly as
+        the record path would (the open batch's min-folded watermark).
+        False when the records do not stack into packable 1-D lanes."""
+        from windflow_tpu_torch.batch import _stack_records
+        try:
+            leaves, treedef = tree_flatten(_stack_records(self._ob.items))
+            ok = all(getattr(l, "ndim", 0) == 1
+                     and staging.packable_dtype(l.dtype) for l in leaves)
+        except Exception:  # noqa: BLE001 -- arbitrary user records may
+            # not stack into columns: take the uncompressed record path
+            ok = False
+        if not ok:
+            return False
+        ob, self._ob = self._ob, _OpenBatch()
+        tss = np.ascontiguousarray(ob.tss, np.int64)
+        # stamp this batch with the open batch's wm, then restore the
+        # running row frontier: a later columnar batch never stamps lower
+        # than the wire-off run would
+        prev_wm = self._b_wm
+        self._b_wm = ob.wm
+        self._emit_columns_packed(leaves, treedef, tss, WM_NONE, None)
+        self._b_wm = ob.wm
+        self._finalize_builder()
+        self._b_wm = max(prev_wm, ob.wm)
+        return True
 
 
 def host_keys(key_fn, cols, n: int) -> np.ndarray:

@@ -16,6 +16,10 @@ The port of ``windflow_tpu/staging.py``:
 * :class:`PackedBatchBuilder` — streams SoA rows into one pooled buffer
   at their final packed offsets: every payload lane, the timestamp lane
   and the fill count ride ONE host buffer and ONE host→device copy.
+* :func:`size_class` — the pool size of a data-dependent buffer: wire
+  buffers (``wire.py``) vary in size with the data, so they are
+  acquired at their size class and the pool's exact-size slots recycle
+  them across codec churn.
 
 Buffer layout (shared with ``batch.py``'s unpack)::
 
@@ -52,6 +56,20 @@ def packable_dtype(dt) -> bool:
                                         np.dtype(np.uint64))
 
 
+def size_class(nwords: int) -> int:
+    """Pool size class of a data-dependent buffer size: round up to 1/8
+    granularity of the enclosing power of two (256-word floor).  Wire
+    buffers vary in size with the data, so they are acquired at their
+    class, not their exact size: codec churn across reseeds would
+    otherwise mint a fresh (pinned, on the card) slot per batch.  Padding
+    stays under 25% of the transfer (just past a power of two) and under
+    12.5% on average."""
+    if nwords <= 256:
+        return 256
+    step = 1 << max(0, (nwords - 1).bit_length() - 3)
+    return ((nwords + step - 1) // step) * step
+
+
 class StagingPool:
     """Size-keyed recycling pool of host ``uint32`` staging buffers.
 
@@ -69,6 +87,7 @@ class StagingPool:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.releases = 0
 
     def _alloc(self, nwords: int) -> np.ndarray:
         if not self.pinned:
@@ -118,6 +137,7 @@ class StagingPool:
                     and self._held_bytes + buf.nbytes <= self.max_bytes:
                 dq.append((buf, gate))
                 self._held_bytes += buf.nbytes
+                self.releases += 1
                 return
         if gate is not None:
             gate.synchronize()

@@ -649,7 +649,11 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
     (``make_ffat_tb_step`` of the JAX package, pass for pass).
 
     Window ``w`` covers panes ``[w*D, w*D + R)`` and fires once the
-    lateness-adjusted watermark ``wm_pane`` (a host int) passes its end.
+    lateness-adjusted watermark ``wm_pane`` passes its end.  ``wm_pane``
+    is a host int on the per-batch path and a 0-d int64 tensor on the
+    card inside a captured megastep (``megastep.py``), where a host int
+    would be baked into the graph; the step reads it only in tensor
+    arithmetic, so both give the same result.
     Two fire passes A run before placement, against ``min(wm_pane,
     oldest batch pane)``; the capacity roll then makes room for the
     batch's newest pane (evicted data panes count in ``n_evicted`` and
@@ -664,7 +668,7 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
     values of unfired lanes differ, and egress never emits them.  Nothing
     here reads the device on the host: ``base``, ``win_next`` and
     ``max_seen`` stay 0-d tensors, the rolls gather by a device
-    ``arange``, and every scalar operand is a Python number.
+    ``arange``, and every other scalar operand is a Python number.
 
     Placement: a declared ``monoid`` scatter-combines lifts straight
     into the ring (a TB pane cell is timestamp arithmetic, no grouping),
@@ -721,7 +725,7 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
         return (cells, cell_valid, base + shift, new_next,
                 f, wvals, w, n_fired, n_drop)
 
-    def step(state, payload, ts, valid, wm_pane: int):
+    def step(state, payload, ts, valid, wm_pane):
         B = capacity
         dev = valid.device
         if key_fn is not None:
