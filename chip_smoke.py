@@ -158,6 +158,34 @@ Phases (each exits nonzero on failure; none is skipped):
    lane's codec changes every batch (records still equal the oracle).
    Phases 3–7 run under the new defaults: K = 8 and the wire on where a
    source declares its spec.
+9. drive the durability plane through ``PipeGraph.run()`` and
+   ``PipeGraph.restore()`` (``durability_runs``): each cell runs its
+   graph uninterrupted, then an identical graph killed after its first
+   committed epoch and restored from the checkpoint store, and the two
+   outputs must be equal record for record; the kill point of each cell
+   is picked from its baseline (``dur_kill``).  Kafka-fed (an
+   ``InMemoryBroker`` of 1,048,576 records, 16,384 a staged batch, an
+   epoch every 8 logical sweeps), on the card with K = 8 and the wire on
+   by "auto":
+   * (a) the six chaos families of ``durability/chaos.py`` through
+     ``chaos.run_ab`` at 4,096 keys (``window_compact``: 4,096 sparse
+     int32 ids, a remap slot each), killed mid-epoch and fused;
+     ``window_cb`` also killed mid-sink-flush (at least one fence
+     dedupe) and restored at K = 1; ``stateful`` also killed mid-window;
+   * (b) a declared f32-sum count window over random float values
+     (equal bit for bit; the grouping and fold kernels launch on the
+     restored run) and the unbounded compacted ``ReduceGPU`` sum (the
+     table kernel launches on the restored run), both at 1,024 keys;
+   * (c) the host reduce killed at parallelism 3, restored at 2 and at
+     4 (262,144 records a cell), and ``window_cb`` 2 → 3, compared key
+     by key;
+   * (d) the ``stateful`` family at 1,048,576 dense key slots.
+   The mid-sink-flush and mid-window kills are held against their
+   family's mid-epoch baseline.  Each cell prints the
+   records compared, the epochs committed, the restored epoch,
+   checkpoint ms (and its snapshot part, after the quiesce) and bytes an
+   epoch, restore ms, the fence dedupes and the baseline's host
+   tuples/s (information only).
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -2582,6 +2610,332 @@ def megastep_runs(dev_name="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: durable state (checkpoint, kill, restore, diff)
+# ---------------------------------------------------------------------------
+
+#: records a cell, tuples a staged batch, keys, logical sweeps an epoch
+DUR_N, DUR_BATCH, DUR_KEYS, DUR_EPOCH = 1 << 20, 16384, 4096, 8
+#: the (b) cells' keys: the count window's K + 1 grouping ids stay under
+#: the grouping kernel's 4,096-bucket gate (4,096 keys would make 4,097)
+DUR_B_KEYS = 1024
+#: the state-heavy cell's dense key slots
+DUR_HEAVY_KEYS = 1 << 20
+#: the host reduce's rescale cells' records (cut in depth: its
+#: per-record path reads ~23,000 tuples/s on the card's host)
+DUR_RESCALE_N = 1 << 18
+
+
+def dur_kill(point, op_name=None):
+    """The seeded kill of a cell, picked from its completed baseline so
+    that it fires after the first committed epoch and before the end:
+    ``mid_epoch`` halfway between the first checkpoint's sweep and the
+    last sweep, ``mid_sink_flush`` in the middle checkpoint,
+    ``mid_window`` halfway between the victim's batches by the first
+    checkpoint and its last."""
+    from windflow_tpu_torch.durability import chaos
+
+    def pick(gb):
+        plane = gb._durability
+        every = gb.config.durability_epoch_sweeps
+        if plane.epochs_committed < 2:
+            fail(f"phase 9: the baseline committed {plane.epochs_committed} "
+                 "epoch(s); a kill needs one before it and one after")
+        if point == "mid_epoch":
+            after = max(every + 1, (every + plane._sweeps) // 2)
+            if after >= plane._sweeps:
+                fail(f"phase 9: no sweep between the first checkpoint "
+                     f"({every}) and the end ({plane._sweeps})")
+        elif point == "mid_sink_flush":
+            after = max(2, plane.epochs_committed // 2 + 1)
+        else:
+            # the victim's batches by the first checkpoint, estimated
+            # from the sweeps (plus one), then halfway to the last
+            victim = [op for op in gb._operators if op.name == op_name][0]
+            total = sum(r.stats.device_programs_launched
+                        for r in victim.replicas)
+            first = -(-total * every // plane._sweeps) + 1
+            after = (first + total) // 2
+            if after <= first or after >= total:
+                fail(f"phase 9: no batch of '{op_name}' between the first "
+                     f"checkpoint (~{first}) and the end ({total})")
+        return chaos.KillSpec(point, after=after, op_name=op_name)
+    return pick
+
+
+def dur_line(label, v, n, shared=None):
+    """One cell's line: records compared, epochs, the restored epoch,
+    checkpoint cost an epoch (all of it, and the snapshot after the
+    quiesce), restore cost, dedupes, host tuples/s."""
+    ep = max(1, v["epochs_committed_baseline"])
+    speed = (f"baseline shared with {shared}" if shared else
+             f"baseline {n} tuples in {v['baseline_seconds']:.2f} s = "
+             f"{n / v['baseline_seconds']:.0f} tuples/s")
+    print(f"phase 9: {label}: {v['records']} records compared, equal; "
+          f"kill {v['kill']['point']} after {v['kill']['after']}; "
+          f"{v['epochs_committed_baseline']} epochs committed, restored "
+          f"epoch {v['restored_epoch']}; checkpoint "
+          f"{v['checkpoint_ms_total'] / ep:.3f} ms an epoch (snapshot "
+          f"{v['snapshot_ms_total'] / ep:.3f} ms) and "
+          f"{v['checkpoint_bytes_total'] / ep:.0f} bytes (last "
+          f"{v['last_checkpoint_bytes']}); restore "
+          f"{v['restore_ms']:.3f} ms; dedupe_hits {v['dedupe_hits']}; "
+          f"{speed}, cell {v['seconds']:.2f} s (host clock, information "
+          "only)")
+
+
+def dur_input(n, keys, seed=None):
+    """The cells' Kafka input: ``chaos.input_log`` (integer-valued
+    float32 values), or with ``seed`` random float32 values."""
+    from windflow_tpu_torch.durability import chaos
+    msgs = chaos.input_log(n, keys)
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        vals = rng.standard_normal(n).astype(np.float32)
+        for m, v in zip(msgs, vals):
+            m.value = {"key": m.value["key"], "value": v}
+    return msgs
+
+
+def dur_cell_graph(ckpt, msgs, tail, ser, name, **cfg):
+    """A (b) cell built from the harness's parts outside ``make_cell``:
+    an ``InMemoryBroker`` holding ``msgs``, a ``KafkaSource`` with the
+    record spec declared, ``tail(pipe)`` on the card, a fenced
+    ``KafkaSink``.  Returns ``(factory, read)``."""
+    import dataclasses
+
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.durability import chaos
+    from windflow_tpu_torch.kafka import (InMemoryBroker, KafkaSink,
+                                          KafkaSource)
+    broker = InMemoryBroker()
+    broker.create_topic("in", 1)
+    broker._topics["in"][0].log.extend(msgs)
+
+    def deser(msg, shipper):
+        if msg is None:
+            return True
+        if msg.value == "EOS":
+            return False
+        shipper.pushWithTimestamp(msg.value, msg.timestamp_usec)
+        return True
+
+    def factory():
+        c = dataclasses.replace(wt.default_config, durability=ckpt,
+                                durability_epoch_sweeps=DUR_EPOCH,
+                                punctuation_interval_usec=10 ** 12, **cfg)
+        src = KafkaSource(deser, broker, ["in"], group_id="chaos",
+                          name="ksrc", output_batch_size=DUR_BATCH)
+        src.record_spec = {"key": np.int64(0), "value": np.float32(0.0)}
+        g = wt.PipeGraph(name, config=c)
+        tail(g.add_source(src)).add_sink(KafkaSink(ser, broker,
+                                                   name="ksnk"))
+        return g
+    return factory, lambda: chaos.read_topic(broker, "out")
+
+
+def dur_b_cell(label, workdir, msgs, tail, ser, kernels, dev_name):
+    """A (b) cell: baseline, kill, restore, by the harness's functions;
+    the launch counts of the restored run alone are read, and each of
+    ``kernels`` must have launched in it."""
+    import torch
+
+    from windflow_tpu_torch.durability import chaos
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    fb, read_b = dur_cell_graph(os.path.join(workdir, "a"), msgs, tail,
+                                ser, label, device=dev_name)
+    fk, read_k = dur_cell_graph(os.path.join(workdir, "b"), msgs, tail,
+                                ser, label, device=dev_name)
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    gb = chaos.run_baseline(fb)
+    t1 = time.perf_counter()
+    base_counts = fc.launch_counts()
+    spec = dur_kill("mid_epoch")(gb)
+    g = fk()
+    g.start()
+    chaos.arm(g, spec)
+    try:
+        g.wait_end()
+        fail(f"phase 9 {label}: the kill never fired")
+    except chaos.ChaosKill:
+        chaos.abandon(g)
+    fc.reset_launch_counts()
+    g2 = fk()
+    g2.restore(g2.config.durability)
+    g2.wait_end()
+    torch.cuda.synchronize()
+    restored = fc.launch_counts()
+    t2 = time.perf_counter()
+    for k in kernels:
+        if restored[k] <= 0:
+            fail(f"phase 9 {label}: {k} never launched on the restored "
+                 "path")
+    base, got = read_b(), read_k()
+    diff = chaos.diff_records(base, got)
+    if diff is not None:
+        fail(f"phase 9 {label}: restored output differs from the "
+             f"uninterrupted run: {diff}")
+    db, dr = gb.stats()["Durability"], g2.stats()["Durability"]
+    v = {"kill": {"point": spec.point, "after": spec.after},
+         "records": sum(len(p) for p in base),
+         "epochs_committed_baseline": db["epochs_committed"],
+         "restored_epoch": dr["restored_epoch"],
+         "checkpoint_ms_total": db["checkpoint_ms_total"],
+         "snapshot_ms_total": db["snapshot_ms_total"],
+         "checkpoint_bytes_total": db["checkpoint_bytes_total"],
+         "last_checkpoint_bytes": db["last_checkpoint_bytes"],
+         "restore_ms": dr["restore_ms"], "dedupe_hits": dr["dedupe_hits"],
+         "baseline_seconds": t1 - t0, "seconds": t2 - t0}
+    dur_line(label, v, len(msgs) - 1)
+    print(f"phase 9: {label}: launches on the restored run {restored}")
+    return base_counts, restored
+
+
+def durability_runs(dev_name="cuda"):
+    """Phase 9: the port's chaos families on the card through
+    ``chaos.run_ab`` (a), two cells that put the fold and the table
+    kernels on a restored path (b), the rescale cells (c) and one
+    state-heavy cell (d); every cell's output equals its uninterrupted
+    baseline, every failure fails the run.  Returns each cell's launch
+    counts by label."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.durability import chaos
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    out = {}
+    root = tempfile.mkdtemp(prefix="wf_phase9_")
+    msgs = dur_input(DUR_N, DUR_KEYS)
+    cfg = {"device": dev_name, "n": DUR_N, "keys": DUR_KEYS,
+           "output_batch_size": DUR_BATCH, "epoch_sweeps": DUR_EPOCH,
+           "messages": msgs}
+
+    def cell(family, tag, **kw):
+        d = os.path.join(root, tag)
+        args = dict(cfg, **kw)
+        if family == "window_compact":
+            # 4,096 sparse ids: one remap slot each
+            args["key_compaction_slots"] = DUR_KEYS
+        return (chaos.make_cell(family, os.path.join(d, "ck_a"),
+                                out_dir=os.path.join(d, "out_a"), **args),
+                chaos.make_cell(family, os.path.join(d, "ck_b"),
+                                out_dir=os.path.join(d, "out_b"), **args))
+
+    baselines = {}
+
+    def ab(label, family, point, shared=None, **kw):
+        """One cell through ``chaos.run_ab``; ``shared`` names an earlier
+        cell of the family whose baseline (the same graph and stream)
+        this kill is held against instead of running its own."""
+        base, chal = cell(family, label.replace(" ", "_"), **kw)
+        held = {}
+
+        def factory_baseline():
+            held["g"] = base["factory"]()
+            return held["g"]
+        prev = baselines.get(shared)
+        fc.reset_launch_counts()
+        v = chaos.run_ab(factory_baseline, chal["factory"],
+                         dur_kill(point, chaos.VICTIM[family]
+                                  if point == "mid_window" else None),
+                         prev[1] if prev else base["read"], chal["read"],
+                         baseline=prev[0] if prev else None)
+        torch.cuda.synchronize()
+        out[f"9 {label}"] = fc.launch_counts()
+        if v["diff"] is not None:
+            fail(f"phase 9 {label}: {v['diff']}")
+        if v["restored_epoch"] is None or v["records"] <= 0:
+            fail(f"phase 9 {label}: nothing restored or compared")
+        if prev is None:
+            baselines[label] = (held["g"], base["read"])
+        dur_line(label, v, DUR_N, shared)
+        return v
+
+    # (a) the six families killed mid-epoch, fused (K = 8, wire on)
+    for family in chaos.FAMILIES:
+        ab(f"(a) {family} mid_epoch", family, "mid_epoch")
+    v = ab("(a) window_cb mid_sink_flush", "window_cb", "mid_sink_flush",
+           shared="(a) window_cb mid_epoch")
+    if not v["dedupe_hits"]:
+        fail("phase 9 (a) window_cb mid_sink_flush: no dedupe hit")
+    ab("(a) stateful mid_window", "stateful", "mid_window",
+       shared="(a) stateful mid_epoch")
+    # its own baseline: the kill is picked from K = 1's sweeps
+    ab("(a) window_cb K=1 mid_epoch", "window_cb", "mid_epoch",
+       megastep_sweeps=1)
+    baselines.clear()
+    del msgs, cfg["messages"]
+
+    # (b) the declared f32 sum (the fold kernel) and the compacted
+    # ReduceGPU sum (the table kernel behind the remap), Kafka-fed
+    def f32_window(pipe):
+        return pipe.add(wt.Ffat_WindowsGPU_Builder(lambda t: t["value"],
+                                                   lambda a, b: a + b)
+                        .withCBWindows(16, 8).withKeyBy(lambda t: t["key"])
+                        .withMaxKeys(DUR_B_KEYS).withSumCombiner()
+                        .withName("w").build())
+
+    def bits(r):
+        # every field's exact float value: the diff is bit for bit
+        return tuple(sorted((k, float(v).hex()) for k, v in r.items()))
+
+    from windflow_tpu_torch.kafka import KafkaSinkMessage
+    b_msgs = dur_input(DUR_N, DUR_B_KEYS, seed=9)
+    base_c, rest_c = dur_b_cell(
+        "(b) f32 sum window", os.path.join(root, "b1"), b_msgs, f32_window,
+        lambda r: KafkaSinkMessage("out", bits(r)),
+        ("grouping_rank_hist", "sliding_fold"), dev_name)
+    out["9 (b) f32 sum window baseline"] = base_c
+    out["9 (b) f32 sum window restored"] = rest_c
+
+    def compacted_sum(pipe):
+        # the declared sum covers the key field too (key * count)
+        return pipe.add(wt.ReduceGPU_Builder(
+            lambda a, b: {"key": a["key"] + b["key"],
+                          "value": a["value"] + b["value"]})
+            .withKeyBy(lambda t: t["key"]).withSumCombiner()
+            .withName("red").build())
+
+    b_msgs = dur_input(DUR_N, DUR_B_KEYS)
+    base_c, rest_c = dur_b_cell(
+        "(b) compacted reduce sum", os.path.join(root, "b2"), b_msgs,
+        compacted_sum, lambda r: KafkaSinkMessage("out", bits(r)),
+        ("dense_monoid_table",), dev_name)
+    out["9 (b) compacted reduce sum baseline"] = base_c
+    out["9 (b) compacted reduce sum restored"] = rest_c
+    del b_msgs
+
+    # (c) rescale: the host reduce 3 -> 2 and 3 -> 4 (cut in depth),
+    # window_cb 2 -> 3
+    for family, k, r, n in (("reduce", 3, 2, DUR_RESCALE_N),
+                            ("reduce", 3, 4, DUR_RESCALE_N),
+                            ("window_cb", 2, 3, DUR_N)):
+        label = f"(c) {family} rescale {k}->{r}"
+        fc.reset_launch_counts()
+        v = chaos.run_rescale_ab(
+            family, "mid_epoch", os.path.join(root, f"c_{family}_{r}"),
+            shards_kill=k, shards_restore=r, n=n, keys=DUR_KEYS,
+            output_batch_size=DUR_BATCH, epoch_sweeps=DUR_EPOCH,
+            messages=dur_input(n, DUR_KEYS), device=dev_name,
+            spec=dur_kill("mid_epoch"))
+        torch.cuda.synchronize()
+        out[f"9 {label}"] = fc.launch_counts()
+        if v["diff"] is not None:
+            fail(f"phase 9 {label}: {v['diff']}")
+        dur_line(label + " (per key)", v, n)
+
+    # (d) the state-heavy cell: the stateful family at 1,048,576 slots
+    h_msgs = dur_input(DUR_N, DUR_HEAVY_KEYS)
+    cfg["messages"], cfg["keys"] = h_msgs, DUR_HEAVY_KEYS
+    ab("(d) stateful 1,048,576 slots mid_epoch", "stateful", "mid_epoch")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2687,6 +3041,11 @@ def main():
     t8 = time.perf_counter()
     run_counts.update(megastep_runs())
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    # 9. durable state: checkpoint, kill, restore and diff, counts read
+    #    just after each cell
+    t9 = time.perf_counter()
+    run_counts.update(durability_runs())
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -2701,6 +3060,10 @@ def main():
     # phase 8's runs (their K = 8 launches counted through the replays)
     ms8 = [t for t in run_counts if t.startswith("8 ")]
     cb_runs += tuple(t for t in ms8 if t.startswith("8 (i)"))
+    # phase 9's window cells (at 4,096 keys the count window's 4,097
+    # grouping ids are past the grouping kernel's gate: (b) launches it)
+    dur9 = [t for t in run_counts if t.startswith("9 ")]
+    cb_runs += tuple(t for t in dur9 if "window" in t)
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
@@ -2716,7 +3079,8 @@ def main():
                "dense_monoid_table[b]": ("(b) compacted sum",
                                          "6(b) merge reduce sum",
                                          "6(c) split",
-                                         "7(d) compacted reduce sum"),
+                                         "7(d) compacted reduce sum")
+               + tuple(t for t in dur9 if "reduce sum" in t),
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")
                + tuple(t for t in ms8 if t.startswith("8 dense"))}

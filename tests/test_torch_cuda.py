@@ -25,7 +25,11 @@ sorted-reduce megasteps with no synchronising call (records equal to
 K = 1's and the CPU's, kernel launches counted through replays), count
 one ``cudaGraphLaunch`` a megastep, check that emitted batches never
 alias the graph's outputs, recapture on a TB ring regrow, and run the
-sorted and dense reduce steps with no synchronising call.
+sorted and dense reduce steps with no synchronising call.  The durable
+state checks round-trip the FFAT CB and TB, stateful and compacted
+reduce snapshots bit for bit onto the card, step restored operators
+with no synchronising call, and restore a K = 8 chaos cell to K = 1's
+records.
 """
 
 import numpy as np
@@ -1112,6 +1116,175 @@ def test_cuda_reduce_step_makes_no_host_read(cuda_device, route):
     if route == "dense":
         got_k = np.nonzero(out.valid.cpu().numpy())[0]
     assert np.array_equal(got_v, want[got_k].astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# durable state on the card: snapshot -> restore round trips
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    from windflow_tpu_torch.utils.tree import tree_flatten
+    return tree_flatten(tree)[0]
+
+
+def _same_host_leaves(a, b):
+    """Checkpoint blobs equal leaf by leaf (numpy: dtype, shape, bits)."""
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _same_host_leaves(a[k], b[k])
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    else:
+        assert a == b
+
+
+def _tb_batches(device, n=3):
+    from windflow_tpu_torch.batch import HostBatch, host_to_device
+    items = _tb_data(n)
+    out = []
+    for i in range(n):
+        chunk = items[i * TB_CAP:(i + 1) * TB_CAP]
+        tss = [t["ts"] for t in chunk]
+        out.append(host_to_device(HostBatch(chunk, tss, watermark=tss[0]),
+                                  TB_CAP, device, frontier=tss[-1]))
+    return out
+
+
+def _tb_op():
+    g, win = _tb_graph(_tb_data(1), "auto", lambda r: None)
+    g._build()
+    return win
+
+
+def _compacted_reduce_op():
+    import windflow_tpu_torch as wt
+    op = _op_graph(wt.ReduceGPU_Builder(
+        lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                      "v0": torch.maximum(a["v0"], b["v0"])})
+        .withKeyBy(lambda t: t["key"]).withMonoidCombiner("max").build())
+    op._compactor.observe(np.arange(CB_K) * 1000 + 7)
+    return op
+
+
+def _durable_case(name, device):
+    """(operator factory, three batches, the live-state getter) of one
+    snapshot family."""
+    if name == "cb":
+        return lambda: _cb_op(False), _cb_batches(device, 3), \
+            lambda op: op._states
+    if name == "tb":
+        return _tb_op, _tb_batches(device), lambda op: op._states
+    if name == "stateful":
+        return lambda: _stateful_op(dense=True, assoc=True), \
+            _cb_batches(device, 3), lambda op: op._state
+    batches = _cb_batches(device, 3)
+    for b in batches:
+        b.payload["key"] = b.payload["key"] * 1000 + 7
+    return _compacted_reduce_op, batches, lambda op: op._dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cb", "tb", "stateful", "compacted"])
+def test_cuda_snapshot_restore_round_trips_bit_exact(cuda_device, name):
+    """FFAT CB and TB, the dense stateful table and the compacted reduce:
+    ``snapshot_state`` after two steps holds numpy only; restored into a
+    fresh operator the state lives on ``cuda`` with the same bits, its
+    own snapshot equals the blob, and the next step's output equals the
+    original operator's bit for bit."""
+    make, batches, live = _durable_case(name, cuda_device)
+    op = make()
+    for b in batches[:2]:
+        op._step(b)
+    blob = op.snapshot_state()
+    assert not any(isinstance(x, torch.Tensor) for x in _leaves(blob))
+    op2 = make()
+    op2.restore_state(blob)
+    if name != "compacted":
+        a, b = _leaves(live(op)), _leaves(live(op2))
+        assert all(t.device.type == "cuda" for t in b)
+        assert all(torch.equal(x, y) and x.dtype == y.dtype
+                   for x, y in zip(a, b))
+    else:
+        assert op2._compactor.export_mapping() == \
+            op._compactor.export_mapping()
+    _same_host_leaves(op2.snapshot_state(), blob)
+    o1, o2 = op._step(batches[2]), op2._step(batches[2])
+    for x, y in zip(_leaves((o1.payload, o1.ts, o1.valid)),
+                    _leaves((o2.payload, o2.ts, o2.valid))):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cb", "tb", "stateful"])
+def test_cuda_restored_steps_make_no_host_read(cuda_device, name):
+    """The steps between two checkpoints: an operator restored from a
+    checkpoint blob steps with no synchronising call (the blob's one
+    device-to-host copy is taken at the checkpoint, the restore's copy
+    to the card before the first step).  The compacted reduce's step
+    reads its miss count on purpose and is not among them."""
+    make, batches, _ = _durable_case(name, cuda_device)
+    op = make()
+    op._step(batches[0])
+    op2 = make()
+    op2.restore_state(op.snapshot_state())
+    out = _no_host_read(op2._step, batches)
+    assert bool(out.valid.any())
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_between_k8_megasteps_restores_equal_to_k1(
+        cuda_device, tmp_path):
+    """A Kafka-fed CB chaos cell on the card at K = 8 (wire on): every
+    checkpoint quiesce lands between megasteps, a mid-epoch kill and
+    restore replays, and the output equals the uninterrupted K = 1
+    run's record for record."""
+    from windflow_tpu_torch.durability import chaos
+    kw = dict(n=64 * 1024, keys=64, output_batch_size=1024,
+              epoch_sweeps=8, device="cuda", wire_compression=True)
+    base = chaos.make_cell("window_cb", str(tmp_path / "k1"),
+                           megastep_sweeps=1, **kw)
+    gb = chaos.run_baseline(base["factory"])
+    assert gb.stats()["Megastep"]["k"] == 1
+    chal = chaos.make_cell("window_cb", str(tmp_path / "k8"),
+                           megastep_sweeps=8, **kw)
+    gc = chaos.run_killed_and_restored(
+        chal["factory"], chaos.KillSpec("mid_epoch", after=3))
+    ms = gc.stats()["Megastep"]
+    assert ms["k"] == 8 and gc.config.durability_epoch_sweeps == 1
+    assert gc.stats()["Durability"]["restored_epoch"] is not None
+    assert chaos.diff_records(base["read"](), chal["read"]()) is None
+
+
+@pytest.mark.cuda
+def test_cuda_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
+    """A captured graph left in a reference cycle is freed by the
+    collector, and its reset inside another capture would invalidate
+    that capture: ``CountedGraph.capture`` collects first and holds the
+    automatic collector off, so a capture with the collector firing on
+    every allocation still succeeds."""
+    import gc
+    x = torch.arange(8, dtype=torch.float32, device=cuda_device)
+    dead = fc.CountedGraph(torch.cuda.CUDAGraph())
+    with dead.capture(torch.cuda.graph(dead.graph)):
+        x + 1
+    cycle = {"graph": dead}
+    cycle["self"] = cycle
+    del dead, cycle
+    old = gc.get_threshold()
+    try:
+        live = fc.CountedGraph(torch.cuda.CUDAGraph())
+        with live.capture(torch.cuda.graph(live.graph)):
+            y = x * 2
+            gc.set_threshold(1)             # collect on every allocation
+            [[i] for i in range(1000)]
+        assert gc.isenabled()
+        live.replay()
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2)
 
 
 @pytest.mark.cuda

@@ -247,8 +247,11 @@ def test_round_epoch_to_megastep():
     cfg.durability_epoch_sweeps = 3
     assert ms.round_epoch_to_megastep(cfg, ms.MegastepPlane(1)) is None
     assert cfg.durability_epoch_sweeps == 3
-    # the port's Config has no durability plane yet: read by getattr
-    assert ms.round_epoch_to_megastep(wt.Config(), plane) is None
+    # the port's Config carries the field with the JAX default (64
+    # logical sweeps): 16 scheduler sweeps at K = 4
+    cfg = wt.Config()
+    assert ms.round_epoch_to_megastep(cfg, plane) == 16
+    assert cfg.durability_epoch_sweeps == 16
 
 
 def _built(tail, fuse=True, compact=False, pre=None):

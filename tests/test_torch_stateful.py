@@ -16,7 +16,7 @@
   of tests/test_tpu_stateful_skew.py, the builder refusals,
   ``models/fraud_detection.py`` against tests/test_models.py:221's
   oracle, and a stream handed over mid-run from the JAX operator to the
-  port's (``interop.stateful_state_from_numpy``).
+  port's (the JAX ``snapshot_state()`` blob into ``restore_state``).
 
 Tolerance: exact everywhere.  The state updates are additions, counts
 and table lookups in the same order in both packages (the associative
@@ -36,7 +36,6 @@ import torch
 import windflow_tpu as wf
 import windflow_tpu_torch as wt
 from windflow_tpu.ops import tpu_stateful as jst
-from windflow_tpu_torch import interop
 from windflow_tpu_torch.ops import gpu_stateful as gst
 
 # one intra-op thread: these tests run at toy sizes beside other test
@@ -608,14 +607,17 @@ def test_mid_stream_handover_through_interop(jax_compaction):
                 .withKeyBy(lambda t: t["key"]).withInitialState(0.0)
                 .withNumKeySlots(32).build())
 
-    def run(pkg, op, recs, **cfg):
+    def run(pkg, op, recs, blob=None, **cfg):
         got = []
         g = _graph(pkg, "handover", **cfg)
         g.add_source(pkg.Source_Builder(lambda: iter(recs))
                      .withOutputBatchSize(64).build()).add(op).add_sink(
             pkg.Sink_Builder(lambda t: got.append(
                 (int(t["key"]), float(t["value"]))) if t else None).build())
-        g.run()
+        g.start()
+        if blob is not None:
+            op.restore_state(blob)      # after the build, before a batch
+        g.wait_end()
         return sorted(got)
 
     whole = run(wf, op_of(wf), items, key_compaction=jax_compaction)
@@ -624,8 +626,9 @@ def test_mid_stream_handover_through_interop(jax_compaction):
     blob = jop.snapshot_state()
     assert (blob["compactor"] is not None) == jax_compaction
     top = op_of(wt)
-    interop.stateful_state_from_numpy(top, blob)
-    second = run(wt, top, items[half:])
+    second = run(wt, top, items[half:], blob=blob)
     assert sorted(first + second) == whole
-    assert top._compactor is None       # the installed map owns the rows
+    # a remap restores into the port's compactor; an interner's map owns
+    # the rows, so the port's compactor stands down
+    assert (top._compactor is not None) == jax_compaction
     assert top._state.dtype == torch.float64

@@ -17,9 +17,12 @@ the reduce's dense tables run hand-written CUDA kernels
 and ``DeviceSource`` (``windflow_tpu_torch/io``) feed the card
 columnar.  On the card a staged edge ships wire-compressed batches
 (``windflow_tpu_torch/wire.py``) and runs K of them as one captured
-CUDA graph (``windflow_tpu_torch/megastep.py``).  The card is the
-default device: ``Config(device="cpu")`` runs on the CPU, where each
-kernel wrapper takes its plain torch version.  The package imports
+CUDA graph (``windflow_tpu_torch/megastep.py``).  ``Config.durability``
+checkpoints a graph's state at watermark-aligned epochs and
+``PipeGraph.restore`` resumes it, its Kafka and file sinks exactly once
+(``windflow_tpu_torch/durability``).  The card is the default
+device: ``Config(device="cpu")`` runs on the CPU, where each kernel
+wrapper takes its plain torch version.  The package imports
 torch and numpy, never jax.
 """
 

@@ -121,6 +121,28 @@ class Config:
     # and 1 (off) on the CPU; an integer forces K anywhere; K <= 1 is
     # the kill switch.
     megastep_sweeps: object = "auto"
+    # Durable state (windflow_tpu_torch/durability): the directory holding
+    # the graph's epoch-versioned checkpoint store.  Non-empty enables
+    # watermark-aligned checkpointing: every `durability_epoch_sweeps`-th
+    # scheduler sweep the graph quiesces (flush + drain to an
+    # aligned barrier), commits exactly-once sink epochs (fenced Kafka
+    # commit / atomic file rename), snapshots all operator state (FFAT
+    # rings, stateful tables, reduce states, compactor remaps, Kafka
+    # offsets, watermark frontiers) into the LogKV, and writes the epoch
+    # manifest as the commit point.  A crashed graph rebuilds at the last
+    # complete epoch through PipeGraph.restore().  "" is the kill switch:
+    # the plane is never built and the sweep loop keeps one `is None`
+    # check.
+    durability: str = ""
+    # Checkpoint cadence in logical sweeps (sweep-counted, not
+    # wall-clock, so two runs of one graph over the same data place their
+    # barriers at the same stream positions); under an active megastep
+    # plane the build converts it to scheduler sweeps, ceil(eps / K)
+    # (megastep.round_epoch_to_megastep).
+    durability_epoch_sweeps: int = 64
+    # Complete epochs retained in the checkpoint store; older epochs are
+    # tombstoned (LogKV auto-compaction reclaims the log space).
+    durability_keep: int = 2
     # Device the graph runs on.  The card is the default; without CUDA a
     # graph raises unless the caller asked for "cpu".
     device: str = "cuda"

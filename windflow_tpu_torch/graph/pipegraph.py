@@ -23,8 +23,12 @@ plane (``wire.attach_wire``: compressed staging on edges with a record
 spec) and the megastep plane (``megastep.attach_plane``: K staged
 batches of an eligible edge as one group, one CUDA graph replay on the
 card) attach, and under an active plane each source tick pulls K
-batches' worth.  The JAX package's preflight, calibration, durability
-and monitoring planes are not ported yet.
+batches' worth.  With ``Config.durability`` set the durability plane
+(``windflow_tpu_torch/durability``) attaches last: every
+``durability_epoch_sweeps``-th sweep ends in a watermark-aligned
+checkpoint, and ``restore()`` resumes a freshly composed graph at the
+last complete epoch.  The JAX package's preflight, calibration and
+monitoring planes are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,6 +75,11 @@ class PipeGraph:
         self._max_inflight_device_seen = 0
         #: the megastep plane (megastep.py), attached by _build
         self._megastep_plane = None
+        #: the durability plane (durability/checkpoint.py), built by
+        #: _build when Config.durability names a directory
+        self._durability = None
+        #: checkpoint state restore() stashed for start() to apply
+        self._pending_restore = None
 
     # -- construction --------------------------------------------------------
     def add_source(self, source: Source) -> MultiPipe:
@@ -256,6 +265,14 @@ class PipeGraph:
                                             self._source_replicas)
         round_epoch_to_megastep(self.config, self._megastep_plane)
 
+        # 2e. durability plane: after the megastep plane (the epoch
+        # cadence is converted to whole megasteps above); it switches the
+        # Kafka sink replicas to fenced exactly-once buffering
+        if self.config.durability:
+            from windflow_tpu_torch.durability.checkpoint import \
+                DurabilityPlane
+            self._durability = DurabilityPlane(self)
+
         # 3. collectors: one per replica with input channels
         for rep in self._all_replicas:
             if rep.num_channels > 0:
@@ -285,19 +302,54 @@ class PipeGraph:
         if self._started:
             raise WindFlowError("PipeGraph already started")
         self._started = True
-        self._build()
-        for sr in self._source_replicas:
-            sr.start()
+        try:
+            self._build()
+            if self._durability is not None \
+                    and self._pending_restore is not None:
+                # restore(): apply the checkpointed operator/replica state
+                # now — replicas, fusion preludes and the planes exist,
+                # no source has ticked
+                pending, self._pending_restore = self._pending_restore, None
+                self._durability.apply_restore(pending)
+            for sr in self._source_replicas:
+                sr.start()
+        except BaseException:
+            self._finalize()
+            raise
 
     def wait_end(self) -> "PipeGraph":
         if not self._started:
             raise WindFlowError("wait_end before start")
-        while not self.is_done():
-            if not self.step():
-                raise WindFlowError(
-                    "PipeGraph stalled: no replica made progress but the "
-                    "graph has not terminated")
+        try:
+            while not self.is_done():
+                if not self.step():
+                    raise WindFlowError(
+                        "PipeGraph stalled: no replica made progress but "
+                        "the graph has not terminated")
+        finally:
+            # ended or crashed: the checkpoint store is flushed and
+            # closed, so a restore in this process reopens a whole log
+            self._finalize()
         return self
+
+    def restore(self, checkpoint_dir: Optional[str] = None) -> "PipeGraph":
+        """Rebuild this composed-but-unstarted graph at the last complete
+        checkpoint epoch (``windflow_tpu_torch/durability``): validates
+        the manifest's topology signature against the graph (WF602 named
+        diff on mismatch), restores every operator's state (FFAT pane
+        rings, stateful slot tables, reduce states, compactor remaps) on
+        ``Config.device``, plus per-replica watermark frontiers, seeks
+        Kafka sources back to the checkpointed offsets, and re-fences
+        exactly-once sinks so the replay neither loses nor duplicates a
+        record.  Returns the graph STARTED; drive it with
+        :meth:`wait_end` (or :meth:`step`)."""
+        from windflow_tpu_torch.durability.checkpoint import restore_graph
+        return restore_graph(self, checkpoint_dir)
+
+    def _finalize(self) -> None:
+        if self._durability is not None:
+            # counters stay readable: stats() reads the plane's fields
+            self._durability.close()
 
     def step(self) -> bool:
         """One scheduler sweep: pull a chunk from each live source (unless
@@ -333,6 +385,13 @@ class PipeGraph:
             for sr in self._source_replicas:
                 if not sr.exhausted and sr.tick(self._tick_chunk(sr)):
                     progress = True
+        if self._durability is not None:
+            # epoch cadence: counts sweeps and, every
+            # Config.durability_epoch_sweeps-th, quiesces to the aligned
+            # barrier and commits a checkpoint epoch.  Under an active
+            # megastep plane one sweep paces whole groups, so every
+            # quiesce lands between megasteps
+            self._durability.on_sweep()
         return progress
 
     def _tick_chunk(self, sr) -> int:
@@ -395,6 +454,9 @@ class PipeGraph:
             "Staging": {"Wire": wire_section(self)},
             "Megastep": (plane.summary() if plane is not None
                          else {"k": 1, "edges": [], "refused": []}),
+            "Durability": (self._durability.section()
+                           if self._durability is not None
+                           else {"enabled": False}),
         }
 
 

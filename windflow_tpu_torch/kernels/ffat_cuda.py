@@ -28,6 +28,7 @@ wrapper is entered.  The third kernel, ``dense_monoid_table``, lives in
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Optional
 
 import torch
@@ -118,10 +119,19 @@ class CountedGraph:
     @contextlib.contextmanager
     def capture(self, ctx):
         before = launch_counts()
+        # a dead graph left in a reference cycle (an earlier run's group)
+        # resets when the collector frees it, and a reset while this
+        # stream captures invalidates the capture: collect now, and hold
+        # the automatic collector off until the capture has ended
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with ctx:
                 yield self
         finally:
+            if collecting:
+                gc.enable()
             after = launch_counts()
             self.launches = {k: after[k] - before[k] for k in after
                              if after[k] != before[k]}

@@ -588,14 +588,13 @@ def attach_plane(config, source_replicas) -> MegastepPlane:
 
 def round_epoch_to_megastep(config, plane: MegastepPlane) -> Optional[int]:
     """Align a durability epoch cadence to megastep boundaries:
-    ``Config.durability_epoch_sweeps`` (read by ``getattr``, default 0:
-    the port has no durability plane yet) counts logical sweeps, and
+    ``Config.durability_epoch_sweeps`` counts logical sweeps, and
     under an active plane one scheduler sweep paces K of them, so the
     value becomes ``ceil(eps / K)`` scheduler sweeps.  Returns the new
     cadence when it changed, else None; idempotent at a fixed K."""
     if not plane.active:
         return None
-    eps = getattr(config, "durability_epoch_sweeps", 0) or 0
+    eps = config.durability_epoch_sweeps
     if eps <= 0:
         return None
     sweeps = max(1, (eps + plane.k - 1) // plane.k)

@@ -255,6 +255,39 @@ class Operator:
         folded into ``PipeGraph.get_num_dropped_tuples``."""
         return 0
 
+    #: True on operators holding cross-batch state the durability plane
+    #: cannot snapshot (the JAX package's host window engines and
+    #: persistent suites; none of the port's operators yet)
+    checkpoint_opaque = False
+
+    def snapshot_state(self) -> Optional[dict]:
+        """Durable-state hook (windflow_tpu_torch/durability): one
+        picklable blob capturing ALL cross-batch state this operator
+        owns (its replicas' included), taken at the quiesced checkpoint
+        barrier.  ``None`` means stateless — nothing written, nothing
+        restored.  Device tensors come back as numpy COPIES
+        (``utils.tree.host_copy``: the steps update state in place, so a
+        view would change under the next step), and the layout is the
+        JAX package's, so either package's blob restores into the
+        other's operator."""
+        return None
+
+    def restore_state(self, blob: dict) -> None:
+        """Inverse of :meth:`snapshot_state`, applied to a freshly built
+        (never-stepped) operator before the first source tick; tensors
+        land on the graph's device (``utils.tree.place_tree``)."""
+        raise WindFlowError(
+            f"operator '{self.name}' ({type(self).__name__}) cannot "
+            "restore checkpoint state it never snapshots")
+
+    def _state_device(self):
+        """The device restored state lands on: the graph's, or the
+        Config's before a build."""
+        if self.device is not None:
+            return self.device
+        from windflow_tpu_torch.basic import resolve_device
+        return resolve_device(self.config)
+
     def dump_stats(self) -> dict:
         st = {
             "Operator_name": self.name,

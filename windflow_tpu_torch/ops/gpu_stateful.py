@@ -40,10 +40,10 @@ Two bodies apply the user function in each key's arrival order:
   ``project(record, state including the record)``.  No host read, and a
   hot key costs what a uniform stream costs.
 
-Not ported yet: the mesh path (``_get_sharded_step``,
-``_sharded_stateful_step``; ROADMAP A10) and ``snapshot_state`` /
-``restore_state`` (A7; ``interop.stateful_state_from_numpy`` carries a
-JAX operator's state across).
+``snapshot_state``/``restore_state`` carry the slot table, the interner
+and the remap across a checkpoint in the JAX package's blob layout.  Not
+ported yet: the mesh path (``_get_sharded_step``,
+``_sharded_stateful_step``; ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -454,6 +454,43 @@ class _StatefulGPUBase(Operator):
         uk[:len(uniq)] = uniq
         us[:len(uniq)] = uniq_slots
         return (keys.contiguous(),) + upload_pair(uk, us, keys.device)
+
+    # -- durable state (windflow_tpu_torch/durability) -----------------------
+    def snapshot_state(self):
+        """The dense ``[num_key_slots, ...]`` state table (numpy copies)
+        plus the host key→slot intern map and the compactor's remap: the
+        values AND where each key lives, in the JAX package's blob
+        layout.  The table exists from construction, so this snapshots
+        even before the first batch."""
+        from windflow_tpu_torch.utils.tree import host_copy
+        return {
+            "kind": "stateful_tpu",
+            "state": host_copy(self._state),
+            "interner": dict(self._interner._ids),
+            "compactor": (self._compactor.snapshot()
+                          if self._compactor is not None else None),
+        }
+
+    def restore_state(self, blob):
+        """The inverse, on the graph's device, with the JAX package's
+        cross-restores of the key compaction switch: a compacted
+        checkpoint restored with compaction off folds the remap's
+        key→slot map into the host interner (rows keep meaning the same
+        keys); an interned checkpoint restored with compaction on keeps
+        the interning route (a fresh remap would assign conflicting
+        slots)."""
+        from windflow_tpu_torch.utils.tree import place_tree
+        self._state = place_tree(blob["state"], self._state_device())
+        self._interner._ids = dict(blob["interner"])
+        cblob = blob.get("compactor")
+        if cblob is not None and self._compactor is not None:
+            self._compactor.restore(cblob)
+        elif cblob is not None:
+            self._interner._ids.update(
+                {int(k): int(v) for k, v in cblob["key_slot"].items()})
+        elif self._compactor is not None and self._interner._ids:
+            self._compactor.deactivate()
+            self._compactor = None
 
     def dump_stats(self) -> dict:
         st = super().dump_stats()

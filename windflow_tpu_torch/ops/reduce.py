@@ -28,8 +28,9 @@ first (``op._fused_prelude``; the keys are then extracted from the
 prelude's output).  At parallelism > 1 the replicas step the one
 operator: its steps and the compacted route's counters are per operator,
 as in the JAX package.  Cross-batch aggregation is the windows' job, as
-in the reference.  The mesh route and durable state are not ported
-yet.
+in the reference.  ``snapshot_state``/``restore_state`` carry the drop
+counter and the remap across a checkpoint; the mesh route is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -265,6 +266,29 @@ class ReduceGPU(Operator):
                 return inner(keys, payload, ts, valid, *rest)
             self._steps[("compact", capacity)] = step
         return step
+
+    # -- durable state (windflow_tpu_torch/durability) -----------------------
+    # The dense tables are rebuilt every batch (per-batch reduce
+    # semantics), so the state worth a checkpoint is the accumulated drop
+    # counter and the compactor's remap (a replay must rebuild the same
+    # key→slot assignment so hit/miss partitioning evolves identically):
+    # the JAX package's ReduceTPU blob.
+    def snapshot_state(self):
+        blob = {"kind": "reduce_tpu"}
+        if self._dropped is not None:
+            blob["dropped"] = int(self._dropped)
+        if self._compactor is not None:
+            blob["compactor"] = self._compactor.snapshot()
+        return blob if len(blob) > 1 else None
+
+    def restore_state(self, blob):
+        if "dropped" in blob:
+            self._dropped = torch.full((), int(blob["dropped"]),
+                                       dtype=torch.int64,
+                                       device=self._state_device())
+        if blob.get("compactor") is not None \
+                and self._compactor is not None:
+            self._compactor.restore(blob["compactor"])
 
     # -- stats ---------------------------------------------------------------
     def num_dropped_tuples(self) -> int:

@@ -41,6 +41,19 @@ class ReduceReplica(Replica):
 class Reduce(Operator):
     replica_class = ReduceReplica
 
+    # -- durable state (windflow_tpu_torch/durability) -----------------------
+    def snapshot_state(self):
+        """Per-replica rolling per-key state dicts (user state objects —
+        must be picklable), the JAX package's blob."""
+        if not self.replicas:
+            return None
+        return {"kind": "reduce_host",
+                "replicas": [dict(r._states) for r in self.replicas]}
+
+    def restore_state(self, blob):
+        for rep, st in zip(self.replicas, blob["replicas"]):
+            rep._states = dict(st)
+
     def __init__(self, fn: Callable[[Any, Any], Any], initial_state: Any,
                  name: str = "reduce", parallelism: int = 1,
                  key_extractor: Optional[Callable] = None,

@@ -45,8 +45,9 @@ What differs from JAX, for torch on the card:
 * the tables go to the card in one non-blocking copy from pinned
   memory; the miss rings and counters are read only at the reseed
   cadence and at stats time;
-* the mesh routes (placement override of the mesh reduce) and
-  ``snapshot``/``restore`` are ROADMAP A10 and A7.
+* ``snapshot``/``restore`` carry the remap across a checkpoint (the
+  JAX package's layout); the mesh routes (placement override of the
+  mesh reduce) are ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -732,6 +733,34 @@ class KeyCompactor:
         if not self.active:
             out["deactivated"] = True
         return out
+
+    # -- durable state (windflow_tpu_torch/durability) -----------------------
+    def snapshot(self) -> dict:
+        """The remap IS operator state: a restored stateful/FFAT table
+        indexes rows by these slots, so replays stay record-for-record.
+        The JAX package's ``KeyCompactor.snapshot`` layout."""
+        with self._lock:
+            return {
+                "key_slot": dict(self._key_slot),
+                "free": list(self._free),
+                "admits": self.admits,
+                "churn": self.churn,
+                "reseeds": self.reseeds,
+                "batches": self._batches,
+                "active": self.active,
+            }
+
+    def restore(self, blob: dict) -> None:
+        with self._lock:
+            self._key_slot = {int(k): int(v)
+                              for k, v in blob["key_slot"].items()}
+            self._free = [int(s) for s in blob["free"]]
+            self.admits = blob["admits"]
+            self.churn = blob["churn"]
+            self.reseeds = blob["reseeds"]
+            self._batches = blob["batches"]
+            self.active = blob["active"]
+            self._rebuild()
 
 
 # ---------------------------------------------------------------------------

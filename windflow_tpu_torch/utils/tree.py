@@ -94,3 +94,28 @@ def batch_lanes(tree, n: int, device):
             x = x.expand((n,) + tuple(x.shape))
         return x
     return tree_map(lane, tree)
+
+
+def host_copy(tree):
+    """Every tensor leaf as a numpy COPY (a CPU tensor's ``.numpy()``
+    would alias the live, in-place-updated state); other leaves pass
+    through ``np.array``.  On the card this is one device-to-host copy a
+    leaf."""
+    import numpy as np
+    import torch
+
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to("cpu", copy=True).numpy()
+        return np.array(a)
+    return tree_map(leaf, tree)
+
+
+def place_tree(tree, device):
+    """Every array leaf as a tensor on ``device`` with the array's own
+    dtype (int64 lanes stay int64), copied: the tensors never alias the
+    blob they came from."""
+    import numpy as np
+    import torch
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
+                    tree)

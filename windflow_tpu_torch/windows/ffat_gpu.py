@@ -43,8 +43,9 @@ and counted) and maps the output key lane back to the user's keys
 (``slots_to_user_keys``), at EOS too.  A compacted window has no
 lossless fallback: once its host admission path died the next step
 raises.  Compacted windows do not fuse (their keys are admitted at the
-host staging boundary).  Durable state and the mesh path are not ported
-yet.
+host staging boundary).  ``snapshot_state``/``restore_state`` carry
+the rings across a checkpoint in the JAX package's blob layout; the
+mesh path is not ported yet.
 """
 
 from __future__ import annotations
@@ -287,8 +288,8 @@ class FfatWindowsGPU(Operator):
                     "and a graph build to assign slots; declare "
                     "withMaxKeys to run without compaction")
             self._capacity = batch.capacity
+            self._size_ring(batch)
             if self.is_tb:
-                self._size_ring(batch)
                 self._payload_zero = tree_map(torch.zeros_like,
                                               batch.payload)
             self._step_fn = self._build_step(batch.capacity)
@@ -315,13 +316,18 @@ class FfatWindowsGPU(Operator):
         (one host read, once), 8x its pane span plus the lateness
         allowance, floored at 2R / R+64 and capped at the ceiling.  The
         ceiling bounds the dense [max_keys, NP] state; the lateness panes
-        are added because lateness pins panes in the ring."""
+        are added because lateness pins panes in the ring.  Count windows
+        keep no ring; they record the ceiling as ``NP``, as the JAX
+        package does, so the two packages' checkpoint blobs agree."""
         R, P = self.R, self.P
         cap_by_mem = max(64, (1 << 23) // max(1, self.max_keys))
-        lat_panes = self.spec.lateness // P + 1
+        lat_panes = self.spec.lateness // P + 1 if self.is_tb else 0
         self._np_ceil = max(2 * R, R + 64,
                             R + lat_panes + min(8192, cap_by_mem) + 2)
         if self.NP is not None:
+            return
+        if not self.is_tb:
+            self.NP = self._np_ceil
             return
         tmin, tmax = torch.stack([
             torch.where(batch.valid, batch.ts, 1 << 62).min(),
@@ -561,6 +567,75 @@ class FfatWindowsGPU(Operator):
             self._grow_ring(min(self._np_ceil, max(needed, self.NP * 2)))
         if rebase_lo is not None:
             self._rebase_ring(rebase_lo, hi)
+
+    # -- durable state (windflow_tpu_torch/durability) -----------------------
+    def snapshot_state(self):
+        """All cross-batch state, in the JAX package's blob layout
+        (``windflow_tpu/windows/ffat_tpu.py`` ``snapshot_state``): the
+        pane rings/tables per state index as numpy copies, the
+        capacity/ring-size pair the step is rebuilt from, the
+        regrow/overflow estimator bookkeeping, and the compactor's remap
+        of a compacted key space.  A fused tail needs nothing extra:
+        restore rebuilds the step through ``_build_step``, which applies
+        the prelude again."""
+        if not self._states:
+            return None     # never stepped: nothing to restore
+        from windflow_tpu_torch.utils.tree import host_copy
+        return {
+            "kind": "ffat_tpu",
+            "states": {k: host_copy(st) for k, st in self._states.items()},
+            "capacity": self._capacity,
+            "NP": self.NP,
+            "auto_np": self._auto_np,
+            "np_ceil": self._np_ceil,
+            "overflow_steps": self._overflow_steps,
+            "evicted_seen": self._evicted_seen,
+            "evicted_base": self._evicted_base,
+            "error_armed": self._error_armed,
+            "clean_checks": self._clean_checks,
+            "dirty_checks": self._dirty_checks,
+            "unres_lo": self._unres_lo,
+            "unres_hi": self._unres_hi,
+            "fold_stepped": self._fold_stepped,
+            "flushed": self._flushed,
+            "eos_replicas": self._eos_replicas,
+            "payload_zero": (host_copy(self._payload_zero)
+                             if self._payload_zero is not None else None),
+            "compactor": (self._compactor.snapshot()
+                          if self._compactor is not None else None),
+        }
+
+    def restore_state(self, blob):
+        """The inverse, on the graph's device: sets the capacity, the
+        ring size, the TB flush payload and the step, so the first batch
+        after a restore neither re-sizes the ring nor rebuilds state."""
+        from windflow_tpu_torch.utils.tree import place_tree
+        dev = self._state_device()
+        self.NP = blob["NP"]
+        self._auto_np = blob["auto_np"]
+        self._np_ceil = blob["np_ceil"]
+        self._overflow_steps = blob["overflow_steps"]
+        self._evicted_seen = blob["evicted_seen"]
+        self._evicted_base = blob["evicted_base"]
+        self._error_armed = blob["error_armed"]
+        self._clean_checks = blob["clean_checks"]
+        self._dirty_checks = blob["dirty_checks"]
+        self._unres_lo = blob["unres_lo"]
+        self._unres_hi = blob["unres_hi"]
+        self._fold_stepped = blob["fold_stepped"]
+        self._flushed = blob["flushed"]
+        self._eos_replicas = blob["eos_replicas"]
+        self._pending_evct = None   # late device read: re-primed on step
+        self._states = {int(k): place_tree(st, dev)
+                        for k, st in blob["states"].items()}
+        self._payload_zero = (place_tree(blob["payload_zero"], dev)
+                              if blob["payload_zero"] is not None
+                              else None)
+        if blob.get("compactor") is not None \
+                and self._compactor is not None:
+            self._compactor.restore(blob["compactor"])
+        self._capacity = blob["capacity"]
+        self._step_fn = self._build_step(self._capacity)
 
     # -- overflow policy and counters ------------------------------------------
     def _check_overflow(self) -> None:
