@@ -186,6 +186,31 @@ Phases (each exits nonzero on failure; none is skipped):
    checkpoint ms (and its snapshot part, after the quiesce) and bytes an
    epoch, restore ms, the fence dedupes and the baseline's host
    tuples/s (information only).
+10. drive the observability plane (``observability_runs``, 60 s budget),
+   launch counts set to 0 just before each run and read just after; a
+   run fails if any ``stats()`` section holds an ``"error"`` or reports
+   the CPU:
+   * (a) (i)'s count windows (event time, wire off, 16 batches), both
+     combiners, at K = 8 and K = 1 with ``trace_sample_every=2`` and
+     ``trace_device_sync_every=1``, each against the recorder-off run:
+     records equal (and equal the oracle), launches equal, every trace's
+     stamps ordered staged <= dispatched <= device_done <= sunk, every
+     operator's health OK, one dispatch a batch on the fused hop;
+     printed: staged->sunk p50/p95/p99 ms, each operator's service
+     p50/p99, the Device section's allocated, peak and reserved bytes
+     and ``staging.device_bytes``;
+   * (b) 7 (d)'s unbounded compacted reduce (max, sum) with the shard
+     sketch bound: records equal each batch's oracle,
+     ``dense_monoid_table`` every batch, ``churn > 0``, the 4 hottest
+     keys after the shift seated, and the Shard section's hottest key
+     within the count-min bound of its true count; the hit rate printed;
+   * (c) 6 (b)'s merged DeviceSources into the keyed ReduceGPU at
+     parallelism 4 (max) with the device sketch in the keyby split:
+     per-replica counts equal the host's splitmix64 placement, launches
+     and records equal to the sketch-off run;
+   * (d) a graph whose sink stops draining: ``run()`` raises
+     ``WindFlowError`` naming it, ``dump_postmortem`` writes a bundle and
+     ``tools/wf_doctor.py --check`` passes it (a subprocess).
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -195,8 +220,10 @@ package beside it, it exits nonzero and prints no result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2611,6 +2638,288 @@ def megastep_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the observability plane
+# ---------------------------------------------------------------------------
+
+def obs_sections_ok(label, st):
+    """No ``stats()`` section of a card run holds an ``"error"`` or
+    reports the CPU."""
+    for name, sec in st.items():
+        if isinstance(sec, dict) and "error" in sec:
+            fail(f"{label}: stats()[{name!r}] failed: {sec['error']}")
+    if [m["platform"] for m in st["Device"]["memory"]] != ["cuda"]:
+        fail(f"{label}: the Device section reports {st['Device']['memory']}")
+
+
+def trace_order_ok(label, events):
+    """staged ≤ dispatched ≤ device_done ≤ sunk for every trace that
+    reached the sink (each stage's first stamp), and a device_done on
+    each; returns the number of such traces."""
+    by = {}
+    for e in events:
+        by.setdefault(e["trace"], {}).setdefault(e["stage"], e["t_usec"])
+    n = 0
+    for tid, t in by.items():
+        if "sunk" not in t:
+            continue
+        n += 1
+        if "device_done" not in t:
+            fail(f"{label}: trace {tid} has no device_done: {t}")
+        seq = [t[s] for s in ("staged", "dispatched", "device_done", "sunk")
+               if s in t]
+        if seq != sorted(seq):
+            fail(f"{label}: trace {tid}'s stamps are out of order: {t}")
+    if n == 0:
+        fail(f"{label}: no trace reached the sink")
+    return n
+
+
+def q_ms(q):
+    return f"{q['p50'] / 1e3:.3f}/{q['p95'] / 1e3:.3f}/{q['p99'] / 1e3:.3f}"
+
+
+def observability_runs(dev_name="cuda"):
+    """Phase 10: the observability plane on the card (60 s budget).
+    (a) phase 5 (i)'s graph (event time, wire off, 16 batches) at K = 8
+    and K = 1, both combiners, the recorder tracing every other batch and
+    waiting on each traced one, against the recorder-off run; (b) phase
+    7 (d)'s compacted reduce with the shard sketch bound (churn); (c)
+    phase 6 (b)'s merged DeviceSources into a keyed ReduceGPU at
+    parallelism 4 with the device sketch in the keyby split, against the
+    sketch-off run; (d) a seeded stall named, bundled and checked by
+    ``tools/wf_doctor.py``.  Returns each run's launch counts by
+    label."""
+    import torch
+
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.parallel.emitters import splitmix64_np
+    out = {}
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2025)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob = frame_blob(keys, np.arange(n), vals)
+
+    from windflow_tpu_torch import staging
+
+    # (a) latency on the main path
+    for sum_comb in (False, True):
+        comb = "sum" if sum_comb else "generic"
+        for k in (8, 1):
+            runs = {}
+            for rec in (False, True):
+                cols, sink = collect()
+                g, _ = frames_cb_graph(
+                    dev_name, sum_comb, blob, sink, event=True,
+                    wire_compression=False, megastep_sweeps=k,
+                    flight_recorder=rec, trace_sample_every=2,
+                    trace_device_sync_every=1)
+                db = staging.device_bytes.staged_bytes_total
+                secs, counts = timed_run(g)
+                db = staging.device_bytes.staged_bytes_total - db
+                runs[rec] = (cols, counts, g, secs, db)
+            label = f"10(a) cb {comb} K={k}"
+            (c0, n0, _, _, _), (c1, n1, g, secs, dbytes) = \
+                runs[False], runs[True]
+            out[label] = n1
+            nrec = check_cb_columns(label, c1, keys.astype(np.int32), vals)
+            for name in ("key", "wid", "value"):
+                a = np.concatenate([np.asarray(c.cols[name]) for c in c0])
+                b = np.concatenate([np.asarray(c.cols[name]) for c in c1])
+                if not np.array_equal(a, b):
+                    fail(f"{label}: records differ from the recorder-off run")
+            if n0 != n1:
+                fail(f"{label}: launches {n1} with the recorder on, {n0} "
+                     "off")
+            st = g.stats()
+            obs_sections_ok(label, st)
+            ntr = trace_order_ok(label, g._recorder.events())
+            bad = {o: v["state"] for o, v in st["Health"]["verdicts"].items()
+                   if v["state"] != "OK"}
+            if bad:
+                fail(f"{label}: health verdicts {bad}")
+            tail = g._fused_segments[0]["host_name"]
+            hop = st["Sweep"]["per_hop"][tail]
+            if hop["dispatches_per_batch"] != 1.0 \
+                    or hop.get("fused_program") is None:
+                fail(f"{label}: the fused hop {hop}")
+            ms = st["Megastep"]["edges"]
+            if k == 8 and dev_name == "cuda" \
+                    and not (ms and ms[0]["megasteps"] >= 1):
+                fail(f"{label}: no megastep formed: {ms}")
+            lat = st["Latency"]
+            e2e = lat["end_to_end_usec"]
+            svc = "; ".join(
+                f"{o} {q['p50'] / 1e3:.3f}/{q['p99'] / 1e3:.3f}"
+                for o, q in lat["service_usec_per_operator"].items()
+                if q["count"])
+            # (None only off the card, where obs_sections_ok has failed)
+            mem = st["Device"]["memory"][0]["stats"] or {}
+            print(f"phase 10 (a): PipeGraph.run() {label}: {nrec} windows "
+                  f"match the oracle and the recorder-off run; launches "
+                  f"{n1} (off {n0}); {ntr} traces ordered staged <= "
+                  f"dispatched <= device_done <= sunk; staged->sunk "
+                  f"p50/p95/p99 {q_ms(e2e)} ms over {e2e['count']} traced "
+                  f"batches; service p50/p99 ms {svc}; health OK; "
+                  f"{hop['dispatches']} dispatches / {hop['batches']} "
+                  f"batches on '{tail}'; allocated {mem.get('bytes_in_use')} "
+                  f"peak {mem.get('peak_bytes_in_use')} reserved "
+                  f"{mem.get('bytes_reserved')} bytes; staging.device_bytes "
+                  f"+{dbytes} in this run; "
+                  f"{n} tuples in {secs:.3f} s (host clock, information "
+                  "only)")
+
+    # (b) compactor churn with the shard sketch bound
+    zrng = np.random.default_rng(77)
+    zkeys = zipf_shift_keys(zrng, n)
+    zvals = zrng.integers(-100, 101, n).astype(np.float32)
+    zblob = frame_blob(zkeys, np.arange(n), zvals)
+    post = zkeys[KC_SHIFT * CAP:]
+    uk, cnt = np.unique(post, return_counts=True)
+    new_top = uk[np.argsort(cnt)[::-1][:4]]
+    uk_all, cnt_all = np.unique(zkeys, return_counts=True)
+    for monoid in ("max", "sum"):
+        label = f"10(b) compacted reduce {monoid}"
+        cols, sink = collect()
+        g, red = kc_reduce_graph(dev_name, monoid, zblob, sink)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        for i, c in enumerate(cols):
+            sl = slice(i * CAP, (i + 1) * CAP)
+            wk, wv = batch_reduce_oracle(zkeys[sl], zvals[sl], monoid)
+            if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                    and np.array_equal(np.asarray(c.cols["v0"]), wv)):
+                fail(f"{label}: batch {i} differs from the oracle")
+        if len(cols) != COL_BATCHES:
+            fail(f"{label}: {len(cols)} sink batches")
+        if counts["dense_monoid_table"] != COL_BATCHES:
+            fail(f"{label}: dense_monoid_table launched "
+                 f"{counts['dense_monoid_table']} times")
+        comp = red._compactor
+        s = comp.summary()
+        if s["churn"] <= 0:
+            fail(f"{label}: the full table never churned: {s}")
+        unseated = [int(k) for k in new_top if comp.slot_of(int(k)) is None]
+        if unseated:
+            fail(f"{label}: new top keys not seated: {unseated}")
+        st = g.stats()
+        obs_sections_ok(label, st)
+        load = st["Shard"]["per_op"][red.name]["load"]
+        hot = load["hot_keys"][0]
+        true = int(cnt_all[np.searchsorted(uk_all, hot["key"])])
+        slack = 4 * n / 2048
+        if not (true <= hot["est_tuples"] <= true * 1.05 + slack
+                and true >= cnt_all.max() - slack):
+            fail(f"{label}: hottest key {hot} against its true count "
+                 f"{true} (max {int(cnt_all.max())})")
+        print(f"phase 10 (b): PipeGraph.run() {label}: records match the "
+              f"oracle batch by batch; dense_monoid_table {COL_BATCHES} "
+              f"launches; churn {s['churn']}, reseeds {s['reseeds']}, hit "
+              f"rate {s['hit_rate']} (PR 8, no sketch: 0.016); the 4 "
+              f"hottest keys after the shift seated; Shard names key "
+              f"{hot['key']} estimate {hot['est_tuples']} (true {true}, "
+              f"basis {load['basis']}); {n} tuples in {secs:.3f} s "
+              "(information only)")
+
+    # (c) the device sketch in the keyby split
+    dev = torch.device(dev_name)
+    nb = COL_BATCHES // 2
+    mk = np.concatenate([merged_source_numpy(nb, s)[0] for s in (1, 2)])
+    want = np.bincount((splitmix64_np(mk) % np.uint64(4)).astype(np.int64),
+                       minlength=4)
+    runs = {}
+    for sketch in (False, True):
+        cols, sink = collect()
+        g = wf.PipeGraph("chip_smoke_obs_merge", wf.ExecutionMode.DEFAULT,
+                         config=wf.Config(device=dev_name,
+                                          punctuation_interval_usec=10 ** 12,
+                                          shard_ledger=sketch))
+        pipes = [g.add_source(
+            wf.DeviceSource_Builder(lambda i, _s=s: merged_source(i, dev, _s))
+            .withCapacity(CAP).withNumBatches(nb).withName(f"src{s}")
+            .build()) for s in (1, 2)]
+        merged = pipes[0].merge(pipes[1])
+        merged.add(wf.MapGPU_Builder(
+            lambda t: {"key": t["key"], "v0": t["v0"] * 2.0 + 1.0,
+                       "n": t["n"]}).build())
+        red = (wf.ReduceGPU_Builder(lambda a, b: {
+            k: torch.maximum(a[k], b[k]) for k in ("key", "v0", "n")})
+            .withKeyBy(lambda t: t["key"]).withMaxKeys(KEYS)
+            .withMonoidCombiner("max").withParallelism(4)
+            .withName("merge_red").build())
+        merged.add(red).add_sink(wf.Sink_Builder(sink).withColumnarSink()
+                                 .build())
+        secs, counts = timed_run(g)
+        runs[sketch] = (counts, g, cols)
+    (n0, _, c0), (n1, g, c1) = runs[False], runs[True]
+    label = "10(c) merge reduce max, device sketch"
+    out[label] = n1
+    if n0 != n1:
+        fail(f"{label}: launches {n1} with the sketch, {n0} without")
+    for name in ("key", "v0", "n"):
+        a = np.concatenate([np.asarray(c.cols[name]) for c in c0])
+        b = np.concatenate([np.asarray(c.cols[name]) for c in c1])
+        if not np.array_equal(np.sort(a), np.sort(b)):
+            fail(f"{label}: records differ from the sketch-off run")
+    st = g.stats()
+    obs_sections_ok(label, st)
+    load = st["Shard"]["per_op"]["merge_red"]["load"]
+    if load["tuples"] != want.tolist() or load["total_tuples"] != len(mk):
+        fail(f"{label}: per-replica counts {load['tuples']} against the "
+             f"host placement {want.tolist()}")
+    print(f"phase 10 (c): PipeGraph.run() {label}: per-replica counts "
+          f"{load['tuples']} equal the host's splitmix64 placement of "
+          f"{len(mk)} keys; launches {n1}, equal to the sketch-off run; "
+          f"imbalance {load.get('imbalance_ratio')}, hot key "
+          f"{load['hot_keys'][0]}")
+
+    # (d) a seeded stall, named and bundled
+    root = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        g = wf.PipeGraph("chip_smoke_stall", wf.ExecutionMode.DEFAULT,
+                         config=wf.Config(device=dev_name, log_dir=root))
+        snk = wf.Sink_Builder(lambda t: None).withName("wedged_sink").build()
+        g.add_source(wf.Source_Builder(
+            lambda: iter({"key": np.int32(i % 8), "v": np.float32(i)}
+                         for i in range(8192)))
+            .withOutputBatchSize(1024).withName("src").build()) \
+            .add(wf.MapGPU_Builder(lambda t: {"key": t["key"],
+                                              "v": t["v"] * 2.0})
+                 .withName("m").build()).add_sink(snk)
+        g.start()
+        snk.replicas[0].drain = lambda limit=0: False
+        try:
+            g.wait_end()
+            fail("phase 10 (d): the wedged graph ended")
+        except wf.WindFlowError as e:
+            msg = str(e)
+        if "root cause 'wedged_sink'" not in msg:
+            fail(f"phase 10 (d): the stall error names no root cause: {msg}")
+        bundle = g.dump_postmortem(os.path.join(root, "bundle"),
+                                   reason="phase 10 (d)")
+        doctor = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tools", "wf_doctor.py")
+        r = subprocess.run([sys.executable, doctor, bundle, "--check"],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            fail(f"phase 10 (d): wf_doctor --check exited {r.returncode}: "
+                 f"{r.stderr.strip()[-300:]}")
+        with open(os.path.join(bundle, "manifest.json")) as f:
+            manifest = json.load(f)
+        if manifest["errors"]:
+            fail(f"phase 10 (d): bundle sections failed: "
+                 f"{manifest['errors']}")
+        print(f"phase 10 (d): a wedged sink stalls the graph: "
+              f"{msg[:msg.index('. Per-operator')]}; the bundle's "
+              f"{len(manifest['files'])} files pass wf_doctor --check "
+              f"({r.stdout.strip()})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -3046,6 +3355,10 @@ def main():
     t9 = time.perf_counter()
     run_counts.update(durability_runs())
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    # 10. the observability plane, counts read just after each run
+    t10 = time.perf_counter()
+    run_counts.update(observability_runs())
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -3064,6 +3377,8 @@ def main():
     # grouping ids are past the grouping kernel's gate: (b) launches it)
     dur9 = [t for t in run_counts if t.startswith("9 ")]
     cb_runs += tuple(t for t in dur9 if "window" in t)
+    # phase 10's traced count-window runs
+    cb_runs += tuple(t for t in run_counts if t.startswith("10(a)"))
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
@@ -3075,11 +3390,15 @@ def main():
                                          "6(a) reduce max fused",
                                          "6(b) merge reduce max",
                                          "6(d) keyed staging",
-                                         "7(d) compacted reduce max"),
+                                         "7(d) compacted reduce max",
+                                         "10(b) compacted reduce max",
+                                         "10(c) merge reduce max, device "
+                                         "sketch"),
                "dense_monoid_table[b]": ("(b) compacted sum",
                                          "6(b) merge reduce sum",
                                          "6(c) split",
-                                         "7(d) compacted reduce sum")
+                                         "7(d) compacted reduce sum",
+                                         "10(b) compacted reduce sum")
                + tuple(t for t in dur9 if "reduce sum" in t),
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")

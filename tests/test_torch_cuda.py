@@ -29,7 +29,14 @@ sorted and dense reduce steps with no synchronising call.  The durable
 state checks round-trip the FFAT CB and TB, stateful and compacted
 reduce snapshots bit for bit onto the card, step restored operators
 with no synchronising call, and restore a K = 8 chaos cell to K = 1's
-records.
+records.  The observability checks at the end step an untraced CB
+replica (the recorder bound) and a sketched device keyby split with no
+synchronising call, count the one wait of a traced batch at
+``trace_device_sync_every=1``, replay a K = 8 megastep with the recorder
+on as with it off (the same launches a group, one ``cudaGraphLaunch`` a
+megastep, every trace's stamps in order), read nonzero allocated bytes
+from the ``Device`` section, and find the traced annotation in a
+``profile()`` capture.
 """
 
 import numpy as np
@@ -928,10 +935,11 @@ def _ms_tail(family):
             .build())
 
 
-def _ms_run(family, k, device="cuda", wire=False, gaps=None, tap=None):
+def _ms_run(family, k, device="cuda", wire=False, gaps=None, tap=None,
+            **cfg):
     """FrameSource → one foldable tail → Sink at ``megastep_sweeps=k``:
     (sorted records, Megastep section, graph).  ``tap(graph)`` runs after
-    the build, before the first batch."""
+    the build, before the first batch; ``cfg`` are more Config fields."""
     import windflow_tpu_torch as wt
     out = []
     blob = _ms_blob(gaps)
@@ -948,7 +956,8 @@ def _ms_run(family, k, device="cuda", wire=False, gaps=None, tap=None):
                      config=wt.Config(device=device, megastep_sweeps=k,
                                       wire_compression=wire,
                                       key_compaction=False,
-                                      punctuation_interval_usec=10 ** 12))
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
     g.add_source(src).add(_ms_tail(family)).add_sink(wt.Sink_Builder(
         lambda r: out.append(tuple(sorted(
             (n, np.asarray(v).item()) for n, v in r.items())))
@@ -1317,3 +1326,146 @@ def test_cuda_megastep_capture_failure_raises(cuda_device):
         .add_sink(wt.Sink_Builder(lambda r: None).build())
     with pytest.raises(WFE, match="capturing the ffat_cb step of 'w'"):
         g.run()
+
+
+# ---------------------------------------------------------------------------
+# the observability planes on the card
+# ---------------------------------------------------------------------------
+
+class _Collect:
+    """A stand-in emitter that keeps what a replica emits."""
+
+    def __init__(self):
+        self.out = []
+
+    def emit_device_batch(self, b):
+        self.out.append(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_untraced_cb_replica_step_makes_no_host_read(cuda_device,
+                                                          sum_combiner):
+    """The CB replica's whole batch path with the recorder bound (its
+    ring, the step registry's count): an untraced batch makes no
+    synchronising call."""
+    op = _cb_op(sum_combiner)
+    rep = op.replicas[0]
+    assert rep.ring is not None
+    rep.emitter = _Collect()
+    out = _no_host_read(rep.process_device_batch, _cb_batches(cuda_device, 3))
+    assert out is None and len(rep.emitter.out) == 3
+    assert op.watch.dispatches == 3 and rep.ring.n == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sketched_device_keyby_split_makes_no_host_read(cuda_device):
+    """The device keyby split with the shard sketch's update inside it:
+    no synchronising call, and the sketch's shard counts equal the host's
+    splitmix64 placement."""
+    from windflow_tpu_torch.monitoring.shard_ledger import ShardSketch
+    from windflow_tpu_torch.parallel import emitters as te
+    em = te.DeviceKeyByEmitter([(None, 0)] * 4, lambda t: t["key"])
+    sk = ShardSketch(4)
+    em.attach_shard_sketch(sk)
+    batches = _cb_batches(cuda_device, 3)
+    _no_host_read(em.split, batches)
+    k = np.concatenate([b.payload["key"].cpu().numpy() for b in batches])
+    want = np.bincount((te.splitmix64_np(k) % np.uint64(4)).astype(np.int64),
+                       minlength=4)
+    s = sk.summary()
+    assert s["tuples"] == want.tolist() and s["total_tuples"] == k.size
+
+
+@pytest.mark.cuda
+def test_cuda_traced_batch_makes_exactly_its_one_wait(cuda_device,
+                                                      monkeypatch):
+    """At ``trace_device_sync_every=1`` a traced batch waits once for its
+    step's device work (the sampled ``device_done``), and nothing else of
+    its path synchronises."""
+    from windflow_tpu_torch.basic import current_time_usecs
+    from windflow_tpu_torch.ops import gpu as tg
+    op = _cb_op(False)
+    rep = op.replicas[0]
+    rep.config.trace_device_sync_every = 1
+    rep.emitter = _Collect()
+    waits = []
+    real = tg.wait_for_device
+
+    def counted(t):
+        waits.append(t.device)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+    monkeypatch.setattr(tg, "wait_for_device", counted)
+    batches = _cb_batches(cuda_device, 3)
+    batches[2].trace = (7, current_time_usecs())
+    _no_host_read(rep.process_device_batch, batches)
+    assert len(waits) == 1 and waits[0].type == "cuda"
+    stages = [e["stage"] for e in rep.ring.events()]
+    assert stages == ["dispatched", "device_done"]
+    assert rep.emitter.out[-1].trace == batches[2].trace
+
+
+@pytest.mark.cuda
+def test_cuda_megastep_with_recorder_replays_the_same_graph(cuda_device):
+    """A K = 8 CB megastep with the recorder tracing every other batch
+    (and waiting on each traced group) equals the recorder-off run:
+    records, kernel launches a group, and one ``cudaGraphLaunch`` a
+    megastep; every trace that reached the sink has ordered stamps."""
+    from torch.profiler import ProfilerActivity, profile
+    off, soff, _ = _ms_run("cb", 8, flight_recorder=False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        on, son, g = _ms_run("cb", 8, trace_sample_every=2,
+                             trace_device_sync_every=1)
+    e_on, e_off = son["edges"][0], soff["edges"][0]
+    assert on == off
+    assert e_on["megasteps"] == e_off["megasteps"] >= 1
+    assert e_on["kernel_launches_per_group"] == \
+        e_off["kernel_launches_per_group"]
+    launches = sum(1 for ev in prof.events() if ev.name == "cudaGraphLaunch")
+    assert launches == e_on["megasteps"]
+    by = {}
+    for ev in g._recorder.events():
+        by.setdefault(ev["trace"], {}).setdefault(ev["stage"], ev)
+    grouped = [t for t in by.values()
+               if t.get("dispatched", {}).get("shared_k") == 8]
+    assert grouped and all("device_done" in t for t in grouped)
+    for t in by.values():
+        seq = [t[s]["t_usec"] for s in ("staged", "dispatched",
+                                        "device_done", "sunk") if s in t]
+        assert seq == sorted(seq)
+    assert g.stats()["Device"]["jit"]["w"]["compiles"] >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_device_section_reports_allocated_bytes(cuda_device):
+    _, _, g = _ms_run("dense", 1)
+    dev = g.stats()["Device"]
+    assert "error" not in dev
+    mem = dev["memory"]
+    assert [m["platform"] for m in mem] == ["cuda"]
+    assert mem[0]["stats"]["bytes_in_use"] > 0
+    assert mem[0]["stats"]["peak_bytes_in_use"] >= \
+        mem[0]["stats"]["bytes_in_use"]
+    assert dev["live_buffers"]["bytes"] > 0
+    assert dev["staging"]["staged_device_bytes_total"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_profile_capture_holds_the_traced_annotation(cuda_device,
+                                                          tmp_path):
+    import json
+    import os
+
+    def tap(g):
+        d = g.profile(duration_ms=60_000, log_dir=str(tmp_path / "prof"))
+        tap.dir = d
+    _ms_run("cb", 1, tap=tap, trace_sample_every=1)
+    with open(os.path.join(tap.dir, "ms_cuda_profile.json")) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("op:w trace:") for n in names)

@@ -47,7 +47,6 @@ from windflow_tpu_torch.basic import WindFlowError
 from windflow_tpu_torch.durability import chaos
 from windflow_tpu_torch.durability.checkpoint import (load_checkpoint,
                                                       topology_signature)
-from windflow_tpu_torch.durability.sinks import EpochFileSink
 from windflow_tpu_torch.kafka.client import InMemoryBroker
 from windflow_tpu_torch.kafka.kafka_source import KafkaSource
 from windflow_tpu_torch.parallel.compaction import KeyCompactor
@@ -142,7 +141,7 @@ def test_chaos_file_sink_mid_sink_flush(tmp_path):
     """:87 — EpochFileSink: the replayed epoch overwrites its file
     idempotently and nothing is left staged."""
     _run_cell(tmp_path, "stateless_chain", "mid_sink_flush")
-    assert EpochFileSink.read_committed(str(tmp_path / "out_b"))
+    assert wt.EpochFileSink.read_committed(str(tmp_path / "out_b"))
     assert not os.path.exists(
         str(tmp_path / "out_b" / ".staging" / "open.jsonl"))
 
@@ -208,7 +207,7 @@ def test_epoch_file_sink_rescale_overwrite_reconciles(tmp_path):
     """:223 — the idempotent rename makes the file sink self-healing
     across a rescale: the committed concatenation stays per-key exact."""
     def build(out_dir, ckpt, parallelism):
-        sink = EpochFileSink(out_dir)
+        sink = wt.EpochFileSink(out_dir)
         broker = InMemoryBroker()
         broker.create_topic("in", 1)
         p = broker.producer()
@@ -251,8 +250,8 @@ def test_epoch_file_sink_rescale_overwrite_reconciles(tmp_path):
     chaos.run_killed_and_restored(
         fc, chaos.KillSpec("mid_sink_flush", after=2),
         restore_factory=lambda: fc(parallelism=2))
-    base = EpochFileSink.read_committed(str(tmp_path / "out_a"))
-    resc = EpochFileSink.read_committed(str(tmp_path / "out_b"))
+    base = wt.EpochFileSink.read_committed(str(tmp_path / "out_a"))
+    resc = wt.EpochFileSink.read_committed(str(tmp_path / "out_b"))
     assert len(base) == 4096
     assert chaos.diff_keyed_records([base], [resc]) is None
 
@@ -453,7 +452,7 @@ def test_epoch_file_sink_rejects_parallelism(tmp_path):
     src = (wt.Source_Builder(lambda: iter([{"v": 1}]))
            .withOutputBatchSize(8).build())
     g.add_source(src).add_sink(
-        wt.Sink_Builder(EpochFileSink(str(tmp_path / "out")))
+        wt.Sink_Builder(wt.EpochFileSink(str(tmp_path / "out")))
         .withParallelism(2).build())
     with pytest.raises(WindFlowError, match="parallelism == 1"):
         g.start()
@@ -462,13 +461,13 @@ def test_epoch_file_sink_rejects_parallelism(tmp_path):
 def test_epoch_file_sink_cold_restart_discards_stale_staging(tmp_path):
     """:546"""
     d = str(tmp_path / "out")
-    dead = EpochFileSink(d)
+    dead = wt.EpochFileSink(d)
     dead({"ghost": 1})
     dead._f.flush()
-    fresh = EpochFileSink(d)
+    fresh = wt.EpochFileSink(d)
     fresh({"real": 1})
     fresh.commit_epoch(0)
-    assert EpochFileSink.read_committed(d) == [{"real": 1}]
+    assert wt.EpochFileSink.read_committed(d) == [{"real": 1}]
 
 
 def test_unpicklable_state_errors_name_the_operator(tmp_path):

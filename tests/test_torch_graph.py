@@ -176,7 +176,7 @@ def test_columnar_sink_gets_the_same_windows():
                                     c.cols["value"]))
     assert got == rows
     st = g.stats()
-    assert st["Device"] == "cpu"
+    assert [d["platform"] for d in st["Device"]["memory"]] == ["cpu"]
     assert [o["Operator_type"] for o in st["Operators"]] == \
         ["Source", "ChainedGPU", "FfatWindowsGPU", "Sink"]
 
@@ -262,3 +262,39 @@ def test_no_file_of_the_port_or_chip_smoke_imports_jax():
         for mod in _imported_roots(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "windflow_tpu"), (path, mod)
+
+
+#: names of ``windflow_tpu.__all__`` whose modules the port has not
+#: ported yet: the analysis planes (ROADMAP A9), the host window engine
+#: (A11) and the persistent operators (A11).  Each later item shrinks it.
+NOT_YET_PORTED = {
+    "hot_path", "ConcurrencyViolation", "PreflightError",
+    "PreflightWarning",
+    "WindowResult", "KeyedWindows", "ParallelWindows", "PanedWindows",
+    "MapReduceWindows", "FfatWindows", "FlatFAT", "Keyed_Windows_Builder",
+    "Parallel_Windows_Builder", "Paned_Windows_Builder",
+    "MapReduce_Windows_Builder", "Ffat_Windows_Builder",
+    "DBHandle", "PMap", "PFilter", "PFlatMap", "PReduce", "PSink",
+    "PKeyedWindows", "P_Map_Builder", "P_Filter_Builder",
+    "P_FlatMap_Builder", "P_Reduce_Builder", "P_Sink_Builder",
+    "P_Keyed_Windows_Builder",
+}
+
+
+def test_top_level_exports_every_ported_name():
+    """Every name the JAX package exports whose module is ported has its
+    counterpart at the port's top level (TPU -> GPU in the name), in
+    ``__all__`` too; the not-yet-ported list names no ported name."""
+    import windflow_tpu as wf
+    missing = []
+    for name in wf.__all__:
+        if name in NOT_YET_PORTED:
+            assert not hasattr(wt, name.replace("TPU", "GPU")), name
+            continue
+        ported = name.replace("TPU", "GPU")
+        if not hasattr(wt, ported) or ported not in wt.__all__:
+            missing.append(ported)
+    assert not missing, missing
+    assert NOT_YET_PORTED <= set(wf.__all__)
+    assert wt.EpochFileSink.__module__.startswith("windflow_tpu_torch.")
+    assert wt.FfatWindowsGPU.__name__ == "FfatWindowsGPU"

@@ -20,17 +20,26 @@ columnar.  On the card a staged edge ships wire-compressed batches
 CUDA graph (``windflow_tpu_torch/megastep.py``).  ``Config.durability``
 checkpoints a graph's state at watermark-aligned epochs and
 ``PipeGraph.restore`` resumes it, its Kafka and file sinks exactly once
-(``windflow_tpu_torch/durability``).  The card is the default
+(``windflow_tpu_torch/durability``).  The observability planes
+(``windflow_tpu_torch/monitoring``) trace sampled batches from staging to
+the sink, judge each operator's health, name a stall's root cause and
+write a postmortem bundle, and attribute dispatches, bytes and key skew
+per hop and shard (``PipeGraph.stats()``).  The card is the default
 device: ``Config(device="cpu")`` runs on the CPU, where each kernel
 wrapper takes its plain torch version.  The package imports
 torch and numpy, never jax.
 """
 
-from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
-                                      TimePolicy, WindFlowError, WinType,
-                                      current_time_usecs, default_config,
-                                      stable_hash)
+from windflow_tpu_torch import staging
+from windflow_tpu_torch.analysis.diagnostics import Diagnostic
+from windflow_tpu_torch.basic import (EMPTY_KEY, Config, ExecutionMode,
+                                      RoutingMode, TimePolicy, WindFlowError,
+                                      WinType, current_time_usecs,
+                                      default_config, stable_hash)
+from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
+                                      device_to_host, host_to_device)
 from windflow_tpu_torch.context import LocalStorage, RuntimeContext
+from windflow_tpu_torch.durability.sinks import EpochFileSink
 from windflow_tpu_torch.graph.builders import (DeviceSource_Builder,
                                                Ffat_WindowsGPU_Builder,
                                                Filter_Builder,
@@ -42,21 +51,34 @@ from windflow_tpu_torch.graph.builders import (DeviceSource_Builder,
 from windflow_tpu_torch.graph.multipipe import MultiPipe
 from windflow_tpu_torch.graph.pipegraph import PipeGraph
 from windflow_tpu_torch.io import DeviceSource, FrameSource
+from windflow_tpu_torch.ops.base import Operator, Replica
 from windflow_tpu_torch.ops.filter_op import Filter
 from windflow_tpu_torch.ops.flatmap_op import FlatMap, Shipper
+from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
 from windflow_tpu_torch.ops.gpu_stateful import (StatefulFilterGPU,
                                                  StatefulMapGPU)
 from windflow_tpu_torch.ops.map_op import Map
+from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.reduce_op import Reduce
-from windflow_tpu_torch.ops.sink import SinkColumns
+from windflow_tpu_torch.ops.sink import Sink, SinkColumns
+from windflow_tpu_torch.ops.source import Source
+from windflow_tpu_torch.persistent.kv import LogKV
+from windflow_tpu_torch.staging import StagingPool
+from windflow_tpu_torch.windows.engine import WindowSpec
+from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
 
 __all__ = [
-    "Config", "ExecutionMode", "RoutingMode", "TimePolicy", "WindFlowError",
-    "WinType", "current_time_usecs", "default_config", "stable_hash",
-    "LocalStorage", "RuntimeContext", "DeviceSource", "DeviceSource_Builder",
-    "FrameSource", "Ffat_WindowsGPU_Builder", "Filter_Builder",
-    "FilterGPU_Builder", "FlatMap_Builder", "Map_Builder", "MapGPU_Builder",
-    "Reduce_Builder", "ReduceGPU_Builder", "Sink_Builder", "Source_Builder",
-    "Filter", "FlatMap", "Map", "Reduce", "Shipper", "MultiPipe",
-    "PipeGraph", "SinkColumns", "StatefulFilterGPU", "StatefulMapGPU",
+    "Config", "EMPTY_KEY", "ExecutionMode", "RoutingMode", "TimePolicy",
+    "WindFlowError", "WinType", "current_time_usecs", "default_config",
+    "stable_hash", "DeviceBatch", "HostBatch", "Punctuation",
+    "device_to_host", "host_to_device", "LocalStorage", "RuntimeContext",
+    "MultiPipe", "PipeGraph", "Operator", "Replica", "Source", "Map",
+    "Filter", "FlatMap", "Shipper", "Reduce", "Sink", "SinkColumns",
+    "MapGPU", "FilterGPU", "ReduceGPU", "StatefulMapGPU",
+    "StatefulFilterGPU", "DeviceSource", "FrameSource", "Source_Builder",
+    "DeviceSource_Builder", "Map_Builder", "Filter_Builder",
+    "FlatMap_Builder", "Reduce_Builder", "Sink_Builder", "MapGPU_Builder",
+    "FilterGPU_Builder", "ReduceGPU_Builder", "WindowSpec",
+    "FfatWindowsGPU", "Ffat_WindowsGPU_Builder", "LogKV", "staging",
+    "StagingPool", "Diagnostic", "EpochFileSink",
 ]

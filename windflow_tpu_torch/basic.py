@@ -7,7 +7,9 @@ environment knobs: ``wire_compression`` and ``megastep_sweeps`` resolve
 "auto" from ``device``), plus the two the port adds:
 ``device`` (the card unless the caller asks for the CPU) and
 ``cuda_kernels`` (the kernel switch, counterpart of
-``Config.pallas_kernels``).  ``stable_hash`` and ``int32_key`` are the
+``Config.pallas_kernels``).  The observability fields keep the JAX
+package's names and defaults, ``profiler_dir`` pointing at a
+``torch.profiler`` capture.  ``stable_hash`` and ``int32_key`` are the
 port's own copies of the JAX package's key rules.
 """
 
@@ -146,6 +148,60 @@ class Config:
     # Device the graph runs on.  The card is the default; without CUDA a
     # graph raises unless the caller asked for "cpu".
     device: str = "cuda"
+    # Directory of stats dumps, Chrome traces and postmortem bundles
+    # (PipeGraph.dump_stats / dump_trace / dump_postmortem).
+    log_dir: str = "log"
+    # Flight recorder (monitoring/recorder.py): per-batch span events of
+    # one batch in `trace_sample_every` into preallocated per-replica
+    # rings, and the staged→sunk latency histogram the sinks fill.  Off,
+    # no recorder is built: every hook is one `is not None` check.
+    flight_recorder: bool = True
+    # 1-in-N batch sampling of the span traces (N = 1 traces every batch).
+    trace_sample_every: int = 64
+    # Span events retained over all the rings (split evenly; a full ring
+    # overwrites its oldest events).
+    trace_ring_events: int = 65536
+    # Every M-th TRACED batch waits for its step's device work (a CUDA
+    # event recorded after the step, then synchronized) to stamp
+    # `device_done`: a real wait, 1 in (trace_sample_every * M) batches.
+    # 0 never waits (spans end at `dispatched`).
+    trace_device_sync_every: int = 8
+    # torch.profiler capture directory of PipeGraph.profile ("" =
+    # "{log_dir}/{name}_profile").
+    profiler_dir: str = ""
+    # Health plane (monitoring/health.py): a watchdog evaluated at stats
+    # cadence derives OK / BACKPRESSURED / STALLED / FAILED per operator,
+    # names the root cause of a stall, and feeds the postmortem bundle.
+    # Off, no plane is built: every call site is one `is not None` check.
+    health_watchdog: bool = True
+    # An operator with pending input whose inputs and watermark frontier
+    # have not moved for this long is STALLED (microseconds).
+    health_stall_grace_usec: int = 5_000_000
+    # Summed inbox depth at which a still-progressing operator is
+    # BACKPRESSURED; 0 = max_inbox_messages // 2.
+    health_backpressure_depth: int = 0
+    # Recaptures (the registry's recompiles) of one operator's megastep
+    # graph at which it is flagged as in a capture storm.
+    health_recompile_storm: int = 4
+    # Health state changes kept for the postmortem.
+    health_history: int = 256
+    # Postmortem bundle directory ("" = "{log_dir}/{name}_postmortem").
+    health_postmortem_dir: str = ""
+    # Write the postmortem bundle when wait_end crashes or the watchdog
+    # confirms a stall.
+    health_postmortem_on_crash: bool = True
+    # Sweep ledger (monitoring/sweep_ledger.py): per-hop step dispatches
+    # and tensor bytes a staged batch, read at stats cadence from the
+    # step registry's counters.  Off leaves one check at each read site.
+    sweep_ledger: bool = True
+    # Shard plane (monitoring/shard_ledger.py): per-replica attribution
+    # of the operator gauges and key-skew sketches on the keyed edges
+    # (count-min + hot-key candidates, updated on the card inside the
+    # keyby split and the fused chain step, read at stats cadence); the
+    # compactors rank their residents by them.  Off attaches no sketch.
+    shard_ledger: bool = True
+    # Hot keys kept a keyed edge in stats()["Shard"].
+    shard_topk: int = 8
 
 
 #: Process-wide default configuration; graphs copy it at construction.

@@ -56,6 +56,11 @@ class HostBatch:
     ids: list = None
     #: True when the batch object is multicast to several inboxes
     shared: bool = False
+    #: flight-recorder trace lane: ``(trace_id, t_origin_usec)`` on the
+    #: 1-in-N sampled batch, None otherwise (monitoring/recorder.py).
+    #: Whole-batch paths relay it; host per-tuple stages start fresh
+    #: traces at their emitter
+    trace: tuple = None
 
     def __len__(self) -> int:
         return len(self.items)
@@ -80,15 +85,18 @@ class DeviceBatch:
     ``[capacity]`` key lane of a KEYBY edge: the producer extracted the
     consumer's keys from THESE records (a chain forwarding them, a device
     keyby split), so the consumer need not extract them again.  It is
-    edge-scoped: a stage that rewrites the records drops it."""
+    edge-scoped: a stage that rewrites the records drops it.  ``trace``
+    is the flight recorder's lane, ``(trace_id, t_origin_usec)`` on a
+    sampled batch (host metadata: it never touches the device)."""
 
     __slots__ = ("payload", "ts", "valid", "keys", "watermark", "_frontier",
-                 "_size", "ts_max", "ts_min")
+                 "_size", "ts_max", "ts_min", "trace")
 
     def __init__(self, payload, ts, valid, watermark: int = WM_NONE,
                  size: Optional[int] = None, frontier: Optional[int] = None,
                  ts_max: Optional[int] = None,
-                 ts_min: Optional[int] = None, keys=None):
+                 ts_min: Optional[int] = None, keys=None,
+                 trace: Optional[tuple] = None):
         self.payload = payload
         self.ts = ts
         self.valid = valid
@@ -98,6 +106,7 @@ class DeviceBatch:
         self._size = size
         self.ts_max = ts_max
         self.ts_min = ts_min
+        self.trace = trace
 
     @property
     def frontier(self) -> int:
@@ -202,13 +211,16 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
                  device, watermark: int = WM_NONE,
                  frontier: Optional[int] = None,
                  ts_max: Optional[int] = None, ts_min: Optional[int] = None,
-                 pool=None, wire=None) -> DeviceBatch:
+                 pool=None, wire=None, trace: Optional[tuple] = None,
+                 logical_nbytes: Optional[int] = None) -> DeviceBatch:
     """ONE host→device copy of a packed staging buffer into a
     DeviceBatch.  For a CUDA target the copy is ``non_blocking`` from
     pinned memory and ``buf`` is recycled gated on an event recorded
     after it; for the CPU the words are copied out before recycling.
     ``wire`` marks ``buf`` as wire-compressed: its decode runs in the
-    unpack."""
+    unpack.  The transfer is credited to ``staging.device_bytes``
+    (``logical_nbytes``: the decoded size of a wire buffer)."""
+    staging.device_bytes.note(buf.nbytes, logical_nbytes)
     hbuf = torch.from_numpy(buf.view(np.int32))
     gate = None
     if device.type == "cuda":
@@ -222,11 +234,12 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
         pool.release(buf, gate=gate)
     return DeviceBatch(tree_unflatten(treedef, cols), ts, valid,
                        watermark=watermark, size=n, frontier=frontier,
-                       ts_max=ts_max, ts_min=ts_min)
+                       ts_max=ts_max, ts_min=ts_min, trace=trace)
 
 
 def _stage_soa(soa, tss, n: int, capacity: int, watermark: int,
-               device, frontier: Optional[int] = None) -> DeviceBatch:
+               device, frontier: Optional[int] = None,
+               trace: Optional[tuple] = None) -> DeviceBatch:
     """Pad an SoA numpy pytree + timestamps to ``capacity`` and stage it.
     Packable 1-D lanes ride one packed copy; anything else goes lane by
     lane.  The data timestamp extrema ride along as host metadata
@@ -242,7 +255,8 @@ def _stage_soa(soa, tss, n: int, capacity: int, watermark: int,
         b.append(leaves, tss)
         return stage_packed(b.finish(), treedef, dtypes, capacity, n,
                             device, watermark=watermark, frontier=frontier,
-                            ts_max=ts_max, ts_min=ts_min, pool=pool)
+                            ts_max=ts_max, ts_min=ts_min, pool=pool,
+                            trace=trace)
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(
@@ -250,12 +264,16 @@ def _stage_soa(soa, tss, n: int, capacity: int, watermark: int,
     payload = tree_map(lambda a: put(np.asarray(a)), soa)
     ts = put(tss)
     valid = torch.arange(capacity, device=device) < n
-    return DeviceBatch(payload, ts, valid, watermark=watermark, size=n,
-                       frontier=frontier, ts_max=ts_max, ts_min=ts_min)
+    out = DeviceBatch(payload, ts, valid, watermark=watermark, size=n,
+                      frontier=frontier, ts_max=ts_max, ts_min=ts_min,
+                      trace=trace)
+    staging.device_bytes.note(transfer_nbytes(out))
+    return out
 
 
 def host_to_device(batch: HostBatch, capacity: Optional[int], device,
-                   frontier: Optional[int] = None) -> DeviceBatch:
+                   frontier: Optional[int] = None,
+                   trace: Optional[tuple] = None) -> DeviceBatch:
     """Stage a HostBatch into device buffers, padding to ``capacity``."""
     n = len(batch)
     if n == 0:
@@ -264,12 +282,14 @@ def host_to_device(batch: HostBatch, capacity: Optional[int], device,
     if n > cap:
         raise ValueError(f"batch of {n} items exceeds capacity {cap}")
     return _stage_soa(_stack_records(batch.items), batch.tss, n, cap,
-                      batch.watermark, device, frontier)
+                      batch.watermark, device, frontier,
+                      trace if trace is not None else batch.trace)
 
 
 def columns_to_device(cols, tss, capacity: int, device,
                       watermark: int = WM_NONE,
-                      frontier: Optional[int] = None) -> DeviceBatch:
+                      frontier: Optional[int] = None,
+                      trace: Optional[tuple] = None) -> DeviceBatch:
     """Stage columnar (SoA numpy) data directly into a DeviceBatch."""
     n = len(tss)
     if n == 0:
@@ -277,7 +297,7 @@ def columns_to_device(cols, tss, capacity: int, device,
     if n > capacity:
         raise ValueError(f"column batch of {n} exceeds capacity {capacity}")
     return _stage_soa(dict(cols), tss, n, capacity, watermark, device,
-                      frontier)
+                      frontier, trace)
 
 
 # ---------------------------------------------------------------------------
@@ -375,9 +395,11 @@ def device_to_host(batch: DeviceBatch) -> HostBatch:
         names = list(cols)
         items = [dict(zip(names, vals))
                  for vals in zip(*(cols[nm].tolist() for nm in names))]
-        return HostBatch(items=items, tss=tss, watermark=batch.watermark)
+        return HostBatch(items=items, tss=tss, watermark=batch.watermark,
+                         trace=batch.trace)
     leaves, treedef = tree_flatten(cols)
     items = [tree_unflatten(treedef, [c[i].item() if c[i].ndim == 0
                                       else c[i] for c in leaves])
              for i in range(len(tss))]
-    return HostBatch(items=items, tss=tss, watermark=batch.watermark)
+    return HostBatch(items=items, tss=tss, watermark=batch.watermark,
+                     trace=batch.trace)

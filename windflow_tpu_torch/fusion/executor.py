@@ -29,11 +29,17 @@ the device pass emitter, the inbox and collector pass, and the members'
 own replica steps — so each batch's device work is one Python call
 (prelude + tail step).  ``Config.whole_chain_fusion`` is the kill switch.
 
-Not ported, as they have no torch twin or wait for a later item: XLA
-input-buffer donation (``donation_aliases_cleanly``,
-``input_donation_safe``, ``enable_input_donation``; the port's steps
-update their state in place already), the shard-plane sketch
-(``attach_shard_sketch``, ROADMAP A8).
+The shard plane (``monitoring/shard_ledger.py``) folds its key-skew
+sketch into a stateless host whose chain extracts a downstream KEYBY
+consumer's keys (``attach_shard_sketch``): the update runs on the card
+in the same step, on the keys the chain computed.  The fused hop counts
+its dispatches on its own step-registry handle (``watch``), under the
+segment's name.
+
+Not ported, as they have no torch twin: XLA input-buffer donation
+(``donation_aliases_cleanly``, ``input_donation_safe``,
+``enable_input_donation``; the port's steps update their state in place
+already).
 """
 
 from __future__ import annotations
@@ -115,9 +121,33 @@ class FusedStatelessExec:
         self.name = name
         self._prelude, self._has_filter = build_prelude(members)
         self._key_extractor: Optional[Callable] = None
+        self._watch = None
+        #: shard-plane sketch, its consumer's replica count and its
+        #: device state (made at the first sketched batch)
+        self._sketch = None
+        self._sk_n = 1
+        self._sk_state = None
+
+    @property
+    def watch(self):
+        """The fused hop's handle in the step registry."""
+        if self._watch is None:
+            from windflow_tpu_torch.monitoring.jit_registry import \
+                default_registry
+            self._watch = default_registry().watch(self.name)
+        return self._watch
 
     def set_downstream_key_extractor(self, key_fn: Callable) -> None:
         self._key_extractor = key_fn
+
+    def attach_shard_sketch(self, sketch, n_shards: int) -> None:
+        """Fold the shard sketch's update into this step (graph build):
+        the keys computed for the downstream KEYBY consumer feed it, and
+        ``n_shards`` (the consumer's replicas) gives the per-shard
+        counts the keyby placement would."""
+        self._sketch = sketch
+        self._sk_n = max(1, n_shards)
+        sketch.register_device_state(lambda: self._sk_state)
 
     def step(self, batch: DeviceBatch) -> DeviceBatch:
         payload, valid = self._prelude(batch.payload, batch.valid)
@@ -127,6 +157,13 @@ class FusedStatelessExec:
             from windflow_tpu_torch.utils.tree import per_record
             keys = per_record(self._key_extractor, payload,
                               batch.capacity).to(torch.int32)
+            if self._sketch is not None:
+                from windflow_tpu_torch.monitoring.shard_ledger import (
+                    device_sketch_init, device_sketch_update)
+                if self._sk_state is None:
+                    self._sk_state = device_sketch_init(self._sk_n,
+                                                        keys.device)
+                device_sketch_update(self._sk_state, keys, valid, self._sk_n)
         size = None if self._has_filter else batch.known_size
         return DeviceBatch(payload, batch.ts, valid, keys=keys,
                            watermark=batch.watermark, size=size,

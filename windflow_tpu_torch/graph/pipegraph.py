@@ -27,18 +27,36 @@ batches' worth.  With ``Config.durability`` set the durability plane
 (``windflow_tpu_torch/durability``) attaches last: every
 ``durability_epoch_sweeps``-th sweep ends in a watermark-aligned
 checkpoint, and ``restore()`` resumes a freshly composed graph at the
-last complete epoch.  The JAX package's preflight, calibration and
-monitoring planes are not ported yet.
+last complete epoch.
+
+Observability (``windflow_tpu_torch/monitoring``), built after the
+wiring: the flight recorder's per-replica rings bound to the replicas and
+their emitters, the health plane (a stall raises ``WindFlowError`` with
+the root-cause operator and writes a postmortem bundle), the sweep
+ledger, and the shard plane, whose sketches the compactors then rank
+their residents by.  ``stats()`` carries the JAX package's sections
+(``Flight_recorder``, ``Latency``, ``Gauges``, ``Health``, ``Device``,
+``Sweep``, ``Shard``, ...); a telemetry read never takes the pipeline
+down, and a section that failed says so under ``"error"``.  The JAX
+package's preflight, calibration, latency, tenant, roofline, IR-audit and
+reshard planes are not ported yet: their sections read
+``{"enabled": False}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import threading
+import time
+from collections import deque
 from typing import List, Optional
 
 from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
                                       TimePolicy, WindFlowError,
-                                      default_config, resolve_device)
+                                      current_time_usecs, default_config,
+                                      resolve_device)
 from windflow_tpu_torch.fusion.chains import edge_degrees
 from windflow_tpu_torch.fusion.executor import (apply_fusion,
                                                 attribute_member_stats)
@@ -80,6 +98,22 @@ class PipeGraph:
         self._durability = None
         #: checkpoint state restore() stashed for start() to apply
         self._pending_restore = None
+        self._prefetch_ticks = 0
+        #: the observability planes (monitoring/), built by _build; None
+        #: leaves one `is not None` check at each hook and read site
+        self._recorder = None
+        self._health = None
+        self._ledger = None
+        self._shard = None
+        #: the last postmortem bundle written; the lock serializes the
+        #: writers (a watchdog auto-bundle and the stall/crash path)
+        self._postmortem_dir = None
+        self._postmortem_lock = threading.Lock()
+        #: rolling-throughput samples (monotonic s, tuples sunk), taken by
+        #: sample_gauges (every stats() read)
+        self._thr_samples = deque(maxlen=64)
+        #: the directory the last profile() capture went to
+        self._last_profile_dir = None
 
     # -- construction --------------------------------------------------------
     def add_source(self, source: Source) -> MultiPipe:
@@ -245,8 +279,41 @@ class PipeGraph:
                     rep.done = True
                     rep.stats.is_terminated = True
 
-        # 2c. key compaction: after fusion (preludes installed) and the
-        # wiring (the emitters exist), before any step
+        # 2b'. observability: the recorder's rings on every replica and
+        # its emitter, the health plane, the sweep ledger (its baseline
+        # excludes earlier graphs' dispatches) and the shard plane (its
+        # sketches attach to the keyed edges and the key-forwarding
+        # chains, so it comes after the wiring and before compaction)
+        cfg = self.config
+        if cfg.flight_recorder and cfg.trace_sample_every > 0:
+            from windflow_tpu_torch.monitoring.recorder import \
+                FlightRecorder
+            self._recorder = FlightRecorder(
+                sample_every=cfg.trace_sample_every,
+                ring_events=cfg.trace_ring_events,
+                device_sync_every=cfg.trace_device_sync_every,
+                expected_rings=len(self._all_replicas))
+            for rep in self._all_replicas:
+                rep.ring = self._recorder.ring_for(rep.op.name, rep.index)
+        for rep in self._all_replicas:
+            if rep.emitter is not None:
+                rep.emitter.bind_observability(rep.stats, rep.ring,
+                                               self._recorder)
+        if cfg.health_watchdog:
+            from windflow_tpu_torch.monitoring.health import HealthPlane
+            self._health = HealthPlane(self)
+        if cfg.sweep_ledger:
+            from windflow_tpu_torch.monitoring.sweep_ledger import \
+                SweepLedger
+            self._ledger = SweepLedger(self)
+        if cfg.shard_ledger:
+            from windflow_tpu_torch.monitoring.shard_ledger import \
+                ShardLedger
+            self._shard = ShardLedger(self)
+
+        # 2c. key compaction: after fusion (preludes installed), the
+        # wiring (the emitters exist) and the shard plane (the sketches
+        # rank the residents), before any step
         if getattr(self.config, "key_compaction", True):
             from windflow_tpu_torch.parallel.compaction import \
                 attach_compaction
@@ -278,8 +345,6 @@ class PipeGraph:
             if rep.num_channels > 0:
                 rep.collector = create_collector(self.mode, rep.num_channels)
                 self._collectors.append(rep.collector)
-            if rep.emitter is not None:
-                rep.emitter.bind_stats(rep.stats)
 
         # every live non-sink replica must have an emitter
         for op in self._operators:
@@ -323,14 +388,65 @@ class PipeGraph:
         try:
             while not self.is_done():
                 if not self.step():
-                    raise WindFlowError(
-                        "PipeGraph stalled: no replica made progress but "
-                        "the graph has not terminated")
+                    raise self._stall_error()
+        except BaseException as exc:
+            # crash path: the telemetry first (the operator that raised
+            # is marked FAILED, the postmortem bundle written), guarded so
+            # it never masks the error re-raised below
+            try:
+                if self._health is not None:
+                    self._health.note_failure(exc)
+                self._write_crash_postmortem(exc)
+            except BaseException:  # noqa: BLE001 -- salvage must never
+                # replace the root-cause error
+                pass
+            raise
         finally:
             # ended or crashed: the checkpoint store is flushed and
             # closed, so a restore in this process reopens a whole log
             self._finalize()
         return self
+
+    def _stall_error(self) -> WindFlowError:
+        """The stall error, with the health plane's diagnosis (per-op
+        queue depth, frontier, last-advance age; the root-cause
+        operator) and the postmortem bundle it wrote."""
+        head = ("PipeGraph stalled: no replica made progress but the "
+                "graph has not terminated. ")
+        if self._health is None:
+            return WindFlowError(
+                head + "The health watchdog is off "
+                "(Config.health_watchdog): no diagnosis; run with it on "
+                "for the root cause")
+        try:
+            diag = self._health.diagnose_stall()
+            msg = head + self._health.format_diagnosis(diag)
+        except Exception as e:  # noqa: BLE001 -- a watchdog fault must
+            # not replace the stall error
+            msg = head + (f"(health diagnosis failed: "
+                          f"{type(e).__name__}: {e}"[:200] + ")")
+        err = WindFlowError(msg)
+        if self.config.health_postmortem_on_crash:
+            bundle = self._safe_postmortem("stall")
+            if bundle:
+                # this exception is bundled: the crash path skips it
+                err._wf_postmortem_bundle = bundle
+                err.args = (msg + f". Postmortem bundle: {bundle}",)
+        return err
+
+    def _write_crash_postmortem(self, exc: BaseException) -> None:
+        """The bundle of an abnormal end, unless this exception is the
+        stall error whose bundle ``_stall_error`` wrote."""
+        if self.config.health_postmortem_on_crash \
+                and getattr(exc, "_wf_postmortem_bundle", None) is None:
+            self._safe_postmortem(f"crash: {type(exc).__name__}: "
+                                  f"{exc}"[:300])
+
+    def _safe_postmortem(self, reason: str) -> Optional[str]:
+        try:
+            return self.dump_postmortem(reason=reason)
+        except Exception:  # noqa: BLE001 -- runs inside crash handlers
+            return None
 
     def restore(self, checkpoint_dir: Optional[str] = None) -> "PipeGraph":
         """Rebuild this composed-but-unstarted graph at the last complete
@@ -380,6 +496,7 @@ class PipeGraph:
             if not ticked:
                 break
             progress = True
+            self._prefetch_ticks += 1
         if not progress:
             # never deadlock on our own throttle
             for sr in self._source_replicas:
@@ -432,32 +549,348 @@ class PipeGraph:
     def getNumDroppedTuples(self) -> int:
         return self.get_num_dropped_tuples()
 
-    def stats(self) -> dict:
+    def to_dot(self) -> str:
+        """Graphviz DOT diagram of the graph (reference
+        ``pipegraph.hpp:560-576``)."""
+        from windflow_tpu_torch.monitoring.diagram import to_dot
+        return to_dot(self)
+
+    # -- observability: gauges, health, latency, traces ----------------------
+    def sample_gauges(self) -> None:
+        """Append one rolling-throughput sample (every ``stats()`` read
+        takes one)."""
+        total = sum(r.stats.inputs_received for op in self._operators
+                    if op.is_terminal for r in op.replicas)
+        self._thr_samples.append((time.monotonic(), total))
+
+    def health_tick(self) -> None:
+        """One watchdog evaluation (``monitoring/health.py``); with
+        ``Config.health_watchdog`` off this is one check."""
+        if self._health is not None:
+            self._health.sample()
+
+    def _guarded(self, plane, read, error_section=None) -> dict:
+        """A plane's section: ``{"enabled": False}`` without the plane,
+        and a failed read as its ``"error"``, so a telemetry read never
+        takes the pipeline or a stats dump down."""
+        if plane is None:
+            return {"enabled": False}
+        try:
+            return read()
+        except Exception as e:  # noqa: BLE001 -- see the docstring
+            out = {"enabled": True} if error_section is None \
+                else dict(error_section)
+            out["error"] = f"{type(e).__name__}: {e}"[:200]
+            return out
+
+    def _health_section(self) -> dict:
+        return self._guarded(self._health,
+                             lambda: self._health.section())
+
+    def _sweep_section(self) -> dict:
+        return self._guarded(self._ledger, lambda: self._ledger.section())
+
+    def _shard_section(self) -> dict:
+        return self._guarded(self._shard, lambda: self._shard.section())
+
+    def _durability_section(self) -> dict:
+        return self._guarded(self._durability,
+                             lambda: self._durability.section())
+
+    def _device_section(self) -> dict:
+        from windflow_tpu_torch.monitoring import device_metrics
+        return self._guarded(self, lambda: device_metrics.device_section(
+            self), error_section={})
+
+    def _wire_section(self) -> dict:
         from windflow_tpu_torch.wire import wire_section
+        return self._guarded(self, lambda: wire_section(self),
+                             error_section={"enabled": None})
+
+    def _preflight_section(self) -> dict:
+        # the graph preflight (PipeGraph.check) is not ported: no pass ran
+        return {"mode": "off", "check_ms": None, "diagnostics": None}
+
+    def _rolling_rate(self, window_s: float) -> float:
+        """Sunk tuples a second over at least the trailing ``window_s``."""
+        if len(self._thr_samples) < 2:
+            return 0.0
+        now_t, now_v = self._thr_samples[-1]
+        base = None
+        for t, v in self._thr_samples:
+            if now_t - t >= window_s:
+                base = (t, v)
+            else:
+                break
+        if base is None:
+            base = self._thr_samples[0]
+        dt = now_t - base[0]
+        return (now_v - base[1]) / dt if dt > 0 else 0.0
+
+    def op_frontier_and_depth(self, op) -> tuple:
+        """``(summed inbox depth, watermark frontier)`` of one operator;
+        the frontier is the MIN over replicas, so a stalled replica shows.
+        Shared by :meth:`gauges` and the health plane."""
+        from windflow_tpu_torch.batch import WM_MAX, WM_NONE
+        depth = 0
+        fronts = []
+        for rep in op.replicas:
+            depth += len(rep.inbox)
+            wm = rep.current_wm
+            if wm != WM_NONE and wm < WM_MAX:
+                fronts.append(wm)
+        return depth, (min(fronts) if fronts else None)
+
+    def gauges(self) -> dict:
+        """Point-in-time gauges: per-operator watermark lag and queue
+        depth, staging-pool occupancy, rolling throughput."""
+        from windflow_tpu_torch import staging
+        now = current_time_usecs()
+        per_op = {}
+        for op in self._operators:
+            depth, front = self.op_frontier_and_depth(op)
+            per_op[op.name] = {
+                "queue_depth": depth,
+                "watermark_frontier_usec": front,
+                "watermark_lag_usec":
+                    max(0, now - front) if front is not None else None,
+            }
+        return {
+            "sampled_at_usec": now,
+            "operators": per_op,
+            "staging_pool_held_bytes": staging.pools_stats()["held_bytes"],
+            "throughput_1s_tps": round(self._rolling_rate(1.0), 1),
+            "throughput_10s_tps": round(self._rolling_rate(10.0), 1),
+        }
+
+    def _latency_section(self) -> dict:
+        """Per-operator service spans and the staged→sunk latency
+        (p50/p95/p99), merged over replicas."""
+        from windflow_tpu_torch.monitoring.recorder import LatencyHistogram
+        per_op = {}
+        e2e = LatencyHistogram()
+        for op in self._operators:
+            h = LatencyHistogram()
+            for rep in op.replicas:
+                h.merge(rep.stats.service_hist)
+                e2e.merge(rep.stats.e2e_hist)   # nonzero only at sinks
+            per_op[op.name] = h.quantiles()
+        return {"service_usec_per_operator": per_op,
+                "end_to_end_usec": e2e.quantiles()}
+
+    def profile(self, duration_ms: float = 1000.0,
+                log_dir: Optional[str] = None) -> str:
+        """Drive the started graph for ``duration_ms`` (or to its end)
+        under ``torch.profiler`` and write the capture (a Chrome trace,
+        ``{name}_profile.json``) into ``log_dir`` / ``Config.profiler_dir``
+        (default ``{log_dir}/{name}_profile``).  Traced batches' steps run
+        inside ``record_function("op:<name> trace:<id>")``, so the
+        capture's device spans line up with :meth:`dump_trace`'s by trace
+        id.  Returns the capture directory."""
+        if not self._started:
+            raise WindFlowError("profile() needs a started graph: call "
+                                "start() first (run() returns only when "
+                                "the graph is done)")
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+        d = log_dir or self.config.profiler_dir \
+            or os.path.join(self.config.log_dir, f"{self.name}_profile")
+        os.makedirs(d, exist_ok=True)
+        self._last_profile_dir = d
+        activities = [ProfilerActivity.CPU]
+        if self.device is not None and self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with torch_profile(activities=activities) as prof:
+            deadline = time.monotonic() + duration_ms / 1e3
+            while time.monotonic() < deadline and not self.is_done():
+                if not self.step():
+                    break
+        prof.export_chrome_trace(os.path.join(d, f"{self.name}_profile.json"))
+        return d
+
+    def dump_trace(self, path: Optional[str] = None) -> str:
+        """Write the flight recorder's span events as Chrome-trace JSON
+        (``{name}_trace.json`` under ``Config.log_dir``), loadable in
+        ``chrome://tracing`` or Perfetto beside a :meth:`profile` capture
+        (``otherData`` names the annotation format and the capture
+        directory); the raw events go to ``{name}_events.json``.  Returns
+        the trace's path."""
+        if self._recorder is None:
+            raise WindFlowError(
+                "the flight recorder is off (Config.flight_recorder) or "
+                "the graph has not been built: nothing to dump")
+        from windflow_tpu_torch.monitoring.recorder import write_chrome_trace
+        d = self.config.log_dir
+        os.makedirs(d, exist_ok=True)
+        path = path or os.path.join(d, f"{self.name}_trace.json")
+        events = self._recorder.events()
+        write_chrome_trace(events, path, metadata={
+            "profiler_annotation_format": "op:<operator> trace:<trace_id>",
+            "profiler_dir": self._last_profile_dir
+            or self.config.profiler_dir
+            or os.path.join(self.config.log_dir, f"{self.name}_profile"),
+            "sweep": self._sweep_section(),
+            "shard": self._shard_section(),
+        })
+        root, ext = os.path.splitext(path)
+        base = root[:-len("_trace")] if root.endswith("_trace") else root
+        with open(f"{base}_events{ext or '.json'}", "w") as f:
+            json.dump(events, f)
+        return path
+
+    def stats(self) -> dict:
+        """Stats report with the JAX package's sections (reference
+        dashboard JSON, ``pipegraph.hpp:468-526``)."""
+        self.sample_gauges()
         attribute_member_stats(self)
         plane = self._megastep_plane
         reps = self._all_replicas
+        cfg = self.config
+        off = {"enabled": False}
         return {
             "PipeGraph_name": self.name,
-            "Device": str(self.device),
-            "Operators": [op.dump_stats() for op in self._operators],
-            "Backpressure": {
-                "throttle_events": self._throttle_events,
-                "max_inbox_depth": self._max_inbox_seen,
-                "max_inflight_device": self._max_inflight_device_seen,
-            },
+            "Mode": self.mode.value,
+            "Backpressure": f"ON (max_inflight_batches="
+                            f"{cfg.max_inflight_batches}, "
+                            f"max_inbox_messages={cfg.max_inbox_messages})",
+            "Backpressure_throttle_events": self._throttle_events,
+            "Max_inbox_depth_seen": self._max_inbox_seen,
+            "Max_inflight_device_batches_seen":
+                self._max_inflight_device_seen,
+            "Non_blocking": "ON",     # asynchronous device streams
+            "Thread_pinning": "OFF",
+            "Host_worker_threads": 0,
+            "Staging_pool": _staging_pool_stats(),
+            "Staging": {"Wire": self._wire_section()},
+            "Stage_prefetch_depth": cfg.stage_prefetch_depth,
+            "Stage_prefetch_ticks": self._prefetch_ticks,
+            "Dropped_tuples": self.get_num_dropped_tuples(),
+            "Operator_number": len(self._operators),
+            "Thread_number": 1,
+            "rss_size_kb": _rss_kb(),
             # wire bytes (the transfers) and logical bytes (the decoded
             # lanes): equal unless the wire plane compressed
             "Bytes_H2D_total": sum(r.stats.h2d_bytes for r in reps),
             "Bytes_H2D_logical_total": sum(r.stats.h2d_logical_bytes
                                            for r in reps),
-            "Staging": {"Wire": wire_section(self)},
+            "Bytes_D2H_total": sum(r.stats.d2h_bytes for r in reps),
+            "Flight_recorder": (self._recorder.summary()
+                                if self._recorder is not None else off),
+            "Preflight": self._preflight_section(),
+            "Latency": self._latency_section(),
+            "Latency_plane": off,
+            "Tenant": off,
+            "Roofline": off,
+            "Gauges": self.gauges(),
+            "Health": self._health_section(),
+            "Device": self._device_section(),
+            "Sweep": self._sweep_section(),
+            "Shard": self._shard_section(),
+            "IR_audit": off,
             "Megastep": (plane.summary() if plane is not None
                          else {"k": 1, "edges": [], "refused": []}),
-            "Durability": (self._durability.section()
-                           if self._durability is not None
-                           else {"enabled": False}),
+            "Durability": self._durability_section(),
+            "Reshard": off,
+            "Operators": [op.dump_stats() for op in self._operators],
         }
+
+    def dump_stats(self, log_dir: Optional[str] = None) -> str:
+        """Write ``stats()`` as ``{name}_stats.json`` (``tools/
+        wf_metrics.py`` renders it)."""
+        d = log_dir or self.config.log_dir
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{self.name}_stats.json")
+        with open(path, "w") as f:
+            json.dump(self.stats(), f, indent=2)
+        return path
+
+    def dump_postmortem(self, dir: Optional[str] = None,
+                        reason: str = "manual") -> str:
+        """Black-box bundle: the last ``stats()``, the flight recorder's
+        events, the health verdicts and stall attribution, the device
+        gauges, the step registry, the preflight findings, the sweep and
+        shard ledgers and the durability plane, one JSON file each, plus
+        ``manifest.json`` — what ``tools/wf_doctor.py`` renders and
+        checks.  Every section is guarded on its own (a failure lands in
+        the manifest's ``errors``): the crash path writes this exactly
+        when parts of the telemetry may be broken.  Returns the bundle's
+        directory."""
+        with self._postmortem_lock:
+            # the stats section re-enters the watchdog's sample: an
+            # auto-bundle fired there on this thread would re-enter the
+            # lock
+            if self._health is not None:
+                self._health._bundle_thread = threading.get_ident()
+            try:
+                return self._dump_postmortem_locked(dir, reason)
+            finally:
+                if self._health is not None:
+                    self._health._bundle_thread = None
+
+    def _dump_postmortem_locked(self, dir: Optional[str],
+                                reason: str) -> str:
+        d = dir or self.config.health_postmortem_dir \
+            or os.path.join(self.config.log_dir, f"{self.name}_postmortem")
+        os.makedirs(d, exist_ok=True)
+        files: List[str] = []
+        errors: dict = {}
+
+        def write(name: str, build) -> None:
+            try:
+                obj = build()
+                with open(os.path.join(d, name), "w") as f:
+                    json.dump(obj, f, indent=1, default=str)
+                files.append(name)
+            except Exception as e:  # noqa: BLE001 -- sections degrade
+                # one by one
+                errors[name] = f"{type(e).__name__}: {e}"[:300]
+
+        def jit_tables():
+            from windflow_tpu_torch.monitoring.jit_registry import \
+                default_registry
+            reg = default_registry()
+            return {"jit": reg.snapshot(), "totals": reg.totals()}
+
+        write("stats.json", self.stats)
+        write("events.json", lambda: self._recorder.events()
+              if self._recorder is not None else [])
+        write("health.json", lambda: self._health.section(sample_first=False)
+              if self._health is not None else {"enabled": False})
+        write("device.json", self._device_section)
+        write("jit.json", jit_tables)
+        write("sweep.json", self._sweep_section)
+        write("shard.json", self._shard_section)
+        write("durability.json", self._durability_section)
+        write("preflight.json", self._preflight_section)
+        from windflow_tpu_torch.monitoring.health import POSTMORTEM_SCHEMA
+        manifest = {
+            "schema": POSTMORTEM_SCHEMA,
+            "app": self.name,
+            "reason": reason,
+            "written_at_usec": current_time_usecs(),
+            "files": files,
+            "errors": errors,
+        }
+        with open(os.path.join(d, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        self._postmortem_dir = d
+        return d
+
+
+def _staging_pool_stats() -> dict:
+    """The staging pools' recycling counters (``stats()["Staging_pool"]``)."""
+    from windflow_tpu_torch import staging
+    return staging.pools_stats()
+
+
+def _rss_kb() -> float:
+    """Resident set size in KiB (reference ``get_MemUsage``)."""
+    try:
+        with open("/proc/self/statm") as f:
+            resident_pages = int(f.read().split()[1])
+        return resident_pages * (os.sysconf("SC_PAGE_SIZE") / 1024.0)
+    except (OSError, ValueError, IndexError):
+        return 0.0
 
 
 # ---------------------------------------------------------------------------

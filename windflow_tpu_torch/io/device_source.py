@@ -104,7 +104,8 @@ class DeviceSourceReplica(BaseSourceReplica):
         self.stats.device_programs_launched += 1
         self.emitter.emit_device_batch(
             DeviceBatch(payload, ts, valid, watermark=self.current_wm,
-                        size=self.op.capacity, ts_min=ts_lo, ts_max=ts_hi))
+                        size=self.op.capacity, ts_min=ts_lo, ts_max=ts_hi,
+                        trace=self.emitter._new_trace()))
         self._i += self.op.parallelism
         self._count_toward_punctuation(self.op.capacity)
         return True

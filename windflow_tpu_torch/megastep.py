@@ -40,16 +40,29 @@ inside the tail's step.  :func:`tail_kind` names every refusal; the
 stateful wavefront is one (it reads its per-rank lane counts on the host
 every step), where the JAX package folds it (its wavefront is a device
 loop): records are equal either way, only the eligibility differs.
+
+Observability: a group counts K dispatches on the tail's step-registry
+handle (one a row) and each capture as a compile, a recapture as a
+recompile (``monitoring/jit_registry.py``).  Traced batches of a group
+are stamped on the host at the group's launch, as in the JAX package:
+``collected`` and ``dispatched`` when the replay is enqueued, and, when
+the sampled wait falls in the group, ``device_done`` after a CUDA event
+recorded behind the replay has been waited on; each stamp carries
+``shared_k = K``.  Nothing of the recorder enters the capture: the
+captured body is the same with the recorder on or off.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 
-from windflow_tpu_torch.basic import WindFlowError
+from windflow_tpu_torch import staging
+from windflow_tpu_torch.basic import WindFlowError, current_time_usecs
 from windflow_tpu_torch.batch import WM_NONE, DeviceBatch, unpack_body
+from windflow_tpu_torch.monitoring import recorder as flightrec
 from windflow_tpu_torch.utils.tree import (tree_flatten, tree_map,
                                            tree_unflatten)
 
@@ -310,7 +323,9 @@ class MegastepEdge:
             return self._group
         body = self._body(step, pkt)
         if self.op.device.type == "cuda":
+            t0 = time.perf_counter()
             group = self._capture(body, pkt, carry)
+            self.op.watch.note_capture((time.perf_counter() - t0) * 1e3)
         else:
             group = _Group(body)
         self._group, self._group_step, self._group_sig = group, step, sig
@@ -415,6 +430,19 @@ class MegastepEdge:
         if self.kind == "ffat_tb":
             for i, p in enumerate(group):
                 self._wm_np[i] = p.wm_pane
+        # the trace lane at group times: collected and dispatched as the
+        # group launches (emitted→dispatched is each batch's real wait
+        # for its group), each stamp shared by the K batches
+        ring = rep.ring
+        traced = [p.trace for p in group if p.trace is not None] \
+            if ring is not None else ()
+        if traced:
+            t_disp = current_time_usecs()
+            for tr in traced:
+                ring.record(tr[0], flightrec.COLLECTED, t_disp,
+                            shared=self.k)
+                ring.record(tr[0], flightrec.DISPATCHED, t_disp,
+                            shared=self.k)
         if g.graph is None:
             carry, ys = g.body(carry, host.clone(),
                                torch.from_numpy(self._wm_np.copy())
@@ -444,6 +472,8 @@ class MegastepEdge:
             # the graph's outputs are rewritten by the next replay: one
             # clone a leaf, so nothing downstream views graph memory
             ys = tree_map(torch.clone, g.ys)
+        if traced:
+            self._stamp_device_done(traced, ys)
         self._commit_carry(carry)
         self.megasteps += 1
         self.batches += self.k
@@ -455,10 +485,30 @@ class MegastepEdge:
         self._emit(group, ys)
         self._post_hooks()
 
+    def _stamp_device_done(self, traced, ys) -> None:
+        """``device_done`` for the group's traced batches when the
+        sampled wait falls among them: one wait on an event behind the
+        group's work, one stamp shared by the K batches."""
+        rep = self.rep
+        every = rep.config.trace_device_sync_every
+        if not every:
+            return
+        before = rep._traced_seen
+        rep._traced_seen += len(traced)
+        if rep._traced_seen // every == before // every:
+            return
+        from windflow_tpu_torch.ops.gpu import wait_for_device
+        wait_for_device(ys[2])
+        t_done = current_time_usecs()
+        for tr in traced:
+            rep.ring.record(tr[0], flightrec.DEVICE_DONE, t_done,
+                            shared=self.k)
+
     def _emit(self, group, ys) -> None:
         """Each logical batch advances the tail replica's watermark and
-        counters exactly as its own step would, then rides the tail's
-        emitter downstream."""
+        counters exactly as its own step would (one dispatch a row in the
+        step registry), then rides the tail's emitter downstream with its
+        own trace lane."""
         rep, op, kind = self.rep, self.op, self.kind
         fused = op._fused_prelude is not None
         filt = bool(getattr(op, "_is_filter", False))
@@ -479,6 +529,9 @@ class MegastepEdge:
                 out = DeviceBatch(pay, out_ts[i], out_valid[i],
                                   watermark=p.wm, size=size, frontier=front,
                                   ts_max=p.ts_max, ts_min=p.ts_min)
+            out.trace = p.trace
+            staging.device_bytes.note(p.buf.nbytes, p.logical_nbytes)
+            op.watch.note()
             rep.stats.device_programs_launched += 1
             rep.stats.outputs_sent += out.known_size or 0
             rep.emitter.emit_device_batch(out)

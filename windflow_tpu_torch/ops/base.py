@@ -6,53 +6,26 @@ cooperative scheduler calls (graph/pipegraph.py); device work is enqueued
 on the card's stream and runs asynchronously.  End-of-stream follows the
 reference protocol: an EOS punctuation per input channel; when all have
 arrived, the replica flushes operator state and its emitter, forwards
-EOS, and terminates.  The monitoring planes of the JAX package are not
-ported yet: a replica keeps only the plain counters below.
+EOS, and terminates.  A replica keeps its ``StatsRecord``
+(``monitoring/stats.py``) and, with the flight recorder on, its span
+ring: ``_dispatch`` stamps ``collected`` on a
+traced batch and, at a sink, ``sunk`` plus the staged→sunk latency.
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 from collections import deque
 from typing import Any, Callable, List, Optional
 
 from windflow_tpu_torch.basic import (ExecutionMode, RoutingMode, TimePolicy,
-                                      WindFlowError, default_config)
+                                      WindFlowError, current_time_usecs,
+                                      default_config)
 from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
                                       WM_MAX, WM_NONE)
 from windflow_tpu_torch.context import RuntimeContext
-
-
-@dataclasses.dataclass
-class StatsRecord:
-    """Per-replica counters (reference ``stats_record.hpp:47-165``)."""
-
-    operator_name: str = ""
-    replica_index: int = 0
-    is_gpu: bool = False
-    inputs_received: int = 0
-    outputs_sent: int = 0
-    device_programs_launched: int = 0
-    #: bytes actually copied host→device (the wire bytes)
-    h2d_bytes: int = 0
-    #: bytes the staged lanes occupy decoded (equal to ``h2d_bytes``
-    #: unless the wire plane compressed the transfer)
-    h2d_logical_bytes: int = 0
-    d2h_bytes: int = 0
-    is_terminated: bool = False
-
-    def to_json(self) -> dict:
-        return {
-            "Replica_id": self.replica_index,
-            "Inputs_received": self.inputs_received,
-            "Outputs_sent": self.outputs_sent,
-            "Is_terminated": self.is_terminated,
-            "Device_programs_launched": self.device_programs_launched,
-            "Bytes_H2D": self.h2d_bytes,
-            "Bytes_H2D_logical": self.h2d_logical_bytes,
-            "Bytes_D2H": self.d2h_bytes,
-        }
+from windflow_tpu_torch.monitoring import recorder as flightrec
+from windflow_tpu_torch.monitoring.stats import StatsRecord
 
 
 class Replica:
@@ -79,6 +52,12 @@ class Replica:
         self.current_wm = WM_NONE
         self.stats = StatsRecord(operator_name=op.name, replica_index=index,
                                  is_gpu=op.is_gpu)
+        #: flight-recorder span ring (monitoring/recorder.py), bound by
+        #: PipeGraph._build when Config.flight_recorder is on; None
+        #: leaves one `is not None` check a batch
+        self.ring = None
+        #: traced batches seen (the device_done cadence)
+        self._traced_seen = 0
         self.mode = ExecutionMode.DEFAULT
         self.time_policy = TimePolicy.INGRESS
         #: origin id of the input being processed (HostBatch.ids): relays
@@ -147,6 +126,13 @@ class Replica:
             if self.emitter is not None:
                 self.emitter.propagate_punctuation(self.current_wm)
             return
+        # flight recorder: span events of the 1-in-N traced batch; an
+        # untraced batch costs one attribute check
+        tr = msg.trace if self.ring is not None else None
+        if tr is not None:
+            self.ring.record(tr[0], flightrec.COLLECTED,
+                             current_time_usecs())
+        self.stats.start_sample()
         if isinstance(msg, DeviceBatch):
             self._advance_wm(msg.watermark)
             self.stats.inputs_received += msg.known_size or 0
@@ -168,6 +154,13 @@ class Replica:
                 self.context._set_context(ts, msg.watermark)
                 self.process_single(item, ts, msg.watermark)
             self.cur_tid = None
+        self.stats.end_sample()
+        if tr is not None and self.op.is_terminal:
+            # the staged→sunk span closes at sink receipt (a deferred
+            # columnar sink copies later)
+            now = current_time_usecs()
+            self.ring.record(tr[0], flightrec.SUNK, now)
+            self.stats.e2e_hist.add(now - tr[1])
 
     def _advance_wm(self, wm: int) -> None:
         if wm != WM_NONE and wm > self.current_wm:
@@ -213,6 +206,8 @@ class Operator:
     #: key compaction (parallel/compaction.py): the KeyCompactor the
     #: graph build attached to this keyed consumer, else None
     _compactor = None
+    #: the step registry's handle (``watch``), made lazily
+    _watch = None
 
     def __init__(self, name: str, parallelism: int,
                  routing: RoutingMode = RoutingMode.FORWARD,
@@ -249,6 +244,25 @@ class Operator:
             r.mode = mode
             r.time_policy = time_policy
         return self.replicas
+
+    def key_space(self) -> Optional[int]:
+        """Declared dense key-space bound of a keyed operator
+        (``withMaxKeys`` / dense ``withNumKeySlots``), or None for
+        arbitrary or interned keys.  The shard ledger keeps an exact
+        per-key histogram for a bounded space and the count-min sketch
+        otherwise."""
+        return None
+
+    @property
+    def watch(self):
+        """This operator's handle in the step registry
+        (``monitoring/jit_registry.py``), made at its first use."""
+        w = self._watch
+        if w is None:
+            from windflow_tpu_torch.monitoring.jit_registry import \
+                default_registry
+            w = self._watch = default_registry().watch(self.name)
+        return w
 
     def num_dropped_tuples(self) -> int:
         """Tuples this operator dropped as too late (time windows);

@@ -11,14 +11,23 @@
 
 Both run in DEFAULT mode only and need an upstream output batch size > 0,
 as in the reference.
+
+``_GPUReplica.process_device_batch`` is the one step site of every device
+operator (map, filter, chained, reduce, stateful, windows, fused hops):
+it counts the dispatch in the step registry and, on a traced batch,
+stamps ``dispatched``, wraps the step in ``record_function("op:<name>
+trace:<id>")`` for a ``torch.profiler`` capture, and on every
+``trace_device_sync_every``-th traced batch waits for the step's device
+work to stamp ``device_done``.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-from windflow_tpu_torch.basic import RoutingMode
+from windflow_tpu_torch.basic import RoutingMode, current_time_usecs
 from windflow_tpu_torch.batch import DeviceBatch
+from windflow_tpu_torch.monitoring import recorder as flightrec
 from windflow_tpu_torch.ops.base import Operator, Replica
 from windflow_tpu_torch.utils.tree import per_record, tree_map
 
@@ -35,11 +44,47 @@ class _GPUReplica(Replica):
         return self.op._step(batch)
 
     def process_device_batch(self, batch: DeviceBatch) -> None:
-        out = self._op_step(batch)
+        tr = batch.trace
+        if tr is not None:
+            # profiler bridge: a torch.profiler capture (PipeGraph.profile)
+            # lines up with dump_trace()'s spans by trace id
+            from torch.autograd.profiler import record_function
+            with record_function(f"op:{self.op.name} trace:{tr[0]}"):
+                out = self._op_step(batch)
+        else:
+            out = self._op_step(batch)
+        fx = self.op._fusion_exec
+        (self.op if fx is None else fx).watch.note_step(batch, out, self.op)
         self.stats.device_programs_launched += 1
+        if self.ring is not None and tr is not None:
+            # `dispatched` stamps the enqueue; the device work's end is
+            # seen only by waiting for it, on every M-th traced batch
+            self.ring.record(tr[0], flightrec.DISPATCHED,
+                             current_time_usecs())
+            self._traced_seen += 1
+            every = self.config.trace_device_sync_every
+            if out is not None and every \
+                    and self._traced_seen % every == 0:
+                wait_for_device(out.valid)
+                self.ring.record(tr[0], flightrec.DEVICE_DONE,
+                                 current_time_usecs())
         if out is not None:
+            if out.trace is None:
+                # steps build fresh batches: the lane is relayed here
+                out.trace = tr
             self.stats.outputs_sent += out.known_size or 0
             self.emitter.emit_device_batch(out)
+
+
+def wait_for_device(t) -> None:
+    """Wait until the work queued so far on ``t``'s stream is done: a
+    CUDA event recorded now, then synchronized (the flight recorder's
+    sampled ``device_done``; a CPU tensor is ready already)."""
+    if t.device.type == "cuda":
+        import torch
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        ev.synchronize()
 
 
 class MapGPU(Operator):

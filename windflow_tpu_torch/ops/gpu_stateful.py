@@ -296,6 +296,11 @@ class _StatefulGPUBase(Operator):
         #: compaction stats of the compacted route (device tensors)
         self._cstats = None
 
+    def key_space(self):
+        # dense extractors are bounded by the slot table; interned key
+        # spaces are not (slots follow arrival order)
+        return self.num_key_slots if self.dense_keys else None
+
     # -- key compaction --------------------------------------------------------
     def enable_compaction(self, comp) -> None:
         """Attach a pinned KeyCompactor (graph build): the card-resident

@@ -156,6 +156,11 @@ class ReduceGPU(Operator):
         self._drop_steps = 0
         self._pending_drop = None
 
+    def key_space(self):
+        # the dense-table contract bounds the key space where routing and
+        # state do
+        return self.max_keys if self.key_extractor is not None else None
+
     def enable_compaction(self, comp) -> None:
         """Attach a KeyCompactor (graph build, ``Config.key_compaction``):
         a declared-monoid reduce over an undeclared int32 key space folds

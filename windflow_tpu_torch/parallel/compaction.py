@@ -23,9 +23,10 @@
   HostKeyProbe`), and, every ``reseed_every`` batches, from the steps'
   miss rings (one device read).  Pinned compactors (stateful, windows:
   slots index live state) never evict; evictable ones (the per-batch
-  reduce) recycle their coldest slots when a shard sketch ranks them.
-  The shard sketch is ROADMAP A8, so no port graph binds one yet: a
-  reseed only fills free slots, and ``churn`` stays 0.
+  reduce) recycle their coldest slots for candidates the consumer's
+  shard sketch (``monitoring/shard_ledger.ShardSketch``, bound by
+  :func:`attach_compaction`) estimates at least twice as hot: the
+  ``churn`` counter.
 * **Graph attachment** (``:896-1013``).  :func:`attach_compaction` gives
   every qualifying keyed consumer its compactor and wires the feeding
   emitters for admission and placement.
@@ -465,7 +466,7 @@ class KeyCompactor:
         self.full_rejects = 0     # table full at admission time
         self.sentinel_rejects = 0  # real keys equal to KEY_SENTINEL seen
         self._batches = 0
-        self._sketch = None       # shard sketch (ROADMAP A8): ranks keys
+        self._sketch = None       # the consumer's shard sketch: ranks keys
         self._stats_getters = []  # the consumers' device cstats
 
     # -- wiring --------------------------------------------------------------
@@ -647,6 +648,7 @@ class KeyCompactor:
         cands = self._miss_candidates()
         est = {}
         if self._sketch is not None:
+            # the sketch's device states are read here (reseed cadence)
             for k, e in self._sketch.hot_candidates(self.slots):
                 est[int(np.int32(int(k)))] = int(e)
         for k in cands:
@@ -690,7 +692,14 @@ class KeyCompactor:
         None (no sketch: nothing to rank by, so nothing is evicted)."""
         if self._sketch is None or not self._key_slot:
             return None
-        out = sorted((self._sketch._estimate(k), k) for k in self._key_slot)
+        out = []
+        for k in self._key_slot:
+            try:
+                out.append((self._sketch._estimate(k), k))
+            except Exception:  # noqa: BLE001 -- an exact-histogram
+                # sketch has no count-min: nothing to rank by this round
+                return None
+        out.sort()
         return out
 
     # -- read path -----------------------------------------------------------
@@ -768,10 +777,11 @@ class KeyCompactor:
 # ---------------------------------------------------------------------------
 
 def attach_compaction(graph) -> None:
-    """Attach a KeyCompactor to every qualifying keyed consumer and wire
-    the feeding emitters for host admission and placement.  Runs after
-    fusion (preludes installed) and the wiring, before any step; with
-    ``Config.key_compaction`` off it never runs."""
+    """Attach a KeyCompactor to every qualifying keyed consumer, bind the
+    consumer's shard sketch to it, and wire the feeding emitters for host
+    admission and placement.  Runs after fusion (preludes installed), the
+    wiring and the shard plane (sketches attached), before any step;
+    with ``Config.key_compaction`` off it never runs."""
     from windflow_tpu_torch.graph.pipegraph import _upstream_map
     from windflow_tpu_torch.monitoring.shard_ledger import HostKeyProbe
     from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
@@ -787,6 +797,7 @@ def attach_compaction(graph) -> None:
     slots = max(2, int(getattr(cfg, "key_compaction_slots", 1024)))
     reseed = max(1, int(getattr(cfg, "key_compaction_reseed", 64)))
     upstreams = _upstream_map(graph._edges())
+    sketches = graph._shard._sketches if graph._shard is not None else {}
 
     def host_fed(op) -> bool:
         ups = upstreams.get(id(op), (op, []))[1]
@@ -823,6 +834,7 @@ def attach_compaction(graph) -> None:
                                 name=op.name, device=graph.device)
         if comp is None:
             continue
+        comp.bind_sketch(sketches.get(id(op)))
         op.enable_compaction(comp)
 
     def visit(em):
@@ -852,7 +864,11 @@ def attach_compaction(graph) -> None:
         elif isinstance(em, DeviceStageEmitter):
             kx = consumer.key_extractor
             if kx is not None and consumer._fused_prelude is None:
-                em._shard_probe = HostKeyProbe(None, kx, compactor=comp)
+                if em._shard_probe is not None:
+                    em._shard_probe.compactor = comp
+                else:
+                    em._shard_probe = HostKeyProbe(None, kx,
+                                                   compactor=comp)
 
     for op in graph._operators:
         for rep in op.replicas:

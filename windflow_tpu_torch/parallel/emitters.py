@@ -40,9 +40,19 @@ compactor at parallelism > 1, places slotted keys by ``slot % n``; the
 device keyby applies the same placement on the card; the plain staging
 emitter admits through its key probe
 (``monitoring/shard_ledger.HostKeyProbe``).  :class:`KeyInterner` is the
-stateful operators' host key -> slot map.  Not ported: the shard-plane
-sketches on these emitters (ROADMAP A8), reshard overrides and hot-key
-pre-aggregation (A11), and the mesh's ``AlignedMeshStageEmitter`` (A10).
+stateful operators' host key -> slot map.
+
+Observability (``monitoring/``), bound by ``PipeGraph._build`` through
+``bind_observability``: an emitter where a batch is born (a host batch
+flushed, a device batch staged) draws the flight recorder's sampling
+decision and stamps ``emitted`` or ``staged`` on a traced batch; the
+shard plane's key-skew sketch (``monitoring/shard_ledger.ShardSketch``)
+rides the keyed emitters: host-side on the keyed staging edge (its key
+column and per-destination counts exist there), from one sampled key a
+flushed batch on the host KEYBY edge, and on the card inside the device
+keyby split (``device_sketch_update``, no host read).  Not ported:
+reshard overrides and hot-key pre-aggregation (ROADMAP A11), and the
+mesh's ``AlignedMeshStageEmitter`` (A10).
 """
 
 from __future__ import annotations
@@ -54,6 +64,7 @@ import numpy as np
 from windflow_tpu_torch import staging
 from windflow_tpu_torch.basic import (RoutingMode, WindFlowError, int32_key,
                                       stable_hash)
+from windflow_tpu_torch.monitoring import recorder as flightrec
 from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
                                       WM_NONE, columns_to_device,
                                       device_to_host, host_to_device,
@@ -157,12 +168,31 @@ class Emitter:
                  output_batch_size: int) -> None:
         self.dests = list(dests)
         self.output_batch_size = output_batch_size
-        #: the owning replica's stats record (transfer byte counters),
-        #: bound by PipeGraph._build
+        #: bound by PipeGraph._build through the owning replica: its
+        #: stats record (transfer byte counters), its span ring and the
+        #: graph's FlightRecorder (trace birth); ring and flight are None
+        #: with the recorder off
         self.stats = None
+        self.ring = None
+        self.flight = None
 
-    def bind_stats(self, stats) -> None:
+    def bind_observability(self, stats, ring=None, flight=None) -> None:
+        """Attach the owning replica's stats and ring and the graph's
+        recorder; compound emitters pass the binding on."""
         self.stats = stats
+        self.ring = ring
+        self.flight = flight
+
+    def _new_trace(self, stage: int = flightrec.EMITTED):
+        """Trace lane of a batch born here: the 1-in-N sampling decision
+        and the birth event; None (one check) with the recorder off or
+        an unsampled batch."""
+        if self.flight is None:
+            return None
+        tr = self.flight.maybe_trace()
+        if tr is not None and self.ring is not None:
+            self.ring.record(tr[0], stage, tr[1])
+        return tr
 
     def emit(self, item: Any, ts: int, wm: int,
              shared: bool = False, tid=None) -> None:
@@ -255,7 +285,8 @@ class ForwardEmitter(Emitter):
         if ob.items:
             self._send(d, HostBatch(ob.items, ob.tss, ob.wm,
                                     shared=ob.shared,
-                                    ids=ob.ids_or_none()))
+                                    ids=ob.ids_or_none(),
+                                    trace=self._new_trace()))
             self._open[d] = _OpenBatch()
 
     def emit_host_batch(self, hb):
@@ -280,6 +311,9 @@ class KeyByEmitter(Emitter):
         super().__init__(dests, output_batch_size)
         self.key_extractor = key_extractor
         self._open = [_OpenBatch() for _ in dests]
+        #: shard-plane sketch, attached at graph build: a flushed batch
+        #: credits its shard exactly and its first key as the sample
+        self._sketch = None
 
     def emit(self, item, ts, wm, shared=False, tid=None):
         d = stable_hash(self.key_extractor(item)) % len(self.dests)
@@ -290,10 +324,18 @@ class KeyByEmitter(Emitter):
 
     def _flush_dest(self, d):
         ob = self._open[d]
+        if ob.items and self._sketch is not None:
+            try:
+                key = self.key_extractor(ob.items[0])
+            except Exception:  # noqa: BLE001 -- a sample of a user
+                # function: the load below still counts
+                key = None
+            self._sketch.note_flush(d, len(ob.items), key)
         if ob.items:
             self._send(d, HostBatch(ob.items, ob.tss, ob.wm,
                                     shared=ob.shared,
-                                    ids=ob.ids_or_none()))
+                                    ids=ob.ids_or_none(),
+                                    trace=self._new_trace()))
             self._open[d] = _OpenBatch()
 
     def flush(self, wm):
@@ -320,7 +362,8 @@ class BroadcastEmitter(Emitter):
         if self._ob.items:
             b = HostBatch(self._ob.items, self._ob.tss, self._ob.wm,
                           shared=len(self.dests) > 1 or self._ob.shared,
-                          ids=self._ob.ids_or_none())
+                          ids=self._ob.ids_or_none(),
+                          trace=self._new_trace())
             for d in range(len(self.dests)):
                 self._send(d, b)
             self._ob = _OpenBatch()
@@ -329,7 +372,7 @@ class BroadcastEmitter(Emitter):
         self.flush(hb.watermark)
         if len(self.dests) > 1:
             hb = HostBatch(hb.items, hb.tss, hb.watermark, shared=True,
-                           ids=hb.ids)
+                           ids=hb.ids, trace=hb.trace)
         for d in range(len(self.dests)):
             self._send(d, hb)
 
@@ -347,10 +390,11 @@ class _StagedPacket:
     time-window tail."""
 
     __slots__ = ("buf", "fmt", "wm", "frontier", "ts_min", "ts_max", "n",
-                 "pool", "treedef", "dtypes", "capacity", "wm_pane")
+                 "pool", "treedef", "dtypes", "capacity", "wm_pane", "trace",
+                 "logical_nbytes")
 
     def __init__(self, buf, fmt, wm, frontier, ts_min, ts_max, n, pool,
-                 treedef, dtypes, capacity):
+                 treedef, dtypes, capacity, trace=None, logical_nbytes=None):
         self.buf = buf
         self.fmt = fmt
         self.wm = wm
@@ -363,6 +407,9 @@ class _StagedPacket:
         self.dtypes = dtypes
         self.capacity = capacity
         self.wm_pane = None
+        #: the flight recorder's lane, drawn when the batch was staged
+        self.trace = trace
+        self.logical_nbytes = logical_nbytes
 
 
 class DeviceStageEmitter(Emitter):
@@ -547,7 +594,9 @@ class DeviceStageEmitter(Emitter):
         self.packed_batches += 1
         pkt = _StagedPacket(buf, fmt, wm, self._frontier, self._b_ts_min,
                             self._b_ts_max, b.n, b.pool, self._b_treedef,
-                            self._b_dtypes, b.capacity)
+                            self._b_dtypes, b.capacity,
+                            self._new_trace(flightrec.STAGED),
+                            logical_nbytes)
         ms = self._megastep
         if ms is not None and ms.offer(pkt):
             return
@@ -563,7 +612,8 @@ class DeviceStageEmitter(Emitter):
             pkt.buf, pkt.treedef, pkt.dtypes, pkt.capacity, pkt.n,
             self.device, watermark=pkt.wm, frontier=pkt.frontier,
             ts_max=pkt.ts_max, ts_min=pkt.ts_min, pool=pkt.pool,
-            wire=pkt.fmt))
+            wire=pkt.fmt, trace=pkt.trace,
+            logical_nbytes=pkt.logical_nbytes))
 
     def _emit_columns_chunked(self, cols, tss, wm, row_wms=None):
         """Chunk-accumulate route (non-packable lanes): full batches go
@@ -599,7 +649,8 @@ class DeviceStageEmitter(Emitter):
     def _stage_columns(self, cols, tss, wm):
         db = columns_to_device(cols, tss, self.output_batch_size,
                                self.device, watermark=wm,
-                               frontier=self._frontier)
+                               frontier=self._frontier,
+                               trace=self._new_trace(flightrec.STAGED))
         if self.stats is not None:
             self.stats.h2d_bytes += transfer_nbytes(db)
             self.stats.h2d_logical_bytes += transfer_nbytes(db)
@@ -640,7 +691,8 @@ class DeviceStageEmitter(Emitter):
         hb = HostBatch(self._ob.items, self._ob.tss, self._ob.wm)
         self._ob = _OpenBatch()
         db = host_to_device(hb, capacity=self.output_batch_size,
-                            device=self.device, frontier=self._frontier)
+                            device=self.device, frontier=self._frontier,
+                            trace=self._new_trace(flightrec.STAGED))
         if self.stats is not None:
             self.stats.h2d_bytes += transfer_nbytes(db)
             self.stats.h2d_logical_bytes += transfer_nbytes(db)
@@ -729,11 +781,16 @@ class KeyedDeviceStageEmitter(Emitter):
         #: evictable compactor with placement_override routes slotted
         #: keys by ``slot % n`` instead of the splitmix hash
         self._compactor = None
+        #: shard-plane sketch (attached at graph build): the record path
+        #: buffers the routed int32 keys and updates a bulk every 256;
+        #: the columnar path updates from the key column and the counts
+        self._sketch = None
+        self._sk_buf = []
 
-    def bind_stats(self, stats):
-        super().bind_stats(stats)
+    def bind_observability(self, stats, ring=None, flight=None):
+        super().bind_observability(stats, ring, flight)
         for e in self._inner:
-            e.bind_stats(stats)
+            e.bind_observability(stats, ring, flight)
 
     @property
     def packed_batches(self) -> int:
@@ -763,6 +820,19 @@ class KeyedDeviceStageEmitter(Emitter):
         if d is None:
             d = splitmix64_int(k32) % len(self.dests)
         self._inner[d].emit(item, ts, wm)
+        if self._sketch is not None:
+            self._sk_buf.append(k32)
+            if len(self._sk_buf) >= 256:
+                self._drain_sketch_buf()
+
+    def _drain_sketch_buf(self):
+        buf, self._sk_buf = self._sk_buf, []
+        try:
+            # the placement counts come from the same splitmix hash
+            self._sketch.update_host(np.asarray(buf, np.int64))
+        except Exception:  # noqa: BLE001 -- a sketch failure drops the
+            # sketch, never routing
+            self._sketch = None
 
     def emit_columns(self, cols, tss, wm, row_wms=None):
         n = len(self.dests)
@@ -781,6 +851,11 @@ class KeyedDeviceStageEmitter(Emitter):
         else:
             dest = (splitmix64_np(keys) % np.uint64(n)).astype(np.int64)
         counts = np.bincount(dest, minlength=n)
+        if self._sketch is not None:
+            try:
+                self._sketch.update_host(keys, counts=counts)
+            except Exception:  # noqa: BLE001 -- as in _drain_sketch_buf
+                self._sketch = None
         for d in range(n):
             if counts[d]:
                 idx = np.nonzero(dest == d)[0]
@@ -795,6 +870,8 @@ class KeyedDeviceStageEmitter(Emitter):
             "device keyed edges use DeviceKeyByEmitter")
 
     def flush(self, wm):
+        if self._sketch is not None and self._sk_buf:
+            self._drain_sketch_buf()
         for e in self._inner:
             e.flush(wm)
 
@@ -810,7 +887,7 @@ def _mask_view(batch: DeviceBatch, mask, keys=None) -> DeviceBatch:
     return DeviceBatch(batch.payload, batch.ts, mask, keys=keys,
                        watermark=batch.watermark, size=None,
                        frontier=batch.frontier, ts_max=batch.ts_max,
-                       ts_min=batch.ts_min)
+                       ts_min=batch.ts_min, trace=batch.trace)
 
 
 class DevicePassEmitter(Emitter):
@@ -844,7 +921,9 @@ class DeviceKeyByEmitter(Emitter):
     batch's keys lane (a chain forwarding them) is used when present.
     With a compactor attached (an evictable one at parallelism > 1), a
     slotted key goes to ``slot % n`` instead, the keyed staging
-    emitter's placement."""
+    emitter's placement.  With a shard sketch attached, the split also
+    updates the sketch's device state in place (``device_sketch_update``:
+    a few ``index_add_`` passes, no host read)."""
 
     can_emit_host_items = False
 
@@ -852,11 +931,23 @@ class DeviceKeyByEmitter(Emitter):
         super().__init__(dests, output_batch_size=0)
         self.key_extractor = key_extractor
         self._compactor = None
+        #: shard-plane sketch and its device state (made at the first
+        #: sketched batch); None leaves one check a batch
+        self._sketch = None
+        self._sk_state = None
+        #: the split's handle in the step registry (a non-hop program)
+        self._watch = None
 
     def attach_compactor(self, comp) -> None:
         """The remap placement override (graph build): the compactor's
         tables ride the split as two read-only operands."""
         self._compactor = comp
+
+    def attach_shard_sketch(self, sketch) -> None:
+        """Fold the shard-plane sketch update into the split (graph
+        build); the ledger reads the state at stats cadence."""
+        self._sketch = sketch
+        sketch.register_device_state(lambda: self._sk_state)
 
     def split(self, batch: DeviceBatch):
         """``(keys, masks)``: the int32 key lane and one bool mask a
@@ -875,9 +966,23 @@ class DeviceKeyByEmitter(Emitter):
             slot, hit = lookup_slots(tk, tsl, keys, batch.valid)
             h = torch.where(hit, (slot % n).to(h.dtype), h)
         dest = torch.where(batch.valid, h, n)
+        if self._sketch is not None:
+            from windflow_tpu_torch.monitoring.shard_ledger import (
+                device_sketch_init, device_sketch_update)
+            if self._sk_state is None:
+                self._sk_state = device_sketch_init(n, keys.device)
+            device_sketch_update(self._sk_state, keys, batch.valid, n,
+                                 dest=dest)
         return keys, [dest == d for d in range(n)]
 
     def emit_device_batch(self, batch):
+        w = self._watch
+        if w is None:
+            from windflow_tpu_torch.monitoring.jit_registry import \
+                default_registry
+            w = self._watch = default_registry().watch(
+                "emitter.device_keyby_split")
+        w.note()
         keys, masks = self.split(batch)
         for d, mask in enumerate(masks):
             self._send(d, _mask_view(batch, mask, keys))
@@ -892,9 +997,9 @@ class DeviceToHostEmitter(Emitter):
         super().__init__(inner.dests, inner.output_batch_size)
         self.inner = inner
 
-    def bind_stats(self, stats):
-        super().bind_stats(stats)
-        self.inner.bind_stats(stats)
+    def bind_observability(self, stats, ring=None, flight=None):
+        super().bind_observability(stats, ring, flight)
+        self.inner.bind_observability(stats, ring, flight)
 
     def emit(self, item, ts, wm, shared=False, tid=None):
         self.inner.emit(item, ts, wm, shared, tid=tid)
@@ -970,10 +1075,10 @@ class SplittingEmitter(Emitter):
         #: capacity -> True (mask split) / False (host route)
         self._device_split = {}
 
-    def bind_stats(self, stats):
-        super().bind_stats(stats)
+    def bind_observability(self, stats, ring=None, flight=None):
+        super().bind_observability(stats, ring, flight)
         for b in self.branches:
-            b.bind_stats(stats)
+            b.bind_observability(stats, ring, flight)
 
     def emit(self, item, ts, wm, shared=False, tid=None):
         self._route(item, ts, wm, self.split_fn(item), shared, tid)

@@ -20,6 +20,9 @@ The port of ``windflow_tpu/staging.py``:
   buffers (``wire.py``) vary in size with the data, so they are
   acquired at their size class and the pool's exact-size slots recycle
   them across codec churn.
+* ``device_bytes`` — the process-wide staged-transfer gauge: bytes
+  copied host→device (and their decoded size), batches staged; read by
+  the ``Device`` section of ``PipeGraph.stats()``.
 
 Buffer layout (shared with ``batch.py``'s unpack)::
 
@@ -88,6 +91,8 @@ class StagingPool:
         self.hits = 0
         self.misses = 0
         self.releases = 0
+        self.drops = 0
+        self.gate_waits = 0
 
     def _alloc(self, nwords: int) -> np.ndarray:
         if not self.pinned:
@@ -123,6 +128,7 @@ class StagingPool:
             return self._alloc(nwords)
         buf, gate = entry
         if gate is not None:
+            self.gate_waits += 1
             gate.synchronize()
         return buf
 
@@ -139,12 +145,74 @@ class StagingPool:
                 self._held_bytes += buf.nbytes
                 self.releases += 1
                 return
+            self.drops += 1
         if gate is not None:
             gate.synchronize()
+
+    def stats(self) -> dict:
+        """Counter snapshot (``PipeGraph.stats()["Staging_pool"]``)."""
+        total = self.hits + self.misses
+        with self._lock:
+            held = self._held_bytes
+        return {
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": round(self.hits / total, 4) if total else 0.0,
+            "releases": self.releases,
+            "drops_at_capacity": self.drops,
+            "gate_waits": self.gate_waits,
+            "held_bytes": held,
+            "depth": self.depth,
+        }
 
 
 _pools = {}
 _pools_lock = threading.Lock()
+
+
+def pools_stats() -> dict:
+    """``StagingPool.stats`` summed over the process's pools (pinned and
+    plain)."""
+    with _pools_lock:
+        pools = list(_pools.values())
+    out = {"hits": 0, "misses": 0, "releases": 0, "drops_at_capacity": 0,
+           "gate_waits": 0, "held_bytes": 0, "depth": DEFAULT_DEPTH}
+    for p in pools:
+        for k, v in p.stats().items():
+            if k not in ("hit_rate", "depth"):
+                out[k] += v
+    total = out["hits"] + out["misses"]
+    out["hit_rate"] = round(out["hits"] / total, 4) if total else 0.0
+    return out
+
+
+class _DeviceBytes:
+    """Process-wide staged-transfer accounting: wire bytes actually
+    copied host→device, their decoded (logical) size, and batches.
+    Plain int adds at staging time."""
+
+    __slots__ = ("staged_bytes_total", "staged_batches_total",
+                 "logical_bytes_total")
+
+    def __init__(self) -> None:
+        self.staged_bytes_total = 0
+        self.staged_batches_total = 0
+        self.logical_bytes_total = 0
+
+    def note(self, nbytes: int, logical_nbytes: Optional[int] = None) -> None:
+        self.staged_bytes_total += nbytes
+        self.logical_bytes_total += (logical_nbytes if logical_nbytes
+                                     is not None else nbytes)
+        self.staged_batches_total += 1
+
+    def reset(self) -> None:
+        self.staged_bytes_total = 0
+        self.staged_batches_total = 0
+        self.logical_bytes_total = 0
+
+
+#: the staged-byte gauge (shared by every graph, like the pools)
+device_bytes = _DeviceBytes()
 
 
 def pool_for(device) -> StagingPool:

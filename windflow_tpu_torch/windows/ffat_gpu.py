@@ -92,6 +92,7 @@ class FfatGPUReplica(_GPUReplica):
                 return
             outs = op._flush_tb(0) if op.is_tb else op._flush()
         for out in outs:
+            op.watch.note()
             self.stats.device_programs_launched += 1
             self.stats.outputs_sent += out.size
             self.emitter.emit_device_batch(out)
@@ -206,6 +207,14 @@ class FfatWindowsGPU(Operator):
         self._eos_replicas = 0
         #: compaction stats of a compacted key space (device tensors)
         self._cstats = None
+
+    def key_space(self):
+        # the dense pane state bounds the key space where the step does; a
+        # compacted key space is unbounded to routing (only the state is
+        # slot-dense)
+        if self._compactor is not None:
+            return None
+        return self.max_keys if self.key_extractor is not None else None
 
     def enable_compaction(self, comp) -> None:
         """Attach a pinned KeyCompactor (graph build): ``max_keys`` becomes
