@@ -211,6 +211,35 @@ Phases (each exits nonzero on failure; none is skipped):
    * (d) a graph whose sink stops draining: ``run()`` raises
      ``WindFlowError`` naming it, ``dump_postmortem`` writes a bundle and
      ``tools/wf_doctor.py --check`` passes it (a subprocess).
+11. drive the observability plane, part two (``plane_runs``, 60 s
+   budget), 16 batches of 262,144 tuples a run, launch counts set to 0
+   just before each run and read just after; every run's records and
+   launches equal its twin with every observability plane off (f):
+   * (a) the calibration probes (``windflow_tpu_torch.monitoring.
+     calibrate``) write ``calibration.json``: every single-device
+     constant measured, ``tools/wf_calibrate.py --check`` exits 0, and
+     with it installed every constant reads ``calibrated(...)``; each
+     constant printed beside ``nvidia-smi``'s name and power limit;
+   * (b) (i)'s count windows (event time, wire off), both combiners, at
+     K = 1 and K = 8, every batch traced and waited on, under a generous
+     SLO (health OK): each trace's five segments sum to its span; at
+     K = 8 ``emitted_to_dispatched`` dominates; a fresh K = 8 run under
+     half of K = 8's p99 latches ``SLO_VIOLATED`` on the window naming
+     that segment, and ``tools/wf_slo.py`` on its ``dump_stats`` plans
+     ``set_megastep_sweeps`` with ``recommended_k < 8``;
+   * (c) two tenants in one process, (i)'s declared-sum window and 7
+     (d)'s compacted reduce (sum): each tenant's staged and fetched
+     bytes equal its graph's totals, resident bytes in (0,
+     ``torch.cuda.memory_allocated()``], attributed fraction >= 0.9,
+     ``tools/wf_tenant.py --check`` passes; the reduce again under a
+     budget of half its resident bytes latches ``OVER_BUDGET`` on the
+     reduce, and ``wf_tenant --check`` exits 1;
+   * (e) (b)'s K = 8 generic graph with ``tracing_enabled``: the
+     monitoring thread samples every 50 ms through the capture into an
+     in-process ``DashboardServer``, which receives NEW_APP, NEW_REPORTs
+     and END_APP; its ``/metrics`` passes ``tools/wf_metrics.py
+     --check``; (d) every hop's ``ratio_vs_roofline`` of that run lies in
+     (0, 1.05] against the calibrated bandwidth.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -2050,12 +2079,12 @@ def assoc_graph(dev_name, blob, sink_fn, **cfg):
     return g, op
 
 
-def kc_reduce_graph(dev_name, monoid, blob, sink_fn):
+def kc_reduce_graph(dev_name, monoid, blob, sink_fn, **cfg):
     """(d): FrameSource → ReduceGPU keyed, the leafwise ``monoid``
     combiner declared, no ``withMaxKeys`` (the unbounded compacted route:
     a compactor of ``Config.key_compaction_slots`` = 1,024 slots, reseeded
-    every ``KC_RESEED`` batches) → columnar Sink.  Returns ``(graph,
-    reduce operator)``."""
+    every ``KC_RESEED`` batches) → columnar Sink (``cfg``: further
+    ``Config`` fields).  Returns ``(graph, reduce operator)``."""
     import torch
     import windflow_tpu_torch as wf
     op = {"max": torch.maximum, "sum": torch.add}[monoid]
@@ -2066,7 +2095,8 @@ def kc_reduce_graph(dev_name, monoid, blob, sink_fn):
     g = wf.PipeGraph("chip_smoke_kc_reduce", wf.ExecutionMode.DEFAULT,
                      config=wf.Config(device=dev_name,
                                       punctuation_interval_usec=10 ** 12,
-                                      key_compaction_reseed=KC_RESEED))
+                                      key_compaction_reseed=KC_RESEED,
+                                      **cfg))
     g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP)) \
         .add(red).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
                            .build())
@@ -2920,6 +2950,414 @@ def observability_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the observability plane, part two
+# ---------------------------------------------------------------------------
+
+#: every observability plane off: the (f) twin of each phase 11 run
+PLANES_OFF = dict(flight_recorder=False, health_watchdog=False,
+                  sweep_ledger=False, shard_ledger=False,
+                  latency_ledger=False, tenant_ledger=False,
+                  roofline_plane=False)
+
+
+def smi_line():
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def tool(name, *args):
+    """One of the JAX package's stdlib tools (they run without jax)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        name)
+    return subprocess.run([sys.executable, path, *args], capture_output=True,
+                          text=True, timeout=120)
+
+
+def same_cols(label, a, b, names):
+    for name in names:
+        if not np.array_equal(cat_cols(a, name), cat_cols(b, name)):
+            fail(f"{label}: records differ from the planes-off run "
+                 f"({name})")
+
+
+def trace_segments_ok(label, events):
+    """Each trace that reached the sink, decomposed alone by the latency
+    ledger: its five segments sum exactly to its first→last span.
+    Returns the traces' staged→sunk spans (µs)."""
+    from windflow_tpu_torch.monitoring.latency_ledger import LatencyLedger
+    from windflow_tpu_torch.monitoring.recorder import STAGE_NAMES
+    by = {}
+    for e in events:
+        by.setdefault(e["trace"], []).append(
+            (e["op"], STAGE_NAMES.index(e["stage"]), e["t_usec"],
+             e["shared_k"]))
+    spans = []
+    for tid, evs in by.items():
+        if not any(st == STAGE_NAMES.index("sunk") for _, st, _, _ in evs):
+            continue
+        led = LatencyLedger(recorder=None)
+        led._finalize(list(evs))
+        seg = sum(led.segment_totals.values())
+        span = max(t for _, _, t, _ in evs) - min(t for _, _, t, _ in evs)
+        if seg != led.e2e.total or seg != span:
+            fail(f"{label}: trace {tid}'s segments sum to {seg} µs, its "
+                 f"span is {span} µs")
+        spans.append(span)
+    if not spans:
+        fail(f"{label}: no trace reached the sink")
+    return spans
+
+
+def plane_runs(dev_name="cuda"):
+    """Phase 11: the observability plane, part two, on the card (60 s
+    budget).  (a) the calibration probes write calibration.json, which
+    ``tools/wf_calibrate.py --check`` accepts; (b) (i)'s count windows
+    (event time, wire off, 16 batches, every batch traced and waited on)
+    at K = 1 and K = 8, both combiners, a generous SLO: each trace's
+    segments telescope, K = 8's dominant segment is the group wait, and
+    an SLO under K = 8's p99 latches SLO_VIOLATED on the window, which
+    ``tools/wf_slo.py`` plans to shrink; (c) two tenants in one process,
+    the declared-sum window and 7 (d)'s compacted reduce: bytes equal
+    each graph's totals, resident bytes within the allocator's, a budget
+    under one tenant's bytes paints OVER_BUDGET, ``tools/wf_tenant.py
+    --check`` gates; (d) every hop's roofline ratio in (0, 1.05] against
+    the calibrated bandwidth; (e) (b)'s K = 8 graph with the monitoring
+    thread (every 50 ms) and an in-process dashboard, whose ``/metrics``
+    passes ``tools/wf_metrics.py --check``; (f) every run's records and
+    launches equal its planes-off twin.  Returns each run's launch counts
+    by label."""
+    import torch
+
+    from windflow_tpu_torch.monitoring import (DashboardServer, calibrate,
+                                               calibration, monitor)
+    from windflow_tpu_torch.monitoring.tenant_ledger import default_ledger
+    out = {}
+    smi = smi_line()
+    n = CAP * COL_BATCHES
+    rng = np.random.default_rng(2026)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob = frame_blob(keys, np.arange(n), vals)
+    root = tempfile.mkdtemp(prefix="chip_smoke_planes_")
+    try:
+        # (a) the probes
+        cal_path = os.path.join(root, "calibration.json")
+        lines = []
+        if calibrate.calibrate(cal_path, dev_name, log=lines.append) != 0:
+            fail("phase 11 (a): calibrate failed: " + "; ".join(lines))
+        with open(cal_path) as f:
+            doc = json.load(f)
+        want = set(calibration.MODELED_DEFAULTS) \
+            - set(calibration.MESH_ONLY_KEYS)
+        errs = {k: v["error"] for k, v in doc["probes"].items()
+                if isinstance(v, dict) and "error" in v}
+        if errs or set(doc["constants"]) != want:
+            fail(f"phase 11 (a): probes gave {sorted(doc['constants'])}, "
+                 f"errors {errs}")
+        r = tool("wf_calibrate.py", "--check", cal_path)
+        if r.returncode != 0:
+            fail(f"phase 11 (a): wf_calibrate --check exited "
+                 f"{r.returncode}: {r.stderr.strip()[-300:]}")
+        calibration.set_default_store(calibration.load(cal_path))
+        summ = calibration.provenance_summary()
+        for key in want:
+            prov = summ["constants"][key]["provenance"]
+            if not calibration.is_calibrated(prov):
+                fail(f"phase 11 (a): {key} reads {prov}")
+        for key in sorted(doc["constants"]):
+            print(f"phase 11 (a): calibrated {key} = {doc['constants'][key]}"
+                  f" ({smi}; modeled "
+                  f"{calibration.MODELED_DEFAULTS[key]})")
+        print(f"phase 11 (a): {doc['device_kind']}, {doc['jax_version']}; "
+              f"kernel_step launches a step "
+              f"{doc['probes']['kernel_step_usec']['kernel_launches_per_step']}"
+              f"; wf_calibrate --check: {r.stdout.strip()}")
+
+        # (b) the latency plane
+        base = dict(event=True, wire_compression=False,
+                    trace_sample_every=1, trace_device_sync_every=1,
+                    calibration=cal_path)
+        off = dict(event=True, wire_compression=False, **PLANES_OFF)
+        p99 = {}
+        k8 = {}
+        for sum_comb in (False, True):
+            comb = "sum" if sum_comb else "generic"
+            for k in (1, 8):
+                label = f"11(b) cb {comb} K={k}"
+                cols0, sink0 = collect()
+                g0, _ = frames_cb_graph(dev_name, sum_comb, blob, sink0,
+                                        megastep_sweeps=k, **off)
+                _, n0 = timed_run(g0)
+                cols, sink = collect()
+                g, _ = frames_cb_graph(dev_name, sum_comb, blob, sink,
+                                       megastep_sweeps=k,
+                                       latency_slo_ms=1e6, **base)
+                secs, n1 = timed_run(g)
+                out[label] = n1
+                check_cb_columns(label, cols, keys.astype(np.int32), vals)
+                same_cols(label, cols0, cols, ("key", "wid", "value"))
+                if n0 != n1:
+                    fail(f"{label}: launches {n1}, planes off {n0}")
+                g.health_tick()
+                st = g.stats()
+                obs_sections_ok(label, st)
+                lp = st["Latency_plane"]
+                spans = trace_segments_ok(label, g._recorder.events())
+                tail = g._fused_segments[0]["host_name"]
+                totals = lp["segments_total_usec"]
+                dom = max(totals, key=totals.get)
+                if k == 8:
+                    if dom != "emitted_to_dispatched" or lp["per_op"][tail][
+                            "dominant_segment"] != "emitted_to_dispatched":
+                        fail(f"{label}: the dominant segment is {dom} "
+                             f"({totals})")
+                    if lp["per_op"][tail].get("megastep_k") != 8:
+                        fail(f"{label}: megastep_k "
+                             f"{lp['per_op'][tail].get('megastep_k')}")
+                    k8[comb] = (g, tail)
+                bad = {o: v["state"] for o, v in
+                       st["Health"]["verdicts"].items() if v["state"] != "OK"}
+                if bad or lp["slo"]["active"]:
+                    fail(f"{label}: under a generous SLO health reads {bad}")
+                spans.sort()
+                p99[(comb, k)] = spans[min(len(spans) - 1,
+                                           int(0.99 * (len(spans) - 1)
+                                               + 0.999))]
+                seg = "; ".join(f"{s_} {v / 1e3:.3f}" for s_, v in
+                                totals.items())
+                print(f"phase 11 (b): PipeGraph.run() {label}: records "
+                      f"equal the oracle and the planes-off run, launches "
+                      f"{n1}; {len(spans)} traces, each one's 5 segments "
+                      f"sum to its span; staged->sunk p50/p95/p99 "
+                      f"{q_ms(lp['e2e_usec'])} ms (exact p99 "
+                      f"{p99[(comb, k)] / 1e3:.3f} ms); segment totals ms "
+                      f"{seg}; dominant {dom}; health OK; {n} tuples in "
+                      f"{secs:.3f} s (information only)")
+            # the tight SLO: under K = 8's p99, a fresh K = 8 run
+            label = f"11(b) cb {comb} K=8 slo"
+            budget = p99[(comb, 8)] / 2e3
+            cols, sink = collect()
+            g, _ = frames_cb_graph(dev_name, sum_comb, blob, sink,
+                                   megastep_sweeps=8, latency_slo_ms=budget,
+                                   log_dir=root, **base)
+            _, n1 = timed_run(g)
+            out[label] = n1
+            check_cb_columns(label, cols, keys.astype(np.int32), vals)
+            if n1 != out[f"11(b) cb {comb} K=8"]:
+                fail(f"{label}: launches {n1}")
+            g.health_tick()
+            st = g.stats()
+            tail = g._fused_segments[0]["host_name"]
+            v = st["Latency_plane"]["slo"]["verdict"]
+            hv = st["Health"]["verdicts"][tail]
+            if v is None or v["dominant_op"] != tail \
+                    or v["dominant_segment"] != "emitted_to_dispatched" \
+                    or hv["state"] != "SLO_VIOLATED":
+                fail(f"{label}: budget {budget:.3f} ms: verdict {v}, "
+                     f"health {hv['state']}")
+            path = g.dump_stats(root)
+            r = tool("wf_slo.py", "--json", "--stats", path)
+            try:
+                plan = json.loads(r.stdout)
+            except ValueError:
+                fail(f"{label}: wf_slo exited {r.returncode}: "
+                     f"{r.stderr.strip()[-300:]}")
+            acts = [a for o in plan["ops"] for a in o["actions"]
+                    if o["op"] == tail]
+            if not acts or acts[0]["kind"] != "set_megastep_sweeps" \
+                    or not acts[0]["recommended_k"] < 8:
+                fail(f"{label}: wf_slo planned {plan['ops']}")
+            print(f"phase 11 (b): {label}: budget {budget:.3f} ms: "
+                  f"SLO_VIOLATED on '{tail}': {v['message']}; wf_slo plans "
+                  f"set_megastep_sweeps 8 -> {acts[0]['recommended_k']}")
+
+        # (c) two tenants in one process; the planes-off twins first, so
+        # the attributed fraction's baseline holds the tenants' staging
+        zrng = np.random.default_rng(78)
+        zkeys = zipf_shift_keys(zrng, n)
+        zvals = zrng.integers(-100, 101, n).astype(np.float32)
+        zblob = frame_blob(zkeys, np.arange(n), zvals)
+        twins = {}
+        for tenant in ("cb_sum", "kc_reduce"):
+            cols0, sink0 = collect()
+            if tenant == "cb_sum":
+                g0, _ = frames_cb_graph(dev_name, True, blob, sink0, **off)
+            else:
+                g0, _ = kc_reduce_graph(dev_name, "sum", zblob, sink0,
+                                        **PLANES_OFF)
+            twins[tenant] = (cols0, timed_run(g0)[1])
+        led = default_ledger()
+        led.reset()
+        graphs = {}
+        for tenant in ("cb_sum", "kc_reduce"):
+            cols, sink = collect()
+            if tenant == "cb_sum":
+                g, _ = frames_cb_graph(dev_name, True, blob, sink,
+                                       event=True, wire_compression=False,
+                                       tenant=tenant, calibration=cal_path)
+                names = ("key", "wid", "value")
+            else:
+                g, _ = kc_reduce_graph(dev_name, "sum", zblob, sink,
+                                       tenant=tenant)
+                names = ("key", "v0")
+            _, n1 = timed_run(g)
+            cols0, n0 = twins[tenant]
+            label = f"11(c) tenant {tenant}"
+            out[label] = n1
+            if n0 != n1:
+                fail(f"{label}: launches {n1}, planes off {n0}")
+            same_cols(label, cols0, cols, names)
+            if tenant == "cb_sum":
+                check_cb_columns(label, cols, keys.astype(np.int32), vals)
+            elif n1["dense_monoid_table"] != COL_BATCHES:
+                fail(f"{label}: dense_monoid_table launched "
+                     f"{n1['dense_monoid_table']} times")
+            graphs[tenant] = g
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        sec = led.section()
+        for tenant, g in graphs.items():
+            agg = sec["tenants"][tenant]
+            st = g.stats()
+            if agg["h2d_bytes"] != st["Bytes_H2D_total"] \
+                    or agg["d2h_bytes"] != st["Bytes_D2H_total"]:
+                fail(f"11(c) {tenant}: tenant bytes {agg['h2d_bytes']}/"
+                     f"{agg['d2h_bytes']}, graph {st['Bytes_H2D_total']}/"
+                     f"{st['Bytes_D2H_total']}")
+            if not 0 < agg["resident_state_bytes"] <= allocated:
+                fail(f"11(c) {tenant}: resident {agg['resident_state_bytes']}"
+                     f" against {allocated} allocated")
+            print(f"phase 11 (c): tenant {tenant}: staged "
+                  f"{agg['h2d_bytes']} B = its graph's Bytes_H2D_total, "
+                  f"fetched {agg['d2h_bytes']} B, resident "
+                  f"{agg['resident_state_bytes']} B (heaviest "
+                  f"{agg['heaviest_op']}) of {allocated} B allocated, "
+                  f"{agg['dispatches']} dispatches")
+        att = sec["attributed"]
+        if att["staged_fraction"] is None or att["staged_fraction"] < 0.9:
+            fail(f"phase 11 (c): attributed {att}")
+        path = graphs["cb_sum"].dump_stats(root)
+        r = tool("wf_tenant.py", "--check", "--stats", path)
+        if r.returncode != 0:
+            fail(f"phase 11 (c): wf_tenant --check within budget exited "
+                 f"{r.returncode}: {r.stdout.strip()[-300:]}")
+        # a budget under the reduce tenant's resident bytes
+        over = sec["tenants"]["kc_reduce"]["resident_state_bytes"] // 2
+        cols, sink = collect()
+        g, red = kc_reduce_graph(dev_name, "sum", zblob, sink,
+                                 tenant="kc_reduce_tight",
+                                 hbm_budget_bytes=over)
+        _, n1 = timed_run(g)
+        out["11(c) tenant kc_reduce_tight"] = n1
+        from windflow_tpu_torch.monitoring.tenant_ledger import ENTER_AFTER
+        for _ in range(ENTER_AFTER):
+            led.tick(tenant="kc_reduce_tight", force=True)
+        g.health_tick()
+        st = g.stats()
+        bud = st["Tenant"]["tenants"]["kc_reduce_tight"]["budget"]
+        vb = bud["verdict"]
+        hv = st["Health"]["verdicts"].get((vb or {}).get("heaviest_op"), {})
+        if vb is None or hv.get("state") != "OVER_BUDGET" \
+                or vb["heaviest_op"] != red.name:
+            fail(f"phase 11 (c): budget {over} B: verdict {vb}, health "
+                 f"{hv}")
+        path = g.dump_stats(root)
+        r1 = tool("wf_tenant.py", "--check", "--stats", path)
+        r2 = tool("wf_tenant.py", "--stats", path)
+        if r1.returncode != 1 or "OVER BUDGET" not in r1.stdout \
+                or r2.returncode != 0 or "rescale_tenant" not in r2.stdout:
+            fail(f"phase 11 (c): wf_tenant gate {r1.returncode} "
+                 f"{r1.stdout.strip()[-200:]} / plan {r2.returncode}")
+        print(f"phase 11 (c): budget {over} B under the reduce tenant's "
+              f"{over * 2} B: OVER_BUDGET on '{vb['heaviest_op']}' "
+              f"(pressure {bud['pressure']}); wf_tenant --check exits 1 "
+              f"over budget and 0 within; attributed fraction "
+              f"{att['staged_fraction']}")
+
+        # (d) + (e): the monitoring thread and the dashboard on (b)'s
+        # K = 8 graph, the roofline ticking at its cadence
+        monitor.SAMPLE_INTERVAL_SEC = 0.05
+        calibration.RooflineLedger.TICK_MIN_INTERVAL_S = 0.05
+        server = DashboardServer(tcp_port=0, http_port=0).start()
+        try:
+            label = "11(e) cb generic K=8 monitored"
+            cols0, sink0 = collect()
+            g0, _ = frames_cb_graph(dev_name, False, blob, sink0,
+                                    megastep_sweeps=8, **off)
+            _, n0 = timed_run(g0)
+            cols, sink = collect()
+            g, _ = frames_cb_graph(dev_name, False, blob, sink,
+                                   megastep_sweeps=8, tracing_enabled=True,
+                                   dashboard_host="127.0.0.1",
+                                   dashboard_port=server.tcp_port,
+                                   log_dir=root, **base)
+            secs, n1 = timed_run(g)
+            out[label] = n1
+            check_cb_columns(label, cols, keys.astype(np.int32), vals)
+            same_cols(label, cols0, cols, ("key", "wid", "value"))
+            if n0 != n1:
+                fail(f"{label}: launches {n1}, planes off {n0}")
+            st = g.stats()
+            ms = st["Megastep"]["edges"]
+            if dev_name == "cuda" and not (ms and ms[0]["megasteps"] >= 1
+                                           and ms[0]["captures"] >= 1):
+                fail(f"{label}: no captured megastep: {ms}")
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline:
+                with server._lock:
+                    apps = [a for a in server.apps.values()]
+                if apps and all(a.ended for a in apps):
+                    break
+                time.sleep(0.05)
+            if len(apps) != 1 or not apps[0].ended \
+                    or len(apps[0].reports) < 2:
+                fail(f"{label}: the dashboard saw "
+                     f"{[a.summary() for a in apps]}")
+            r = tool("wf_metrics.py",
+                     f"http://127.0.0.1:{server.http_port}/metrics",
+                     "--check")
+            if r.returncode != 0:
+                fail(f"{label}: wf_metrics --check exited {r.returncode}: "
+                     f"{r.stderr.strip()[-300:]}")
+            print(f"phase 11 (e): {label}: records equal the oracle and "
+                  f"the planes-off run, launches {n1}; NEW_APP, "
+                  f"{len(apps[0].reports) - 1} NEW_REPORT, END_APP; "
+                  f"{ms[0]['captures']} capture(s), {ms[0]['megasteps']} "
+                  f"megastep(s), none failed; GET /metrics: "
+                  f"{r.stdout.strip()}; {n} tuples in {secs:.3f} s")
+            rfl = st["Roofline"]
+            hops = {o: h for o, h in rfl["per_hop"].items()
+                    if "ratio_vs_roofline" in h}
+            if not hops or not calibration.is_calibrated(
+                    rfl["bandwidth_provenance"]):
+                fail(f"phase 11 (d): roofline {rfl['per_hop']} at "
+                     f"{rfl['bandwidth_provenance']}")
+            for o, h in hops.items():
+                if not 0 < h["ratio_vs_roofline"] <= 1.05:
+                    fail(f"phase 11 (d): hop {o} ratio {h}")
+                print(f"phase 11 (d): hop '{o}': "
+                      f"{h['achieved_tuples_per_sec']} tuples/s over "
+                      f"{h['samples']} samples x {h['bytes_per_tuple']} B a "
+                      f"tuple ({h['bytes_per_tuple_source']}) = "
+                      f"{h['achieved_bytes_per_sec']} B/s, ratio "
+                      f"{h['ratio_vs_roofline']} of "
+                      f"{rfl['bandwidth_bytes_per_sec']} B/s "
+                      f"({rfl['bandwidth_provenance']}; {smi})")
+        finally:
+            server.stop()
+            monitor.SAMPLE_INTERVAL_SEC = 1.0
+            calibration.RooflineLedger.TICK_MIN_INTERVAL_S = 0.2
+    finally:
+        calibration.set_default_store(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -3359,6 +3797,11 @@ def main():
     t10 = time.perf_counter()
     run_counts.update(observability_runs())
     print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    # 11. the observability plane, part two, counts read just after each
+    #     run
+    t11 = time.perf_counter()
+    run_counts.update(plane_runs())
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s (budget 60 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -3377,8 +3820,11 @@ def main():
     # grouping ids are past the grouping kernel's gate: (b) launches it)
     dur9 = [t for t in run_counts if t.startswith("9 ")]
     cb_runs += tuple(t for t in dur9 if "window" in t)
-    # phase 10's traced count-window runs
+    # phase 10's traced count-window runs, phase 11's count-window runs
     cb_runs += tuple(t for t in run_counts if t.startswith("10(a)"))
+    cb_runs += tuple(t for t in run_counts
+                     if t.startswith(("11(b)", "11(e)", "11(c) tenant cb")))
+    kc11 = tuple(t for t in run_counts if t.startswith("11(c) tenant kc"))
     runs_of = {"grouping_rank_hist": cb_runs,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
@@ -3399,7 +3845,7 @@ def main():
                                          "6(c) split",
                                          "7(d) compacted reduce sum",
                                          "10(b) compacted reduce sum")
-               + tuple(t for t in dur9 if "reduce sum" in t),
+               + tuple(t for t in dur9 if "reduce sum" in t) + kc11,
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")
                + tuple(t for t in ms8 if t.startswith("8 dense"))}
@@ -3408,12 +3854,7 @@ def main():
         r["launches"] = sum(run_counts[label][counter]
                             for label in runs_of[r["name"]])
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(smi_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

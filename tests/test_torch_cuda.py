@@ -36,7 +36,14 @@ synchronising call, count the one wait of a traced batch at
 on as with it off (the same launches a group, one ``cudaGraphLaunch`` a
 megastep, every trace's stamps in order), read nonzero allocated bytes
 from the ``Device`` section, and find the traced annotation in a
-``profile()`` capture.
+``profile()`` capture.  The second half of the observability plane: a
+CB and a TB replica with every plane on make no host read but the
+recorder's wait and the freshness gauge's read of that waited batch; the
+compacted reduce synchronises as often with every plane on as off; the
+monitoring thread ticks through a K = 8 capture (each tick holds the
+capture lock) with records equal to K = 1's; and the tenant ledger's
+resident walk counts a storage once however many views reach it, within
+the allocator's bytes.
 """
 
 import numpy as np
@@ -1469,3 +1476,193 @@ def test_cuda_profile_capture_holds_the_traced_annotation(cuda_device,
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("op:w trace:") for n in names)
+
+
+# ---------------------------------------------------------------------------
+# the observability plane, part two, on the card
+# ---------------------------------------------------------------------------
+
+def _planes_graph(kind, **cfg):
+    """(graph, operator) with every plane on by default (``cfg`` overrides
+    Config fields): the CB window of ``_cb_op``, the TB window of
+    ``_tb_graph`` or the compacted reduce of ``_compacted_reduce_op``."""
+    import windflow_tpu_torch as wt
+    if kind == "tb":
+        g, op = _tb_graph(_tb_data(1), "auto", lambda r: None)
+        for k, v in cfg.items():
+            setattr(g.config, k, v)
+    else:
+        if kind == "cb":
+            op = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                             lambda a, b: a + b)
+                  .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+                  .withMaxKeys(CB_K).build())
+        else:
+            op = (wt.ReduceGPU_Builder(
+                lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                              "v0": torch.maximum(a["v0"], b["v0"])})
+                .withKeyBy(lambda t: t["key"]).withMonoidCombiner("max")
+                .build())
+        g = wt.PipeGraph(f"planes_{kind}", config=wt.Config(device="cuda",
+                                                            **cfg))
+        g.add_source(wt.Source_Builder(lambda: iter(()))
+                     .withOutputBatchSize(CB_CAP).build()) \
+            .add(op).add_sink(wt.Sink_Builder(lambda t: None).build())
+    g._build()
+    if kind == "reduce":
+        op._compactor.observe(np.arange(CB_K) * 1000 + 7)
+    return g, op
+
+
+def _relaxed(fn, calls):
+    """``fn`` counted into ``calls`` and run outside the sync check."""
+    def call(*a, **k):
+        calls.append(fn.__name__)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cb", "tb"])
+def test_cuda_every_plane_on_makes_no_host_read_but_the_waited_one(
+        cuda_device, monkeypatch, kind):
+    """A window replica's traced, waited batch and a cadence tick with
+    the recorder, latency ledger, tenant ledger, roofline, health, sweep
+    and shard planes all on, under ``set_sync_debug_mode("error")``: the
+    only host reads are the recorder's wait and the freshness gauge's
+    read of that batch's fired lanes."""
+    from windflow_tpu_torch.basic import current_time_usecs
+    from windflow_tpu_torch.monitoring import latency_ledger as tll
+    from windflow_tpu_torch.ops import gpu as tg
+    g, op = _planes_graph(kind)
+    assert g._latency is not None and g._tenant is not None \
+        and g._roofline is not None and g._health is not None
+    rep = op.replicas[0]
+    assert rep.latency is g._latency
+    rep.config.trace_device_sync_every = 1
+    rep.emitter = _Collect()
+    calls = []
+    monkeypatch.setattr(tg, "wait_for_device",
+                        _relaxed(tg.wait_for_device, calls))
+    monkeypatch.setattr(tll, "_host", _relaxed(tll._host, calls))
+    batches = _cb_batches(cuda_device, 3) if kind == "cb" \
+        else _tb_batches(cuda_device)
+    batches[2].trace = (7, current_time_usecs())
+
+    def step(b):
+        rep.process_device_batch(b)
+        g.health_tick()
+    _no_host_read(step, batches)
+    assert calls[0] == "wait_for_device"
+    assert calls[1:] in (["_host"], ["_host", "_host"])
+    if len(calls) == 3:
+        assert g._latency.per_op[op.name].freshness.count == 1
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_reduce_planes_add_no_host_read(cuda_device,
+                                                       monkeypatch):
+    """The compacted reduce's traced batch and a cadence tick with every
+    plane on synchronise exactly as often as with every plane off (its
+    own miss-count read), the recorder's wait aside."""
+    import warnings
+
+    from windflow_tpu_torch.basic import current_time_usecs
+    from windflow_tpu_torch.ops import gpu as tg
+    off = dict(flight_recorder=False, health_watchdog=False,
+               sweep_ledger=False, shard_ledger=False, latency_ledger=False,
+               tenant_ledger=False, roofline_plane=False)
+    waits = []
+    monkeypatch.setattr(tg, "wait_for_device",
+                        _relaxed(tg.wait_for_device, waits))
+    syncs = {}
+    for planes in ("on", "off"):
+        g, op = _planes_graph("reduce", **({} if planes == "on" else off))
+        rep = op.replicas[0]
+        rep.config.trace_device_sync_every = 1
+        rep.emitter = _Collect()
+        batches = _cb_batches(cuda_device, 3)
+        for b in batches:
+            b.payload["key"] = b.payload["key"] * 1000 + 7
+        batches[2].trace = (9, current_time_usecs())
+        rep.process_device_batch(batches[0])
+        rep.process_device_batch(batches[1])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rep.process_device_batch(batches[2])
+                g.health_tick()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[planes] = [str(w.message) for w in rec
+                         if "synchroniz" in str(w.message)]
+    assert len(syncs["on"]) == len(syncs["off"]), syncs
+    assert waits == ["wait_for_device"]
+
+
+@pytest.mark.cuda
+def test_cuda_monitor_samples_through_a_k8_capture(cuda_device,
+                                                   monkeypatch):
+    """K = 8 with the monitoring thread ticking every 50 ms (no dashboard
+    listening): every tick takes the capture lock, the capture succeeds,
+    groups replay and the records equal K = 1's."""
+    import socket
+
+    from windflow_tpu_torch.monitoring import monitor
+    monkeypatch.setattr(monitor, "SAMPLE_INTERVAL_SEC", 0.0)
+    ticks = []
+    real_tick = monitor.MonitoringThread._tick
+
+    def tick(self):
+        ticks.append(1)
+        return real_tick(self)
+    monkeypatch.setattr(monitor.MonitoringThread, "_tick", tick)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = s.getsockname()[1]
+    s.close()
+    base, _, _ = _ms_run("cb", 1)
+    seen = {}
+
+    def tap(g):
+        seen["monitor"] = g._monitor
+    got, sec, g = _ms_run("cb", 8, tap=tap, tracing_enabled=True,
+                          dashboard_host="127.0.0.1", dashboard_port=dead,
+                          trace_sample_every=1)
+    e = sec["edges"][0]
+    assert got == base
+    assert e["captures"] >= 1 and e["megasteps"] >= 1
+    assert seen["monitor"] is not None and seen["monitor"].samples_taken >= 1
+    assert ticks and g._monitor is None
+
+
+@pytest.mark.cuda
+def test_cuda_resident_walk_counts_views_once(cuda_device):
+    """The tenant ledger's resident walk: a storage reached through
+    views and aliases counts once, and a K = 8 graph's resident bytes are
+    within the allocator's."""
+    import types
+
+    from windflow_tpu_torch.monitoring.tenant_ledger import \
+        _resident_state_bytes
+    base = torch.zeros(1 << 20, dtype=torch.float32, device=cuda_device)
+    a = types.SimpleNamespace(name="a", t=base, v=base[100:200],
+                              nested={"w": [base.view(1024, 1024)]})
+    b = types.SimpleNamespace(name="b", same=base, host=torch.zeros(10))
+    per = {}
+    assert _resident_state_bytes([a, b], cuda_device, per) == 4 << 20
+    assert per == {"a": 4 << 20, "b": 0}
+    torch.cuda.synchronize()
+    assert (4 << 20) <= torch.cuda.memory_allocated()
+    _, sec, g = _ms_run("cb", 8)
+    assert sec["edges"][0]["megasteps"] >= 1
+    row = g.stats()["Tenant"]["graph"]
+    torch.cuda.synchronize()
+    assert 0 < row["resident_state_bytes"] <= torch.cuda.memory_allocated()

@@ -2,21 +2,23 @@
 
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
 not imported across: the port stands alone).  ``Config`` keeps only the
-fields the ported slices read (with the JAX package's defaults and no
-environment knobs: ``wire_compression`` and ``megastep_sweeps`` resolve
-"auto" from ``device``), plus the two the port adds:
-``device`` (the card unless the caller asks for the CPU) and
-``cuda_kernels`` (the kernel switch, counterpart of
-``Config.pallas_kernels``).  The observability fields keep the JAX
-package's names and defaults, ``profiler_dir`` pointing at a
-``torch.profiler`` capture.  ``stable_hash`` and ``int32_key`` are the
-port's own copies of the JAX package's key rules.
+fields the ported slices read, with the JAX package's defaults
+(``wire_compression`` and ``megastep_sweeps`` resolve "auto" from
+``device``), plus the two the port adds: ``device`` (the card unless
+the caller asks for the CPU) and ``cuda_kernels`` (the kernel switch,
+counterpart of ``Config.pallas_kernels``).  The observability fields
+keep the JAX package's names and defaults, ``profiler_dir`` pointing at
+a ``torch.profiler`` capture; only those of the monitoring thread and of
+the latency, tenant, calibration and roofline planes read the JAX
+package's ``WF_TPU_*`` environment knobs.  ``stable_hash`` and
+``int32_key`` are the port's own copies of the JAX package's key rules.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time
 import zlib
 
@@ -202,6 +204,49 @@ class Config:
     shard_ledger: bool = True
     # Hot keys kept a keyed edge in stats()["Shard"].
     shard_topk: int = 8
+    # The fields below keep the JAX package's WF_TPU_* environment knobs
+    # and defaults.
+    # Dashboard endpoint (reference WF_DASHBOARD_MACHINE/PORT) of the
+    # monitoring thread (monitoring/monitor.py).
+    dashboard_host: str = os.environ.get("WF_TPU_DASHBOARD_HOST",
+                                         "localhost")
+    dashboard_port: int = int(os.environ.get("WF_TPU_DASHBOARD_PORT",
+                                             "20207"))
+    # run() starts a MonitoringThread (monitoring/monitor.py): gauges and
+    # health at cadence, reports shipped to the dashboard, stats dumped
+    # at the end (reference -DWF_TRACING_ENABLED).
+    tracing_enabled: bool = bool(int(os.environ.get("WF_TPU_TRACING", "0")))
+    # Latency ledger (monitoring/latency_ledger.py): the flight
+    # recorder's traces decomposed into five staged→sunk segments per
+    # operator, harvested at cadence; needs the flight recorder.  Off,
+    # no ledger is built: each call site is one `is not None` check.
+    latency_ledger: bool = bool(int(os.environ.get("WF_TPU_LATENCY", "1")))
+    # End-to-end p99 budget in milliseconds (0 = no SLO): over it, the
+    # ledger latches SLO_VIOLATED on the dominant operator.
+    latency_slo_ms: float = float(os.environ.get("WF_TPU_LATENCY_SLO_MS",
+                                                 "0"))
+    # Tenant label of this graph's telemetry ("" = the graph's name).
+    tenant: str = os.environ.get("WF_TPU_TENANT", "")
+    # Tenant plane (monitoring/tenant_ledger.py): the graph registers in
+    # the process tenant ledger, which attributes dispatches, captures,
+    # staged bytes and resident device bytes to tenants at cadence.
+    tenant_ledger: bool = bool(int(os.environ.get("WF_TPU_TENANT_LEDGER",
+                                                  "1")))
+    # Per-tenant budget of resident device bytes (0 = none): sustained
+    # overage latches OVER_BUDGET on the tenant's heaviest operator.
+    hbm_budget_bytes: int = int(os.environ.get(
+        "WF_TPU_HBM_BUDGET_BYTES", "0"))
+    # Calibration store (monitoring/calibration.py): the path of a
+    # calibration.json written by `python -m
+    # windflow_tpu_torch.monitoring.calibrate`; its probe-measured
+    # constants replace the modeled defaults while fresh and recorded on
+    # this device.  WF_TPU_CALIBRATION=0 is the kill switch.
+    calibration: str = os.environ.get("WF_TPU_CALIBRATION", "")
+    # Live roofline plane (monitoring/calibration.RooflineLedger):
+    # per-hop achieved tuples/s at cadence against the memory
+    # bandwidth's ceiling, and the advisory ROOFLINE_DEGRADED verdict.
+    roofline_plane: bool = bool(int(os.environ.get("WF_TPU_ROOFLINE",
+                                                   "1")))
 
 
 #: Process-wide default configuration; graphs copy it at construction.

@@ -34,13 +34,20 @@ wiring: the flight recorder's per-replica rings bound to the replicas and
 their emitters, the health plane (a stall raises ``WindFlowError`` with
 the root-cause operator and writes a postmortem bundle), the sweep
 ledger, and the shard plane, whose sketches the compactors then rank
-their residents by.  ``stats()`` carries the JAX package's sections
-(``Flight_recorder``, ``Latency``, ``Gauges``, ``Health``, ``Device``,
-``Sweep``, ``Shard``, ...); a telemetry read never takes the pipeline
-down, and a section that failed says so under ``"error"``.  The JAX
-package's preflight, calibration, latency, tenant, roofline, IR-audit and
-reshard planes are not ported yet: their sections read
-``{"enabled": False}``.
+their residents by.  After the megastep and durability planes come the
+latency ledger (the traces' five staged→sunk segments and the SLO
+verdict), the graph's registration in the process tenant ledger
+(per-tenant bytes and device budgets), the calibration store named by
+``Config.calibration`` and the live roofline; ``health_tick`` ticks
+them, then the watchdog, which paints their verdicts.  Under
+``Config.tracing_enabled`` ``run()`` starts a ``MonitoringThread`` that
+ticks on a cadence and ships reports to a dashboard.  ``stats()``
+carries the JAX package's sections (``Flight_recorder``, ``Latency``,
+``Latency_plane``, ``Tenant``, ``Roofline``, ``Gauges``, ``Health``,
+``Device``, ``Sweep``, ``Shard``, ...); a telemetry read never takes the
+pipeline down, and a section that failed says so under ``"error"``.
+The JAX package's preflight, IR-audit and reshard planes are not ported
+yet: their sections read ``{"enabled": False}``.
 """
 
 from __future__ import annotations
@@ -105,6 +112,11 @@ class PipeGraph:
         self._health = None
         self._ledger = None
         self._shard = None
+        self._latency = None
+        self._tenant = None
+        self._roofline = None
+        #: the monitoring thread run() starts under Config.tracing_enabled
+        self._monitor = None
         #: the last postmortem bundle written; the lock serializes the
         #: writers (a watchdog auto-bundle and the stall/crash path)
         self._postmortem_dir = None
@@ -340,6 +352,12 @@ class PipeGraph:
                 DurabilityPlane
             self._durability = DurabilityPlane(self)
 
+        # 2f. the cadence ledgers, after every plane they read: the
+        # latency ledger (the recorder's rings, the megastep edges' K),
+        # the tenant registration (the final operator and watch set), the
+        # calibration store and the roofline (the sweep ledger's bytes)
+        self._attach_ledgers()
+
         # 3. collectors: one per replica with input channels
         for rep in self._all_replicas:
             if rep.num_channels > 0:
@@ -355,6 +373,44 @@ class PipeGraph:
                     raise WindFlowError(
                         f"operator '{op.name}' has no downstream consumer — "
                         "every MultiPipe must end in a Sink")
+
+    def _attach_ledgers(self) -> None:
+        cfg = self.config
+        if cfg.latency_ledger and self._recorder is not None:
+            from windflow_tpu_torch.monitoring.latency_ledger import \
+                LatencyLedger
+            from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+            self._latency = LatencyLedger(self._recorder,
+                                          slo_ms=cfg.latency_slo_ms or 0.0)
+            self._latency.megastep_plane = self._megastep_plane
+            for op in self._operators:
+                if isinstance(op, FfatWindowsGPU):
+                    # the window-freshness gauge, at the waited batches
+                    for rep in op.replicas:
+                        rep.latency = self._latency
+        if cfg.tenant_ledger:
+            from windflow_tpu_torch.monitoring.tenant_ledger import \
+                default_ledger
+            self._tenant = default_ledger().register(
+                self, cfg.tenant or self.name, cfg.hbm_budget_bytes)
+        from windflow_tpu_torch.monitoring import calibration
+        if cfg.calibration and not calibration.killed():
+            try:
+                calibration.set_default_store(
+                    calibration.load(cfg.calibration))
+            except calibration.CalibrationError as e:
+                # a corrupt store degrades the process to its modeled
+                # defaults, loudly; it never fails the build
+                import warnings
+                warnings.warn(f"Config.calibration={cfg.calibration!r} "
+                              f"failed to load ({e}) — running "
+                              "uncalibrated", RuntimeWarning)
+        if cfg.roofline_plane:
+            self._roofline = calibration.RooflineLedger(self)
+        if self._health is not None:
+            self._health.latency = self._latency
+            self._health.tenant = self._tenant
+            self._health.roofline = self._roofline
 
     # -- execution -----------------------------------------------------------
     def run(self) -> "PipeGraph":
@@ -376,20 +432,29 @@ class PipeGraph:
                 # no source has ticked
                 pending, self._pending_restore = self._pending_restore, None
                 self._durability.apply_restore(pending)
+            if self.config.tracing_enabled:
+                # reference: tracing spawns a MonitoringThread at run()
+                # (pipegraph.hpp:676-678)
+                from windflow_tpu_torch.monitoring.monitor import \
+                    MonitoringThread
+                self._monitor = MonitoringThread(self)
+                self._monitor.start()
             for sr in self._source_replicas:
                 sr.start()
         except BaseException:
-            self._finalize()
+            self._finalize(dump=False, aborted=True)
             raise
 
     def wait_end(self) -> "PipeGraph":
         if not self._started:
             raise WindFlowError("wait_end before start")
+        aborted = False
         try:
             while not self.is_done():
                 if not self.step():
                     raise self._stall_error()
         except BaseException as exc:
+            aborted = True
             # crash path: the telemetry first (the operator that raised
             # is marked FAILED, the postmortem bundle written), guarded so
             # it never masks the error re-raised below
@@ -404,7 +469,7 @@ class PipeGraph:
         finally:
             # ended or crashed: the checkpoint store is flushed and
             # closed, so a restore in this process reopens a whole log
-            self._finalize()
+            self._finalize(aborted=aborted)
         return self
 
     def _stall_error(self) -> WindFlowError:
@@ -462,10 +527,24 @@ class PipeGraph:
         from windflow_tpu_torch.durability.checkpoint import restore_graph
         return restore_graph(self, checkpoint_dir)
 
-    def _finalize(self) -> None:
+    def _finalize(self, dump: bool = True, aborted: bool = False) -> None:
+        if self._tenant is not None:
+            # the tenant roll-up keeps this graph's attribution after its
+            # replicas are gone (guarded: telemetry never blocks teardown)
+            try:
+                self._tenant.freeze()
+            except Exception:  # noqa: BLE001 -- see above
+                pass
         if self._durability is not None:
             # counters stay readable: stats() reads the plane's fields
             self._durability.close()
+        if self._monitor is not None:
+            # a final report and END_APP on both ends of a run; an abort
+            # marks the report
+            self._monitor.stop(aborted=aborted)
+            self._monitor = None
+        if dump and self.config.tracing_enabled:
+            self.dump_stats()
 
     def step(self) -> bool:
         """One scheduler sweep: pull a chunk from each live source (unless
@@ -564,8 +643,17 @@ class PipeGraph:
         self._thr_samples.append((time.monotonic(), total))
 
     def health_tick(self) -> None:
-        """One watchdog evaluation (``monitoring/health.py``); with
-        ``Config.health_watchdog`` off this is one check."""
+        """One cadence tick: the latency ledger (harvest and the SLO),
+        the tenant ledger's budget machine and the roofline's rates, then
+        the watchdog, which reads their verdicts.  The monitoring thread
+        calls it; with every plane off it is four checks."""
+        for plane in (self._latency, self._tenant, self._roofline):
+            if plane is not None:
+                try:
+                    plane.tick()
+                except Exception:  # noqa: BLE001 -- a ledger fault never
+                    # takes the watchdog down; its section reports it
+                    pass
         if self._health is not None:
             self._health.sample()
 
@@ -596,6 +684,24 @@ class PipeGraph:
     def _durability_section(self) -> dict:
         return self._guarded(self._durability,
                              lambda: self._durability.section())
+
+    def _latency_plane_section(self) -> dict:
+        """Harvests first, so a headless read sees the finished traces."""
+        def read():
+            self._latency.harvest()
+            return self._latency.section()
+        return self._guarded(self._latency, read)
+
+    def _tenant_section(self) -> dict:
+        """The whole process table, focused on this graph's row."""
+        return self._guarded(self._tenant, lambda: self._tenant.section())
+
+    def _roofline_section(self) -> dict:
+        """Ticks first, so a headless read sees current rates."""
+        def read():
+            self._roofline.tick()
+            return self._roofline.section()
+        return self._guarded(self._roofline, read)
 
     def _device_section(self) -> dict:
         from windflow_tpu_torch.monitoring import device_metrics
@@ -731,6 +837,8 @@ class PipeGraph:
             or os.path.join(self.config.log_dir, f"{self.name}_profile"),
             "sweep": self._sweep_section(),
             "shard": self._shard_section(),
+            "tenant": self._tenant_section(),
+            "calibration": _calibration_summary(),
         })
         root, ext = os.path.splitext(path)
         base = root[:-len("_trace")] if root.endswith("_trace") else root
@@ -778,9 +886,9 @@ class PipeGraph:
                                 if self._recorder is not None else off),
             "Preflight": self._preflight_section(),
             "Latency": self._latency_section(),
-            "Latency_plane": off,
-            "Tenant": off,
-            "Roofline": off,
+            "Latency_plane": self._latency_plane_section(),
+            "Tenant": self._tenant_section(),
+            "Roofline": self._roofline_section(),
             "Gauges": self.gauges(),
             "Health": self._health_section(),
             "Device": self._device_section(),
@@ -808,8 +916,9 @@ class PipeGraph:
                         reason: str = "manual") -> str:
         """Black-box bundle: the last ``stats()``, the flight recorder's
         events, the health verdicts and stall attribution, the device
-        gauges, the step registry, the preflight findings, the sweep and
-        shard ledgers and the durability plane, one JSON file each, plus
+        gauges, the step registry, the preflight findings, the sweep,
+        shard, latency and tenant ledgers, the roofline, the calibration
+        provenance and the durability plane, one JSON file each, plus
         ``manifest.json`` — what ``tools/wf_doctor.py`` renders and
         checks.  Every section is guarded on its own (a failure lands in
         the manifest's ``errors``): the crash path writes this exactly
@@ -860,6 +969,10 @@ class PipeGraph:
         write("jit.json", jit_tables)
         write("sweep.json", self._sweep_section)
         write("shard.json", self._shard_section)
+        write("latency.json", self._latency_plane_section)
+        write("tenant.json", self._tenant_section)
+        write("roofline.json", self._roofline_section)
+        write("calibration.json", _calibration_summary)
         write("durability.json", self._durability_section)
         write("preflight.json", self._preflight_section)
         from windflow_tpu_torch.monitoring.health import POSTMORTEM_SCHEMA
@@ -875,6 +988,17 @@ class PipeGraph:
             json.dump(manifest, f, indent=1)
         self._postmortem_dir = d
         return d
+
+
+def _calibration_summary() -> dict:
+    """Where every modeled constant comes from now (``dump_trace``
+    metadata, the postmortem's ``calibration.json``), guarded like every
+    telemetry read."""
+    try:
+        from windflow_tpu_torch.monitoring import calibration
+        return calibration.provenance_summary()
+    except Exception as e:  # noqa: BLE001 -- never takes a dump down
+        return {"error": f"{type(e).__name__}: {e}"[:200]}
 
 
 def _staging_pool_stats() -> dict:

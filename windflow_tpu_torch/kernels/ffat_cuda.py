@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 from typing import Optional
 
 import torch
@@ -101,6 +102,12 @@ def uncounted():
         _LAUNCHES.update(before)
 
 
+#: held by every capture (``CountedGraph.capture``) and by readers on
+#: other threads that touch the card (``monitoring/monitor.py``), so the
+#: two never overlap
+capture_lock = threading.Lock()
+
+
 class CountedGraph:
     """A captured CUDA graph and the kernel launches it holds.
 
@@ -118,25 +125,28 @@ class CountedGraph:
 
     @contextlib.contextmanager
     def capture(self, ctx):
-        before = launch_counts()
-        # a dead graph left in a reference cycle (an earlier run's group)
-        # resets when the collector frees it, and a reset while this
-        # stream captures invalidates the capture: collect now, and hold
-        # the automatic collector off until the capture has ended
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with ctx:
-                yield self
-        finally:
-            if collecting:
-                gc.enable()
-            after = launch_counts()
-            self.launches = {k: after[k] - before[k] for k in after
-                             if after[k] != before[k]}
-            for k, v in self.launches.items():
-                _LAUNCHES[k] -= v
+        # another thread touching the card mid-capture (the monitoring
+        # thread's stats read) invalidates it: such readers hold the lock
+        with capture_lock:
+            before = launch_counts()
+            # a dead graph left in a reference cycle (an earlier run's
+            # group) resets when the collector frees it, and a reset while
+            # this stream captures invalidates the capture: collect now,
+            # and hold the automatic collector off until the capture ends
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with ctx:
+                    yield self
+            finally:
+                if collecting:
+                    gc.enable()
+                after = launch_counts()
+                self.launches = {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}
+                for k, v in self.launches.items():
+                    _LAUNCHES[k] -= v
 
     def replay(self) -> None:
         self.graph.replay()

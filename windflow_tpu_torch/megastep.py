@@ -472,8 +472,9 @@ class MegastepEdge:
             # the graph's outputs are rewritten by the next replay: one
             # clone a leaf, so nothing downstream views graph memory
             ys = tree_map(torch.clone, g.ys)
-        if traced:
-            self._stamp_device_done(traced, ys)
+        if traced and self._stamp_device_done(traced, ys) \
+                and rep.latency is not None:
+            self._note_freshness(group, ys)
         self._commit_carry(carry)
         self.megasteps += 1
         self.batches += self.k
@@ -485,24 +486,37 @@ class MegastepEdge:
         self._emit(group, ys)
         self._post_hooks()
 
-    def _stamp_device_done(self, traced, ys) -> None:
+    def _stamp_device_done(self, traced, ys) -> bool:
         """``device_done`` for the group's traced batches when the
         sampled wait falls among them: one wait on an event behind the
-        group's work, one stamp shared by the K batches."""
+        group's work, one stamp shared by the K batches.  Returns whether
+        it waited."""
         rep = self.rep
         every = rep.config.trace_device_sync_every
         if not every:
-            return
+            return False
         before = rep._traced_seen
         rep._traced_seen += len(traced)
         if rep._traced_seen // every == before // every:
-            return
+            return False
         from windflow_tpu_torch.ops.gpu import wait_for_device
         wait_for_device(ys[2])
         t_done = current_time_usecs()
         for tr in traced:
             rep.ring.record(tr[0], flightrec.DEVICE_DONE, t_done,
                             shared=self.k)
+        return True
+
+    def _note_freshness(self, group, ys) -> None:
+        """The latency ledger's window-freshness gauge for the traced
+        batches of a group the recorder waited on: on the card the read
+        copies the fired lanes back, which waits for nothing only then."""
+        if self.kind not in ("ffat_cb", "ffat_tb"):
+            return
+        lat = self.rep.latency
+        for i, p in enumerate(group):
+            if p.trace is not None:
+                lat.note_window_fire(self.op.name, ys[1][i], ys[2][i])
 
     def _emit(self, group, ys) -> None:
         """Each logical batch advances the tail replica's watermark and

@@ -20,11 +20,17 @@
 * **Verdict timeline.**  State changes append to a bounded deque, so a
   postmortem shows when each operator degraded.
 
-``ROOFLINE_DEGRADED``, ``SLO_VIOLATED`` and ``OVER_BUDGET`` stay in
-:data:`STATES` (the postmortem schema's vocabulary) and are never
-reached: the planes that raise them (the roofline, latency and tenant
-ledgers) are not ported yet, as in the JAX package with those planes
-off.  ``tools/wf_doctor.py`` renders the bundle this plane feeds
+* **Plane verdicts.**  Three ledgers publish latched verdicts the
+  watchdog paints on one operator each, and only while it is otherwise
+  OK: the roofline ledger's advisory ``ROOFLINE_DEGRADED`` on its
+  dominant hop (``monitoring/calibration.RooflineLedger``), the latency
+  ledger's ``SLO_VIOLATED`` on the operator its verdict names
+  (``monitoring/latency_ledger.py``), and the tenant ledger's
+  ``OVER_BUDGET`` on the tenant's heaviest operator
+  (``monitoring/tenant_ledger.py``), in that rising order of severity.
+  With a plane off its verdict is unreachable.
+
+``tools/wf_doctor.py`` renders the bundle this plane feeds
 (``PipeGraph.dump_postmortem``).
 """
 
@@ -59,7 +65,8 @@ class _OpTrack:
 
     __slots__ = ("name", "state", "since_usec", "last_advance_usec",
                  "last_inputs", "last_frontier", "queue_depth", "frontier",
-                 "compile_storm", "failure", "stall_latched", "hot_shard")
+                 "compile_storm", "failure", "stall_latched", "hot_shard",
+                 "slo", "over_budget", "roofline")
 
     def __init__(self, name: str, now: int) -> None:
         self.name = name
@@ -78,6 +85,14 @@ class _OpTrack:
         #: the replica holding the backlog of a degraded operator at
         #: parallelism > 1
         self.hot_shard: Optional[dict] = None
+        #: the latency ledger's SLO verdict while it names this operator
+        self.slo: Optional[dict] = None
+        #: the tenant ledger's budget verdict while this is the tenant's
+        #: heaviest operator
+        self.over_budget: Optional[dict] = None
+        #: the roofline ledger's collapse verdict while this is the
+        #: dominant hop
+        self.roofline: Optional[dict] = None
 
     def verdict(self, now: int) -> dict:
         v = {
@@ -91,6 +106,12 @@ class _OpTrack:
         }
         if self.hot_shard is not None:
             v["hot_shard"] = self.hot_shard
+        if self.slo is not None:
+            v["slo"] = self.slo
+        if self.over_budget is not None:
+            v["over_budget"] = self.over_budget
+        if self.roofline is not None:
+            v["roofline"] = self.roofline
         return v
 
 
@@ -120,6 +141,12 @@ class HealthPlane:
         #: from the stats sample on that thread would deadlock the
         #: postmortem lock
         self._bundle_thread = None
+        #: the ledgers whose latched verdicts the sample paints, bound by
+        #: PipeGraph._build when their planes are on: the latency ledger,
+        #: the tenant handle and the roofline ledger (None: one check)
+        self.latency = None
+        self.tenant = None
+        self.roofline = None
         self._lock = threading.Lock()
         #: the registry is process-wide: baseline its recapture counts so
         #: a storm verdict reflects this graph's run
@@ -131,6 +158,14 @@ class HealthPlane:
         t0 = time.perf_counter()
         now = now if now is not None else current_time_usecs()
         storms = self._compile_storms()
+        # the ledgers' latest published verdicts, read once (they tick on
+        # the same cadence, just before this sample)
+        lat = self.latency
+        slo_v = lat.verdict if lat is not None and lat.slo_active else None
+        ten = self.tenant
+        ob_v = ten.health_verdict() if ten is not None else None
+        rfl = self.roofline
+        rf_v = rfl.health_verdict() if rfl is not None else None
         with self._lock:
             changes = {}
             for op in self.graph._operators:
@@ -138,7 +173,8 @@ class HealthPlane:
                 if track is None:
                     track = self._tracks[op.name] = _OpTrack(op.name, now)
                 state = self._evaluate_op(op, track, now,
-                                          storms.get(op.name, False))
+                                          storms.get(op.name, False),
+                                          slo_v, ob_v, rf_v)
                 if state != track.state:
                     track.state = state
                     track.since_usec = now
@@ -167,7 +203,9 @@ class HealthPlane:
         return verdicts
 
     def _evaluate_op(self, op, track: _OpTrack, now: int,
-                     storm: bool) -> str:
+                     storm: bool, slo_v: Optional[dict] = None,
+                     ob_v: Optional[dict] = None,
+                     rf_v: Optional[dict] = None) -> str:
         # the gauges' own walk: the watchdog judges what the lag gauge
         # reports
         depth, frontier = self.graph.op_frontier_and_depth(op)
@@ -186,6 +224,7 @@ class HealthPlane:
         track.queue_depth = depth
         track.frontier = frontier
         track.compile_storm = storm
+        track.slo = track.over_budget = track.roofline = None
         # the replica with the deepest backlog (ties: the most lagged
         # frontier)
         track.hot_shard = None
@@ -210,7 +249,8 @@ class HealthPlane:
         if track.failure is not None:
             return FAILED
         if not alive:
-            return OK
+            # ended cleanly; a latched verdict stays the run's last word
+            return self._paint(op, track, slo_v, ob_v, rf_v)
         if track.stall_latched:
             return STALLED
         if depth > 0 and not advanced \
@@ -221,7 +261,24 @@ class HealthPlane:
             return STALLED
         if depth >= self.backpressure_depth or storm:
             return BACKPRESSURED
-        return OK
+        return self._paint(op, track, slo_v, ob_v, rf_v)
+
+    @staticmethod
+    def _paint(op, track: _OpTrack, slo_v, ob_v, rf_v) -> str:
+        """An otherwise-OK operator's state under the ledgers' verdicts:
+        each attaches to the operator it names, the most severe takes the
+        state (roofline < SLO < budget)."""
+        state = OK
+        if rf_v is not None and rf_v.get("dominant_op") == op.name:
+            track.roofline = rf_v
+            state = ROOFLINE_DEGRADED
+        if slo_v is not None and slo_v.get("dominant_op") == op.name:
+            track.slo = slo_v
+            state = SLO_VIOLATED
+        if ob_v is not None and ob_v.get("heaviest_op") == op.name:
+            track.over_budget = ob_v
+            state = OVER_BUDGET
+        return state
 
     def _recompile_counts(self) -> dict:
         """Recaptures per operator from the step registry, by exact name

@@ -1,0 +1,838 @@
+"""Prometheus text exposition of ``PipeGraph.stats()`` (the port of
+``windflow_tpu/monitoring/openmetrics.py``).
+
+One stats report (the dashboard's ``NEW_REPORT`` payload, a
+``dump_stats`` JSON) renders into the Prometheus text format (version
+0.0.4): counters for the lifetime totals, gauges for the point-in-time
+sections, and real ``_bucket``/``_sum``/``_count`` histograms re-exposed
+from the flight recorder's log2-bucketed latency histograms (bucket upper
+bounds are the ``2^b`` edges, cumulative counts, ``+Inf`` closing the
+series).  Family names, labels and values equal the JAX package's for the
+same stats dict; only HELP texts name the port's counterparts (step
+calls, CUDA graph captures, tensors).
+
+Escaping follows the exposition-format spec: label values escape ``\\``,
+``"`` and newline; HELP text escapes ``\\`` and newline.  The module is
+pure stdlib (no torch, no numpy), so ``tools/wf_metrics.py``-style
+scrapers and the dashboard render without touching a device.
+
+:func:`parse_exposition` is the matching strict parser: it rejects
+samples with no preceding ``# TYPE``, malformed metric or label names,
+broken escaping, non-monotonic histogram buckets and ``+Inf``/``_count``
+disagreement.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict, List, Optional, Tuple
+
+_NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def escape_label_value(v) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"') \
+                 .replace("\n", "\\n")
+
+
+def _escape_help(v: str) -> str:
+    return v.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _fmt_value(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    if math.isinf(f):
+        return "+Inf" if f > 0 else "-Inf"
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+def _fmt_le(le: float) -> str:
+    return "+Inf" if math.isinf(le) else _fmt_value(le)
+
+
+class MetricFamily:
+    """One family: name, type, help, and its samples (suffix + labels +
+    value; histogram bucket/sum/count samples carry their suffix)."""
+
+    def __init__(self, name: str, mtype: str, help_text: str) -> None:
+        self.name = name
+        self.mtype = mtype
+        self.help = help_text
+        self.samples: List[Tuple[str, dict, object]] = []
+
+    def add(self, value, labels: Optional[dict] = None,
+            suffix: str = "") -> None:
+        self.samples.append((suffix, dict(labels or {}), value))
+
+    def add_histogram(self, buckets: List[Tuple[float, int]], hsum: float,
+                      count: int, labels: Optional[dict] = None) -> None:
+        """``buckets`` are (upper_bound, per-bucket count) pairs — this
+        accumulates and closes the series with ``+Inf``."""
+        labels = dict(labels or {})
+        cum = 0
+        for le, c in sorted(buckets, key=lambda p: p[0]):
+            cum += c
+            self.add(cum, dict(labels, le=_fmt_le(le)), suffix="_bucket")
+        self.add(count, dict(labels, le="+Inf"), suffix="_bucket")
+        self.add(hsum, labels, suffix="_sum")
+        self.add(count, labels, suffix="_count")
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                 f"# TYPE {self.name} {self.mtype}"]
+        for suffix, labels, value in self.samples:
+            if labels:
+                lab = ",".join(
+                    f'{k}="{escape_label_value(v)}"'
+                    for k, v in labels.items())
+                lines.append(f"{self.name}{suffix}{{{lab}}} "
+                             f"{_fmt_value(value)}")
+            else:
+                lines.append(f"{self.name}{suffix} {_fmt_value(value)}")
+        return "\n".join(lines)
+
+
+def _hist_from_stats(fam: MetricFamily, q: Optional[dict],
+                     labels: dict) -> None:
+    """Re-expose one LatencyHistogram.quantiles() dict (with its
+    ``buckets``/``sum`` extension) as a real Prometheus histogram."""
+    if not isinstance(q, dict) or "buckets" not in q:
+        return
+    fam.add_histogram([(float(le), int(c)) for le, c in q["buckets"]],
+                      float(q.get("sum", 0.0)), int(q.get("count", 0)),
+                      labels)
+
+
+def render_openmetrics(stats: dict,
+                       base_labels: Optional[dict] = None) -> str:
+    """Render one ``PipeGraph.stats()`` dict as Prometheus text
+    exposition.  ``base_labels`` (e.g. ``{"app": name}``) are attached to
+    every sample."""
+    return render_openmetrics_multi([(base_labels, stats)])
+
+
+def render_openmetrics_multi(reports) -> str:
+    """Render several ``(base_labels, stats)`` reports into ONE valid
+    exposition: each metric family appears once (a single
+    ``# HELP``/``# TYPE`` pair) with every report's samples merged under
+    it — duplicate TYPE lines per family are a format violation the
+    strict parser rejects, so the dashboard's multi-app ``/metrics`` must
+    merge, not concatenate."""
+    merged: Dict[str, MetricFamily] = {}
+    order: List[str] = []
+    for base_labels, stats in reports:
+        for f in _families(stats, base_labels):
+            m = merged.get(f.name)
+            if m is None:
+                merged[f.name] = f
+                order.append(f.name)
+            else:
+                m.samples.extend(f.samples)
+    return "\n".join(merged[n].render() for n in order
+                     if merged[n].samples) + "\n"
+
+
+def _families(stats: dict,
+              base_labels: Optional[dict] = None) -> List["MetricFamily"]:
+    base = dict(base_labels or {})
+    if "app" not in base and stats.get("PipeGraph_name"):
+        base["app"] = stats["PipeGraph_name"]
+    # tenant label (monitoring/tenant_ledger.py): every sample of this
+    # report is billed to the graph's tenant — the disambiguator that
+    # keeps two same-topology apps' operator samples apart in the
+    # dashboard's merged multi-app exposition
+    tenant_section = stats.get("Tenant") or {}
+    if "tenant" not in base and isinstance(tenant_section, dict) \
+            and tenant_section.get("tenant"):
+        base["tenant"] = tenant_section["tenant"]
+    fams: List[MetricFamily] = []
+
+    def fam(name, mtype, help_text) -> MetricFamily:
+        f = MetricFamily(name, mtype, help_text)
+        fams.append(f)
+        return f
+
+    # -- per-operator lifetime counters --------------------------------------
+    # one sample per REPLICA with a `replica` label (stats are tracked
+    # per replica; the old per-op collapse hid skew — sum over the label
+    # in PromQL for the per-operator view).  A single-replica operator
+    # still gets exactly one sample per family, so existing consumers
+    # reading one value per op keep working.
+    ops = stats.get("Operators") or []
+    f_in = fam("wf_operator_inputs_total", "counter",
+               "Tuples received per operator replica (shard)")
+    f_out = fam("wf_operator_outputs_total", "counter",
+                "Tuples emitted per operator replica")
+    f_ign = fam("wf_operator_inputs_ignored_total", "counter",
+                "Tuples ignored per operator replica (e.g. late at "
+                "windows)")
+    f_prog = fam("wf_operator_device_programs_total", "counter",
+                 "Compiled-program dispatches per operator replica")
+    for op in ops:
+        name = op.get("Operator_name") or op.get("Name") or "?"
+        for idx, r in enumerate(op.get("Replicas") or []):
+            lab = dict(base, operator=name,
+                       replica=str(r.get("Replica_id", idx)))
+            f_in.add(r.get("Inputs_received", 0), lab)
+            f_out.add(r.get("Outputs_sent", 0), lab)
+            f_ign.add(r.get("Inputs_ignored", 0), lab)
+            f_prog.add(r.get("Device_programs_launched", 0), lab)
+
+    # -- graph-level counters / gauges ---------------------------------------
+    for key, mname, mtype, help_text in (
+            ("Bytes_H2D_total", "wf_bytes_h2d_total", "counter",
+             "Host-to-device bytes shipped by the staging plane"),
+            ("Bytes_D2H_total", "wf_bytes_d2h_total", "counter",
+             "Device-to-host bytes fetched at egress"),
+            ("Dropped_tuples", "wf_dropped_tuples_total", "counter",
+             "Tuples dropped graph-wide"),
+            ("Backpressure_throttle_events",
+             "wf_backpressure_throttle_events_total", "counter",
+             "Scheduler sweeps that deferred source ticks"),
+            ("rss_size_kb", "wf_rss_kb", "gauge",
+             "Resident set size of the host process (KiB)")):
+        if key in stats:
+            fam(mname, mtype, help_text).add(stats[key] or 0, base)
+
+    # -- gauges section ------------------------------------------------------
+    gauges = stats.get("Gauges") or {}
+    f_lag = fam("wf_watermark_lag_usec", "gauge",
+                "Wall clock minus operator watermark frontier")
+    f_depth = fam("wf_queue_depth", "gauge",
+                  "Queued inbox messages per operator")
+    for name, g in (gauges.get("operators") or {}).items():
+        lab = dict(base, operator=name)
+        if g.get("watermark_lag_usec") is not None:
+            f_lag.add(g["watermark_lag_usec"], lab)
+        f_depth.add(g.get("queue_depth", 0), lab)
+    f_thr = fam("wf_throughput_tps", "gauge",
+                "Rolling sunk-tuples/sec over the trailing window")
+    for window, key in (("1s", "throughput_1s_tps"),
+                        ("10s", "throughput_10s_tps")):
+        if key in gauges:
+            f_thr.add(gauges[key], dict(base, window=window))
+    if "staging_pool_held_bytes" in gauges:
+        fam("wf_staging_pool_held_bytes", "gauge",
+            "Host bytes retained by the staging recycling pool") \
+            .add(gauges["staging_pool_held_bytes"], base)
+
+    # -- health plane --------------------------------------------------------
+    health = stats.get("Health") or {}
+    if health.get("enabled"):
+        # enum gauge (the Prometheus enum pattern): one sample per
+        # (operator, state) with 1 on the active state — alertable with
+        # `wf_operator_health{state="stalled"} == 1` and graphable as a
+        # state timeline without label joins
+        f_health = fam("wf_operator_health", "gauge",
+                       "Per-operator watchdog state (enum gauge: 1 on "
+                       "the active state)")
+        for name, v in (health.get("verdicts") or {}).items():
+            active = str(v.get("state", "")).lower()
+            for state in ("ok", "roofline_degraded", "slo_violated",
+                          "over_budget", "backpressured", "stalled",
+                          "failed"):
+                f_health.add(1 if active == state else 0,
+                             dict(base, operator=name, state=state))
+        fam("wf_stall_events_total", "counter",
+            "Watchdog-confirmed stall events (root-cause attributed)") \
+            .add(health.get("stall_events", 0), base)
+        f_age = fam("wf_health_last_advance_age_usec", "gauge",
+                    "Age of the operator's last progress "
+                    "(inputs/frontier) observation")
+        for name, v in (health.get("verdicts") or {}).items():
+            if v.get("last_advance_age_usec") is not None:
+                f_age.add(v["last_advance_age_usec"],
+                          dict(base, operator=name))
+
+    # -- sweep ledger --------------------------------------------------------
+    sweep = stats.get("Sweep") or {}
+    if sweep.get("enabled"):
+        f_sd = fam("wf_sweep_dispatches_per_batch", "gauge",
+                   "Step dispatches per staged batch per operator hop "
+                   "(sweep ledger)")
+        f_sb = fam("wf_sweep_bytes_per_tuple", "gauge",
+                   "Tensor bytes per tuple a step of the hop reads and "
+                   "writes (see the provenance label)")
+        f_sx = fam("wf_sweep_excess_vs_model", "gauge",
+                   "Attributed bytes over the declared record-spec "
+                   "payload model")
+        f_dm = fam("wf_sweep_donation_miss_bytes_per_batch", "gauge",
+                   "Bytes copied per batch because donatable inputs are "
+                   "not donated")
+        for name, h in (sweep.get("per_hop") or {}).items():
+            lab = dict(base, operator=name)
+            if isinstance(h.get("dispatches_per_batch"), (int, float)):
+                f_sd.add(h["dispatches_per_batch"], lab)
+            if isinstance(h.get("bytes_per_tuple"), (int, float)):
+                # an estimate from tensor shapes, never a byte counter:
+                # the provenance label says so on the wire
+                f_sb.add(h["bytes_per_tuple"],
+                         dict(lab, provenance=h.get("bytes_provenance",
+                                                    "modeled")))
+            if isinstance(h.get("excess_vs_model"), (int, float)):
+                f_sx.add(h["excess_vs_model"], lab)
+            miss = (h.get("donation_miss") or {}).get("bytes_per_batch")
+            if isinstance(miss, (int, float)):
+                f_dm.add(miss, lab)
+        totals = sweep.get("totals") or {}
+        if isinstance(totals.get("bytes_per_tuple"), (int, float)):
+            fam("wf_sweep_bytes_per_tuple_total", "gauge",
+                "Summed attributed HBM bytes per tuple across all hops") \
+                .add(totals["bytes_per_tuple"], base)
+        fusion = sweep.get("fusion") or {}
+        if fusion.get("enabled") and isinstance(
+                fusion.get("dispatches_saved_per_batch"), (int, float)):
+            fam("wf_fusion_dispatches_saved_per_batch", "gauge",
+                "Step dispatches per batch elided by whole-chain "
+                "fusion (windflow_tpu_torch/fusion)") \
+                .add(fusion["dispatches_saved_per_batch"], base)
+
+    # -- wire plane ----------------------------------------------------------
+    wire = (stats.get("Staging") or {}).get("Wire") or {}
+    if wire.get("enabled") and isinstance(wire.get("wire_bytes"),
+                                          (int, float)):
+        fam("wf_wire_bytes_total", "counter",
+            "Bytes actually transferred host->device by wire-compressed "
+            "staging (windflow_tpu_torch/wire.py)") \
+            .add(wire["wire_bytes"], base)
+        fam("wf_wire_logical_bytes_total", "counter",
+            "Decoded (pre-compression) bytes behind the wire transfers") \
+            .add(wire.get("logical_bytes", 0), base)
+        fam("wf_wire_batches_total", "counter",
+            "Staged batches shipped wire-compressed") \
+            .add(wire.get("batches", 0), base)
+        fam("wf_wire_raw_batches_total", "counter",
+            "Staged batches where compression lost and the logical "
+            "buffer shipped unchanged") \
+            .add(wire.get("raw_batches", 0), base)
+        fam("wf_wire_fallback_lanes_total", "counter",
+            "Per-batch lane codec misfits degraded to raw") \
+            .add(wire.get("fallback_lanes", 0), base)
+        if isinstance(wire.get("compression_ratio"), (int, float)):
+            fam("wf_wire_compression_ratio", "gauge",
+                "Logical over wire bytes of the graph's compressed "
+                "staging (the wire plane)") \
+                .add(wire["compression_ratio"], base)
+
+    # -- shard plane ---------------------------------------------------------
+    shard = stats.get("Shard") or {}
+    if shard.get("enabled"):
+        f_sht = fam("wf_shard_tuples_total", "counter",
+                    "Tuples routed to each shard of a keyed operator "
+                    "(key-skew sketch / exact histogram)")
+        f_shq = fam("wf_shard_queue_depth", "gauge",
+                    "Queued inbox messages per operator shard (replica)")
+        f_shl = fam("wf_shard_watermark_lag_usec", "gauge",
+                    "Wall clock minus the shard's own watermark frontier")
+        f_shb = fam("wf_shard_hbm_bytes_total", "counter",
+                    "Steady tensor bytes attributed to the "
+                    "shard's own dispatches")
+        f_shi = fam("wf_shard_imbalance_ratio", "gauge",
+                    "Max over mean per-shard load of a keyed operator")
+        f_shh = fam("wf_shard_hot_key_share", "gauge",
+                    "Share of the operator's stream carried by its "
+                    "hottest key")
+        f_ici = fam("wf_shard_ici_bytes_per_tuple", "gauge",
+                    "Modeled inter-card collective bytes per tuple for the "
+                    "operator's sharded program (mesh graphs)")
+        for name, entry in (shard.get("per_op") or {}).items():
+            lab = dict(base, operator=name)
+            for rep in entry.get("replicas") or []:
+                rlab = dict(lab, shard=str(rep.get("shard", "?")))
+                f_shq.add(rep.get("queue_depth", 0), rlab)
+                if rep.get("watermark_lag_usec") is not None:
+                    f_shl.add(rep["watermark_lag_usec"], rlab)
+                if isinstance(rep.get("hbm_bytes"), (int, float)):
+                    f_shb.add(rep["hbm_bytes"], rlab)
+            load = entry.get("load") or {}
+            for i, n_t in enumerate(load.get("tuples") or []):
+                f_sht.add(n_t, dict(lab, shard=str(i)))
+            if isinstance(load.get("imbalance_ratio"), (int, float)):
+                f_shi.add(load["imbalance_ratio"], lab)
+            if isinstance(load.get("hot_key_share"), (int, float)):
+                f_shh.add(load["hot_key_share"], lab)
+            ici = entry.get("ici") or {}
+            if isinstance(ici.get("ici_bytes_per_tuple"), (int, float)):
+                # structural collective model — labeled so a dashboard
+                # can never mistake it for a measured counter
+                f_ici.add(ici["ici_bytes_per_tuple"],
+                          dict(lab, provenance=ici.get("provenance",
+                                                       "modeled")))
+
+    # -- durability plane ----------------------------------------------------
+    dur = stats.get("Durability") or {}
+    if dur.get("enabled"):
+        fam("wf_durability_epochs_committed_total", "counter",
+            "Checkpoint epochs committed (manifest written + fsynced)") \
+            .add(dur.get("epochs_committed", 0), base)
+        fam("wf_durability_checkpoint_ms", "gauge",
+            "Wall cost of the last checkpoint (barrier + snapshot + "
+            "manifest)") \
+            .add(dur.get("last_checkpoint_ms") or 0, base)
+        fam("wf_durability_checkpoint_bytes", "gauge",
+            "Snapshot bytes written by the last checkpoint") \
+            .add(dur.get("last_checkpoint_bytes", 0), base)
+        fam("wf_durability_dedupe_hits_total", "counter",
+            "Sink messages skipped by the exactly-once fence on replay") \
+            .add(dur.get("dedupe_hits", 0), base)
+        fam("wf_durability_restored", "gauge",
+            "1 when this graph was rebuilt from a checkpoint epoch") \
+            .add(0 if dur.get("restored_epoch") is None else 1, base)
+
+    # -- reshard executor ----------------------------------------------------
+    rsh = stats.get("Reshard") or {}
+    if rsh.get("enabled") and "error" not in rsh:
+        fam("wf_reshard_plans_applied_total", "counter",
+            "Reshard plans (move_keys/split_hot_key) applied live") \
+            .add(rsh.get("plans_applied", 0), base)
+        fam("wf_reshard_keys_moved_total", "counter",
+            "Keys re-placed by executor-applied move_keys actions") \
+            .add(rsh.get("keys_moved", 0), base)
+        fam("wf_reshard_preagg_folds_total", "counter",
+            "Hot-key tuples absorbed into pre-aggregated partials "
+            "(split_hot_key)") \
+            .add(rsh.get("preagg_folds", 0), base)
+        fam("wf_reshard_admission_factor", "gauge",
+            "Source admission factor (1.0 = no throttle; halves while "
+            "degraded with no applicable plan)") \
+            .add(rsh.get("admission_factor", 1.0), base)
+        fam("wf_reshard_quiesce_ms", "gauge",
+            "Wall cost of the last reshard quiesce-and-re-place "
+            "barrier") \
+            .add(rsh.get("quiesce_ms") or 0, base)
+        fam("wf_reshard_recovery_ms", "gauge",
+            "Wall time from the last applied plan to the first OK "
+            "verdict") \
+            .add(rsh.get("recovery_ms") or 0, base)
+
+    # -- latency histograms --------------------------------------------------
+    lat = stats.get("Latency") or {}
+    f_svc = fam("wf_service_latency_usec", "histogram",
+                "Per-batch service span per operator (microseconds)")
+    for name, q in (lat.get("service_usec_per_operator") or {}).items():
+        _hist_from_stats(f_svc, q, dict(base, operator=name))
+    f_e2e = fam("wf_end_to_end_latency_usec", "histogram",
+                "Staged-to-sunk end-to-end latency (microseconds)")
+    _hist_from_stats(f_e2e, lat.get("end_to_end_usec"), base)
+
+    # -- latency plane (critical-path decomposition + SLO) -------------------
+    lplane = stats.get("Latency_plane") or {}
+    if lplane.get("enabled"):
+        f_seg = fam("wf_latency_segment_usec", "histogram",
+                    "Critical-path segment latency per operator "
+                    "(latency-ledger decomposition; `segment` label is "
+                    "one of the five staged->sunk hops)")
+        f_fresh = fam("wf_latency_freshness_usec", "histogram",
+                      "Window fire time minus window-close event time "
+                      "on sampled fired batches (result freshness)")
+        f_share = fam("wf_latency_budget_share", "gauge",
+                      "Operator's share of graph-wide decomposed "
+                      "latency (0..1)")
+        f_busy = fam("wf_latency_device_busy_usec_total", "counter",
+                     "Device-compute microseconds credited to the "
+                     "operator (megastep group spans deflated by K)")
+        f_floor = fam("wf_latency_freshness_floor_usec", "gauge",
+                      "Megastep K x mean batch span: the freshness "
+                      "floor the executor's group-wait imposes")
+        for name, entry in (lplane.get("per_op") or {}).items():
+            lab = dict(base, operator=name)
+            for seg, q in (entry.get("segments_usec") or {}).items():
+                _hist_from_stats(f_seg, q, dict(lab, segment=seg))
+            _hist_from_stats(f_fresh, entry.get("freshness_usec"), lab)
+            if isinstance(entry.get("budget_share"), (int, float)):
+                f_share.add(entry["budget_share"], lab)
+            if isinstance(entry.get("device_busy_usec"), (int, float)):
+                f_busy.add(entry["device_busy_usec"], lab)
+            if isinstance(entry.get("freshness_floor_usec"),
+                          (int, float)):
+                f_floor.add(entry["freshness_floor_usec"], lab)
+        fam("wf_latency_traces_decomposed_total", "counter",
+            "Sampled traces fully decomposed by the latency ledger") \
+            .add(lplane.get("traces_decomposed", 0), base)
+        fam("wf_latency_traces_dropped_total", "counter",
+            "Open traces evicted before their sunk event arrived") \
+            .add(lplane.get("traces_dropped", 0), base)
+        fam("wf_latency_events_lost_total", "counter",
+            "Span-ring events overwritten before harvest") \
+            .add(lplane.get("events_lost", 0), base)
+        slo = lplane.get("slo") or {}
+        if slo.get("budget_ms"):
+            fam("wf_slo_active", "gauge",
+                "1 while the latched SLO_VIOLATED verdict holds") \
+                .add(1 if slo.get("active") else 0, base)
+            fam("wf_slo_entered_total", "counter",
+                "SLO violation episodes entered") \
+                .add(slo.get("entered", 0), base)
+            fam("wf_slo_cleared_total", "counter",
+                "SLO violation episodes cleared (hysteresis)") \
+                .add(slo.get("cleared", 0), base)
+            fam("wf_slo_budget_ms", "gauge",
+                "Declared end-to-end p99 latency budget "
+                "(Config.latency_slo_ms)") \
+                .add(slo.get("budget_ms", 0), base)
+            fam("wf_slo_recent_p99_ms", "gauge",
+                "Rolling-window e2e p99 the SLO is judged against") \
+                .add(slo.get("recent_p99_ms", 0), base)
+
+    # -- tenant plane --------------------------------------------------------
+    # per-tenant attribution across every graph in the process
+    # (monitoring/tenant_ledger.py).  Each sample carries the report's
+    # base labels PLUS the ROW's tenant label: the section is the whole
+    # process table, so in a multi-app merge the `app` label keeps the
+    # same tenant's rows from different reports distinct.
+    if tenant_section.get("enabled"):
+        f_thbm = fam("wf_tenant_hbm_bytes", "gauge",
+                     "Resident device state bytes attributed to the "
+                     "tenant (the budget basis)")
+        f_tbud = fam("wf_tenant_hbm_budget_bytes", "gauge",
+                     "Declared per-tenant HBM budget "
+                     "(Config.hbm_budget_bytes)")
+        f_tpr = fam("wf_tenant_budget_pressure", "gauge",
+                    "Resident bytes over budget (1.0 = at budget)")
+        f_tob = fam("wf_tenant_over_budget", "gauge",
+                    "1 while the tenant's latched OVER_BUDGET verdict "
+                    "holds")
+        f_toe = fam("wf_tenant_over_budget_entered_total", "counter",
+                    "OVER_BUDGET episodes entered (sustained overage)")
+        f_tdis = fam("wf_tenant_dispatches_total", "counter",
+                     "Step dispatches attributed to the tenant's "
+                     "operators (per-wrapper counters)")
+        f_tcms = fam("wf_tenant_compile_ms_total", "counter",
+                     "Compile wall-ms attributed to the tenant since "
+                     "its graphs registered")
+        f_th2d = fam("wf_tenant_h2d_bytes_total", "counter",
+                     "Host-to-device wire bytes staged by the tenant's "
+                     "graphs")
+        f_td2h = fam("wf_tenant_d2h_bytes_total", "counter",
+                     "Device-to-host bytes fetched by the tenant's "
+                     "sinks")
+        f_tici = fam("wf_tenant_ici_bytes_per_tuple", "gauge",
+                     "Modeled inter-card collective bytes per tuple across "
+                     "the tenant's sharded programs (shard ledger)")
+        f_tlat = fam("wf_tenant_latency_share", "gauge",
+                     "Tenant's share of the process's decomposed "
+                     "latency (latency plane; 0..1)")
+        for tname, agg in (tenant_section.get("tenants") or {}).items():
+            if not isinstance(agg, dict):
+                continue
+            lab = dict(base, tenant=tname)
+            f_thbm.add(agg.get("resident_state_bytes", 0), lab)
+            f_tdis.add(agg.get("dispatches", 0), lab)
+            f_tcms.add(agg.get("compile_ms", 0.0), lab)
+            f_th2d.add(agg.get("h2d_bytes", 0), lab)
+            f_td2h.add(agg.get("d2h_bytes", 0), lab)
+            if isinstance(agg.get("ici_bytes_per_tuple"), (int, float)):
+                # summed shard-plane model per tenant — same provenance
+                # labeling stance as wf_shard_ici_bytes_per_tuple
+                f_tici.add(agg["ici_bytes_per_tuple"],
+                           dict(lab,
+                                provenance=agg.get("ici_provenance")
+                                or "modeled"))
+            if isinstance(agg.get("latency_share"), (int, float)):
+                f_tlat.add(agg["latency_share"], lab)
+            budget = agg.get("budget") or {}
+            if budget.get("budget_bytes"):
+                f_tbud.add(budget["budget_bytes"], lab)
+                if isinstance(budget.get("pressure"), (int, float)):
+                    f_tpr.add(budget["pressure"], lab)
+                f_tob.add(1 if budget.get("active") else 0, lab)
+                f_toe.add(budget.get("entered", 0), lab)
+        attributed = tenant_section.get("attributed") or {}
+        if isinstance(attributed.get("staged_fraction"), (int, float)):
+            fam("wf_tenant_attributed_staged_fraction", "gauge",
+                "Tenants' attributed staged bytes over the process "
+                "staged-transfer total (the CI reconciliation gate)") \
+                .add(attributed["staged_fraction"], base)
+
+    # -- roofline plane + calibration provenance -----------------------------
+    # live achieved-vs-roofline gauge (monitoring/calibration.
+    # RooflineLedger) plus the info family naming where every modeled
+    # constant currently comes from — measured/modeled/calibrated(age)
+    roofline = stats.get("Roofline") or {}
+    if roofline.get("enabled"):
+        f_rtps = fam("wf_roofline_achieved_tuples_per_sec", "gauge",
+                     "Per-hop achieved throughput at monitor cadence "
+                     "(measured: deltas over replica counters)")
+        f_rbpt = fam("wf_roofline_bytes_per_tuple", "gauge",
+                     "Per-hop bytes/tuple the roofline ratio uses "
+                     "(sweep ledger tensor bytes; see provenance label)")
+        f_rrat = fam("wf_roofline_ratio_vs_roofline", "gauge",
+                     "Achieved bytes/sec over the calibrated bandwidth "
+                     "ceiling (1.0 = at the roofline)")
+        for name, hop in (roofline.get("per_hop") or {}).items():
+            lab = dict(base, operator=name)
+            if isinstance(hop.get("achieved_tuples_per_sec"),
+                          (int, float)):
+                f_rtps.add(hop["achieved_tuples_per_sec"], lab)
+            if isinstance(hop.get("bytes_per_tuple"), (int, float)):
+                f_rbpt.add(hop["bytes_per_tuple"],
+                           dict(lab, provenance=hop.get(
+                               "bytes_per_tuple_provenance", "modeled")))
+            if isinstance(hop.get("ratio_vs_roofline"), (int, float)):
+                f_rrat.add(hop["ratio_vs_roofline"], lab)
+        fam("wf_roofline_degraded", "gauge",
+            "1 while the latched ROOFLINE_DEGRADED advisory verdict "
+            "holds (dominant hop collapsed vs its trailing baseline)") \
+            .add(1 if roofline.get("verdict") else 0, base)
+        calib = roofline.get("calibration") or {}
+        consts = calib.get("constants") or {}
+        if consts:
+            # info-style family (value 1): one sample per modeled
+            # constant with its current provenance as a label — the
+            # queryable "is this number measured?" surface
+            f_prov = fam("wf_provenance", "gauge",
+                         "Provenance of each modeled constant (info "
+                         "family: 1 per constant, see labels)")
+            for key, slot in sorted(consts.items()):
+                if isinstance(slot, dict) and slot.get("provenance"):
+                    f_prov.add(1, dict(base, constant=key,
+                                       provenance=slot["provenance"]))
+
+    # -- device plane --------------------------------------------------------
+    device = stats.get("Device") or {}
+    jit = device.get("jit") or {}
+    f_cmp = fam("wf_jit_compiles_total", "counter",
+                "CUDA graph captures per op (step registry)")
+    f_rcmp = fam("wf_jit_recompiles_total", "counter",
+                 "Recaptures of one edge per op")
+    f_cms = fam("wf_jit_compile_ms_total", "counter",
+                "Cumulative capture wall milliseconds per op")
+    f_flops = fam("wf_jit_cost_flops", "gauge",
+                  "Cost analysis: FLOPs per execution (none in torch)")
+    f_bytes = fam("wf_jit_cost_bytes_accessed", "gauge",
+                  "Cost analysis: bytes accessed per execution (none in "
+                  "torch)")
+    for name, e in jit.items():
+        lab = dict(base, op=name)
+        f_cmp.add(e.get("compiles", 0), lab)
+        f_rcmp.add(e.get("recompiles", 0), lab)
+        f_cms.add(e.get("compile_ms_total", 0.0), lab)
+        cost = e.get("cost") or {}
+        if isinstance(cost.get("flops"), (int, float)):
+            f_flops.add(cost["flops"], lab)
+        if isinstance(cost.get("bytes_accessed"), (int, float)):
+            f_bytes.add(cost["bytes_accessed"], lab)
+    f_mem = fam("wf_device_memory_bytes", "gauge",
+                "torch.cuda.memory_stats() gauges per card")
+    for dev in device.get("memory") or []:
+        st = dev.get("stats")
+        if not isinstance(st, dict):
+            continue    # CPU backend: memory_stats() is None
+        for stat, v in st.items():
+            f_mem.add(v, dict(base, device=dev.get("device", "?"),
+                              stat=stat))
+    live = device.get("live_buffers") or {}
+    f_lb = fam("wf_live_buffer_bytes", "gauge",
+               "Bytes of live tensors per device ('all' = total)")
+    f_lc = fam("wf_live_buffer_count", "gauge",
+               "Count of live tensors per device ('all' = total)")
+    if "bytes" in live:
+        f_lb.add(live["bytes"], dict(base, device="all"))
+        f_lc.add(live.get("count", 0), dict(base, device="all"))
+    for dev, slot in (live.get("per_device") or {}).items():
+        lab = dict(base, device=dev)
+        f_lb.add(slot.get("bytes", 0), lab)
+        f_lc.add(slot.get("count", 0), lab)
+    staging = device.get("staging") or {}
+    if "staged_device_bytes_total" in staging:
+        fam("wf_staged_device_bytes_total", "counter",
+            "Cumulative packed bytes shipped host-to-device") \
+            .add(staging["staged_device_bytes_total"], base)
+
+    return fams
+
+
+# ---------------------------------------------------------------------------
+# strict parser (wf_metrics --check, golden-format tests)
+# ---------------------------------------------------------------------------
+
+_SUFFIXES = ("_bucket", "_sum", "_count")
+
+
+def _unescape_label_value(raw: str, where: str) -> str:
+    out = []
+    i = 0
+    while i < len(raw):
+        c = raw[i]
+        if c == "\\":
+            if i + 1 >= len(raw):
+                raise ValueError(f"{where}: dangling escape")
+            n = raw[i + 1]
+            if n == "\\":
+                out.append("\\")
+            elif n == '"':
+                out.append('"')
+            elif n == "n":
+                out.append("\n")
+            else:
+                raise ValueError(f"{where}: bad escape '\\{n}'")
+            i += 2
+        elif c == '"':
+            raise ValueError(f"{where}: unescaped quote in label value")
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def _parse_labels(raw: str, where: str) -> dict:
+    labels: Dict[str, str] = {}
+    i = 0
+    while i < len(raw):
+        m = re.match(r'([a-zA-Z_][a-zA-Z0-9_]*)="', raw[i:])
+        if not m:
+            raise ValueError(f"{where}: malformed label at '{raw[i:]}'")
+        name = m.group(1)
+        i += m.end()
+        # scan to the closing unescaped quote
+        j = i
+        while j < len(raw):
+            if raw[j] == "\\":
+                j += 2
+                continue
+            if raw[j] == '"':
+                break
+            j += 1
+        if j >= len(raw):
+            raise ValueError(f"{where}: unterminated label value")
+        labels[name] = _unescape_label_value(raw[i:j], where)
+        i = j + 1
+        if i < len(raw):
+            if raw[i] != ",":
+                raise ValueError(f"{where}: expected ',' between labels")
+            i += 1
+    return labels
+
+
+def _parse_value(raw: str, where: str) -> float:
+    if raw == "+Inf":
+        return math.inf
+    if raw == "-Inf":
+        return -math.inf
+    if raw == "NaN":
+        return math.nan
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{where}: bad sample value {raw!r}") from None
+
+
+def parse_exposition(text: str) -> dict:
+    """Parse + validate Prometheus text exposition.  Returns
+    ``{family: {"type": t, "help": h, "samples": [(name, labels, value)]}}``
+    and raises ``ValueError`` on any format violation: samples without a
+    preceding ``# TYPE``, bad metric/label names, broken escaping,
+    non-monotonic histogram buckets, ``+Inf`` bucket disagreeing with
+    ``_count``."""
+    families: Dict[str, dict] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        where = f"line {lineno}"
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 3 or parts[1] not in ("HELP", "TYPE"):
+                continue        # free-form comment
+            kind, name = parts[1], parts[2]
+            if not _NAME_RE.match(name):
+                raise ValueError(f"{where}: bad metric name {name!r}")
+            f = families.setdefault(
+                name, {"type": None, "help": None, "samples": []})
+            if kind == "TYPE":
+                value = parts[3].strip() if len(parts) > 3 else ""
+                if value not in ("counter", "gauge", "histogram",
+                                 "summary", "untyped"):
+                    raise ValueError(f"{where}: bad TYPE {value!r}")
+                if f["samples"]:
+                    raise ValueError(
+                        f"{where}: TYPE for {name} after its samples")
+                f["type"] = value
+            else:
+                f["help"] = parts[3] if len(parts) > 3 else ""
+            continue
+        # sample line: name[{labels}] value [timestamp]
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})?\s+(\S+)"
+                     r"(\s+-?\d+)?$", line)
+        if not m:
+            raise ValueError(f"{where}: malformed sample {line!r}")
+        name, _, rawlabels, rawvalue = m.group(1, 2, 3, 4)
+        labels = _parse_labels(rawlabels, where) if rawlabels else {}
+        value = _parse_value(rawvalue, where)
+        family = name
+        if family not in families:
+            for suf in _SUFFIXES:
+                if name.endswith(suf) and name[:-len(suf)] in families:
+                    family = name[:-len(suf)]
+                    break
+        f = families.get(family)
+        if f is None or f["type"] is None:
+            raise ValueError(
+                f"{where}: sample {name!r} without a preceding # TYPE")
+        if f["type"] != "histogram" and family != name:
+            raise ValueError(
+                f"{where}: suffix sample {name!r} on non-histogram "
+                f"family {family!r}")
+        if f["type"] == "histogram" and family == name:
+            raise ValueError(
+                f"{where}: histogram {name!r} must expose only "
+                "_bucket/_sum/_count samples")
+        if f["type"] == "counter":
+            if not (value >= 0 or math.isnan(value)):
+                raise ValueError(f"{where}: negative counter {name!r}")
+        if "le" in labels and not name.endswith("_bucket"):
+            raise ValueError(f"{where}: 'le' label outside _bucket")
+        f["samples"].append((name, labels, value))
+
+    _validate_histograms(families)
+    return families
+
+
+def _series_key(labels: dict) -> tuple:
+    return tuple(sorted((k, v) for k, v in labels.items() if k != "le"))
+
+
+def _validate_histograms(families: dict) -> None:
+    for fname, f in families.items():
+        if f["type"] != "histogram":
+            continue
+        series: Dict[tuple, dict] = {}
+        for name, labels, value in f["samples"]:
+            s = series.setdefault(_series_key(labels),
+                                  {"buckets": [], "sum": None,
+                                   "count": None})
+            if name.endswith("_bucket"):
+                if "le" not in labels:
+                    raise ValueError(
+                        f"{fname}: _bucket sample without 'le'")
+                s["buckets"].append((_parse_value(labels["le"],
+                                                  fname), value))
+            elif name.endswith("_sum"):
+                s["sum"] = value
+            elif name.endswith("_count"):
+                s["count"] = value
+        for key, s in series.items():
+            if not s["buckets"] or s["count"] is None or s["sum"] is None:
+                raise ValueError(
+                    f"{fname}{dict(key)}: histogram series missing "
+                    "_bucket/_sum/_count")
+            s["buckets"].sort(key=lambda p: p[0])
+            les = [le for le, _ in s["buckets"]]
+            if les[-1] != math.inf:
+                raise ValueError(f"{fname}{dict(key)}: no +Inf bucket")
+            counts = [c for _, c in s["buckets"]]
+            if any(prev > nxt for prev, nxt in zip(counts, counts[1:])):
+                raise ValueError(
+                    f"{fname}{dict(key)}: bucket counts decrease — "
+                    "cumulative histogram broken")
+            if counts[-1] != s["count"]:
+                raise ValueError(
+                    f"{fname}{dict(key)}: +Inf bucket {counts[-1]} != "
+                    f"_count {s['count']}")

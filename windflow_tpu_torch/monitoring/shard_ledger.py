@@ -538,6 +538,13 @@ class ShardLedger:
                 return sk.summary() if sk is not None else None
         return None
 
+    @staticmethod
+    def ici_totals() -> dict:
+        """The collective model's totals: no mesh, so no collective moves
+        a byte over the fabric.  Host constants: the tenant ledger reads
+        them at tick cadence without the sketches' device reads."""
+        return {"ici_bytes_per_tuple": 0.0, "ici_provenance": "modeled"}
+
     def section(self) -> dict:
         from windflow_tpu_torch.basic import current_time_usecs
         from windflow_tpu_torch.batch import WM_MAX, WM_NONE
@@ -603,9 +610,7 @@ class ShardLedger:
                 "max_imbalance_op": worst[1],
                 "hot_key_share": round(hot[0], 4) if hot[1] else None,
                 "hot_key_op": hot[1],
-                # no mesh: no collective moves a byte over the fabric
-                "ici_bytes_per_tuple": 0.0,
-                "ici_provenance": "modeled",
+                **self.ici_totals(),
                 "ici_time_provenance": None,
                 "sketch_host_update_usec": round(sketch_usec, 1),
                 "keyed_edges_sketched": len(self._sketches),

@@ -1,0 +1,363 @@
+"""The dashboard's single-page UI (the port of
+``windflow_tpu/monitoring/webui.py``; reference React SPA
+``dashboard/web_client/src/Pages/Dashboard.js``): the application list,
+the graph diagram and per-operator tables, one static page of HTML and
+JavaScript polling the JSON endpoints of
+:mod:`windflow_tpu_torch.monitoring.dashboard` (no build step, no
+external assets)."""
+
+INDEX_HTML = """<!DOCTYPE html>
+<html>
+<head>
+<meta charset="utf-8">
+<title>windflow_tpu_torch dashboard</title>
+<style>
+  body { font-family: system-ui, sans-serif; margin: 0; display: flex;
+         height: 100vh; color: #222; }
+  #apps { width: 220px; border-right: 1px solid #ddd; padding: 12px;
+          overflow-y: auto; }
+  #apps h2, #main h2 { font-size: 15px; margin: 4px 0 10px; }
+  .app { padding: 6px 8px; border-radius: 6px; cursor: pointer;
+         margin-bottom: 4px; font-size: 13px; }
+  .app:hover { background: #f0f4ff; }
+  .app.sel { background: #dbe7ff; }
+  .dead { color: #999; }
+  #main { flex: 1; padding: 14px 18px; overflow-y: auto; }
+  table { border-collapse: collapse; font-size: 12px; margin-top: 6px; }
+  td, th { border: 1px solid #e3e3e3; padding: 3px 8px; text-align: right; }
+  th { background: #f7f7f7; }
+  td:first-child, th:first-child { text-align: left; }
+  .spark { vertical-align: middle; }
+  .hOK { color: #1a7f37; font-weight: 600; }
+  .hSLO_VIOLATED { color: #c2571a; font-weight: 600; }
+  .hOVER_BUDGET { color: #8e44ad; font-weight: 600; }
+  .hBACKPRESSURED { color: #b8860b; font-weight: 600; }
+  .hSTALLED, .hFAILED { color: #c0392b; font-weight: 600; }
+  .bud { display: inline-block; width: 60px; height: 9px;
+         background: #eceff4; vertical-align: middle; }
+  .bud > div { height: 9px; background: #c2571a; }
+  #meta { font-size: 12px; color: #555; margin-bottom: 8px;
+          white-space: pre-line; }
+  pre { background: #f7f7f7; padding: 8px; font-size: 11px;
+        overflow-x: auto; }
+  details { margin-top: 12px; }
+</style>
+</head>
+<body>
+<div id="apps"><h2>Applications</h2><div id="applist">loading…</div></div>
+<div id="main"><h2 id="title">select an application</h2>
+  <div id="meta"></div>
+  <div id="tenants"></div>
+  <div id="ops"></div>
+  <details><summary>graph diagram</summary><div id="diagram"></div></details>
+</div>
+<script>
+let sel = null;
+
+// every server-supplied string passes through esc() before innerHTML:
+// app names, operator names, and diagrams arrive from arbitrary TCP
+// clients and must never execute as markup in the viewer's browser
+function esc(s) {
+  return String(s).replace(/&/g, "&amp;").replace(/</g, "&lt;")
+                  .replace(/>/g, "&gt;").replace(/"/g, "&quot;");
+}
+
+function spark(values, w, h) {
+  if (values.length < 2) return "";
+  const max = Math.max(...values, 1e-9);
+  const pts = values.map((v, i) =>
+    `${(i / (values.length - 1) * w).toFixed(1)},` +
+    `${(h - v / max * (h - 2)).toFixed(1)}`).join(" ");
+  return `<svg class="spark" width="${w}" height="${h}">` +
+         `<polyline points="${pts}" fill="none" stroke="#4169e1" ` +
+         `stroke-width="1.5"/></svg>`;
+}
+
+async function poll() {
+  try {
+    const apps = await (await fetch("/apps")).json();
+    const el = document.getElementById("applist");
+    el.innerHTML = apps.map(a =>
+      `<div class="app ${a.id === sel ? "sel" : ""} ${a.alive ? "" : "dead"}"
+            onclick="select(${a.id})">#${a.id} ${esc(a.name)}` +
+      `${a.alive ? "" : " (ended)"}<br><small>${a.num_reports} reports` +
+      `</small></div>`).join("") || "no applications yet";
+    if (sel !== null) await render(sel);
+  } catch (e) { /* server restarting */ }
+  setTimeout(poll, 1000);
+}
+
+function select(id) { sel = id; render(id); loadDiagram(id); }
+
+async function render(id) {
+  const app = await (await fetch(`/apps/${id}`)).json();
+  const reports = app.reports || [];
+  document.getElementById("title").textContent =
+    `#${id} ${app.name} — ${reports.length} reports`;  // textContent: safe
+  if (!reports.length) return;
+  const last = reports[reports.length - 1];
+  // device line next to the host-side meta: step-registry totals
+  // (captures) plus per-card allocator bytes (the CPU reports no
+  // memory_stats — shown as host-only so the gap is explicit)
+  const dev = last.Device || {};
+  const jt = dev.jit_totals || {};
+  const hbm = (dev.memory || [])
+    .filter(d => d.stats && d.stats.bytes_in_use !== undefined)
+    .map(d => `${d.device}=${(d.stats.bytes_in_use / 1048576).toFixed(1)}MB`)
+    .join(" ");
+  const live = dev.live_buffers || {};
+  // health plane: graph verdict + stall counter in the meta line, a
+  // per-operator state column in the table below
+  const health = last.Health || {};
+  // latency plane: rolling-p99-vs-budget headline when an SLO is
+  // declared, and the per-op budget-bar column in the table below
+  const lplane = last.Latency_plane || {};
+  const slo = lplane.slo || {};
+  const sloLine = slo.budget_ms
+    ? `  slo=${slo.active ? "VIOLATED" : "ok"} ` +
+      `p99=${slo.recent_p99_ms}ms/${slo.budget_ms}ms`
+    : "";
+  const hLine = (health.enabled
+    ? `health=${health.graph_state || "?"} ` +
+      `stalls=${health.stall_events ?? 0}`
+    : "health=off") + sloLine + (last.Aborted ? "  ABORTED" : "");
+  // wire plane: compression ratio of the staged ingest (logical over
+  // wire bytes) — "off"/"raw" make the no-compression cases explicit
+  const wire = (last.Staging || {}).Wire || {};
+  const wLine = wire.enabled
+    ? (wire.compression_ratio != null
+       ? `wire=${wire.compression_ratio}x` : "wire=raw")
+    : "wire=off";
+  document.getElementById("meta").textContent =
+    `mode=${last.Mode}  operators=${last.Operator_number}  ` +
+    `dropped=${last.Dropped_tuples}  rss=${last.rss_size_kb} kB  ` +
+    `throttle_events=${last.Backpressure_throttle_events}  ` +
+    `${wLine}  ${hLine}\n` +
+    `device: compiles=${jt.compiles ?? "?"} ` +
+    `recompiles=${jt.recompiles ?? "?"} ` +
+    `compile_ms=${jt.compile_ms_total ?? "?"}  ` +
+    `live_buffers=${live.count ?? "?"} ` +
+    `(${((live.bytes || 0) / 1048576).toFixed(1)}MB)  ` +
+    `hbm: ${hbm || "(no allocator stats — host-only backend)"}`;
+  // tenant plane (monitoring/tenant_ledger.py): process-wide roll-up —
+  // one row per tenant with a budget bar (resident bytes vs declared
+  // HBM budget; the bar overflows red past 1.0) and the attribution
+  // fraction headline.  Rendered from this app's report, which carries
+  // the WHOLE process table.
+  const tplane = last.Tenant || {};
+  const tEl = document.getElementById("tenants");
+  if (tplane.enabled && tplane.tenants &&
+      Object.keys(tplane.tenants).length) {
+    const frac = (tplane.attributed || {}).staged_fraction;
+    const fmtB = b => b >= 1048576 ? `${(b / 1048576).toFixed(1)}MB`
+      : b >= 1024 ? `${(b / 1024).toFixed(1)}kB` : `${b}B`;
+    tEl.innerHTML =
+      `<table><tr><th>tenant` +
+      `${frac != null ? ` (attributed ${(frac * 100).toFixed(0)}%)`
+                      : ""}</th>` +
+      `<th>graphs</th><th>resident</th><th>budget</th>` +
+      `<th>dispatches</th><th>H2D</th><th>verdict</th></tr>` +
+      Object.entries(tplane.tenants).map(([name, t]) => {
+        const bud = t.budget || {};
+        const pr = bud.pressure;
+        const over = bud.active;
+        const budCell = !bud.budget_bytes ? "–"
+          : `<span class="bud"><div style="width:` +
+            `${Math.round(Math.min(1, pr || 0) * 60)}px` +
+            `${over ? ";background:#c0392b" : ""}"></div></span> ` +
+            `${fmtB(bud.budget_bytes)} (${(pr || 0).toFixed(2)}x)`;
+        const vCell = over
+          ? `<span class="hOVER_BUDGET">OVER_BUDGET</span>` +
+            ` → ${esc((bud.verdict || {}).heaviest_op || "?")}`
+          : "ok";
+        return `<tr><td>${esc(name)}</td>` +
+               `<td>${(t.graphs || []).map(esc).join(", ")}</td>` +
+               `<td>${fmtB(t.resident_state_bytes || 0)}</td>` +
+               `<td>${budCell}</td><td>${t.dispatches ?? 0}</td>` +
+               `<td>${fmtB(t.h2d_bytes || 0)}</td>` +
+               `<td>${vCell}</td></tr>`;
+      }).join("") + "</table>";
+  } else {
+    tEl.innerHTML = "";
+  }
+  // per-operator history: throughput (delta Outputs_sent) and
+  // watermark-lag gauge between reports
+  const hist = {}, lagHist = {};
+  let prev = null;
+  for (const r of reports) {
+    const byOp = {};
+    for (const op of (r.Operators || [])) {
+      let out = 0;
+      for (const rep of (op.Replicas || [])) out += rep.Outputs_sent || 0;
+      byOp[op.Operator_name || op.Name || "?"] = out;
+    }
+    const gops = (r.Gauges || {}).operators || {};
+    for (const [name, g] of Object.entries(gops)) {
+      if (g.watermark_lag_usec != null)
+        (lagHist[name] = lagHist[name] || []).push(g.watermark_lag_usec);
+    }
+    if (prev) {
+      for (const [name, out] of Object.entries(byOp)) {
+        (hist[name] = hist[name] || []).push(
+          Math.max(0, out - (prev[name] || 0)));
+      }
+    }
+    prev = byOp;
+  }
+  const lastOps = reports[reports.length - 1].Operators || [];
+  const lat = (last.Latency || {}).service_usec_per_operator || {};
+  const gops = (last.Gauges || {}).operators || {};
+  const fmtUs = v => v == null ? "–" :
+    (v >= 1e6 ? `${(v / 1e6).toFixed(1)}s` :
+     v >= 1e3 ? `${(v / 1e3).toFixed(1)}ms` : `${Math.round(v)}µs`);
+  const verdicts = health.verdicts || {};
+  // sweep ledger (monitoring/sweep_ledger.py): per-hop dispatch and
+  // byte columns — "B/tuple" is the tensor bytes a step of the hop
+  // reads and writes per tuple, "disp/batch" its step dispatches per
+  // staged batch
+  const sweepHops = (last.Sweep || {}).per_hop || {};
+  // shard plane (monitoring/shard_ledger.py): per-shard drill-down
+  // under each op row — click the operator name to expand its shards
+  // (queue/lag/load per replica, hot-key table for keyed edges)
+  const shardOps = (last.Shard || {}).per_op || {};
+  // latency ledger (monitoring/latency_ledger.py): each op's share of
+  // the graph-wide decomposed critical path, drawn as a budget bar;
+  // hover names the op's dominant segment (where its share is spent)
+  const latOps = lplane.per_op || {};
+  const shardRow = (name, i) => {
+    const sh = shardOps[name];
+    if (!sh) return "";
+    const reps = sh.replicas || [];
+    const load = sh.load || {};
+    const tuples = load.tuples || [];
+    if (reps.length < 2 && !tuples.length) return "";
+    const rows = reps.map(r => {
+      const q = r.service_usec || {};
+      const t = tuples[r.shard];
+      const hotMark = load.hot_shard === r.shard ? " 🔥" : "";
+      return `<tr><td>shard ${r.shard}${hotMark}</td>` +
+             `<td>${r.queue_depth}</td><td>${fmtUs(r.watermark_lag_usec)}` +
+             `</td><td>${t == null ? "–" : t}</td>` +
+             `<td>${fmtUs(q.p50)}</td><td>${fmtUs(q.p99)}</td>` +
+             `<td>${r.dispatches}</td>` +
+             `<td>${r.hbm_bytes == null ? "–" : r.hbm_bytes}</td></tr>`;
+    }).join("");
+    const hot = (load.hot_keys || []).slice(0, 4).map(h =>
+      `${esc(h.key)}→shard ${h.shard ?? "?"} ` +
+      `(${((h.share || 0) * 100).toFixed(1)}%)`).join(", ");
+    const imb = load.imbalance_ratio != null
+      ? ` imbalance=${load.imbalance_ratio}` : "";
+    // calibration provenance (monitoring/calibration.py): the
+    // inter-card column is the shard plane's structural model, never a
+    // counter —
+    // marked "~" with the provenance in the hover title so a modeled
+    // number can never read as ground truth
+    const ici = (sh.ici || {}).ici_bytes_per_tuple;
+    const iciProv = (sh.ici || {}).ici_bandwidth_provenance || "modeled";
+    const open = (window._openShards || new Set()).has(i);
+    return `<tr id="shard_${i}" style="display:${open ? "" : "none"}">` +
+           `<td colspan="14">` +
+           `<table><tr><th>shard</th><th>queue</th><th>wm lag</th>` +
+           `<th>tuples</th><th>p50</th><th>p99</th><th>disp</th>` +
+           `<th>HBM B</th></tr>${rows}</table>` +
+           `<small>${load.basis ? `load basis=${esc(load.basis)}` : ""}` +
+           `${imb}${hot ? ` hot keys: ${hot}` : ""}` +
+           `${ici != null ? ` <span title="provenance: modeled ` +
+             `(structural collective model; bandwidth ${esc(iciProv)})">` +
+             `ICI≈${ici} B/tuple</span>` : ""}</small>` +
+           `</td></tr>`;
+  };
+  window._openShards = window._openShards || new Set();
+  window.toggleShard = i => {
+    const el = document.getElementById(`shard_${i}`);
+    if (!el) return;
+    const hidden = el.style.display === "none";
+    el.style.display = hidden ? "" : "none";
+    // survives the 1 Hz re-render: membership drives the next render
+    if (hidden) window._openShards.add(i);
+    else window._openShards.delete(i);
+  };
+  document.getElementById("ops").innerHTML =
+    `<table><tr><th>operator</th><th>health</th><th>replicas</th>` +
+    `<th>outputs</th>` +
+    `<th>ignored</th><th>p50</th><th>p95</th><th>p99</th>` +
+    `<th>disp/batch</th><th>B/tuple</th><th>wire</th>` +
+    `<th>budget</th>` +
+    `<th>wm lag</th><th>throughput (tuples/report)</th></tr>` +
+    lastOps.map(op => {
+      const name = op.Operator_name || op.Name || "?";
+      const reps = (op.Replicas || []);
+      const outs = reps.reduce((s, r) => s + (r.Outputs_sent || 0), 0);
+      const ign = reps.reduce((s, r) => s + (r.Inputs_ignored || 0), 0);
+      const h = hist[name] || [];
+      const cur = h.length ? h[h.length - 1] : 0;
+      const q = lat[name] || {};
+      const lag = (gops[name] || {}).watermark_lag_usec;
+      const lh = lagHist[name] || [];
+      const state = (verdicts[name] || {}).state;
+      const hCell = state
+        ? `<span class="h${esc(state)}">${esc(state)}</span>`
+        : "–";
+      const hop = sweepHops[name] || {};
+      const don = hop.donation_miss ? " <b>!don</b>" : "";
+      // "~" marks a modeled cell (tensor-shape bytes, not a byte
+      // counter) — hover for the provenance tag (calibration.py)
+      const bpt = hop.bytes_per_tuple == null ? "–"
+        : `<span title="provenance: ` +
+          `${esc(hop.bytes_provenance || "modeled")} ` +
+          `(tensor-shape estimate)">~${hop.bytes_per_tuple}</span>${don}`;
+      // whole-chain fusion: a member hop dispatches nothing — its
+      // program folded into the fused host hop it names here
+      const dpb = hop.fused_into
+        ? `⇒ ${esc(hop.fused_into)}`
+        : (hop.dispatches_per_batch == null ? "–"
+           : hop.dispatches_per_batch);
+      // wire plane: per-op compression ratio of the staged transfers
+      // this op's replicas shipped (Bytes_H2D_logical over Bytes_H2D —
+      // "raw" when the op stages uncompressed, "–" when it stages
+      // nothing)
+      const wSent = reps.reduce((s, r) => s + (r.Bytes_H2D || 0), 0);
+      const wLog = reps.reduce(
+        (s, r) => s + (r.Bytes_H2D_logical || 0), 0);
+      const wCell = !wSent ? "–"
+        : (wLog > wSent ? `${(wLog / wSent).toFixed(2)}x` : "raw");
+      const lp = latOps[name] || {};
+      const bsh = lp.budget_share;
+      const budCell = bsh == null ? "–"
+        : `<span class="bud" title="${esc(lp.dominant_segment || "")}">` +
+          `<div style="width:${Math.round(bsh * 60)}px"></div></span> ` +
+          `${(bsh * 100).toFixed(0)}%`;
+      const idx = lastOps.indexOf(op);
+      const sub = shardRow(name, idx);
+      const nameCell = sub
+        ? `<td style="cursor:pointer" onclick="toggleShard(${idx})">` +
+          `▸ ${esc(name)}</td>`
+        : `<td>${esc(name)}</td>`;
+      return `<tr>${nameCell}<td>${hCell}</td>` +
+             `<td>${reps.length}</td>` +
+             `<td>${outs}</td><td>${ign}</td>` +
+             `<td>${fmtUs(q.p50)}</td><td>${fmtUs(q.p95)}</td>` +
+             `<td>${fmtUs(q.p99)}</td>` +
+             `<td>${dpb}</td><td>${bpt}</td><td>${wCell}</td>` +
+             `<td>${budCell}</td>` +
+             `<td>${spark(lh.slice(-60), 80, 26)} ${fmtUs(lag)}</td>` +
+             `<td>${spark(h.slice(-60), 160, 26)} ${cur}</td></tr>` + sub;
+    }).join("") + "</table>";
+}
+
+async function loadDiagram(id) {
+  const txt = await (await fetch(`/apps/${id}/diagram`)).text();
+  const el = document.getElementById("diagram");
+  if (txt.trimStart().startsWith("<svg")) {
+    // embed via <img>: SVG in an img element never runs scripts
+    el.innerHTML = `<img src="/apps/${id}/diagram" alt="graph">`;
+  } else {
+    el.innerHTML = `<pre>${esc(txt)}</pre>`;   // DOT source
+  }
+}
+
+poll();
+</script>
+</body>
+</html>
+"""

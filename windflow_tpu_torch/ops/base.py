@@ -58,6 +58,10 @@ class Replica:
         self.ring = None
         #: traced batches seen (the device_done cadence)
         self._traced_seen = 0
+        #: latency ledger (monitoring/latency_ledger.py), bound on window
+        #: replicas by PipeGraph._build for the freshness gauge; None
+        #: leaves one `is not None` check at the waited batch
+        self.latency = None
         self.mode = ExecutionMode.DEFAULT
         self.time_policy = TimePolicy.INGRESS
         #: origin id of the input being processed (HostBatch.ids): relays

@@ -66,8 +66,13 @@ class _GPUReplica(Replica):
             if out is not None and every \
                     and self._traced_seen % every == 0:
                 wait_for_device(out.valid)
-                self.ring.record(tr[0], flightrec.DEVICE_DONE,
-                                 current_time_usecs())
+                now = current_time_usecs()
+                self.ring.record(tr[0], flightrec.DEVICE_DONE, now)
+                if self.latency is not None:
+                    # the window-freshness gauge, on this batch only: its
+                    # device work is done, so the read waits for nothing
+                    self.latency.note_window_fire(self.op.name, out.ts,
+                                                  out.valid, now)
         if out is not None:
             if out.trace is None:
                 # steps build fresh batches: the lane is relayed here
