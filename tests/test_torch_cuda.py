@@ -43,8 +43,15 @@ compacted reduce synchronises as often with every plane on as off; the
 monitoring thread ticks through a K = 8 capture (each tick holds the
 capture lock) with records equal to K = 1's; and the tenant ledger's
 resident walk counts a storage once however many views reach it, within
-the allocator's bytes.
+the allocator's bytes.  The analysis plane's checks at the end run
+``PipeGraph.check()`` on card graphs (one closing over a card tensor)
+with no allocation, no kernel launch, no CUDA kernel in a profiler window
+and no synchronising call; refuse the two-fault graph before any
+allocation; and hold a graph's records and launches equal with
+preflight on and off.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -1303,6 +1310,110 @@ def test_cuda_capture_survives_a_dead_graph_in_a_cycle(cuda_device):
     assert torch.equal(y, x * 2)
 
 
+# ---------------------------------------------------------------------------
+# the analysis plane: preflight at start()
+# ---------------------------------------------------------------------------
+
+def _an_graph(cuda_device, sink, lut=None, **cfg):
+    """Source (record spec) → MapGPU | FilterGPU → keyed count windows
+    (generic combiner) → columnar Sink, 4 batches of 4,096 on the card;
+    ``lut``: the map adds a card tensor it closes over."""
+    import windflow_tpu_torch as wt
+    rng = np.random.default_rng(13)
+    keys = rng.integers(0, 64, 16384).astype(np.int32)
+    vals = rng.integers(-100, 101, 16384).astype(np.float32)
+
+    def gen():
+        yield from ({"key": k, "v0": v} for k, v in zip(keys, vals))
+
+    if lut is None:
+        def fn(t):
+            return {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}
+    else:
+        def fn(t):
+            return {"key": t["key"], "v0": t["v0"] + lut[t["key"] % 8]}
+    g = wt.PipeGraph("an", config=wt.Config(device="cuda", **cfg))
+    p = g.add_source(wt.Source_Builder(gen).withOutputBatchSize(4096)
+                     .withRecordSpec({"key": np.int32(0),
+                                      "v0": np.float32(0.0)}).build())
+    p.add(wt.MapGPU_Builder(fn).build())
+    p.chain(wt.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    p.add(wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(64).build()).add_sink(
+        wt.Sink_Builder(sink).withColumnarSink().build())
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("closure", [False, True])
+def test_cuda_check_makes_no_device_work(cuda_device, closure):
+    from torch.profiler import ProfilerActivity, profile
+    lut = torch.arange(8, dtype=torch.float32, device=cuda_device) \
+        if closure else None
+    g = _an_graph(cuda_device, lambda c: None, lut=lut)
+    gc.collect()        # earlier tests' garbage would read as a change
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    fc.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            diags = g.check()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert diags == []
+    assert torch.cuda.memory_allocated() == alloc
+    assert not any(fc.launch_counts().values())
+    assert [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA] == []
+
+
+@pytest.mark.cuda
+def test_cuda_refused_graph_allocates_nothing(cuda_device):
+    import windflow_tpu_torch as wt
+    g = wt.PipeGraph("two_faults", config=wt.Config(device="cuda"))
+    for fn, kind in ((lambda t: {"v0": torch.cat([t["v0"], t["v0"]])},
+                      wt.MapGPU_Builder),
+                     (lambda t: t["v0"], wt.FilterGPU_Builder)):
+        g.add_source(wt.Source_Builder(lambda: iter([]))
+                     .withOutputBatchSize(4096)
+                     .withRecordSpec({"key": np.int32(0),
+                                      "v0": np.float32(0.0)}).build()) \
+            .add(kind(fn).build()).add_sink(
+            wt.Sink_Builder(lambda r: None).build())
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    with pytest.raises(wt.PreflightError) as ei:
+        g.start()
+    assert sorted(d.code for d in ei.value.diagnostics) == ["WF101",
+                                                            "WF102"]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == alloc
+    assert g._all_replicas == []
+
+
+@pytest.mark.cuda
+def test_cuda_preflight_on_equals_off(cuda_device):
+    got = {}
+    for mode in ("error", "off"):
+        cols = []
+        g = _an_graph(cuda_device,
+                      lambda c: cols.append(c) if c is not None else None,
+                      preflight=mode)
+        fc.reset_launch_counts()
+        g.run()
+        torch.cuda.synchronize()
+        recs = sorted(zip(*(np.concatenate([np.asarray(c.cols[n])
+                                            for c in cols]).tolist()
+                            for n in ("key", "wid", "value"))))
+        got[mode] = (recs, fc.launch_counts())
+    assert got["error"] == got["off"] and got["error"][0]
+    assert got["error"][1]["grouping_rank_hist"] > 0
+
+
 @pytest.mark.cuda
 def test_cuda_megastep_capture_failure_raises(cuda_device):
     """A tail step that reads the device on the host runs per batch but
@@ -1321,18 +1432,26 @@ def test_cuda_megastep_capture_failure_raises(cuda_device):
     def chunks():
         for i in range(0, len(blob), step):
             yield blob[i:i + step]
-    g = wt.PipeGraph("ms_fail", time_policy=wt.TimePolicy.EVENT,
-                     config=wt.Config(device="cuda", megastep_sweeps=4,
-                                      key_compaction=False,
-                                      punctuation_interval_usec=10 ** 12))
-    g.add_source(wt.FrameSource(chunks, nv=1, fields=["v"],
-                                output_batch_size=MS_CAP)) \
-        .add(wt.Ffat_WindowsGPU_Builder(lift, lambda a, b: a + b)
-             .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
-             .withMaxKeys(MS_KEYS).withName("w").build()) \
-        .add_sink(wt.Sink_Builder(lambda r: None).build())
+
+    def graph(preflight):
+        g = wt.PipeGraph("ms_fail", time_policy=wt.TimePolicy.EVENT,
+                         config=wt.Config(device="cuda", megastep_sweeps=4,
+                                          key_compaction=False,
+                                          punctuation_interval_usec=10 ** 12,
+                                          preflight=preflight))
+        g.add_source(wt.FrameSource(chunks, nv=1, fields=["v"],
+                                    output_batch_size=MS_CAP)) \
+            .add(wt.Ffat_WindowsGPU_Builder(lift, lambda a, b: a + b)
+                 .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+                 .withMaxKeys(MS_KEYS).withName("w").build()) \
+            .add_sink(wt.Sink_Builder(lambda r: None).build())
+        return g
+    # preflight names the host read before any capture (WF801) ...
+    with pytest.raises(wt.PreflightError, match="WF801"):
+        graph("error").run()
+    # ... and with it off, the capture itself refuses the step
     with pytest.raises(WFE, match="capturing the ffat_cb step of 'w'"):
-        g.run()
+        graph("off").run()
 
 
 # ---------------------------------------------------------------------------

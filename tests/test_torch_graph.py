@@ -265,11 +265,9 @@ def test_no_file_of_the_port_or_chip_smoke_imports_jax():
 
 
 #: names of ``windflow_tpu.__all__`` whose modules the port has not
-#: ported yet: the analysis planes (ROADMAP A9), the host window engine
-#: (A11) and the persistent operators (A11).  Each later item shrinks it.
+#: ported yet: the host window engine (A11) and the persistent operators
+#: (A11).  Each later item shrinks it.
 NOT_YET_PORTED = {
-    "hot_path", "ConcurrencyViolation", "PreflightError",
-    "PreflightWarning",
     "WindowResult", "KeyedWindows", "ParallelWindows", "PanedWindows",
     "MapReduceWindows", "FfatWindows", "FlatFAT", "Keyed_Windows_Builder",
     "Parallel_Windows_Builder", "Paned_Windows_Builder",

@@ -24,14 +24,22 @@ checkpoints a graph's state at watermark-aligned epochs and
 (``windflow_tpu_torch/monitoring``) trace sampled batches from staging to
 the sink, judge each operator's health, name a stall's root cause and
 write a postmortem bundle, and attribute dispatches, bytes and key skew
-per hop and shard (``PipeGraph.stats()``).  The card is the default
+per hop and shard (``PipeGraph.stats()``).  ``PipeGraph.start()``
+runs the preflight checker first (``windflow_tpu_torch/analysis``):
+the whole graph evaluated on fake tensors, every finding at once, under
+``Config.preflight``.  The card is the default
 device: ``Config(device="cpu")`` runs on the CPU, where each kernel
 wrapper takes its plain torch version.  The package imports
 torch and numpy, never jax.
 """
 
 from windflow_tpu_torch import staging
-from windflow_tpu_torch.analysis.diagnostics import Diagnostic
+from windflow_tpu_torch.analysis.debug_concurrency import \
+    ConcurrencyViolation
+from windflow_tpu_torch.analysis.diagnostics import (Diagnostic,
+                                                     PreflightError,
+                                                     PreflightWarning)
+from windflow_tpu_torch.analysis.hotpath import hot_path
 from windflow_tpu_torch.basic import (EMPTY_KEY, Config, ExecutionMode,
                                       RoutingMode, TimePolicy, WindFlowError,
                                       WinType, current_time_usecs,
@@ -80,5 +88,6 @@ __all__ = [
     "FlatMap_Builder", "Reduce_Builder", "Sink_Builder", "MapGPU_Builder",
     "FilterGPU_Builder", "ReduceGPU_Builder", "WindowSpec",
     "FfatWindowsGPU", "Ffat_WindowsGPU_Builder", "LogKV", "staging",
-    "StagingPool", "Diagnostic", "EpochFileSink",
+    "StagingPool", "Diagnostic", "EpochFileSink", "PreflightError",
+    "PreflightWarning", "ConcurrencyViolation", "hot_path",
 ]

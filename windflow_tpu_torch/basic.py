@@ -206,6 +206,13 @@ class Config:
     shard_topk: int = 8
     # The fields below keep the JAX package's WF_TPU_* environment knobs
     # and defaults.
+    # Preflight (windflow_tpu_torch/analysis/preflight.py):
+    # PipeGraph.start() runs PipeGraph.check() first, an abstract
+    # evaluation of the whole graph on fake tensors with no device work.
+    # "error" refuses the graph with the FULL list of error-severity
+    # diagnostics (warnings are warned), "warn" downgrades every finding
+    # to a warning, "off" skips the pass.
+    preflight: str = os.environ.get("WF_TPU_PREFLIGHT", "error")
     # Dashboard endpoint (reference WF_DASHBOARD_MACHINE/PORT) of the
     # monitoring thread (monitoring/monitor.py).
     dashboard_host: str = os.environ.get("WF_TPU_DASHBOARD_HOST",

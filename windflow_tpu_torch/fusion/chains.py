@@ -8,9 +8,8 @@ replace the whole run.  An edge ``a -> b`` ends a chain at a fan-out
 parallelism, a KEYBY edge to more than one replica, or any other
 routing than FORWARD; a single-replica KEYBY edge is a relay and joins.
 A window, reduce or stateful operator ends a chain too: its output is a
-different stream, or depends on per-key state.  The JAX package's fusion advisor ranks these chains by
-projected savings (``plan``); that part waits for the port's analysis
-plane (ROADMAP A9).
+different stream, or depends on per-key state.  The fusion advisor
+(``analysis/fusion.plan``) ranks these chains by projected savings.
 """
 
 from __future__ import annotations

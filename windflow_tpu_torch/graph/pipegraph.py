@@ -46,8 +46,11 @@ carries the JAX package's sections (``Flight_recorder``, ``Latency``,
 ``Latency_plane``, ``Tenant``, ``Roofline``, ``Gauges``, ``Health``,
 ``Device``, ``Sweep``, ``Shard``, ...); a telemetry read never takes the
 pipeline down, and a section that failed says so under ``"error"``.
-The JAX package's preflight, IR-audit and reshard planes are not ported
-yet: their sections read ``{"enabled": False}``.
+``start()`` runs the preflight checker first (``check()``,
+``windflow_tpu_torch/analysis``) under ``Config.preflight``, before any
+replica, staging buffer or capture exists; ``stats()["Preflight"]``
+carries its findings.  The JAX package's IR-audit and reshard planes are
+not ported yet: their sections read ``{"enabled": False}``.
 """
 
 from __future__ import annotations
@@ -126,6 +129,10 @@ class PipeGraph:
         self._thr_samples = deque(maxlen=64)
         #: the directory the last profile() capture went to
         self._last_profile_dir = None
+        #: the last check(): its findings, its cost, and wfverify's report
+        self._preflight_diags = None
+        self._preflight_ms = None
+        self._tracecheck_report = None
 
     # -- construction --------------------------------------------------------
     def add_source(self, source: Source) -> MultiPipe:
@@ -190,8 +197,11 @@ class PipeGraph:
     def _check_fixed_capacity_ops(self) -> None:
         """Fixed-capacity device operators (``fixed_capacity_label``) fed
         through a merge must see ONE batch capacity: the mismatch raises
-        here, with the sizes, instead of mid-run."""
-        for op, label, caps in capacity_conflicts(self._edges()):
+        here, with the sizes, instead of mid-run.  The backstop of a
+        ``Config.preflight="off"`` run: otherwise preflight reports it as
+        WF403, raised under "error" and warned under "warn"."""
+        from windflow_tpu_torch.analysis.preflight import capacity_conflicts
+        for op, label, caps in capacity_conflicts(self):
             raise WindFlowError(
                 f"'{op.name}' ({label}) compiles for one fixed batch "
                 f"capacity but its upstream paths deliver {sorted(caps)}; "
@@ -215,7 +225,8 @@ class PipeGraph:
                 self._source_replicas.extend(op.replicas)
         for rep in self._all_replicas:
             rep.config = self.config
-        self._check_fixed_capacity_ops()
+        if getattr(self.config, "preflight", "error") == "off":
+            self._check_fixed_capacity_ops()
 
         # 1b. whole-chain fusion, installed before wiring so each segment
         # is wired as one hop
@@ -419,9 +430,48 @@ class PipeGraph:
         self.start()
         return self.wait_end()
 
+    # -- static analysis (windflow_tpu_torch/analysis) -----------------------
+    def check(self) -> list:
+        """Preflight analysis of the composed graph: structure, window
+        specs, merged capacities, watermark modes, durability, the named
+        wire/kernel/megastep downgrades, and the device operators' user
+        functions evaluated on fake tensors (no device work), with
+        wfverify folded in.  Returns the FULL list of
+        :class:`~windflow_tpu_torch.analysis.diagnostics.Diagnostic`
+        findings; ``start()`` runs it first under ``Config.preflight``,
+        and ``python -m windflow_tpu_torch.analysis.check`` wraps it."""
+        from windflow_tpu_torch.analysis.preflight import check_graph
+        t0 = time.perf_counter()
+        diags = check_graph(self)
+        self._preflight_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        self._preflight_diags = diags
+        return diags
+
+    def _run_preflight(self) -> None:
+        mode = getattr(self.config, "preflight", "error")
+        if mode not in ("error", "warn", "off"):
+            raise WindFlowError(
+                f"Config.preflight must be 'error', 'warn' or 'off', "
+                f"got {mode!r}")
+        if mode == "off":
+            return
+        import warnings
+        from windflow_tpu_torch.analysis.diagnostics import (PreflightError,
+                                                             PreflightWarning)
+        diags = self.check()
+        errors = [d for d in diags if d.severity == "error"]
+        for d in diags:
+            if d.severity != "error" or mode == "warn":
+                warnings.warn(str(d), PreflightWarning, stacklevel=3)
+        if errors and mode == "error":
+            raise PreflightError(errors)
+
     def start(self) -> None:
         if self._started:
             raise WindFlowError("PipeGraph already started")
+        # before the build: a refused graph stages, captures and
+        # allocates nothing
+        self._run_preflight()
         self._started = True
         try:
             self._build()
@@ -462,8 +512,8 @@ class PipeGraph:
                 if self._health is not None:
                     self._health.note_failure(exc)
                 self._write_crash_postmortem(exc)
-            except BaseException:  # noqa: BLE001 -- salvage must never
-                # replace the root-cause error
+            except BaseException:  # lint: broad-except-ok (salvage must never
+                # replace the root-cause error)
                 pass
             raise
         finally:
@@ -486,8 +536,8 @@ class PipeGraph:
         try:
             diag = self._health.diagnose_stall()
             msg = head + self._health.format_diagnosis(diag)
-        except Exception as e:  # noqa: BLE001 -- a watchdog fault must
-            # not replace the stall error
+        except Exception as e:  # lint: broad-except-ok (a watchdog fault must
+            # not replace the stall error)
             msg = head + (f"(health diagnosis failed: "
                           f"{type(e).__name__}: {e}"[:200] + ")")
         err = WindFlowError(msg)
@@ -510,7 +560,7 @@ class PipeGraph:
     def _safe_postmortem(self, reason: str) -> Optional[str]:
         try:
             return self.dump_postmortem(reason=reason)
-        except Exception:  # noqa: BLE001 -- runs inside crash handlers
+        except Exception:  # lint: broad-except-ok (runs inside crash handlers)
             return None
 
     def restore(self, checkpoint_dir: Optional[str] = None) -> "PipeGraph":
@@ -533,7 +583,7 @@ class PipeGraph:
             # replicas are gone (guarded: telemetry never blocks teardown)
             try:
                 self._tenant.freeze()
-            except Exception:  # noqa: BLE001 -- see above
+            except Exception:  # lint: broad-except-ok (see above)
                 pass
         if self._durability is not None:
             # counters stay readable: stats() reads the plane's fields
@@ -651,8 +701,9 @@ class PipeGraph:
             if plane is not None:
                 try:
                     plane.tick()
-                except Exception:  # noqa: BLE001 -- a ledger fault never
-                    # takes the watchdog down; its section reports it
+                except Exception:  # lint: broad-except-ok (a ledger
+                    # fault never takes the watchdog down; its section
+                    # reports it)
                     pass
         if self._health is not None:
             self._health.sample()
@@ -665,7 +716,7 @@ class PipeGraph:
             return {"enabled": False}
         try:
             return read()
-        except Exception as e:  # noqa: BLE001 -- see the docstring
+        except Exception as e:  # lint: broad-except-ok (see the docstring)
             out = {"enabled": True} if error_section is None \
                 else dict(error_section)
             out["error"] = f"{type(e).__name__}: {e}"[:200]
@@ -714,8 +765,16 @@ class PipeGraph:
                              error_section={"enabled": None})
 
     def _preflight_section(self) -> dict:
-        # the graph preflight (PipeGraph.check) is not ported: no pass ran
-        return {"mode": "off", "check_ms": None, "diagnostics": None}
+        """The last check(): its mode, cost, findings and passes."""
+        from windflow_tpu_torch.analysis.preflight import PASSES
+        diags = self._preflight_diags
+        ran = diags is not None
+        return {
+            "mode": getattr(self.config, "preflight", "error"),
+            "check_ms": self._preflight_ms,
+            "diagnostics": None if not ran else [str(d) for d in diags],
+            "passes": list(PASSES) if ran else [],
+        }
 
     def _rolling_rate(self, window_s: float) -> float:
         """Sunk tuples a second over at least the trailing ``window_s``."""
@@ -950,8 +1009,8 @@ class PipeGraph:
                 with open(os.path.join(d, name), "w") as f:
                     json.dump(obj, f, indent=1, default=str)
                 files.append(name)
-            except Exception as e:  # noqa: BLE001 -- sections degrade
-                # one by one
+            except Exception as e:  # lint: broad-except-ok (sections degrade
+                # one by one)
                 errors[name] = f"{type(e).__name__}: {e}"[:300]
 
         def jit_tables():
@@ -997,7 +1056,7 @@ def _calibration_summary() -> dict:
     try:
         from windflow_tpu_torch.monitoring import calibration
         return calibration.provenance_summary()
-    except Exception as e:  # noqa: BLE001 -- never takes a dump down
+    except Exception as e:  # lint: broad-except-ok (never takes a dump down)
         return {"error": f"{type(e).__name__}: {e}"[:200]}
 
 
@@ -1015,59 +1074,3 @@ def _rss_kb() -> float:
         return resident_pages * (os.sysconf("SC_PAGE_SIZE") / 1024.0)
     except (OSError, ValueError, IndexError):
         return 0.0
-
-
-# ---------------------------------------------------------------------------
-# the build-time capacity walk (the port's copy of capacity_conflicts,
-# windflow_tpu/analysis/preflight.py:130; preflight itself is ROADMAP A9)
-# ---------------------------------------------------------------------------
-
-def _upstream_map(edges) -> dict:
-    """id(op) -> (op, [upstream ops]) over every edge, split fan-outs
-    included."""
-    ups: dict = {}
-    for edge in edges:
-        if edge[0] == "op":
-            _, a, b = edge
-            ups.setdefault(id(b), (b, []))[1].append(a)
-        else:
-            _, mp = edge
-            src = mp.operators[-1]
-            for child in mp.split_children:
-                if child.operators:
-                    head = child.operators[0]
-                    ups.setdefault(id(head), (head, []))[1].append(src)
-    return ups
-
-
-def _effective_caps(op, ups, seen=None) -> set:
-    """Batch capacities a device batch can arrive with at ``op``: a host
-    operator (or a device source) stamps its ``output_batch_size``;
-    device operators pass their input capacity through."""
-    seen = seen if seen is not None else set()
-    if id(op) in seen:
-        return set()
-    seen.add(id(op))
-    if not op.is_gpu or isinstance(op, Source):
-        return {op.output_batch_size}
-    caps = set()
-    for up in ups.get(id(op), (None, []))[1]:
-        caps |= _effective_caps(up, ups, seen)
-    return caps
-
-
-def capacity_conflicts(edges) -> list:
-    """``[(op, label, caps)]``: fixed-capacity device operators whose
-    upstream paths deliver unequal batch capacities."""
-    ups = _upstream_map(edges)
-    out = []
-    for op, preds in ups.values():
-        label = op.fixed_capacity_label
-        if label is None:
-            continue
-        caps = set()
-        for up in preds:
-            caps |= _effective_caps(up, ups)
-        if len(caps) > 1:
-            out.append((op, label, caps))
-    return out

@@ -171,6 +171,15 @@ def resolve_kernels(config) -> bool:
         f"Config.cuda_kernels must be 'auto', '1' or '0', got {raw!r}")
 
 
+def kernels_forced(config) -> bool:
+    """True when the user forced the kernels on (``cuda_kernels="1"``):
+    the only mode whose downgrades preflight names (WF607); "auto" picks
+    silently."""
+    raw = getattr(config, "cuda_kernels", "auto")
+    mode = {True: "1", False: "0"}.get(raw, str(raw).strip().lower())
+    return mode in ("1", "on", "true", "force")
+
+
 def monoid_identity(kind: str, dtype: torch.dtype):
     """The identity of a declared monoid for one dtype, as a Python
     scalar."""

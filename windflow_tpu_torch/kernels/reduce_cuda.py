@@ -183,6 +183,7 @@ def routed_monoid_tables(row: torch.Tensor, payload, monoid: str,
     if not table_supported(B, nslots):
         return None
     routed = [table_leaf_ok(tuple(l.shape), l.dtype) for l in leaves]
+    # wfverify: ok (routing by the leaves' shapes and dtypes)
     if not any(routed):
         return None
     hot = [l.contiguous() for l, r in zip(leaves, routed) if r]
@@ -194,7 +195,7 @@ def routed_monoid_tables(row: torch.Tensor, payload, monoid: str,
         ops.append("sum")
         inits.append(0)
     ts_rides = ts is not None and table_leaf_ok((B,), ts.dtype)
-    if ts_rides:
+    if ts_rides:  # wfverify: ok (the ts lane's dtype decides)
         vals.append(ts.contiguous())
         ops.append("max")
         inits.append(int(ts_init))
@@ -203,7 +204,7 @@ def routed_monoid_tables(row: torch.Tensor, payload, monoid: str,
     table_tree = tree_unflatten(treedef, [next(it) if r else lax_leaf(l)
                                           for l, r in zip(leaves, routed)])
     cnt = tabs[len(hot)] if want_count else None
-    if ts_rides:
+    if ts_rides:  # wfverify: ok (the ts lane's dtype decides)
         ts_t = tabs[-1]
     else:
         ts_t = lax_ts() if (ts is not None and lax_ts is not None) else None

@@ -368,7 +368,8 @@ class MegastepEdge:
                                     tree_flatten(new_carry)[0]):
                         if s is not n:
                             s.copy_(n)
-        except Exception as e:  # noqa: BLE001 -- re-raised with the cause
+        except Exception as e:  # lint: broad-except-ok (re-raised
+            # with the cause)
             raise WindFlowError(
                 f"megastep: capturing the {self.kind} step of "
                 f"'{self.op.name}' (K = {self.k}) as a CUDA graph failed: "

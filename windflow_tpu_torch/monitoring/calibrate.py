@@ -243,8 +243,9 @@ def run_probes(device=None, overrides: Optional[dict] = None,
     for key, fn in PROBES:
         try:
             value, detail = fn(device, **(overrides or {}).get(key, {}))
-        except Exception as e:  # noqa: BLE001 -- one dead probe keeps the
-            # others; its key stays modeled and the detail says why
+        except Exception as e:  # lint: broad-except-ok (one dead
+            # probe keeps the others; its key stays modeled and the
+            # detail says why)
             probes[key] = {"error": f"{type(e).__name__}: {e}"[:200]}
             log(f"calibrate: note: probe {key} failed "
                 f"({type(e).__name__}: {e})")

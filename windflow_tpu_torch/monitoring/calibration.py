@@ -282,8 +282,8 @@ def live_device_kind() -> Optional[str]:
         import torch
         _device_kind_cache = (torch.cuda.get_device_name()
                               if torch.cuda.is_available() else "cpu")
-    except Exception:  # noqa: BLE001 -- a broken CUDA setup degrades the kind
-        # gate to "unknown", never a stats read
+    except Exception:  # lint: broad-except-ok (a broken CUDA setup
+        # degrades the kind gate to "unknown", never a stats read)
         return None
     return _device_kind_cache
 
@@ -476,8 +476,8 @@ class RooflineLedger:
         if led is not None:
             try:
                 sweep_hops = led.section().get("per_hop") or {}
-            except Exception:  # noqa: BLE001 -- the bytes join is an
-                # enrichment: a ledger fault leaves rates only
+            except Exception:  # lint: broad-except-ok (the bytes join is an
+                # enrichment: a ledger fault leaves rates only)
                 sweep_hops = {}
         with self._lock:
             per_hop = {}

@@ -359,8 +359,8 @@ class HealthPlane:
             if led is not None:
                 try:
                     diag["shard"] = led.op_summary(root)
-                except Exception:  # noqa: BLE001 -- a ledger fault must
-                    # not replace the stall diagnosis
+                except Exception:  # lint: broad-except-ok (a ledger fault must
+                    # not replace the stall diagnosis)
                     pass
         return diag
 

@@ -32,6 +32,8 @@ from __future__ import annotations
 import threading
 from typing import Dict, Optional
 
+from windflow_tpu_torch.analysis.hotpath import hot_path
+
 #: what the table's columns mean in the port (``OpCompileEntry.to_json``)
 PROVENANCE = ("torch steps: dispatches are step calls (a megastep replay "
               "counts its K rows), compiles are CUDA graph captures, "
@@ -108,11 +110,13 @@ class StepWatch:
         #: bytes of the first step's output batch
         self.out_bytes: Optional[int] = None
 
+    @hot_path
     def note(self, n: int = 1) -> None:
         """``n`` dispatches (a megastep replay notes its K rows)."""
         self.dispatches += n
         self._entry.dispatches += n
 
+    @hot_path
     def note_step(self, batch, out, op=None) -> None:
         """One step call of ``op``; the first one also takes the tensor
         bytes (the batch in and out, and the state the operator holds,

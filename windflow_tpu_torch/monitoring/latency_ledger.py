@@ -49,6 +49,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from windflow_tpu_torch.analysis.hotpath import hot_path
 from windflow_tpu_torch.basic import current_time_usecs
 from windflow_tpu_torch.monitoring.recorder import (COLLECTED, DEVICE_DONE,
                                                     DISPATCHED, EMITTED,
@@ -94,6 +95,8 @@ def _host(t) -> np.ndarray:
     out.copy_(t, non_blocking=True)
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(t.device))
+    # wfverify: ok (the window-freshness read, behind the recorder's
+    # wait only)
     ev.synchronize()
     return out.numpy()
 
@@ -174,6 +177,7 @@ class LatencyLedger:
         self.last_verdict: Optional[dict] = None
 
     # -- harvest (cadence only) ---------------------------------------------
+    @hot_path
     def harvest(self) -> None:
         """Consume the ring events since the last harvest, then finalize
         every trace whose ``sunk`` arrived (all rings first, so a trace's
@@ -215,12 +219,14 @@ class LatencyLedger:
                 self._remember_done(trace)
             self.traces_dropped += drop
 
+    @hot_path
     def _remember_done(self, trace: int) -> None:
         if len(self._done_recent) == self._done_recent.maxlen:
             self._done_set.discard(self._done_recent[0])
         self._done_recent.append(trace)
         self._done_set.add(trace)
 
+    @hot_path
     def _finalize(self, events: list) -> None:
         """Running-max boundary walk: each stage's latest occurrence, in
         pipeline order; the segment is the boundary delta, attributed to
@@ -248,8 +254,10 @@ class LatencyLedger:
             self.segment_totals[seg] += dt
         self.e2e.add(e2e)
         self.traces_decomposed += 1
-        self._recent.append((e2e, [(op_name, seg, dt)
-                                   for op_name, seg, dt, _ in segs]))
+        brief = []
+        for op_name, seg, dt, _shared in segs:
+            brief.append((op_name, seg, dt))
+        self._recent.append((e2e, brief))
 
     # -- the freshness gauge (waited batches only) ---------------------------
     def note_window_fire(self, op_name: str, ts, valid,

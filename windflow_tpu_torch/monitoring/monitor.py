@@ -107,7 +107,7 @@ class MonitoringThread:
                 report = self.graph.stats()
             if self.aborted:
                 report["Aborted"] = True
-        except Exception:  # noqa: BLE001 -- END_APP must still go out
+        except Exception:  # lint: broad-except-ok (END_APP must still go out)
             report = {"PipeGraph_name": self.graph.name, "Aborted": True,
                       "Tenant": {"enabled": False, "tenant":
                                  getattr(self.graph.config, "tenant", "")
@@ -115,7 +115,8 @@ class MonitoringThread:
                       "stats_error": "stats() raised during termination"}
         try:
             self._send_report(TYPE_END_APP, report)
-        except Exception:  # noqa: BLE001 -- a dead socket is a no-op here
+        except Exception:  # lint: broad-except-ok (a dead socket is a
+            # no-op here)
             pass
 
     def _tick(self) -> None:
@@ -127,16 +128,16 @@ class MonitoringThread:
             try:
                 self.graph.sample_gauges()
                 self.graph.health_tick()
-            except Exception:  # noqa: BLE001 -- a sampling fault must
-                # not kill the thread; the final report still goes out
+            except Exception:  # lint: broad-except-ok (a sampling fault must
+                # not kill the thread; the final report still goes out)
                 pass
             if not self.active:
                 return
             try:
                 report = self.graph.stats()
-            except Exception:  # noqa: BLE001 -- a transient stats fault
+            except Exception:  # lint: broad-except-ok (a transient stats fault
                 # raises before any byte is sent: the protocol is in
-                # sync, skip this tick
+                # sync, skip this tick)
                 return
         try:
             self._send_report(TYPE_NEW_REPORT, report)

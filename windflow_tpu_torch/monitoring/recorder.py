@@ -42,6 +42,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from windflow_tpu_torch.analysis import debug_concurrency as _dbg
+from windflow_tpu_torch.analysis.hotpath import hot_path
 from windflow_tpu_torch.basic import current_time_usecs
 
 #: span stage codes (rings store the code, exports the name)
@@ -73,6 +75,7 @@ class LatencyHistogram:
         self.min = float("inf")
         self.max = 0.0
 
+    @hot_path
     def add(self, usec: float) -> None:
         if usec < 0:
             usec = 0.0
@@ -160,8 +163,19 @@ class ReplicaRing:
         self.shared_k = np.zeros(self.size, np.int16)
         self.n = 0          # events ever recorded (wraps the index)
 
+    @hot_path
     def record(self, trace_id: int, stage: int, t_usec: int,
                shared: int = 0) -> None:
+        if _dbg.ENABLED:
+            # the lock-free write is safe only because one thread drives
+            # a replica at a time: overlapping writes are the race
+            with _dbg.entry_guard(self, "ReplicaRing.record"):
+                return self._record_impl(trace_id, stage, t_usec, shared)
+        return self._record_impl(trace_id, stage, t_usec, shared)
+
+    @hot_path
+    def _record_impl(self, trace_id: int, stage: int, t_usec: int,
+                     shared: int = 0) -> None:
         i = self.n % self.size
         self.trace[i] = trace_id
         self.stage[i] = stage

@@ -133,6 +133,8 @@ def device_sketch_update(state: dict, keys, valid, n_shards: int,
 
 def _host_state(st: dict, n: int) -> dict:
     """A device sketch state read on the host (stats / reseed cadence)."""
+    # wfverify: ok (the sketches' state, read at stats and reseed
+    # cadence)
     return {"cms": st["cms"].cpu().numpy(),
             "counts": st["counts"].cpu().numpy()[:n],
             "cand": st["cand"].cpu().numpy().astype(np.int64),
@@ -411,8 +413,8 @@ class HostKeyProbe:
                 self.compactor.observe(k32)
             if self.sketch is not None:
                 self.sketch.update_host(k32)
-        except Exception:  # noqa: BLE001 -- any failure means the probe
-            # cannot see; the staging path must go on
+        except Exception:  # lint: broad-except-ok (any failure means the probe
+            # cannot see; the staging path must go on)
             self._fail()
 
     def items(self, items) -> None:
@@ -421,7 +423,7 @@ class HostKeyProbe:
         from windflow_tpu_torch.batch import _stack_records
         try:
             cols = _stack_records(items)
-        except Exception:  # noqa: BLE001 -- records that do not stack
+        except Exception:  # lint: broad-except-ok (records that do not stack)
             self._fail()
             return
         self.columns(cols, len(items))
@@ -454,7 +456,31 @@ class ShardLedger:
         #: id(consumer op) -> its ShardSketch (every edge into the
         #: consumer shares it)
         self._sketches: Dict[int, ShardSketch] = {}
+        self._statics: Optional[dict] = None
         self._attach()
+
+    def _compute_statics(self) -> dict:
+        """Per operator: the record bytes a tuple reaching it (the
+        preflight walk, ``bpt``: the byte basis of the JAX package's ICI
+        model, which the port's single card has no use for yet) and its
+        effective capacity; computed once, at the first read."""
+        from windflow_tpu_torch.analysis.preflight import (_effective_caps,
+                                                           _upstream_map,
+                                                           propagate_specs,
+                                                           record_nbytes)
+        g = self._graph
+        edges = g._edges()
+        upstreams = _upstream_map(edges)
+        in_specs, _ = propagate_specs(g, edges=edges, upstreams=upstreams)
+        statics = {}
+        for op in g._operators:
+            caps = sorted(c for c in _effective_caps(op, upstreams) if c)
+            statics[id(op)] = {
+                "bpt": record_nbytes(in_specs.get(id(op))),
+                "cap": getattr(op, "output_batch_size", 0)
+                or (caps[0] if caps else 0),
+            }
+        return statics
 
     def _sketch_for(self, consumer, n_shards: int,
                     placement: str) -> ShardSketch:
@@ -548,6 +574,10 @@ class ShardLedger:
     def section(self) -> dict:
         from windflow_tpu_torch.basic import current_time_usecs
         from windflow_tpu_torch.batch import WM_MAX, WM_NONE
+        from windflow_tpu_torch.monitoring.sweep_ledger import \
+            LANE_BYTES_PER_TUPLE
+        if self._statics is None:
+            self._statics = self._compute_statics()
         g = self._graph
         now = current_time_usecs()
         per_op: Dict[str, dict] = {}
@@ -600,6 +630,12 @@ class ShardLedger:
                     hot = (s, op.name)
             if op._compactor is not None:
                 entry["compaction"] = op._compactor.summary()
+            spec_bpt = self._statics[id(op)]["bpt"]
+            if spec_bpt is not None:
+                # the JAX package's ``bpt``: payload and lane bytes a
+                # tuple, the basis its ICI model prices collectives by
+                entry["record_bytes_per_tuple"] = \
+                    spec_bpt + LANE_BYTES_PER_TUPLE
             per_op[op.name] = entry
         return {
             "enabled": True,

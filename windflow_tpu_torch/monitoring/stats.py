@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import time
 
+from windflow_tpu_torch.analysis import debug_concurrency as _dbg
 from windflow_tpu_torch.basic import current_time_usecs
 from windflow_tpu_torch.monitoring.recorder import LatencyHistogram
 
@@ -54,6 +55,11 @@ class StatsRecord:
     _t0: float = 0.0
 
     def start_sample(self) -> None:
+        if _dbg.ENABLED:
+            # a stats record belongs to one replica, driven by one thread
+            # at a time: an overlapping bracket from another thread means
+            # two threads drive the same replica
+            _dbg.enter(self, "StatsRecord.start_sample")
         self._t0 = time.perf_counter()
 
     def end_sample(self) -> None:
@@ -61,6 +67,8 @@ class StatsRecord:
         self.service_time_usec += dur
         self.num_service_samples += 1
         self.service_hist.add(dur)
+        if _dbg.ENABLED:
+            _dbg.exit_(self)
 
     def avg_service_time_usec(self) -> float:
         if self.num_service_samples == 0:

@@ -14,6 +14,11 @@ path:
   output batch, operator state), taken from their shapes at the handle's
   first step, times the hop's dispatches: provenance ``"tensor-bytes"``
   (the JAX package reads XLA cost analysis instead).
+* **the record byte model** — each hop's declared payload bytes a tuple
+  (the preflight record specs, ``analysis/preflight.propagate_specs``)
+  plus the 9 lane bytes every batch carries, and the measured bytes a
+  tuple above it (``payload_bytes_per_tuple``,
+  ``overhead_bytes_per_tuple``, ``excess_vs_model``), as in JAX;
 * **hop-boundary residency** — hops whose output stays on the device and
   is consumed by the next device hop: the bytes a fused hop would never
   materialise ("fusion fuel").
@@ -29,6 +34,10 @@ leaves one ``is not None`` check at each read site.
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+#: bytes per tuple of the lanes every device batch carries beside the
+#: payload: the int64 timestamp and the bool validity mask
+LANE_BYTES_PER_TUPLE = 9
 
 #: why the donation keys are None in the port
 DONATION_NOTE = ("torch steps update their state in place and allocate "
@@ -63,13 +72,18 @@ class SweepLedger:
         self._statics: Optional[dict] = None
 
     def _compute_statics(self) -> dict:
-        """Effective batch capacities and hop-boundary residency of the
-        built graph, cached after the first read."""
-        from windflow_tpu_torch.graph.pipegraph import (_effective_caps,
-                                                        _upstream_map)
+        """Record specs (the preflight walk), effective batch capacities
+        and hop-boundary residency of the built graph, cached after the
+        first read."""
+        from windflow_tpu_torch.analysis.preflight import (_effective_caps,
+                                                           _upstream_map,
+                                                           propagate_specs,
+                                                           record_nbytes)
         g = self._graph
         edges = g._edges()
         upstreams = _upstream_map(edges)
+        in_specs, out_specs = propagate_specs(g, edges=edges,
+                                              upstreams=upstreams)
         downs: Dict[int, list] = {}
         for edge in edges:
             if edge[0] == "op":
@@ -85,6 +99,8 @@ class SweepLedger:
             consumers = downs.get(id(op), [])
             statics[id(op)] = {
                 "capacity": caps[0] if caps else None,
+                "in_bytes_per_tuple": record_nbytes(in_specs.get(id(op))),
+                "out_bytes_per_tuple": record_nbytes(out_specs.get(id(op))),
                 "resident_output": bool(consumers) and all(
                     c is not None and c.is_gpu for c in consumers),
             }
@@ -171,6 +187,14 @@ class SweepLedger:
                         round(primary.tensor_bytes / cap, 2)
                 if disp > attr_disp:
                     hop["unattributed_dispatches"] = disp - attr_disp
+            payload = st.get("in_bytes_per_tuple")
+            if payload is not None:
+                model = payload + LANE_BYTES_PER_TUPLE
+                hop["payload_bytes_per_tuple"] = model
+                bpt = hop.get("bytes_per_tuple")
+                if bpt is not None:
+                    hop["overhead_bytes_per_tuple"] = round(bpt - model, 2)
+                    hop["excess_vs_model"] = round(bpt / model, 2)
             if st.get("resident_output") and cap and primary is not None:
                 # what a fused hop never materialises: the output lanes
                 hop["fusion_fuel_bytes_per_batch"] = primary.out_bytes

@@ -76,8 +76,8 @@ def _resident_state_bytes(objs, device,
                 st = v.untyped_storage()
                 key = (st.device.type, st.data_ptr())
                 nbytes = int(st.nbytes())
-            except Exception:  # noqa: BLE001 -- an exotic tensor (no
-                # storage) must not take telemetry down
+            except Exception:  # lint: broad-except-ok (an exotic tensor (no
+                # storage) must not take telemetry down)
                 return 0
             if nbytes == 0 or key in counted:
                 return 0
@@ -330,7 +330,7 @@ class TenantLedger:
             return
         try:
             frozen = entry.collect()
-        except Exception:  # noqa: BLE001 -- teardown telemetry
+        except Exception:  # lint: broad-except-ok (teardown telemetry)
             frozen = None
         with self._lock:
             if frozen is not None:
@@ -354,8 +354,8 @@ class TenantLedger:
         for e in entries:
             try:
                 row = e.collect()
-            except Exception as ex:  # noqa: BLE001 -- one broken graph
-                # must not hide every other tenant
+            except Exception as ex:  # lint: broad-except-ok (one broken graph
+                # must not hide every other tenant)
                 row = {"graph": e.name, "tenant": e.tenant,
                        "error": f"{type(ex).__name__}: {ex}"[:200]}
             if row is not None:

@@ -18,6 +18,7 @@ import copy
 from collections import deque
 from typing import Any, Callable, List, Optional
 
+from windflow_tpu_torch.analysis import debug_concurrency as _dbg
 from windflow_tpu_torch.basic import (ExecutionMode, RoutingMode, TimePolicy,
                                       WindFlowError, current_time_usecs,
                                       default_config)
@@ -84,6 +85,15 @@ class Replica:
     def drain(self, limit: int = 0) -> bool:
         """Process pending inbox messages (at most ``limit`` when > 0).
         Returns True if any progress was made."""
+        if _dbg.ENABLED:
+            # single-consumer contract: the scheduler drains a replica
+            # from one thread at a time; a second thread draining it
+            # concurrently is a scheduler race
+            with _dbg.entry_guard(self, "Replica.drain"):
+                return self._drain_impl(limit)
+        return self._drain_impl(limit)
+
+    def _drain_impl(self, limit: int) -> bool:
         progressed = False
         n = 0
         while self.inbox:
@@ -125,6 +135,17 @@ class Replica:
         self.stats.is_terminated = True
 
     def _dispatch(self, msg) -> None:
+        if _dbg.ENABLED:
+            # the stats bracket (start_sample enters a guard, end_sample
+            # leaves it) spans this method; an operator raising mid-batch
+            # must not leave a stale entry behind
+            try:
+                return self._dispatch_impl(msg)
+            finally:
+                _dbg.exit_(self.stats)
+        return self._dispatch_impl(msg)
+
+    def _dispatch_impl(self, msg) -> None:
         if isinstance(msg, Punctuation):
             self._advance_wm(msg.watermark)
             if self.emitter is not None:

@@ -114,7 +114,7 @@ def _update_rows(state, new, idx, what: str) -> None:
     ``idx``, in place, cast under the state dtype policy."""
     st_leaves, st_def = tree_flatten(state)
     nw_leaves, nw_def = tree_flatten(new)
-    if st_def != nw_def:
+    if st_def != nw_def:  # wfverify: ok (tree structures, on the host)
         raise WindFlowError(
             f"{what} returned a state of another structure than the "
             f"initial state ({nw_def} vs {st_def})")
@@ -126,8 +126,11 @@ def _update_rows(state, new, idx, what: str) -> None:
 def _rank_counts(cnt: torch.Tensor) -> list:
     """The nonzero prefix of the per-rank lane counts (non-increasing in
     the rank): one host read, a second only past ``RANK_READ`` ranks."""
+    # wfverify: ok (the wavefront's per-rank lane counts: one read a
+    # step, by design; a second only past RANK_READ ranks)
     head = cnt[:RANK_READ].cpu().numpy()
     if head.shape[0] == RANK_READ and head[-1] > 0:
+        # wfverify: ok (the second read, past RANK_READ ranks)
         head = np.concatenate([head, cnt[RANK_READ:].cpu().numpy()])
     return head[:int(np.count_nonzero(head))].tolist()
 
@@ -150,7 +153,10 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
             cur = tree_map(lambda a: a[:1], state)
             res, _ = per_record2(fn, one, cur, 1)
             leaves, treedef = tree_flatten(res)
+            # wfverify: ok (a structure cache filled on the first, eager
+            # call, before any capture)
             spec["def"] = treedef
+            # wfverify: ok (the same one-time cache)
             spec["leaves"] = [(l.dtype, tuple(l.shape[1:])) for l in leaves]
         return spec["def"], spec["leaves"]
 
@@ -449,8 +455,10 @@ class _StatefulGPUBase(Operator):
         cap = batch.capacity
         keys = batch.keys if batch.keys is not None \
             else self._keys(batch.payload, cap)
+        # wfverify: ok (the interning route's key and mask reads: its
+        # design, keys are interned on the host)
         keys_np = keys.cpu().numpy()
-        valid_np = batch.valid.cpu().numpy()
+        valid_np = batch.valid.cpu().numpy()  # wfverify: ok (as above)
         uniq = np.unique(keys_np[valid_np])
         uniq_slots = self._intern(uniq)
         from windflow_tpu_torch.parallel.compaction import upload_pair

@@ -411,6 +411,8 @@ class ReduceGPU(Operator):
                 prev = self._pending_drop
                 self._pending_drop = self._dropped
                 if prev is not None:
+                    # wfverify: ok (the 64-step drop-counter check, one
+                    # cadence old)
                     self._maybe_warn_drops(int(prev))
             return DeviceBatch(table, ts_out, has,
                                watermark=batch.watermark, size=None,

@@ -129,6 +129,6 @@ class Source(Operator):
                          output_batch_size=output_batch_size)
         self.gen_fn = gen_fn
         self.ts_extractor = ts_extractor
-        #: an example record declaring the source's lanes (the JAX
-        #: package's preflight input); kept for API parity, unread here
+        #: an example record declaring the source's lanes: the
+        #: preflight spec walk's input, and the wire plane's
         self.record_spec = record_spec

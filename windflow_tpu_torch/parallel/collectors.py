@@ -22,6 +22,7 @@ import heapq
 from collections import deque
 from typing import List
 
+from windflow_tpu_torch.analysis.hotpath import hot_path
 from windflow_tpu_torch.basic import ExecutionMode
 from windflow_tpu_torch.batch import DeviceBatch, HostBatch, Punctuation, WM_NONE
 
@@ -78,6 +79,7 @@ class WatermarkCollector(Collector):
     def _frontier(self) -> int:
         return self._fold(self._wms)
 
+    @hot_path
     def on_message(self, channel, msg):
         wm = msg.watermark
         if wm != WM_NONE and wm > self._wms[channel]:

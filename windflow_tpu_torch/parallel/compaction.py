@@ -241,7 +241,7 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
         leaves, treedef = tree_flatten(payload)
         packed = monoid in ("max", "min") and all(
             _pack_ok(l.dtype) for l in leaves)
-        if packed:
+        if packed:  # wfverify: ok (a decision on the leaves' dtypes)
             # every leaf encodes into int64 carrier columns and the ts max
             # rides as one more column (negated under "min" so it stays a
             # max; the second reserved ts value I64MIN + 1 keeps a live
@@ -316,7 +316,9 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
         ckeys = torch.where(dlive, dkeys[didx],
                             torch.full_like(dkeys[didx], I64MAX))
 
-        n_miss = int(n_miss_t)      # the one host read of the step
+        # wfverify: ok (the compacted reduce's miss count: the one
+        # host read of the step, by design)
+        n_miss = int(n_miss_t)
         big = n_miss > ovf
 
         def no_miss():
@@ -635,6 +637,8 @@ class KeyCompactor:
             st = getter()
             if st is None:
                 continue
+            # wfverify: ok (the reseed read of the miss rings, every
+            # key_compaction_reseed batches)
             ring = st["cand"].cpu().numpy().astype(np.int64)
             out.extend(int(k) for k in ring if k != sentinel)
         return out
@@ -696,8 +700,8 @@ class KeyCompactor:
         for k in self._key_slot:
             try:
                 out.append((self._sketch._estimate(k), k))
-            except Exception:  # noqa: BLE001 -- an exact-histogram
-                # sketch has no count-min: nothing to rank by this round
+            except Exception:  # lint: broad-except-ok (an exact-histogram
+                # sketch has no count-min: nothing to rank by this round)
                 return None
         out.sort()
         return out
@@ -782,7 +786,7 @@ def attach_compaction(graph) -> None:
     admission and placement.  Runs after fusion (preludes installed), the
     wiring and the shard plane (sketches attached), before any step;
     with ``Config.key_compaction`` off it never runs."""
-    from windflow_tpu_torch.graph.pipegraph import _upstream_map
+    from windflow_tpu_torch.analysis.preflight import _upstream_map
     from windflow_tpu_torch.monitoring.shard_ledger import HostKeyProbe
     from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
     from windflow_tpu_torch.ops.reduce import ReduceGPU

@@ -62,6 +62,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 import numpy as np
 
 from windflow_tpu_torch import staging
+from windflow_tpu_torch.analysis.hotpath import hot_path
 from windflow_tpu_torch.basic import (RoutingMode, WindFlowError, int32_key,
                                       stable_hash)
 from windflow_tpu_torch.monitoring import recorder as flightrec
@@ -250,6 +251,7 @@ class _OpenBatch:
         self.tids: list = []
         self.any_tid: bool = False
 
+    @hot_path
     def add(self, item, ts, wm, shared=False, tid=None):
         self.items.append(item)
         self.tss.append(ts)
@@ -272,6 +274,7 @@ class ForwardEmitter(Emitter):
         self._open = [_OpenBatch() for _ in dests]
         self._next = 0
 
+    @hot_path
     def emit(self, item, ts, wm, shared=False, tid=None):
         d = self._next
         self._next = (self._next + 1) % len(self.dests)
@@ -315,6 +318,7 @@ class KeyByEmitter(Emitter):
         #: credits its shard exactly and its first key as the sample
         self._sketch = None
 
+    @hot_path
     def emit(self, item, ts, wm, shared=False, tid=None):
         d = stable_hash(self.key_extractor(item)) % len(self.dests)
         ob = self._open[d]
@@ -327,8 +331,8 @@ class KeyByEmitter(Emitter):
         if ob.items and self._sketch is not None:
             try:
                 key = self.key_extractor(ob.items[0])
-            except Exception:  # noqa: BLE001 -- a sample of a user
-                # function: the load below still counts
+            except Exception:  # lint: broad-except-ok (a sample of a user
+                # function: the load below still counts)
                 key = None
             self._sketch.note_flush(d, len(ob.items), key)
         if ob.items:
@@ -709,8 +713,8 @@ class DeviceStageEmitter(Emitter):
             leaves, treedef = tree_flatten(_stack_records(self._ob.items))
             ok = all(getattr(l, "ndim", 0) == 1
                      and staging.packable_dtype(l.dtype) for l in leaves)
-        except Exception:  # noqa: BLE001 -- arbitrary user records may
-            # not stack into columns: take the uncompressed record path
+        except Exception:  # lint: broad-except-ok (arbitrary user records may
+            # not stack into columns: take the uncompressed record path)
             ok = False
         if not ok:
             return False
@@ -739,7 +743,7 @@ def host_keys(key_fn, cols, n: int) -> np.ndarray:
     for wrap in (np.asarray, lambda a: torch.from_numpy(np.asarray(a))):
         try:
             k = key_fn(tree_map(wrap, cols))
-        except Exception:  # noqa: BLE001 -- a probe of a user function
+        except Exception:  # lint: broad-except-ok (a probe of a user function)
             continue
         k = k.numpy() if isinstance(k, torch.Tensor) else np.asarray(k)
         if k.shape == (n,):
@@ -813,8 +817,8 @@ class KeyedDeviceStageEmitter(Emitter):
                 comp.observe_one(k32)
                 if comp.placement_override:
                     d = comp.place_one(k32, len(self.dests))
-            except Exception:  # noqa: BLE001 -- admission must never
-                # take routing down: the plane deactivates instead
+            except Exception:  # lint: broad-except-ok (admission must never
+                # take routing down: the plane deactivates instead)
                 comp.deactivate()
                 self._compactor = None
         if d is None:
@@ -830,8 +834,8 @@ class KeyedDeviceStageEmitter(Emitter):
         try:
             # the placement counts come from the same splitmix hash
             self._sketch.update_host(np.asarray(buf, np.int64))
-        except Exception:  # noqa: BLE001 -- a sketch failure drops the
-            # sketch, never routing
+        except Exception:  # lint: broad-except-ok (a sketch failure drops the
+            # sketch, never routing)
             self._sketch = None
 
     def emit_columns(self, cols, tss, wm, row_wms=None):
@@ -843,7 +847,7 @@ class KeyedDeviceStageEmitter(Emitter):
                 # admission before the batch ships: a host-fed compacted
                 # consumer never sees a remap miss
                 comp.observe(keys)
-            except Exception:  # noqa: BLE001 -- as in emit()
+            except Exception:  # lint: broad-except-ok (as in emit())
                 comp.deactivate()
                 comp = self._compactor = None
         if comp is not None and comp.placement_override:
@@ -854,7 +858,8 @@ class KeyedDeviceStageEmitter(Emitter):
         if self._sketch is not None:
             try:
                 self._sketch.update_host(keys, counts=counts)
-            except Exception:  # noqa: BLE001 -- as in _drain_sketch_buf
+            except Exception:  # lint: broad-except-ok (as in
+                # _drain_sketch_buf)
                 self._sketch = None
         for d in range(n):
             if counts[d]:
@@ -1111,8 +1116,8 @@ class SplittingEmitter(Emitter):
                       and not out.dtype.is_floating_point
                       and out.dtype != torch.bool
                       and not out.dtype.is_complex)
-            except Exception:  # noqa: BLE001 -- a probe of a user
-                # function: any failure means the host route
+            except Exception:  # lint: broad-except-ok (a probe of a user
+                # function: any failure means the host route)
                 ok = False
             self._device_split[batch.capacity] = ok
         return ok

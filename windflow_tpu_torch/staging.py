@@ -40,6 +40,9 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from windflow_tpu_torch.analysis import debug_concurrency as _dbg
+from windflow_tpu_torch.analysis.hotpath import hot_path
+
 #: retained buffers per distinct buffer size (the recycling queue depth)
 DEFAULT_DEPTH = 4
 #: global cap on bytes RETAINED by the pool
@@ -79,6 +82,10 @@ class StagingPool:
     ``pinned`` allocates page-locked buffers (CUDA targets).  Thread-safe:
     the lock guards only the deque bookkeeping."""
 
+    #: lock discipline declaration enforced by tools/wf_lint.py (WF721):
+    #: the slot dict and retained-byte counter mutate only under _lock
+    __lock_guards__ = {"_lock": ("_slots", "_held_bytes")}
+
     def __init__(self, depth: int = DEFAULT_DEPTH,
                  max_bytes: int = DEFAULT_MAX_BYTES,
                  pinned: bool = False) -> None:
@@ -86,8 +93,19 @@ class StagingPool:
         self.max_bytes = max_bytes
         self.pinned = pinned
         self._held_bytes = 0
-        self._slots = {}            # nwords -> deque[(buf, gate)]
-        self._lock = threading.Lock()
+        if _dbg.ENABLED:
+            # race detector (analysis/debug_concurrency): the lock records
+            # its owner, and every mutation of _slots and of the slot
+            # deques it hands out asserts the lock is held
+            self._lock = _dbg.DebugLock("StagingPool._lock")
+            self._slots = _dbg.LockCheckedDict(self._lock,
+                                               "StagingPool._slots")
+            self._new_slot = lambda: _dbg.LockCheckedDeque(
+                self._lock, "StagingPool._slots slot deque")
+        else:
+            self._slots = {}        # nwords -> deque[(buf, gate)]
+            self._lock = threading.Lock()
+            self._new_slot = deque
         self.hits = 0
         self.misses = 0
         self.releases = 0
@@ -138,7 +156,7 @@ class StagingPool:
         reads it asynchronously).  A pool at capacity drops the buffer,
         after its copy has finished."""
         with self._lock:
-            dq = self._slots.setdefault(buf.shape[0], deque())
+            dq = self._slots.setdefault(buf.shape[0], self._new_slot())
             if len(dq) < self.depth \
                     and self._held_bytes + buf.nbytes <= self.max_bytes:
                 dq.append((buf, gate))
@@ -258,9 +276,19 @@ class PackedBatchBuilder:
         """Rows still free."""
         return self.capacity - self.n
 
+    @hot_path
     def append(self, lanes: Sequence[np.ndarray], tss: np.ndarray) -> None:
         """Write ``len(tss)`` rows: ``lanes`` are 1-D payload columns in
         ``dtypes`` order, ``tss`` the int64 timestamps."""
+        if _dbg.ENABLED:
+            # a builder is single-consumer (one replica's emitter fills
+            # it): overlapping appends are a race
+            with _dbg.entry_guard(self, "PackedBatchBuilder.append"):
+                return self._append_impl(lanes, tss)
+        return self._append_impl(lanes, tss)
+
+    @hot_path
+    def _append_impl(self, lanes, tss) -> None:
         m = len(tss)
         for off, w, dt, lane in zip(self._offsets, self._words,
                                     self._lane_dtypes,
@@ -270,9 +298,17 @@ class PackedBatchBuilder:
             self.buf[lo:lo + w * m] = src
         self.n += m
 
+    @hot_path
     def finish(self) -> np.ndarray:
         """Zero each lane's unwritten tail, stamp the fill count, and hand
         the buffer over (the caller owns it until ``pool.release``)."""
+        if _dbg.ENABLED:
+            with _dbg.entry_guard(self, "PackedBatchBuilder.finish"):
+                return self._finish_impl()
+        return self._finish_impl()
+
+    @hot_path
+    def _finish_impl(self) -> np.ndarray:
         if self.n < self.capacity:
             for off, w in zip(self._offsets, self._words):
                 self.buf[off + w * self.n:off + w * self.capacity] = 0

@@ -106,6 +106,8 @@ def host_copy(tree):
 
     def leaf(a):
         if isinstance(a, torch.Tensor):
+            # wfverify: ok (the durability checkpoint's host copy, after
+            # the quiesce)
             return a.detach().to("cpu", copy=True).numpy()
         return np.array(a)
     return tree_map(leaf, tree)

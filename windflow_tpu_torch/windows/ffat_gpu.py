@@ -117,7 +117,7 @@ class _LateRead:
     def value(self) -> int:
         if self._done is not None:
             self._done.synchronize()
-        return int(self._host)
+        return int(self._host)  # wfverify: ok (the checkpoint read)
 
 
 class FfatWindowsGPU(Operator):
@@ -338,6 +338,7 @@ class FfatWindowsGPU(Operator):
         if not self.is_tb:
             self.NP = self._np_ceil
             return
+        # wfverify: ok (the TB ring's first sizing: one read, once)
         tmin, tmax = torch.stack([
             torch.where(batch.valid, batch.ts, 1 << 62).min(),
             torch.where(batch.valid, batch.ts, -(1 << 62)).max()]).tolist()
@@ -445,7 +446,7 @@ class FfatWindowsGPU(Operator):
             if bool(fired.any()):
                 outs.append(DeviceBatch(out, out_ts, fired, watermark=0,
                                         size=None))
-            if int(n_adv) == 0:
+            if int(n_adv) == 0:  # wfverify: ok (the EOS flush's read)
                 break
         return outs
 

@@ -385,6 +385,7 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
             row_u = skey.long()
             ordered = any(_ordered_sum_leaf(monoid, l)
                           for l in tree_flatten(lifts)[0])
+            # wfverify: ok (a decision on the lifts' dtypes, not values)
             if ordered:
                 # the stable grouping's destinations put each (key, pane)
                 # cell's lanes in one run, in arrival order; a cell holds
@@ -489,6 +490,7 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
         # e <= done[k] — a per-key prefix
         done = state["pane_base"] + m_k.to(torch.int64)
         if monoid is not None:
+            # wfverify: ok (fold_supported reads shapes and dtypes only)
             if kernels and fc.fold_supported(full, R, monoid):
                 swin = fc.sliding_fold(full, full_valid, R, monoid)
             else:

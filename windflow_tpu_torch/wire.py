@@ -620,7 +620,7 @@ def _out_has_spec(op, known: bool) -> bool:
 def known_input_specs(graph) -> dict:
     """``id(op) -> bool``: whether the records reaching ``op`` have a
     declared or inferred spec (a merge needs every branch's)."""
-    from windflow_tpu_torch.graph.pipegraph import _upstream_map
+    from windflow_tpu_torch.analysis.preflight import _upstream_map
     from windflow_tpu_torch.ops.source import Source
     ups = _upstream_map(graph._edges())
     in_known, out_known = {}, {}
@@ -638,7 +638,7 @@ def known_input_specs(graph) -> dict:
                 if isinstance(op, Source) else _out_has_spec(op, in_of(op))
         return out_known[id(op)]
 
-    for op in graph._operators:
+    for op in graph._topo_operators():
         in_of(op)
     return in_known
 
