@@ -20,8 +20,11 @@ Phases (each exits nonzero on failure; none is skipped):
    routes' three calls, (a) compacted max, (b) compacted sum and (c)
    dense max; the grouping a second time at the time-window path's
    shape, ``grouping_rank_hist[tb]`` (run (c) of phase 4: ids of 32 keys
-   × a 68-pane ring, NB = 2,177); each a row of its own in the JSON
-   line;
+   × a 68-pane ring, NB = 2,177), and the fold a third time at the
+   market_ticker step's shape, ``sliding_fold[ticker]`` (two f32 leaves
+   of [1024, 16389] in one launch, R = 4, max, beside a masked
+   ``max_pool1d`` a leaf);
+   each a row of its own in the JSON line;
 3. drive the main paths through ``PipeGraph.run()`` at the repo's chip
    configuration (262,144 tuples a batch, 1,024 keys), each with the
    launch counts set to 0 just before and read just after:
@@ -170,6 +173,8 @@ Phases (each exits nonzero on failure; none is skipped):
    * (a) the six chaos families of ``durability/chaos.py`` through
      ``chaos.run_ab`` at 4,096 keys (``window_compact``: 4,096 sparse
      int32 ids, a remap slot each), killed mid-epoch and fused;
+     ``window_tb`` and ``reduce``, whose output side is per record on
+     the host, at 524,288 records (cut in depth);
      ``window_cb`` also killed mid-sink-flush (at least one fence
      dedupe) and restored at K = 1; ``stateful`` also killed mid-window;
    * (b) a declared f32-sum count window over random float values
@@ -264,6 +269,44 @@ Phases (each exits nonzero on failure; none is skipped):
    * (e) with the race detector on, (i)'s generic K = 8 run raises no
      ``ConcurrencyViolation`` and its records equal (b)'s;
    * (f) ``verify_graph`` reports nothing on every graph of (a).
+13. drive the host window engine, the persistent operators and the
+   example apps (``host_window_runs``, 90 s budget), every run through
+   ``PipeGraph.run()`` on the card with ``check()`` clean first, the
+   launch counts set to 0 just before and read just after, every output
+   against a numpy or pure-Python oracle, tuples/s printed beside the
+   card's name and power limit (information only):
+   * (a) ``ffat_analytics.build()``: 1,024 keys, count windows of 1,024
+     by 128, 8 batches of 262,144 integer-valued records (every fired
+     window, EOS partials included, exact); it launches the grouping
+     kernel;
+   * (b) ``market_ticker.build()``: 1,024 symbols, the app's windows of
+     64 by 16, 4 batches of 262,144 ticks with Python-float prices:
+     every high and low equals a numpy sliding max/min; it launches the
+     grouping kernel and the fold (16,389 pane columns a step);
+   * (c) ``ad_analytics.build()`` at phase 4 (a)'s YSB shape, 4 batches
+     (exact counts); (d) ``telemetry_frames.build()`` at phase 4 (b)'s
+     shape on FrameSource frames, 8 batches (``tb_window_sums``);
+   * (e) Source → MapGPU | FilterGPU (phase 3's) → a host window → Sink,
+     one batch of 262,144 tuples, 1,024 keys: ``Keyed_Windows`` (count,
+     incremental; time at (d)'s windows), ``Parallel_Windows``,
+     ``Paned_Windows`` (2, 2), ``MapReduce_Windows`` (2, 2) and the host
+     ``Ffat_Windows``, whose records also equal ``Ffat_WindowsGPU``
+     ``withSumCombiner()``'s on the same stream, record for record;
+   * (f) ``spike_detection``: 1,024 devices × 64 readings with spikes
+     injected, windows of 16 by 1, parallelism 2, tuple by tuple as the
+     app sends them (detections equal a pure-Python oracle);
+     (g) ``wordcount``: 131,072 words of a seeded 10,000-word
+     vocabulary, counter parallelism 4, ``batch=1024`` (source and
+     splitter; ``collections.Counter``);
+   * (h) ``P_Keyed_Windows`` on (e)'s keyed count stream equals
+     ``Keyed_Windows`` with every key spilled at least once, and a
+     ``P_Reduce`` (fed by a host source, batches of 1,024; 65,536
+     tuples, half a run) over a ``LogKV`` in a temporary directory
+     reopens it after a restart and ends in the state of one run (and
+     the oracle);
+   * (i) with a durability epoch cadence, ``check()`` on (e)'s keyed
+     count graph (fed by a replayable EVENT-time DeviceSource) names the
+     host window as WF603 and nothing else.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -296,6 +339,10 @@ TBC_KEYS, TBC_GAP, TBC_WIN, TBC_R, TBC_NP = 32, 10, (4 * 10 ** 6, 10 ** 6), \
     4, 68
 #: columnar runs (phase 5): batches a run, and bytes a FrameSource chunk
 COL_BATCHES, CHUNK_BYTES = 16, 1 << 20
+#: phase 13's market_ticker: symbols, its count windows (64 by 16) and
+#: the batches at CAP (its step's pane axis: R - 1 + CAP / 16 + 2 =
+#: 16,389 columns)
+TICK_SYMS, TICK_WIN, TICK_BATCHES = 1024, (64, 16), 4
 #: H100 SXM memory rate (NVIDIA data sheet), bytes/s
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM 32-bit rate outside the tensor cores, operations/s
@@ -517,7 +564,12 @@ def fold_edges(dev, rng):
              (9, 300, 16, "rows"), (9, 300, 17, "main"),
              (9, 300, 31, "main"), (9, 300, 33, "rows"),
              (2, 4096 - 511, 512, "rows"), (5, 5, 8, "rows"),
-             (4, 3, 33, "rows"), (1, 2057, 8, "rows"), (1, 1, 1, "rows")]
+             (4, 3, 33, "rows"), (1, 2057, 8, "rows"), (1, 1, 1, "rows"),
+             # past the Pallas kernel's 4,096-pane block: the register
+             # path (R = 4, market_ticker's pane axis) and the
+             # shared-memory path (R = 33; R = 512 over 274 column tiles)
+             (3, 16389, 4, "rows"), (3, 16389, 33, "rows"),
+             (2, 70000, 512, "rows")]
     for K, N, R, pattern in cases:
         if pattern == "main":
             v = main_fold_mask(rng, K, N, R)
@@ -596,11 +648,11 @@ def fold_inputs(dev, rng, pattern):
     return (torch.from_numpy(x).to(dev), torch.from_numpy(v).to(dev), R)
 
 
-def fold_bound(valid, R):
-    """Bound of one f32 fold call: the mask read, the output written, and
-    the values of the 32-byte sectors that hold a valid pane; one
-    combine a level and a stitch for each output whose window holds a
-    valid pane."""
+def fold_bound(valid, R, leaves=1):
+    """Bound of one fold call over ``leaves`` f32 leaves: the mask read
+    once, each output written, and each leaf's values in the 32-byte
+    sectors that hold a valid pane; one combine a level and a stitch for
+    each output whose window holds a valid pane, a leaf."""
     import torch
     n = valid.numel()
     flat = torch.nn.functional.pad(valid.reshape(-1).to(torch.uint8),
@@ -608,8 +660,76 @@ def fold_bound(valid, R):
     sectors = int(flat.reshape(-1, 8).any(1).sum())
     c = torch.nn.functional.pad(valid.int().cumsum(1), (R, 0))
     live = int(((c[:, R:] - c[:, :-R]) > 0).sum())
-    nops = live * (R.bit_length() - 1 + bin(R).count("1") - 1)
-    return bound_ms(n + 4 * n + 32 * sectors, nops)
+    nops = leaves * live * (R.bit_length() - 1 + bin(R).count("1") - 1)
+    return bound_ms(n + leaves * (4 * n + 32 * sectors), nops)
+
+
+def ticker_fold_inputs(dev, rng):
+    """The market_ticker step's fold call at CAP: its two f32 leaves
+    ``{"hi": p, "lo": -p}`` over [1024, R - 1 + CAP / 16 + 2] = [1024,
+    16389] panes, R = 4, a declared max; the mask of a batch of symbols
+    drawn uniformly, the R - 1 carried panes then a key's new full
+    panes."""
+    import torch
+    W, S = TICK_WIN
+    P, R = int(np.gcd(W, S)), W // int(np.gcd(W, S))
+    NPP = (R - 1) + CAP // P + 2
+    per_key = rng.multinomial(CAP,
+                              np.full(TICK_SYMS, 1.0 / TICK_SYMS))
+    live = (R - 1) + per_key // P
+    v = np.arange(NPP)[None, :] < live[:, None]
+    p = (10.0 + rng.random((TICK_SYMS, NPP)) * 90.0).astype(np.float32)
+    x = torch.from_numpy(p).to(dev)
+    return {"hi": x, "lo": -x}, torch.from_numpy(v).to(dev), R
+
+
+def check_fold_ticker(dev):
+    """The fold kernel at market_ticker's own step shape (two f32 leaves,
+    R = 4, max; one launch for both leaves) against its plain version,
+    bit for bit, timed beside its bound and the PyTorch calls that
+    compute the same function (a masked ``max_pool1d`` a leaf)."""
+    import torch
+    import torch.nn.functional as F
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    rng = np.random.default_rng(13)
+    tree, valid, R = ticker_fold_inputs(dev, rng)
+    fc.reset_launch_counts()
+    got = fc.sliding_fold(tree, valid, R, "max")
+    if fc.launch_counts()["sliding_fold"] != 1:
+        fail("sliding_fold[ticker]: two leaves took more than one launch")
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k, leaf in tree.items():
+        want = fc.fold_leaf_plain(leaf, valid, R, "max")
+        worst = max(worst, fold_err(got[k], want))
+        if not torch.equal(fold_bits(got[k]), fold_bits(want)):
+            fail(f"sliding_fold[ticker] leaf {k} differs from its plain "
+                 "version")
+
+    def plain():
+        return {k: fc.fold_leaf_plain(l, valid, R, "max")
+                for k, l in tree.items()}
+
+    def pool():
+        return {k: F.max_pool1d(F.pad(torch.where(valid, l, -np.inf)
+                                      [:, None, :], (R - 1, 0),
+                                      value=-np.inf), R, stride=1)[:, 0]
+                for k, l in tree.items()}
+    lib = pool()
+    for k in tree:
+        if not torch.equal(lib[k], got[k]):
+            fail(f"max_pool1d yardstick disagrees with the fold [{k}]")
+    t = timings(f"sliding_fold[ticker] max, 2 f32 leaves at "
+                f"{list(valid.shape)} R={R}",
+                kernel=lambda: fc.sliding_fold(tree, valid, R, "max"),
+                plain=plain, library=pool)
+    b_ms, b_by = fold_bound(valid, R, leaves=2)
+    return [{"name": "sliding_fold[ticker]", "route": "cuda",
+             "source": "windflow_tpu_torch/csrc/sliding_fold.cu",
+             "replaces": "windflow_tpu/kernels/pallas_ffat.py:407",
+             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": t["library"],
+             "max_abs_err": worst}]
 
 
 def check_fold(dev):
@@ -3630,6 +3750,478 @@ def analysis_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the host window engine, the persistent operators, the apps
+# ---------------------------------------------------------------------------
+
+#: (e)-(h): tuples of the host-window runs (one batch) and of wordcount
+#: (cut in depth: its counter sends one update a message, ~30 K words/s
+#: on the card's host); the P_Reduce restart's tuples, a half each run
+#: (its per-tuple log writes read ~20-25 K tuples/s there)
+P13_N, P13_WORDS, P13_VOCAB = CAP, 1 << 17, 10000
+P13_REDUCE_N = CAP // 4
+#: (f): spike_detection's devices and readings a device (cut in depth:
+#: the app sends one tuple a message, ~11 K readings/s on the card's host)
+SPIKE_DEVICES, SPIKE_READINGS = 1024, 64
+#: (h): P_Keyed_Windows' in-memory elements a key before a spill
+P13_SPILL = 64
+#: (g)-(h): the output batch size of the host-only stages (wordcount's
+#: ``batch``, its source and splitter; P_Reduce's source and output)
+P13_HOST_BATCH = 1024
+
+
+def p13_cfg(dev_name, **kw):
+    import windflow_tpu_torch as wt
+    return wt.Config(device=dev_name, punctuation_interval_usec=10 ** 12,
+                     **kw)
+
+
+def p13_equal(label, rows, want):
+    """``rows`` of ``(key, wid, value)`` against the oracle dict, record
+    for record and exact; returns the record count."""
+    got = {(k, w): v for k, w, v in rows}
+    if len(got) != len(rows):
+        fail(f"phase 13 {label}: duplicate (key, wid) records")
+    if set(got) != set(want):
+        fail(f"phase 13 {label}: {len(got)} windows fired, {len(want)} "
+             "expected, or other (key, wid)s")
+    bad = [k for k in want if got[k] != want[k]]
+    if bad:
+        fail(f"phase 13 {label}: {len(bad)} values differ, e.g. {bad[0]}: "
+             f"{got[bad[0]]} vs {want[bad[0]]}")
+    if not np.isfinite(np.asarray(list(got.values()), np.float64)).all():
+        fail(f"phase 13 {label}: non-finite values")
+    return len(rows)
+
+
+def p13_run(label, g, n, out, need=(), check=True):
+    """One ``PipeGraph.run()``: ``check()`` first (clean unless
+    ``check`` is False), the launch counts set to 0 just before the run
+    and read just after (each kernel of ``need`` must have launched),
+    then the information-only rate.  Returns the seconds."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    if check:
+        diags = g.check()
+        if diags:
+            fail(f"phase 13 {label}: check() found "
+                 f"{[str(d) for d in diags]}")
+    fc.reset_launch_counts()
+    t0 = time.perf_counter()
+    g.run()
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    out[f"13{label}"] = counts
+    for k in need:
+        if counts[k] <= 0:
+            fail(f"phase 13 {label}: {k} never launched: {counts}")
+    print(f"phase 13 {label}: {n} tuples in {secs:.3f} s = "
+          f"{n / secs:.0f} tuples/s (host clock, information only); "
+          f"launches {counts}")
+    return secs
+
+
+def ticker_oracle(sym, price, win, slide):
+    """{(sym, wid): (high, low)} over every count window of each symbol's
+    ticks, EOS partials included (float32 values, exact)."""
+    out = {}
+    order = np.argsort(sym, kind="stable")
+    ss, ps = sym[order], price[order]
+    bounds = np.flatnonzero(np.diff(ss)) + 1
+    for seg_s, seg_p in zip(np.split(ss, bounds), np.split(ps, bounds)):
+        n = len(seg_p)
+        pad = (-n) % slide + win
+        hi = np.pad(seg_p, (0, pad), constant_values=-np.inf)
+        lo = np.pad(seg_p, (0, pad), constant_values=np.inf)
+        nw = -(-n // slide)
+        view_hi = np.lib.stride_tricks.sliding_window_view(hi, win)[::slide]
+        view_lo = np.lib.stride_tricks.sliding_window_view(lo, win)[::slide]
+        for w, (h, l) in enumerate(zip(view_hi[:nw].max(1),
+                                       view_lo[:nw].min(1))):
+            out[(int(seg_s[0]), w)] = (float(h), float(l))
+    return out
+
+
+def host_window_graph(dev_name, builder, keys, vals, ts, rows, name,
+                      gpu=False, **cfg):
+    """(e): Source (EVENT time) → MapGPU | FilterGPU (phase 3's map and
+    filter, on the card) → the window ``builder`` built → Sink appending
+    ``(key, wid, value)`` to ``rows``."""
+    import windflow_tpu_torch as wt
+
+    def gen():
+        yield from ({"key": k, "v0": v, "ts": t}
+                    for k, v, t in zip(keys, vals, ts.tolist()))
+
+    def sink(r):
+        if r is None:
+            return
+        if gpu:
+            rows.append((r["key"], r["wid"], r["value"]))
+        else:
+            rows.append((r.key, r.wid, r.value))
+
+    g = wt.PipeGraph(name, wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT,
+                     config=p13_cfg(dev_name, **cfg))
+    pipe = g.add_source(wt.Source_Builder(gen)
+                        .withTimestampExtractor(lambda t: t["ts"])
+                        .withOutputBatchSize(CAP)
+                        .withRecordSpec({"key": np.int32(0),
+                                         "v0": np.float32(0.0),
+                                         "ts": np.int64(0)}).build())
+    pipe.add(wt.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    pipe.chain(wt.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    pipe.add(builder.withName(name).build()) \
+        .add_sink(wt.Sink_Builder(sink).build())
+    return g
+
+
+def p13_families():
+    """(e)'s host window families, by label: (builder factory, count or
+    time windows)."""
+    import windflow_tpu_torch as wt
+
+    def nonin(items):
+        return sum(t["v0"] for t in items)
+
+    def kx(t):
+        return t["key"]
+    return {
+        "(e) Keyed_Windows CB incremental": (lambda: wt.Keyed_Windows_Builder(
+            lambda t, acc: (0.0 if acc is None else acc) + t["v0"])
+            .withCBWindows(WIN, SLIDE).withKeyBy(kx).withParallelism(2),
+            "cb"),
+        "(e) Keyed_Windows TB": (lambda: wt.Keyed_Windows_Builder(nonin)
+                                 .withTBWindows(*TELE_WIN)
+                                 .withLateness(TELE_LATENESS)
+                                 .withKeyBy(kx).withParallelism(2), "tb"),
+        "(e) Parallel_Windows": (lambda: wt.Parallel_Windows_Builder(nonin)
+                                 .withCBWindows(WIN, SLIDE).withKeyBy(kx)
+                                 .withParallelism(2), "cb"),
+        "(e) Paned_Windows (2, 2)": (lambda: wt.Paned_Windows_Builder(
+            nonin, lambda panes: sum(panes)).withCBWindows(WIN, SLIDE)
+            .withKeyBy(kx).withParallelisms(2, 2), "cb"),
+        "(e) MapReduce_Windows (2, 2)": (lambda: wt.MapReduce_Windows_Builder(
+            nonin, lambda parts: sum(parts)).withCBWindows(WIN, SLIDE)
+            .withKeyBy(kx).withParallelisms(2, 2), "cb"),
+        "(e) Ffat_Windows CB sum": (lambda: wt.Ffat_Windows_Builder(
+            lambda t: t["v0"], lambda a, b: a + b)
+            .withCBWindows(WIN, SLIDE).withKeyBy(kx).withParallelism(2),
+            "cb"),
+    }
+
+
+def spike_readings(mod):
+    """tests/test_models.py's readings at SPIKE_DEVICES devices: a spike
+    (3x) every 50th reading of each device."""
+    import random
+    rnd = random.Random(9)
+    out = []
+    for i in range(SPIKE_DEVICES * SPIKE_READINGS):
+        base = 10.0 + rnd.random()
+        if (i // SPIKE_DEVICES) % 50 == 49:
+            base *= 3.0
+        out.append(mod.Reading(device=i % SPIKE_DEVICES, value=base))
+    return out
+
+
+def spike_oracle(readings, win, threshold):
+    """Every (device, wid, average) flagged: count windows of ``win``
+    readings sliding by 1 (EOS partials included), summed in arrival
+    order, flagged when the last reading exceeds ``threshold`` × the
+    mean."""
+    import functools
+    import operator
+    per = {}
+    for r in readings:
+        per.setdefault(r.device, []).append(r.value)
+    out = []
+    for d, vals in per.items():
+        for w in range(len(vals)):
+            seg = vals[w:w + win]
+            # left to right from 0.0, as the window's accumulator adds
+            # (the builtin sum compensates since Python 3.12)
+            s = functools.reduce(operator.add, seg, 0.0)
+            if abs(seg[-1]) > threshold * abs(s / len(seg)):
+                out.append((d, w, s / len(seg)))
+    return sorted(out)
+
+
+def p13_device_source(dev_name, keys, vals, ts):
+    """(i)'s replayable source: (e)'s stream as one EVENT-time
+    DeviceSource batch on the card."""
+    import torch
+    import windflow_tpu_torch as wt
+    k = torch.from_numpy(keys).to(dev_name)
+    v = torch.from_numpy(vals).to(dev_name)
+    t = torch.from_numpy(ts).to(dev_name)
+    return (wt.DeviceSource_Builder(lambda i: {"key": k, "v0": v})
+            .withCapacity(len(keys)).withNumBatches(1)
+            .withTimestampFn(lambda i: t, lambda i: int(ts.max()))
+            .build())
+
+
+def host_window_runs(dev_name="cuda"):
+    """Phase 13 (90 s budget): the apps (a)-(d) through their own
+    ``build()``, the host window families behind a card stage (e),
+    spike_detection (f) and wordcount (g), the persistent operators (h)
+    and preflight's durability findings (i); every output against a
+    numpy or pure-Python oracle.  Returns each run's launch counts."""
+    import collections
+    import tempfile
+
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.models import (ad_analytics, ffat_analytics,
+                                           market_ticker, spike_detection,
+                                           telemetry_frames, wordcount)
+    from windflow_tpu_torch.persistent import (DBHandle,
+                                               P_Keyed_Windows_Builder,
+                                               P_Reduce_Builder)
+    out = {}
+    print(f"phase 13: {smi_line()}")
+
+    # (a) ffat_analytics: 1,024 keys, count windows of 1,024 by 128
+    n = CAP * BATCHES
+    keys, vals = main_path_data(n, seed=131)
+    rows = []
+    g = ffat_analytics.build(
+        ({"k": k, "v": v} for k, v in zip(keys, vals)), rows.append,
+        win_len=WIN, slide=SLIDE, max_keys=KEYS, batch=CAP,
+        config=p13_cfg(dev_name))
+    p13_run("(a) ffat_analytics", g, n, out, need=("grouping_rank_hist",))
+    keep = (keys & 7) != 7
+    want = oracle(keys[keep], vals[keep] * np.float32(1.5) + np.float32(1.0))
+    nrec = p13_equal("(a)", [(r["key"], r["wid"], r["value"]) for r in rows],
+                     want)
+    print(f"phase 13 (a): {nrec} windows (EOS partials included) equal the "
+          "oracle")
+
+    # (b) market_ticker: 1,024 symbols, the app's windows of 64 by 16, at
+    # CAP; Python-float prices, the app's documented input (float32
+    # values, so the oracle's float32 max/min is exact)
+    n = CAP * TICK_BATCHES
+    rng = np.random.default_rng(132)
+    sym = rng.integers(0, TICK_SYMS, n).astype(np.int32)
+    price = (10.0 + rng.random(n) * 90.0).astype(np.float32)
+    rows = []
+    g = market_ticker.build(
+        ({"sym": s, "price": p}
+         for s, p in zip(sym.tolist(), price.tolist())),
+        rows.append, win_len=TICK_WIN[0], slide=TICK_WIN[1],
+        max_symbols=TICK_SYMS, batch=CAP, config=p13_cfg(dev_name))
+    p13_run("(b) market_ticker", g, n, out,
+            need=("grouping_rank_hist", "sliding_fold"))
+    nrec = p13_equal("(b)", [(r["sym"], r["wid"], (r["high"], r["low"]))
+                             for r in rows],
+                     ticker_oracle(sym, price, *TICK_WIN))
+    print(f"phase 13 (b): {nrec} windows' high and low equal the numpy "
+          "sliding max/min")
+
+    # (c) ad_analytics at phase 4 (a)'s YSB shape
+    n = CAP * 4
+    table, ad, etype, ts = ysb_data(n, seed=133)
+    counts = {}
+    g = ad_analytics.build(
+        ({"ad_id": a, "etype": e, "ts": t}
+         for a, e, t in zip(ad, etype, ts.tolist())),
+        table.tolist(),
+        lambda c, w, k: counts.__setitem__((c, w), k),
+        win_usec=YSB_WIN[0], slide_usec=YSB_WIN[1], batch=CAP,
+        config=p13_cfg(dev_name))
+    p13_run("(c) ad_analytics", g, n, out)
+    views = etype == 1
+    code = table[ad[views]].astype(np.int64) * (1 << 20) \
+        + ts[views] // YSB_WIN[1]
+    u, c = np.unique(code, return_counts=True)
+    want = {(int(x >> 20), int(x & ((1 << 20) - 1))): int(k)
+            for x, k in zip(u, c)}
+    if counts != want:
+        fail(f"phase 13 (c): {len(counts)} campaign windows, {len(want)} "
+             "expected, or other counts")
+    print(f"phase 13 (c): {len(counts)} campaign window counts exact")
+
+    # (d) telemetry_frames at phase 4 (b)'s shape, FrameSource frames
+    n = CAP * BATCHES
+    tk, tv, tts = telemetry_data(n, seed=134)
+    cols = []
+    g = telemetry_frames.build(
+        chunked(frame_blob(tk, tts, tv)), cols.append,
+        win_usec=TELE_WIN[0], slide_usec=TELE_WIN[1], max_keys=TELE_KEYS,
+        batch=CAP, lateness_usec=TELE_LATENESS, overflow_policy="drop",
+        config=p13_cfg(dev_name))
+    p13_run("(d) telemetry_frames", g, n, out)
+    nrec = check_tb_records("phase 13 (d)", [c for c in cols
+                                             if c is not None],
+                            tk, tts, tv, *TELE_WIN)
+    print(f"phase 13 (d): {nrec} windows equal tb_window_sums")
+
+    # (e) host window families behind a card stage, one batch
+    keys, vals = main_path_data(P13_N, seed=135)
+    ts = np.arange(P13_N, dtype=np.int64) * TELE_GAP
+    keep = (keys & 7) != 7
+    v1 = vals[keep] * np.float32(1.5) + np.float32(1.0)
+    want_cb = oracle(keys[keep], v1)
+    codes, sums = tb_oracle(keys[keep], ts[keep], v1, *TELE_WIN)
+    wids = tb_wids(ts[keep], TELE_WIN[1])
+    want_tb = {(int(c // wids), int(c % wids)): float(s)
+               for c, s in zip(codes, sums)}
+    host = {}
+    for label, (make, kind) in p13_families().items():
+        rows = []
+        g = host_window_graph(dev_name, make(), keys, vals, ts, rows,
+                              "w" + str(len(host)))
+        p13_run(label, g, P13_N, out)
+        nrec = p13_equal(label, rows, want_cb if kind == "cb" else want_tb)
+        if {type(k) for k, _, _ in rows} != {int}:
+            fail(f"phase 13 {label}: keys came back as "
+                 f"{ {type(k).__name__ for k, _, _ in rows} }")
+        host[label] = sorted(rows)
+        print(f"phase 13 {label}: {nrec} windows equal the oracle")
+    rows = []
+    g = host_window_graph(
+        dev_name, wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                             lambda a, b: a + b)
+        .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+        .withMaxKeys(KEYS).withSumCombiner(), keys, vals, ts, rows,
+        "wgpu", gpu=True)
+    p13_run("(e) Ffat_WindowsGPU sum", g, P13_N, out,
+            need=("grouping_rank_hist", "sliding_fold"))
+    if sorted((k, w, float(v)) for k, w, v in rows) \
+            != host["(e) Ffat_Windows CB sum"]:
+        fail("phase 13 (e): the host Ffat_Windows' records differ from "
+             "Ffat_WindowsGPU withSumCombiner's")
+    print(f"phase 13 (e): host Ffat_Windows equals Ffat_WindowsGPU "
+          f"withSumCombiner record for record ({len(rows)} windows)")
+
+    # (f) spike_detection
+    readings = spike_readings(spike_detection)
+    spikes = []
+    g = spike_detection.build(readings, spikes.append, win_len=16, slide=1,
+                              threshold=1.5, window_parallelism=2,
+                              config=p13_cfg(dev_name))
+    p13_run("(f) spike_detection", g, len(readings), out)
+    got = sorted((s.device, s.window_id, s.average) for s in spikes)
+    want = spike_oracle(readings, 16, 1.5)
+    if got != want or not got:
+        fail(f"phase 13 (f): {len(got)} detections, {len(want)} expected, "
+             "or other ones")
+    print(f"phase 13 (f): {len(got)} detections over "
+          f"{len({d for d, _, _ in got})} devices equal the oracle")
+
+    # (g) wordcount
+    rng = np.random.default_rng(137)
+    vocab = [f"w{i:04d}" for i in range(P13_VOCAB)]
+    draws = rng.integers(0, P13_VOCAB, P13_WORDS)
+    words = [vocab[i] for i in draws.tolist()]
+    lines = [" ".join(words[i:i + 16]) for i in range(0, P13_WORDS, 16)]
+    counts = {}
+    g = wordcount.build(lines, lambda w, k: counts.__setitem__(w, k),
+                        counter_parallelism=4, batch=P13_HOST_BATCH,
+                        config=p13_cfg(dev_name))
+    p13_run("(g) wordcount", g, P13_WORDS, out)
+    if counts != dict(collections.Counter(words)):
+        fail("phase 13 (g): the counts differ from collections.Counter")
+    print(f"phase 13 (g): {len(counts)} words' counts equal "
+          "collections.Counter")
+
+    # (h) the persistent operators
+    root = tempfile.mkdtemp(prefix="wf_phase13_")
+    rows = []
+    b = (P_Keyed_Windows_Builder(lambda items: sum(t["v0"] for t in items))
+         .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+         .withParallelism(2).withDBPath(os.path.join(root, "pkw"))
+         .withMaxInMemoryElements(P13_SPILL))
+    g = host_window_graph(dev_name, b, keys, vals, ts, rows, "pkw")
+    p13_run("(h) P_Keyed_Windows", g, P13_N, out)
+    if sorted(rows) != host["(e) Keyed_Windows CB incremental"]:
+        fail("phase 13 (h): P_Keyed_Windows differs from Keyed_Windows")
+    op = [o for o in g._operators if o.name == "pkw"][0]
+    spills = {k: kd.archive._next_frag for r in op.replicas
+              for k, kd in r.engine.keys.items()}
+    if len(spills) != len(set(keys[keep].tolist())) \
+            or min(spills.values()) < 1:
+        fail(f"phase 13 (h): a key never spilled: "
+             f"{sorted(spills.items(), key=lambda kv: kv[1])[:4]}")
+    print(f"phase 13 (h): P_Keyed_Windows equals Keyed_Windows "
+          f"({len(rows)} windows); every one of {len(spills)} keys spilled "
+          f"(fragments a key {min(spills.values())}-"
+          f"{max(spills.values())})")
+
+    def reduce_graph_p(lo, hi, path, name):
+        def acc(t, s):
+            s["n"] = s.get("n", 0) + 1
+            s["sum"] = s.get("sum", 0.0) + t["v0"]
+
+        def gen():
+            yield from ({"key": k, "v0": v}
+                        for k, v in zip(rkeys[lo:hi].tolist(),
+                                        v1all[lo:hi].tolist()))
+        g = wt.PipeGraph(name, config=p13_cfg(dev_name))
+        g.add_source(wt.Source_Builder(gen)
+                     .withOutputBatchSize(P13_HOST_BATCH).build()) \
+            .add(P_Reduce_Builder(acc).withKeyBy(lambda t: t["key"])
+                 .withParallelism(2).withDBPath(path).withInitialState(dict)
+                 .withKeepDb().withOutputBatchSize(P13_HOST_BATCH)
+                 .withName("preduce").build()) \
+            .add_sink(wt.Sink_Builder(lambda t: None).build())
+        return g
+
+    def db_state(path):
+        st = {}
+        for i in range(2):
+            db = DBHandle(path, initial_state=dict, whoami=i)
+            st.update({k: db.get(k) for k in db.keys()})
+            db.close()
+        return st
+    half = P13_REDUCE_N // 2
+    rkeys = keys[:P13_REDUCE_N]
+    v1all = vals[:P13_REDUCE_N] * np.float32(1.5) + np.float32(1.0)
+    restarted, whole = os.path.join(root, "pr_a"), os.path.join(root, "pr_b")
+    p13_run("(h) P_Reduce first half", reduce_graph_p(0, half, restarted,
+                                                      "pr1"), half, out)
+    p13_run("(h) P_Reduce restarted",
+            reduce_graph_p(half, P13_REDUCE_N, restarted, "pr2"),
+            P13_REDUCE_N - half, out)
+    p13_run("(h) P_Reduce one run",
+            reduce_graph_p(0, P13_REDUCE_N, whole, "pr3"), P13_REDUCE_N,
+            out)
+    sa, sb = db_state(restarted), db_state(whole)
+    cnt = np.bincount(rkeys, minlength=KEYS)
+    tot = np.bincount(rkeys, weights=v1all.astype(np.float64),
+                      minlength=KEYS)
+    want = {int(k): {"n": int(cnt[k]), "sum": float(tot[k])}
+            for k in np.flatnonzero(cnt)}
+    if sa != sb or sa != want:
+        fail("phase 13 (h): the restarted P_Reduce's state differs from "
+             "one run's or from the oracle")
+    print(f"phase 13 (h): P_Reduce reopened its LogKV after a restart and "
+          f"went on: {len(sa)} keys' state equals one run's and the oracle")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (i) preflight: (e)'s keyed CB graph, replayable, with durability
+    g = wt.PipeGraph("p13i", wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT,
+                     config=p13_cfg(dev_name, durability=os.path.join(
+                         tempfile.gettempdir(), "wf_p13i_unused"),
+                         durability_epoch_sweeps=8))
+    pipe = g.add_source(p13_device_source(dev_name, keys, vals, ts))
+    pipe.add(wt.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    pipe.chain(wt.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    pipe.add(p13_families()["(e) Keyed_Windows CB incremental"][0]()
+             .withName("keyed_cb").build()) \
+        .add_sink(wt.Sink_Builder(lambda r: None).build())
+    found = [(d.code, d.node) for d in g.check()]
+    if found != [("WF603", "keyed_cb")]:
+        fail(f"phase 13 (i): check() found {found}")
+    print("phase 13 (i): with a durability epoch cadence check() names "
+          "the host window as WF603 and nothing else; (a)-(d) and (e)'s "
+          "graphs checked clean")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -3982,7 +4574,7 @@ def main():
 
     # 2. kernels against their plain versions
     rows = check_grouping(dev) + check_grouping_tb(dev) + check_fold(dev) \
-        + check_table(dev)
+        + check_fold_ticker(dev) + check_table(dev)
     print("phase 2: kernels equal their plain versions at the main-path "
           "shapes and edges")
 
@@ -4078,6 +4670,11 @@ def main():
     t12 = time.perf_counter()
     run_counts.update(analysis_runs())
     print(f"phase 12: {time.perf_counter() - t12:.1f} s (budget 30 s)")
+    # 13. the host window engine, the persistent operators and the apps,
+    #     counts read just after each run
+    t13 = time.perf_counter()
+    run_counts.update(host_window_runs())
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s (budget 90 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -4101,10 +4698,15 @@ def main():
     cb_runs += tuple(t for t in run_counts
                      if t.startswith(("11(b)", "11(e)", "11(c) tenant cb")))
     kc11 = tuple(t for t in run_counts if t.startswith("11(c) tenant kc"))
-    runs_of = {"grouping_rank_hist": cb_runs,
+    # phase 13's count-window runs on the card: the apps (a) and (b) and
+    # (e)'s device twin; the ticker's fold calls are its own row's
+    cb_runs += ("13(a) ffat_analytics", "13(e) Ffat_WindowsGPU sum")
+    ticker = ("13(b) market_ticker",)
+    runs_of = {"grouping_rank_hist": cb_runs + ticker,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",),
                "sliding_fold[dense]": cb_runs,
                "sliding_fold[main]": cb_runs,
+               "sliding_fold[ticker]": ticker,
                "dense_monoid_table[a]": ("(a) compacted",
                                          "(e) compacted, keys < 1040",
                                          "(e) compacted, keys < 1100",

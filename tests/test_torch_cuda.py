@@ -48,7 +48,13 @@ the allocator's bytes.  The analysis plane's checks at the end run
 with no allocation, no kernel launch, no CUDA kernel in a profiler window
 and no synchronising call; refuse the two-fault graph before any
 allocation; and hold a graph's records and launches equal with
-preflight on and off.
+preflight on and off.  The apps and the host windows at the end: the
+``ffat_analytics`` and ``market_ticker`` apps at a small size on the
+card equal their CPU runs record for record (integer-valued, so exact),
+the grouping kernel launched by both and the fold by the ticker; and a
+time-window ``Keyed_Windows`` on the host behind a K = 8 megastep edge
+fires on the watermark before end of stream, with records equal to
+K = 1's and the CPU's.
 """
 
 import gc
@@ -1785,3 +1791,101 @@ def test_cuda_resident_walk_counts_views_once(cuda_device):
     row = g.stats()["Tenant"]["graph"]
     torch.cuda.synchronize()
     assert 0 < row["resident_state_bytes"] <= torch.cuda.memory_allocated()
+
+
+# ---------------------------------------------------------------------------
+# the apps and the host windows
+# ---------------------------------------------------------------------------
+
+def _app_rows(app, device, records, **kw):
+    import windflow_tpu_torch as wt
+    rows = app.run(records, config=wt.Config(device=device), **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rows
+
+
+@pytest.mark.cuda
+def test_cuda_ffat_analytics_equals_its_cpu_run(cuda_device):
+    from windflow_tpu_torch.models import ffat_analytics
+    rng = np.random.default_rng(91)
+    records = [{"k": int(k), "v": float(v)} for k, v in
+               zip(rng.integers(0, 8, 6000), rng.integers(-50, 51, 6000))]
+    kw = dict(win_len=64, slide=16, max_keys=8, batch=512)
+    fc.reset_launch_counts()
+    got = _app_rows(ffat_analytics, "cuda", records, **kw)
+    launches = fc.launch_counts()
+    key = lambda r: (r["key"], r["wid"])    # noqa: E731
+    want = _app_rows(ffat_analytics, "cpu", records, **kw)
+    assert got and sorted(got, key=key) == sorted(want, key=key)
+    assert launches["grouping_rank_hist"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_market_ticker_equals_its_cpu_run(cuda_device):
+    from windflow_tpu_torch.models import market_ticker
+    rng = np.random.default_rng(92)
+    # Python-float prices, the app's documented input: its lift folds
+    # them in float32, the fold kernel's type
+    ticks = [{"sym": int(s), "price": float(p)} for s, p in
+             zip(rng.integers(0, 6, 5000), rng.integers(10, 100, 5000))]
+    kw = dict(win_len=32, slide=8, max_symbols=6, batch=512)
+    fc.reset_launch_counts()
+    got = _app_rows(market_ticker, "cuda", ticks, **kw)
+    launches = fc.launch_counts()
+    key = lambda r: (r["sym"], r["wid"])    # noqa: E731
+    want = _app_rows(market_ticker, "cpu", ticks, **kw)
+    assert got and sorted(got, key=key) == sorted(want, key=key)
+    assert launches["grouping_rank_hist"] > 0
+    assert launches["sliding_fold"] > 0
+
+
+def _host_tb_behind_megastep(k, device="cuda"):
+    """FrameSource → the dense associative stateful tail (a megastep
+    edge) → ``Keyed_Windows`` TB on the host → Sink.  Returns (records,
+    whether the first record reached the sink before the window's end of
+    stream, the Megastep section)."""
+    import windflow_tpu_torch as wt
+    out, early = [], []
+    blob = _ms_blob()
+    step = MS_CAP * 24 * 3 // 2
+
+    def chunks():
+        for i in range(0, len(blob), step):
+            yield blob[i:i + step]
+    src = wt.FrameSource(chunks, nv=1, fields=["v"],
+                         output_batch_size=MS_CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v": np.float32(0.0)})
+    win = (wt.Keyed_Windows_Builder(lambda items: sum(t["v"] for t in items))
+           .withTBWindows(40_000, 10_000).withKeyBy(lambda t: t["key"])
+           .withName("host_tb").build())
+
+    def sink(r):
+        if r is None:
+            return
+        if not out:
+            early.append(not win.replicas[0]._eos_channels)
+        out.append((r.key, r.wid, r.value))
+    g = wt.PipeGraph("ms_host_tb", time_policy=wt.TimePolicy.EVENT,
+                     config=wt.Config(device=device, megastep_sweeps=k,
+                                      key_compaction=False,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(src).add(_ms_tail("assoc")).add(win) \
+        .add_sink(wt.Sink_Builder(sink).build())
+    g.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return sorted(out), early == [True], g.stats()["Megastep"]
+
+
+@pytest.mark.cuda
+def test_cuda_host_tb_window_behind_k8_megastep_fires_before_eos(
+        cuda_device):
+    got, early, sec = _host_tb_behind_megastep(8)
+    assert got and early
+    assert sec["edges"] and sec["edges"][0]["megasteps"] >= 1
+    base, early1, _ = _host_tb_behind_megastep(1)
+    assert got == base and early1
+    cpu, _, _ = _host_tb_behind_megastep(8, device="cpu")
+    assert cpu == base

@@ -232,7 +232,11 @@ def test_fold_gate():
     assert not fc.fold_supported(x, 513, "sum")         # R ceiling
     assert not fc.fold_supported(x.double(), 8, "sum")  # dtype gate
     assert not fc.fold_supported(x[:, :, None], 8, "sum")
-    assert not fc.fold_supported(torch.zeros((4, 4090)), 8, "sum")
+    # past the Pallas kernel's 4,096-pane VMEM block: market_ticker's
+    # step at 262,144 ticks a batch (16,389 pane columns)
+    assert fc.fold_supported(torch.zeros((4, 16389)), 4, "max")
+    assert not fc.fold_supported(torch.zeros((1, fc.MAX_FOLD_PANES - 6)),
+                                 8, "sum")
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,12 @@ execution modes) on one NVIDIA GPU.  Device operators take the reference's
 GPU names (``MapGPU_Builder``, ``FilterGPU_Builder``,
 ``ReduceGPU_Builder``, ``Ffat_WindowsGPU_Builder``) beside the host ones
 (``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder``,
-``Reduce_Builder``); ``MapGPU_Builder`` / ``FilterGPU_Builder`` with
+``Reduce_Builder``, the host window builders ``Keyed_Windows_Builder``,
+``Parallel_Windows_Builder``, ``Paned_Windows_Builder``,
+``MapReduce_Windows_Builder`` and ``Ffat_Windows_Builder`` over the
+window engine of ``windflow_tpu_torch/windows``, and the persistent
+``P_*_Builder``s of ``windflow_tpu_torch/persistent``, whose keyed state
+lives in an embedded KV store); ``MapGPU_Builder`` / ``FilterGPU_Builder`` with
 ``withInitialState`` build the keyed stateful operators
 (``StatefulMapGPU``, ``StatefulFilterGPU``).  MultiPipes split, select
 and merge, keyed edges route to several replicas, whole-chain fusion
@@ -49,11 +54,17 @@ from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
 from windflow_tpu_torch.context import LocalStorage, RuntimeContext
 from windflow_tpu_torch.durability.sinks import EpochFileSink
 from windflow_tpu_torch.graph.builders import (DeviceSource_Builder,
+                                               Ffat_Windows_Builder,
                                                Ffat_WindowsGPU_Builder,
                                                Filter_Builder,
                                                FilterGPU_Builder,
-                                               FlatMap_Builder, Map_Builder,
-                                               MapGPU_Builder, Reduce_Builder,
+                                               FlatMap_Builder,
+                                               Keyed_Windows_Builder,
+                                               Map_Builder, MapGPU_Builder,
+                                               MapReduce_Windows_Builder,
+                                               Paned_Windows_Builder,
+                                               Parallel_Windows_Builder,
+                                               Reduce_Builder,
                                                ReduceGPU_Builder, Sink_Builder,
                                                Source_Builder)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
@@ -70,10 +81,21 @@ from windflow_tpu_torch.ops.reduce import ReduceGPU
 from windflow_tpu_torch.ops.reduce_op import Reduce
 from windflow_tpu_torch.ops.sink import Sink, SinkColumns
 from windflow_tpu_torch.ops.source import Source
-from windflow_tpu_torch.persistent.kv import LogKV
+from windflow_tpu_torch.persistent import (DBHandle, LogKV, PFilter,
+                                           PFlatMap, PKeyedWindows, PMap,
+                                           PReduce, PSink, P_Filter_Builder,
+                                           P_FlatMap_Builder,
+                                           P_Keyed_Windows_Builder,
+                                           P_Map_Builder, P_Reduce_Builder,
+                                           P_Sink_Builder)
 from windflow_tpu_torch.staging import StagingPool
 from windflow_tpu_torch.windows.engine import WindowSpec
 from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+from windflow_tpu_torch.windows.ffat_op import FfatWindows
+from windflow_tpu_torch.windows.flatfat import FlatFAT
+from windflow_tpu_torch.windows.ops import (KeyedWindows, MapReduceWindows,
+                                            PanedWindows, ParallelWindows,
+                                            WindowResult)
 
 __all__ = [
     "Config", "EMPTY_KEY", "ExecutionMode", "RoutingMode", "TimePolicy",
@@ -90,4 +112,11 @@ __all__ = [
     "FfatWindowsGPU", "Ffat_WindowsGPU_Builder", "LogKV", "staging",
     "StagingPool", "Diagnostic", "EpochFileSink", "PreflightError",
     "PreflightWarning", "ConcurrencyViolation", "hot_path",
+    "WindowResult", "KeyedWindows", "ParallelWindows", "PanedWindows",
+    "MapReduceWindows", "FfatWindows", "FlatFAT", "Keyed_Windows_Builder",
+    "Parallel_Windows_Builder", "Paned_Windows_Builder",
+    "MapReduce_Windows_Builder", "Ffat_Windows_Builder", "DBHandle",
+    "PMap", "PFilter", "PFlatMap", "PReduce", "PSink", "PKeyedWindows",
+    "P_Map_Builder", "P_Filter_Builder", "P_FlatMap_Builder",
+    "P_Reduce_Builder", "P_Sink_Builder", "P_Keyed_Windows_Builder",
 ]

@@ -60,6 +60,18 @@ class RoutingMode(enum.Enum):
     REBALANCING = "rebalancing"
 
 
+class WindowRole(enum.Enum):
+    """Role of a window stage inside the compound window operators
+    (reference ``basic.hpp:219``): plain sequential, pane-level query,
+    window-level query, map stage, reduce stage."""
+
+    SEQ = "seq"
+    PLQ = "plq"
+    WLQ = "wlq"
+    MAP = "map"
+    REDUCE = "reduce"
+
+
 @dataclasses.dataclass
 class Config:
     """Runtime configuration (the reference's compile-time macro set as

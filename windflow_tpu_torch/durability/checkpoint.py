@@ -392,7 +392,7 @@ class DurabilityPlane:
         for op in self.graph._operators:
             for rep in op.replicas:
                 d = {"ordinal": op.ordinal, "index": rep.index,
-                     "wm": rep.current_wm}
+                     "wm": rep.current_wm, "hooked_wm": rep._hooked_wm}
                 if isinstance(rep, BaseSourceReplica):
                     d["last_ts"] = rep._last_ts
                     d["tid_seq"] = rep._tid_seq
@@ -468,6 +468,7 @@ class DurabilityPlane:
                     if r is None:
                         continue
                 rep.current_wm = r["wm"]
+                rep._hooked_wm = r.get("hooked_wm", r["wm"])
                 if isinstance(rep, BaseSourceReplica):
                     rep._last_ts = r["last_ts"]
                     rep._tid_seq = r["tid_seq"]
@@ -498,6 +499,8 @@ class DurabilityPlane:
                 del m["index"]
                 continue
             m["wm"] = min(m["wm"], r["wm"])
+            if "hooked_wm" in m and "hooked_wm" in r:
+                m["hooked_wm"] = min(m["hooked_wm"], r["hooked_wm"])
             for k in ("last_ts", "tid_seq", "since_punct"):
                 if k in r and k in m:
                     m[k] = max(m[k], r[k])

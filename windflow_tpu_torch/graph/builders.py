@@ -1,9 +1,12 @@
 """Fluent operator builders (the port of ``windflow_tpu/graph/builders.py``;
 reference ``builders.hpp`` and ``builders_gpu.hpp``).  Host builders:
 ``Map_Builder``, ``Filter_Builder``, ``FlatMap_Builder`` (each with
-``withBroadcast``), ``Reduce_Builder``; device builders take the
-reference's GPU names: ``MapGPU_Builder``, ``FilterGPU_Builder`` (both
-stateful with ``withInitialState``), ``ReduceGPU_Builder`` and
+``withBroadcast``), ``Reduce_Builder``, and the host windows
+``Keyed_Windows_Builder``, ``Parallel_Windows_Builder``,
+``Paned_Windows_Builder``, ``MapReduce_Windows_Builder`` and
+``Ffat_Windows_Builder``; device builders take the reference's GPU names:
+``MapGPU_Builder``, ``FilterGPU_Builder`` (both stateful with
+``withInitialState``), ``ReduceGPU_Builder`` and
 ``Ffat_WindowsGPU_Builder``."""
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 from typing import Any, Callable, Optional
 
 from windflow_tpu_torch.basic import RoutingMode, WindFlowError, WinType
+from windflow_tpu_torch.meta import _positional_arity
 from windflow_tpu_torch.ops.filter_op import Filter
 from windflow_tpu_torch.ops.flatmap_op import FlatMap
 from windflow_tpu_torch.ops.gpu import FilterGPU, MapGPU
@@ -23,6 +27,9 @@ from windflow_tpu_torch.ops.sink import Sink
 from windflow_tpu_torch.ops.source import Source
 from windflow_tpu_torch.windows.engine import WindowSpec
 from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+from windflow_tpu_torch.windows.ffat_op import FfatWindows
+from windflow_tpu_torch.windows.ops import (KeyedWindows, MapReduceWindows,
+                                            PanedWindows, ParallelWindows)
 
 
 class _BuilderBase:
@@ -453,27 +460,25 @@ class ReduceGPU_Builder(_BuilderBase):
                          max_keys=self._max_keys, monoid=self._monoid)
 
 
-class Ffat_WindowsGPU_Builder(_BuilderBase):
-    """Reference ``Ffat_WindowsGPU_Builder`` (``builders_gpu.hpp:576``):
-    every window a batch completes is computed in the one step, so
-    ``withNumWinPerBatch`` has no counterpart.  Count-based windows (rank
-    panes) and time-based windows (time-quantum panes on a ring, fired by
-    the watermark; lateness applies)."""
+# ---------------------------------------------------------------------------
+# Window builders (reference Keyed_Windows_Builder / Parallel_Windows_Builder /
+# Paned_Windows_Builder / MapReduce_Windows_Builder / Ffat_Windows_Builder /
+# Ffat_WindowsGPU_Builder, builders.hpp + builders_gpu.hpp:576)
+# ---------------------------------------------------------------------------
 
-    _default_name = "ffat_windows_gpu"
 
-    def __init__(self, lift_fn, comb_fn):
+class _WindowBuilderBase(_BuilderBase):
+    def withRebalancing(self):
+        raise WindFlowError(
+            "window operators route by key / broadcast; REBALANCING does "
+            "not apply")
+
+    def __init__(self):
         super().__init__()
-        self._lift = lift_fn
-        self._comb = comb_fn
-        self._max_keys = 1
-        self._monoid = None
         self._win_type = None
         self._win_len = 0
         self._slide = 0
         self._lateness = 0
-        self._pane_capacity = None
-        self._overflow_policy = "drop"
 
     def withCBWindows(self, win_len: int, slide: int):
         self._win_type = WinType.CB
@@ -490,6 +495,142 @@ class Ffat_WindowsGPU_Builder(_BuilderBase):
         and still count; windows fire that much later."""
         self._lateness = int(lateness_usec)
         return self
+
+    def _spec(self) -> WindowSpec:
+        if self._win_type is None:
+            raise WindFlowError(
+                "window operator needs withCBWindows or withTBWindows")
+        if self._win_len <= 0 or self._slide <= 0:
+            raise WindFlowError("window length and slide must be > 0")
+        return WindowSpec(self._win_type, self._win_len, self._slide,
+                          self._lateness)
+
+
+def _detect_incremental(fn) -> bool:
+    """Non-incremental window logic takes the item list (arity 1);
+    incremental logic takes (tuple, accumulator) (arity 2) — the Python
+    analogue of the reference's type-based dispatch (meta.hpp).  Only
+    required positionals count, so a lambda with a defaulted trailing
+    argument reads as in the JAX package."""
+    return _positional_arity(fn) == 2
+
+
+class Keyed_Windows_Builder(_WindowBuilderBase):
+    _default_name = "keyed_windows"
+
+    def __init__(self, fn):
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> KeyedWindows:
+        return KeyedWindows(
+            self._fn, self._spec(), name=self._name,
+            parallelism=self._parallelism, key_extractor=self._key_extractor,
+            incremental=_detect_incremental(self._fn),
+            output_batch_size=self._output_batch_size)
+
+
+class Parallel_Windows_Builder(_WindowBuilderBase):
+    _default_name = "parallel_windows"
+
+    def __init__(self, fn):
+        super().__init__()
+        self._fn = fn
+
+    def build(self) -> ParallelWindows:
+        return ParallelWindows(
+            self._fn, self._spec(), name=self._name,
+            parallelism=self._parallelism, key_extractor=self._key_extractor,
+            incremental=_detect_incremental(self._fn),
+            output_batch_size=self._output_batch_size)
+
+
+class Paned_Windows_Builder(_WindowBuilderBase):
+    _default_name = "paned_windows"
+
+    def __init__(self, plq_fn, wlq_fn):
+        super().__init__()
+        self._plq_fn = plq_fn
+        self._wlq_fn = wlq_fn
+        self._wlq_parallelism = 1
+
+    def withParallelisms(self, plq: int, wlq: int):
+        self._parallelism = plq
+        self._wlq_parallelism = wlq
+        return self
+
+    def build(self) -> PanedWindows:
+        return PanedWindows(
+            self._plq_fn, self._wlq_fn, self._spec(),
+            name=self._name,
+            plq_parallelism=self._parallelism,
+            wlq_parallelism=self._wlq_parallelism,
+            key_extractor=self._key_extractor,
+            plq_incremental=_detect_incremental(self._plq_fn),
+            wlq_incremental=_detect_incremental(self._wlq_fn),
+            output_batch_size=self._output_batch_size)
+
+
+class MapReduce_Windows_Builder(_WindowBuilderBase):
+    _default_name = "mapreduce_windows"
+
+    def __init__(self, map_fn, reduce_fn):
+        super().__init__()
+        self._map_fn = map_fn
+        self._reduce_fn = reduce_fn
+        self._reduce_parallelism = 1
+
+    def withParallelisms(self, map_p: int, reduce_p: int):
+        self._parallelism = map_p
+        self._reduce_parallelism = reduce_p
+        return self
+
+    def build(self) -> MapReduceWindows:
+        return MapReduceWindows(
+            self._map_fn, self._reduce_fn, self._spec(),
+            name=self._name,
+            map_parallelism=self._parallelism,
+            reduce_parallelism=self._reduce_parallelism,
+            key_extractor=self._key_extractor,
+            map_incremental=_detect_incremental(self._map_fn),
+            reduce_incremental=_detect_incremental(self._reduce_fn),
+            output_batch_size=self._output_batch_size)
+
+
+class Ffat_Windows_Builder(_WindowBuilderBase):
+    _default_name = "ffat_windows"
+
+    def __init__(self, lift_fn, comb_fn):
+        super().__init__()
+        self._lift = lift_fn
+        self._comb = comb_fn
+
+    def build(self) -> FfatWindows:
+        return FfatWindows(
+            self._lift, self._comb, self._spec(),
+            name=self._name,
+            parallelism=self._parallelism, key_extractor=self._key_extractor,
+            lateness=self._lateness,
+            output_batch_size=self._output_batch_size)
+
+
+class Ffat_WindowsGPU_Builder(_WindowBuilderBase):
+    """Reference ``Ffat_WindowsGPU_Builder`` (``builders_gpu.hpp:576``):
+    every window a batch completes is computed in the one step, so
+    ``withNumWinPerBatch`` has no counterpart.  Count-based windows (rank
+    panes) and time-based windows (time-quantum panes on a ring, fired by
+    the watermark; lateness applies)."""
+
+    _default_name = "ffat_windows_gpu"
+
+    def __init__(self, lift_fn, comb_fn):
+        super().__init__()
+        self._lift = lift_fn
+        self._comb = comb_fn
+        self._max_keys = 1
+        self._monoid = None
+        self._pane_capacity = None
+        self._overflow_policy = "drop"
 
     def withMaxKeys(self, n: int):
         """Size of the dense device key space [0, n)."""
@@ -541,15 +682,8 @@ class Ffat_WindowsGPU_Builder(_BuilderBase):
         return self
 
     def build(self) -> FfatWindowsGPU:
-        if self._win_type is None:
-            raise WindFlowError(
-                "window operator needs withCBWindows or withTBWindows")
-        if self._win_len <= 0 or self._slide <= 0:
-            raise WindFlowError("window length and slide must be > 0")
         return FfatWindowsGPU(
-            self._lift, self._comb,
-            WindowSpec(self._win_type, self._win_len, self._slide,
-                       self._lateness),
+            self._lift, self._comb, self._spec(),
             max_keys=self._max_keys, name=self._name,
             parallelism=self._parallelism,
             key_extractor=self._key_extractor,

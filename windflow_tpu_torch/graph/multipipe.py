@@ -14,6 +14,13 @@ from windflow_tpu_torch.ops.sink import Sink
 from windflow_tpu_torch.ops.source import Source
 
 
+def _is_composite(op) -> bool:
+    """A composite window operator: not an Operator itself, but the
+    ``stages()`` the graph runs (``windows/ops.py``)."""
+    return not isinstance(op, Operator) and callable(
+        getattr(op, "stages", None))
+
+
 class MultiPipe:
     def __init__(self, graph, source: Source) -> None:
         self.graph = graph
@@ -53,7 +60,18 @@ class MultiPipe:
 
     def add(self, op: Operator) -> "MultiPipe":
         """Append an operator with a shuffle/forward connection (reference
-        ``MultiPipe::add``, ``multipipe.hpp:936-1027``)."""
+        ``MultiPipe::add``, ``multipipe.hpp:936-1027``).  A composite
+        window operator (Paned/MapReduce windows) expands into its
+        pipeline stages, as the reference adds PLQ+WLQ / MAP+REDUCE as two
+        operators (``multipipe.hpp:965-999``); its closing function is
+        handed down to each stage."""
+        if _is_composite(op):
+            cf = getattr(op, "closing_func", None)
+            for stage in op.stages():
+                if cf is not None and stage.closing_func is None:
+                    stage.closing_func = cf
+                self.add(stage)
+            return self
         self._check_open()
         if isinstance(op, Source):
             raise WindFlowError("a Source can only start a MultiPipe")
@@ -86,8 +104,12 @@ class MultiPipe:
         else ``add``."""
         from windflow_tpu_torch.ops.chained import (chainable, fuse,
                                                     host_chainable)
-        if not self.operators:
-            # a fresh split branch or merged pipe has nothing to fuse with
+        from windflow_tpu_torch.ops.reduce_op import Reduce
+        if _is_composite(op) or isinstance(op, Reduce) \
+                or not self.operators:
+            # composites and Reduce cannot be chained
+            # (multipipe.hpp:1042-1045); a fresh split branch or merged
+            # pipe has nothing to fuse with
             return self.add(op)
         prev = self.operators[-1]
         if op.routing == RoutingMode.FORWARD \

@@ -46,8 +46,11 @@ MAX_BUCKETS = 4096
 MAX_LANES = 1 << 22
 #: window-width ceiling of the fold kernel
 MAX_FOLD_R = 512
-#: pane-axis ceiling of the fold kernel (panes + R - 1)
-MAX_FOLD_PANES = 4096
+#: pane-axis ceiling of the fold kernel (panes + R - 1): the grid rows of
+#: its shared-memory path (65,535 blocks of 256 columns).  The Pallas
+#: kernel's 4,096-pane VMEM block has no counterpart here: the register
+#: path walks [K, panes] flat with 64-bit offsets
+MAX_FOLD_PANES = 65535 * 256
 #: leaves the fold kernel takes in one launch
 FOLD_LEAVES = 4
 #: outputs a thread of the fold kernel's register path: 8, or 4 or 16
@@ -280,7 +283,7 @@ def order_hist(ids: torch.Tensor, nbuckets: int):
 def fold_supported(values, R: int, monoid: Optional[str]) -> bool:
     """Gate for the fold kernel: declared monoid, 2-D ``[K, panes]``
     leaves, f32/i32 (the compiled TPU gate), 1 <= R <= 512 and
-    panes + R - 1 <= 4096."""
+    panes + R - 1 <= :data:`MAX_FOLD_PANES`."""
     if monoid not in _MONOID_CODE or not (1 <= R <= MAX_FOLD_R):
         return False
     leaves = tree_leaves(values)

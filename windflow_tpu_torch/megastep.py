@@ -550,6 +550,7 @@ class MegastepEdge:
             rep.stats.device_programs_launched += 1
             rep.stats.outputs_sent += out.known_size or 0
             rep.emitter.emit_device_batch(out)
+            rep._maybe_hook_wm()
 
     def _post_hooks(self) -> None:
         """The per-batch cadence checkpoints, once a group (they may read

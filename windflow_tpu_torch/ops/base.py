@@ -51,6 +51,8 @@ class Replica:
         self._eos_channels = set()
         self.done = False
         self.current_wm = WM_NONE
+        #: the last watermark handed to on_watermark
+        self._hooked_wm = WM_NONE
         self.stats = StatsRecord(operator_name=op.name, replica_index=index,
                                  is_gpu=op.is_gpu)
         #: flight-recorder span ring (monitoring/recorder.py), bound by
@@ -148,6 +150,7 @@ class Replica:
     def _dispatch_impl(self, msg) -> None:
         if isinstance(msg, Punctuation):
             self._advance_wm(msg.watermark)
+            self._maybe_hook_wm()
             if self.emitter is not None:
                 self.emitter.propagate_punctuation(self.current_wm)
             return
@@ -179,6 +182,7 @@ class Replica:
                 self.context._set_context(ts, msg.watermark)
                 self.process_single(item, ts, msg.watermark)
             self.cur_tid = None
+        self._maybe_hook_wm()
         self.stats.end_sample()
         if tr is not None and self.op.is_terminal:
             # the staged→sunk span closes at sink receipt (a deferred
@@ -186,6 +190,12 @@ class Replica:
             now = current_time_usecs()
             self.ring.record(tr[0], flightrec.SUNK, now)
             self.stats.e2e_hist.add(now - tr[1])
+
+    def _maybe_hook_wm(self) -> None:
+        # the (possibly O(open windows)) hook runs on a real advance only
+        if self.current_wm != self._hooked_wm:
+            self._hooked_wm = self.current_wm
+            self.on_watermark(self.current_wm)
 
     def _advance_wm(self, wm: int) -> None:
         if wm != WM_NONE and wm > self.current_wm:
@@ -202,6 +212,9 @@ class Replica:
 
     def on_eos(self) -> None:
         """Flush hook: window firing, sink finalization, etc."""
+
+    def on_watermark(self, wm: int) -> None:
+        """Watermark-advance hook (fires time windows past the frontier)."""
 
 
 class Operator:
@@ -295,8 +308,8 @@ class Operator:
         return 0
 
     #: True on operators holding cross-batch state the durability plane
-    #: cannot snapshot (the JAX package's host window engines and
-    #: persistent suites; none of the port's operators yet)
+    #: cannot snapshot (the host window engines and the persistent
+    #: suite; preflight names them as WF603)
     checkpoint_opaque = False
 
     def snapshot_state(self) -> Optional[dict]:
