@@ -306,7 +306,44 @@ Phases (each exits nonzero on failure; none is skipped):
      the oracle);
    * (i) with a durability epoch cadence, ``check()`` on (e)'s keyed
      count graph (fed by a replayable EVENT-time DeviceSource) names the
-     host window as WF603 and nothing else.
+     host window as WF603 and nothing else;
+14. drive the serving plane and the native host runtime through
+   ``PipeGraph.run()`` (``serving_runs``; 45 s budget), launch counts
+   and the native library's call counts (``native.call_counts``) set to
+   0 just before each run and read just after; phase 1 builds the
+   native library (g++) beside the kernels, and the phase fails unless
+   it loaded and each run entered the native calls it needs:
+   * (a) ``move_keys``: 2,097,152 frames (EVENT time, 10 µs apart) →
+     ``FrameSource`` → keyed TB ``Ffat_WindowsGPU`` (4 s by 1 s, the
+     generic combiner, 96 key rows, a fixed 40-pane ring: the grouping
+     kernel) at parallelism 3, one ring a replica, with
+     ``Config.reshard_executor`` on: two warm keys (25% each) that the
+     keyed staging places on one shard over 64 background keys.  At
+     least one move re-homes ring rows in place (fewer moves skipped
+     than made), every window equals the TB oracle, and the K = 1 and
+     K = 8 (``megastep_sweeps``) runs give the same records; then a
+     ring row moved into the static carry of a captured K = 8 TB body
+     replays equal to the eager steps after the same move;
+   * (b) ``split_hot_key``: frames (a count lane beside the value) →
+     keyed staging → a declared-sum ``ReduceGPU`` at parallelism 3, one
+     key 60% of the tuples: the split engages (tuples folded at the
+     staging boundary), the table kernel launches, the per-key totals
+     equal the oracle;
+   * (c) admission control: 524,288 records (a dominant key, then
+     uniform) → an undeclared keyed ``ReduceGPU`` at parallelism 3 (no
+     split applies): the admission factor falls below 1 and recovers to
+     1, the per-key totals equal the oracle;
+   * (d) native ingest: frames (2,097,152) and CSV (524,288) chunks →
+     ``FrameSource`` → phase 5's MapGPU | FilterGPU → CB windows with
+     ``withSumCombiner``, against the oracle and against the same graph
+     on the numpy parsers (``WF_TPU_NO_NATIVE=1``); both parsers' ms a
+     batch printed;
+   * (e) ``P_Reduce`` (32,768 tuples) on the native ``LogKV``, its
+     store reopened on the Python backend, and the reverse: the states
+     equal the oracle; both backends' tuples/s printed;
+   * (f) the tenant scheduler ingests ``tenancy.plan`` of two tenants'
+     graphs, and a postmortem bundle of (a)'s graph has a
+     ``reshard.json`` that ``tools/wf_doctor.py --check`` passes.
 
 Before the last line it prints the card's name and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -4222,6 +4259,599 @@ def host_window_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the serving plane and the native host runtime
+# ---------------------------------------------------------------------------
+
+#: (a): background keys, the window state's key rows, the fixed ring
+#: (max_keys * NP + 1 = 3,841 (key, pane) ids: under the grouping
+#: kernel's 4,096-bucket gate), µs between tuples, 4 s windows by 1 s
+P14_BG, P14_MAXK, P14_NP, P14_GAP = 64, 96, 40, 10
+P14_WIN = (4 * 10 ** 6, 10 ** 6)
+#: (a), (b), (d): tuples a run (full-width batches, cut in depth)
+P14_N = CAP * BATCHES
+#: (b): the split run's keys and its hot key's share
+P14_SPLIT_KEYS, P14_HOT_SHARE = 64, 0.6
+#: (c): the admission run's records (the per-record host path, cut in
+#: depth), (d): the CSV run's records (its numpy twin parses in Python),
+#: (e): the P_Reduce runs' tuples (a LogKV write a tuple)
+P14_ADMIT_N, P14_CSV_N, P14_KV_N = CAP * 2, CAP * 2, CAP // 8
+
+
+def p14_cfg(dev_name, **kw):
+    import windflow_tpu_torch as wt
+    base = dict(punctuation_interval_usec=10 ** 12, reshard_executor=True,
+                reshard_check_sweeps=2, reshard_trigger_ticks=2,
+                reshard_ok_ticks=2)
+    base.update(kw)
+    return wt.Config(device=dev_name, **base)
+
+
+def p14_hot_pair(n_shards=3):
+    """Two warm keys above the background range that the keyed staging
+    edge places on one shard (``splitmix64(int32 key) % n``)."""
+    from windflow_tpu_torch.parallel.emitters import splitmix64_int
+    out = [k for k in range(P14_BG, P14_MAXK)
+           if splitmix64_int(k) % n_shards == 0][:2]
+    if len(out) != 2:
+        fail("phase 14: no colocated warm pair in the key range")
+    return out
+
+
+def p14_move_data():
+    """(a): 25% + 25% of the tuples on the warm pair, the rest spread
+    over the background keys tuple by tuple, so every shard sees tuples
+    in every pane; integer values (exact f32 sums)."""
+    hot = p14_hot_pair()
+    i = np.arange(P14_N)
+    r = i % 20
+    keys = np.where(r < 5, hot[0], np.where(r < 10, hot[1], i % P14_BG))
+    vals = ((i * 7) % 9).astype(np.float64)
+    ts = i.astype(np.int64) * P14_GAP
+    return keys.astype(np.int64), ts, vals, hot
+
+
+def p14_move_graph(dev_name, blob, sink_fn, k):
+    """(a): FrameSource (EVENT time) → keyed TB ``Ffat_WindowsGPU``
+    (generic ``a + b``, parallelism 3: one pane ring a replica) →
+    columnar Sink, the executor on; ``k`` is ``megastep_sweeps``."""
+    import windflow_tpu_torch as wt
+    g = wt.PipeGraph("chip_smoke_p14_move", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT,
+                     config=p14_cfg(dev_name, megastep_sweeps=k,
+                                    reshard_imbalance_threshold=1.6))
+    win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withTBWindows(*P14_WIN).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(P14_MAXK).withPaneCapacity(P14_NP)
+           .withParallelism(3).withName("win").build())
+    src = wt.FrameSource(chunked(blob), nv=1, output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)})
+    g.add_source(src).add(win).add_sink(
+        wt.Sink_Builder(sink_fn).withColumnarSink().build())
+    return g, win
+
+
+def p14_run(label, g, n, out, need=(), native_need=()):
+    """One ``PipeGraph.run()``, the launch counts and the native call
+    counts set to 0 just before and read just after."""
+    import torch
+
+    from windflow_tpu_torch import native
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    fc.reset_launch_counts()
+    native.reset_call_counts()
+    t0 = time.perf_counter()
+    g.run()
+    if g.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, calls = fc.launch_counts(), native.call_counts()
+    out[f"14{label}"] = counts
+    for k in (need if g.device.type == "cuda" else ()):
+        if counts[k] <= 0:
+            fail(f"phase 14 {label}: {k} never launched: {counts}")
+    for k in native_need:
+        if calls.get(k, 0) <= 0:
+            fail(f"phase 14 {label}: the native {k} was never entered "
+                 f"({calls})")
+    print(f"phase 14 {label}: {n} tuples in {secs:.3f} s = "
+          f"{n / secs:.0f} tuples/s (host clock, information only); "
+          f"launches {counts}; native calls {calls}")
+    return secs
+
+
+def p14_clone(tree):
+    import torch
+
+    from windflow_tpu_torch.utils.tree import tree_map
+    return tree_map(torch.clone, tree)
+
+
+def moved_row_replay_check(op, x, hot, dev, cap, k=8, seed=141):
+    """A TB ring-row move under a captured K-step body: two rings (source
+    and destination shard) stepped to the same clock, the destination's
+    held as the static carry of a ``torch.cuda.graph`` capture of ``k``
+    steps of ``op``'s own step, the executor's ``_move_ffat_rows`` moving
+    ``hot``'s row into it, then one replay; against the same move and the
+    same ``k`` steps run eagerly on copies.  Returns ``(equal, rows
+    moved, launches a replay)``.  ``op``'s ``_states`` are put back."""
+    import torch
+
+    from windflow_tpu_torch.kernels.ffat_cuda import (CountedGraph,
+                                                      uncounted)
+    from windflow_tpu_torch.utils.tree import tree_flatten
+    from windflow_tpu_torch.windows.ffat_kernels import (agg_spec_for,
+                                                         make_ffat_tb_state)
+    rng = np.random.default_rng(seed)
+    P = op.P
+    step = op._step_fn
+    saved = op._states
+
+    def batch(i, with_hot):
+        keys = rng.integers(0, op.max_keys, cap)
+        if not with_hot:
+            keys = np.where(keys == hot, (hot + 1) % op.max_keys, keys)
+        ts = (i * cap + np.arange(cap)) * (2 * P * 2 // cap + 1)
+        return ({"key": torch.from_numpy(keys.astype(np.int32)).to(dev),
+                 "v0": torch.from_numpy(rng.integers(0, 9, cap)
+                                        .astype(np.float32)).to(dev)},
+                torch.from_numpy(ts.astype(np.int64)).to(dev),
+                torch.ones(cap, dtype=torch.bool, device=dev),
+                int(ts.max()) // P - 4)
+
+    def run_eager(carry, rows):
+        outs = []
+        for payload, ts, valid, wm in rows:
+            carry, out, fired, out_ts, _ = step(carry, payload, ts, valid,
+                                                 wm)
+            outs.append((out, fired, out_ts))
+        return carry, outs
+
+    w0, w1 = batch(0, True), batch(0, False)
+    spec = agg_spec_for(op.lift, w0[0])
+    a = make_ffat_tb_state(spec, op.max_keys, op.NP, device=dev)
+    b = make_ffat_tb_state(spec, op.max_keys, op.NP, device=dev)
+    a, _ = run_eager(a, [w0])
+    b, _ = run_eager(b, [w1])
+    rows = [batch(1 + i, True) for i in range(k)]
+    # the captured body reads its rows from static inputs
+    xs = {"key": torch.stack([r[0]["key"] for r in rows]),
+          "v0": torch.stack([r[0]["v0"] for r in rows]),
+          "ts": torch.stack([r[1] for r in rows]),
+          "valid": torch.stack([r[2] for r in rows]),
+          "wm": torch.tensor([r[3] for r in rows], dtype=torch.int64,
+                             device=dev)}
+    xs_s = p14_clone(xs)
+
+    def body(carry, xin):
+        outs = []
+        for i in range(k):
+            carry, out, fired, out_ts, _ = step(
+                carry, {"key": xin["key"][i], "v0": xin["v0"][i]},
+                xin["ts"][i], xin["valid"][i], xin["wm"][i])
+            outs.append((out, fired, out_ts))
+        return carry, outs
+
+    static = p14_clone(b)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), uncounted():
+        body(p14_clone(static), xs_s)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = CountedGraph(torch.cuda.CUDAGraph())
+    with graph.capture(torch.cuda.graph(graph.graph)):
+        new, ys = body(static, xs_s)
+        for s, nw in zip(tree_flatten(static)[0], tree_flatten(new)[0]):
+            if s is not nw:
+                s.copy_(nw)
+    src_i, dst_i = 0, 1
+    mv = [{"key": hot, "from_shard": src_i, "to_shard": dst_i,
+           "est_tuples": 1}]
+    try:
+        before = x.rows_moved
+        op._states = {src_i: p14_clone(a), dst_i: static}
+        x._move_ffat_rows(op, mv)
+        moved = x.rows_moved - before
+        with uncounted():
+            graph.replay()
+        got = [tuple(p14_clone(t) for t in y) for y in ys]
+        got_carry = p14_clone(static)
+        op._states = {src_i: p14_clone(a), dst_i: p14_clone(b)}
+        x._move_ffat_rows(op, mv)
+        with uncounted():
+            want_carry, want = run_eager(op._states[dst_i], rows)
+        torch.cuda.synchronize()
+    finally:
+        op._states = saved
+    eq = all(torch.equal(g_, w_) for gy, wy in zip(got, want)
+             for gl, wl in zip(gy, wy)
+             for g_, w_ in zip(tree_flatten(gl)[0], tree_flatten(wl)[0]))
+    eq = eq and all(torch.equal(g_, w_) for g_, w_ in zip(
+        tree_flatten(got_carry)[0], tree_flatten(want_carry)[0]))
+    fired = sum(int(y[1].sum()) for y in got)
+    return eq and fired > 0, moved, graph.launches_per_replay()
+
+
+def p14_ingest_graph(dev_name, blob, fmt, sink_fn):
+    """(d): FrameSource (``fmt`` chunks, EVENT time) → phase 5's
+    ``cb_tail`` with ``withSumCombiner``."""
+    import windflow_tpu_torch as wt
+    src = wt.FrameSource(chunked(blob), nv=1, fmt=fmt,
+                         output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)})
+    g = wt.PipeGraph("chip_smoke_p14_ingest", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT,
+                     config=wt.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12))
+    cb_tail(g.add_source(src), True, sink_fn)
+    return g
+
+
+def p14_tenant_graph(dev_name, tenant, keys, vals, budget=0):
+    """(f): one tenant's graph: Source → keyed ReduceGPU (declared max)
+    → Sink under ``tenant``, with an HBM budget of ``budget`` bytes."""
+    import torch
+
+    import windflow_tpu_torch as wt
+
+    def gen():
+        yield from ({"key": k, "v0": v} for k, v in zip(keys, vals))
+    g = wt.PipeGraph(f"chip_smoke_p14_{tenant}",
+                     config=wt.Config(device=dev_name, tenant=tenant,
+                                      hbm_budget_bytes=budget,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wt.Source_Builder(gen).withOutputBatchSize(CAP // 16)
+                 .build()) \
+        .add(wt.ReduceGPU_Builder(
+            lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                          "v0": torch.maximum(a["v0"], b["v0"])})
+            .withKeyBy(lambda t: t["key"]).withMonoidCombiner("max")
+            .withMaxKeys(KEYS).build()) \
+        .add_sink(wt.Sink_Builder(lambda r: None).build())
+    return g
+
+
+def serving_runs(dev_name="cuda"):
+    """Phase 14 (45 s budget): the reshard executor's move_keys on
+    per-replica TB rings (a) at K = 1 and K = 8 and under a captured
+    K-step body, split_hot_key on the columnar keyed staging (b),
+    admission control (c), the native ingest (d) and KV (e), the tenant
+    scheduler and the executor's postmortem section (f); every output
+    against an oracle.  Returns each run's launch counts."""
+    import torch
+
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch import native
+    from windflow_tpu_torch.analysis import tenancy
+    from windflow_tpu_torch.io import parse
+    from windflow_tpu_torch.monitoring.tenant_ledger import default_ledger
+    from windflow_tpu_torch.persistent import DBHandle, P_Reduce_Builder
+    from windflow_tpu_torch.serving.tenant_scheduler import TenantScheduler
+    out = {}
+    smi = smi_line()
+    print(f"phase 14: {smi}")
+    if not native.is_available():
+        fail(f"phase 14: the native library is not available: "
+             f"{native.build_error()}")
+
+    # (a) move_keys on per-replica TB rings, K = 1 and K = 8
+    keys, ts, vals, hot = p14_move_data()
+    blob = frame_blob(keys, ts, vals)
+    recs = {}
+    for k in (1, 8):
+        cols = []
+        g, win = p14_move_graph(dev_name, blob, lambda c: cols.append(c)
+                                if c is not None else None, k)
+        p14_run(f"(a) move_keys K={k}", g, P14_N, out,
+                need=("grouping_rank_hist",),
+                native_need=("parse_frames", "keyby_partition"))
+        nrec = check_tb_records(f"phase 14 (a) K={k}", cols, keys, ts, vals,
+                                *P14_WIN)
+        st = win.dump_stats()
+        if [st[c] for c in ("Late_tuples_dropped", "Pane_cells_evicted",
+                            "Windows_dropped_on_overflow")] != [0, 0, 0]:
+            fail(f"phase 14 (a) K={k}: late, evicted or dropped tuples")
+        rs = g.stats()["Reshard"]
+        if rs["keys_moved"] < 1 or rs["rows_moved"] < 1 \
+                or rs["moves_skipped"] >= rs["keys_moved"]:
+            fail(f"phase 14 (a) K={k}: moved {rs['keys_moved']} keys, "
+                 f"{rs['rows_moved']} rows, skipped {rs['moves_skipped']}: "
+                 f"{rs['timeline']}")
+        if k == 1:
+            pm_graph = g        # (f) writes its postmortem bundle
+        recs[k] = np.sort(np.concatenate(
+            [np.asarray(c.cols["key"]).astype(np.int64) * (1 << 32)
+             + np.asarray(c.cols["wid"]) for c in cols]))
+        ms = g.stats()["Megastep"]
+        print(f"phase 14 (a) K={k}: {nrec} windows equal the oracle; "
+              f"{rs['keys_moved']} key(s) moved, {rs['rows_moved']} ring "
+              f"row(s) re-homed in place, {rs['moves_skipped']} skipped, "
+              f"{rs['clock_reads']} ring-clock read(s), quiesce "
+              f"{rs['quiesce_ms_total']} ms in all; Megastep edges "
+              f"{len(ms['edges'])} (the plane forms no group on a keyed "
+              "fan-out, as in the JAX package)")
+        if k == 8 and dev_name == "cuda":
+            ok, moved, per = moved_row_replay_check(
+                win, g._reshard, hot[0], torch.device(dev_name), CAP)
+            if not ok or moved != 1:
+                fail("phase 14 (a): the captured K = 8 body's replay after "
+                     "an in-place row move differs from the eager run")
+            print(f"phase 14 (a): a ring row moved in place into a "
+                  f"captured K = 8 TB body's static carry; its replay "
+                  f"({per} kernel launches a replay) equals the eager "
+                  "K steps after the same move, output and carry")
+    if not np.array_equal(recs[1], recs[8]):
+        fail("phase 14 (a): K = 8 records differ from K = 1")
+
+    # (b) split_hot_key: columnar keyed staging → declared-sum ReduceGPU
+    rng = np.random.default_rng(142)
+    bkeys = np.where(rng.random(P14_N) < P14_HOT_SHARE, 3,
+                     rng.integers(0, P14_SPLIT_KEYS, P14_N))
+    bvals = rng.integers(0, 9, P14_N).astype(np.float64)
+    rec = np.empty(P14_N, dtype=[("k", "<i8"), ("t", "<i8"),
+                                 ("v", "<f8", (2,))])
+    rec["k"], rec["t"] = bkeys, np.arange(P14_N) * P14_GAP
+    rec["v"][:, 0], rec["v"][:, 1] = bvals, 1.0
+    sums = {}
+
+    def split_sink(c):
+        if c is None:
+            return
+        kk = np.asarray(c.cols["key"]).astype(np.int64) \
+            // np.asarray(c.cols["n"]).astype(np.int64)
+        for key, v in zip(kk.tolist(), np.asarray(c.cols["v0"]).tolist()):
+            sums[key] = sums.get(key, 0.0) + v
+    g = wt.PipeGraph("chip_smoke_p14_split", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT,
+                     config=p14_cfg(dev_name,
+                                    reshard_imbalance_threshold=1.25))
+    red = (wt.ReduceGPU_Builder(lambda a, b: {"key": a["key"] + b["key"],
+                                              "v0": a["v0"] + b["v0"],
+                                              "n": a["n"] + b["n"]})
+           .withKeyBy(lambda t: t["key"]).withMonoidCombiner("sum")
+           .withMaxKeys(P14_SPLIT_KEYS).withParallelism(3)
+           .withName("sred").build())
+    g.add_source(wt.FrameSource(chunked(rec.tobytes()), nv=2,
+                                fields=["v0", "n"], output_batch_size=CAP)) \
+        .add(red).add_sink(wt.Sink_Builder(split_sink).withColumnarSink()
+                           .build())
+    p14_run("(b) split_hot_key", g, P14_N, out,
+            need=("dense_monoid_table",),
+            native_need=("parse_frames", "keyby_partition"))
+    rs = g.stats()["Reshard"]
+    want = {k_: float(bvals[bkeys == k_].sum())
+            for k_ in np.unique(bkeys).tolist()}
+    if rs["splits_applied"] < 1 or rs["preagg_folds"] <= 0:
+        fail(f"phase 14 (b): no split engaged: {rs['timeline']}")
+    if sums != want:
+        fail("phase 14 (b): the per-key totals differ from the oracle")
+    print(f"phase 14 (b): split_hot_key engaged ({rs['splits_applied']} "
+          f"split(s), {rs['preagg_folds']} tuples folded at the staging "
+          f"boundary, {rs['keys_moved']} key(s) moved first); "
+          f"{len(want)} per-key totals equal the oracle")
+
+    # (c) admission control: no applicable plan (undeclared reduce, a
+    #     dominant key in the first half, uniform after); the source
+    #     pulls 1/64 of a batch a sweep, so the dominant half spans 32
+    #     executor ticks
+    rng = np.random.default_rng(143)
+    half = P14_ADMIT_N // 2
+    ckeys = np.concatenate([np.where(rng.random(half) < 0.6, 5,
+                                     rng.integers(0, P14_SPLIT_KEYS, half)),
+                            rng.integers(0, P14_SPLIT_KEYS,
+                                         P14_ADMIT_N - half)])
+    cvals = rng.integers(0, 9, P14_ADMIT_N).astype(np.float32)
+    csum = {}
+
+    def admit_sink(c):
+        if c is None:
+            return
+        for key, v in zip(np.asarray(c.cols["key"]).tolist(),
+                          np.asarray(c.cols["v0"]).tolist()):
+            csum[key] = csum.get(key, 0.0) + v
+
+    def gen():
+        yield from ({"key": k, "v0": v} for k, v in
+                    zip(ckeys.tolist(), cvals.tolist()))
+    g = wt.PipeGraph("chip_smoke_p14_admit",
+                     config=p14_cfg(dev_name, source_tick_chunk=CAP // 64,
+                                    reshard_imbalance_threshold=1.25))
+    g.add_source(wt.Source_Builder(gen).withOutputBatchSize(CAP).build()) \
+        .add(wt.ReduceGPU_Builder(lambda a, b: {"key": a["key"],
+                                                "v0": a["v0"] + b["v0"]})
+             .withKeyBy(lambda t: t["key"]).withParallelism(3)
+             .withName("ured").build()) \
+        .add_sink(wt.Sink_Builder(admit_sink).withColumnarSink().build())
+    p14_run("(c) admission", g, P14_ADMIT_N, out)
+    rs = g.stats()["Reshard"]
+    lows = [float(e["detail"].rsplit(" ", 1)[-1])
+            for e in rs["timeline"] if e["event"] == "admission"
+            and "throttled" in e["detail"]]
+    if rs["admission_throttles"] < 1 or not lows or min(lows) >= 1.0:
+        fail(f"phase 14 (c): admission never throttled: {rs['timeline']}")
+    if rs["admission_factor"] != 1.0:
+        fail(f"phase 14 (c): admission did not recover "
+             f"({rs['admission_factor']})")
+    want = {k_: float(cvals[ckeys == k_].astype(np.float64).sum())
+            for k_ in np.unique(ckeys).tolist()}
+    if csum != want:
+        fail("phase 14 (c): the per-key totals differ from the oracle")
+    print(f"phase 14 (c): admission throttled {rs['admission_throttles']} "
+          f"time(s), down to {min(lows)}, and recovered to 1.0; "
+          f"{len(want)} per-key totals equal the oracle")
+
+    # (d) native ingest: frames and CSV through FrameSource into the CB
+    #     windows, against the same graph on the numpy parsers
+    keys_d, vals_d = main_path_data(P14_N, seed=144)
+    ts_d = np.arange(P14_N, dtype=np.int64)
+    fblob = frame_blob(keys_d, ts_d, vals_d)
+    csv_keys, csv_vals = keys_d[:P14_CSV_N], vals_d[:P14_CSV_N]
+    cblob = "".join(f"{k},{t},{v:g}\n" for k, t, v in zip(
+        csv_keys.tolist(), ts_d[:P14_CSV_N].tolist(),
+        csv_vals.tolist())).encode()
+    for fmt, blob_d, n in (("frames", fblob, P14_N),
+                           ("csv", cblob, P14_CSV_N)):
+        res = {}
+        for nat in (True, False):
+            cols = []
+            if not nat:
+                os.environ["WF_TPU_NO_NATIVE"] = "1"
+            try:
+                g = p14_ingest_graph(dev_name, blob_d, fmt, lambda c:
+                                     cols.append(c) if c is not None
+                                     else None)
+                p14_run(f"(d) {fmt} {'native' if nat else 'numpy'}", g, n,
+                        out, need=("grouping_rank_hist", "sliding_fold"),
+                        native_need=(f"parse_{fmt}",) if nat else ())
+                if not nat and native.call_counts():
+                    fail("phase 14 (d): WF_TPU_NO_NATIVE run entered the "
+                         "native library")
+            finally:
+                os.environ.pop("WF_TPU_NO_NATIVE", None)
+            res[nat] = cols
+        nrec = check_cb_columns(f"phase 14 (d) {fmt}", res[True],
+                                keys_d[:n], vals_d[:n])
+        for name in ("key", "wid", "value"):
+            if not np.array_equal(cat_cols(res[True], name),
+                                  cat_cols(res[False], name)):
+                fail(f"phase 14 (d) {fmt}: native records differ from the "
+                     f"numpy parser's ({name})")
+        chunks = list(chunked(blob_d)())
+        t_parse = {}
+        for nat, fn in ((True, getattr(native, f"parse_{fmt}")),
+                        (False, getattr(parse, f"parse_{fmt}"))):
+            t0 = time.perf_counter()
+            carry = b""
+            for c in chunks:
+                buf = carry + c
+                _, _, _, used = fn(buf, 1)
+                carry = buf[used:]
+            t_parse[nat] = (time.perf_counter() - t0) * 1e3 / (n / CAP)
+        print(f"phase 14 (d) {fmt}: {nrec} windows equal the oracle and "
+              f"the numpy parser's run; "
+              f"parse {t_parse[True]:.2f} ms a batch native, "
+              f"{t_parse[False]:.2f} ms numpy ({smi}; host clock, "
+              "information only)")
+
+    # (e) native KV: P_Reduce on each backend, each store reopened
+    #     under the other
+    root = tempfile.mkdtemp(prefix="wf_phase14_")
+    ekeys = keys_d[:P14_KV_N]
+    evals = vals_d[:P14_KV_N].astype(np.float64)
+
+    def preduce(path, name):
+        def acc(t, s):
+            s["n"] = s.get("n", 0) + 1
+            s["sum"] = s.get("sum", 0.0) + t["v0"]
+
+        def gen():
+            yield from ({"key": k, "v0": v}
+                        for k, v in zip(ekeys.tolist(), evals.tolist()))
+        g = wt.PipeGraph(name, config=p14_cfg(dev_name,
+                                              reshard_executor=False))
+        g.add_source(wt.Source_Builder(gen).withOutputBatchSize(1024)
+                     .build()) \
+            .add(P_Reduce_Builder(acc).withKeyBy(lambda t: t["key"])
+                 .withParallelism(2).withDBPath(path).withInitialState(dict)
+                 .withKeepDb().withOutputBatchSize(1024)
+                 .withName("preduce").build()) \
+            .add_sink(wt.Sink_Builder(lambda t: None).build())
+        return g
+
+    def db_state(path):
+        st, backends = {}, set()
+        for i in range(2):
+            db = DBHandle(path, initial_state=dict, whoami=i)
+            backends.add(type(db._kv._kv).__name__)
+            st.update({k: db.get(k) for k in db.keys()})
+            db.close()
+        return st, backends
+    cnt = np.bincount(ekeys, minlength=KEYS)
+    tot = np.bincount(ekeys, weights=evals, minlength=KEYS)
+    want = {int(k): {"n": int(cnt[k]), "sum": float(tot[k])}
+            for k in np.flatnonzero(cnt)}
+    rate = {}
+    # a warm-up run first: the two timed runs both start warm
+    g = preduce(os.path.join(root, "warm"), "p14e_warm")
+    g.run()
+    for nat in (True, False):
+        path = os.path.join(root, "native" if nat else "python")
+        if not nat:
+            os.environ["WF_TPU_NO_NATIVE"] = "1"
+        try:
+            secs = p14_run(f"(e) P_Reduce {'native' if nat else 'python'}",
+                           preduce(path, f"p14e{int(nat)}"), P14_KV_N, out,
+                           native_need=("kv_open", "kv_put") if nat else ())
+        finally:
+            os.environ.pop("WF_TPU_NO_NATIVE", None)
+        rate[nat] = P14_KV_N / secs
+        # reopen under the other backend
+        if nat:
+            os.environ["WF_TPU_NO_NATIVE"] = "1"
+        try:
+            st, backends = db_state(path)
+        finally:
+            os.environ.pop("WF_TPU_NO_NATIVE", None)
+        other = {"_PyKV"} if nat else {"_NativeKV"}
+        if backends != other or st != want:
+            fail(f"phase 14 (e): the store written on the "
+                 f"{'native' if nat else 'Python'} backend reads other "
+                 f"values under {backends}")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 14 (e): P_Reduce states equal the oracle with each "
+          f"store reopened under the other backend; {rate[True]:.0f} "
+          f"tuples/s on the native LogKV, {rate[False]:.0f} on the Python "
+          f"one (phase 13's P_Reduce, PERF.md: 16-26 K on the Python log; "
+          f"{smi}; host clock, information only)")
+
+    # (f) the tenant scheduler, and the executor's postmortem section
+    default_ledger().reset()
+    rng = np.random.default_rng(145)
+    # tenant_a over a 1-byte HBM budget (its reduce's tables are
+    # resident), tenant_b without one
+    tg = [p14_tenant_graph(dev_name, t, rng.integers(0, KEYS, CAP // 4),
+                           rng.integers(0, 9, CAP // 4).astype(np.float32),
+                           budget=b)
+          for t, b in (("tenant_a", 1), ("tenant_b", 0))]
+    for i, g in enumerate(tg):
+        p14_run(f"(f) tenant {i}", g, CAP // 4, out,
+                need=("dense_monoid_table",))
+    for _ in range(4):
+        default_ledger().tick(tenant="tenant_a", force=True)
+    sec = tg[0].stats()["Tenant"]
+    plan = tenancy.plan(sec)
+    sched = TenantScheduler()
+    queued = sched.ingest(plan)
+    tenants = {row["tenant"] for row in plan["tenants"]}
+    kinds = [a["kind"] for a in sched.pending()]
+    if not {"tenant_a", "tenant_b"} <= tenants:
+        fail(f"phase 14 (f): the plan names {tenants}")
+    if sched.section()["plans_ingested"] != 1 or len(kinds) != queued \
+            or "rescale_tenant" not in kinds \
+            or {a["tenant"] for a in sched.pending()} != {"tenant_a"}:
+        fail(f"phase 14 (f): the scheduler queued {sched.pending()}")
+    first = sched.apply_next()
+    d = tempfile.mkdtemp(prefix="wf_phase14_pm_")
+    bundle = pm_graph.dump_postmortem(d, reason="phase 14")
+    with open(os.path.join(bundle, "reshard.json")) as f:
+        rj = json.load(f)
+    r = tool("wf_doctor.py", bundle, "--check")
+    if r.returncode != 0 or not rj.get("enabled") \
+            or rj["plans_applied"] < 1:
+        fail(f"phase 14 (f): wf_doctor --check: {r.stdout} {r.stderr}")
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 14 (f): the scheduler ingested the two-tenant plan "
+          f"(tenancy/1: {queued} action(s) for the over-budget tenant, "
+          f"{kinds}; the first popped, {first['kind']}); the postmortem's "
+          f"reshard.json ({rj['plans_applied']} plan(s), "
+          f"{len(rj['timeline'])} timeline entries) passes wf_doctor "
+          "--check")
+    default_ledger().reset()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -4566,11 +5196,31 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    # 1. build: the CUDA kernels, and the native host library beside them
+    import threading
+
+    from windflow_tpu_torch import native
     t0 = time.perf_counter()
+    host_lib = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            host_lib["path"] = native.build()
+        except Exception as e:  # lint: broad-except-ok (reported below)
+            host_lib["error"] = f"{type(e).__name__}: {e}"
+        host_lib["secs"] = time.perf_counter() - t
+    th = threading.Thread(target=build_native)
+    th.start()
     nvcc_s = build.build_all()
+    th.join()
+    if "error" in host_lib or not native.is_available():
+        fail(f"phase 1: the native host library did not build: "
+             f"{host_lib.get('error') or native.build_error()}")
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {nvcc_s:.2f} s, {build.nvcc_runs} compilations)")
+          f"(nvcc {nvcc_s:.2f} s, {build.nvcc_runs} compilations); the "
+          f"native host library in {host_lib['secs']:.2f} s "
+          f"({os.path.basename(host_lib['path'])})")
 
     # 2. kernels against their plain versions
     rows = check_grouping(dev) + check_grouping_tb(dev) + check_fold(dev) \
@@ -4675,6 +5325,11 @@ def main():
     t13 = time.perf_counter()
     run_counts.update(host_window_runs())
     print(f"phase 13: {time.perf_counter() - t13:.1f} s (budget 90 s)")
+    # 14. the serving plane and the native host runtime, counts read just
+    #     after each run
+    t14 = time.perf_counter()
+    run_counts.update(serving_runs())
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget 45 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -4701,9 +5356,13 @@ def main():
     # phase 13's count-window runs on the card: the apps (a) and (b) and
     # (e)'s device twin; the ticker's fold calls are its own row's
     cb_runs += ("13(a) ffat_analytics", "13(e) Ffat_WindowsGPU sum")
+    # phase 14's count-window runs: (d)'s ingest, native and numpy
+    cb_runs += tuple(t for t in run_counts if t.startswith("14(d)"))
     ticker = ("13(b) market_ticker",)
     runs_of = {"grouping_rank_hist": cb_runs + ticker,
-               "grouping_rank_hist[tb]": ("(c) grouping kernel",),
+               "grouping_rank_hist[tb]": ("(c) grouping kernel",
+                                          "14(a) move_keys K=1",
+                                          "14(a) move_keys K=8"),
                "sliding_fold[dense]": cb_runs,
                "sliding_fold[main]": cb_runs,
                "sliding_fold[ticker]": ticker,
@@ -4717,12 +5376,14 @@ def main():
                                          "7(d) compacted reduce max",
                                          "10(b) compacted reduce max",
                                          "10(c) merge reduce max, device "
-                                         "sketch"),
+                                         "sketch", "14(f) tenant 0",
+                                         "14(f) tenant 1"),
                "dense_monoid_table[b]": ("(b) compacted sum",
                                          "6(b) merge reduce sum",
                                          "6(c) split",
                                          "7(d) compacted reduce sum",
-                                         "10(b) compacted reduce sum")
+                                         "10(b) compacted reduce sum",
+                                         "14(b) split_hot_key")
                + tuple(t for t in dur9 if "reduce sum" in t) + kc11,
                "dense_monoid_table[c]": ("(c) dense", "(e) dense, keys < 1040",
                                          "(e) dense, keys < 1100")

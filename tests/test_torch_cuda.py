@@ -54,7 +54,13 @@ card equal their CPU runs record for record (integer-valued, so exact),
 the grouping kernel launched by both and the fold by the ticker; and a
 time-window ``Keyed_Windows`` on the host behind a K = 8 megastep edge
 fires on the watermark before end of stream, with records equal to
-K = 1's and the CPU's.
+K = 1's and the CPU's.  The serving plane at the end: the native host
+library loads on the card host; a per-replica TB ring row moved by the
+reshard executor into the static carry of a captured K = 8 body replays
+equal to the eager steps after the same move (and a rebinding move,
+the JAX package's functional ``.at[].set``, would not); and the keyed
+TB replicas' steps between executor ticks, and an in-place row move,
+make no synchronising call but the move's one ring-clock read.
 """
 
 import gc
@@ -1889,3 +1895,121 @@ def test_cuda_host_tb_window_behind_k8_megastep_fires_before_eos(
     assert got == base and early1
     cpu, _, _ = _host_tb_behind_megastep(8, device="cpu")
     assert cpu == base
+
+
+# ---------------------------------------------------------------------------
+# the serving plane and the native host runtime on the card
+# ---------------------------------------------------------------------------
+
+#: 24 keys, 4,096 tuples a batch 10 µs apart, 4 ms windows by 1 ms, a
+#: fixed 32-pane ring, three replicas (one ring each)
+SV_K, SV_CAP, SV_NP = 24, 4096, 32
+
+
+@pytest.mark.cuda
+def test_cuda_native_library_is_available(cuda_device):
+    from windflow_tpu_torch import native
+    assert native.is_available(), native.build_error()
+    keys = np.arange(-50, 50, dtype=np.int64)
+    native.reset_call_counts()
+    dests, counts = native.keyby_partition(keys, 3)
+    assert native.call_counts() == {"keyby_partition": 1}
+    assert counts.sum() == len(keys)
+
+
+def _sv_graph(check_sweeps=10 ** 9):
+    import windflow_tpu_torch as wt
+    items = _tb_data(6)
+    for t in items:
+        t["key"] = np.int32(t["key"] * 3 % SV_K)
+    win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withTBWindows(4_000, 1_000).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(SV_K).withPaneCapacity(SV_NP).withParallelism(3)
+           .withName("win").build())
+    g = wt.PipeGraph("sv_cuda", wt.ExecutionMode.DEFAULT, wt.TimePolicy.EVENT,
+                     config=wt.Config(device="cuda", reshard_executor=True,
+                                      reshard_check_sweeps=check_sweeps,
+                                      punctuation_interval_usec=10 ** 12))
+    g.add_source(wt.Source_Builder(lambda: iter(items))
+                 .withTimestampExtractor(lambda t: t["ts"])
+                 .withOutputBatchSize(SV_CAP).build()) \
+        .add(win).add_sink(wt.Sink_Builder(lambda r: None).build())
+    return g, win
+
+
+@pytest.mark.cuda
+def test_cuda_tb_row_move_replays_under_a_k8_capture(cuda_device):
+    """``chip_smoke.moved_row_replay_check`` at a small size: the row
+    moved in place into the captured body's static carry is what the
+    replay reads (output and final carry equal the eager run's), and a
+    rebinding move of the same row, as the JAX package's functional
+    update, leaves the replay on the old storage, so it would differ."""
+    import chip_smoke
+    from windflow_tpu_torch.utils.tree import tree_map
+    g, win = _sv_graph()
+    g.run()
+    x = g._reshard
+    ok, moved, per = chip_smoke.moved_row_replay_check(
+        win, x, 3, cuda_device, SV_CAP)
+    assert ok and moved == 1 and per > 0
+
+    # the counterfactual: a move that rebinds the carry's leaves
+    def rebinding(op, moves):
+        for m in moves:
+            row = m["key"]
+            src, dst = op._states[m["from_shard"]], op._states[m["to_shard"]]
+            for name in ("cells", "cell_valid", "horizon"):
+                def put(d, s_):
+                    d = d.clone()
+                    d[row] = s_[row]
+                    return d
+                dst[name] = tree_map(put, dst[name], src[name])
+        return len(moves)
+    x._move_ffat_rows = rebinding
+    bad, _, _ = chip_smoke.moved_row_replay_check(win, x, 3, cuda_device,
+                                                  SV_CAP)
+    assert not bad
+
+
+@pytest.mark.cuda
+def test_cuda_steps_between_executor_ticks_make_no_host_read(cuda_device):
+    """Three keyed TB replicas stepping, with the executor's per-sweep
+    hook between them, under ``set_sync_debug_mode("error")``; then an
+    in-place ring-row move under the same mode, only its ring-clock read
+    relaxed (once), and more steps."""
+    from windflow_tpu_torch.batch import HostBatch, host_to_device
+    g, win = _sv_graph()
+    g._build()
+    x = g._reshard
+    items = _tb_data(6)
+    batches = []
+    for i in range(6):
+        chunk = items[i * SV_CAP:(i + 1) * SV_CAP]
+        for t in chunk:
+            t["key"] = np.int32(t["key"] * 3 % SV_K)
+        tss = [t["ts"] for t in chunk]
+        batches.append(host_to_device(HostBatch(chunk, tss, watermark=tss[0]),
+                                      SV_CAP, cuda_device, frontier=tss[-1]))
+
+    def sweep(b):
+        for ridx in range(3):
+            win._step(b, ridx)
+        x.on_sweep()
+    sweep(batches[0])
+    sweep(batches[1])
+    torch.cuda.synchronize()
+    calls = []
+    x._ring_clocks = _relaxed(x._ring_clocks, calls)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sweep(batches[2])
+        sweep(batches[3])
+        moved = x._move_ffat_rows(win, [{"key": 3, "from_shard": 0,
+                                         "to_shard": 1, "est_tuples": 1}])
+        sweep(batches[4])
+        sweep(batches[5])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert moved == 1 and calls == ["_ring_clocks"]
+    assert x.ticks == 0 and win._overflow_steps < 31

@@ -1,4 +1,4 @@
-"""The port's in-memory Kafka layer (windflow_tpu_torch/kafka) against
+"""The port's Kafka layer (windflow_tpu_torch/kafka) against
 the JAX package's (windflow_tpu/kafka), on the CPU: the families of
 tests/test_kafka.py the durability chaos cells rely on — consumer-group
 assignment (:27), positions kept across a rebalance (:42), explicit
@@ -6,7 +6,9 @@ offsets (:60), checkpoint positions and seek, the source at parallelism
 2-4 covering every partition (:114, :122), the riched context (:144),
 the fenced exactly-once commit (tests/test_durability.py:653) and the
 sink's EOS flush-and-fence (:579) — plus a Kafka-fed count-window graph
-whose records equal the JAX package's.
+whose records equal the JAX package's; and the confluent adapters:
+their refusal without the package (:169) and their paths against a
+faked module (:173-272).
 
 Tolerance: exact (integer-valued data)."""
 
@@ -140,10 +142,115 @@ def test_kafka_sink_eos_flush_and_fence():
 
 
 def test_real_broker_is_not_ported():
+    """A bootstrap address goes to the confluent adapters; without the
+    package both refuse, naming it (``tests/test_kafka.py:169``)."""
     from windflow_tpu_torch.kafka.client import make_consumer, make_producer
     for make in (make_consumer, make_producer):
-        with pytest.raises(wt.WindFlowError, match="InMemoryBroker"):
+        with pytest.raises(wt.WindFlowError, match="confluent_kafka"):
             make("localhost:9092")
+
+
+def test_confluent_adapter_paths_with_fake_module():
+    """The port's confluent adapters (tests/test_kafka.py:173-272) against a
+    faked ``confluent_kafka`` module: subscribe with offset seeking, the
+    poll loop's error filtering and timestamp mapping, produce with the
+    BufferError backpressure retry, and the restore cursors staged for
+    on_assign (``seek_positions``)."""
+    import sys
+    import types
+
+    log = {"produced": [], "assigned": [], "polled": 0}
+
+    class FakeMsg:
+        def __init__(self, topic, part, off, key, value, err=None, ts=(1, 5)):
+            self._t, self._p, self._o = topic, part, off
+            self._k, self._v, self._e, self._ts = key, value, err, ts
+
+        def topic(self): return self._t
+        def partition(self): return self._p
+        def offset(self): return self._o
+        def key(self): return self._k
+        def value(self): return self._v
+        def error(self): return self._e
+        def timestamp(self): return self._ts
+
+    class FakeTP:
+        def __init__(self, topic, partition=0):
+            self.topic, self.partition, self.offset = topic, partition, -1001
+
+    class FakeConsumer:
+        def __init__(self, conf):
+            self.conf = conf
+            self._queue = [
+                FakeMsg("t", 0, 7, b"k", b"v0"),
+                FakeMsg("t", 0, 8, None, b"bad", err="boom"),
+                FakeMsg("t", 0, 9, None, b"v1", ts=(0, 0)),
+            ]
+
+        def subscribe(self, topics, on_assign=None):
+            parts = [FakeTP(t) for t in topics]
+            if on_assign:
+                on_assign(self, parts)
+            self._assigned = parts
+
+        def incremental_assign(self, partitions):
+            log["assigned"] = [(p.topic, p.partition, p.offset)
+                               for p in partitions]
+
+        def poll(self, timeout):
+            log["polled"] += 1
+            return self._queue.pop(0) if self._queue else None
+
+        def assignment(self):
+            return self._assigned
+
+        def close(self):
+            pass
+
+    class FakeProducer:
+        def __init__(self, conf):
+            self._fail_once = True
+
+        def produce(self, topic, value=None, key=None, **kw):
+            if self._fail_once:
+                self._fail_once = False
+                raise BufferError("queue full")
+            log["produced"].append((topic, value, key, kw))
+
+        def poll(self, timeout):
+            return 0
+
+        def flush(self):
+            log["flushed"] = True
+
+    fake = types.ModuleType("confluent_kafka")
+    fake.Consumer = FakeConsumer
+    fake.Producer = FakeProducer
+    fake.TopicPartition = FakeTP
+    sys.modules["confluent_kafka"] = fake
+    try:
+        from windflow_tpu_torch.kafka.client import make_consumer, make_producer
+        c = make_consumer("broker:9092")
+        c.subscribe(["t"], "grp", offsets=[7])
+        assert log["assigned"] == [("t", 0, 7)]   # offset seeking ran
+        msgs = c.poll(10)
+        # the errored message is filtered; broker ts and ingest ts both map
+        assert [m.value for m in msgs] == [b"v0", b"v1"]
+        assert msgs[0].offset == 7 and msgs[0].timestamp_usec == 5000
+        assert msgs[1].timestamp_usec > 0
+        assert c.assignment() == [("t", 0)]
+        c.seek_positions({("t", 1): 42})
+        assert c._pending_seek == {("t", 1): 42}
+        c.close()
+
+        p = make_producer("broker:9092")
+        p.produce("t", b"x", key=b"kk", partition=3, timestamp_usec=9000)
+        assert log["produced"] == [("t", b"x", b"kk",
+                                    {"partition": 3, "timestamp": 9})]
+        p.close()
+        assert log.get("flushed")
+    finally:
+        del sys.modules["confluent_kafka"]
 
 
 # ---------------------------------------------------------------------------

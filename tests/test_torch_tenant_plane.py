@@ -9,7 +9,9 @@ operator (the window state has the JAX layout), the heaviest operator
 and the attributed fraction, exact.  Each tenant's bytes are its graph's
 own ``Bytes_H2D_total``/``Bytes_D2H_total``.  The budget state machine
 steps as JAX's on the same levels, ``OVER_BUDGET`` is painted on the
-heaviest operator only, the advisor plans as JAX's, and JAX's
+heaviest operator only, the advisor plans as JAX's, the tenant
+scheduler (``serving/tenant_scheduler.py``) queues that plan as JAX's
+does and refuses contract drift, and JAX's
 ``tools/wf_tenant.py`` and ``tools/wf_doctor.py`` read the port's dumps
 unchanged.  The resident walk counts a storage once however many views
 reach it.  The off path is checked structurally.
@@ -325,6 +327,52 @@ def test_advisor_plan_equals_jax(two_tenants):
              for a in t["actions"]]
     assert kinds == ["throttle_admission", "rescale_tenant",
                      "drain_shards", "rebalance_hot_tenant"]
+
+
+# ---------------------------------------------------------------------------
+# the tenant scheduler consumes the plan (tests/test_tenant_plane.py:358-393)
+# ---------------------------------------------------------------------------
+
+def test_tenant_scheduler_consumes_plan():
+    """The port's scheduler queues the port's plan exactly as the JAX
+    scheduler queues the JAX plan."""
+    from windflow_tpu.serving import TenantScheduler as JSched
+    from windflow_tpu_torch.serving import TenantScheduler
+    from windflow_tpu_torch.serving.tenant_scheduler import (
+        default_scheduler)
+    sched, jsched = TenantScheduler(), JSched()
+    assert sched.ingest(tten.plan(_synthetic_section())) == 4 \
+        == jsched.ingest(jten.plan(_synthetic_section()))
+    assert sched.plans_ingested == 1
+    pending = sched.pending()
+    assert pending == jsched.pending()
+    assert [a["kind"] for a in pending] == [
+        "throttle_admission", "rescale_tenant", "drain_shards",
+        "rebalance_hot_tenant"]
+    assert pending[0]["tenant"] == "hog"
+    first = sched.apply_next()
+    assert first == jsched.apply_next()
+    assert first["kind"] == "throttle_admission"
+    assert first["applied"] is False
+    assert len(sched.pending()) == 3
+    assert sched.section() == jsched.section()
+    assert sched.section()["timeline"] == [first]
+    assert default_scheduler() is default_scheduler()
+
+
+def test_tenant_scheduler_rejects_contract_drift():
+    from windflow_tpu_torch.serving import TenantScheduler
+    sched = TenantScheduler()
+    with pytest.raises(ValueError, match="tenancy/1"):
+        sched.ingest({"advisor": "tenancy/2", "tenants": []})
+    with pytest.raises(ValueError, match="unknown action kind"):
+        sched.ingest({"advisor": "tenancy/1", "tenants": [
+            {"tenant": "x", "actions": [{"kind": "evict_tenant"}]}]})
+    with pytest.raises(ValueError, match="missing required field"):
+        sched.ingest({"advisor": "tenancy/1", "tenants": [
+            {"tenant": "x",
+             "actions": [{"kind": "throttle_admission"}]}]})
+    assert sched.rejected_plans == 3 and not sched.pending()
 
 
 def test_openmetrics_tenant_families_carry_the_section(two_tenants):

@@ -32,7 +32,13 @@ write a postmortem bundle, and attribute dispatches, bytes and key skew
 per hop and shard (``PipeGraph.stats()``).  ``PipeGraph.start()``
 runs the preflight checker first (``windflow_tpu_torch/analysis``):
 the whole graph evaluated on fake tensors, every finding at once, under
-``Config.preflight``.  The card is the default
+``Config.preflight``.  ``Config.reshard_executor`` turns on the
+serving plane (``windflow_tpu_torch/serving``): the reshard executor
+moves keys (and their state) between replicas of a live graph,
+pre-aggregates hot keys and throttles the sources when no plan helps.
+Bulk parsing, keyed partitioning, the wide watermark fold and the KV
+store run in the native host library (``windflow_tpu_torch/native``,
+built with g++ at first use).  The card is the default
 device: ``Config(device="cpu")`` runs on the CPU, where each kernel
 wrapper takes its plain torch version.  The package imports
 torch and numpy, never jax.

@@ -8,10 +8,11 @@ fields the ported slices read, with the JAX package's defaults
 the caller asks for the CPU) and ``cuda_kernels`` (the kernel switch,
 counterpart of ``Config.pallas_kernels``).  The observability fields
 keep the JAX package's names and defaults, ``profiler_dir`` pointing at
-a ``torch.profiler`` capture; only those of the monitoring thread and of
-the latency, tenant, calibration and roofline planes read the JAX
-package's ``WF_TPU_*`` environment knobs.  ``stable_hash`` and
-``int32_key`` are the port's own copies of the JAX package's key rules.
+a ``torch.profiler`` capture; only those of the monitoring thread, of
+the latency, tenant, calibration and roofline planes and of the reshard
+executor read the JAX package's ``WF_TPU_*`` environment knobs.
+``stable_hash`` and ``int32_key`` are the port's own copies of the JAX
+package's key rules.
 """
 
 from __future__ import annotations
@@ -266,6 +267,33 @@ class Config:
     # bandwidth's ceiling, and the advisory ROOFLINE_DEGRADED verdict.
     roofline_plane: bool = bool(int(os.environ.get("WF_TPU_ROOFLINE",
                                                    "1")))
+    # Reshard executor (windflow_tpu_torch/serving): health-plane
+    # BACKPRESSURED/STALLED verdicts or sustained imbalance drive the
+    # reshard advisor's plans on the live graph: move_keys (quiesce,
+    # re-place the key→shard override, keyed state moved with the keys,
+    # resume), split_hot_key as a pre-aggregating partial combine at the
+    # keyed staging boundary, and admission control at the sources when
+    # no plan helps.  Off by default (it mutates routing); off leaves one
+    # `is not None` check a sweep.
+    reshard_executor: bool = bool(int(os.environ.get("WF_TPU_RESHARD",
+                                                     "0")))
+    # Executor tick cadence in scheduler sweeps, and the state machine's
+    # thresholds: bad ticks before a plan applies, good ticks before an
+    # applied plan counts as recovered (and admission backs off).
+    reshard_check_sweeps: int = int(os.environ.get(
+        "WF_TPU_RESHARD_CHECK_SWEEPS", "32"))
+    reshard_trigger_ticks: int = int(os.environ.get(
+        "WF_TPU_RESHARD_TRIGGER_TICKS", "2"))
+    reshard_ok_ticks: int = int(os.environ.get(
+        "WF_TPU_RESHARD_OK_TICKS", "4"))
+    # Imbalance ratio (max shard load over the mean, on the window since
+    # the last tick) above which an operator counts as degraded.
+    reshard_imbalance_threshold: float = float(os.environ.get(
+        "WF_TPU_RESHARD_IMBALANCE", "1.25"))
+    # Sustained-OK ticks before the least-loaded shard's known keys
+    # drain onto its siblings; 0 records the candidate without acting.
+    reshard_scale_down_ticks: int = int(os.environ.get(
+        "WF_TPU_RESHARD_SCALE_DOWN_TICKS", "0"))
 
 
 #: Process-wide default configuration; graphs copy it at construction.

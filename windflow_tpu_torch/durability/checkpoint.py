@@ -165,9 +165,8 @@ def keyed_emitters_into(graph, op):
 
 def collect_overrides(graph) -> dict:
     """Per-operator merged key→shard override maps installed on the
-    keyed emitters — the placement half of the manifest.  The port's
-    emitters carry no override yet (the reshard executor is not
-    ported), so this is empty."""
+    keyed emitters (the reshard executor's ``move_keys``) — the placement
+    half of the manifest; empty while no key was moved."""
     out = {}
     for op in graph._operators:
         merged = {}

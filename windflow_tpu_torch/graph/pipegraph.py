@@ -49,8 +49,14 @@ pipeline down, and a section that failed says so under ``"error"``.
 ``start()`` runs the preflight checker first (``check()``,
 ``windflow_tpu_torch/analysis``) under ``Config.preflight``, before any
 replica, staging buffer or capture exists; ``stats()["Preflight"]``
-carries its findings.  The JAX package's IR-audit and reshard planes are
-not ported yet: their sections read ``{"enabled": False}``.
+carries its findings.  With ``Config.reshard_executor`` on, the reshard
+executor (``windflow_tpu_torch/serving``) is built last: it ticks
+between driver sweeps, after the durability call site, applies the
+reshard advisor's plans through the quiesce barrier, and scales the
+source tick chunk by its admission factor; ``stats()["Reshard"]`` and
+the postmortem's ``reshard.json`` carry its counters.  The JAX package's
+IR-audit plane is not ported yet: its section reads ``{"enabled":
+False}``.
 """
 
 from __future__ import annotations
@@ -106,6 +112,9 @@ class PipeGraph:
         #: the durability plane (durability/checkpoint.py), built by
         #: _build when Config.durability names a directory
         self._durability = None
+        #: the reshard executor (windflow_tpu_torch/serving), built last
+        #: by _build under Config.reshard_executor
+        self._reshard = None
         #: checkpoint state restore() stashed for start() to apply
         self._pending_restore = None
         self._prefetch_ticks = 0
@@ -375,6 +384,14 @@ class PipeGraph:
                 rep.collector = create_collector(self.mode, rep.num_channels)
                 self._collectors.append(rep.collector)
 
+        # 4. the reshard executor, last: it discovers the keyed emitters
+        # the wiring installed, reads the health plane and the shard
+        # ledger at tick cadence, and changes routing only through the
+        # quiesce barrier (no mesh in the port yet)
+        if cfg.reshard_executor:
+            from windflow_tpu_torch.serving import ReshardExecutor
+            self._reshard = ReshardExecutor(self)
+
         # every live non-sink replica must have an emitter
         for op in self._operators:
             if op._fused_into is not None:
@@ -638,6 +655,11 @@ class PipeGraph:
             # megastep plane one sweep paces whole groups, so every
             # quiesce lands between megasteps
             self._durability.on_sweep()
+        if self._reshard is not None:
+            # executor cadence: one counter compare a sweep; every
+            # Config.reshard_check_sweeps-th reads health and the shard
+            # plan and applies what fires (between megasteps too)
+            self._reshard.on_sweep()
         return progress
 
     def _tick_chunk(self, sr) -> int:
@@ -648,6 +670,10 @@ class PipeGraph:
                 and getattr(sr.emitter, "_megastep", None) is not None:
             # K-granular pacing: a tick stages a whole group's batches
             chunk *= plane.k
+        if self._reshard is not None:
+            # admission control: when no plan helps a degraded operator,
+            # the source intake throttles instead of inboxes growing
+            chunk = self._reshard.admit_chunk(chunk)
         return chunk
 
     def _backpressured(self) -> bool:
@@ -735,6 +761,10 @@ class PipeGraph:
     def _durability_section(self) -> dict:
         return self._guarded(self._durability,
                              lambda: self._durability.section())
+
+    def _reshard_section(self) -> dict:
+        """``{"enabled": False}`` with the executor off: one check."""
+        return self._guarded(self._reshard, lambda: self._reshard.section())
 
     def _latency_plane_section(self) -> dict:
         """Harvests first, so a headless read sees the finished traces."""
@@ -957,7 +987,7 @@ class PipeGraph:
             "Megastep": (plane.summary() if plane is not None
                          else {"k": 1, "edges": [], "refused": []}),
             "Durability": self._durability_section(),
-            "Reshard": off,
+            "Reshard": self._reshard_section(),
             "Operators": [op.dump_stats() for op in self._operators],
         }
 
@@ -977,7 +1007,8 @@ class PipeGraph:
         events, the health verdicts and stall attribution, the device
         gauges, the step registry, the preflight findings, the sweep,
         shard, latency and tenant ledgers, the roofline, the calibration
-        provenance and the durability plane, one JSON file each, plus
+        provenance, the durability plane and the reshard executor, one
+        JSON file each, plus
         ``manifest.json`` — what ``tools/wf_doctor.py`` renders and
         checks.  Every section is guarded on its own (a failure lands in
         the manifest's ``errors``): the crash path writes this exactly
@@ -1033,6 +1064,7 @@ class PipeGraph:
         write("roofline.json", self._roofline_section)
         write("calibration.json", _calibration_summary)
         write("durability.json", self._durability_section)
+        write("reshard.json", self._reshard_section)
         write("preflight.json", self._preflight_section)
         from windflow_tpu_torch.monitoring.health import POSTMORTEM_SCHEMA
         manifest = {

@@ -2,10 +2,11 @@
 ``windflow_tpu/io/frames.py``).
 
 Instead of one Python object per tuple, the source pulls **byte chunks**
-from the user, parses them to columns (``io/parse.py``: one structured
-``np.frombuffer`` view for frames) and hands whole columns to the staging
-emitter (``DeviceStageEmitter.emit_columns``), so a batch travels from
-bytes to the card's memory with no per-tuple Python work.
+from the user, parses them to columns in C++ (``native/wf_host.cpp``
+``wf_parse_frames`` / ``wf_parse_csv``; the numpy parsers of
+``io/parse.py`` when the native library is off) and hands whole columns
+to the staging emitter (``DeviceStageEmitter.emit_columns``), so a batch
+travels from bytes to the card's memory with no per-tuple Python work.
 
 Record wire format (``fmt="frames"``): little-endian ``int64 key, int64
 ts, nv × float64 values``.  CSV (``fmt="csv"``): ``key,ts,v0[,v1...]``
@@ -18,9 +19,9 @@ from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 
+from windflow_tpu_torch import native
 from windflow_tpu_torch.basic import (RoutingMode, TimePolicy, WindFlowError,
                                       current_time_usecs)
-from windflow_tpu_torch.io import parse
 from windflow_tpu_torch.meta import adapt
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.source import BaseSourceReplica, Source
@@ -60,8 +61,8 @@ class FrameSourceReplica(BaseSourceReplica):
 
     def _ingest(self, buf: bytes, final: bool = False) -> None:
         nv = self.op.nv
-        parser = parse.parse_frames if self.op.fmt == "frames" \
-            else parse.parse_csv
+        parser = native.parse_frames if self.op.fmt == "frames" \
+            else native.parse_csv
         keys, tss, vals, consumed = parser(buf, nv)
         self._carry = b"" if final else buf[consumed:]
         n = len(keys)

@@ -1,13 +1,12 @@
-"""Bulk ingest parsers (the port's copy of the numpy half of
-``windflow_tpu/native/__init__.py``: ``frame_record_bytes``,
-``parse_frames``, ``parse_csv``).
+"""Bulk ingest parsers in numpy: the fallback and plain twin of the
+native parsers (``windflow_tpu_torch/native``: ``wf_parse_frames``,
+``wf_parse_csv``), which ``io/frames.py`` goes through.
 
 Frame wire format: little-endian ``int64 key, int64 ts, nv × float64``
 per record.  CSV: ``key,ts,v0[,v1...]`` lines; malformed lines are
 skipped.  Both return ``(keys int64[n], tss int64[n], vals
 float64[n, nv], consumed_bytes)``: a trailing partial record is left
-unconsumed for the caller to carry into the next chunk.  The native C++
-parsers of the JAX package are not ported.
+unconsumed for the caller to carry into the next chunk.
 """
 
 from __future__ import annotations

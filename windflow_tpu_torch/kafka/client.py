@@ -1,14 +1,19 @@
-"""Kafka client layer (the port of ``windflow_tpu/kafka/client.py``, its
-in-memory half): message type, abstract consumer/producer, and an
-in-process broker with topics, partitions, consumer groups (partition
-assignment + cooperative rebalance) and the exactly-once sink fence.
+"""Kafka client layer (the port of ``windflow_tpu/kafka/client.py``):
+message type, abstract consumer/producer, an in-process broker with
+topics, partitions, consumer groups (partition assignment + cooperative
+rebalance) and the exactly-once sink fence, and the gated adapters for a
+real client library.
 
 The reference binds directly to librdkafka (``kafka_source.hpp`` consumer
 + rebalance callback, ``kafka_sink.hpp`` per-replica producer).  Here the
 operators talk to a small client interface; :class:`InMemoryBroker` is the
-replayable source and fenced sink every durability chaos cell runs on.
-The ``confluent_kafka`` adapters are not ported: ``make_consumer`` /
-``make_producer`` accept an :class:`InMemoryBroker` only.
+replayable source and fenced sink every durability chaos cell runs on;
+any other ``brokers`` value is a bootstrap address for the
+``confluent_kafka`` adapters (:class:`ConfluentConsumer`,
+:class:`ConfluentProducer`, librdkafka underneath), whose import is
+guarded: without the package, connecting raises a ``WindFlowError``
+naming it.  The adapters are exercised against a faked module, never a
+live broker.
 """
 
 from __future__ import annotations
@@ -361,6 +366,199 @@ class InMemoryConsumer(ConsumerClient):
             self._group.rebalance(self._broker)
 
 
+# ---------------------------------------------------------------------------
+# Real-client adapters (gated: confluent_kafka is an optional package).
+# Exercised against a faked confluent_kafka module only; what a fake cannot
+# show stays unverified against a live broker: the cooperative protocol's
+# incremental on_assign, offset commit on revoke (librdkafka auto-commit),
+# consumer-lag timing of the watermark grace path (idle_partitions() is
+# None here), and broker-side errors other than a message's error().
+# ---------------------------------------------------------------------------
+
+def _require_confluent():
+    try:
+        import confluent_kafka  # noqa: F401
+        return confluent_kafka
+    except ImportError as e:
+        raise WindFlowError(
+            "connecting to a real Kafka broker requires the "
+            "'confluent_kafka' package, which is not installed; pass an "
+            "InMemoryBroker for in-process streaming") from e
+
+
+class ConfluentConsumer(ConsumerClient):
+    """Thin adapter over confluent_kafka.Consumer (librdkafka underneath —
+    the same library the reference binds)."""
+
+    def __init__(self, brokers: str,
+                 assignment_policy: str = "cooperative-sticky") -> None:
+        self._ck = _require_confluent()
+        self._brokers = brokers
+        self.assignment_policy = assignment_policy
+        self._consumer = None
+        self._consumed_tps = set()   # partitions that delivered data
+        #: restore cursors awaiting assignment (seek_positions):
+        #: librdkafka assignment materializes asynchronously through
+        #: on_assign during later poll()s, so an immediate seek() right
+        #: after subscribe() would hit unassigned partitions and raise —
+        #: the cursors are applied in on_assign instead, exactly like
+        #: the user start-offset path below
+        self._pending_seek = {}
+
+    def subscribe(self, topics, group_id, offsets=None):
+        self._consumed_tps = set()   # scoped to this consumer session
+        cooperative = self.assignment_policy == "cooperative-sticky"
+        conf = {"bootstrap.servers": self._brokers,
+                "group.id": group_id,
+                "auto.offset.reset": "earliest",
+                "partition.assignment.strategy": self.assignment_policy}
+        self._consumer = self._ck.Consumer(conf)
+
+        def on_assign(consumer, partitions):
+            for part in partitions:
+                tp = (part.topic, part.partition)
+                # apply a start cursor only until the partition has
+                # actually DELIVERED data (tracked in poll): an EAGER
+                # rebalance re-delivers the full assignment, and
+                # re-seeking a mid-stream partition would rewind it
+                # into duplicates — but a partition revoked before
+                # consuming anything must still get its cursor, not
+                # auto.offset.reset.  Durability restore cursors
+                # (seek_positions — exact per-partition offsets) take
+                # precedence over the user's per-topic start offsets.
+                if tp in self._consumed_tps:
+                    continue
+                seek = self._pending_seek.get(tp)
+                if seek is not None:
+                    part.offset = seek
+                    continue
+                if not offsets:
+                    continue
+                try:
+                    off = offsets[topics.index(part.topic)]
+                except (ValueError, IndexError):
+                    continue
+                if off is not None and off > -1:
+                    part.offset = off
+            # librdkafka requires incremental_assign under the
+            # COOPERATIVE protocol and plain assign under EAGER
+            # strategies (roundrobin/range)
+            if cooperative:
+                consumer.incremental_assign(partitions)
+            else:
+                consumer.assign(partitions)
+
+        # the callback is always installed: restore cursors arrive via
+        # seek_positions AFTER subscribe() but BEFORE the first poll —
+        # the only point librdkafka lets them apply is on_assign
+        self._consumer.subscribe(list(topics), on_assign=on_assign)
+
+    def poll(self, max_msgs: int) -> List[KafkaMessage]:
+        out = []
+        for _ in range(max_msgs):
+            msg = self._consumer.poll(0)
+            if msg is None:
+                break
+            if msg.error():
+                continue
+            ts_type, ts_ms = msg.timestamp()
+            self._consumed_tps.add((msg.topic(), msg.partition()))
+            out.append(KafkaMessage(
+                topic=msg.topic(), partition=msg.partition(),
+                offset=msg.offset(), key=msg.key(), value=msg.value(),
+                timestamp_usec=ts_ms * 1000 if ts_type else
+                current_time_usecs()))
+        return out
+
+    def assignment(self):
+        return [(p.topic, p.partition)
+                for p in self._consumer.assignment()]
+
+    def positions(self):
+        """Durability checkpoint cursor via librdkafka position() — the
+        next offset to be fetched per assigned partition.  Every
+        assigned partition gets a cursor: a never-fetched partition
+        reports OFFSET_INVALID and falls back to the group's committed
+        offset (then to 0 = earliest, matching auto.offset.reset) —
+        omitting it would let the group's auto-commit advance it past
+        the barrier and the restore skip unreplayed records.
+        Unverified against a live broker (see the adapter notes
+        above)."""
+        try:
+            parts = self._consumer.assignment()
+            out = {}
+            missing = []
+            for p in self._consumer.position(parts):
+                if p.offset is not None and p.offset >= 0:
+                    out[(p.topic, p.partition)] = p.offset
+                else:
+                    missing.append(p)
+            if missing:
+                for p in self._consumer.committed(missing, timeout=5):
+                    off = p.offset if p.offset is not None \
+                        and p.offset >= 0 else 0
+                    out[(p.topic, p.partition)] = off
+            return out
+        except Exception:  # lint: broad-except-ok (a position probe must
+            # degrade to "unknown" — the checkpoint then records no
+            # cursor and restore falls back to the per-topic offsets)
+            return None
+
+    def seek_positions(self, positions) -> None:
+        """Restore path: stage the checkpointed per-partition cursors
+        for ``subscribe``'s on_assign callback — assignment does not
+        exist yet when the source calls this (right after subscribe),
+        so an immediate ``seek()`` would raise on every partition;
+        partitions already assigned (a later re-seek) ARE sought
+        directly.  Unverified against a live broker (see the adapter
+        notes above)."""
+        self._pending_seek.update(dict(positions))
+        TopicPartition = self._ck.TopicPartition
+        try:
+            assigned = {(p.topic, p.partition)
+                        for p in self._consumer.assignment()}
+        except Exception:  # lint: broad-except-ok (no assignment yet —
+            # the normal restore case; on_assign applies the cursors)
+            return
+        for (topic, part), off in dict(positions).items():
+            if (topic, part) in assigned:
+                self._consumer.seek(TopicPartition(topic, part, off))
+
+    def close(self):
+        if self._consumer is not None:
+            self._consumer.close()
+
+
+class ConfluentProducer(ProducerClient):
+    def __init__(self, brokers: str) -> None:
+        self._ck = _require_confluent()
+        self._producer = self._ck.Producer({"bootstrap.servers": brokers})
+
+    def produce(self, topic, value, key=None, partition=None,
+                timestamp_usec=None):
+        kwargs = {}
+        if partition is not None:
+            kwargs["partition"] = partition
+        if timestamp_usec is not None:
+            kwargs["timestamp"] = timestamp_usec // 1000
+        while True:
+            try:
+                self._producer.produce(topic, value=value, key=key, **kwargs)
+                break
+            except BufferError:
+                # librdkafka's delivery queue is full: service callbacks
+                # until there is room (sustained backpressure can take
+                # several poll rounds)
+                self._producer.poll(1.0)
+        self._producer.poll(0)  # service delivery callbacks as we go
+
+    def flush(self):
+        self._producer.flush()
+
+    def close(self):
+        self.flush()
+
+
 def make_consumer(brokers,
                   assignment_policy: str = "cooperative-sticky") \
         -> ConsumerClient:
@@ -370,14 +568,10 @@ def make_consumer(brokers,
         # serves every strategy; record the choice for introspection
         c.assignment_policy = assignment_policy
         return c
-    raise WindFlowError(
-        "the port's Kafka client speaks to an InMemoryBroker only; the "
-        f"real-client adapter is not ported (got {brokers!r})")
+    return ConfluentConsumer(str(brokers), assignment_policy)
 
 
 def make_producer(brokers) -> ProducerClient:
     if isinstance(brokers, InMemoryBroker):
         return brokers.producer()
-    raise WindFlowError(
-        "the port's Kafka client speaks to an InMemoryBroker only; the "
-        f"real-client adapter is not ported (got {brokers!r})")
+    return ConfluentProducer(str(brokers))

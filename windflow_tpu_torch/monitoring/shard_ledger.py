@@ -158,6 +158,9 @@ class ShardSketch:
         #: "splitmix" (device and keyed-staging routing) or "stable_hash"
         #: (the host KEYBY edge)
         self.placement = placement
+        #: the reshard executor's key→shard override, set when it
+        #: re-places keys, so hot-key attribution follows the live routing
+        self.override: Optional[dict] = None
         self.shard_counts = np.zeros(self.n_shards, np.int64)
         self.total = 0
         self.batches = 0
@@ -293,6 +296,10 @@ class ShardSketch:
     def shard_of(self, key: int) -> int:
         from windflow_tpu_torch.basic import int32_key, stable_hash
         from windflow_tpu_torch.parallel.emitters import splitmix64_int
+        if self.override:
+            d = self.override.get(key)
+            if isinstance(d, int) and 0 <= d < self.n_shards:
+                return d
         if self.placement == "stable_hash":
             return stable_hash(key) % self.n_shards
         return splitmix64_int(int32_key(key)) % self.n_shards

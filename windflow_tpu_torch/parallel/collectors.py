@@ -65,16 +65,20 @@ class WatermarkCollector(Collector):
         otherwise a fast channel's watermark fires time windows before a
         slow sibling's older tuples arrive, silently dropping them as late.
         Punctuation cadence keeps genuinely idle channels advancing.
-        The native fold of the JAX package is not ported: every fan-in
-        folds in a plain Python loop."""
-        lo = WM_NONE
-        for w, c in zip(slots, self._closed):
-            if c:
-                continue
-            if w == WM_NONE:
-                return WM_NONE
-            lo = w if lo == WM_NONE else min(lo, int(w))
-        return lo
+        Small fan-ins (the common case) fold in a plain Python loop; wide
+        fan-ins use the native fold (``wf_host.cpp wf_min_watermark``)
+        where the loop cost actually shows."""
+        if self.num_channels <= 8:
+            lo = WM_NONE
+            for w, c in zip(slots, self._closed):
+                if c:
+                    continue
+                if w == WM_NONE:
+                    return WM_NONE
+                lo = w if lo == WM_NONE else min(lo, int(w))
+            return lo
+        from windflow_tpu_torch import native
+        return native.min_watermark(slots[~self._closed], WM_NONE)
 
     def _frontier(self) -> int:
         return self._fold(self._wms)

@@ -50,9 +50,18 @@ shard plane's key-skew sketch (``monitoring/shard_ledger.ShardSketch``)
 rides the keyed emitters: host-side on the keyed staging edge (its key
 column and per-destination counts exist there), from one sampled key a
 flushed batch on the host KEYBY edge, and on the card inside the device
-keyby split (``device_sketch_update``, no host read).  Not ported:
-reshard overrides and hot-key pre-aggregation (ROADMAP A11), and the
-mesh's ``AlignedMeshStageEmitter`` (A10).
+keyby split (``device_sketch_update``, no host read).
+
+The reshard executor (``windflow_tpu_torch/serving``) acts through two
+hooks: ``set_override`` on :class:`KeyByEmitter` and
+:class:`KeyedDeviceStageEmitter` (a key→shard map ahead of the hash and
+of the compactor's placement: moved keys route to their new shard), and
+``set_preagg`` on the keyed staging emitter (split_hot_key: a hot key's
+tuples fold through the consumer's associative combiner at this boundary
+and ship as one partial record a flush).  The columnar keyed staging
+partitions through the native ``wf_keyby_partition``
+(``windflow_tpu_torch/native``).  Not ported: the mesh's
+``AlignedMeshStageEmitter`` (A10).
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ from windflow_tpu_torch.batch import (DeviceBatch, HostBatch, Punctuation,
                                       WM_NONE, columns_to_device,
                                       device_to_host, host_to_device,
                                       stage_packed, transfer_nbytes)
-from windflow_tpu_torch.utils.tree import tree_flatten
+from windflow_tpu_torch.utils.tree import tree_flatten, tree_map
 
 _M64 = (1 << 64) - 1
 _SM_ADD = 0x9E3779B97F4A7C15
@@ -317,10 +326,23 @@ class KeyByEmitter(Emitter):
         #: shard-plane sketch, attached at graph build: a flushed batch
         #: credits its shard exactly and its first key as the sample
         self._sketch = None
+        #: reshard-executor key→shard override: moved keys route to their
+        #: assigned shard before the hash.  None leaves one check a tuple
+        self._override = None
+
+    def set_override(self, override) -> None:
+        """Install or replace the key→destination override map (executor
+        moves; a restore re-installs the checkpointed maps)."""
+        self._override = dict(override) if override else None
 
     @hot_path
     def emit(self, item, ts, wm, shared=False, tid=None):
-        d = stable_hash(self.key_extractor(item)) % len(self.dests)
+        key = self.key_extractor(item)
+        d = None
+        if self._override is not None:
+            d = self._override.get(key)
+        if d is None:
+            d = stable_hash(key) % len(self.dests)
         ob = self._open[d]
         ob.add(item, ts, wm, shared, tid)
         if len(ob.items) >= max(1, self.output_batch_size):
@@ -753,6 +775,51 @@ def host_keys(key_fn, cols, n: int) -> np.ndarray:
     raise ValueError("the key extractor is not elementwise over columns")
 
 
+def _to_torch(v):
+    import torch
+    return torch.from_numpy(np.array(v))
+
+
+def _to_host(v):
+    """A combiner's output leaf back to numpy: a 0-d result becomes a
+    numpy scalar of its dtype (the record path stacks it as such)."""
+    import torch
+    if isinstance(v, torch.Tensor):
+        v = v.numpy()
+    return v[()] if isinstance(v, np.ndarray) and v.ndim == 0 else v
+
+
+def _comb_records(comb, a, b):
+    """``comb(a, b)`` for two host records: the port's combiners are
+    torch ops over a record's fields, so the fields go in as CPU tensors
+    (numpy's dtypes: a Python float is float64, as on the record path)
+    and come back as numpy scalars."""
+    return tree_map(_to_host, comb(tree_map(_to_torch, a),
+                                   tree_map(_to_torch, b)))
+
+
+def _log_fold(comb, rec: dict, m: int) -> dict:
+    """Fold ``m`` records held as ``[m]`` numpy columns into one record
+    through an ASSOCIATIVE combiner by repeated halving: the combiner runs
+    log2(m) times over vectorized halves (CPU tensors) instead of m - 1
+    times over scalars.  Only the grouping changes (float sums keep the
+    dense route's rounding tolerance)."""
+    import torch
+    t = {k: _to_torch(v) for k, v in rec.items()}
+    while m > 1:
+        h = m // 2
+        c = comb({k: v[:h] for k, v in t.items()},
+                 {k: v[h:2 * h] for k, v in t.items()})
+        c = {k: torch.atleast_1d(torch.as_tensor(c[k])) for k in t}
+        if m - 2 * h:
+            t = {k: torch.cat([c[k].to(v.dtype), v[2 * h:]])
+                 for k, v in t.items()}
+        else:
+            t = c
+        m = h + (m - 2 * h)
+    return {k: _to_host(v[0]) for k, v in t.items()}
+
+
 def _key_column(key_extractor, cols, n: int) -> np.ndarray:
     """:func:`host_keys`, else the extractor row by row (a constant or
     Python-level extractor)."""
@@ -770,10 +837,13 @@ class KeyedDeviceStageEmitter(Emitter):
     ``KeyBy_Emitter_GPU``, ``keyby_emitter_gpu.hpp:400-476``): tuples are
     partitioned by ``splitmix64(key) % n`` into one single-destination
     :class:`DeviceStageEmitter` a destination, so every key's tuples flow
-    through one replica in arrival order.  Columns partition by the numpy
-    hash and reuse the inner emitters' packed route and per-row frontier
-    lanes (the row frontier is global, so each partition's slice of it
-    stays a valid stamp)."""
+    through one replica in arrival order.  Columns partition by the native
+    hash (``native.keyby_partition``, bit-identical to the numpy one) and
+    reuse the inner emitters' packed route and per-row frontier lanes
+    (the row frontier is global, so each partition's slice of it stays a
+    valid stamp).  The executor's override map (int32 keys) wins over the
+    compactor's placement and the hash; a pre-aggregated hot key's tuples
+    fold into one partial record a flush (``set_preagg``)."""
 
     def __init__(self, dests, output_batch_size, key_extractor, device):
         super().__init__(dests, output_batch_size)
@@ -790,6 +860,53 @@ class KeyedDeviceStageEmitter(Emitter):
         #: the columnar path updates from the key column and the counts
         self._sketch = None
         self._sk_buf = []
+        #: reshard-executor key→shard override, keyed by the int32 key the
+        #: device state collapses to; it beats every derived placement
+        self._override = None
+        #: split_hot_key pre-aggregation: the named hot keys' tuples fold
+        #: through the consumer's associative combiner here and ship as
+        #: one partial record a flush (the final per-key aggregate is
+        #: unchanged; per-batch partials coarsen).  None leaves one check
+        #: an emit path
+        self._preagg = None         # {"keys": set, "comb": fn}
+        self._preagg_acc = {}       # k32 -> [record, max_ts, n]
+        self.preagg_folds = 0       # tuples absorbed into partials
+
+    def set_override(self, override) -> None:
+        """Install or replace the key→destination override map, keyed by
+        the int32-truncated key."""
+        if not override:
+            self._override = None
+            return
+        self._override = {int32_key(k): d for k, d in override.items()}
+
+    def set_preagg(self, keys, comb) -> None:
+        """Pre-aggregate ``keys`` (the split_hot_key action) through
+        ``comb``, the consumer's associative record combiner (torch ops
+        over a record's fields); ``None``/empty turns it off.  What is
+        folded so far ships first."""
+        self._flush_preagg(WM_NONE)
+        if not keys or comb is None:
+            self._preagg = None
+            return
+        self._preagg = {"keys": {int32_key(k) for k in keys}, "comb": comb}
+
+    def _fold_into(self, k32, item, ts):
+        acc = self._preagg_acc.get(k32)
+        if acc is None:
+            self._preagg_acc[k32] = [item, ts, 1]
+            return
+        acc[0] = _comb_records(self._preagg["comb"], acc[0], item)
+        acc[1] = max(acc[1], ts)
+        acc[2] += 1
+        self.preagg_folds += 1
+
+    def _flush_preagg(self, wm) -> None:
+        if not self._preagg_acc:
+            return
+        acc, self._preagg_acc = self._preagg_acc, {}
+        for k32, (item, ts, _n) in acc.items():
+            self._route_one(k32, item, ts, wm)
 
     def bind_observability(self, stats, ring=None, flight=None):
         super().bind_observability(stats, ring, flight)
@@ -810,6 +927,13 @@ class KeyedDeviceStageEmitter(Emitter):
 
     def emit(self, item, ts, wm, shared=False, tid=None):
         k32 = int32_key(self.key_extractor(item))
+        pa = self._preagg
+        if pa is not None and k32 in pa["keys"]:
+            self._fold_into(k32, item, ts)
+            return
+        self._route_one(k32, item, ts, wm)
+
+    def _route_one(self, k32, item, ts, wm):
         comp = self._compactor
         d = None
         if comp is not None:
@@ -821,6 +945,12 @@ class KeyedDeviceStageEmitter(Emitter):
                 # take routing down: the plane deactivates instead)
                 comp.deactivate()
                 self._compactor = None
+        if self._override is not None:
+            # an executor move beats every derived placement: the key was
+            # moved on purpose, and its state moved with it
+            o = self._override.get(k32)
+            if o is not None:
+                d = o
         if d is None:
             d = splitmix64_int(k32) % len(self.dests)
         self._inner[d].emit(item, ts, wm)
@@ -839,8 +969,23 @@ class KeyedDeviceStageEmitter(Emitter):
             self._sketch = None
 
     def emit_columns(self, cols, tss, wm, row_wms=None):
+        from windflow_tpu_torch import native
         n = len(self.dests)
         keys = _key_column(self.key_extractor, cols, len(tss))
+        pa = self._preagg
+        if pa is not None:
+            hot = np.isin(keys, np.fromiter(pa["keys"], np.int64,
+                                            len(pa["keys"])))
+            if hot.any():
+                self._fold_columns(pa, cols, tss, keys, hot)
+                keep = ~hot
+                if not keep.any():
+                    return
+                cols = {k: np.asarray(v)[keep] for k, v in cols.items()}
+                tss = np.asarray(tss)[keep]
+                keys = keys[keep]
+                if row_wms is not None:
+                    row_wms = row_wms[keep]
         comp = self._compactor
         if comp is not None:
             try:
@@ -853,7 +998,13 @@ class KeyedDeviceStageEmitter(Emitter):
         if comp is not None and comp.placement_override:
             dest = comp.place_np(keys, n).astype(np.int64)
         else:
-            dest = (splitmix64_np(keys) % np.uint64(n)).astype(np.int64)
+            # the native hash + count partition (wf_keyby_partition)
+            dest = native.keyby_partition(keys, n)[0].astype(np.int64)
+        if self._override is not None:
+            # executor moves re-place their keys over the derived
+            # placement (a handful of entries: the advisor's move list)
+            for k, d_ov in self._override.items():
+                dest[keys == k] = d_ov
         counts = np.bincount(dest, minlength=n)
         if self._sketch is not None:
             try:
@@ -869,18 +1020,34 @@ class KeyedDeviceStageEmitter(Emitter):
                     np.asarray(tss)[idx], wm,
                     row_wms[idx] if row_wms is not None else None)
 
+    def _fold_columns(self, pa, cols, tss, keys, hot) -> None:
+        """Columnar half of the pre-aggregating combine: the rows of each
+        hot key log-fold through the combiner (vectorized halving) into
+        its running partial."""
+        comb = pa["comb"]
+        arrs = {nm: np.asarray(v) for nm, v in cols.items()}
+        tss = np.asarray(tss)
+        for k in np.unique(keys[hot]):
+            idx = np.nonzero(keys == k)[0]
+            folded = _log_fold(comb, {nm: v[idx] for nm, v in arrs.items()},
+                               len(idx))
+            self.preagg_folds += len(idx) - 1
+            self._fold_into(int(k), folded, int(tss[idx].max()))
+
     def emit_device_batch(self, batch):
         raise WindFlowError(
             "keyed staging emitter received a device batch; device-to-"
             "device keyed edges use DeviceKeyByEmitter")
 
     def flush(self, wm):
+        self._flush_preagg(wm)
         if self._sketch is not None and self._sk_buf:
             self._drain_sketch_buf()
         for e in self._inner:
             e.flush(wm)
 
     def propagate_punctuation(self, wm):
+        self._flush_preagg(wm)
         for e in self._inner:
             e.propagate_punctuation(wm)
 

@@ -5,17 +5,21 @@ restarts when the path is kept.
 
 The on-disk format is the JAX package's, byte for byte: records of
 ``<u32 klen, i64 vlen>`` headers (``vlen == -1`` is a tombstone) followed
-by the key and value, a torn tail truncated at open.  A store written by
-either package opens in the other.  Only the pure-Python backend is
-ported; the native ``wf_kv.cpp`` backend comes with the host-side
-remainder.
+by the key and value, a torn tail truncated at open.  The fast path is
+the native log-structured store (``native/wf_kv.cpp``, the port's own
+copy, loaded via ctypes); the pure-Python backend speaks the same
+format and is the fallback (``WF_TPU_NO_NATIVE=1``).  A store written
+by either backend of either package opens under every other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 from typing import Dict, List, Optional, Tuple
+
+from windflow_tpu_torch import native
 
 _HDR = struct.Struct("<Iq")  # u32 klen, i64 vlen (-1 = tombstone)
 _MAX_KEY = 1 << 20           # writer cap == scanner sanity bound
@@ -137,6 +141,81 @@ class _PyKV:
             os.unlink(self.path)
 
 
+class _NativeKV:
+    """ctypes wrapper over ``native/wf_kv.cpp``."""
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._L = native.lib()
+        self._h = self._L.wf_kv_open(path.encode(), 1)
+        if not self._h:
+            raise OSError(f"wf_kv_open failed for {path!r}")
+        native._count("kv_open")
+
+    def put(self, key: bytes, val: bytes) -> None:
+        if len(key) > _MAX_KEY:
+            raise ValueError(
+                f"key of {len(key)} bytes exceeds the {_MAX_KEY}-byte cap")
+        if self._L.wf_kv_put(self._h, key, len(key), val, len(val)) != 0:
+            raise OSError(f"wf_kv_put failed for {self.path!r}")
+        native._count("kv_put")
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        buf = ctypes.create_string_buffer(4096)
+        n = self._L.wf_kv_get(self._h, key, len(key), buf, len(buf))
+        if n < 0:
+            return None
+        if n > len(buf):
+            buf = ctypes.create_string_buffer(n)
+            n = self._L.wf_kv_get(self._h, key, len(key), buf, len(buf))
+        return buf.raw[:n]
+
+    def delete(self, key: bytes) -> bool:
+        ret = self._L.wf_kv_del(self._h, key, len(key))
+        if ret < 0:
+            raise OSError(f"wf_kv_del failed for {self.path!r} "
+                          "(tombstone write error)")
+        return bool(ret)
+
+    def keys(self) -> List[bytes]:
+        it = self._L.wf_kv_iter_new(self._h)
+        out = []
+        buf = ctypes.create_string_buffer(4096)
+        try:
+            while True:
+                n = self._L.wf_kv_iter_next(it, buf, len(buf))
+                if n < 0:
+                    break
+                if n > len(buf):
+                    buf = ctypes.create_string_buffer(n)
+                    continue
+                out.append(buf.raw[:n])
+        finally:
+            self._L.wf_kv_iter_destroy(it)
+        return out
+
+    def count(self) -> int:
+        return self._L.wf_kv_count(self._h)
+
+    def log_bytes(self) -> int:
+        return self._L.wf_kv_log_bytes(self._h)
+
+    def live_bytes(self) -> int:
+        return self._L.wf_kv_live_bytes(self._h)
+
+    def compact(self) -> None:
+        if self._L.wf_kv_compact(self._h) != 0:
+            raise OSError(f"wf_kv_compact failed for {self.path!r}")
+
+    def flush(self) -> None:
+        self._L.wf_kv_flush(self._h)
+
+    def close(self, delete_db: bool = False) -> None:
+        if self._h:
+            self._L.wf_kv_close(self._h, int(delete_db))
+            self._h = None
+
+
 class LogKV:
     """One open store.  Auto-compacts when the log grows past
     ``compact_ratio`` times the live data (LSM-style space reclamation;
@@ -146,7 +225,8 @@ class LogKV:
                  min_compact_bytes: int = 1 << 20) -> None:
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
-        self._kv = _PyKV(path)
+        backend = _NativeKV if native.is_available() else _PyKV
+        self._kv = backend(path)
         self.path = path
         self.compact_ratio = compact_ratio
         self.min_compact_bytes = min_compact_bytes
