@@ -268,7 +268,24 @@ Phases (each exits nonzero on failure; none is skipped):
      group on it (records equal to (b)'s generic K = 1 run);
    * (e) with the race detector on, (i)'s generic K = 8 run raises no
      ``ConcurrencyViolation`` and its records equal (b)'s;
-   * (f) ``verify_graph`` reports nothing on every graph of (a).
+   * (f) ``verify_graph`` reports nothing on every graph of (a);
+   * (g)-(k), the capture audit (``audit_runs``, 20 s of the phase's
+     50 s), 9 batches a run: (g) (i)'s count windows (both combiners)
+     and (ii)'s YSB time windows at K = 1 and K = 8, and phase 8's
+     dense reduce, each equal to its oracle where it has one, audit
+     clean (no WF902-WF907, nothing pending, every program recorded on
+     the card, the K = 8 runs' captured bodies listed in
+     ``stats()["IR_audit"]``); (h) a MapGPU reading ``.item()`` is
+     WF906, and ``python -m windflow_tpu_torch.analysis.ir
+     chip_smoke:audit_item_graph --drive 1 --strict`` exits 1 on it;
+     (i) with the grouping wrapper swapped for its plain version the
+     generic count-window step launches no grouping kernel and is
+     WF907 (in (g) the same step launches it and is clean); (j) with
+     only the fold wrapper swapped, the sum-combiner step still launches
+     the grouping kernel and is WF907 naming the fold (gates and
+     launches held per kernel); (k) ``ffat_grouping="argsort"`` keeps
+     the grouping kernel on the card, audit clean, records equal to the
+     oracle.
 13. drive the host window engine, the persistent operators and the
    example apps (``host_window_runs``, 90 s budget), every run through
    ``PipeGraph.run()`` on the card with ``check()`` clean first, the
@@ -345,7 +362,21 @@ Phases (each exits nonzero on failure; none is skipped):
      graphs, and a postmortem bundle of (a)'s graph has a
      ``reshard.json`` that ``tools/wf_doctor.py --check`` passes.
 
-Before the last line it prints the card's name and power limit and one
+15. drive the host worker pool (``pool_runs``, 40 s budget), each run
+   at 0 and 4 pool threads (``Config.host_worker_threads``) with equal
+   records, tuples/s printed (information only): (a) phase 13 (e)'s
+   keyed count windows behind the card stage (65,536 tuples) and (h)'s
+   ``P_Reduce`` (16,384 tuples, its state against the oracle); (b)
+   frames (9 batches) → phase 5's MapGPU | FilterGPU → count windows
+   with ``withSumCombiner`` at K = 8 → a split by key parity into a
+   Sink and a host FlatMap → host Map → Sink, under
+   ``set_sync_debug_mode("warn")`` with the warnings caught by thread:
+   the group is captured, the FlatMap and the direct Sink stay on the
+   driver thread, the Map and its Sink are pooled, no pooled replica
+   holds a device batch and no pool thread synchronises.
+
+Before the last line it prints its own seconds in all, the card's name
+and power limit and one
 JSON line with every kernel's launches, error and times; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside it, it exits nonzero and prints no result.
@@ -3786,6 +3817,212 @@ def analysis_runs(dev_name="cuda"):
     return out
 
 
+#: phase 12 (g)-(k): batches of the capture-audit runs (K = 8 needs a
+#: warm-up batch and one whole group)
+AUDIT_BATCHES = 9
+#: the WF9xx codes a clean main-path program must not show
+AUDIT_CODES = ("WF902", "WF903", "WF904", "WF905", "WF906", "WF907")
+
+
+def audit_item_graph():
+    """Phase 12 (h)'s negative, a factory the capture audit's CLI loads
+    (``python -m windflow_tpu_torch.analysis.ir chip_smoke:audit_item_graph
+    --drive 1 --strict``): one batch of frames → a MapGPU whose function
+    reads a sum on the host with ``.item()`` → Sink.  Preflight is off
+    (it names the read WF101 first), so the step runs and the recorder
+    sees it."""
+    import windflow_tpu_torch as wf
+    rng = np.random.default_rng(12)
+    keys = rng.integers(0, KEYS, CAP)
+    blob = frame_blob(keys, np.arange(CAP), rng.integers(0, 9, CAP))
+    src = wf.FrameSource(chunked(blob), nv=1, output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)})
+    g = wf.PipeGraph("chip_smoke_item", config=wf.Config(
+        device="cuda", preflight="off",
+        punctuation_interval_usec=10 ** 12))
+    g.add_source(src).add(wf.MapGPU_Builder(
+        lambda t: {"key": t["key"],
+                   "v0": t["v0"] * float(t["v0"].sum().item())})
+        .withName("item_map").build()).add_sink(
+        wf.Sink_Builder(lambda c: None).withColumnarSink().build())
+    return g
+
+
+def audit_section_ok(label, g, captures):
+    """``stats()["IR_audit"]`` of a finished card run: enabled, no WF9xx
+    finding and nothing pending, every program recorded on the card,
+    ``captures`` of them megastep captures.  Returns the section."""
+    sec = g.stats()["IR_audit"]
+    if not sec.get("enabled") or "error" in sec:
+        fail(f"phase 12 {label}: IR_audit section {sec}")
+    bad = [f for f in sec["findings"] if f["code"] in AUDIT_CODES]
+    if bad or sec["pending"]:
+        fail(f"phase 12 {label}: the audit found {bad}, pending "
+             f"{sec['pending']}")
+    progs = sec["programs"]
+    if not progs or any(p["backend"] != "cuda" for p in progs):
+        fail(f"phase 12 {label}: programs {progs}")
+    got = sum(1 for p in progs if p["kind"] == "capture")
+    if got != captures:
+        fail(f"phase 12 {label}: {got} captured bodies audited, "
+             f"{captures} expected: {progs}")
+    return sec
+
+
+def audit_runs(dev_name="cuda"):
+    """Phase 12 (g)-(k), the capture audit on the card (20 s budget):
+    (g) the main-path count windows (both combiners) and the YSB time
+    windows at K = 1 and K = 8 and the dense-route reduce audit clean,
+    the K = 8 runs listing their captured bodies; (h) a MapGPU reading
+    ``.item()`` is WF906, and the ir CLI exits 1 on it under
+    ``--strict``; (i) a grouping step within its gate launches the
+    kernel (no WF907), and with the grouping wrapper swapped for its
+    plain version the same step is WF907; (j) the sum-combiner step with
+    only the fold wrapper swapped for its plain version still launches
+    the grouping kernel and is WF907 for the fold (gates and launches
+    are held per kernel); (k) ``Config.ffat_grouping="argsort"`` keeps
+    the grouping kernel on the card, audit clean, records unchanged.
+    Returns launch counts by run label."""
+    import contextlib
+    import io
+
+    import torch
+    from windflow_tpu_torch.analysis import ir
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.windows import ffat_kernels
+    n = CAP * AUDIT_BATCHES
+    rng = np.random.default_rng(2033)
+    keys = rng.integers(0, KEYS, n)
+    vals = rng.integers(-100, 101, n).astype(np.float32)
+    blob = frame_blob(keys, np.arange(n), vals)
+    keys32 = keys.astype(np.int32)
+    table, ad, ts_y, etype = ysb_frames(n)
+    blob_ii = frame_blob(ad, ts_y, etype.astype(np.float64))
+    out = {}
+
+    def run(label, g):
+        fc.reset_launch_counts()
+        g.run()
+        torch.cuda.synchronize()
+        out[f"12{label}"] = fc.launch_counts()
+        return out[f"12{label}"]
+
+    # (g) the main paths audit clean
+    for comb in (False, True):
+        for k in (1, 8):
+            label = f"(g) CB {'sum' if comb else 'generic'} K={k}"
+            cols, sink = collect()
+            g, _ = frames_cb_graph(dev_name, comb, blob, sink, event=True,
+                                   megastep_sweeps=k)
+            counts = run(label, g)
+            check_cb_columns(f"phase 12 {label}", cols, keys32, vals)
+            sec = audit_section_ok(label, g, 1 if k > 1 else 0)
+            launched = [p["kernel_launches"] for p in sec["programs"]]
+            if not all(launched):
+                fail(f"phase 12 {label}: a program launched no kernel: "
+                     f"{sec['programs']}")
+            print(f"phase 12 {label}: audit clean over "
+                  f"{sec['programs_audited']} programs "
+                  f"{[(p['name'], p['kind'], p['aten_ops'], p['kernel_launches']) for p in sec['programs']]}"
+                  f"; sanctioned reads {len(sec['exempt_host_reads'])}; "
+                  f"launches {counts}")
+    for k in (1, 8):
+        label = f"(g) YSB TB K={k}"
+        cols, sink = collect()
+        g, _, _ = ysb_frames_graph(dev_name, table, blob_ii, sink, spec=True,
+                                   megastep_sweeps=k)
+        counts = run(label, g)
+        sec = audit_section_ok(label, g, 1 if k > 1 else 0)
+        print(f"phase 12 {label}: audit clean over "
+              f"{sec['programs_audited']} programs "
+              f"{[(p['name'], p['kind'], p['aten_ops']) for p in sec['programs']]}"
+              f"; sanctioned reads "
+              f"{[e['reason'] for e in sec['exempt_host_reads']]}")
+    label = "(g) dense reduce"
+    cols, sink = collect()
+    g, _ = frames_plain_reduce_graph(dev_name, True, blob, sink,
+                                     megastep_sweeps=1)
+    counts = run(label, g)
+    if counts["dense_monoid_table"] <= 0:
+        fail(f"phase 12 {label}: the table kernel never launched")
+    sec = audit_section_ok(label, g, 0)
+    print(f"phase 12 {label}: audit clean over {sec['programs_audited']} "
+          f"program(s), launches {counts}")
+
+    # (h) a host read in a device function is WF906; --strict exits 1
+    g = audit_item_graph()
+    run("(h) item", g)
+    codes = [f["code"] for f in g.stats()["IR_audit"]["findings"]]
+    if codes != ["WF906"]:
+        fail(f"phase 12 (h): the .item() map audited {codes}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ir.main(["chip_smoke:audit_item_graph", "--drive", "1",
+                      "--json", "--strict"])
+    rep = json.loads(buf.getvalue())["chip_smoke:audit_item_graph"]
+    if rc != 1 or [f["code"] for f in rep["findings"]] != ["WF906"]:
+        fail(f"phase 12 (h): the ir CLI exited {rc} with {rep['findings']}")
+    print(f"phase 12 (h): a MapGPU reading .item() is WF906 "
+          f"({rep['findings'][0]['message'][:120]}...); the ir CLI exits "
+          f"{rc} under --strict")
+
+    # (i) WF907: the grouping wrapper swapped for its plain version
+    saved = fc.order_hist
+    fc.order_hist = lambda ids, nb: ffat_kernels.order_and_hist(ids, nb)
+    try:
+        cols, sink = collect()
+        g, _ = frames_cb_graph(dev_name, False, blob, sink, event=True,
+                               megastep_sweeps=1)
+        counts = run("(i) plain grouping", g)
+    finally:
+        fc.order_hist = saved
+    check_cb_columns("phase 12 (i)", cols, keys32, vals)
+    codes = [f["code"] for f in g.stats()["IR_audit"]["findings"]]
+    if counts["grouping_rank_hist"] or "WF907" not in codes:
+        fail(f"phase 12 (i): launches {counts}, findings {codes}")
+    print(f"phase 12 (i): within its gate the grouping step launches the "
+          f"kernel (no WF907 in (g)); with the wrapper's plain version "
+          f"swapped in it launches {counts['grouping_rank_hist']} and "
+          f"audits {codes}")
+
+    # (j) WF907 per kernel: on the sum-combiner step the grouping kernel
+    # still launches while the fold runs its plain version
+    from windflow_tpu_torch.utils.tree import tree_map
+    saved = fc.sliding_fold
+    fc.sliding_fold = lambda v, m, R, mo: tree_map(
+        lambda leaf: fc.fold_leaf_plain(leaf, m, R, mo), v)
+    try:
+        cols, sink = collect()
+        g, _ = frames_cb_graph(dev_name, True, blob, sink, event=True,
+                               megastep_sweeps=1)
+        counts = run("(j) plain fold", g)
+    finally:
+        fc.sliding_fold = saved
+    check_cb_columns("phase 12 (j)", cols, keys32, vals)
+    fnd = g.stats()["IR_audit"]["findings"]
+    if counts["sliding_fold"] or counts["grouping_rank_hist"] <= 0 \
+            or [f["code"] for f in fnd] != ["WF907"] \
+            or "sliding_fold" not in fnd[0]["message"]:
+        fail(f"phase 12 (j): launches {counts}, findings {fnd}")
+    print(f"phase 12 (j): the sum step with a plain fold launches "
+          f"grouping {counts['grouping_rank_hist']} / fold "
+          f"{counts['sliding_fold']} and audits WF907 for the fold")
+
+    # (k) the argsort grouping option keeps the kernel on the card
+    cols, sink = collect()
+    g, _ = frames_cb_graph(dev_name, True, blob, sink, event=True,
+                           megastep_sweeps=1, ffat_grouping="argsort")
+    counts = run("(k) argsort", g)
+    check_cb_columns("phase 12 (k)", cols, keys32, vals)
+    audit_section_ok("(k) argsort", g, 0)
+    if counts["grouping_rank_hist"] <= 0:
+        fail(f"phase 12 (k): ffat_grouping='argsort' launched {counts}")
+    print(f"phase 12 (k): ffat_grouping='argsort' on the card launches "
+          f"{counts}, audit clean")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 13: the host window engine, the persistent operators, the apps
 # ---------------------------------------------------------------------------
@@ -4852,6 +5089,248 @@ def serving_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the host worker pool
+# ---------------------------------------------------------------------------
+
+#: phase 15: pool sizes each run takes, the host window's tuples (cut in
+#: depth: one tuple a message at ~35-60 K tuples/s on the card's host),
+#: the P_Reduce's tuples, and the count-window run's batches (a K = 8
+#: group needs a warm-up batch and eight more)
+POOL_THREADS = (0, 4)
+P15_WINDOW_N, P15_REDUCE_N, P15_BATCHES = CAP // 4, 16384, 9
+
+
+def pool_reduce_graph(dev_name, keys, vals, path, name, threads):
+    """Phase 15 (a): a host source (batches of 1,024) → a keyed
+    ``P_Reduce`` at parallelism 2 over a ``LogKV`` in ``path`` → Sink:
+    the graph phase 13 (h) restarts, on ``threads`` pool threads."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.persistent import P_Reduce_Builder
+
+    def acc(t, st):
+        st["n"] = st.get("n", 0) + 1
+        st["sum"] = st.get("sum", 0.0) + t["v0"]
+
+    def gen():
+        yield from ({"key": k, "v0": v}
+                    for k, v in zip(keys.tolist(), vals.tolist()))
+    g = wt.PipeGraph(name, config=p13_cfg(dev_name,
+                                          host_worker_threads=threads))
+    g.add_source(wt.Source_Builder(gen)
+                 .withOutputBatchSize(P13_HOST_BATCH).build()) \
+        .add(P_Reduce_Builder(acc).withKeyBy(lambda t: t["key"])
+             .withParallelism(2).withDBPath(path).withInitialState(dict)
+             .withKeepDb().withOutputBatchSize(P13_HOST_BATCH)
+             .withName("preduce").build()) \
+        .add_sink(wt.Sink_Builder(lambda t: None).build())
+    return g
+
+
+def pool_cb_graph(dev_name, blob, threads, direct, chain, **cfg):
+    """Phase 15 (b): frames → phase 5's MapGPU | FilterGPU → the count
+    windows (``withSumCombiner``) → a split by key parity written in
+    torch ops: branch 0 straight into a Sink appending to ``direct``,
+    branch 1 into a host FlatMap (each window, and its negation when the
+    value is positive) → a host Map → a Sink appending to ``chain``.
+    Returns ``(graph, {role: operator})``."""
+    import windflow_tpu_torch as wt
+    src = wt.FrameSource(chunked(blob), nv=1, fmt="frames",
+                         output_batch_size=CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v0": np.float32(0.0)})
+    g = wt.PipeGraph("chip_smoke_pool", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT,
+                     config=wt.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      host_worker_threads=threads, **cfg))
+    pipe = g.add_source(src)
+    pipe.add(wt.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"] * 1.5 + 1.0}).build())
+    pipe.chain(wt.FilterGPU_Builder(lambda t: (t["key"] & 7) != 7).build())
+    win = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(KEYS).withSumCombiner().withName("w").build())
+    pipe.add(win)
+    pipe.split(lambda r: r["key"] & 1, 2)
+
+    def expand(r, shipper):
+        shipper.push({"key": r["key"], "wid": r["wid"], "value": r["value"]})
+        if r["value"] > 0:
+            shipper.push({"key": r["key"], "wid": r["wid"],
+                          "value": -r["value"]})
+    snk0 = wt.Sink_Builder(lambda r: direct.append(
+        (int(r["key"]), int(r["wid"]), float(r["value"])))
+        if r is not None else None).withName("direct_sink").build()
+    fm = wt.FlatMap_Builder(expand).withName("fm").build()
+    mp = wt.Map_Builder(lambda r: (int(r["key"]), int(r["wid"]),
+                                   float(r["value"]))).withName("hm").build()
+    snk1 = wt.Sink_Builder(lambda r: chain.append(r) if r is not None
+                           else None).withName("chain_sink").build()
+    pipe.select(0).add_sink(snk0)
+    pipe.select(1).add(fm).add(mp).add_sink(snk1)
+    return g, {"window": win, "direct_sink": snk0, "flatmap": fm,
+               "host_map": mp, "chain_sink": snk1}
+
+
+def pool_runs(dev_name="cuda"):
+    """Phase 15, the host worker pool (40 s budget), each run at 0 and 4
+    pool threads with equal records: (a) phase 13's host window (keyed
+    count windows behind phase 3's card stage) and its P_Reduce; (b) the
+    frames count-window graph at K = 8 with a host FlatMap and a Sink
+    behind the device stage and a host-only chain after the FlatMap,
+    under ``set_sync_debug_mode("warn")`` with the warnings caught by
+    thread: the capture forms, the FlatMap and the direct Sink stay on
+    the driver thread, the chain is pooled, no pool thread syncs.
+    Returns launch counts by run label; tuples/s are information only."""
+    import threading
+    import warnings
+
+    import torch
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    smi = smi_line()
+    print(f"phase 15: {smi}")
+    out = {}
+    rng = np.random.default_rng(2015)
+
+    # (a) the host window and P_Reduce at 0 and 4 threads
+    n = P15_WINDOW_N
+    keys = rng.integers(0, KEYS, n).astype(np.int32)
+    vals = rng.integers(-50, 51, n).astype(np.float32)
+    ts = np.arange(n, dtype=np.int64) * 10
+    res = {}
+    for t in POOL_THREADS:
+        rows = []
+        g = host_window_graph(dev_name, wt.Keyed_Windows_Builder(
+            lambda r, acc: (0.0 if acc is None else acc) + r["v0"])
+            .withCBWindows(WIN, SLIDE).withKeyBy(lambda r: r["key"])
+            .withParallelism(2), keys, vals, ts, rows, f"p15_kw_{t}",
+            host_worker_threads=t)
+        fc.reset_launch_counts()
+        t0 = time.perf_counter()
+        g.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[f"15(a) Keyed_Windows {t} threads"] = fc.launch_counts()
+        st = g.stats()
+        if (st["Host_worker_threads"], st["Thread_number"]) != (t, 1 + t):
+            fail(f"phase 15 (a): stats() reports "
+                 f"{st['Host_worker_threads']}, {st['Thread_number']}")
+        res[t] = sorted(rows)
+        print(f"phase 15 (a) Keyed_Windows behind the card stage, {t} pool "
+              f"threads ({len(g._pool_replicas)} replicas pooled): "
+              f"{len(rows)} windows, {n} tuples in {secs:.3f} s = "
+              f"{n / secs:.0f} tuples/s (host clock, information only)")
+    if res[0] != res[POOL_THREADS[-1]] or not res[0]:
+        fail("phase 15 (a): the host window's records differ between 0 "
+             "and 4 pool threads")
+    rk = keys[:P15_REDUCE_N] % 256
+    rv = vals[:P15_REDUCE_N]
+    root = tempfile.mkdtemp(prefix="chip_smoke_p15_")
+    states = {}
+    from windflow_tpu_torch.persistent import DBHandle
+    for t in POOL_THREADS:
+        path = os.path.join(root, f"pr_{t}")
+        g = pool_reduce_graph(dev_name, rk, rv, path, f"p15_pr_{t}", t)
+        t0 = time.perf_counter()
+        g.run()
+        secs = time.perf_counter() - t0
+        st = {}
+        for i in range(2):
+            db = DBHandle(path, initial_state=dict, whoami=i)
+            st.update({k: db.get(k) for k in db.keys()})
+            db.close()
+        states[t] = st
+        print(f"phase 15 (a) P_Reduce, {t} pool threads "
+              f"({len(g._pool_replicas)} replicas pooled): {len(st)} keys, "
+              f"{P15_REDUCE_N} tuples in {secs:.3f} s = "
+              f"{P15_REDUCE_N / secs:.0f} tuples/s (host clock, "
+              "information only)")
+    shutil.rmtree(root, ignore_errors=True)
+    cnt = np.bincount(rk, minlength=256)
+    tot = np.bincount(rk, weights=rv.astype(np.float64), minlength=256)
+    want = {int(k): {"n": int(cnt[k]), "sum": float(tot[k])}
+            for k in np.flatnonzero(cnt)}
+    if any(states[t] != want for t in POOL_THREADS):
+        fail("phase 15 (a): a P_Reduce state differs from the oracle")
+
+    # (b) the count windows at K = 8 behind the pool, syncs caught by
+    #     thread
+    nb = CAP * P15_BATCHES
+    keys = rng.integers(0, KEYS, nb)
+    vals = rng.integers(-100, 101, nb).astype(np.float32)
+    blob = frame_blob(keys, np.arange(nb), vals)
+    keep = (keys & 7) != 7
+    want = oracle(keys[keep].astype(np.int32),
+                  vals[keep] * np.float32(1.5) + np.float32(1.0))
+    res = {}
+    for t in POOL_THREADS:
+        direct, chain = [], []
+        g, ops = pool_cb_graph(dev_name, blob, t, direct, chain,
+                               megastep_sweeps=8)
+        seen = []
+        fc.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            orig = warnings.showwarning
+
+            def hook(message, category, *a, **kw):
+                seen.append((threading.current_thread().name,
+                             str(message)[:80]))
+            warnings.showwarning = hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                g.run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                warnings.showwarning = orig
+        counts = fc.launch_counts()
+        out[f"15(b) CB K=8 {t} threads"] = counts
+        edge = g.stats()["Megastep"]["edges"]
+        if not edge or edge[0]["captures"] < 1 or edge[0]["megasteps"] < 1:
+            fail(f"phase 15 (b) {t} threads: no capture formed: {edge}")
+        pooled = {r.op.name for r in g._pool_replicas}
+        driver = {r.op.name for r in g._main_replicas}
+        if t and (pooled != {"hm", "chain_sink"}
+                  or not {"fm", "direct_sink", "w"} <= driver):
+            fail(f"phase 15 (b): pooled {pooled}, driver {driver}")
+        if t and any(r.inflight_device for r in g._pool_replicas):
+            fail("phase 15 (b): a pooled replica held a device batch")
+        off = [w for w in seen if w[0].startswith("wf-")]
+        if off:
+            fail(f"phase 15 (b): a pool thread synchronised: {off[:3]}")
+        if {kw for kw in want if kw[0] % 2 == 0} != set(
+                (k, w) for k, w, _ in direct) \
+                or any(direct_v != want[(k, w)] for k, w, direct_v in direct):
+            fail(f"phase 15 (b) {t} threads: the direct sink's windows "
+                 "differ from the oracle")
+        firsts = {}
+        for k, w, v in chain:
+            firsts.setdefault((k, w), v)
+        if set(firsts) != {kw for kw in want if kw[0] % 2 == 1} \
+                or any(firsts[kw] != want[kw] for kw in firsts):
+            fail(f"phase 15 (b) {t} threads: the chain sink's windows "
+                 "differ from the oracle")
+        res[t] = (direct, chain)
+        print(f"phase 15 (b) CB K=8, {t} pool threads (pooled "
+              f"{sorted(pooled)}, driver thread {sorted(driver)}): "
+              f"{len(direct)} + {len(chain)} records equal the oracle; "
+              f"megasteps {edge[0]['megasteps']}, captures "
+              f"{edge[0]['captures']}; {len(seen)} sync warnings, none "
+              f"from a pool thread; {nb} tuples in {secs:.3f} s = "
+              f"{nb / secs:.0f} tuples/s (host clock, information only); "
+              f"launches {counts}")
+    if res[0] != res[POOL_THREADS[-1]]:
+        fail("phase 15 (b): records differ between 0 and 4 pool threads")
+    print(f"phase 15 (b): records and their order equal at 0 and "
+          f"{POOL_THREADS[-1]} threads")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -5178,6 +5657,7 @@ def durability_runs(dev_name="cuda"):
 
 
 def main():
+    t_all = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5319,7 +5799,11 @@ def main():
     # 12. the analysis plane, counts read just after each run
     t12 = time.perf_counter()
     run_counts.update(analysis_runs())
-    print(f"phase 12: {time.perf_counter() - t12:.1f} s (budget 30 s)")
+    t12g = time.perf_counter()
+    run_counts.update(audit_runs())
+    print(f"phase 12 (g)-(k): {time.perf_counter() - t12g:.1f} s "
+          "(budget 20 s)")
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s (budget 50 s)")
     # 13. the host window engine, the persistent operators and the apps,
     #     counts read just after each run
     t13 = time.perf_counter()
@@ -5330,6 +5814,10 @@ def main():
     t14 = time.perf_counter()
     run_counts.update(serving_runs())
     print(f"phase 14: {time.perf_counter() - t14:.1f} s (budget 45 s)")
+    # 15. the host worker pool, counts read just after each run
+    t15 = time.perf_counter()
+    run_counts.update(pool_runs())
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s (budget 40 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -5393,6 +5881,8 @@ def main():
         r["launches"] = sum(run_counts[label][counter]
                             for label in runs_of[r["name"]])
 
+    print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all "
+          "(limit 1,200 s)")
     print(smi_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

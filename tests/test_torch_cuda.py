@@ -2013,3 +2013,200 @@ def test_cuda_steps_between_executor_ticks_make_no_host_read(cuda_device):
     torch.cuda.synchronize()
     assert moved == 1 and calls == ["_ring_clocks"]
     assert x.ticks == 0 and win._overflow_steps < 31
+
+
+# ---------------------------------------------------------------------------
+# the host worker pool and the capture audit on the card
+# ---------------------------------------------------------------------------
+
+def _pool_k8_graph(threads, out, device="cuda"):
+    """FrameSource → count windows (a K = 8 megastep edge) → host Map
+    (on the egress edge: the driver thread) → host Map → Sink (a
+    host-only chain: pooled)."""
+    import windflow_tpu_torch as wt
+    blob = _ms_blob()
+    step = MS_CAP * 24 * 3 // 2
+
+    def chunks():
+        for i in range(0, len(blob), step):
+            yield blob[i:i + step]
+    src = wt.FrameSource(chunks, nv=1, fields=["v"],
+                         output_batch_size=MS_CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v": np.float32(0.0)})
+    g = wt.PipeGraph("pool_k8", time_policy=wt.TimePolicy.EVENT,
+                     config=wt.Config(
+                         device=device, megastep_sweeps=8,
+                         host_worker_threads=threads, key_compaction=False,
+                         wire_compression=False,
+                         punctuation_interval_usec=10 ** 12))
+    g.add_source(src).add(_ms_tail("cb")) \
+        .add(wt.Map_Builder(lambda r: (int(r["key"]), int(r["wid"]),
+                                       float(r["value"])))
+             .withName("egress_map").build()) \
+        .add(wt.Map_Builder(lambda r: r).withName("chain_map").build()) \
+        .add_sink(wt.Sink_Builder(lambda r: out.append(r) if r is not None
+                                  else None).withName("chain_sink").build())
+    return g
+
+
+@pytest.mark.cuda
+def test_cuda_k8_capture_with_pool_threads_and_a_host_chain(cuda_device):
+    """A K = 8 capture on the driver thread while 4 pool threads drain
+    the host-only chain behind the egress: the group is captured and
+    replayed, the egress Map stays on the driver thread, the chain is
+    pooled, and the records equal the pool-off run's, in order."""
+    got = {}
+    for threads in (0, 4):
+        out = []
+        g = _pool_k8_graph(threads, out)
+        g.run()
+        torch.cuda.synchronize()
+        edge = g.stats()["Megastep"]["edges"][0]
+        assert edge["captures"] >= 1 and edge["megasteps"] >= 1
+        if threads:
+            assert {r.op.name for r in g._pool_replicas} == {
+                "chain_map", "chain_sink"}
+            assert "egress_map" in {r.op.name for r in g._main_replicas}
+        got[threads] = out
+    assert got[4] and got[4] == got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_audit_first_step_recording_makes_no_host_read(cuda_device,
+                                                            sum_combiner):
+    """The capture audit records the CB replica's first step under
+    ``set_sync_debug_mode("error")``: the recording makes no
+    synchronising call of its own, leaves the mode as it found it, and
+    its facts show the kernel launches and no finding."""
+    from windflow_tpu_torch.analysis import ir_audit
+    op = _cb_op(sum_combiner)
+    rep = op.replicas[0]
+    rep.emitter = _Collect()
+    batches = _cb_batches(cuda_device, 2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rep.process_device_batch(batches[0])
+        assert torch.cuda.get_sync_debug_mode() == 2
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    (facts,) = op._audit_programs[op.name].values()
+    assert facts["backend"] == "cuda" and facts["kind"] == "step"
+    assert facts["kernel_launches"] >= (2 if sum_combiner else 1)
+    assert ir_audit.program_findings(op.name, facts) == []
+    rep.process_device_batch(batches[1])      # the shadow is gone
+    assert len(op._audit_programs[op.name]) == 1
+
+
+def _audit_cb_graph(out, sum_combiner=False, **cfg):
+    import windflow_tpu_torch as wt
+    blob = _ms_blob()
+    src = wt.FrameSource(lambda: iter([blob]), nv=1, fields=["v"],
+                         output_batch_size=MS_CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v": np.float32(0.0)})
+    g = wt.PipeGraph("audit_cb", config=wt.Config(
+        device="cuda", megastep_sweeps=1,
+        punctuation_interval_usec=10 ** 12, **cfg))
+    tail = _ms_tail("cb")
+    if sum_combiner:
+        tail = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v"],
+                                           lambda a, b: a + b)
+                .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+                .withMaxKeys(MS_KEYS).withSumCombiner().withName("w")
+                .build())
+    g.add_source(src).add(tail).add_sink(
+        wt.Sink_Builder(lambda r: out.append(
+            (int(r["key"]), int(r["wid"]), float(r["value"])))
+            if r is not None else None).build())
+    return g
+
+
+@pytest.mark.cuda
+def test_cuda_audit_wf907_when_the_grouping_wrapper_runs_plain(
+        cuda_device, monkeypatch):
+    """Within its gate the grouping step launches the kernel and audits
+    clean; with the wrapper swapped for its plain version the same step
+    launches nothing, is WF907, and its records are unchanged."""
+    from windflow_tpu_torch.windows import ffat_kernels
+    base = []
+    g = _audit_cb_graph(base)
+    g.run()
+    sec = g.stats()["IR_audit"]
+    assert sec["findings"] == [] and sec["programs"][0][
+        "kernel_launches"] >= 1
+    monkeypatch.setattr(fc, "order_hist",
+                        lambda ids, nb: ffat_kernels.order_and_hist(ids, nb))
+    out = []
+    g = _audit_cb_graph(out)
+    fc.reset_launch_counts()
+    g.run()
+    assert fc.launch_counts()["grouping_rank_hist"] == 0
+    assert [f["code"] for f in g.stats()["IR_audit"]["findings"]] == [
+        "WF907"]
+    assert sorted(out) == sorted(base)
+
+
+@pytest.mark.cuda
+def test_cuda_audit_wf907_per_kernel_on_the_sum_step(cuda_device,
+                                                      monkeypatch):
+    """The sum-combiner step with only the fold wrapper swapped for its
+    plain version: the grouping kernel still launches, so the step's
+    total launches are not 0, and the audit is WF907 for the fold."""
+    from windflow_tpu_torch.utils.tree import tree_map
+    base = []
+    _audit_cb_graph(base, sum_combiner=True).run()
+    monkeypatch.setattr(fc, "sliding_fold", lambda v, m, R, mo: tree_map(
+        lambda leaf: fc.fold_leaf_plain(leaf, m, R, mo), v))
+    out = []
+    g = _audit_cb_graph(out, sum_combiner=True)
+    fc.reset_launch_counts()
+    g.run()
+    counts = fc.launch_counts()
+    assert counts["sliding_fold"] == 0 and counts["grouping_rank_hist"] > 0
+    (f,) = g.stats()["IR_audit"]["findings"]
+    assert f["code"] == "WF907" and "sliding_fold" in f["message"]
+    assert sorted(out) == sorted(base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_ffat_grouping_argsort_keeps_the_kernel(cuda_device,
+                                                     sum_combiner):
+    """``Config.ffat_grouping="argsort"`` on a CUDA graph with the
+    kernels on: the grouping kernel keeps the job, the audit is clean,
+    and the records equal the default grouping's."""
+    base = []
+    _audit_cb_graph(base, sum_combiner).run()
+    out = []
+    g = _audit_cb_graph(out, sum_combiner, ffat_grouping="argsort")
+    fc.reset_launch_counts()
+    g.run()
+    assert fc.launch_counts()["grouping_rank_hist"] > 0
+    assert g.stats()["IR_audit"]["findings"] == []
+    assert sorted(out) == sorted(base)
+
+
+@pytest.mark.cuda
+def test_cuda_audit_wf906_on_an_item_read(cuda_device):
+    """A MapGPU whose function reads ``.item()`` on the card: its first
+    step is recorded with the host read and the sync, WF906."""
+    import windflow_tpu_torch as wt
+    blob = _ms_blob()
+    src = wt.FrameSource(lambda: iter([blob]), nv=1, fields=["v"],
+                         output_batch_size=MS_CAP,
+                         record_spec={"key": np.int32(0),
+                                      "v": np.float32(0.0)})
+    g = wt.PipeGraph("audit_item", config=wt.Config(
+        device="cuda", preflight="off"))
+    g.add_source(src).add(wt.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v": t["v"] * float(t["v"].sum().item())})
+        .withName("item_map").build()).add_sink(
+        wt.Sink_Builder(lambda r: None).build())
+    g.run()
+    (f,) = g.stats()["IR_audit"]["findings"]
+    assert f["code"] == "WF906" and "_local_scalar_dense" in f["message"]
+    assert "cuda sync" in f["message"]

@@ -267,3 +267,6 @@ def test_monitoring_and_analysis_import_no_jax():
         assert f"windflow_tpu_torch.monitoring.{name}" in mods
     assert "windflow_tpu_torch.analysis.latency" in mods
     assert "windflow_tpu_torch.analysis.tenancy" in mods
+    # the capture audit and the command-line twins of the JAX tools
+    for name in ("ir_audit", "ir", "verify", "advisor", "check"):
+        assert f"windflow_tpu_torch.analysis.{name}" in mods

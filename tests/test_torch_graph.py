@@ -230,7 +230,9 @@ def test_unported_window_kinds_are_named():
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, windflow_tpu_torch, windflow_tpu_torch.interop, "
             "windflow_tpu_torch.kernels.build, windflow_tpu_torch.entry, "
-            "windflow_tpu_torch.fusion\n"
+            "windflow_tpu_torch.fusion, "
+            "windflow_tpu_torch.analysis.ir_audit, "
+            "windflow_tpu_torch.durability.chaos\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'windflow_tpu' or "
             "m.startswith('windflow_tpu.')]\n"

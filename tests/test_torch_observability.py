@@ -301,8 +301,12 @@ def test_stats_sections_have_jax_keys(traced_runs):
         set(jst["Shard"]["per_op"]["ma"]["replicas"][0]) | {"hbm_bytes"}
     for sec in ("Latency_plane", "Tenant", "Roofline"):
         assert st[sec]["enabled"] and set(st[sec]) == set(jst[sec]), sec
-    for sec in ("IR_audit", "Reshard"):
-        assert st[sec] == {"enabled": False}
+    # the capture audit's section: JAX's keys, plus the recorded
+    # programs and the sanctioned host reads seen
+    assert st["IR_audit"]["enabled"] and jst["IR_audit"]["enabled"]
+    assert set(st["IR_audit"]) == set(jst["IR_audit"]) | {
+        "programs", "exempt_host_reads"}
+    assert st["Reshard"] == {"enabled": False}
     json.dumps(st)
 
 

@@ -19,8 +19,10 @@ The advisors plan over a ``stats()`` section: ``fusion.plan`` (the
 fusible chains over ``Sweep``), ``resharding.plan`` (``Shard``),
 ``latency.plan`` (``Latency_plane``) and ``tenancy.plan`` (``Tenant``).
 ``python -m windflow_tpu_torch.analysis.check module:fn [--json]`` is
-the command-line face of ``check()``.  The IR audit (WF9xx) is not
-ported yet.
+the command-line face of ``check()``; ``analysis.verify``,
+``analysis.advisor`` and ``analysis.ir`` are those of wfverify, the
+fusion plan and ``analysis.ir_audit``, the capture audit (WF9xx) of
+each device replica's first step and each megastep capture.
 """
 
 from windflow_tpu_torch.analysis.debug_concurrency import (

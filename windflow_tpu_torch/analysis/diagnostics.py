@@ -125,20 +125,22 @@ CODES = {
     # the port donates no buffer: the family never fires there
     "WF821": ("error", "donated operand read after dispatch (the buffer "
                        "is dead once the compiled program owns it)"),
-    # -- IR-level audit (WF9xx): not ported yet -----------------------------
+    # -- the capture audit (WF9xx, analysis/ir_audit.py) ---------------------
     "WF900": ("warning", "ir-audit pass failed internally and was "
                          "skipped (analysis degraded, programs "
                          "unchecked)"),
     "WF901": ("error", "cross-chip collective in a program on an edge "
                        "the aligned-ingest plan promised (or would "
                        "make) collective-free"),
-    "WF902": ("error", "host callback inside a hot-path program"),
+    "WF902": ("error", "host crossing inside a device step body (a "
+                       "device-to-host copy or host compute)"),
     "WF903": ("error", "64-bit values survived into a device program "
                        "past the compiled-dtype gates"),
     "WF904": ("warning", "dynamic-shape op in a device program (IR "
                          "twin of the WF812 hazard)"),
-    "WF905": ("error", "donation miss at IR level: donated operands "
-                       "with no input-output aliasing"),
+    "WF905": ("error", "donation miss at IR level (not applicable in "
+                       "the port: torch steps donate nothing and carry "
+                       "state functionally)"),
     "WF906": ("warning", "mid-program device<->host transfer (scalar "
                          "D2H sync) in a device program"),
     "WF907": ("warning", "a CUDA kernel's plain version ran on the "

@@ -49,7 +49,7 @@ _UNKNOWN = None
 #: the passes :func:`check_graph` runs, in order (``stats()["Preflight"]``)
 PASSES = ("structural", "window_spec", "capacity", "compaction",
           "watermark", "durability", "kernel", "wire", "kernel_downgrade",
-          "megastep", "tracecheck")
+          "megastep", "tracecheck", "ir_audit")
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +355,29 @@ def check_graph(graph) -> List[Diagnostic]:
     _kernel_downgrade_pass(graph, ops, diags)
     _megastep_pass(graph, ops, edges, upstreams, diags)
     _tracecheck_pass(graph, diags)
+    _ir_audit_pass(graph, diags)
     return diags
+
+
+def _ir_audit_pass(graph, diags) -> None:
+    """The capture audit (``analysis/ir_audit.py``): WF9xx over the
+    recorded step bodies and captures, plus a dry run of the user
+    functions over the record specs when the graph has recorded nothing
+    yet.  Guarded like wfverify: an auditor fault degrades to WF900,
+    never blocks a run."""
+    try:
+        from windflow_tpu_torch.analysis import ir_audit
+        if not ir_audit.enabled(getattr(graph, "config", None)):
+            return
+        report = ir_audit.audit_graph(graph)
+        graph._ir_audit_report = report
+        diags.extend(report.diagnostics)
+    except Exception as e:  # noqa: BLE001 - lint: broad-except-ok (an
+        # auditor fault degrades to a note instead of masking the
+        # preflight result)
+        diags.append(Diagnostic(
+            "WF900", f"ir-audit pass failed internally and was skipped "
+                     f"— {type(e).__name__}: {e}"[:300]))
 
 
 def _structural_pass(graph, ops, edges, diags) -> None:

@@ -1,8 +1,9 @@
 """Basic definitions: enums, the runtime :class:`Config`, small helpers.
 
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
-not imported across: the port stands alone).  ``Config`` keeps only the
-fields the ported slices read, with the JAX package's defaults
+not imported across: the port stands alone).  ``Config`` has every
+field of the JAX package's but the mesh's two (``mesh``,
+``key_aligned_ingest``), with the JAX package's defaults
 (``wire_compression`` and ``megastep_sweeps`` resolve "auto" from
 ``device``), plus the two the port adds: ``device`` (the card unless
 the caller asks for the CPU) and ``cuda_kernels`` (the kernel switch,
@@ -97,6 +98,18 @@ class Config:
     # Extra source-tick passes per sweep after the drain phase, so batch
     # N+1 is packed on the host while the card runs batch N.
     stage_prefetch_depth: int = 1
+    # Default device batch capacity (tuples a step) where a graph names
+    # none: the capacity the IR audit's dry pass evaluates a user
+    # function at when no upstream declares an output batch size.
+    default_batch_size: int = 4096
+    # FFAT batch grouping: "rank_scatter" (the counting permutation, and
+    # the grouping kernel under its gate) or "argsort" (the stable
+    # comparison sort; a declared monoid then takes the permutation path
+    # too).  Both order by (key, arrival): the records are identical.
+    # "argsort" sorts only where the grouping kernel cannot run (kernels
+    # off, or a CPU graph): on CUDA with the kernels on, the kernel runs.
+    ffat_grouping: str = os.environ.get("WF_TPU_FFAT_GROUPING",
+                                        "rank_scatter")
     # Hand-written CUDA kernels on the FFAT and reduce paths
     # (windflow_tpu_torch/kernels): "auto" launches them for CUDA tensors and runs their plain
     # PyTorch versions for CPU tensors; "1" forces them on (the same
@@ -226,6 +239,25 @@ class Config:
     # diagnostics (warnings are warned), "warn" downgrades every finding
     # to a warning, "off" skips the pass.
     preflight: str = os.environ.get("WF_TPU_PREFLIGHT", "error")
+    # Host worker pool (reference: one OS thread per replica,
+    # basic_operator.hpp:54-235): N > 0 drains host replicas on an
+    # N-thread pool each sweep, one task a replica with work.  Sources,
+    # device replicas, replicas not host_pool_safe and every replica on
+    # an edge that carries device batches stay on the driver thread, so
+    # a pool thread never touches the card (nor a CUDA graph capture).
+    # Pure-Python per-tuple work is GIL-bound; GIL-releasing work
+    # (numpy, native calls, blocking I/O) overlaps.  0 = the single
+    # cooperative loop.
+    host_worker_threads: int = int(os.environ.get("WF_TPU_HOST_WORKERS",
+                                                  "0"))
+    # Capture audit (analysis/ir_audit.py): the first step of each
+    # device operator and each megastep capture run under a recording
+    # dispatch mode, whose facts (host crossings, syncs, 64-bit dtypes,
+    # data-dependent shapes, rebound in-place state, kernel launches)
+    # read as WF902-WF907 in stats()["IR_audit"], the postmortem's
+    # ir_audit.json and check()'s table.  0 is the kill switch: nothing
+    # is recorded, one flag check on the cold first-step path.
+    ir_audit: bool = bool(int(os.environ.get("WF_TPU_IR_AUDIT", "1")))
     # Dashboard endpoint (reference WF_DASHBOARD_MACHINE/PORT) of the
     # monitoring thread (monitoring/monitor.py).
     dashboard_host: str = os.environ.get("WF_TPU_DASHBOARD_HOST",

@@ -30,6 +30,12 @@ Kills are simulated in-process (the exception rides the scheduler loop's
 crash path, which flushes and closes the checkpoint store); the broker,
 checkpoint store, and sink files survive as the "external world" a real
 restart would see.
+
+``python -m windflow_tpu_torch.durability.chaos`` runs the matrix from
+the command line (the twin of the JAX package's ``tools/wf_chaos.py``,
+with its JSON and exit codes) on the card unless ``--device cpu``;
+``--mesh`` asks for the mesh rescale cells, which wait for the
+multi-GPU slice (ROADMAP A10) and exit 2 with that error.
 """
 
 from __future__ import annotations
@@ -577,3 +583,143 @@ def run_ab(factory_baseline: Optional[Callable[[], object]],
     out.update(_verdict(gb, gc, base_out, chaos_out,
                         diff_records(base_out, chaos_out), seconds))
     return out
+
+
+# ---------------------------------------------------------------------------
+# command line
+# ---------------------------------------------------------------------------
+
+def run_cell(family: str, point: str, fusion: bool, records: int,
+             workdir: str, **cfg) -> dict:
+    """One (family, kill point, fusion) cell of the matrix, each run in
+    its own checkpoint and output directories under ``workdir``."""
+    import os
+    tag = f"{family}_{point}_{'on' if fusion else 'off'}"
+    base = make_cell(family, os.path.join(workdir, tag, "ckpt_a"),
+                     fusion=fusion, n=records,
+                     out_dir=os.path.join(workdir, tag, "out_a"), **cfg)
+    chal = make_cell(family, os.path.join(workdir, tag, "ckpt_b"),
+                     fusion=fusion, n=records,
+                     out_dir=os.path.join(workdir, tag, "out_b"), **cfg)
+    verdict = run_ab(base["factory"], chal["factory"],
+                     default_kill(family, point), base["read"],
+                     chal["read"])
+    verdict.update(family=family, point=point, fusion=fusion)
+    return verdict
+
+
+def run_rescale_cells(families, records: int, workdir: str,
+                      **cfg) -> list:
+    """Kill-a-shard / restore-on-N±1 cells: each rescale family killed
+    at 3 replicas and restored on 2 and on 4.  Mesh shapes wait for the
+    multi-GPU slice (``main`` refuses ``--mesh``)."""
+    out = []
+    for family in families:
+        for shards_restore in (2, 4):
+            v = run_rescale_ab(family, "mid_epoch", workdir, shards_kill=3,
+                               shards_restore=shards_restore, n=records,
+                               **cfg)
+            v.setdefault("mesh", None)
+            out.append(v)
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+    import sys
+    import tempfile
+    ap = argparse.ArgumentParser(
+        prog="python -m windflow_tpu_torch.durability.chaos",
+        description="failure-injection harness for the durability plane")
+    ap.add_argument("--family", choices=FAMILIES, action="append",
+                    help="graph family (repeatable; default: all)")
+    ap.add_argument("--point", choices=KILL_POINTS, action="append",
+                    help="kill point (repeatable; default: all)")
+    ap.add_argument("--fusion", choices=("on", "off", "both"),
+                    default="both")
+    ap.add_argument("--records", type=int, default=4096)
+    ap.add_argument("--rescale", choices=("on", "off"), default="on",
+                    help="also run the kill-a-shard / restore-on-N±1 "
+                         "rescale cells (per-key record diff)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the mesh rescale cells (they wait for the "
+                         "multi-GPU slice: exit 2)")
+    ap.add_argument("--device", default="cuda",
+                    help="Config.device of the cells' graphs (default: "
+                         "the card)")
+    ap.add_argument("--workdir", default=None,
+                    help="directory for checkpoint stores and sink files "
+                         "(default: a fresh temporary directory)")
+    ap.add_argument("--json", action="store_true")
+    args = ap.parse_args(argv)
+    families = args.family or list(FAMILIES)
+    points = args.point or list(KILL_POINTS)
+    fusions = {"on": [True], "off": [False],
+               "both": [True, False]}[args.fusion]
+    if args.mesh:
+        print("wf_chaos: FAIL: the mesh rescale cells wait for the "
+              "multi-GPU slice (ROADMAP A10): the port runs one device",
+              file=sys.stderr)
+        return 2
+    workdir = args.workdir or tempfile.mkdtemp(prefix="wf_chaos_")
+    cfg = {"device": args.device}
+    results, failed = [], 0
+    for family in families:
+        for point in points:
+            for fusion in fusions:
+                v = run_cell(family, point, fusion, args.records, workdir,
+                             **cfg)
+                results.append(v)
+                ok = v["diff"] is None
+                failed += 0 if ok else 1
+                if not args.json:
+                    print(f"{'OK  ' if ok else 'FAIL'} {family:<16} "
+                          f"{point:<15} fusion={'on ' if fusion else 'off'}"
+                          f" records={v['records']:<6} "
+                          f"restored_epoch={v['restored_epoch']} "
+                          f"dedupe={v['dedupe_hits']}"
+                          + ("" if ok else f"\n     {v['diff']}"))
+    if args.rescale == "on":
+        rescale_fams = [f for f in RESCALE_FAMILIES if f in families]
+        if args.family and not rescale_fams:
+            print("wf_chaos: none of the selected families "
+                  f"({families}) has a rescale cell "
+                  f"(rescale families: {list(RESCALE_FAMILIES)})",
+                  file=sys.stderr)
+        if not args.family:
+            print("wf_chaos: the mesh rescale cells wait for the "
+                  "multi-GPU slice (ROADMAP A10) — skipped",
+                  file=sys.stderr)
+        for v in run_rescale_cells(rescale_fams, args.records, workdir,
+                                   **cfg):
+            results.append(v)
+            ok = v["diff"] is None
+            failed += 0 if ok else 1
+            if not args.json:
+                shape = v["mesh"] or v["shards"]
+                print(f"{'OK  ' if ok else 'FAIL'} "
+                      f"{v['family']:<16} {v['point']:<15} "
+                      f"rescale={shape:<8} records={v['records']:<6} "
+                      f"restored_epoch={v['restored_epoch']}"
+                      + ("" if ok else f"\n     {v['diff']}"))
+    if args.json:
+        json.dump(results, sys.stdout, indent=1)
+        print()
+    n_rescale = sum(1 for v in results if v.get("rescale"))
+    n_eo = len(results) - n_rescale
+    if failed:
+        print(f"wf_chaos: FAIL — {failed}/{len(results)} cell(s) "
+              "violated their contract (exactly-once cells must hold)",
+              file=sys.stderr)
+        return 1
+    print(f"wf_chaos: OK — {n_eo} cell(s) held exactly-once"
+          + (f", {n_rescale} rescale (kill-a-shard / restore-on-N±1) "
+             "cell(s) held per-key exact" if n_rescale else "")
+          + f" (workdir {workdir})")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys as _sys
+    _sys.exit(main())

@@ -54,9 +54,30 @@ executor (``windflow_tpu_torch/serving``) is built last: it ticks
 between driver sweeps, after the durability call site, applies the
 reshard advisor's plans through the quiesce barrier, and scales the
 source tick chunk by its admission factor; ``stats()["Reshard"]`` and
-the postmortem's ``reshard.json`` carry its counters.  The JAX package's
-IR-audit plane is not ported yet: its section reads ``{"enabled":
-False}``.
+the postmortem's ``reshard.json`` carry its counters.
+
+Host-heavy pipelines (window engines, FlatMaps, sink serializers) share
+the driver thread, where the reference runs a thread per replica
+(``basic_operator.hpp:54``).  ``Config.host_worker_threads > 0`` builds
+a worker pool: each sweep, the pooled replicas with pending input drain
+concurrently, one task a replica (per-replica processing stays serial,
+and keyed routing still pins a key to one replica), while the driver
+thread drains the rest; the sweep joins the pool's tasks before the
+prefetch, the durability cadence and the reshard executor, so a quiesce
+never overlaps a pooled drain.  A replica is pooled only when its
+operator is a host operator, not a source, ``host_pool_safe``, and no
+edge into or out of it carries device batches: the device-to-host copy
+of an egress runs in its consumer and the staging of a host-to-device
+edge in its producer, so a pool thread never touches the card and never
+lands a copy inside a CUDA graph capture on the driver thread.  (The
+JAX package pools every host replica: a ``device_get`` may run on any
+thread.)  GIL-releasing host work (numpy, native calls, blocking I/O)
+then overlaps; pure-Python per-tuple work stays GIL-bound.
+
+The capture audit (``analysis/ir_audit.py``, ``Config.ir_audit``)
+records the first step of each device operator and each megastep
+capture; ``stats()["IR_audit"]``, the postmortem's ``ir_audit.json``
+and ``check()``'s table read its WF9xx findings.
 """
 
 from __future__ import annotations
@@ -67,6 +88,7 @@ import os
 import threading
 import time
 from collections import deque
+from concurrent.futures import wait as wait_futures
 from typing import List, Optional
 
 from windflow_tpu_torch.basic import (Config, ExecutionMode, RoutingMode,
@@ -142,6 +164,13 @@ class PipeGraph:
         self._preflight_diags = None
         self._preflight_ms = None
         self._tracecheck_report = None
+        #: the last check()'s capture-audit report (analysis/ir_audit.py)
+        self._ir_audit_report = None
+        #: the host worker pool (Config.host_worker_threads): the
+        #: replicas it drains, and the driver thread's remainder
+        self._pool = None
+        self._pool_replicas = []
+        self._main_replicas = []
 
     # -- construction --------------------------------------------------------
     def add_source(self, source: Source) -> MultiPipe:
@@ -402,6 +431,23 @@ class PipeGraph:
                         f"operator '{op.name}' has no downstream consumer — "
                         "every MultiPipe must end in a Sink")
 
+        # 5. the host worker pool's partition, after the wiring: pooled
+        # replicas neither consume nor emit device batches
+        if cfg.host_worker_threads > 0:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(
+                max_workers=cfg.host_worker_threads,
+                thread_name_prefix=f"wf-{self.name}")
+            on_device = _device_edge_ops(edges)
+            for op in self._operators:
+                pooled = (not op.is_gpu and op.host_pool_safe
+                          and not isinstance(op, Source)
+                          and id(op) not in on_device)
+                (self._pool_replicas if pooled
+                 else self._main_replicas).extend(op.replicas)
+        else:
+            self._main_replicas = self._all_replicas
+
     def _attach_ledgers(self) -> None:
         cfg = self.config
         if cfg.latency_ledger and self._recorder is not None:
@@ -602,6 +648,10 @@ class PipeGraph:
                 self._tenant.freeze()
             except Exception:  # lint: broad-except-ok (see above)
                 pass
+        if self._pool is not None:
+            # before the stores close: no pooled drain outlives them
+            self._pool.shutdown(wait=True)
+            self._pool = None
         if self._durability is not None:
             # counters stay readable: stats() reads the plane's fields
             self._durability.close()
@@ -627,9 +677,26 @@ class PipeGraph:
                     progress = True
                 sr.maybe_punctuate()
         limit = self.config.sweep_drain_limit
-        for rep in self._all_replicas:
-            if rep.drain(limit):
-                progress = True
+        pool = self._pool
+        if pool is not None:
+            # one task a pooled replica with work: its processing stays
+            # serial; the join below ends the sweep's drain phase
+            futures = [pool.submit(rep.drain, limit)
+                       for rep in self._pool_replicas if rep.inbox]
+        try:
+            for rep in self._main_replicas:
+                if rep.drain(limit):
+                    progress = True
+        finally:
+            if pool is not None:
+                # every pooled drain ends before the sweep does, on an
+                # error too: nothing writes while the crash path's
+                # postmortem and _finalize flush and close the stores
+                wait_futures(futures)
+        if pool is not None:
+            for f in futures:
+                if f.result():
+                    progress = True
         # staging lookahead: the drain only enqueued device work, so pack
         # the next batch on the host while the card runs
         for _ in range(max(0, self.config.stage_prefetch_depth)):
@@ -794,6 +861,26 @@ class PipeGraph:
         return self._guarded(self, lambda: wire_section(self),
                              error_section={"enabled": None})
 
+    def _ir_audit_section(self) -> dict:
+        """The capture audit (``analysis/ir_audit.py``): WF9xx findings
+        over this graph's recorded step bodies and captures, re-read
+        from the process store at read cadence (no step, no capture).
+        With ``Config.ir_audit`` off this is the whole cost: one
+        check."""
+        try:
+            from windflow_tpu_torch.analysis import ir_audit
+            if not ir_audit.enabled(self.config):
+                return {"enabled": False}
+            report = ir_audit.audit_graph(self, dry_lower=False)
+            self._ir_audit_report = report
+            out = {"enabled": True}
+            out.update(report.to_json())
+            return out
+        except Exception as e:  # lint: broad-except-ok (telemetry
+            # degrades, the report still ships)
+            return {"enabled": True, "error": f"{type(e).__name__}: "
+                                              f"{e}"[:200]}
+
     def _preflight_section(self) -> dict:
         """The last check(): its mode, cost, findings and passes."""
         from windflow_tpu_torch.analysis.preflight import PASSES
@@ -956,14 +1043,14 @@ class PipeGraph:
                 self._max_inflight_device_seen,
             "Non_blocking": "ON",     # asynchronous device streams
             "Thread_pinning": "OFF",
-            "Host_worker_threads": 0,
+            "Host_worker_threads": cfg.host_worker_threads,
             "Staging_pool": _staging_pool_stats(),
             "Staging": {"Wire": self._wire_section()},
             "Stage_prefetch_depth": cfg.stage_prefetch_depth,
             "Stage_prefetch_ticks": self._prefetch_ticks,
             "Dropped_tuples": self.get_num_dropped_tuples(),
             "Operator_number": len(self._operators),
-            "Thread_number": 1,
+            "Thread_number": 1 + cfg.host_worker_threads,
             "rss_size_kb": _rss_kb(),
             # wire bytes (the transfers) and logical bytes (the decoded
             # lanes): equal unless the wire plane compressed
@@ -983,7 +1070,7 @@ class PipeGraph:
             "Device": self._device_section(),
             "Sweep": self._sweep_section(),
             "Shard": self._shard_section(),
-            "IR_audit": off,
+            "IR_audit": self._ir_audit_section(),
             "Megastep": (plane.summary() if plane is not None
                          else {"k": 1, "edges": [], "refused": []}),
             "Durability": self._durability_section(),
@@ -1005,9 +1092,10 @@ class PipeGraph:
                         reason: str = "manual") -> str:
         """Black-box bundle: the last ``stats()``, the flight recorder's
         events, the health verdicts and stall attribution, the device
-        gauges, the step registry, the preflight findings, the sweep,
-        shard, latency and tenant ledgers, the roofline, the calibration
-        provenance, the durability plane and the reshard executor, one
+        gauges, the step registry, the preflight findings, the capture
+        audit, the sweep, shard, latency and tenant ledgers, the
+        roofline, the calibration provenance, the durability plane and
+        the reshard executor, one
         JSON file each, plus
         ``manifest.json`` — what ``tools/wf_doctor.py`` renders and
         checks.  Every section is guarded on its own (a failure lands in
@@ -1066,6 +1154,7 @@ class PipeGraph:
         write("durability.json", self._durability_section)
         write("reshard.json", self._reshard_section)
         write("preflight.json", self._preflight_section)
+        write("ir_audit.json", self._ir_audit_section)
         from windflow_tpu_torch.monitoring.health import POSTMORTEM_SCHEMA
         manifest = {
             "schema": POSTMORTEM_SCHEMA,
@@ -1079,6 +1168,25 @@ class PipeGraph:
             json.dump(manifest, f, indent=1)
         self._postmortem_dir = d
         return d
+
+
+def _device_edge_ops(edges) -> set:
+    """ids of the operators at either end of an edge that carries device
+    batches (a device producer or a device consumer): the host worker
+    pool leaves their replicas on the driver thread."""
+    out = set()
+    for edge in edges:
+        if edge[0] == "op":
+            pairs = [(edge[1], edge[2])]
+        else:
+            mp = edge[1]
+            pairs = [(mp.operators[-1], child.operators[0])
+                     for child in mp.split_children]
+        for a, b in pairs:
+            if a.is_gpu or b.is_gpu:
+                out.add(id(a))
+                out.add(id(b))
+    return out
 
 
 def _calibration_summary() -> dict:

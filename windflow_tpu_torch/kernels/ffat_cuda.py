@@ -69,8 +69,27 @@ _LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0,
              "dense_monoid_table": 0}
 
 
+#: kernel gates that held since import, keyed as :data:`_LAUNCHES`
+#: (``grouping_supported``, ``fold_supported``,
+#: ``reduce_cuda.table_supported`` returning True): the capture audit
+#: reads each kernel's delta over a recorded step beside its launches
+#: (WF907)
+_GATES_OPEN = dict.fromkeys(_LAUNCHES, 0)
+
+
 def kernel_build_count() -> int:
     return _BUILD_COUNT
+
+
+def gates_open() -> dict:
+    return dict(_GATES_OPEN)
+
+
+def _gate(name: str, ok: bool) -> bool:
+    """Count kernel ``name``'s gate if it held; return it."""
+    if ok:
+        _GATES_OPEN[name] += 1
+    return ok
 
 
 def note_entry() -> None:
@@ -225,7 +244,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def grouping_supported(n: int, nbuckets: int) -> bool:
     """The Pallas gate, kept as is: outside it the torch counting path
     keeps the job (bit-identical either way)."""
-    return 2 <= nbuckets <= MAX_BUCKETS and 0 < n <= MAX_LANES
+    return _gate("grouping_rank_hist",
+                 2 <= nbuckets <= MAX_BUCKETS and 0 < n <= MAX_LANES)
 
 
 def grouping_rank_hist_plain(ids: torch.Tensor, nbuckets: int):
@@ -291,7 +311,8 @@ def fold_supported(values, R: int, monoid: Optional[str]) -> bool:
         return False
     if int(leaves[0].shape[1]) + (R - 1) > MAX_FOLD_PANES:
         return False
-    return all(l.dtype in (torch.float32, torch.int32) for l in leaves)
+    return _gate("sliding_fold", all(l.dtype in (torch.float32, torch.int32)
+                                     for l in leaves))
 
 
 def _shift_cols(x: torch.Tensor, k: int, fill) -> torch.Tensor:

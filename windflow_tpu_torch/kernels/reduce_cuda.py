@@ -52,7 +52,8 @@ _OP_CODE = {"sum": 0, "max": 1, "min": 2}
 def table_supported(n: int, nslots: int) -> bool:
     """Slot-space / lane-count gate of the kernel, as in Pallas: beyond
     it the torch scatter keeps the job."""
-    return 1 <= nslots <= MAX_SLOTS and 0 < n <= MAX_LANES
+    return fc._gate("dense_monoid_table",
+                    1 <= nslots <= MAX_SLOTS and 0 < n <= MAX_LANES)
 
 
 def table_leaf_ok(shape, dtype) -> bool:
@@ -180,11 +181,10 @@ def routed_monoid_tables(row: torch.Tensor, payload, monoid: str,
     the int32 per-slot lane count (``None`` unless ``want_count``)."""
     leaves, treedef = tree_flatten(payload)
     B = int(row.shape[0])
-    if not table_supported(B, nslots):
-        return None
     routed = [table_leaf_ok(tuple(l.shape), l.dtype) for l in leaves]
-    # wfverify: ok (routing by the leaves' shapes and dtypes)
-    if not any(routed):
+    # wfverify: ok (routing by the leaves' shapes and dtypes; the slot
+    # gate last, so a gate that holds is a launch that follows)
+    if not any(routed) or not table_supported(B, nslots):
         return None
     hot = [l.contiguous() for l, r in zip(leaves, routed) if r]
     vals = list(hot)

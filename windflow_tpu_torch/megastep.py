@@ -341,6 +341,9 @@ class MegastepEdge:
         silently."""
         import torch
 
+        from contextlib import nullcontext
+
+        from windflow_tpu_torch.analysis import ir_audit
         from windflow_tpu_torch.kernels.ffat_cuda import (CountedGraph,
                                                           uncounted)
         dev = self.op.device
@@ -361,13 +364,21 @@ class MegastepEdge:
                      else tree_map(torch.clone, static), x, wm)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = CountedGraph(torch.cuda.CUDAGraph())
+            # the capture audit records this capture's body (the one
+            # capture: no extra one), None when off or recorded already
+            audit = ir_audit.capture_audit(
+                self.op, f"{self.op.name} [megastep {self.kind} "
+                f"K={self.k}]", repr(self._sig(pkt)), self.op.config)
             with graph.capture(torch.cuda.graph(graph.graph)):
-                new_carry, ys = body(static, x, wm)
-                if static is not None:
-                    for s, n in zip(tree_flatten(static)[0],
-                                    tree_flatten(new_carry)[0]):
-                        if s is not n:
-                            s.copy_(n)
+                with audit if audit is not None else nullcontext():
+                    new_carry, ys = body(static, x, wm)
+                    if static is not None:
+                        for s, n in zip(tree_flatten(static)[0],
+                                        tree_flatten(new_carry)[0]):
+                            if s is not n:
+                                s.copy_(n)
+            if audit is not None:
+                audit.finish(graph.launches)
         except Exception as e:  # lint: broad-except-ok (re-raised
             # with the cause)
             raise WindFlowError(

@@ -246,6 +246,11 @@ class Operator:
     _compactor = None
     #: the step registry's handle (``watch``), made lazily
     _watch = None
+    #: host operators whose replicas the host worker pool may drain
+    #: concurrently (``Config.host_worker_threads``); operators with
+    #: cross-replica shared mutable state (a shared persistent DB handle)
+    #: clear this to stay on the driver thread
+    host_pool_safe = True
 
     def __init__(self, name: str, parallelism: int,
                  routing: RoutingMode = RoutingMode.FORWARD,

@@ -14,7 +14,9 @@ as in the reference.
 
 ``_GPUReplica.process_device_batch`` is the one step site of every device
 operator (map, filter, chained, reduce, stateful, windows, fused hops):
-it counts the dispatch in the step registry and, on a traced batch,
+its first step runs under the capture audit's recorder
+(``analysis/ir_audit.record_step``); it counts the dispatch in the step
+registry and, on a traced batch,
 stamps ``dispatched``, wraps the step in ``record_function("op:<name>
 trace:<id>")`` for a ``torch.profiler`` capture, and on every
 ``trace_device_sync_every``-th traced batch waits for the step's device
@@ -34,6 +36,19 @@ from windflow_tpu_torch.utils.tree import per_record, tree_map
 
 class _GPUReplica(Replica):
     """Shared device-batch plumbing for device operator replicas."""
+
+    def __init__(self, op, index: int) -> None:
+        super().__init__(op, index)
+        # the capture audit rides the first step (analysis/ir_audit.py):
+        # this instance attribute shadows _op_step once, then goes
+        self._op_step = self._first_step
+
+    def _first_step(self, batch: DeviceBatch):
+        del self._op_step
+        from windflow_tpu_torch.analysis import ir_audit
+        if not ir_audit.enabled(self.config):
+            return self._op_step(batch)
+        return ir_audit.record_step(self, batch)
 
     def _op_step(self, batch: DeviceBatch):
         fx = self.op._fusion_exec

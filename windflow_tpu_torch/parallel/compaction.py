@@ -252,8 +252,8 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
             widths = [int(c.shape[1]) for c in cols]
             upd = torch.cat(cols + [tcol[:, None]], 1)
             ident = I64MIN if monoid == "max" else I64MAX
-            if kernels and rc.table_supported(capacity, T) \
-                    and rc.table_leaf_ok(tuple(upd.shape), upd.dtype):
+            if kernels and rc.table_leaf_ok(tuple(upd.shape), upd.dtype) \
+                    and rc.table_supported(capacity, T):
                 tbl = rc.dense_monoid_table(row, [upd], [monoid], [ident],
                                             T)[0]
             else:

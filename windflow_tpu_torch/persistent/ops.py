@@ -92,6 +92,9 @@ class _PersistentOperator(Operator):
         self.serialize = serialize
         self.deserialize = deserialize
         self.shared_db = shared_db
+        # a shared DB handle serializes its replicas on the driver thread
+        # (the host worker pool must not interleave writers in one LogKV)
+        self.host_pool_safe = not shared_db
         self.keep_db = keep_db
 
 

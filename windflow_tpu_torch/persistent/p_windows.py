@@ -138,6 +138,7 @@ class PKeyedWindows(KeyedWindows):
         self.serialize = serialize
         self.deserialize = deserialize
         self.shared_db = shared_db
+        self.host_pool_safe = not shared_db  # see persistent/ops.py
         self.keep_db = keep_db
 
     def _engine_kwargs(self, replica):

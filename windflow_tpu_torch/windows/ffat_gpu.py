@@ -239,11 +239,13 @@ class FfatWindowsGPU(Operator):
                 capacity, self.max_keys, self.P, self.R, self.D, self.NP,
                 lift, self.comb, key_fn,
                 drop_tainted=self.overflow_policy == "drop",
-                monoid=self.monoid, kernels=kernels)
+                monoid=self.monoid, kernels=kernels,
+                grouping=self._grouping())
         else:
             step = make_ffat_step(capacity, self.max_keys, self.P, self.R,
                                   self.D, lift, self.comb, key_fn,
-                                  monoid=self.monoid, kernels=kernels)
+                                  monoid=self.monoid, kernels=kernels,
+                                  grouping=self._grouping())
         if self._compactor is not None:
             step = self._compacted(step)
         prelude = self._fused_prelude
@@ -257,6 +259,15 @@ class FfatWindowsGPU(Operator):
             payload, valid = prelude(payload, valid)
             return inner(state, payload, ts, valid, *rest)
         return step
+
+    def _grouping(self) -> str:
+        """``Config.ffat_grouping`` (rank_scatter | argsort), checked at
+        step build."""
+        mode = getattr(self.config, "ffat_grouping", "rank_scatter")
+        if mode not in ("rank_scatter", "argsort"):
+            raise WindFlowError(
+                f"unknown ffat_grouping '{mode}' (rank_scatter | argsort)")
+        return mode
 
     def _compacted(self, kernel):
         """Wrap a window step for a compacted key space: ``(state,

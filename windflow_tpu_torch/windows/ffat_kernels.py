@@ -109,19 +109,39 @@ def _where(mask, a, b):
     return torch.where(_b(mask, a), a, b)
 
 
-def _group_order(ids, nbuckets: int, kernels: bool):
+def _sorts(grouping: str, kernels: bool, on_card: bool) -> bool:
+    """Whether ``Config.ffat_grouping="argsort"`` takes the stable sort
+    for ids on the card (``on_card``) or not: only where the grouping
+    kernel cannot run (kernels off, or CPU ids).  On a CUDA tensor with
+    the kernels on the kernel keeps the job: its records are the sort's
+    by construction."""
+    return grouping == "argsort" and not (kernels and on_card)
+
+
+def _group_order(ids, nbuckets: int, kernels: bool,
+                 grouping: str = "rank_scatter"):
     """Stable grouping permutation of int32 ids in ``[0, nbuckets)``:
     through the grouping kernel where its gate holds, else the counting
-    permutation up to DIGIT^2 buckets and the stable sort beyond
-    (bit-identical either way: all order by (id, arrival))."""
+    permutation up to DIGIT^2 buckets and the stable sort beyond;
+    ``grouping="argsort"`` (``Config.ffat_grouping``) takes the stable
+    sort where the kernel cannot run (:func:`_sorts`; bit-identical
+    either way: all order by (id, arrival))."""
+    if _sorts(grouping, kernels, ids.is_cuda):
+        return torch.sort(ids, stable=True).indices
     if kernels and fc.grouping_supported(int(ids.shape[0]), nbuckets):
         return fc.order_hist(ids, nbuckets)[0]
     return auto_order(ids, nbuckets)
 
 
-def _group_order_hist(ids, nbuckets: int, kernels: bool):
+def _group_order_hist(ids, nbuckets: int, kernels: bool,
+                      grouping: str = "rank_scatter"):
     """Stable grouping permutation plus the ``[nbuckets]`` histogram;
-    through the grouping kernel where its gate holds."""
+    through the grouping kernel where its gate holds (the stable sort
+    and a histogram where ``grouping="argsort"`` sorts, :func:`_sorts`)."""
+    if _sorts(grouping, kernels, ids.is_cuda):
+        hist = torch.zeros(nbuckets, dtype=torch.int32, device=ids.device)
+        hist.index_add_(0, ids.long(), torch.ones_like(ids))
+        return torch.sort(ids, stable=True).indices, hist
     if kernels and fc.grouping_supported(int(ids.shape[0]), nbuckets):
         return fc.order_hist(ids, nbuckets)
     return order_and_hist(ids, nbuckets)
@@ -337,7 +357,8 @@ def _sliding_reduce_plain(comb, flags, values, R: int, axis: int,
 def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
                    lift: Callable, comb: Callable,
                    key_fn: Optional[Callable],
-                   monoid: Optional[str] = None, kernels: bool = False):
+                   monoid: Optional[str] = None, kernels: bool = False,
+                   grouping: str = "rank_scatter"):
     """Build the FFAT per-batch step
     ``(state, payload, ts, valid) -> (state, out, out_valid, out_ts)``.
 
@@ -370,7 +391,7 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
         ok = valid & (keys >= 0) & (keys < K)
         skey = torch.where(ok, keys, K).contiguous()
 
-        if scatter_combine:
+        if scatter_combine and not _sorts(grouping, kernels, skey.is_cuda):
             if kernels and fc.grouping_supported(B, K + 1):
                 dest, rank_u, hist = fc.grouping_rank_hist(skey, K + 1)
             else:
@@ -423,7 +444,8 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
             # after a STABLE grouping by dense key, bucket b's lanes occupy
             # [start_b, start_b + hist_b): the within-key rank is index
             # arithmetic off the histogram
-            order, hist = _group_order_hist(skey, K + 1, kernels)
+            order, hist = _group_order_hist(skey, K + 1, kernels,
+                                            grouping)
             order = order.long()
             sk = skey[order]
             slift = tree_map(lambda a: a[order],
@@ -645,7 +667,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
                       NP: int, lift: Callable, comb: Callable,
                       key_fn: Optional[Callable],
                       drop_tainted: bool = False,
-                      monoid: Optional[str] = None, kernels: bool = False):
+                      monoid: Optional[str] = None, kernels: bool = False,
+                      grouping: str = "rank_scatter"):
     """Build the time-based FFAT per-batch step ``(state, payload, ts,
     valid, wm_pane) -> (state, out, fired, out_ts, n_advanced)``
     (``make_ffat_tb_step`` of the JAX package, pass for pass).
@@ -788,7 +811,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
                 # (key, pane) cells in arrival order: the grouping kernel
                 # under its gate, the stable sort beyond
                 sid = row_u * NP + col_u
-                if kernels and fc.grouping_supported(B, NIDS):
+                if kernels and not _sorts(grouping, kernels, sid.is_cuda) \
+                        and fc.grouping_supported(B, NIDS):
                     order = fc.order_hist(sid.to(torch.int32).contiguous(),
                                           NIDS)[0].long()
                 else:
@@ -822,7 +846,7 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
             sid = torch.where(ok, keys.to(torch.int64) * NP + rel_c, K * NP)
             if NIDS < (1 << 31):         # counting ids are int32
                 order = _group_order(sid.to(torch.int32).contiguous(), NIDS,
-                                     kernels).long()
+                                     kernels, grouping).long()
             else:
                 order = torch.sort(sid, stable=True).indices
             ssid = sid[order]
