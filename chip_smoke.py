@@ -375,6 +375,36 @@ Phases (each exits nonzero on failure; none is skipped):
    driver thread, the Map and its Sink are pooled, no pooled replica
    holds a device batch and no pool thread synchronises.
 
+16. drive the mesh (``mesh_runs``, 60 s budget): logical meshes of 4
+   positions on the one card (``devices=["cuda:0"] * 4``) at 1x4 and
+   2x2 (data x key), 8 batches of 262,144 tuples a run, every run held
+   to its numpy oracle and to the same graph with ``mesh=None``: (a)
+   the main path (frames → MapGPU | FilterGPU → keyed count windows
+   1,024 by 128 over 1,024 keys → columnar Sink), both combiners,
+   ``grouping_rank_hist`` (and with the sum ``sliding_fold``) launched
+   once a position a step, ``stats()["IR_audit"]`` clean, the key
+   shards' state equal along ``data``, and every sharded step (CB, TB,
+   the dense reduce under psum, pmax, pmin, the generic fold and the
+   aligned ingest, the all_to_all reduce, the stateful step under both
+   ingests) under ``set_sync_debug_mode("error")``; (b) the
+   telemetry TB windows and phase 4 (c)'s grouping-kernel TB shape
+   keyed on the mesh (the latter launching the TB grouping a position a
+   step); (c) ``ReduceGPU`` on the mesh: psum, pmax, the generic fold,
+   arbitrary int32 keys through ``all_to_all`` (``INT32_MAX``
+   included), keys past ``withMaxKeys`` dropped and counted, a global
+   reduce; (d) the associative stateful map over key-sharded dense
+   state, under the aligned ingest and the data-sharded one (whose lanes
+   merge across key shards with a psum); (e) key-aligned ingest on against
+   off, twice each (records identical, the shard ledger's modeled
+   inter-position bytes drop, WF901 clean on the aligned reduce and
+   raised on the unaligned one); (f) a count-window
+   checkpoint on 4 key shards restored on 2, its suffix equal to the
+   uninterrupted run; (g) ``multihost.initialize()`` a no-op in one
+   process, then an NCCL process group at world size 1 carrying (c)'s
+   psum through ``torch.distributed``.  It prints the psum's
+   inter-position rate (``calibrate.probe_ici``: positions sharing the
+   card, a copy within its memory, not a link).
+
 Before the last line it prints its own seconds in all, the card's name
 and power limit and one
 JSON line with every kernel's launches, error and times; the last line
@@ -5172,6 +5202,562 @@ def pool_cb_graph(dev_name, blob, threads, direct, chain, **cfg):
                "host_map": mp, "chain_sink": snk1}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh (logical positions on the one card)
+# ---------------------------------------------------------------------------
+
+#: mesh positions of phase 16, all on the one card
+MESH_POS = 4
+
+
+def card_mesh(dev_name, data):
+    from windflow_tpu_torch.parallel import mesh as M
+    dev = dev_name if ":" in dev_name else dev_name + ":0"
+    return M.make_mesh(MESH_POS, data=data, devices=[dev] * MESH_POS)
+
+
+def sorted_cols(cols, names):
+    """A run's columnar records as one lexicographically sorted array of
+    rows (for run-against-run equality)."""
+    a = np.stack([cat_cols(cols, n).astype(np.float64) for n in names], 1)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def op_named(g, cls_name):
+    return next(op for op in g._operators
+                if type(op).__name__ == cls_name)
+
+
+def audit_clean(label, g):
+    au = g.stats()["IR_audit"]
+    if au["findings"]:
+        fail(f"{label}: the capture audit found {au['findings']}")
+    return au["programs_audited"]
+
+
+def mesh_frames_tb_graph(dev_name, blob, K, win, sink_fn, lateness=0,
+                         **cfg):
+    """FrameSource (EVENT time) → keyed time windows (generic ``a + b``,
+    drop on overflow) → columnar Sink; ``cfg``: further Config fields."""
+    import windflow_tpu_torch as wf
+    op = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withTBWindows(*win).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(K).withLateness(lateness).build())
+    g = wf.PipeGraph("chip_smoke_mesh_tb", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                output_batch_size=CAP,
+                                record_spec={"key": np.int32(0),
+                                             "v0": np.float32(0.0)})) \
+        .add(wf.MapGPU_Builder(lambda t: t).build()).add(op) \
+        .add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4).build())
+    return g, op
+
+
+def mesh_reduce_graph(dev_name, blob, sink_fn, max_keys, monoid, keyed=True,
+                      **cfg):
+    """FrameSource → ReduceGPU (keyed by the frame key or global; dense
+    ``withMaxKeys`` or arbitrary keys; ``monoid`` "sum", "max" or None for
+    the generic fold, a max over both fields) → columnar Sink."""
+    import torch
+    import windflow_tpu_torch as wf
+    if monoid == "sum":
+        b = wf.ReduceGPU_Builder(lambda a, b: {"key": a["key"] + b["key"],
+                                               "v0": a["v0"] + b["v0"]})
+    else:
+        b = wf.ReduceGPU_Builder(
+            lambda a, b: {"key": torch.maximum(a["key"], b["key"]),
+                          "v0": torch.maximum(a["v0"], b["v0"])})
+    if keyed:
+        b = b.withKeyBy(lambda t: t["key"])
+    if max_keys is not None:
+        b = b.withMaxKeys(max_keys)
+    if monoid is not None:
+        b = b.withMonoidCombiner(monoid)
+    op = b.build()
+    g = wf.PipeGraph("chip_smoke_mesh_reduce", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                output_batch_size=CAP,
+                                record_spec={"key": np.int32(0),
+                                             "v0": np.float32(0.0)})) \
+        .add(op).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
+                          .build())
+    return g, op
+
+
+def reduce_batches_check(label, cols, keys, vals, monoid, max_keys, keyed):
+    """Each sink batch of a reduce run against its input batch's oracle:
+    one record a distinct in-range key (or one for a global reduce), the
+    summed or maxed fields; records compared as sets."""
+    if len(cols) != BATCHES:
+        fail(f"{label}: {len(cols)} sink batches, {BATCHES} expected")
+    nrec = 0
+    for i, c in enumerate(cols):
+        sl = slice(i * CAP, (i + 1) * CAP)
+        k, v = keys[sl], vals[sl]
+        if max_keys is not None:
+            m = (k >= 0) & (k < max_keys)
+            k, v = k[m], v[m]
+        if not keyed:
+            k = np.zeros_like(k)
+        if monoid == "sum":
+            wk, wv = batch_reduce_oracle(k, v, "sum")
+        else:
+            wk, wv = batch_reduce_oracle(k, v, "max")
+        want = sorted(zip(wk.tolist(), wv.astype(np.float64).tolist()))
+        got = sorted(zip(np.asarray(c.cols["key"]).tolist(),
+                         np.asarray(c.cols["v0"]).astype(np.float64)
+                         .tolist()))
+        if not keyed:
+            # the global record's key field folds too: compare values
+            want = [(0, w) for _, w in want]
+            got = [(0, w) for _, w in got]
+        if got != want:
+            fail(f"{label}: batch {i}: {len(got)} records, {len(want)} "
+                 "expected, or other values")
+        nrec += len(got)
+    return nrec
+
+
+def aligned_keys(keys, kk, dd, K):
+    """``keys`` (int32, CAP of them) laid out as the key-aligned emitter
+    stages them: flat block ``b`` of ``CAP / (kk * dd)`` lanes belongs to
+    key column ``b % kk``, which owns ``[c * K_local, (c + 1) * K_local)``."""
+    K_local = K // kk
+    col = (np.arange(len(keys)) // (len(keys) // (kk * dd))) % kk
+    return (col * K_local + keys % K_local).astype(np.int32)
+
+
+def mesh_steps_no_host_read(dev_name, keys, vals):
+    """Every sharded step on one batch of the main path at 2x2, two warm
+    steps then one under ``set_sync_debug_mode("error")``: CB (both
+    combiners), TB, the dense reduce under psum, pmax, pmin and the
+    generic fold, its aligned ingest, the arbitrary-key all_to_all reduce,
+    and the stateful step (the associative body) under the data ingest
+    (its psum merge across key shards) and the aligned one."""
+    import torch
+    from windflow_tpu_torch.ops.gpu_stateful import _assoc_body
+    from windflow_tpu_torch.parallel import mesh as M
+    dev = torch.device(dev_name)
+    mesh = card_mesh(dev_name, 2)
+    kk, dd = mesh.shape["key"], mesh.shape["data"]
+    k = torch.as_tensor(keys[:CAP], device=dev)
+    v = torch.as_tensor(vals[:CAP], device=dev)
+    payload = {"key": k, "v0": v}
+    ak = torch.as_tensor(aligned_keys(keys[:CAP], kk, dd, KEYS), device=dev)
+    aligned = {"key": ak, "v0": v}
+    ts = torch.arange(CAP, dtype=torch.int64, device=dev)
+    valid = torch.ones(CAP, dtype=torch.bool, device=dev)
+    # count windows of 64 sliding by 16: the three steps fire windows
+    R = 4
+    cases = []
+    for monoid in (None, "sum"):
+        st = M.make_sharded_ffat_state(torch.zeros((), dtype=torch.float32),
+                                       KEYS, R, mesh)
+        step = M.make_sharded_ffat_step(
+            mesh, CAP, KEYS, 16, R, 1, lambda t: t["v0"],
+            lambda a, b: a + b, lambda t: t["key"], monoid=monoid,
+            kernels=True)
+        holder = [st]
+
+        def cb(step=step, holder=holder):
+            holder[0], out, fired, _ = step(holder[0], payload, ts, valid)
+            return fired
+        cases.append((f"CB {'sum' if monoid else 'generic'}", cb))
+    tbst = [M.make_sharded_ffat_tb_state(
+        torch.zeros((), dtype=torch.float32), TBC_KEYS, TBC_NP, mesh)]
+    tbstep = M.make_sharded_ffat_tb_step(
+        mesh, CAP, TBC_KEYS, TBC_WIN[1], TBC_R, 1, TBC_NP,
+        lambda t: t["v0"], lambda a, b: a + b, lambda t: t["key"],
+        drop_tainted=True, kernels=True)
+    tbk = (k % TBC_KEYS).contiguous()
+    tick = [0]
+
+    def tb():
+        base = tick[0] * CAP * TBC_GAP
+        tick[0] += 1
+        tbst[0], out, fired, _, _ = tbstep(
+            tbst[0], {"key": tbk, "v0": v}, ts * TBC_GAP + base, valid,
+            base // TBC_WIN[1])
+        return fired
+    cases.append(("TB", tb))
+    folds = {"psum": ("sum", torch.add), "pmax": ("max", torch.maximum),
+             "pmin": ("min", torch.minimum),
+             "generic fold": (None, torch.maximum)}
+    for name, (monoid, op) in folds.items():
+        comb = lambda a, b, op=op: {"key": op(a["key"], b["key"]),  # noqa
+                                    "v0": op(a["v0"], b["v0"])}
+        red = M.make_sharded_reduce_step(mesh, CAP, KEYS, comb,
+                                         lambda t: t["key"], monoid=monoid,
+                                         kernels=True)
+        cases.append((f"reduce {name}",
+                      lambda red=red: red(payload, ts, valid)[2]))
+    comb = lambda a, b: {"key": torch.maximum(a["key"], b["key"]),  # noqa
+                         "v0": torch.maximum(a["v0"], b["v0"])}
+    red_a = M.make_sharded_reduce_step(mesh, CAP, KEYS, comb,
+                                       lambda t: t["key"], monoid="max",
+                                       ingest="aligned", kernels=True)
+    cases.append(("reduce aligned pmax",
+                  lambda: red_a(aligned, ts, valid)[2]))
+    arb = M.make_sharded_reduce_arbitrary(mesh, CAP, comb,
+                                          lambda t: t["key"])
+    cases.append(("reduce all_to_all", lambda: arb(payload, ts, valid)[2]))
+    lift = lambda t: {"n": torch.ones_like(t["key"]), "sum": t["v0"]}  # noqa
+    scomb = lambda a, b: {"n": a["n"] + b["n"],  # noqa: E731
+                          "sum": a["sum"] + b["sum"]}
+    project = lambda t, s: {"key": t["key"], "n": s["n"],  # noqa: E731
+                            "sum": s["sum"]}
+    for ingest, pl in (("data", payload), ("aligned", aligned)):
+        sstep = M.make_sharded_stateful_step(
+            mesh, CAP, KEYS,
+            lambda cap, S: _assoc_body(lift, scomb, project, cap, S, False),
+            lambda t: t["key"], True, False, ingest=ingest)
+        sst = [M.shard_state({"n": torch.zeros(KEYS, dtype=torch.int32),
+                              "sum": torch.zeros(KEYS)}, mesh)]
+
+        def stateful(sstep=sstep, sst=sst, pl=pl):
+            sst[0], out, ok = sstep(sst[0], pl, valid)
+            return ok
+        cases.append((f"stateful {ingest} ingest", stateful))
+    for label, fn in cases:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        except RuntimeError as e:
+            fail(f"phase 16 (a): the sharded {label} step synchronised: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if not bool(out.any()):
+            fail(f"phase 16 (a): the sharded {label} step gave nothing")
+    return [c[0] for c in cases]
+
+
+def mesh_runs(dev_name="cuda"):
+    """Phase 16: the mesh on the card (60 s budget); returns the launch
+    counts by run label."""
+    import torch
+    import torch.distributed as dist
+    import windflow_tpu_torch as wf
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.parallel import mesh as M
+    from windflow_tpu_torch.parallel import multihost
+    out = {}
+    shapes = {"1x4": card_mesh(dev_name, 1), "2x2": card_mesh(dev_name, 2)}
+    n = CAP * BATCHES
+    keys, vals = main_path_data(n, seed=2016)
+    blob = frame_blob(keys, np.arange(n), vals)
+
+    # (a) the main path, both combiners, on no mesh, 1x4 and 2x2
+    for sum_comb in (False, True):
+        comb = "sum" if sum_comb else "generic"
+        ref = None
+        for shape in (None, "1x4", "2x2"):
+            label = f"16(a) {comb} {shape or 'no mesh'}"
+            cols, sink = collect()
+            g, _ = frames_cb_graph(dev_name, sum_comb, blob, sink,
+                                   mesh=shapes.get(shape))
+            secs, counts = timed_run(g)
+            out[label] = counts
+            nrec = check_cb_columns(label, cols, keys, vals)
+            rows = sorted_cols(cols, ("key", "wid", "value"))
+            if ref is None:
+                ref = rows
+            elif not np.array_equal(rows, ref):
+                fail(f"{label}: records differ from the run with no mesh")
+            extra = ""
+            if shape is not None:
+                per = BATCHES * MESH_POS
+                if counts["grouping_rank_hist"] != per:
+                    fail(f"{label}: grouping_rank_hist launched "
+                         f"{counts['grouping_rank_hist']} times, {per} "
+                         f"({MESH_POS} positions x {BATCHES} steps) "
+                         "expected")
+                if counts["sliding_fold"] != (per if sum_comb else 0):
+                    fail(f"{label}: sliding_fold launched "
+                         f"{counts['sliding_fold']} times")
+                win = op_named(g, "FfatWindowsGPU")
+                if not win._states[0].equal_across_data():
+                    fail(f"{label}: the data rows hold different state")
+                progs = audit_clean(label, g)
+                extra = (f"; key shards' state equal along data; audit "
+                         f"clean ({progs} programs)")
+            print(f"phase 16: PipeGraph.run() {label}: {nrec} windows "
+                  f"match the oracle and the run with no mesh; {n} tuples "
+                  f"in {secs:.3f} s = {n / secs:.0f} tuples/s (host clock, "
+                  f"information only); launches {counts}{extra}")
+    checked = mesh_steps_no_host_read(dev_name, keys, vals)
+    print(f"phase 16 (a): the sharded {', '.join(checked)} steps make no "
+          "host read (set_sync_debug_mode('error'))")
+
+    # (b) time windows on the mesh: the telemetry stream, and phase 4
+    #     (c)'s shape whose (key, pane) ids stay under the grouping gate
+    tk, tv, tts = telemetry_data(n)
+    rng = np.random.default_rng(16)
+    ck = rng.integers(0, TBC_KEYS, n).astype(np.int32)
+    cv = rng.integers(-100, 101, n).astype(np.float32)
+    cts = np.arange(n, dtype=np.int64) * TBC_GAP
+    for name, (bk, bts, bv), K, win, late in (
+            ("telemetry", (tk, tts, tv), TELE_KEYS, TELE_WIN, TELE_LATENESS),
+            ("grouping kernel", (ck, cts, cv), TBC_KEYS, TBC_WIN, 0)):
+        tblob = frame_blob(bk, bts, bv)
+        ref = None
+        for shape in (None, "1x4"):
+            label = f"16(b) TB {name} {shape or 'no mesh'}"
+            cols, sink = collect()
+            g, op = mesh_frames_tb_graph(dev_name, tblob, K, win, sink,
+                                         lateness=late,
+                                         mesh=shapes.get(shape))
+            secs, counts = timed_run(g)
+            out[label] = counts
+            nrec = check_tb_records(label, cols, bk, bts, bv, *win)
+            st = op.dump_stats()
+            lost = [st[k] for k in ("Late_tuples_dropped",
+                                    "Pane_cells_evicted",
+                                    "Windows_dropped_on_overflow")]
+            if lost != [0, 0, 0]:
+                fail(f"{label}: late / evicted / dropped {lost}")
+            rows = sorted_cols(cols, ("key", "wid", "value"))
+            if ref is None:
+                ref = rows
+            elif not np.array_equal(rows, ref):
+                fail(f"{label}: records differ from the run with no mesh")
+            if shape is not None and name == "grouping kernel" \
+                    and counts["grouping_rank_hist"] < BATCHES * MESH_POS:
+                fail(f"{label}: grouping_rank_hist launched "
+                     f"{counts['grouping_rank_hist']} times")
+            print(f"phase 16: PipeGraph.run() {label}: ring NP {op.NP}; "
+                  f"{nrec} windows match the oracle and the run with no "
+                  f"mesh, no late, evicted or dropped; {secs:.3f} s; "
+                  f"launches {counts}")
+
+    # (c) the reduce on the mesh
+    rk = rng.integers(0, KEYS, n).astype(np.int64)
+    rv = rng.integers(-100, 101, n).astype(np.float32)
+    ak = rng.choice(np.array([2 ** 31 - 1, -2 ** 31, -7, 0, 12345,
+                              2 ** 30 + 3, 99, -123456], np.int64), n)
+    ok = rng.integers(0, 1100, n).astype(np.int64)
+    cases = [("psum", rk, "sum", KEYS, True),
+             ("pmax", rk, "max", KEYS, True),
+             ("generic fold", rk, None, KEYS, True),
+             ("arbitrary int32 keys", ak, None, None, True),
+             ("out-of-range keys", ok, "max", KEYS, True),
+             ("global", rk, "sum", None, False)]
+    for name, ck_, monoid, mk, keyed in cases:
+        rblob = frame_blob(ck_, np.arange(n), rv)
+        ref = None
+        for shape in (None, "2x2"):
+            label = f"16(c) reduce {name} {shape or 'no mesh'}"
+            cols, sink = collect()
+            # the data-sharded ingest: aligned ingest batches by column
+            # fill, which moves the per-batch record cadence ((e) runs it)
+            cfg = {"mesh": shapes.get(shape), "key_aligned_ingest": False}
+            if shape is None and monoid is not None and mk is not None:
+                # the single-device dense route: drops out-of-range keys
+                # as the mesh's dense tables do
+                cfg["key_compaction"] = False
+            g, op = mesh_reduce_graph(dev_name, rblob, sink, mk, monoid,
+                                      keyed=keyed, **cfg)
+            secs, counts = timed_run(g)
+            out[label] = counts
+            nrec = reduce_batches_check(label, cols, ck_, rv, monoid, mk,
+                                        keyed)
+            rows = sorted_cols(cols, ("key", "v0"))
+            if ref is None:
+                ref = rows
+            elif not np.array_equal(rows, ref):
+                fail(f"{label}: records differ from the run with no mesh")
+            extra = ""
+            if name == "out-of-range keys":
+                want = int(((ck_ < 0) | (ck_ >= KEYS)).sum())
+                got = op.num_dropped_tuples()
+                if got != want:
+                    fail(f"{label}: dropped {got}, {want} expected")
+                extra = f"; dropped and counted {got}"
+            if name == "arbitrary int32 keys" and 2 ** 31 - 1 not in \
+                    cat_cols(cols, "key").tolist():
+                fail(f"{label}: INT32_MAX was dropped")
+            print(f"phase 16: PipeGraph.run() {label}: {nrec} records match "
+                  f"the oracle batch by batch and the run with no mesh; "
+                  f"{secs:.3f} s; launches {counts}{extra}")
+
+    # (d) the stateful map over key-sharded dense state
+    sk = rng.integers(0, FRAUD_CARDS, n)
+    sv = rng.integers(0, 4, n).astype(np.float32)
+    sblob = frame_blob(sk, np.arange(n), sv)
+    cnt, run_sum = running_oracle(sk, sv)
+    want = np.stack([sk, cnt, run_sum], 1).astype(np.float64)
+    want = want[np.lexsort(want.T[::-1])]
+    # on 2x2 under both ingests: the aligned one, and the data-sharded one
+    # whose lanes merge across key shards with a psum
+    for shape, aligned in ((None, True), ("2x2", True), ("2x2", False)):
+        label = f"16(d) assoc {shape or 'no mesh'}"
+        if shape is not None:
+            label += f" aligned {'on' if aligned else 'off'}"
+        cols, sink = collect()
+        g, op = assoc_graph(dev_name, sblob, sink, mesh=shapes.get(shape),
+                            key_aligned_ingest=aligned)
+        secs, counts = timed_run(g)
+        out[label] = counts
+        rows = sorted_cols(cols, ("key", "n", "sum"))
+        if not np.array_equal(rows, want):
+            fail(f"{label}: per-key running counts or sums differ")
+        extra = ""
+        if shape is not None:
+            if not isinstance(op._state, M.Sharded) \
+                    or not op._state.equal_across_data():
+                fail(f"{label}: the slot table is not key-sharded and "
+                     "equal along data")
+            mode = getattr(op, "_ingest_mode", None) or "data"
+            if (mode == "aligned") != aligned:
+                fail(f"{label}: ingest {mode}")
+            extra = f"; ingest {mode}; the slot table key-sharded"
+        print(f"phase 16: PipeGraph.run() {label}: {n} records match the "
+              f"oracle key by key; {secs:.3f} s; launches {counts}{extra}")
+
+    # (e) key-aligned ingest on against off: frames straight into the
+    #     keyed count windows (host-fed), and the JAX test's reduce
+    #     (twice each, on, off, off, on: the host clock's drift and the
+    #     first run's warm-up fall on both)
+    ici, ref, secs_e = {}, None, {True: [], False: []}
+    for aligned in (True, False, False, True):
+        label = (f"16(e) windows aligned {'on' if aligned else 'off'} "
+                 f"#{len(secs_e[aligned]) + 1}")
+        cols, sink = collect()
+        g = wf.PipeGraph("chip_smoke_aligned", wf.ExecutionMode.DEFAULT,
+                         config=wf.Config(device=dev_name,
+                                          punctuation_interval_usec=10 ** 12,
+                                          mesh=shapes["2x2"],
+                                          key_aligned_ingest=aligned))
+        win = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"],
+                                          lambda a, b: a + b)
+               .withCBWindows(WIN, SLIDE).withKeyBy(lambda t: t["key"])
+               .withMaxKeys(KEYS).withName("aligned_win").build())
+        g.add_source(wf.FrameSource(chunked(blob), nv=1,
+                                    output_batch_size=CAP,
+                                    record_spec={"key": np.int32(0),
+                                                 "v0": np.float32(0.0)})) \
+            .add(win).add_sink(wf.Sink_Builder(sink)
+                               .withColumnarSink(defer=4).build())
+        secs, counts = timed_run(g)
+        out[label] = counts
+        secs_e[aligned].append(secs)
+        mode = getattr(win, "_ingest_mode", None)
+        if (mode == "aligned") != aligned:
+            fail(f"{label}: ingest {mode}")
+        rows = sorted_cols(cols, ("key", "wid", "value"))
+        if ref is None:
+            ref = rows
+        elif not np.array_equal(rows, ref):
+            fail(f"{label}: records differ from the aligned run")
+        ici[aligned] = g.stats()["Shard"]["per_op"]["aligned_win"]["ici"]
+        print(f"phase 16: PipeGraph.run() {label}: {len(rows)} windows "
+              f"equal; modeled inter-position bytes "
+              f"{ici[aligned]['ici_bytes_per_tuple']} a tuple "
+              f"({ici[aligned]['collective']}); {secs:.3f} s; launches "
+              f"{counts}")
+    if not ici[True]["ici_bytes_per_tuple"] < ici[False]["ici_bytes_per_tuple"]:
+        fail("16(e): aligned ingest did not cut the modeled bytes")
+    print(f"phase 16 (e): aligned on {secs_e[True]} s, off {secs_e[False]} s "
+          "(host clock, information only)")
+    from windflow_tpu_torch.analysis import ir_audit
+    wf901 = {}
+    for aligned in (True, False):
+        cols, sink = collect()
+        g, op = mesh_reduce_graph(
+            dev_name, frame_blob(rk[:4 * CAP], np.arange(4 * CAP),
+                                 rv[:4 * CAP]), sink, KEYS, "max",
+            mesh=shapes["1x4"], key_aligned_ingest=aligned)
+        g.run()
+        rep = ir_audit.audit_graph(g, dry_lower=False)
+        wf901[aligned] = [d for d in rep.findings if d.code == "WF901"]
+    if wf901[True] or not wf901[False]:
+        fail(f"16(e): WF901 aligned {len(wf901[True])}, unaligned "
+             f"{len(wf901[False])}")
+    print(f"phase 16 (e): WF901 clean on the aligned reduce, raised on the "
+          f"unaligned one: {wf901[False][0].message}")
+
+    # (f) a mesh checkpoint on 4 key shards restored on 2
+    from windflow_tpu_torch.durability import chaos
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        v = chaos.run_rescale_ab(
+            "window_cb", "mid_epoch", work, shards_kill=1, shards_restore=1,
+            mesh_kill=shapes["1x4"],
+            mesh_restore=M.make_mesh(2, devices=[shapes["1x4"].home] * 2),
+            n=4096, device=dev_name)
+        if v["diff"] is not None:
+            fail(f"16(f): the restored suffix differs: {v['diff']}")
+        print(f"phase 16 (f): window_cb checkpointed on {v['mesh']}, "
+              f"restored at epoch {v['restored_epoch']}: {v['records']} "
+              f"records equal the uninterrupted run "
+              f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (g) the multi-process layer at one process
+    multihost.initialize()
+    if multihost.process_count() != 1 or dist.is_initialized():
+        fail("16(g): initialize() joined a process group in one process")
+    import socket
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        gmesh = multihost.make_multihost_mesh(
+            devices=[shapes["1x4"].home] * MESH_POS)
+        if gmesh.group is None:
+            fail("16(g): the mesh did not take the process group")
+        dev = torch.device(dev_name)
+        payload = {"key": torch.as_tensor(rk[:CAP].astype(np.int32),
+                                          device=dev),
+                   "v0": torch.as_tensor(rv[:CAP], device=dev)}
+        ts = torch.zeros(CAP, dtype=torch.int64, device=dev)
+        valid = torch.ones(CAP, dtype=torch.bool, device=dev)
+        comb = lambda a, b: {"key": a["key"] + b["key"],  # noqa: E731
+                             "v0": a["v0"] + b["v0"]}
+        res = {}
+        for name, m in (("in-process", shapes["1x4"]), ("nccl", gmesh)):
+            step = M.make_sharded_reduce_step(m, CAP, KEYS, comb,
+                                              lambda t: t["key"],
+                                              monoid="sum", kernels=True)
+            with M.recording() as rec:
+                res[name] = step(payload, ts, valid)
+            torch.cuda.synchronize()
+        same = all(torch.equal(a[f], b[f]) for a, b in
+                   zip(res["in-process"][:1], res["nccl"][:1])
+                   for f in ("key", "v0")) and all(
+            torch.equal(a, b) for a, b in zip(res["in-process"][1:],
+                                              res["nccl"][1:]))
+        if not same:
+            fail("16(g): the psum through NCCL differs from in-process")
+        print(f"phase 16 (g): initialize() a no-op in one process; an NCCL "
+              f"process group at world size 1 carried the psum "
+              f"({len(rec)} collectives through torch.distributed), equal "
+              "to the in-process one")
+    finally:
+        dist.destroy_process_group()
+
+    # the inter-position rate the shard ledger's model divides by
+    from windflow_tpu_torch.monitoring import calibrate
+    rate, detail = calibrate.probe_ici(torch.device(dev_name), MESH_POS)
+    print(f"phase 16: psum over {MESH_POS} mesh positions: {rate:.4g} B/s "
+          f"({detail['measured']}; {detail['payload_bytes']} B a position)")
+    return out
+
+
 def pool_runs(dev_name="cuda"):
     """Phase 15, the host worker pool (40 s budget), each run at 0 and 4
     pool threads with equal records: (a) phase 13's host window (keyed
@@ -5818,6 +6404,10 @@ def main():
     t15 = time.perf_counter()
     run_counts.update(pool_runs())
     print(f"phase 15: {time.perf_counter() - t15:.1f} s (budget 40 s)")
+    # 16. the mesh, counts read just after each run
+    t16 = time.perf_counter()
+    run_counts.update(mesh_runs())
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s (budget 60 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -5846,11 +6436,17 @@ def main():
     cb_runs += ("13(a) ffat_analytics", "13(e) Ffat_WindowsGPU sum")
     # phase 14's count-window runs: (d)'s ingest, native and numpy
     cb_runs += tuple(t for t in run_counts if t.startswith("14(d)"))
+    # phase 16's mesh runs: the count windows of (a) and (e), the TB
+    # grouping-kernel shape of (b)
+    cb_runs += tuple(t for t in run_counts
+                     if t.startswith(("16(a)", "16(e) windows")))
+    tb16 = tuple(t for t in run_counts
+                 if t.startswith("16(b) TB grouping kernel"))
     ticker = ("13(b) market_ticker",)
     runs_of = {"grouping_rank_hist": cb_runs + ticker,
                "grouping_rank_hist[tb]": ("(c) grouping kernel",
                                           "14(a) move_keys K=1",
-                                          "14(a) move_keys K=8"),
+                                          "14(a) move_keys K=8") + tb16,
                "sliding_fold[dense]": cb_runs,
                "sliding_fold[main]": cb_runs,
                "sliding_fold[ticker]": ticker,

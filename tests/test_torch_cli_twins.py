@@ -139,7 +139,12 @@ def test_chaos_twin_json_keys_and_exit_codes(tmp_path):
     (jcell,) = json.loads(rj.stdout[:rj.stdout.rindex("]") + 1])
     assert set(jcell) <= set(cell)
     assert cell["records"] == jcell["records"]
-    # the mesh cells wait for the multi-GPU slice
+    # the mesh rescale cells (logical CPU meshes), as JAX's full matrix
+    # runs them
     rm = _port(env, "windflow_tpu_torch.durability.chaos", "--mesh",
-               "--device", "cpu")
-    assert rm.returncode == 2 and "multi-GPU" in rm.stderr
+               "--family", "window_cb", "--records", "4096", "--json",
+               "--device", "cpu", "--workdir", str(tmp_path / "mesh"))
+    assert rm.returncode == 0, rm.stderr
+    cells = json.loads(rm.stdout[:rm.stdout.rindex("]") + 1])
+    assert [c["mesh"] for c in cells] == ["1x4->1x2", "1x2->1x4"]
+    assert all(c["diff"] is None for c in cells)

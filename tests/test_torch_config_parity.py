@@ -1,7 +1,7 @@
-"""The port's ``Config`` against the JAX package's: the fields only JAX
-has are the multi-GPU slice's two (``mesh``, ``key_aligned_ingest``) and
-the kernel switch the port renames (``pallas_kernels`` →
-``cuda_kernels``); every shared field has the JAX default.  And the
+"""The port's ``Config`` against the JAX package's: the only field only
+JAX has is the kernel switch the port renames (``pallas_kernels`` →
+``cuda_kernels``); every shared field, the mesh's two (``mesh``,
+``key_aligned_ingest``) included, has the JAX default.  And the
 ``Config.ffat_grouping`` rider: the argsort grouping gives the counting
 grouping's records, and JAX's, on count and time windows."""
 
@@ -21,15 +21,15 @@ def _fields(cls):
 def test_config_fields_differ_only_by_the_mesh_and_the_kernel_switch():
     jax_only = _fields(wf.Config) - _fields(wt.Config)
     port_only = _fields(wt.Config) - _fields(wf.Config)
-    assert jax_only == {"mesh", "key_aligned_ingest", "pallas_kernels"}
+    assert jax_only == {"pallas_kernels"}
     assert port_only == {"device", "cuda_kernels"}
     shared = _fields(wf.Config) & _fields(wt.Config)
-    assert len(shared) == 53
+    assert len(shared) == 55
     jc, tc = wf.Config(), wt.Config()
     assert {n: getattr(tc, n) for n in shared} == \
         {n: getattr(jc, n) for n in shared}
     for name in ("host_worker_threads", "ir_audit", "default_batch_size",
-                 "ffat_grouping"):
+                 "ffat_grouping", "mesh", "key_aligned_ingest"):
         assert name in shared
 
 

@@ -2210,3 +2210,215 @@ def test_cuda_audit_wf906_on_an_item_read(cuda_device):
     (f,) = g.stats()["IR_audit"]["findings"]
     assert f["code"] == "WF906" and "_local_scalar_dense" in f["message"]
     assert "cuda sync" in f["message"]
+
+
+# ---------------------------------------------------------------------------
+# the mesh (parallel/mesh.py): 4 logical positions on one card
+# ---------------------------------------------------------------------------
+
+def _card_mesh(data=1):
+    from windflow_tpu_torch.parallel import mesh as M
+    return M.make_mesh(4, data=data, devices=["cuda:0"] * 4)
+
+
+def _mesh_cb_op(sum_combiner, data):
+    import windflow_tpu_torch as wt
+    wb = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withCBWindows(64, 16).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(CB_K))
+    if sum_combiner:
+        wb = wb.withSumCombiner()
+    op = wb.build()
+    g = wt.PipeGraph("cb_mesh_cuda", config=wt.Config(
+        device="cuda", mesh=_card_mesh(data)))
+    g.add_source(wt.Source_Builder(lambda: iter(())).withOutputBatchSize(
+        CB_CAP).build()).add(
+        wt.MapGPU_Builder(lambda t: t).build()).add(op).add_sink(
+        wt.Sink_Builder(lambda t: None).build())
+    g._build()
+    return op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [1, 2])
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_mesh_cb_step_launches_per_key_shard_and_makes_no_host_read(
+        cuda_device, sum_combiner, data):
+    """The sharded count-window step on 4 positions of the card: one
+    grouping launch (and with ``withSumCombiner`` one fold launch) a
+    position a step, no synchronising call, and the records of the
+    single-device step."""
+    op = _mesh_cb_op(sum_combiner, data)
+    ref = _cb_op(sum_combiner)
+    batches = _cb_batches(cuda_device, 3)
+    for b in batches[:2]:
+        ref._step(b)
+    want = ref._step(batches[2])
+    fc.reset_launch_counts()
+    out = _no_host_read(op._step, batches)
+    counts = fc.launch_counts()
+    assert counts["grouping_rank_hist"] == 3 * 4
+    assert counts["sliding_fold"] == (3 * 4 if sum_combiner else 0)
+
+    def fired(b):
+        f = b.valid.cpu().numpy()
+        return sorted(zip(b.payload["key"].cpu().numpy()[f].tolist(),
+                          b.payload["wid"].cpu().numpy()[f].tolist(),
+                          b.payload["value"].cpu().numpy()[f].tolist()))
+    assert fired(out) and fired(out) == fired(want)
+    assert op._states[0].equal_across_data()
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_tb_step_launches_per_key_shard_and_makes_no_host_read(
+        cuda_device):
+    """The sharded time-window step: (key, pane) ids under the grouping
+    kernel's gate launch it a position a step, with no synchronising
+    call away from the ring's first sizing."""
+    import windflow_tpu_torch as wt
+    from windflow_tpu_torch.batch import HostBatch, host_to_device
+    items = _tb_data(4)
+    op = (wt.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+          .withTBWindows(4_000, 1_000).withKeyBy(lambda t: t["key"])
+          .withMaxKeys(TB_K).build())
+    g = wt.PipeGraph("tb_mesh_cuda", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT,
+                     config=wt.Config(device="cuda", mesh=_card_mesh()))
+    g.add_source(wt.Source_Builder(lambda: iter(()))
+                 .withTimestampExtractor(lambda t: t["ts"])
+                 .withOutputBatchSize(TB_CAP).build()) \
+        .add(wt.MapGPU_Builder(lambda t: t).build()).add(op) \
+        .add_sink(wt.Sink_Builder(lambda r: None).build())
+    g._build()
+    batches = []
+    for i in range(4):
+        chunk = items[i * TB_CAP:(i + 1) * TB_CAP]
+        tss = [t["ts"] for t in chunk]
+        batches.append(host_to_device(HostBatch(chunk, tss, watermark=tss[0]),
+                                      TB_CAP, cuda_device,
+                                      frontier=tss[-1]))
+    op._step(batches[0])        # the ring's first sizing reads the card
+    fc.reset_launch_counts()
+    out = _no_host_read(op._step, batches[1:])
+    assert fc.launch_counts()["grouping_rank_hist"] >= 3 * 4
+    assert out.valid.shape[0] > 0
+    assert op._states[0].equal_across_data()
+
+
+def _aligned_keys(keys, kk, dd, K):
+    """``keys`` laid out as the key-aligned emitter stages them: flat
+    block ``b`` belongs to key column ``b % kk``, which owns
+    ``[c * K / kk, (c + 1) * K / kk)``."""
+    K_local = K // kk
+    col = (np.arange(len(keys)) // (len(keys) // (kk * dd))) % kk
+    return (col * K_local + keys % K_local).astype(np.int32)
+
+
+def _mesh_batch(cuda_device, data, cap=8192, K=64):
+    """``(mesh, payload, aligned payload, ts, valid)`` on 4 positions."""
+    mesh = _card_mesh(data)
+    kk, dd = mesh.shape["key"], mesh.shape["data"]
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, K, cap).astype(np.int32)
+    vals = torch.as_tensor(rng.integers(-50, 50, cap).astype(np.float32),
+                           device=cuda_device)
+    payload = {"key": torch.as_tensor(keys, device=cuda_device), "v": vals}
+    aligned = {"key": torch.as_tensor(_aligned_keys(keys, kk, dd, K),
+                                      device=cuda_device), "v": vals}
+    ts = torch.arange(cap, dtype=torch.int64, device=cuda_device)
+    valid = torch.ones(cap, dtype=torch.bool, device=cuda_device)
+    return mesh, payload, aligned, ts, valid
+
+
+def _one_step_no_host_read(step):
+    """A warm call, then one under ``set_sync_debug_mode("error")``."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [1, 2])
+@pytest.mark.parametrize("route", ["sum", "max", "min", "generic",
+                                   "aligned", "all_to_all"])
+def test_cuda_mesh_reduce_steps_make_no_host_read(cuda_device, route, data):
+    """The sharded dense reduce (psum, pmax, pmin, the generic fold, the
+    aligned ingest) and the arbitrary-key (all_to_all) reduce make no
+    synchronising call, and every key has a row."""
+    from windflow_tpu_torch.parallel import mesh as M
+    mesh, payload, aligned, ts, valid = _mesh_batch(cuda_device, data)
+    op = {"sum": torch.add, "min": torch.minimum}.get(route, torch.maximum)
+    comb = lambda a, b: {"key": op(a["key"], b["key"]),  # noqa: E731
+                         "v": op(a["v"], b["v"])}
+    key_fn = lambda t: t["key"]  # noqa: E731
+    cap = valid.shape[0]
+    if route == "all_to_all":
+        step = M.make_sharded_reduce_arbitrary(mesh, cap, comb, key_fn)
+    else:
+        step = M.make_sharded_reduce_step(
+            mesh, cap, 64, comb, key_fn,
+            monoid=None if route in ("generic", "aligned") else route,
+            ingest="aligned" if route == "aligned" else "data",
+            kernels=True)
+    pl = aligned if route == "aligned" else payload
+    out = _one_step_no_host_read(lambda: step(pl, ts, valid))
+    assert int(out[2].sum()) == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [1, 2])
+@pytest.mark.parametrize("ingest", ["data", "aligned"])
+def test_cuda_mesh_stateful_step_makes_no_host_read(cuda_device, ingest,
+                                                    data):
+    """The sharded stateful step over dense key-sharded state (the
+    associative body) under the data ingest (the psum merge across key
+    shards) and the aligned one: no synchronising call, and the per-key
+    running counts of the single-device body."""
+    from windflow_tpu_torch.ops.gpu_stateful import _assoc_body
+    from windflow_tpu_torch.parallel import mesh as M
+    mesh, payload, aligned, ts, valid = _mesh_batch(cuda_device, data)
+    pl = aligned if ingest == "aligned" else payload
+    cap, S = valid.shape[0], 64
+    lift = lambda t: {"n": torch.ones_like(t["key"])}  # noqa: E731
+    comb = lambda a, b: {"n": a["n"] + b["n"]}  # noqa: E731
+    project = lambda t, s: {"key": t["key"], "n": s["n"]}  # noqa: E731
+    step = M.make_sharded_stateful_step(
+        mesh, cap, S,
+        lambda c, s: _assoc_body(lift, comb, project, c, s, False),
+        lambda t: t["key"], True, False, ingest=ingest)
+    state = [M.shard_state({"n": torch.zeros(S, dtype=torch.int32)}, mesh)]
+
+    def run():
+        state[0], out, ok = step(state[0], pl, valid)
+        return out, ok
+    out, ok = _one_step_no_host_read(run)
+    assert bool(ok.all())
+    keys = out["key"].cpu().numpy()
+    n = out["n"].cpu().numpy()
+    # the second pass over the batch: a key's i-th lane (in lane order
+    # within its block layout) sees the first pass's count plus i + 1
+    for key in np.unique(keys):
+        got = np.sort(n[keys == key])
+        cnt = int((keys == key).sum())
+        assert np.array_equal(got, cnt + np.arange(1, cnt + 1))
+    assert state[0].equal_across_data()
+
+
+@pytest.mark.cuda
+def test_cuda_make_mesh_refuses_more_devices_than_visible(cuda_device):
+    """Without ``devices=`` the mesh takes the visible cards and never
+    drops to the CPU: more positions than cards is refused, with JAX's
+    message; a repeated device makes the logical mesh."""
+    from windflow_tpu_torch.parallel import mesh as M
+    n = torch.cuda.device_count()
+    with pytest.raises(M.WindFlowError, match=f"requested {n + 1} devices, "
+                                            f"only {n} visible"):
+        M.make_mesh(n + 1)
+    mesh = M.make_mesh(4, devices=["cuda:0"] * 4)
+    assert {d.type for d in mesh.devices.ravel()} == {"cuda"}

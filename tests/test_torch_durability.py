@@ -23,10 +23,10 @@ no torch object in the pickle), for FFAT CB, FFAT TB, the compacted
 window, the dense and compacted stateful operator and the GPU reduce;
 (iii) a JAX blob restored into the port's operator, then the suffix,
 gives the JAX package's records, and the reverse.  The JAX baselines
-are built once per module.  Left out, with the ROADMAP item they wait
-for: the mesh rescale cells (:143, :181-197; A10), WF601/WF603/WF604
-and the wall-clock family (:333, :679, :698; A9), and the OpenMetrics
-and postmortem surfaces (:735; A8).
+are built once per module.  The mesh rescale cells (:143, :181-197) are
+held in ``tests/test_torch_mesh_cells.py``.  Left out, with the ROADMAP
+item they wait for: WF601/WF603 and the wall-clock family (:333, :679,
+:698; A9), and the OpenMetrics and postmortem surfaces (:735; A8).
 """
 
 import copy
@@ -258,7 +258,7 @@ def test_epoch_file_sink_rescale_overwrite_reconciles(tmp_path):
 
 def test_manifest_records_mesh_shape_and_placements(tmp_path):
     """:286 (mesh None) — the manifest pins the shard shape: no mesh on
-    the one-device port, and no placement overrides."""
+    a one-device graph, and no placement overrides."""
     cell = _cell(tmp_path, "reduce", "m", n=2048, parallelism=2)
     chaos.run_baseline(cell["factory"])
     pending = load_checkpoint(str(tmp_path / "ck_m"))
@@ -270,7 +270,7 @@ def test_manifest_records_mesh_shape_and_placements(tmp_path):
 def test_wf605_unrebucketable_state_refuses_rescale(tmp_path):
     """:300 — a Reduce rescale plans cleanly; an operator overriding
     snapshot_state with an unknown kind refuses a parallelism change
-    with WF605, named; a manifest written on a mesh refuses too."""
+    with WF605, named; so does a mesh-shape change, as in JAX."""
     from windflow_tpu_torch.analysis.preflight import manifest_rescale_plan
     cell = _cell(tmp_path, "reduce", "p", n=2048, parallelism=3)
     g = cell["factory"]()
@@ -294,8 +294,9 @@ def test_wf605_unrebucketable_state_refuses_rescale(tmp_path):
                             for d in diags), diags
     manifest["topology"][ops.index(red)]["parallelism"] = 3
     manifest["mesh"] = {"devices": 4, "data": 1, "key": 4}
-    diags, _ = manifest_rescale_plan(g, manifest)
-    assert [d.code for d in diags] == ["WF605"] and "A10" in str(diags[0])
+    diags, rescaled = manifest_rescale_plan(g, manifest)
+    assert rescaled and [d.code for d in diags] == ["WF605"]
+    assert "mesh shape changes" in diags[0].message and diags[0].node == "red"
 
 
 class _FakeTB:
@@ -336,8 +337,11 @@ def test_rebucket_tb_clock_disagreement_raises():
         rebucket_blob(_FakeTB(), blob, 2, 3)
     with pytest.raises(JErr, match="clocks disagree"):
         jrb(_FakeTB(), blob, 2, 3, None, None)
-    with pytest.raises(RescaleError, match="A10"):
+    # a mesh-shape change re-buckets the same rings: the same refusal
+    with pytest.raises(RescaleError, match="clocks disagree"):
         rebucket_blob(_FakeTB(), blob, 2, 2, None, {"key": 2})
+    with pytest.raises(JErr, match="clocks disagree"):
+        jrb(_FakeTB(), blob, 2, 2, None, {"key": 2})
 
 
 def test_rebucket_compacted_override_translates_keys_to_slots():

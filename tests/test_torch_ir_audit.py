@@ -7,14 +7,12 @@ against the JAX package's keys, the ``python -m
 windflow_tpu_torch.analysis.ir`` round trip, the no-extra-step pin, the
 kill switch and the recording-failure warning.
 
+WF901 reads the collectives a mesh step records (``parallel/mesh.py``);
+its three JAX tests are twinned below on an 8-position CPU mesh against
+JAX's 8 virtual devices.
+
 Not applicable to the port, by the JAX test they twin:
 
-* ``test_wf901_collective_fixture_and_clean_twin``,
-  ``test_wf901_cross_key_classification`` and
-  ``test_wf901_mesh_reduce_aligned_vs_unaligned_twin``: WF901 reads the
-  cross-chip collectives of a mesh program, and the port runs one
-  device until the multi-GPU slice (no ``torch.distributed`` in a
-  step);
 * ``test_real_lowering_donation_markers`` and
   ``test_wf905_static_and_runtime_donation_miss_cross_validate``: they
   read XLA's input-output aliasing of donated operands and the sweep
@@ -46,9 +44,6 @@ N = 8 * CAP
 
 #: the JAX tests with no port fact, by name (see the module docstring)
 NOT_APPLICABLE = {
-    "test_wf901_collective_fixture_and_clean_twin": "mesh collectives",
-    "test_wf901_cross_key_classification": "mesh collectives",
-    "test_wf901_mesh_reduce_aligned_vs_unaligned_twin": "mesh collectives",
     "test_real_lowering_donation_markers": "XLA buffer donation",
     "test_wf905_static_and_runtime_donation_miss_cross_validate":
         "XLA buffer donation",
@@ -600,3 +595,154 @@ def test_recording_failure_warns_once_and_reports_pending(monkeypatch):
     assert "pending" in mine[0] and "RuntimeError" in mine[0]
     report = ir_audit.audit_graph(g, dry_lower=False)
     assert "ira_capfail_ma" in report.pending
+
+
+# ---------------------------------------------------------------------------
+# WF901: the mesh steps' collectives (parallel/mesh.py records them)
+# ---------------------------------------------------------------------------
+
+def _mesh_reduce_step_facts():
+    """The facts the recorder takes from one unaligned dense mesh reduce
+    step (its [K]-table pmax crosses the key axis)."""
+    from windflow_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(8, data=2, devices=["cpu"] * 8)
+    step = M.make_sharded_reduce_step(
+        mesh, 64, 8, lambda a, b: {"k": torch.maximum(a["k"], b["k"])},
+        lambda t: t["k"], monoid="max")
+    rec = ir_audit._Recording("cpu")
+    with rec, M.recording() as coll:
+        step({"k": torch.arange(64, dtype=torch.int32) % 8},
+             torch.zeros(64, dtype=torch.int64),
+             torch.ones(64, dtype=torch.bool))
+    rec.rec.collectives = coll
+    return rec.facts("step", False), mesh
+
+
+def test_wf901_collective_fixture_and_clean_twin():
+    import ast
+
+    import windflow_tpu.analysis.ir_audit as jir
+    tree = ast.parse(open(os.path.join(REPO, "tests",
+                                       "test_ir_audit.py")).read())
+    gold = next(n.value.value for n in tree.body
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "GOLD_COLLECTIVE")
+    facts, _ = _mesh_reduce_step_facts()
+    assert "pmax" in facts["collectives"]
+    for mod, f in ((ir_audit, facts), (jir, jir.extract_facts(gold))):
+        assert _codes(mod.program_findings(
+            "p", f, promised_collective_free=True)) == ["WF901"]
+        assert _codes(mod.program_findings(
+            "p", f, alignable_unaligned=True)) == ["WF901"]
+        # no graph context: a collective is not a finding by itself
+        assert mod.program_findings("p", f) == []
+    clean = _facts(backend="cpu")
+    assert ir_audit.program_findings(
+        "p", clean, promised_collective_free=True) == []
+
+
+def test_wf901_cross_key_classification():
+    """Only non-scalar collectives across the key axis count: scalar
+    counter psums and within-column data gathers are excluded, in both
+    packages' classifications."""
+    import windflow_tpu.analysis.ir_audit as jir
+    from windflow_tpu.parallel import mesh as JM
+    from windflow_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(8, data=2, devices=["cpu"] * 8)
+    jmesh = JM.make_mesh(8, data=2)
+    kk = mesh.shape["key"]
+    data_groups = [[d * kk + k for d in range(2)] for k in range(kk)]
+    all_ids = list(range(8))
+    jkey = {}
+    for idx in np.ndindex(jmesh.devices.shape):
+        jkey[idx[0] * kk + idx[1]] = int(jmesh.devices[idx].id)
+
+    def facts_for(groups, numel):
+        return {"collectives": ["all_gather"],
+                "collective_ops": [{"op": "all_gather", "groups": groups,
+                                    "numel": numel}]}
+
+    def jfacts(groups, numel):
+        g = None if groups is None else [[jkey[i] for i in grp]
+                                         for grp in groups]
+        return facts_for(g, numel)
+
+    for groups, numel, want in (([all_ids], 16, ["all_gather"]),
+                                (data_groups, 16, []),
+                                ([all_ids], 1, []),
+                                (None, 16, ["all_gather"])):
+        assert ir_audit.cross_key_collectives(
+            facts_for(groups, numel), mesh) == want
+        assert jir.cross_key_collectives(
+            jfacts(groups, numel), jmesh) == want
+    # the records the mesh layer writes carry the verdict themselves
+    with M.recording() as rec:
+        grid = {p: torch.ones(4) for p in mesh.local_positions}
+        M.all_gather(grid, mesh, M.DATA_AXIS)
+        M.psum({p: torch.ones(()) for p in mesh.local_positions}, mesh,
+               M.AXES)
+        M.psum(grid, mesh, M.KEY_AXIS)
+    f = {"collectives": sorted({r["op"] for r in rec}),
+         "collective_ops": rec}
+    assert ir_audit.cross_key_collectives(f, mesh) == ["psum"]
+    # facts without the detail fall back to every collective
+    assert ir_audit.cross_key_collectives(
+        {"collectives": ["all_to_all"]}, mesh) == ["all_to_all"]
+
+
+def _mesh_reduce_run(pkg, aligned, tag):
+    import jax.numpy as jnp
+
+    import windflow_tpu as wf
+    if pkg is wt:
+        from windflow_tpu_torch.parallel import mesh as mesh_mod
+        mesh = mesh_mod.make_mesh(8, data=1, devices=["cpu"] * 8)
+        cfg = wt.Config(device="cpu", mesh=mesh,
+                        key_aligned_ingest=aligned)
+        mx = torch.maximum
+        audit = ir_audit
+    else:
+        from windflow_tpu.analysis import ir_audit as audit
+        from windflow_tpu.parallel import mesh as mesh_mod
+        mesh = mesh_mod.make_mesh(8, data=1)
+        cfg = dataclasses.replace(wf.default_config, mesh=mesh,
+                                  key_aligned_ingest=aligned)
+        mx = jnp.maximum
+    kk = mesh.shape["key"]
+    cap, K = 16 * 8, 4 * kk
+    rng = np.random.default_rng(5)
+    records = [{"key": int(k), "value": float(v)}
+               for k, v in zip(rng.integers(0, K, 4 * cap),
+                               rng.integers(0, 97, 4 * cap))]
+    src = (pkg.Source_Builder(lambda: iter(records))
+           .withOutputBatchSize(cap).build())
+    b = wt.ReduceGPU_Builder if pkg is wt else wf.ReduceTPU_Builder
+    red = (b(lambda a, b: {"key": mx(a["key"], b["key"]),
+                           "value": mx(a["value"], b["value"])})
+           .withKeyBy(lambda t: t["key"]).withMaxKeys(K)
+           .withMonoidCombiner("max").withName(f"ira_red_{tag}").build())
+    g = pkg.PipeGraph(f"ira_mesh_{tag}", config=cfg)
+    g.add_source(src).add(red).add_sink(
+        pkg.Sink_Builder(lambda r: None).build())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        g.run()
+    return red, audit.audit_graph(g, dry_lower=False)
+
+
+@pytest.mark.parametrize("pkg", ["port", "jax"])
+def test_wf901_mesh_reduce_aligned_vs_unaligned_twin(pkg):
+    """The aligned-ingest mesh reduce audits with no WF901 (its only
+    cross-key collective is the scalar drop-count psum every layout
+    keeps); the unaligned twin, whose [K]-table pmax rides the key
+    axis, yields at least one."""
+    import windflow_tpu as wf
+    pk = wt if pkg == "port" else wf
+    red_a, rep_a = _mesh_reduce_run(pk, True, f"a{pkg}")
+    assert getattr(red_a, "_ingest_mode", None) == "aligned"
+    assert [d for d in rep_a.findings if d.code == "WF901"] == []
+    red_u, rep_u = _mesh_reduce_run(pk, False, f"u{pkg}")
+    assert getattr(red_u, "_ingest_mode", None) is None
+    wf901 = [d for d in rep_u.findings if d.code == "WF901"]
+    assert len(wf901) >= 1
+    assert "aligned ingest" in wf901[0].message

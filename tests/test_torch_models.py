@@ -54,8 +54,8 @@ def test_every_app_but_mesh_is_ported():
                 and hasattr(getattr(jm, n), "build")}
     port_apps = {n for n in dir(tm) if not n.startswith("_")
                  and hasattr(getattr(tm, n), "build")}
-    assert jax_apps - port_apps == {"mesh_analytics"}
-    assert port_apps <= jax_apps
+    # mesh_analytics came with the multi-GPU slice: every app is ported
+    assert port_apps == jax_apps
 
 
 def test_entry_points_default_to_the_card():

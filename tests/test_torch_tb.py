@@ -20,8 +20,8 @@ Cells the JAX suite runs at soak depth are cut in depth here.  The two
 merged-source cells (test_windows.py:749, :792) drive the window
 operator through each package's own watermark collector with two
 channels interleaved batch by batch: the port has no merge yet (ROADMAP
-A3).  test_windows.py:836, the multi-host span-regrow skip, has no
-counterpart: the port has no multi-host path.
+A3).  test_windows.py:836, the multi-host span-regrow skip, is held in
+full below (the process count is ``torch.distributed``'s world size).
 
 Tolerances: integer-valued data equal record for record; random floats
 bit-identical on the generic combiner (the same scan and fold combine
@@ -648,3 +648,36 @@ def test_tb_telemetry_shape_matches_jax():
         5_000_000)
     assert {(k, w): v for k, w, v in recs} == want
     assert [st[k] for k in _STATS] == [0, 0, 0]
+
+
+def test_ffat_gpu_tb_span_regrow_skipped_multi_host(monkeypatch):
+    """test_windows.py:836: the span regrow reads host batch extrema,
+    which across processes are each process's own; with a world size
+    > 1 it is a no-op (the eviction-cadence regrow stays the growth
+    path), and the same batch grows the ring in one process."""
+    import types
+
+    from windflow_tpu_torch.parallel import multihost
+    items = [{"key": 0, "value": 1, "ts": i * 1000} for i in range(64)]
+    src = (wt.Source_Builder(lambda: iter(items))
+           .withTimestampExtractor(lambda t: t["ts"])
+           .withOutputBatchSize(16).build())
+    op = (wt.Ffat_WindowsGPU_Builder(lambda t: t["value"],
+                                     lambda a, b: a + b)
+          .withTBWindows(8_000, 2_000).withMaxKeys(1).build())
+    g = wt.PipeGraph("mh_skip", wt.ExecutionMode.DEFAULT,
+                     wt.TimePolicy.EVENT, config=wt.Config(device="cpu"))
+    g.add_source(src).add(op).add_sink(
+        wt.Sink_Builder(lambda r: None).build())
+    g.run()
+    np0 = op.NP
+    assert op._auto_np and np0 < op._np_ceil
+    wide = types.SimpleNamespace(
+        frontier=64_000, ts_min=64_000,
+        ts_max=64_000 + op.P * (np0 + 512))
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    op._regrow_for_span(wide)
+    assert op.NP == np0
+    monkeypatch.setattr(multihost, "process_count", lambda: 1)
+    op._regrow_for_span(wide)
+    assert op.NP > np0

@@ -42,9 +42,13 @@ shapes, the kernel gates that held and the kernel launches made.
   counted per kernel by ``ffat_cuda.gates_open``) while that kernel's
   ``launch_counts()`` entry did not move: its plain version ran on the
   card, whatever the other kernels of the step launched;
-* **WF901** (a cross-chip collective) is not applicable until the
-  multi-GPU slice: one device runs no collective.  The rule keeps its
-  message and its context arguments.
+* **WF901** a collective that crosses the mesh's key axis with more
+  than one element an operand (``parallel/mesh.py`` records each
+  collective a recorded step runs: kind, axes, elements), in the step
+  of a mesh consumer that key-aligned ingest stamped collective-free,
+  or that qualifies for aligned ingest but runs without it.  Scalar
+  counters (the drop-count psum) and within-column data-axis gathers
+  are not charged (:func:`cross_key_collectives`, the JAX rule).
 * **WF905** (a donated operand with no aliased output) is not
   applicable: torch steps donate nothing and carry their state
   functionally (the step returns the new state; under a megastep the
@@ -206,6 +210,8 @@ class _Recorder(TorchDispatchMode):
             "host_reads": [], "syncs": []}
         self.wide = set()
         self.exempt: List[dict] = []
+        #: the mesh collectives the program ran (parallel/mesh.recording)
+        self.collectives: List[dict] = []
         self.error: Optional[BaseException] = None
 
     def note(self, kind: str, what: str) -> None:
@@ -284,7 +290,8 @@ class _Recorder(TorchDispatchMode):
             "host_reads": list(self.hazards["host_reads"]),
             "syncs": list(self.hazards["syncs"]),
             "exempt": list(self.exempt),
-            "collectives": [],
+            "collectives": sorted({c["op"] for c in self.collectives}),
+            "collective_ops": list(self.collectives),
         }
 
 
@@ -442,8 +449,10 @@ def record_step(rep, batch):
         # breaks a step: the program reports pending)
         _fail(op, name, e)
         return rep._op_step(batch)
-    with recording:
+    from windflow_tpu_torch.parallel import mesh as M
+    with recording, M.recording() as coll:
         out = rep._op_step(batch)
+    recording.rec.collectives = coll
     try:
         facts = recording.facts("step", kernels)
         if recording.rec.error is not None:
@@ -498,23 +507,81 @@ def capture_audit(op, name: str, sig, config) -> Optional[CaptureAudit]:
 # fact -> diagnostic interpretation
 # ---------------------------------------------------------------------------
 
+def cross_key_collectives(facts: dict, mesh=None) -> List[str]:
+    """The collective kinds in ``facts`` that move non-scalar data across
+    the mesh's key axis: the traffic aligned ingest removes, and the
+    only collectives WF901 charges.  Scalar counter reduces and
+    within-column (data-axis) gathers are excluded.  A record carries
+    its ``crosses_key`` flag (``parallel/mesh.py``), or ``groups`` of
+    flat position indices (data-major) read against ``mesh``; a record
+    with neither counts as crossing, and facts without records fall
+    back to every collective."""
+    ops = facts.get("collective_ops")
+    if ops is None:
+        return list(facts.get("collectives") or [])
+    kk = mesh.shape["key"] if mesh is not None else None
+    out = set()
+    for e in ops:
+        numel = e.get("numel")
+        if numel is not None and numel <= 1:
+            continue
+        if "crosses_key" in e:
+            if e["crosses_key"]:
+                out.add(e["op"])
+            continue
+        groups = e.get("groups")
+        if kk is None or groups is None:
+            out.add(e["op"])
+            continue
+        if any(len({int(i) % kk for i in grp}) > 1 for grp in groups):
+            out.add(e["op"])
+    return sorted(out)
+
+
+def _collective_context(graph, op) -> tuple:
+    """``(promised, alignable_unaligned)`` for WF901: ``promised`` when
+    key-aligned ingest stamped this consumer collective-free,
+    ``alignable_unaligned`` when it qualifies for aligned ingest but
+    runs without it (the collective is provably avoidable)."""
+    if getattr(graph.config, "mesh", None) is None:
+        return False, False
+    if getattr(op, "_ingest_mode", None) == "aligned":
+        return True, False
+    from windflow_tpu_torch.parallel.mesh import _aligned_slot_bound
+    alignable = (getattr(op, "is_gpu", False)
+                 and _aligned_slot_bound(op) is not None
+                 and op.is_keyed and op.parallelism == 1)
+    return False, alignable
+
+
 def program_findings(op_name: str, facts: dict, *,
-                     promised_collective_free: bool = False
+                     promised_collective_free: bool = False,
+                     alignable_unaligned: bool = False,
+                     cross_key: Optional[List[str]] = None
                      ) -> List[Diagnostic]:
-    """WF9xx diagnostics for ONE program's facts.  WF901 needs a
-    collective on an edge the graph promised collective-free, which no
-    single-device program records: the multi-GPU slice fills both."""
+    """WF9xx diagnostics for ONE program's facts under graph context.
+    WF901 needs the caller to say what the graph promised; ``cross_key``
+    (:func:`cross_key_collectives`) narrows it to the collectives that
+    cross the key axis, None to every collective of the program."""
     out: List[Diagnostic] = []
     backend = facts.get("backend")
-    coll = facts.get("collectives")
-    if coll and promised_collective_free:
-        out.append(Diagnostic(
-            "WF901",
-            f"program '{op_name}' runs cross-device collective(s) "
-            f"[{', '.join(coll)}] on an edge the aligned-ingest plan "
-            "promised (or would make) collective-free",
-            node=op_name,
-            hint="aligned ingest places the lanes on their key shard"))
+    coll = facts.get("collectives") if cross_key is None else cross_key
+    if coll and (promised_collective_free or alignable_unaligned):
+        what = ", ".join(coll)
+        if promised_collective_free:
+            msg = (f"program '{op_name}' runs cross-device collective(s) "
+                   f"[{what}] on an edge the aligned-ingest plan "
+                   "promised collective-free")
+            hint = ("the aligned sharded step regressed: the modeled "
+                    "inter-position drop (shard ledger) no longer holds")
+        else:
+            msg = (f"program '{op_name}' pays cross-device "
+                   f"collective(s) [{what}] on an edge aligned ingest "
+                   "would make collective-free")
+            hint = ("enable Config.key_aligned_ingest "
+                    "(WF_TPU_KEY_ALIGNED=1) so the consumer takes "
+                    "pre-placed lanes instead of the in-step gather")
+        out.append(Diagnostic("WF901", msg, node=op_name, hint=hint))
     host = list(facts.get("crossings") or []) \
         + list(facts.get("host_ops") or [])
     if host and backend == "cuda":
@@ -608,7 +675,7 @@ class IRAuditReport:
             "exempt_host_reads": list(self.exempt),
         }
 
-    def _add(self, name: str, facts: dict) -> List[Diagnostic]:
+    def _add(self, name: str, facts: dict, **context) -> List[Diagnostic]:
         self.programs_audited += 1
         self.programs.append({
             "name": name, "kind": facts.get("kind"),
@@ -619,7 +686,7 @@ class IRAuditReport:
             row = dict(e, program=name)
             if row not in self.exempt:
                 self.exempt.append(row)
-        return program_findings(name, facts)
+        return program_findings(name, facts, **context)
 
 
 def _graph_ops(graph) -> list:
@@ -717,7 +784,9 @@ def audit_graph(graph, dry_lower: bool = True) -> IRAuditReport:
         return report
     in_specs = None
     unknown = None
+    mesh = getattr(graph.config, "mesh", None)
     for op in _graph_ops(graph):
+        promised, alignable = _collective_context(graph, op)
         findings: List[Diagnostic] = []
         rows = []
         with _store_lock:
@@ -725,7 +794,10 @@ def audit_graph(graph, dry_lower: bool = True) -> IRAuditReport:
                 report.op_names.add(n)
                 rows.extend((n, f) for f in sigs.values())
         for n, facts in rows:
-            findings.extend(report._add(n, facts))
+            findings.extend(report._add(
+                n, facts, promised_collective_free=promised,
+                alignable_unaligned=alignable,
+                cross_key=cross_key_collectives(facts, mesh)))
         if not rows and getattr(op, "is_gpu", False) and dry_lower \
                 and not getattr(graph, "_started", False):
             if in_specs is None:

@@ -21,9 +21,10 @@ can prove, in the JAX package's pass order:
 * wfverify (``analysis/tracecheck.py``), folded in as the WF8xx/WF61x
   codes, a failure of the verifier itself as WF800.
 
-Not run here: the mesh pass (WF401, WF402, WF604) waits for the port's
-multi-GPU slice and the IR audit (WF900) for the audit of captured
-graphs; ``PASSES`` lists what runs.  The restore half
+On a mesh (``Config.mesh``) the mesh pass checks that staging
+capacities divide over the mesh's positions (WF401) and key spaces over
+its key axis (WF402), and the durability pass flags keyed state with no
+re-bucketing rule (WF604).  ``PASSES`` lists what runs.  The restore half
 (:func:`manifest_conflicts`, :func:`manifest_rescale_plan`) is the gate
 ``PipeGraph.restore()`` runs before it touches any state.  The graph
 walk helpers (:func:`_upstream_map`, :func:`_effective_caps`,
@@ -47,7 +48,7 @@ from windflow_tpu_torch.utils.tree import tree_flatten, tree_map
 _UNKNOWN = None
 
 #: the passes :func:`check_graph` runs, in order (``stats()["Preflight"]``)
-PASSES = ("structural", "window_spec", "capacity", "compaction",
+PASSES = ("structural", "window_spec", "capacity", "mesh", "compaction",
           "watermark", "durability", "kernel", "wire", "kernel_downgrade",
           "megastep", "tracecheck", "ir_audit")
 
@@ -347,6 +348,7 @@ def check_graph(graph) -> List[Diagnostic]:
     _structural_pass(graph, ops, edges, diags)
     _window_spec_pass(ops, diags)
     _capacity_pass(graph, upstreams, diags)
+    _mesh_pass(graph, ops, edges, diags)
     _compaction_pass(graph, ops, diags)
     _watermark_pass(graph, ops, upstreams, diags)
     _durability_pass(graph, ops, diags)
@@ -684,13 +686,70 @@ def _watermark_pass(graph, ops, upstreams, diags) -> None:
                 node=op.name))
 
 
+def _mesh_pass(graph, ops, edges, diags) -> None:
+    """WF401: a host→device staging edge whose batch size does not
+    divide over the mesh's positions; WF402: a key-sharded state space
+    the key axis does not divide (or a compacted window key space, which
+    is single-device).  The sharded steps raise the same at their
+    build; reported here for the whole graph at once."""
+    mesh = graph.config.mesh
+    if mesh is None:
+        return
+    total = mesh.size
+    key_extent = mesh.shape["key"]
+    for edge in edges:
+        if edge[0] != "op":
+            continue
+        _, a, b = edge
+        if b.is_gpu and not a.is_gpu and a.output_batch_size > 0 \
+                and a.output_batch_size % total:
+            diags.append(Diagnostic(
+                "WF401",
+                f"staging edge '{a.name}' -> '{b.name}': output batch "
+                f"size {a.output_batch_size} not divisible by the mesh's "
+                f"{total} devices",
+                node=b.name,
+                hint=f"pick a withOutputBatchSize that is a multiple of "
+                     f"{total}"))
+    from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
+    from windflow_tpu_torch.windows.ffat_gpu import FfatWindowsGPU
+    for op in ops:
+        if isinstance(op, FfatWindowsGPU) and op.max_keys is None:
+            diags.append(Diagnostic(
+                "WF402",
+                f"operator '{op.name}': compacted key space "
+                "(withCompactedKeys) is single-device; mesh execution "
+                "needs a declared dense key space",
+                node=op.name,
+                hint=f"declare withMaxKeys (a multiple of the key axis "
+                     f"{key_extent})"))
+        elif isinstance(op, FfatWindowsGPU) and op.max_keys % key_extent:
+            diags.append(Diagnostic(
+                "WF402",
+                f"operator '{op.name}': max_keys {op.max_keys} not "
+                f"divisible by key axis {key_extent}",
+                node=op.name))
+        elif isinstance(op, _StatefulGPUBase) \
+                and op.num_key_slots % key_extent:
+            diags.append(Diagnostic(
+                "WF402",
+                f"operator '{op.name}': num_key_slots {op.num_key_slots} "
+                f"not divisible by key axis {key_extent}",
+                node=op.name))
+
+
 def _durability_pass(graph, ops, diags) -> None:
     """With ``Config.durability`` set: sources whose replay is not
-    deterministic (WF601) and operators whose cross-batch state the
-    checkpoint cannot capture (WF603).  WF604 (a keyed operator on a
-    mesh) waits for the port's multi-GPU slice."""
+    deterministic (WF601), operators whose cross-batch state the
+    checkpoint cannot capture (WF603), and on a mesh keyed operators
+    whose checkpointed state has no re-bucketing rule (WF604)."""
     if not getattr(graph.config, "durability", ""):
         return
+    on_mesh = graph.config.mesh is not None
+    # on a mesh the same gaps also block rescale-on-restore
+    mesh_tail = (" — on a mesh this also makes the operator "
+                 "rescale-incompatible (restore on N±1 shards replays "
+                 "through the checkpoint)") if on_mesh else ""
     from windflow_tpu_torch.io.device_source import DeviceSource
     from windflow_tpu_torch.kafka.kafka_source import KafkaSource
     from windflow_tpu_torch.ops.source import Source
@@ -707,7 +766,7 @@ def _durability_pass(graph, ops, diags) -> None:
                 "after a restore (no offsets to seek, "
                 "wall-clock/ingress timestamps re-stamp on replay) — "
                 "restored runs will diverge from the checkpointed "
-                "stream position",
+                "stream position" + mesh_tail,
                 node=op.name,
                 hint="feed checkpointed graphs from a Kafka source or "
                      "an EVENT-time DeviceSource (withTimestampFn / "
@@ -717,11 +776,24 @@ def _durability_pass(graph, ops, diags) -> None:
                 "WF603",
                 f"operator '{op.name}' ({type(op).__name__}) holds "
                 "cross-batch state the checkpoint cannot capture — a "
-                "restore silently resets it",
+                "restore silently resets it" + mesh_tail,
                 node=op.name,
                 hint="use the device window/stateful operators "
                      "(FfatWindowsGPU, StatefulMapGPU, Reduce) for "
                      "checkpointed graphs"))
+        elif on_mesh and op.key_extractor is not None \
+                and _checkpoints_unrebucketable_state(op):
+            diags.append(Diagnostic(
+                "WF604",
+                f"keyed operator '{op.name}' ({type(op).__name__}) on "
+                "a mesh checkpoints state with no re-bucketing rule "
+                "(no declared key space or compaction remap) — a "
+                "restore onto a different mesh shape will refuse with "
+                "WF605",
+                node=op.name,
+                hint="use the built-in keyed operators (FfatWindowsGPU, "
+                     "StatefulMapGPU, ReduceGPU, Reduce) for rescalable "
+                     "checkpoints, or keep the mesh shape fixed"))
 
 
 def _wire_pass(graph, edges, diags) -> None:
@@ -1326,8 +1398,10 @@ def manifest_rescale_plan(graph, manifest):
     ``(diagnostics, rescaled)``.  Blocking diagnostics are WF602
     (genuine topology mismatch) and WF605 (a shape change the state
     cannot re-bucket: an operator of unknown state kind, or a manifest
-    written on a mesh).  ``rescaled`` is True when a keyed parallelism
-    change is in effect."""
+    written on a mesh shape its state cannot re-bucket onto).
+    ``rescaled`` is True when a keyed parallelism
+    change (keyed parallelism or mesh shape) is in effect."""
+    from windflow_tpu_torch.durability.rebucket import mesh_shape
     diags = manifest_conflicts(graph, manifest, allow_rescale=True)
     want = manifest.get("topology") or []
     ops = graph._topo_operators()
@@ -1347,12 +1421,20 @@ def manifest_rescale_plan(graph, manifest):
                     node=op.name,
                     hint="restore on the checkpointed shard shape, or "
                          "use the built-in keyed operators"))
-    if manifest.get("mesh") is not None:
+    old_mesh = manifest.get("mesh")
+    new_mesh = mesh_shape(graph.config.mesh)
+    if old_mesh != new_mesh:
         rescaled = True
-        diags.append(Diagnostic(
-            "WF605",
-            f"the checkpoint was written on a mesh "
-            f"{manifest.get('mesh')} and this graph runs on one device; "
-            "mesh rescale-on-restore is not ported (ROADMAP A10)",
-            hint="restore on the checkpointed mesh shape"))
+        for op in ops:
+            if op.key_extractor is not None \
+                    and _checkpoints_unrebucketable_state(op):
+                diags.append(Diagnostic(
+                    "WF605",
+                    f"mesh shape changes {old_mesh} → {new_mesh} but "
+                    f"keyed operator '{op.name}' "
+                    f"({type(op).__name__}) checkpoints state with no "
+                    "re-bucketing rule",
+                    node=op.name,
+                    hint="restore on the checkpointed mesh shape, or "
+                         "use the built-in keyed operators"))
     return diags, rescaled

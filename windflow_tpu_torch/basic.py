@@ -2,12 +2,12 @@
 
 The port's copy of ``windflow_tpu/basic.py`` (which imports no JAX but is
 not imported across: the port stands alone).  ``Config`` has every
-field of the JAX package's but the mesh's two (``mesh``,
-``key_aligned_ingest``), with the JAX package's defaults
+field of the JAX package's, with the JAX package's defaults
 (``wire_compression`` and ``megastep_sweeps`` resolve "auto" from
-``device``), plus the two the port adds: ``device`` (the card unless
-the caller asks for the CPU) and ``cuda_kernels`` (the kernel switch,
-counterpart of ``Config.pallas_kernels``).  The observability fields
+``device``; ``mesh`` is a ``parallel.mesh.Mesh`` of torch devices),
+plus the two the port adds: ``device`` (the card unless the caller asks
+for the CPU) and ``cuda_kernels`` (the kernel switch, counterpart of
+``Config.pallas_kernels``).  The observability fields
 keep the JAX package's names and defaults, ``profiler_dir`` pointing at
 a ``torch.profiler`` capture; only those of the monitoring thread, of
 the latency, tenant, calibration and roofline planes and of the reshard
@@ -258,6 +258,14 @@ class Config:
     # ir_audit.json and check()'s table.  0 is the kill switch: nothing
     # is recorded, one flag check on the cold first-step path.
     ir_audit: bool = bool(int(os.environ.get("WF_TPU_IR_AUDIT", "1")))
+    # Key-aligned mesh ingest (parallel/emitters.AlignedMeshStageEmitter
+    # and the sharded steps' ingest="aligned"): a host-fed key-sharded
+    # consumer with a declared dense key space takes its batches
+    # pre-placed on the owning key shard's column, so its step skips the
+    # data-axis all_gather (and the reduce's cross-shard table combine).
+    # WF_TPU_KEY_ALIGNED=0 keeps the data-sharded ingest everywhere.
+    key_aligned_ingest: bool = bool(int(os.environ.get(
+        "WF_TPU_KEY_ALIGNED", "1")))
     # Dashboard endpoint (reference WF_DASHBOARD_MACHINE/PORT) of the
     # monitoring thread (monitoring/monitor.py).
     dashboard_host: str = os.environ.get("WF_TPU_DASHBOARD_HOST",
@@ -326,6 +334,15 @@ class Config:
     # drain onto its siblings; 0 records the candidate without acting.
     reshard_scale_down_ticks: int = int(os.environ.get(
         "WF_TPU_RESHARD_SCALE_DOWN_TICKS", "0"))
+    # Multi-GPU execution: a ``parallel.mesh.Mesh``, a ("data", "key")
+    # grid of torch devices (parallel/mesh.make_mesh; one device may
+    # repeat, a logical mesh on one card).  When set, staged batch
+    # capacities must divide over the mesh's positions and the mesh-aware
+    # device operators (FfatWindowsGPU, ReduceGPU, the stateful
+    # Map/Filter) run their sharded steps: key-sharded state, one local
+    # step per position, collectives between the phases.  Fusion and
+    # the megastep skip mesh operators.
+    mesh: object = None
 
 
 #: Process-wide default configuration; graphs copy it at construction.

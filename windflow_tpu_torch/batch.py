@@ -239,31 +239,41 @@ def stage_packed(buf: np.ndarray, treedef, dtypes, capacity: int, n: int,
 
 def _stage_soa(soa, tss, n: int, capacity: int, watermark: int,
                device, frontier: Optional[int] = None,
-               trace: Optional[tuple] = None) -> DeviceBatch:
+               trace: Optional[tuple] = None,
+               mask: Optional[np.ndarray] = None) -> DeviceBatch:
     """Pad an SoA numpy pytree + timestamps to ``capacity`` and stage it.
     Packable 1-D lanes ride one packed copy; anything else goes lane by
     lane.  The data timestamp extrema ride along as host metadata
-    (``DeviceBatch.ts_min``/``ts_max``)."""
+    (``DeviceBatch.ts_min``/``ts_max``).  ``mask`` is a host validity
+    mask of ``capacity`` rows for lanes laid out with holes (``n`` its
+    count); it rides the packed copy as one more int32 lane."""
     tss = np.asarray(tss, dtype=np.int64)
-    ts_max = int(tss[:n].max()) if n else None
-    ts_min = int(tss[:n].min()) if n else None
-    leaves, treedef = tree_flatten(soa)
+    live = tss[:n] if mask is None else tss[mask]
+    ts_max = int(live.max()) if n else None
+    ts_min = int(live.min()) if n else None
+    tree = soa if mask is None else (soa, mask.astype(np.int32))
+    leaves, treedef = tree_flatten(tree)
     if all(l.ndim == 1 and staging.packable_dtype(l.dtype) for l in leaves):
         dtypes = tuple(str(np.dtype(l.dtype)) for l in leaves)
         pool = staging.pool_for(device)
         b = staging.PackedBatchBuilder(dtypes, capacity, pool=pool)
         b.append(leaves, tss)
-        return stage_packed(b.finish(), treedef, dtypes, capacity, n,
-                            device, watermark=watermark, frontier=frontier,
-                            ts_max=ts_max, ts_min=ts_min, pool=pool,
-                            trace=trace)
+        out = stage_packed(b.finish(), treedef, dtypes, capacity, n,
+                           device, watermark=watermark, frontier=frontier,
+                           ts_max=ts_max, ts_min=ts_min, pool=pool,
+                           trace=trace)
+        if mask is not None:
+            out.payload, on = out.payload
+            out.valid = on != 0
+        return out
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(
             _pad_leading(a, capacity))).to(device)
     payload = tree_map(lambda a: put(np.asarray(a)), soa)
     ts = put(tss)
-    valid = torch.arange(capacity, device=device) < n
+    valid = (torch.arange(capacity, device=device) < n if mask is None
+             else put(mask))
     out = DeviceBatch(payload, ts, valid, watermark=watermark, size=n,
                       frontier=frontier, ts_max=ts_max, ts_min=ts_min,
                       trace=trace)
@@ -289,15 +299,18 @@ def host_to_device(batch: HostBatch, capacity: Optional[int], device,
 def columns_to_device(cols, tss, capacity: int, device,
                       watermark: int = WM_NONE,
                       frontier: Optional[int] = None,
-                      trace: Optional[tuple] = None) -> DeviceBatch:
-    """Stage columnar (SoA numpy) data directly into a DeviceBatch."""
-    n = len(tss)
+                      trace: Optional[tuple] = None,
+                      mask: Optional[np.ndarray] = None) -> DeviceBatch:
+    """Stage columnar (SoA numpy) data directly into a DeviceBatch.
+    ``mask``: the columns hold ``capacity`` rows laid out with holes and
+    this host mask marks the valid ones."""
+    n = len(tss) if mask is None else int(np.count_nonzero(mask))
     if n == 0:
         raise ValueError("cannot stage an empty column batch")
-    if n > capacity:
+    if n > capacity or (mask is not None and len(tss) != capacity):
         raise ValueError(f"column batch of {n} exceeds capacity {capacity}")
     return _stage_soa(dict(cols), tss, n, capacity, watermark, device,
-                      frontier, trace)
+                      frontier, trace, mask)
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,10 @@ restart would see.
 
 ``python -m windflow_tpu_torch.durability.chaos`` runs the matrix from
 the command line (the twin of the JAX package's ``tools/wf_chaos.py``,
-with its JSON and exit codes) on the card unless ``--device cpu``;
-``--mesh`` asks for the mesh rescale cells, which wait for the
-multi-GPU slice (ROADMAP A10) and exit 2 with that error.
+with its JSON and exit codes) on the card unless ``--device cpu``.
+The full matrix (no ``--family``) adds the mesh rescale cells, as the
+JAX tool does; ``--mesh`` runs those cells alone.  A cell's mesh is a
+logical one over the cells' device repeated (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -329,8 +330,10 @@ def make_cell(family: str, ckpt_dir: str, *, fusion: bool = True,
         from windflow_tpu_torch.durability.sinks import EpochFileSink
         file_sink = EpochFileSink(out_dir)
 
-    def factory(parallelism: int = parallelism):
-        c = dataclasses.replace(wt.default_config, **cfg)
+    def factory(parallelism: int = parallelism, **over):
+        # ``over``: Config fields of this build only (a rescale cell's
+        # restore mesh)
+        c = dataclasses.replace(wt.default_config, **{**cfg, **over})
         c.durability = ckpt_dir
         c.durability_epoch_sweeps = epoch_sweeps
         c.whole_chain_fusion = fusion
@@ -438,6 +441,10 @@ def default_kill(family: str, point: str) -> KillSpec:
 #: keyed operator and window_compact's remap already rides the blob
 RESCALE_FAMILIES = ("reduce", "stateful", "window_cb", "window_tb")
 
+#: families that rescale across mesh shapes (killed on kk key shards,
+#: restored on another key axis)
+MESH_RESCALE_FAMILIES = ("window_cb", "window_tb")
+
 
 def record_key(rec):
     """The routing key of one sunk record (the cells' serializer ships
@@ -507,20 +514,24 @@ def _verdict(gb, gc, base_out, chaos_out, diff, seconds) -> dict:
 
 def run_rescale_ab(family: str, point: str, workdir: str, *,
                    shards_kill: int, shards_restore: int,
+                   mesh_kill=None, mesh_restore=None,
                    n: int = 4096, fusion: bool = True,
                    spec: Union[None, KillSpec,
                                Callable[[object], KillSpec]] = None,
                    **cell) -> dict:
     """One kill-a-shard / restore-on-N±1 cell: baseline runs
     uninterrupted on the KILL shape; the chaos twin is killed on the
-    kill shape and restored at the RESTORE parallelism.  The diff is
-    per-key record-for-record.  ``spec`` is as in :func:`run_ab` (the
+    kill shape and restored on the RESTORE shape (parallelism and/or
+    mesh).  The diff is per-key record-for-record.  ``spec`` is as in :func:`run_ab` (the
     family's default kill when None); ``cell`` passes on to
     :func:`make_cell` (``keys``, ``output_batch_size``, ``messages``,
     Config fields)."""
     import os as _os
     tag = (f"rescale_{family}_{point}_{shards_kill}to{shards_restore}"
+           f"_{_mesh_tag(mesh_kill)}to{_mesh_tag(mesh_restore)}"
            f"_{'on' if fusion else 'off'}")
+    if mesh_kill is not None:
+        cell["mesh"] = mesh_kill
     base = make_cell(family, _os.path.join(workdir, tag, "ckpt_a"),
                      fusion=fusion, n=n, parallelism=shards_kill,
                      out_dir=_os.path.join(workdir, tag, "out_a"), **cell)
@@ -544,15 +555,25 @@ def run_rescale_ab(family: str, point: str, workdir: str, *,
     gc = run_killed_and_restored(
         chal["factory"], spec,
         restore_factory=lambda: chal["factory"](
-            parallelism=shards_restore))
+            parallelism=shards_restore, mesh=mesh_restore))
     seconds = (t1 - t0, time.perf_counter() - t0)
     base_out, chaos_out = base["read"](), chal["read"]()
     out = {"family": family, "point": point, "rescale": True,
-           "shards": f"{shards_kill}->{shards_restore}", "fusion": fusion,
-           "kill": dataclasses.asdict(spec)}
+           "shards": f"{shards_kill}->{shards_restore}",
+           "mesh": None if mesh_kill is None else
+           f"{_mesh_tag(mesh_kill)}->{_mesh_tag(mesh_restore)}",
+           "fusion": fusion, "kill": dataclasses.asdict(spec)}
     out.update(_verdict(gb, gc, base_out, chaos_out,
                         diff_keyed_records(base_out, chaos_out), seconds))
     return out
+
+
+def _mesh_tag(mesh) -> str:
+    if mesh is None:
+        return "none"
+    from windflow_tpu_torch.durability.rebucket import mesh_shape
+    s = mesh_shape(mesh)
+    return f"{s['data']}x{s['key']}"
 
 
 def run_ab(factory_baseline: Optional[Callable[[], object]],
@@ -609,18 +630,33 @@ def run_cell(family: str, point: str, fusion: bool, records: int,
 
 
 def run_rescale_cells(families, records: int, workdir: str,
+                      with_mesh: bool = False, replicas: bool = True,
                       **cfg) -> list:
     """Kill-a-shard / restore-on-N±1 cells: each rescale family killed
-    at 3 replicas and restored on 2 and on 4.  Mesh shapes wait for the
-    multi-GPU slice (``main`` refuses ``--mesh``)."""
+    at 3 replicas and restored on 2 and on 4; ``with_mesh`` adds the mesh
+    families killed on 4 key shards and restored on 2, and the reverse
+    (logical meshes over the cells' device)."""
     out = []
-    for family in families:
+    for family in (families if replicas else ()):
         for shards_restore in (2, 4):
             v = run_rescale_ab(family, "mid_epoch", workdir, shards_kill=3,
                                shards_restore=shards_restore, n=records,
                                **cfg)
-            v.setdefault("mesh", None)
             out.append(v)
+    if with_mesh:
+        from windflow_tpu_torch.parallel.mesh import make_mesh
+        dev = cfg.get("device", "cuda")
+        for family in MESH_RESCALE_FAMILIES:
+            if family not in families:
+                continue
+            for kk_kill, kk_restore in ((4, 2), (2, 4)):
+                out.append(run_rescale_ab(
+                    family, "mid_epoch", workdir, shards_kill=1,
+                    shards_restore=1,
+                    mesh_kill=make_mesh(kk_kill, devices=[dev] * kk_kill),
+                    mesh_restore=make_mesh(kk_restore,
+                                           devices=[dev] * kk_restore),
+                    n=records, **cfg))
     return out
 
 
@@ -643,8 +679,8 @@ def main(argv=None) -> int:
                     help="also run the kill-a-shard / restore-on-N±1 "
                          "rescale cells (per-key record diff)")
     ap.add_argument("--mesh", action="store_true",
-                    help="the mesh rescale cells (they wait for the "
-                         "multi-GPU slice: exit 2)")
+                    help="run only the mesh rescale cells (logical "
+                         "meshes over --device)")
     ap.add_argument("--device", default="cuda",
                     help="Config.device of the cells' graphs (default: "
                          "the card)")
@@ -657,15 +693,14 @@ def main(argv=None) -> int:
     points = args.point or list(KILL_POINTS)
     fusions = {"on": [True], "off": [False],
                "both": [True, False]}[args.fusion]
-    if args.mesh:
-        print("wf_chaos: FAIL: the mesh rescale cells wait for the "
-              "multi-GPU slice (ROADMAP A10): the port runs one device",
-              file=sys.stderr)
-        return 2
     workdir = args.workdir or tempfile.mkdtemp(prefix="wf_chaos_")
     cfg = {"device": args.device}
     results, failed = [], 0
-    for family in families:
+    if args.mesh:
+        # the mesh rescale cells alone
+        families, args.rescale = [f for f in families
+                                  if f in MESH_RESCALE_FAMILIES], "on"
+    for family in (families if not args.mesh else ()):
         for point in points:
             for fusion in fusions:
                 v = run_cell(family, point, fusion, args.records, workdir,
@@ -687,12 +722,11 @@ def main(argv=None) -> int:
                   f"({families}) has a rescale cell "
                   f"(rescale families: {list(RESCALE_FAMILIES)})",
                   file=sys.stderr)
-        if not args.family:
-            print("wf_chaos: the mesh rescale cells wait for the "
-                  "multi-GPU slice (ROADMAP A10) — skipped",
-                  file=sys.stderr)
+        # the mesh cells ride the full matrix, as in the JAX tool
+        with_mesh = args.mesh or not args.family
         for v in run_rescale_cells(rescale_fams, args.records, workdir,
-                                   **cfg):
+                                   with_mesh=with_mesh,
+                                   replicas=not args.mesh, **cfg):
             results.append(v)
             ok = v["diff"] is None
             failed += 0 if ok else 1

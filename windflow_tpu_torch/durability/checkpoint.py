@@ -300,6 +300,7 @@ class DurabilityPlane:
         self._chaos("post_sink_commit")
         t_snap = time.perf_counter()
         nbytes = self._write_snapshots(epoch)
+        from windflow_tpu_torch.durability.rebucket import mesh_shape
         manifest = {
             "schema": CHECKPOINT_SCHEMA,
             "app": self.graph.name,
@@ -307,8 +308,8 @@ class DurabilityPlane:
             "written_at_usec": current_time_usecs(),
             "topology": topology_signature(self.graph._operators),
             # the shard shape this epoch's keyed state was bucketed
-            # under: the port runs on one device
-            "mesh": None,
+            # under (None off a mesh)
+            "mesh": mesh_shape(self.graph.config.mesh),
             "placements": {str(ordinal): len(ov) for ordinal, ov
                            in collect_overrides(self.graph).items()},
         }
@@ -440,8 +441,11 @@ class DurabilityPlane:
         t0 = time.perf_counter()
         g = self.graph
         epoch = pending["epoch"]
-        from windflow_tpu_torch.durability.rebucket import rebucket_blob
+        from windflow_tpu_torch.durability.rebucket import (mesh_shape,
+                                                            rebucket_blob)
         topo = pending["manifest"].get("topology") or []
+        old_mesh = pending["manifest"].get("mesh")
+        new_mesh = mesh_shape(g.config.mesh)
         placements = pending.get("placements") or {}
         rescaled = pending.get("rescaled", False)
         if placements:
@@ -451,6 +455,7 @@ class DurabilityPlane:
             old_p = topo[ordinal]["parallelism"] \
                 if ordinal < len(topo) else op.parallelism
             blob = rebucket_blob(op, blob, old_p, op.parallelism,
+                                 old_mesh, new_mesh,
                                  override=placements.get(ordinal))
             op.restore_state(blob)
         by_key = {(r["ordinal"], r["index"]): r for r in pending["reps"]}

@@ -17,10 +17,16 @@ state must land where the keys will):
   remap table itself rides the operator blob;
 * recorded placement overrides are applied before the hash.
 
+Mesh shapes re-bucket too (:func:`mesh_shape` is the manifest's
+record): CB pane tables and stateful slot tables are one global table
+whose key rows split over any key axis that divides them; TB rings carry
+one clock lane a key shard, re-shaped onto the new key axis when the
+clocks agree.
+
 What cannot re-bucket raises :class:`RescaleError` (WF605): state of an
-unknown kind, TB pane rings whose per-replica clocks disagree at the
-barrier, and any mesh shape (the multi-GPU port, ROADMAP A10, brings
-mesh rescale).
+unknown kind, TB pane rings whose per-replica or per-shard clocks
+disagree at the barrier, and a key space the new key axis does not
+divide.
 """
 
 from __future__ import annotations
@@ -47,6 +53,15 @@ class RescaleError(WindFlowError):
         super().__init__(
             f"WF605 restore: operator '{op_name}' cannot re-bucket its "
             f"checkpointed state onto the new shard shape — {why}")
+
+
+def mesh_shape(mesh) -> Optional[dict]:
+    """The JSON-able shape record a checkpoint manifest pins for a mesh
+    graph (the JAX package's layout)."""
+    if mesh is None:
+        return None
+    return {"devices": int(mesh.size), "data": int(mesh.shape["data"]),
+            "key": int(mesh.shape["key"])}
 
 
 def _owner_fn(kind: str, n: int, override: Optional[dict]):
@@ -133,21 +148,48 @@ def _check_aligned(op, states: dict, names=TB_ALIGNED) -> dict:
     return agreed
 
 
-def _rebucket_ffat(op, blob, old_p: int, new_p: int,
-                   override: Optional[dict]) -> dict:
+def _rebucket_ffat(op, blob, old_p: int, new_p: int, old_kk: int,
+                   new_kk: int, override: Optional[dict]) -> dict:
     """FFAT pane rings.  CB state is purely per-key (one shared table,
-    per-key clock lanes): it passes through.  Keyed TB at parallelism
-    > 1 keeps one ring per replica: each key row is gathered from its
-    old owner's ring into its new owner's, when the clocks agree at the
+    per-key clock lanes): it passes through, once the new mesh key axis
+    divides the key space.  TB state carries ring clocks: one lane a
+    mesh key shard, or one full ring a replica when keyed at
+    parallelism > 1; both re-bucket only when the clocks agree at the
     barrier (see :class:`RescaleError`)."""
     K = int(op.max_keys)
+    if new_kk > 1 and K % new_kk:
+        raise RescaleError(
+            op.name, f"max_keys {K} not divisible by the new mesh key "
+                     f"axis {new_kk}")
     states: Dict[int, dict] = blob["states"]
     is_tb = bool(getattr(op, "is_tb", False))
     kind = "slot_mod" if blob.get("compactor") is not None else "splitmix"
     old_per_rep = is_tb and op.key_extractor is not None and old_p > 1
     new_per_rep = is_tb and op.key_extractor is not None and new_p > 1
     if not old_per_rep and not new_per_rep:
-        return blob     # per-key state only: nothing shard-local
+        if not is_tb or old_kk == new_kk or not states:
+            return blob     # per-key state only: nothing shard-local
+        # the TB clock lanes re-shaped old_kk -> new_kk (1: one device)
+        st = dict(states[0])
+        agreed = _check_aligned(op, {0: st})
+
+        def lane(name, fill, first_only=False):
+            a = np.zeros((max(1, new_kk),), _tb_scalar(st[name]).dtype)
+            if first_only:
+                a[0] = fill
+            else:
+                a[:] = fill
+            return a if new_kk > 1 else a.reshape(())
+        for name in TB_ALIGNED:
+            st[name] = lane(name, agreed[name])
+        st["max_seen"] = lane("max_seen",
+                              int(_tb_scalar(st["max_seen"]).max()))
+        for name in ("n_late", "n_evicted", "n_win_dropped"):
+            st[name] = lane(name, int(_tb_scalar(st[name]).sum()),
+                            first_only=True)
+        out = dict(blob)
+        out["states"] = {0: st}
+        return out
 
     live = {s: st for s, st in states.items() if st}
     if not live:
@@ -211,28 +253,43 @@ def _rebucket_ffat(op, blob, old_p: int, new_p: int,
 # entry point
 # ---------------------------------------------------------------------------
 
+def _rebucket_stateful(op, blob, new_kk: int) -> dict:
+    """A stateful slot table is one table shared by the replicas (and
+    split by key rows on a mesh): shape-independent, once the new key
+    axis divides it."""
+    S = int(getattr(op, "num_key_slots", 0) or 0)
+    if new_kk > 1 and S and S % new_kk:
+        raise RescaleError(
+            op.name, f"num_key_slots {S} not divisible by the new mesh "
+                     f"key axis {new_kk}")
+    return blob
+
+
 def rebucket_blob(op, blob: dict, old_p: int, new_p: int,
                   old_mesh: Optional[dict] = None,
                   new_mesh: Optional[dict] = None,
                   override: Optional[dict] = None) -> dict:
-    """Re-bucket one operator's checkpoint blob from the parallelism it
-    was written under (``old_p``) onto the one the restoring graph
-    builds (``new_p``).  Blobs whose state is shape-independent pass
-    through unchanged; unknown kinds under a genuine shape change, and
-    any mesh shape, raise :class:`RescaleError`."""
-    if old_mesh is not None or new_mesh is not None:
-        raise RescaleError(
-            op.name, "mesh shapes are not ported to the one-device port "
-                     "(ROADMAP A10); restore on one device")
-    if old_p == new_p:
+    """Re-bucket one operator's checkpoint blob from the shape it was
+    written under (``old_p`` replicas on ``old_mesh``) onto the shape the
+    restoring graph builds (``new_p`` on ``new_mesh``, :func:`mesh_shape`
+    records).  Blobs whose state is shape-independent pass through
+    unchanged; unknown kinds under a genuine shape change raise
+    :class:`RescaleError`."""
+    old_kk = (old_mesh or {}).get("key", 1) or 1
+    new_kk = (new_mesh or {}).get("key", 1) or 1
+    if old_p == new_p and old_kk == new_kk \
+            and (old_mesh is None) == (new_mesh is None):
         return blob
     kind = blob.get("kind") if isinstance(blob, dict) else None
     if kind == "reduce_host":
         return _rebucket_reduce_host(op, blob, new_p, override)
     if kind == "ffat_tpu":
-        return _rebucket_ffat(op, blob, old_p, new_p, override)
-    if kind in ("stateful_tpu", "reduce_tpu"):
-        # one shared slot table / drop counters + remap: shape-independent
+        return _rebucket_ffat(op, blob, old_p, new_p, old_kk, new_kk,
+                              override)
+    if kind == "stateful_tpu":
+        return _rebucket_stateful(op, blob, new_kk)
+    if kind == "reduce_tpu":
+        # drop counters + remap: shard-shape independent
         return blob
     raise RescaleError(
         op.name,

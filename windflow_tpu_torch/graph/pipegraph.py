@@ -256,6 +256,7 @@ class PipeGraph:
             self._operators.append(op)
             op.config = self.config
             op.device = self.device
+            op.mesh = self.config.mesh
             op.build_replicas(self.mode, self.time_policy)
         for op in self._operators:
             self._all_replicas.extend(op.replicas)
@@ -266,9 +267,19 @@ class PipeGraph:
         if getattr(self.config, "preflight", "error") == "off":
             self._check_fixed_capacity_ops()
 
+        # 1a. key-aligned mesh ingest: stamp the eligible host-fed
+        # key-sharded consumers before wiring; the emitter dispatch and
+        # the consumers' sharded steps read the stamp
+        mesh = self.config.mesh
+        if mesh is not None \
+                and getattr(self.config, "key_aligned_ingest", True):
+            from windflow_tpu_torch.parallel.mesh import mark_aligned_ingest
+            mark_aligned_ingest(self)
+
         # 1b. whole-chain fusion, installed before wiring so each segment
-        # is wired as one hop
-        if getattr(self.config, "whole_chain_fusion", True):
+        # is wired as one hop; skipped on a mesh (the sharded steps
+        # compose by phases)
+        if getattr(self.config, "whole_chain_fusion", True) and mesh is None:
             self._fused_segments = apply_fusion(self)
         fused_host = {}          # id(member) -> the segment's host op
         fused_edge_skip = set()  # interior (src, dst) id pairs
@@ -292,7 +303,7 @@ class PipeGraph:
                     route_op.routing, dests, src_op.output_batch_size,
                     src_is_gpu=src_op.is_gpu, dst_is_gpu=dst_op.is_gpu,
                     device=self.device,
-                    key_extractor=route_op.key_extractor))
+                    key_extractor=route_op.key_extractor, mesh=mesh))
             return emitters
 
         # a stateless chain feeding exactly one KEYBY device consumer
@@ -416,8 +427,9 @@ class PipeGraph:
         # 4. the reshard executor, last: it discovers the keyed emitters
         # the wiring installed, reads the health plane and the shard
         # ledger at tick cadence, and changes routing only through the
-        # quiesce barrier (no mesh in the port yet)
-        if cfg.reshard_executor:
+        # quiesce barrier; a mesh graph reshards by rescale-on-restore,
+        # never by the executor
+        if cfg.reshard_executor and mesh is None:
             from windflow_tpu_torch.serving import ReshardExecutor
             self._reshard = ReshardExecutor(self)
 

@@ -25,8 +25,14 @@ CPU) and reported as the median of its repetitions:
   ``CONFIGS["tpu"]`` shape (262,144 tuples, 1,024 keys, windows of
   1,024 sliding by 128) with a declared sum, so the grouping and fold
   kernels launch;
-* ``ici_bytes_per_sec`` needs several cards and stays absent
-  (``calibration.MESH_ONLY_KEYS``).
+* ``ici_bytes_per_sec`` — a psum over a ``(data, key)`` mesh of
+  ``mesh_positions`` positions (``parallel/mesh.py``), priced by the
+  ring all-reduce's ~2(N-1)/N of the payload a position, JAX's formula.
+  Off by default (``calibration.MESH_ONLY_KEYS``): ``--mesh-positions N``
+  turns it on.  The positions are the visible cards, or the probed
+  device repeated when fewer are visible: a logical mesh on one card,
+  whose "ICI" is then a copy between positions sharing its memory, not a
+  link; the probe's detail says which it measured.
 
 The file keeps the JAX package's schema and its required
 ``jax_version`` field, filled with ``"torch <version>"``, with
@@ -217,6 +223,41 @@ def probe_kernel_step(device, reps: int = 5, steps: int = 10,
                          per_step}
 
 
+def probe_ici(device, positions: int = 4, reps: int = 7,
+              n: int = 1 << 20):
+    """The mesh collective's rate: a psum of ``n`` float32 a position
+    over ``positions`` mesh positions, bytes counted as the ring
+    all-reduce's ``2(N-1)/N`` of the payload a position.  The positions
+    are the visible cards of ``device``'s type, or ``device`` repeated
+    (a logical mesh) when fewer are visible."""
+    import torch
+
+    from windflow_tpu_torch.parallel import mesh as M
+    if device.type == "cuda" and torch.cuda.device_count() >= positions:
+        devs = [torch.device("cuda", i) for i in range(positions)]
+    else:
+        devs = [device] * positions
+    mesh = M.make_mesh(positions, devices=devs)
+    grid = {p: torch.ones(n, dtype=torch.float32,
+                          device=mesh.device_of(p))
+            for p in mesh.local_positions}
+    timer = _Timer(device)
+    M.psum(grid, mesh, M.AXES)
+    _sync(device)
+    moved = 2 * (positions - 1) / positions * n * 4 * positions
+    rates = []
+    for _ in range(reps):
+        ms = timer(lambda: M.psum(grid, mesh, M.AXES))
+        rates.append(moved / (ms / 1e3))
+    distinct = len({str(d) for d in devs})
+    return _median(rates), {
+        "positions": positions, "devices": sorted({str(d) for d in devs}),
+        "payload_bytes": n * 4, "reps": reps,
+        "measured": ("a copy between logical mesh positions sharing one "
+                     "device's memory (not a link)") if distinct == 1
+        else "a copy between distinct devices"}
+
+
 PROBES = (
     ("h2d_tunnel_bytes_per_sec", probe_h2d),
     ("dispatch_overhead_usec", probe_dispatch),
@@ -227,12 +268,13 @@ PROBES = (
 
 
 def run_probes(device=None, overrides: Optional[dict] = None,
-               log=print) -> dict:
+               log=print, mesh_positions: int = 0) -> dict:
     """Run every probe on ``device`` (default: the card when one is
     visible, else the CPU) and return the calibration document.  A probe
     that raises leaves its key out and its error in ``probes``.
     ``overrides`` maps a probe key to keyword arguments (tests shrink
-    the shapes on the CPU)."""
+    the shapes on the CPU); ``mesh_positions >= 2`` adds the mesh
+    collective probe (:func:`probe_ici`)."""
     import torch
     if device is None:
         device = "cuda" if torch.cuda.is_available() else "cpu"
@@ -253,7 +295,21 @@ def run_probes(device=None, overrides: Optional[dict] = None,
         probes[key] = detail
         constants[key] = round(float(value), 3)
         log(f"calibrate: {key} = {constants[key]}")
-    probes["ici_bytes_per_sec"] = {"note": "one device: skipped"}
+    if mesh_positions >= 2:
+        try:
+            value, detail = probe_ici(device, mesh_positions,
+                                      **(overrides or {}).get(
+                                          "ici_bytes_per_sec", {}))
+            probes["ici_bytes_per_sec"] = detail
+            constants["ici_bytes_per_sec"] = round(float(value), 3)
+            log(f"calibrate: ici_bytes_per_sec = "
+                f"{constants['ici_bytes_per_sec']} ({detail['measured']})")
+        except Exception as e:  # lint: broad-except-ok (as above)
+            probes["ici_bytes_per_sec"] = {
+                "error": f"{type(e).__name__}: {e}"[:200]}
+    else:
+        probes["ici_bytes_per_sec"] = {
+            "note": "no mesh asked for (--mesh-positions): skipped"}
     return {
         "schema": calib.SCHEMA,
         "recorded_at": time.time(),
@@ -266,14 +322,15 @@ def run_probes(device=None, overrides: Optional[dict] = None,
     }
 
 
-def calibrate(out_path: str, device=None, log=print) -> int:
+def calibrate(out_path: str, device=None, log=print,
+              mesh_positions: int = 0) -> int:
     """Probe and write ``out_path``; 0 on success, 1 when every probe
     failed, 2 under the kill switch."""
     if calib.killed():
         log("calibrate: FAIL: WF_TPU_CALIBRATION=0 — the kill switch is "
             "on; unset it to calibrate")
         return 2
-    doc = run_probes(device, log=log)
+    doc = run_probes(device, log=log, mesh_positions=mesh_positions)
     if not doc["constants"]:
         log("calibrate: FAIL: every probe failed — nothing to write")
         return 1
@@ -322,6 +379,10 @@ def main(argv=None) -> int:
     ap.add_argument("--check", nargs="?", const="", metavar="PATH",
                     help="validate an existing store instead of probing "
                          "(default: --out, then WF_TPU_CALIBRATION)")
+    ap.add_argument("--mesh-positions", type=int, default=0,
+                    help="probe the mesh collective over N positions "
+                         "(ici_bytes_per_sec; the visible cards, or the "
+                         "device repeated when fewer are visible)")
     args = ap.parse_args(argv)
 
     def log(msg):
@@ -331,7 +392,7 @@ def main(argv=None) -> int:
         path = args.check or os.environ.get("WF_TPU_CALIBRATION") \
             or args.out
         return check(path, log)
-    return calibrate(args.out, log=log)
+    return calibrate(args.out, log=log, mesh_positions=args.mesh_positions)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,5 @@
 """Shard plane: per-shard attribution and key-skew sketches (the port of
-``windflow_tpu/monitoring/shard_ledger.py``, apart from the mesh ICI
-model, which comes with the multi-GPU item).
+``windflow_tpu/monitoring/shard_ledger.py``).
 
 Every gauge of the other planes is per OPERATOR: a keyed operator at
 parallelism 4 whose replica 3 holds the hot key shows one flat row.
@@ -33,6 +32,13 @@ This plane attributes per replica (shard) and measures the key skew:
 * **Key compaction** ranks its residents by the sketch: a full evictable
   compactor recycles its coldest slots for hotter candidates (``churn``),
   as in the JAX package (``parallel/compaction.py``).
+
+* **The mesh's inter-position model** (:meth:`ShardLedger._ici_model`):
+  the bytes one dispatch of a mesh operator's sharded step moves between
+  positions, derived from the collectives ``parallel/mesh.py`` runs (the
+  JAX package's ICI model, field names kept).  On one card the
+  positions share its memory, so the "ICI" time divides by the
+  calibrated same-device copy rate (``ici_bytes_per_sec``), not a link.
 
 Surfaces: ``PipeGraph.stats()["Shard"]``, ``dump_trace()`` metadata and
 the postmortem bundle's ``shard.json``.  ``Config.shard_ledger`` off
@@ -152,12 +158,15 @@ class ShardSketch:
 
     def __init__(self, n_shards: int, topk: int = 8,
                  max_keys: Optional[int] = None,
-                 placement: str = "splitmix") -> None:
+                 placement: str = "splitmix", key_axis: int = 1) -> None:
         self.n_shards = max(1, n_shards)
         self.topk = max(1, topk)
-        #: "splitmix" (device and keyed-staging routing) or "stable_hash"
-        #: (the host KEYBY edge)
+        #: "splitmix" (device and keyed-staging routing), "stable_hash"
+        #: (the host KEYBY edge), "dense_range" (a mesh's key-axis
+        #: ownership) or "mod" (the mesh arbitrary-key reduce's owner
+        #: hash, uint32(key) % n)
         self.placement = placement
+        self.key_axis = max(1, key_axis)
         #: the reshard executor's key→shard override, set when it
         #: re-places keys, so hot-key attribution follows the live routing
         self.override: Optional[dict] = None
@@ -198,6 +207,11 @@ class ShardSketch:
         self.total += n
         if counts is not None:
             self.shard_counts += np.asarray(counts, np.int64)
+        elif self.placement == "dense_range":
+            pass    # derived from the histogram's key ranges at summary
+        elif self.placement == "mod":
+            d = ((keys & 0xFFFFFFFF) % self.n_shards).astype(np.intp)
+            self.shard_counts += np.bincount(d, minlength=self.n_shards)
         elif self.n_shards > 1:
             h = _splitmix64_np(keys)
             d = (h % np.uint64(self.n_shards)).astype(np.intp)
@@ -300,6 +314,11 @@ class ShardSketch:
             d = self.override.get(key)
             if isinstance(d, int) and 0 <= d < self.n_shards:
                 return d
+        if self.placement == "dense_range" and self.max_keys:
+            per = max(1, self.max_keys // self.key_axis)
+            return min(self.key_axis - 1, max(0, int(key)) // per)
+        if self.placement == "mod":
+            return (int(key) & 0xFFFFFFFF) % self.n_shards
         if self.placement == "stable_hash":
             return stable_hash(key) % self.n_shards
         return splitmix64_int(int32_key(key)) % self.n_shards
@@ -328,6 +347,11 @@ class ShardSketch:
             cms = cms + st["cms"]
             cands.update(int(k) for k in st["cand"] if k != _I32MIN)
             dev_fed = True
+        if self.placement == "dense_range" and hist is not None \
+                and self.key_axis > 1:
+            per = max(1, self.max_keys // self.key_axis)
+            counts = hist[:per * self.key_axis] \
+                .reshape(self.key_axis, per).sum(axis=1)
         out = {
             "n_shards": int(counts.size),
             "placement": self.placement,
@@ -468,9 +492,9 @@ class ShardLedger:
 
     def _compute_statics(self) -> dict:
         """Per operator: the record bytes a tuple reaching it (the
-        preflight walk, ``bpt``: the byte basis of the JAX package's ICI
-        model, which the port's single card has no use for yet) and its
-        effective capacity; computed once, at the first read."""
+        preflight walk, ``bpt``: the byte basis of the mesh model), its
+        upstream operators and its effective capacity; computed once, at
+        the first read."""
         from windflow_tpu_torch.analysis.preflight import (_effective_caps,
                                                            _upstream_map,
                                                            propagate_specs,
@@ -479,30 +503,119 @@ class ShardLedger:
         edges = g._edges()
         upstreams = _upstream_map(edges)
         in_specs, _ = propagate_specs(g, edges=edges, upstreams=upstreams)
+        ups: Dict[int, list] = {}
+        for edge in edges:
+            if edge[0] == "op":
+                ups.setdefault(id(edge[2]), []).append(edge[1])
         statics = {}
         for op in g._operators:
             caps = sorted(c for c in _effective_caps(op, upstreams) if c)
             statics[id(op)] = {
                 "bpt": record_nbytes(in_specs.get(id(op))),
+                "ups": ups.get(id(op), []),
                 "cap": getattr(op, "output_batch_size", 0)
                 or (caps[0] if caps else 0),
             }
         return statics
 
+    # -- the mesh's inter-position model ------------------------------------
+    def _ici_model(self, op, bpt: Optional[float],
+                   cap: int) -> Optional[dict]:
+        """The bytes one dispatch of ``op``'s sharded step moves between
+        mesh positions, from its collective structure (``bpt`` =
+        payload and lane bytes a tuple, ``cap`` = the batch capacity):
+        aligned ingest keeps only the within-column data gather; a dense
+        reduce's table collective moves ~2(n-1) tables (ring all-reduce);
+        the arbitrary-key reduce's all_to_all moves (n-1)/n of the
+        lanes; key-sharded state gathers the data-sharded batch on every
+        key shard."""
+        mesh = getattr(op, "mesh", None)
+        if mesh is None or bpt is None or not cap:
+            return None
+        from windflow_tpu_torch.ops.reduce import ReduceGPU
+        dd, kk = mesh.shape["data"], mesh.shape["key"]
+        n = dd * kk
+        if getattr(op, "_ingest_mode", None) == "aligned":
+            total = cap * bpt * (dd - 1)
+            kind = "all_gather(data|key-aligned)"
+        elif isinstance(op, ReduceGPU):
+            if op.max_keys is not None:
+                k = op.max_keys if op.key_extractor is not None else 1
+                total = 2.0 * (n - 1) * k * bpt
+                kind = f"psum([{k}] table)"
+            else:
+                total = cap * bpt * (n - 1) / n
+                kind = "all_to_all(lanes)"
+        else:
+            total = kk * cap * bpt * (dd - 1)
+            kind = "all_gather(data)"
+        from windflow_tpu_torch.monitoring import calibration
+        ici_bps, ici_prov = calibration.constant("ici_bytes_per_sec")
+        return {
+            "collective": kind,
+            "mesh": {"data": dd, "key": kk},
+            "ici_bytes_per_dispatch": round(total, 1),
+            "ici_bytes_per_tuple": round(total / cap, 2),
+            "ici_usec_per_dispatch": round((total / n) / ici_bps * 1e6, 3),
+            "ici_bandwidth_assumed_bps": ici_bps,
+            "ici_bandwidth_provenance": ici_prov,
+            "provenance": calibration.MODELED,
+            "model": "structural (the collectives of parallel/mesh.py; "
+                     "positions on one card copy within its memory)",
+        }
+
+    def _op_ici(self, op) -> Optional[dict]:
+        """:meth:`_ici_model` of one operator from the cached statics
+        (host constants only); with no record spec on a mesh, the
+        measured staging bytes a tuple of the feeding edges."""
+        from windflow_tpu_torch.monitoring.sweep_ledger import \
+            LANE_BYTES_PER_TUPLE
+        if getattr(op, "mesh", None) is None:
+            return None
+        if self._statics is None:
+            self._statics = self._compute_statics()
+        st = self._statics.get(id(op)) or {}
+        spec_bpt = st.get("bpt")
+        bpt = spec_bpt + LANE_BYTES_PER_TUPLE \
+            if spec_bpt is not None else None
+        basis = "record spec"
+        if bpt is None:
+            h2d = sum(r.stats.h2d_bytes for u in st.get("ups", ())
+                      for r in u.replicas)
+            inputs = sum(r.stats.inputs_received for r in op.replicas)
+            if h2d > 0 and inputs > 0:
+                bpt = h2d / inputs
+                basis = "measured H2D bytes/tuple"
+        ici = self._ici_model(op, bpt, st.get("cap", 0))
+        if ici is not None:
+            ici["bytes_per_tuple_basis"] = basis
+        return ici
+
     def _sketch_for(self, consumer, n_shards: int,
                     placement: str) -> ShardSketch:
         sk = self._sketches.get(id(consumer))
         if sk is None:
+            mesh = getattr(consumer, "mesh", None)
+            key_axis = 1
+            if mesh is not None:
+                if consumer.key_space() is not None:
+                    # key shard i owns keys [i*K/kk, (i+1)*K/kk)
+                    key_axis = mesh.shape["key"]
+                    placement, n_shards = "dense_range", key_axis
+                else:
+                    # arbitrary keys route to owner uint32(key) % n
+                    placement, n_shards = "mod", mesh.size
             sk = ShardSketch(n_shards, topk=self.topk,
                              max_keys=consumer.key_space(),
-                             placement=placement)
+                             placement=placement, key_axis=key_axis)
             self._sketches[id(consumer)] = sk
         return sk
 
     def _attach(self) -> None:
         from windflow_tpu_torch.parallel.emitters import (
-            DeviceKeyByEmitter, DeviceStageEmitter, DeviceToHostEmitter,
-            KeyByEmitter, KeyedDeviceStageEmitter, SplittingEmitter)
+            AlignedMeshStageEmitter, DeviceKeyByEmitter, DeviceStageEmitter,
+            DeviceToHostEmitter, KeyByEmitter, KeyedDeviceStageEmitter,
+            SplittingEmitter)
         g = self._graph
 
         def visit(em):
@@ -518,7 +631,14 @@ class ShardLedger:
             if not em.dests:
                 return
             consumer = em.dests[0][0].op
-            if isinstance(em, KeyedDeviceStageEmitter):
+            if isinstance(em, AlignedMeshStageEmitter):
+                # key-aligned mesh ingest: the keys are on the host here
+                kx = consumer.key_extractor
+                if consumer.is_keyed and kx is not None:
+                    sk = self._sketch_for(consumer, consumer.parallelism,
+                                          "splitmix")
+                    em._shard_probe = HostKeyProbe(sk, kx)
+            elif isinstance(em, KeyedDeviceStageEmitter):
                 em._sketch = self._sketch_for(consumer, len(em.dests),
                                               "splitmix")
             elif isinstance(em, DeviceKeyByEmitter):
@@ -571,12 +691,17 @@ class ShardLedger:
                 return sk.summary() if sk is not None else None
         return None
 
-    @staticmethod
-    def ici_totals() -> dict:
-        """The collective model's totals: no mesh, so no collective moves
-        a byte over the fabric.  Host constants: the tenant ledger reads
-        them at tick cadence without the sketches' device reads."""
-        return {"ici_bytes_per_tuple": 0.0, "ici_provenance": "modeled"}
+    def ici_totals(self) -> dict:
+        """The inter-position model's totals over the mesh operators (0
+        off a mesh).  Host constants: the tenant ledger reads them at
+        tick cadence without the sketches' device reads."""
+        total = 0.0
+        for op in self._graph._operators:
+            ici = self._op_ici(op)
+            if ici is not None:
+                total += ici["ici_bytes_per_tuple"]
+        return {"ici_bytes_per_tuple": round(total, 2),
+                "ici_provenance": "modeled"}
 
     def section(self) -> dict:
         from windflow_tpu_torch.basic import current_time_usecs
@@ -591,6 +716,7 @@ class ShardLedger:
         worst = (0.0, None)     # (imbalance ratio, op name)
         hot = (0.0, None)       # (hot key share, op name)
         sketch_usec = 0.0
+        ici_time_prov = None
         for op in g._operators:
             tb = _steady_tensor_bytes(op) if op.is_gpu else None
             replicas = []
@@ -643,6 +769,10 @@ class ShardLedger:
                 # tuple, the basis its ICI model prices collectives by
                 entry["record_bytes_per_tuple"] = \
                     spec_bpt + LANE_BYTES_PER_TUPLE
+            ici = self._op_ici(op)
+            if ici is not None:
+                entry["ici"] = ici
+                ici_time_prov = ici["ici_bandwidth_provenance"]
             per_op[op.name] = entry
         return {
             "enabled": True,
@@ -654,7 +784,7 @@ class ShardLedger:
                 "hot_key_share": round(hot[0], 4) if hot[1] else None,
                 "hot_key_op": hot[1],
                 **self.ici_totals(),
-                "ici_time_provenance": None,
+                "ici_time_provenance": ici_time_prov,
                 "sketch_host_update_usec": round(sketch_usec, 1),
                 "keyed_edges_sketched": len(self._sketches),
             },

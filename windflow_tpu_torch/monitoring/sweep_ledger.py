@@ -245,13 +245,17 @@ class SweepLedger:
             chains.append(entry)
         wire_h2d = sum(r.stats.h2d_bytes for r in g._all_replicas)
         logical_h2d = sum(r.stats.h2d_logical_bytes for r in g._all_replicas)
+        # each process stages only its own lanes: the bytes are this
+        # process's share (parallel/multihost.py)
+        from windflow_tpu_torch.parallel.multihost import (process_count,
+                                                           process_index)
         return {
             "enabled": True,
             "per_hop": per_hop,
             "non_hop": non_hop,
             "wire": {
-                "process_index": 0,
-                "process_count": 1,
+                "process_index": process_index(),
+                "process_count": process_count(),
                 "wire_bytes": wire_h2d,
                 "logical_bytes": logical_h2d,
                 "compression_ratio": round(logical_h2d / wire_h2d, 4)

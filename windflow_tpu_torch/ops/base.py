@@ -270,6 +270,9 @@ class Operator:
         self.config = default_config
         #: the torch.device the graph runs on, set by PipeGraph._build
         self.device = None
+        #: Config.mesh, set by PipeGraph._build: mesh-aware operators run
+        #: their sharded steps when this is not None (parallel/mesh.py)
+        self.mesh = None
 
     @property
     def is_keyed(self) -> bool:
@@ -356,4 +359,10 @@ class Operator:
             # this operator's work runs inside a fused hop; the counters
             # above are attributed from that hop
             st["Fused_into"] = self._fused_into
+        mesh = self.mesh if self.is_gpu else None
+        if mesh is not None:
+            # a mesh operator's shape, positions' devices and processes
+            st["Mesh"] = {"shape": dict(mesh.shape),
+                          "devices": [str(d) for d in mesh.devices.ravel()],
+                          "processes": mesh.process_count}
         return st

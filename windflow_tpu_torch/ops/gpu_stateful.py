@@ -41,9 +41,15 @@ Two bodies apply the user function in each key's arrival order:
   hot key costs what a uniform stream costs.
 
 ``snapshot_state``/``restore_state`` carry the slot table, the interner
-and the remap across a checkpoint in the JAX package's blob layout.  Not
-ported yet: the mesh path (``_get_sharded_step``,
-``_sharded_stateful_step``; ROADMAP A10).
+and the remap across a checkpoint in the JAX package's blob layout.
+
+On a mesh (``Config.mesh``) the table is key-sharded (slot ranges per
+key shard) and the step is ``parallel/mesh.make_sharded_stateful_step``
+over the same bodies built for the shard's slot count: dense keys with
+no host read but the wavefront's, interned keys through the interning
+route's tables (compaction does not attach on a mesh).  A checkpoint
+holds the assembled table; a restore re-shards it for the restoring
+mesh.
 """
 
 from __future__ import annotations
@@ -336,18 +342,48 @@ class _StatefulGPUBase(Operator):
                 "withNumKeySlots")
         return slots
 
+    def _body_factory(self):
+        """``(capacity, num_slots) -> body``: the mesh layer calls it with
+        a key shard's slot count."""
+        if self.assoc is not None:
+            lift, comb, project = self.assoc
+            return lambda cap, S: _assoc_body(lift, comb, project, cap, S,
+                                              self._is_filter)
+        return lambda cap, S: _wavefront_body(self.fn, cap, S,
+                                              self._is_filter)
+
     def _body(self, capacity: int):
         body = self._bodies.get(capacity)
         if body is None:
-            if self.assoc is not None:
-                lift, comb, project = self.assoc
-                body = _assoc_body(lift, comb, project, capacity,
-                                   self.num_key_slots, self._is_filter)
-            else:
-                body = _wavefront_body(self.fn, capacity, self.num_key_slots,
-                                       self._is_filter)
+            body = self._body_factory()(capacity, self.num_key_slots)
             self._bodies[capacity] = body
         return body
+
+    def _get_sharded_step(self, capacity: int):
+        """The mesh step; ``capacity`` is the staged batch's.  The table
+        is sharded along ``key`` on first use."""
+        step = self._steps.get(("mesh", capacity))
+        if step is None:
+            from windflow_tpu_torch.parallel import mesh as M
+            from windflow_tpu_torch.parallel.multihost import process_count
+            step = M.make_sharded_stateful_step(
+                self.mesh, capacity * process_count(), self.num_key_slots,
+                self._body_factory(), self.key_extractor, self.dense_keys,
+                self._is_filter,
+                ingest=getattr(self, "_ingest_mode", None) or "data",
+                op_name=f"{self.name}.mesh")
+            if not isinstance(self._state, M.Sharded):
+                self._state = M.shard_state(self._state, self.mesh)
+            self._steps[("mesh", capacity)] = step
+        return step
+
+    def _sharded_stateful_step(self, batch: DeviceBatch):
+        step = self._get_sharded_step(batch.capacity)
+        if self.dense_keys:
+            return step(self._state, batch.payload, batch.valid)
+        _, uniq_keys, uniq_slots = self._intern_batch(batch)
+        return step(self._state, batch.payload, batch.valid, uniq_keys,
+                    uniq_slots)
 
     @property
     def last_depth(self) -> int:
@@ -419,6 +455,8 @@ class _StatefulGPUBase(Operator):
         return self.num_key_slots if self.dense_keys else None
 
     def _stateful_step(self, batch: DeviceBatch):
+        if self.mesh is not None:
+            return self._sharded_stateful_step(batch)
         cap = batch.capacity
         dev = batch.valid.device
         if tree_flatten(self._state)[0][0].device != dev:
@@ -475,10 +513,13 @@ class _StatefulGPUBase(Operator):
         values AND where each key lives, in the JAX package's blob
         layout.  The table exists from construction, so this snapshots
         even before the first batch."""
+        from windflow_tpu_torch.parallel.mesh import Sharded
         from windflow_tpu_torch.utils.tree import host_copy
         return {
             "kind": "stateful_tpu",
-            "state": host_copy(self._state),
+            "state": host_copy(self._state.full()
+                               if isinstance(self._state, Sharded)
+                               else self._state),
             "interner": dict(self._interner._ids),
             "compactor": (self._compactor.snapshot()
                           if self._compactor is not None else None),
@@ -493,7 +534,13 @@ class _StatefulGPUBase(Operator):
         the interning route (a fresh remap would assign conflicting
         slots)."""
         from windflow_tpu_torch.utils.tree import place_tree
-        self._state = place_tree(blob["state"], self._state_device())
+        if self.mesh is not None:
+            # the table's content is shard-shape independent: a rescale
+            # restore needs nothing but this placement
+            from windflow_tpu_torch.parallel.mesh import shard_state
+            self._state = shard_state(blob["state"], self.mesh)
+        else:
+            self._state = place_tree(blob["state"], self._state_device())
         self._interner._ids = dict(blob["interner"])
         cblob = blob.get("compactor")
         if cblob is not None and self._compactor is not None:

@@ -29,8 +29,17 @@ prelude's output).  At parallelism > 1 the replicas step the one
 operator: its steps and the compacted route's counters are per operator,
 as in the JAX package.  Cross-batch aggregation is the windows' job, as
 in the reference.  ``snapshot_state``/``restore_state`` carry the drop
-counter and the remap across a checkpoint; the mesh route is not
-ported yet.
+counter and the remap across a checkpoint.
+
+On a mesh (``Config.mesh``) every keyed or global reduce takes the
+sharded route (``parallel/mesh.py``): with ``withMaxKeys`` (or
+non-keyed, K = 1) per-position dense partial tables combined by one
+collective (psum/pmax/pmin for a declared monoid, all_gather and a fold
+otherwise; none at all under key-aligned ingest), the out-of-range drop
+count accumulated on the device and read only at stats time; without
+it, arbitrary int32 keys hash-routed to their owner position by one
+all_to_all (the compactor's remap overriding the hash for admitted
+keys), nothing dropped.
 """
 
 from __future__ import annotations
@@ -207,6 +216,29 @@ class ReduceGPU(Operator):
             self._steps[capacity] = step
         return step
 
+    def _get_sharded_step(self, capacity: int):
+        """The mesh route's step; ``capacity`` is the staged batch's (this
+        process's lanes)."""
+        step = self._steps.get(("mesh", capacity))
+        if step is None:
+            from windflow_tpu_torch.parallel import mesh as M
+            from windflow_tpu_torch.parallel.multihost import process_count
+            gcap = capacity * process_count()
+            K = self.max_keys if self.key_extractor is not None else 1
+            if K is None:
+                step = M.make_sharded_reduce_arbitrary(
+                    self.mesh, gcap, self.comb, self.key_extractor,
+                    op_name=f"{self.name}.mesh")
+            else:
+                step = M.make_sharded_reduce_step(
+                    self.mesh, gcap, K, self.comb, self.key_extractor,
+                    monoid=self.monoid,
+                    ingest=getattr(self, "_ingest_mode", None) or "data",
+                    kernels=resolve_kernels(self.config),
+                    op_name=f"{self.name}.mesh")
+            self._steps[("mesh", capacity)] = step
+        return step
+
     def _get_dense_step(self, capacity: int):
         """The dense route: one scatter-combine pass builds the ``[K]``
         distinct-key tables (K = max_keys keyed, 1 non-keyed); keys
@@ -304,7 +336,7 @@ class ReduceGPU(Operator):
     def _maybe_warn_drops(self, n_drop: int) -> None:
         """One RuntimeWarning the first time the dense route is seen
         dropping out-of-range keys."""
-        if self._drop_warned or n_drop <= 0:
+        if self._drop_warned or n_drop <= 0 or self.mesh is not None:
             return
         self._drop_warned = True
         warnings.warn(
@@ -384,6 +416,24 @@ class ReduceGPU(Operator):
             self._checked = True
         cap = batch.capacity
         comp = self._compactor
+        if self.mesh is not None:
+            # per-position partials combined across the mesh; the output
+            # is a batch of distinct-key records (parallel/mesh.py)
+            step = self._get_sharded_step(cap)
+            if comp is not None:
+                # arbitrary keys with a remap: slotted keys route to owner
+                # slot % n
+                comp.on_batch()
+                table, ts_out, has, n_drop = step(
+                    batch.payload, batch.ts, batch.valid, *comp.tables())
+            else:
+                table, ts_out, has, n_drop = step(batch.payload, batch.ts,
+                                                  batch.valid)
+            self._dropped = n_drop if self._dropped is None \
+                else self._dropped + n_drop.to(self._dropped.device)
+            return DeviceBatch(table, ts_out, has,
+                               watermark=batch.watermark, size=None,
+                               frontier=batch.frontier)
         if comp is not None:
             # admitted (or in-range) keys on the dense tables, the rest on
             # the sorted overflow lane; records equal the sorted route's

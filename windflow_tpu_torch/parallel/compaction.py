@@ -47,8 +47,13 @@ What differs from JAX, for torch on the card:
   memory; the miss rings and counters are read only at the reseed
   cadence and at stats time;
 * ``snapshot``/``restore`` carry the remap across a checkpoint (the
-  JAX package's layout); the mesh routes (placement override of the
-  mesh reduce) are ROADMAP A10.
+  JAX package's layout).
+
+On a mesh (``Config.mesh``) the arbitrary-key reduce takes a compactor
+whose remap overrides the owner hash (hot keys balanced over the mesh
+positions, ``parallel/mesh.make_sharded_reduce_arbitrary``); a declared
+``withMaxKeys`` mesh reduce takes none, and compacted window keys are
+refused (they are single-device).
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from windflow_tpu_torch.basic import int32_key
+from windflow_tpu_torch.basic import WindFlowError, int32_key
 from windflow_tpu_torch.kernels import reduce_cuda as rc
 from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.ops.reduce import _bshape, _segmented_reduce
@@ -810,22 +815,33 @@ def attach_compaction(graph) -> None:
     for op in graph._operators:
         comp = None
         if isinstance(op, ReduceGPU):
-            if op.key_extractor is None or op.monoid is None:
+            if op.key_extractor is None:
                 continue
-            bounded = op.max_keys is not None
-            comp = KeyCompactor(
-                op.max_keys if bounded else slots, bounded=bounded,
-                reseed_every=reseed,
-                # slot % n placement is per-batch-safe only, and means
-                # nothing for the identity (bounded) remap
-                placement_override=not bounded and op.parallelism > 1,
-                name=op.name, device=graph.device)
+            if op.mesh is not None:
+                if op.max_keys is None:
+                    # arbitrary-key mesh reduce: the remap overrides the
+                    # owner hash; the per-position sort path is unchanged
+                    comp = KeyCompactor(slots, reseed_every=reseed,
+                                        placement_override=True,
+                                        name=op.name, device=graph.device)
+            elif op.monoid is None:
+                continue
+            else:
+                bounded = op.max_keys is not None
+                comp = KeyCompactor(
+                    op.max_keys if bounded else slots, bounded=bounded,
+                    reseed_every=reseed,
+                    # slot % n placement is per-batch-safe only, and
+                    # means nothing for the identity (bounded) remap
+                    placement_override=not bounded and op.parallelism > 1,
+                    name=op.name, device=graph.device)
         elif isinstance(op, _StatefulGPUBase):
             # the device-resident interner: needs every feeding edge
             # host-staged (admission sees every key before its batch
             # ships) and no fused prelude (post-prelude keys are never
             # on the host)
-            if op.dense_keys or op._fused_prelude is not None \
+            if op.dense_keys or op.mesh is not None \
+                    or op._fused_prelude is not None \
                     or not host_fed(op) or len(op._interner):
                 continue
             comp = KeyCompactor(op.num_key_slots, pinned=True,
@@ -834,6 +850,11 @@ def attach_compaction(graph) -> None:
         elif isinstance(op, FfatWindowsGPU):
             if op.max_keys is not None or op.key_extractor is None:
                 continue
+            if op.mesh is not None:
+                raise WindFlowError(
+                    f"operator '{op.name}': compacted key spaces are "
+                    "single-device; declare withMaxKeys (divisible by the "
+                    "key axis) for mesh execution")
             comp = KeyCompactor(slots, pinned=True, reseed_every=reseed,
                                 name=op.name, device=graph.device)
         if comp is None:

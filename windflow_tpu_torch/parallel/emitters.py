@@ -60,8 +60,15 @@ of the compactor's placement: moved keys route to their new shard), and
 tuples fold through the consumer's associative combiner at this boundary
 and ship as one partial record a flush).  The columnar keyed staging
 partitions through the native ``wf_keyby_partition``
-(``windflow_tpu_torch/native``).  Not ported: the mesh's
-``AlignedMeshStageEmitter`` (A10).
+(``windflow_tpu_torch/native``).
+
+On a mesh (``Config.mesh``) a staging emitter's capacity must divide
+over the mesh's positions; the staged batch lands whole on the graph's
+device and the consumer's sharded step lays it out
+(``parallel/mesh.py``).  In a multi-process job each process stages only
+its own ``capacity / process_count`` lanes.  Mesh staging ships raw (no
+wire), as in the JAX package.  :class:`AlignedMeshStageEmitter` is the
+key-aligned ingest: each record goes to its key owner's column.
 """
 
 from __future__ import annotations
@@ -469,12 +476,21 @@ class DeviceStageEmitter(Emitter):
     them for one group; ``flush`` (the external entry: EOS, punctuation)
     drains that queue per batch after shipping what is open."""
 
-    def __init__(self, dests, output_batch_size, device):
+    def __init__(self, dests, output_batch_size, device, mesh=None):
         if output_batch_size <= 0:
             # reference multipipe.hpp:441-444
             raise WindFlowError(
                 "a GPU operator requires the upstream operator to set an "
                 "output batch size > 0")
+        #: the mesh the consumer runs on: capacities divide over its
+        #: positions, and each process stages its share of the lanes
+        self._mesh = mesh
+        if mesh is not None:
+            if output_batch_size % mesh.size:
+                raise WindFlowError(
+                    f"output batch size {output_batch_size} not divisible "
+                    f"by the mesh's {mesh.size} devices")
+            output_batch_size //= mesh.process_count
         super().__init__(dests, output_batch_size)
         self.device = device
         self._ob = _OpenBatch()
@@ -514,7 +530,9 @@ class DeviceStageEmitter(Emitter):
 
     def enable_wire(self, reseed_every: int = 64) -> None:
         """Turn on wire compression of this emitter's packed staging
-        (``wire.attach_wire``, at graph build)."""
+        (``wire.attach_wire``, at graph build); mesh staging ships raw."""
+        if self._mesh is not None:
+            return
         self._wire_on = True
         self._wire_reseed = max(1, reseed_every)
 
@@ -845,10 +863,12 @@ class KeyedDeviceStageEmitter(Emitter):
     compactor's placement and the hash; a pre-aggregated hot key's tuples
     fold into one partial record a flush (``set_preagg``)."""
 
-    def __init__(self, dests, output_batch_size, key_extractor, device):
+    def __init__(self, dests, output_batch_size, key_extractor, device,
+                 mesh=None):
         super().__init__(dests, output_batch_size)
         self.key_extractor = key_extractor
-        self._inner = [DeviceStageEmitter([d], output_batch_size, device)
+        self._inner = [DeviceStageEmitter([d], output_batch_size, device,
+                                          mesh=mesh)
                        for d in dests]
         #: key compactor of the consumer (attached at graph build): every
         #: routed key is admitted here before its batch ships, and an
@@ -1052,6 +1072,208 @@ class KeyedDeviceStageEmitter(Emitter):
             e.propagate_punctuation(wm)
 
 
+class AlignedMeshStageEmitter(Emitter):
+    """Host→mesh staging with key-aligned placement: each record goes
+    into the ``(data, key)`` block of the key shard that owns its key
+    (the dense-range owner ``key // K_local``, exactly the ownership the
+    sharded step rebases by), so the consumer's ``ingest="aligned"``
+    step skips the data-axis all_gather (``parallel/mesh.py``).
+
+    Rows buffer per key column; a batch ships when a column fills, its
+    column's rows split row-major over the ``dd`` data blocks (the order
+    the aligned step's data gather rebuilds), with a per-block validity
+    computed on the host.  A shipped batch's watermark is capped at the
+    oldest data timestamp still buffered, so a row held back by skew
+    never turns late against its own channel's stamp.  Executor key
+    moves are refused (``set_override``): the ownership is built into the
+    sharded step, so a move would stage a key onto a shard that masks it
+    out of range; a mesh graph reshards by rescale-on-restore."""
+
+    def __init__(self, dests, output_batch_size, key_extractor, mesh,
+                 max_keys: int, device=None):
+        super().__init__(dests, output_batch_size)
+        kk, dd = mesh.shape["key"], mesh.shape["data"]
+        if output_batch_size % (kk * dd):
+            raise WindFlowError(
+                f"output batch size {output_batch_size} not divisible by "
+                f"the mesh's {kk * dd} devices (key-aligned ingest)")
+        if max_keys % kk:
+            raise WindFlowError(
+                f"max_keys {max_keys} not divisible by the key axis {kk}")
+        if mesh.process_count > 1:
+            raise WindFlowError(
+                "key-aligned ingest is single-process (multi-process "
+                "meshes stage flat local lanes)")
+        self.key_extractor = key_extractor
+        self.device = device if device is not None else mesh.home
+        self._kk, self._dd = kk, dd
+        self._K_local = max_keys // kk
+        self._col_cap = output_batch_size // kk
+        self._blk = output_batch_size // (kk * dd)
+        self._chunks = [[] for _ in range(kk)]     # [(cols dict, tss)]
+        self._items = [_OpenBatch() for _ in range(kk)]
+        self._rows = [0] * kk
+        self._wm = WM_NONE              # running max of received stamps
+        #: shard-plane key probe (monitoring/shard_ledger.HostKeyProbe)
+        self._shard_probe = None
+        self.batches_shipped = 0
+        self.rows_shipped = 0
+
+    def set_override(self, override) -> None:
+        """Refused: the aligned consumer's key ownership is built into its
+        sharded step."""
+        if override:
+            raise WindFlowError(
+                "key-aligned mesh ingest cannot apply executor key "
+                "moves: ownership is compiled into the sharded step "
+                "(reshard a mesh graph via rescale-on-restore)")
+
+    def _owner_np(self, k32: np.ndarray) -> np.ndarray:
+        return np.clip(k32 // self._K_local, 0, self._kk - 1).astype(np.int64)
+
+    def _note_wm(self, wm) -> None:
+        if wm != WM_NONE and wm > self._wm:
+            self._wm = wm
+
+    def emit(self, item, ts, wm, shared=False, tid=None):
+        self._note_wm(wm)
+        k32 = int32_key(self.key_extractor(item))
+        c = min(max(k32 // self._K_local, 0), self._kk - 1)
+        self._items[c].add(item, ts, wm)
+        self._rows[c] += 1
+        if self._rows[c] >= self._col_cap:
+            self._ship_one()
+
+    def emit_columns(self, cols, tss, wm, row_wms=None):
+        self._note_wm(int(np.max(row_wms)) if row_wms is not None
+                      and len(row_wms) else wm)
+        if self._shard_probe is not None:
+            self._shard_probe.columns(cols, len(tss))
+        keys = host_keys(self.key_extractor, cols, len(tss))
+        own = self._owner_np(keys)
+        tss = np.ascontiguousarray(tss, np.int64)
+        arrs = {n: np.asarray(v) for n, v in cols.items()}
+        for c in range(self._kk):
+            idx = np.nonzero(own == c)[0]
+            if not len(idx):
+                continue
+            self._chunks[c].append(({n: v[idx] for n, v in arrs.items()},
+                                    tss[idx]))
+            self._rows[c] += len(idx)
+        while any(r >= self._col_cap for r in self._rows):
+            self._ship_one()
+
+    def emit_device_batch(self, batch):
+        raise WindFlowError(
+            "key-aligned staging emitter received a device batch; "
+            "device-fed mesh consumers keep the data-sharded ingest")
+
+    def _col_take(self, c: int):
+        """Up to ``col_cap`` rows of column ``c`` (record items stacked
+        to columns first); the rest stays buffered."""
+        from windflow_tpu_torch.batch import _stack_records
+        ob = self._items[c]
+        if ob.items:
+            if self._shard_probe is not None:
+                self._shard_probe.items(ob.items)
+            soa = _stack_records(ob.items)
+            if not isinstance(soa, dict):
+                raise WindFlowError(
+                    "key-aligned ingest stages dict-shaped records "
+                    f"(got {type(ob.items[0]).__name__}); disable "
+                    "Config.key_aligned_ingest for this graph")
+            self._chunks[c].append(({n: np.asarray(v)
+                                     for n, v in soa.items()},
+                                    np.asarray(ob.tss, np.int64)))
+            self._items[c] = _OpenBatch()
+        if not self._chunks[c]:
+            return None
+        names = list(self._chunks[c][0][0])
+        cat = {n: _concat([ch[0][n] for ch in self._chunks[c]])
+               for n in names}
+        tcat = _concat([ch[1] for ch in self._chunks[c]])
+        m = len(tcat)
+        take = min(m, self._col_cap)
+        if take < m:
+            self._chunks[c] = [({n: a[take:] for n, a in cat.items()},
+                                tcat[take:])]
+            self._rows[c] = m - take
+        else:
+            self._chunks[c] = []
+            self._rows[c] = 0
+        return {n: a[:take] for n, a in cat.items()}, tcat[:take]
+
+    def _pending_min_ts(self):
+        lo = None
+        for c in range(self._kk):
+            for ch in self._chunks[c]:
+                if len(ch[1]):
+                    m = int(ch[1].min())
+                    lo = m if lo is None else min(lo, m)
+            if self._items[c].tss:
+                m = min(self._items[c].tss)
+                lo = m if lo is None else min(lo, m)
+        return lo
+
+    def _ship_one(self) -> None:
+        takes = [self._col_take(c) for c in range(self._kk)]
+        if not any(t is not None for t in takes):
+            return
+        cap, kk, dd, blk = (self.output_batch_size, self._kk, self._dd,
+                            self._blk)
+        first = next(t for t in takes if t is not None)
+        lanes = {n: np.zeros((cap,) + a.shape[1:], a.dtype)
+                 for n, a in first[0].items()}
+        ts = np.zeros(cap, np.int64)
+        valid = np.zeros(cap, bool)
+        total = 0
+        for c, t in enumerate(takes):
+            if t is None:
+                continue
+            colv, colt = t
+            m = len(colt)
+            total += m
+            # a column's rows split row-major over the dd data blocks:
+            # row r lands in block r // blk of column c
+            for d in range(dd):
+                lo = d * blk
+                hi = min(m, lo + blk)
+                if hi <= lo:
+                    break
+                g0 = (d * kk + c) * blk
+                seg = slice(g0, g0 + (hi - lo))
+                for n, a in colv.items():
+                    lanes[n][seg] = a[lo:hi]
+                ts[seg] = colt[lo:hi]
+                valid[seg] = True
+        if total == 0:
+            return
+        wm = self._wm
+        pend = self._pending_min_ts()
+        if wm != WM_NONE and pend is not None:
+            wm = min(wm, pend)
+        # the packed staging copy, the validity riding it as a lane
+        db = columns_to_device(lanes, ts, cap, self.device, watermark=wm,
+                               frontier=wm,
+                               trace=self._new_trace(flightrec.STAGED),
+                               mask=valid)
+        nb = transfer_nbytes(db)
+        if self.stats is not None:
+            self.stats.h2d_bytes += nb
+            self.stats.h2d_logical_bytes += nb
+        self.batches_shipped += 1
+        self.rows_shipped += total
+        self._send(0, db)
+
+    def flush(self, wm):
+        self._note_wm(wm)
+        while any(self._rows) or any(ob.items for ob in self._items):
+            before = (self.batches_shipped, self.rows_shipped)
+            self._ship_one()
+            if (self.batches_shipped, self.rows_shipped) == before:
+                break   # never spin on an empty remainder
+
+
 def _mask_view(batch: DeviceBatch, mask, keys=None) -> DeviceBatch:
     """One destination's batch of a mask-only fan-out: the SAME payload,
     ts (and keys) tensors, its own validity mask.  Consumers never write
@@ -1195,21 +1417,35 @@ class DeviceToHostEmitter(Emitter):
 
 def create_emitter(routing: RoutingMode, dests, output_batch_size: int,
                    src_is_gpu: bool, dst_is_gpu: bool, device,
-                   key_extractor: Optional[Callable] = None) -> Emitter:
+                   key_extractor: Optional[Callable] = None,
+                   mesh=None) -> Emitter:
     """Pick the emitter for an edge from (routing, src-on-device,
     dst-on-device), mirroring the reference's dispatch
     (``multipipe.hpp:236-350``)."""
     if dst_is_gpu:
+        dst_op = dests[0][0].op if dests else None
+        if mesh is not None and not src_is_gpu \
+                and routing == RoutingMode.KEYBY \
+                and key_extractor is not None \
+                and getattr(dst_op, "_ingest_mode", None) == "aligned":
+            # key-aligned mesh ingest (mesh.mark_aligned_ingest): each
+            # record stages straight onto its key owner's column
+            from windflow_tpu_torch.parallel.mesh import _aligned_slot_bound
+            return AlignedMeshStageEmitter(dests, output_batch_size,
+                                           key_extractor, mesh,
+                                           _aligned_slot_bound(dst_op),
+                                           device=device)
         if routing == RoutingMode.KEYBY and len(dests) > 1 \
                 and key_extractor is not None:
             # each key's tuples reach one replica, in arrival order
             if src_is_gpu:
                 return DeviceKeyByEmitter(dests, key_extractor)
             return KeyedDeviceStageEmitter(dests, output_batch_size,
-                                           key_extractor, device)
+                                           key_extractor, device, mesh=mesh)
         if src_is_gpu:
             return DevicePassEmitter(dests, routing)
-        return DeviceStageEmitter(dests, output_batch_size, device)
+        return DeviceStageEmitter(dests, output_batch_size, device,
+                                  mesh=mesh)
     if src_is_gpu and routing != RoutingMode.KEYBY and dests \
             and all(getattr(r.op, "columnar", False) for r, _ in dests):
         # columnar sinks consume DeviceBatches whole (bulk copy inside

@@ -44,8 +44,20 @@ and counted) and maps the output key lane back to the user's keys
 lossless fallback: once its host admission path died the next step
 raises.  Compacted windows do not fuse (their keys are admitted at the
 host staging boundary).  ``snapshot_state``/``restore_state`` carry
-the rings across a checkpoint in the JAX package's blob layout; the
-mesh path is not ported yet.
+the rings across a checkpoint in the JAX package's blob layout.
+
+On a mesh (``Config.mesh``, ``parallel/mesh.py``) the state is key-sharded
+(a ``Sharded`` value: each position holds its key shard's rows and, for
+time windows, its own ring clock) and the step is
+``make_sharded_ffat_step`` / ``make_sharded_ffat_tb_step``, whose
+per-shard local steps are this module's factories with a key base.  The
+batch ingest is ``"data"`` in one process, ``"flat"`` across processes
+and ``"aligned"`` where the graph build stamped key-aligned ingest.
+Ring growth and rebase act on every shard's block; a multi-process run
+(``torch.distributed`` world size > 1) skips the span regrow (each
+process sees different extrema).  A
+checkpoint holds the assembled global layout (the TB clocks as one lane
+a key shard), re-sharded on restore for the restoring mesh.
 """
 
 from __future__ import annotations
@@ -227,6 +239,8 @@ class FfatWindowsGPU(Operator):
     def _build_step(self, capacity: int):
         # the kernel switch resolves once per step build
         kernels = resolve_kernels(self.config)
+        if self.mesh is not None:
+            return self._build_mesh_step(capacity, kernels)
         lift, key_fn = self.lift, self.key_extractor
         if self._compactor is not None:
             # the kernels see {"rec": record, "slot": slot} lanes keyed by
@@ -259,6 +273,58 @@ class FfatWindowsGPU(Operator):
             payload, valid = prelude(payload, valid)
             return inner(state, payload, ts, valid, *rest)
         return step
+
+    def _build_mesh_step(self, capacity: int, kernels: bool):
+        """The sharded step (parallel/mesh.py): ``capacity`` is the
+        staged batch's, which holds this process's lanes; the step lays
+        out the global batch of every process's lanes."""
+        from windflow_tpu_torch.parallel import mesh as M
+        from windflow_tpu_torch.parallel.multihost import process_count
+        nproc = process_count()
+        ingest = getattr(self, "_ingest_mode", None) \
+            or ("flat" if nproc > 1 else "data")
+        gcap = capacity * nproc
+        if self.is_tb:
+            return M.make_sharded_ffat_tb_step(
+                self.mesh, gcap, self.max_keys, self.P, self.R, self.D,
+                self.NP, self.lift, self.comb, self.key_extractor,
+                drop_tainted=self.overflow_policy == "drop",
+                grouping=self._grouping(), ingest=ingest,
+                monoid=self.monoid, kernels=kernels,
+                op_name=f"{self.name}.mesh")
+        return M.make_sharded_ffat_step(
+            self.mesh, gcap, self.max_keys, self.P, self.R, self.D,
+            self.lift, self.comb, self.key_extractor, monoid=self.monoid,
+            grouping=self._grouping(), ingest=ingest, kernels=kernels,
+            op_name=f"{self.name}.mesh")
+
+    # -- mesh state helpers ----------------------------------------------------
+    def _map_state(self, st, fn):
+        """``fn`` over one state's blocks (every mesh position's, or the
+        single-device state itself)."""
+        from windflow_tpu_torch.parallel.mesh import Sharded
+        if isinstance(st, Sharded):
+            return Sharded(st.mesh, st.spec,
+                           {p: fn(b) for p, b in st.blocks.items()})
+        return fn(st)
+
+    def _shard_row(self, st) -> list:
+        """One block a key shard (data row 0 of a mesh state: the data
+        rows hold equal state), or the single-device state."""
+        from windflow_tpu_torch.parallel.mesh import Sharded
+        if isinstance(st, Sharded):
+            d0 = st.mesh.local_positions[0][0]
+            return [b for (d, _), b in sorted(st.blocks.items())
+                    if d == d0]
+        return [st]
+
+    def _state_sum(self, name: str) -> torch.Tensor:
+        """A TB counter summed over the states and their key shards, as
+        one device scalar (no host read)."""
+        parts = [b[name] for st in self._states.values()
+                 for b in self._shard_row(st)]
+        home = parts[0].device
+        return sum(p.to(home) for p in parts)
 
     def _grouping(self) -> str:
         """``Config.ffat_grouping`` (rank_scatter | argsort), checked at
@@ -325,6 +391,15 @@ class FfatWindowsGPU(Operator):
                                               batch.valid)
             spec = agg_spec_for(self.lift, payload)
             dev = batch.valid.device
+            if self.mesh is not None:
+                from windflow_tpu_torch.parallel import mesh as M
+                self._states[sidx] = (
+                    M.make_sharded_ffat_tb_state(spec, self.max_keys,
+                                                 self.NP, self.mesh)
+                    if self.is_tb else
+                    M.make_sharded_ffat_state(spec, self.max_keys, self.R,
+                                              self.mesh))
+                return
             self._states[sidx] = (
                 make_ffat_tb_state(spec, self.max_keys, self.NP, device=dev)
                 if self.is_tb else
@@ -426,8 +501,16 @@ class FfatWindowsGPU(Operator):
         if not self._states or self._flushed:
             return []
         self._flushed = True
-        out, fired, ts = make_ffat_flush(self.max_keys, self.P, self.R,
-                                         self.D, self.comb)(self._states[0])
+        if self.mesh is not None:
+            from windflow_tpu_torch.parallel.mesh import \
+                make_sharded_ffat_flush
+            flush = make_sharded_ffat_flush(self.mesh, self.max_keys,
+                                            self.P, self.R, self.D,
+                                            self.comb)
+        else:
+            flush = make_ffat_flush(self.max_keys, self.P, self.R, self.D,
+                                    self.comb)
+        out, fired, ts = flush(self._states[0])
         if self._compactor is not None:
             # partial windows fired at EOS carry slots too
             from windflow_tpu_torch.parallel.compaction import \
@@ -447,7 +530,8 @@ class FfatWindowsGPU(Operator):
             return []
         if self.overflow_policy == "error":
             self._check_overflow()
-        dev = self._states[sidx]["base"].device
+        dev = self._shard_row(self._states[sidx])[0]["base"].device \
+            if self.mesh is None else self.mesh.home
         ts0 = torch.zeros(self._capacity, dtype=torch.int64, device=dev)
         invalid = torch.zeros(self._capacity, dtype=torch.bool, device=dev)
         outs = []
@@ -471,8 +555,7 @@ class FfatWindowsGPU(Operator):
         if self.NP >= self._np_ceil or not self._states:
             return
         prev = self._pending_evct
-        self._pending_evct = _LateRead(
-            sum(st["n_evicted"] for st in self._states.values()))
+        self._pending_evct = _LateRead(self._state_sum("n_evicted"))
         if prev is None:
             return
         ev = prev.value()
@@ -501,7 +584,8 @@ class FfatWindowsGPU(Operator):
                                              pad))], 1)
             return out
 
-        self._states = {k: grow(st) for k, st in self._states.items()}
+        self._states = {k: self._map_state(st, grow)
+                        for k, st in self._states.items()}
         self.NP = new_np
         self._pending_evct = None
         self._step_fn = self._build_step(self._capacity)
@@ -520,17 +604,22 @@ class FfatWindowsGPU(Operator):
         if self._fold_stepped:
             return
         for sidx, st in self._states.items():
-            base = int(st["base"])
+            # a mesh's per-shard clocks advance in lockstep from the same
+            # gathered batches: shard 0's base stands for every shard
+            base = int(self._shard_row(st)[0]["base"])
             new_base = max(lo_pane, hi_pane - self.NP + 1)
             delta = base - new_base
             if delta <= 0:
                 continue
-            out = dict(st)
-            out["cells"] = tree_map(lambda a: torch.roll(a, delta, 1),
-                                    st["cells"])
-            out["cell_valid"] = torch.roll(st["cell_valid"], delta, 1)
-            out["base"] = st["base"] - delta
-            self._states[sidx] = out
+
+            def rebase(b):
+                out = dict(b)
+                out["cells"] = tree_map(lambda a: torch.roll(a, delta, 1),
+                                        b["cells"])
+                out["cell_valid"] = torch.roll(b["cell_valid"], delta, 1)
+                out["base"] = b["base"] - delta
+                return out
+            self._states[sidx] = self._map_state(st, rebase)
 
     def _regrow_for_span(self, batch: DeviceBatch) -> None:
         """Preemptive growth from host metadata alone.  By the watermark
@@ -543,6 +632,12 @@ class FfatWindowsGPU(Operator):
         (geometric growth), and a lagging channel's panes below the ring
         are recovered by a rebase before the first firing."""
         if batch.ts_max is None:
+            return
+        from windflow_tpu_torch.parallel import multihost
+        if multihost.process_count() > 1:
+            # each process sees its own lanes' extrema: growth decided
+            # from them would desynchronize the sharded ring shapes; the
+            # eviction-cadence regrow stays the growth path
             return
         P, R = self.P, self.R
         wm = batch.frontier
@@ -601,10 +696,15 @@ class FfatWindowsGPU(Operator):
         the prelude again."""
         if not self._states:
             return None     # never stepped: nothing to restore
+        from windflow_tpu_torch.parallel.mesh import Sharded
         from windflow_tpu_torch.utils.tree import host_copy
         return {
             "kind": "ffat_tpu",
-            "states": {k: host_copy(st) for k, st in self._states.items()},
+            # a mesh state in its assembled global layout (key rows
+            # concatenated, TB clocks one lane a key shard)
+            "states": {k: host_copy(st.full() if isinstance(st, Sharded)
+                                    else st)
+                       for k, st in self._states.items()},
             "capacity": self._capacity,
             "NP": self.NP,
             "auto_np": self._auto_np,
@@ -647,8 +747,16 @@ class FfatWindowsGPU(Operator):
         self._flushed = blob["flushed"]
         self._eos_replicas = blob["eos_replicas"]
         self._pending_evct = None   # late device read: re-primed on step
-        self._states = {int(k): place_tree(st, dev)
-                        for k, st in blob["states"].items()}
+        if self.mesh is not None:
+            # the blob was re-bucketed for this mesh's shape by the
+            # durability plane (durability/rebucket.py)
+            from windflow_tpu_torch.parallel import mesh as M
+            scalars = M.TB_SCALARS if self.is_tb else ()
+            self._states = {int(k): M.shard_state(st, self.mesh, scalars)
+                            for k, st in blob["states"].items()}
+        else:
+            self._states = {int(k): place_tree(st, dev)
+                            for k, st in blob["states"].items()}
         self._payload_zero = (place_tree(blob["payload_zero"], dev)
                               if blob["payload_zero"] is not None
                               else None)
@@ -691,7 +799,7 @@ class FfatWindowsGPU(Operator):
     def _tb_counter(self, name: str) -> int:
         """One TB counter summed over the states: a host read, never on
         the step path."""
-        return sum(int(st[name]) for st in self._states.values())
+        return int(self._state_sum(name))
 
     def num_dropped_tuples(self) -> int:
         if self.is_tb and self._states:

@@ -358,12 +358,14 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
                    lift: Callable, comb: Callable,
                    key_fn: Optional[Callable],
                    monoid: Optional[str] = None, kernels: bool = False,
-                   grouping: str = "rank_scatter"):
+                   grouping: str = "rank_scatter", key_base: int = 0):
     """Build the FFAT per-batch step
     ``(state, payload, ts, valid) -> (state, out, out_valid, out_ts)``.
 
     Keys are dense ints in ``[0, K)``; invalid lanes and out-of-range keys
-    are masked.  Panes hold P tuples, windows R panes, sliding by D panes.
+    are masked.  ``key_base`` rebases raw keys first: a mesh key shard
+    owning keys ``[key_base, key_base + K)`` (``parallel/mesh.py``) sees
+    them as ``[0, K)``, and its output key lane is shifted back.  Panes hold P tuples, windows R panes, sliding by D panes.
     The output batch is COMPACTED: ``MAXO = capacity/(P*D) + 2K + 8``
     slots, filled by a K-long running sum + searchsorted over the per-key
     fired counts.
@@ -388,6 +390,8 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
             keys = per_record(key_fn, payload, B).to(torch.int32)
         else:
             keys = torch.zeros(B, **i32)
+        if key_base:
+            keys = keys - key_base
         ok = valid & (keys >= 0) & (keys < K)
         skey = torch.where(ok, keys, K).contiguous()
 
@@ -564,7 +568,7 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
             0, R - 1 + NP1 - 1).long()
         wvals_out = tree_map(lambda a: a[k_l, widx_out], swin)
         out = {
-            "key": k_c,
+            "key": k_c + key_base if key_base else k_c,
             "wid": torch.div(e_out - R, D, rounding_mode="floor"),
             "value": wvals_out,
         }
@@ -578,9 +582,11 @@ def make_ffat_step(capacity: int, K: int, P: int, R: int, D: int,
     return step
 
 
-def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable):
+def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable,
+                    key_base: int = 0):
     """Build the CB EOS flush ``state -> (out, fired, ts)``: fire every
-    remaining partial window from the carried pane history."""
+    remaining partial window from the carried pane history (output keys
+    shifted by a mesh key shard's ``key_base``)."""
     MWF = R // D + 2
 
     def flush(state):
@@ -616,8 +622,8 @@ def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable):
         any_ok, wvals = _masked_reduce_last(comb, pane_ok, wpanes, axis=2)
         fired = fire & any_ok
         wid = torch.div(e - R, D, rounding_mode="floor")
-        keys = torch.arange(K, dtype=torch.int32, device=dev)[:, None] \
-            .expand(K, MWF)
+        keys = (torch.arange(K, dtype=torch.int32, device=dev)
+                + key_base)[:, None].expand(K, MWF)
         out = {
             "key": keys.reshape(-1),
             "wid": wid.reshape(-1),
@@ -668,7 +674,7 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
                       key_fn: Optional[Callable],
                       drop_tainted: bool = False,
                       monoid: Optional[str] = None, kernels: bool = False,
-                      grouping: str = "rank_scatter"):
+                      grouping: str = "rank_scatter", key_base: int = 0):
     """Build the time-based FFAT per-batch step ``(state, payload, ts,
     valid, wm_pane) -> (state, out, fired, out_ts, n_advanced)``
     (``make_ffat_tb_step`` of the JAX package, pass for pass).
@@ -703,7 +709,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
     otherwise the batch is grouped by its (key, pane) id — the grouping
     kernel for ``K*NP + 1 <= 4096`` ids under ``kernels``, the radix
     counting sort up to DIGIT^2, the stable sort beyond (int64 ids at
-    ``K*NP + 1 >= 2^31``) — and a segmented scan folds each run."""
+    ``K*NP + 1 >= 2^31``) — and a segmented scan folds each run.
+    ``key_base`` rebases keys as in :func:`make_ffat_step`."""
     monoid = resolve_monoid(monoid)
     MW = NP // D + 2
     N_PASSES = 3                     # A1, A2 (pre-place), B (post-place)
@@ -757,6 +764,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
             keys = per_record(key_fn, payload, B).to(torch.int32)
         else:
             keys = torch.zeros(B, dtype=torch.int32, device=dev)
+        if key_base:
+            keys = keys - key_base
         ok = valid & (keys >= 0) & (keys < K)
         pane = torch.div(ts.to(torch.int64), P_usec, rounding_mode="floor")
         if D > R:
@@ -903,8 +912,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
                          *[p[1] for p in passes])
         out_ts = (w2 * D + R) * P_usec - 1                     # end - 1
         out = {
-            "key": torch.arange(K, dtype=torch.int32, device=dev)[:, None]
-            .expand(K, NM).reshape(-1),
+            "key": (torch.arange(K, dtype=torch.int32, device=dev)
+                    + key_base)[:, None].expand(K, NM).reshape(-1),
             "wid": w2[None, :].expand(K, NM).reshape(-1),
             "value": tree_map(
                 lambda a: a.reshape((K * NM,) + tuple(a.shape[2:])), wvals),

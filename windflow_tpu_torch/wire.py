@@ -653,6 +653,8 @@ def attach_wire(graph) -> None:
     known = known_input_specs(graph)
     reseed = getattr(graph.config, "key_compaction_reseed", 64)
     for _src, route_op, em in iter_stage_emitters(graph):
+        if em._mesh is not None:
+            continue    # mesh staging ships raw, as in the JAX package
         if known.get(id(route_op), False):
             em.enable_wire(reseed)
 
