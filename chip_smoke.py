@@ -123,7 +123,8 @@ Phases (each exits nonzero on failure; none is skipped):
      table: FrameSource → MapGPU ``cast`` → the stateful scorer (dense
      card ids, the wavefront) → the flag filter (score < 0.05) →
      columnar Sink, fused (one segment ``cast|markov_score``) and
-     unfused, records equal; the wavefront depth of each batch printed;
+     unfused at K = 1 (phase 17 runs K = 8), records equal; the
+     wavefront depth of each batch printed;
    * (b) the same on 16,384 distinct random int32 card ids, the scorer
      fed by the staging: with ``Config.key_compaction`` the compacted
      route (a pinned compactor of 16,384 slots, hit rate 1), without it
@@ -176,7 +177,10 @@ Phases (each exits nonzero on failure; none is skipped):
      ``window_tb`` and ``reduce``, whose output side is per record on
      the host, at 524,288 records (cut in depth);
      ``window_cb`` also killed mid-sink-flush (at least one fence
-     dedupe) and restored at K = 1; ``stateful`` also killed mid-window;
+     dedupe) and restored at K = 1; ``stateful`` also killed mid-window
+     at K = 1 on 524,288 records (the kill counts the victim's
+     per-batch steps, and at K = 8 the stateful tail folds into
+     groups);
    * (b) a declared f32-sum count window over random float values
      (equal bit for bit; the grouping and fold kernels launch on the
      restored run) and the unbounded compacted ``ReduceGPU`` sum (the
@@ -404,6 +408,27 @@ Phases (each exits nonzero on failure; none is skipped):
    psum through ``torch.distributed``.  It prints the psum's
    inter-position rate (``calibrate.probe_ici``: positions sharing the
    card, a copy within its memory, not a link).
+17. drive the stateful wavefront's device loop (``kernels/loop_cuda.py``,
+   ``csrc/wavefront_loop.cu``: a CUDA graph WHILE node), 60 s budget
+   (``wavefront_runs``): (a) phase 7 (a)'s fraud detection (16,384
+   dense card ids, 262,144 tuples a batch, 25 batches: a warm-up batch
+   and three K = 8 groups) fused and unfused at K = 1 and K = 8, the
+   fused pair once more under ``torch.profiler``, every run against the
+   oracle and the others, ``wavefront_loop`` launched once a batch, the
+   capture audit free of WF906/WF907, every step after the first and
+   every cached group replay under ``set_sync_debug_mode("error")``;
+   fused K = 8 forms three groups with nothing refused (unfused, the
+   plane refuses only the stateless ``cast`` tail); a
+   ``cuda_kernels="0"`` twin gives the same records, its tail refused
+   by name and its plain loop's host read named WF906; (b) a general
+   (non-associative) running count and sum on a uniform stream at
+   262,144 lanes and on 16,384-lane batches one key fills (depth 16,384,
+   untraced), records and each batch's depth against numpy; (c) the
+   steering kernel against its plain twin on count vectors of depth 1,
+   2, 1,024, 1,025 and 16,384, pass by pass up to 1,025 and as the
+   captured WHILE loop (slices, classes, pass counts), timed beside its
+   plain twin.  Wall, CUDA-event span, device time and operations a
+   batch, loop passes and capture ms are printed (information only).
 
 Before the last line it prints its own seconds in all, the card's name
 and power limit and one
@@ -2256,7 +2281,7 @@ def fraud_oracle(keys, etype, table):
 
 
 def fraud_graph(dev_name, blob, transition, sink_fn, dense=True,
-                key_compaction=True, fuse=True):
+                key_compaction=True, fuse=True, **cfg):
     """Fraud detection (``windflow_tpu_torch/models/fraud_detection.py``)
     on frames of (card, ts, transaction type).  ``dense``: FrameSource →
     MapGPU ``cast`` (card, type to int32) → the model's stateful scorer
@@ -2277,7 +2302,7 @@ def fraud_graph(dev_name, blob, transition, sink_fn, dense=True,
                      config=wf.Config(device=dev_name,
                                       punctuation_interval_usec=10 ** 12,
                                       key_compaction=key_compaction,
-                                      whole_chain_fusion=fuse))
+                                      whole_chain_fusion=fuse, **cfg))
     pipe = g.add_source(wf.FrameSource(chunked(blob), nv=1,
                                        output_batch_size=CAP))
     if dense:
@@ -2405,9 +2430,11 @@ def cat_cols(cols, name):
     return np.concatenate([np.asarray(c.cols[name]) for c in cols])
 
 
-def check_fraud(label, cols, keys, etype, table):
-    """The flagged records, in arrival order, against the oracle."""
-    score = fraud_oracle(keys, etype, table)
+def check_fraud(label, cols, keys, etype, table, score=None):
+    """The flagged records, in arrival order, against the oracle (its
+    scores ``score`` when the caller computed them once)."""
+    if score is None:
+        score = fraud_oracle(keys, etype, table)
     flag = score < np.float32(FRAUD_THRESHOLD)
     got = (cat_cols(cols, "card").astype(np.int64),
            cat_cols(cols, "etype").astype(np.int64), cat_cols(cols, "score"))
@@ -2487,7 +2514,9 @@ def stateful_runs(dev_name="cuda"):
     for fuse in (False, True):
         label = f"7(a) fraud dense {'fused' if fuse else 'unfused'}"
         cols, sink = collect()
-        g, scorer = fraud_graph(dev_name, blob_a, table, sink, fuse=fuse)
+        # K = 1: every batch a scorer step (phase 17 runs K = 8)
+        g, scorer = fraud_graph(dev_name, blob_a, table, sink, fuse=fuse,
+                                megastep_sweeps=1)
         probe = sync_probe(scorer, depth=True)
         secs, counts = timed_run(g)
         out[label] = counts
@@ -5917,6 +5946,490 @@ def pool_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the stateful wavefront as a device loop
+# ---------------------------------------------------------------------------
+
+#: (b)'s one-key batches: one key holds every lane, so the loop runs this
+#: many passes a batch; (c)'s count vectors have this capacity
+WAVE_HOT_CAP = 16384
+#: batches a run of (b): the uniform stream's, and the one-key stream's
+#: (16,384 passes each)
+WAVE_BATCHES, WAVE_HOT_BATCHES = 4, 2
+#: (c)'s depths (the last is the capacity)
+WAVE_DEPTHS = (1, 2, 1024, 1025, WAVE_HOT_CAP)
+#: (a)'s batches: a warm-up batch and three K = 8 groups (one captured,
+#: two replayed from the cache)
+WAVE_A_BATCHES = 1 + 3 * 8
+
+
+def _strict(fn, *a):
+    """``fn(*a)`` under ``set_sync_debug_mode("error")``."""
+    import torch
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*a)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def strict_steps(op, rec, depth=False):
+    """Run the tail ``op``'s per-batch steps after its first (which
+    places the initial state on the card) under
+    ``set_sync_debug_mode("error")`` (each between two synchronises made
+    outside it, for the wall; a synchronising call raises), and time the
+    loop graphs' builds apart."""
+    import torch
+    from windflow_tpu_torch.ops import gpu_stateful as gst
+    orig = op._step
+
+    def step(batch, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        if rec["steps"]:
+            out = _strict(orig, batch, *a)
+            rec["strict_steps"] += 1
+        else:
+            out = orig(batch, *a)
+        ev[1].record()
+        torch.cuda.synchronize()
+        if rec["steps"]:
+            rec["step_s"] += time.perf_counter() - t0
+            rec["event_ms"] += ev[0].elapsed_time(ev[1])
+        else:
+            rec["first_s"] = time.perf_counter() - t0
+        rec["steps"] += 1
+        if depth:
+            rec["depths"].append(op.last_depth)
+        return out
+    op._step = step
+    build = gst._ClassLoop._build
+
+    def timed_build(self, *a):
+        t0 = time.perf_counter()
+        out = build(self, *a)
+        rec["build_s"] += time.perf_counter() - t0
+        return out
+    gst._ClassLoop._build = timed_build
+    rec["restore"] = lambda: setattr(gst._ClassLoop, "_build", build)
+
+
+def strict_groups(g, rec):
+    """Run the cached megastep group replays of the started graph ``g``
+    under ``set_sync_debug_mode("error")``.  The groups' emission
+    downstream, their cadence hooks and the recorder's sampled wait run
+    outside the strict window, as a group's capture does; the capture is
+    timed apart."""
+    import torch
+
+    def relaxed(fn):
+        def call(*a):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        return call
+
+    for e in g._megastep_plane.edges:
+        o_run, o_cap = e.run, e._capture
+        e._emit = relaxed(e._emit)
+        e._post_hooks = relaxed(e._post_hooks)
+        e._stamp_device_done = relaxed(e._stamp_device_done)
+
+        def run(_e=e, _o=o_run):
+            q = _e._q
+            cached = (len(q) >= _e.k and _e._group is not None
+                      and _e._group_step is _e._step(q[0].capacity)
+                      and _e._group_sig == _e._sig(q[0])
+                      and not _e.rep.inbox and not _e.rep.done)
+            before = _e.megasteps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            if cached:
+                _strict(_o)
+                rec["strict_groups"] += 1
+            else:
+                _o()
+            ev[1].record()
+            torch.cuda.synchronize()
+            if _e.megasteps > before and cached:
+                rec["groups"] += 1
+                rec["group_s"] += time.perf_counter() - t0
+                rec["event_ms"] += ev[0].elapsed_time(ev[1])
+
+        def cap(*a, _o=o_cap):
+            t0 = time.perf_counter()
+            out = _o(*a)
+            rec["capture_s"] += time.perf_counter() - t0
+            return out
+        e.run, e._capture = run, cap
+
+
+def wave_run(label, build, k, batches=COL_BATCHES, depth=False, prof=True):
+    """One phase-17 run of ``build(sink, megastep_sweeps=k)`` ->
+    ``(graph, stateful tail)`` with :func:`strict_steps` and
+    :func:`strict_groups` on, under ``torch.profiler``'s CUDA activity
+    when ``prof``: ``(sink batches, facts)`` with the launch counts, the
+    loop's passes, the wall and the CUDA-event span a steady batch (the
+    steps after the first, the cached group replays) and (``prof``) the
+    device time and device operations a batch of the whole run.  (b)'s
+    runs go untraced: a trace of replays whose WHILE loop ran 16,384
+    passes ended in an illegal address on the card, where the same runs
+    untraced are clean."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.kernels import loop_cuda
+    cols, sink = collect()
+    g, op = build(sink, megastep_sweeps=k)
+    rec = {"steps": 0, "step_s": 0.0, "groups": 0, "group_s": 0.0,
+           "strict_steps": 0, "strict_groups": 0, "capture_s": 0.0,
+           "build_s": 0.0, "event_ms": 0.0, "first_s": 0.0,
+           "depths": []}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fc.reset_launch_counts()
+    loop_cuda.reset_device_passes(dev)
+    strict_steps(op, rec, depth=depth)
+    tracer = profile(activities=[ProfilerActivity.CUDA]) if prof \
+        else contextlib.nullcontext()
+    try:
+        with tracer:
+            t0 = time.perf_counter()
+            g.start()
+            strict_groups(g, rec)
+            g.wait_end()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        if "restore" in rec:
+            rec["restore"]()
+    counts = fc.launch_counts()
+    dev_us = n_ops = None
+    if prof:
+        evs = [e for e in tracer.key_averages()
+               if e.device_type.name == "CUDA"]
+        dev_us = sum(_device_us(e) for e in evs)
+        n_ops = sum(e.count for e in evs)
+    sec = g.stats()["Megastep"]
+    # steady batches: every step but the first (which places the state
+    # and builds the loop graph) and every cached group's K
+    steady = max(0, rec["steps"] - 1) + rec["groups"] * k
+    wall = (rec["step_s"] + rec["group_s"]) / steady if steady else None
+    return cols, {
+        "secs": secs, "launches": counts, "megastep": sec,
+        "passes": loop_cuda.device_passes(dev),
+        "steps": rec["steps"], "groups": rec["groups"],
+        "strict_steps": rec["strict_steps"],
+        "strict_groups": rec["strict_groups"],
+        "wall_ms": None if wall is None else 1e3 * wall,
+        "event_ms": rec["event_ms"] / steady if steady else None,
+        "first_ms": 1e3 * rec["first_s"],
+        "device_ms": None if dev_us is None else dev_us / 1e3 / batches,
+        "device_ops": None if n_ops is None else n_ops / batches,
+        "capture_ms": 1e3 * rec["capture_s"],
+        "build_ms": 1e3 * rec["build_s"], "depths": rec["depths"],
+        "graph": g}
+
+
+def audit_codes(g):
+    """The WF9xx codes of the finished graph's capture audit."""
+    return {f["code"] for f in g.stats()["IR_audit"]["findings"]}
+
+
+def wave_sum_graph(dev_name, blob, cap, sink_fn, **cfg):
+    """(b): FrameSource → a stateful MapGPU with a general ``fn`` (the
+    wavefront; dense keys, 16,384 slots): per key the running count and
+    the running sum of v0 → columnar Sink.  Returns ``(graph,
+    operator)``."""
+    import windflow_tpu_torch as wf
+
+    def fn(t, s):
+        new = {"n": s["n"] + 1, "sum": s["sum"] + t["v0"]}
+        return {"key": t["key"], "n": new["n"], "sum": new["sum"]}, new
+    op = (wf.MapGPU_Builder(fn).withName("running_wave")
+          .withKeyBy(lambda t: t["key"])
+          .withInitialState({"n": np.int32(0), "sum": np.float32(0.0)})
+          .withNumKeySlots(FRAUD_CARDS).withDenseKeys().build())
+    g = wf.PipeGraph("chip_smoke_wave", wf.ExecutionMode.DEFAULT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
+    g.add_source(wf.FrameSource(chunked(blob), nv=1, output_batch_size=cap)) \
+        .add(op).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink(defer=4)
+                          .build())
+    return g, op
+
+
+def advance_sequence(cnt, widths, plain):
+    """Every cursor of one loop of the steering kernel (launched eagerly
+    pass by pass, read after each) or of its plain twin (on host
+    tensors): ``[reset, pass 1, ...]`` as lists."""
+    import torch
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    if plain:
+        cnt = cnt.cpu()
+    cur = torch.zeros(L.CUR_WORDS, dtype=torch.int64, device=cnt.device)
+    step = L.advance_plain if plain else L.wavefront_advance
+    step(cnt, cur, widths, True)
+    out = [cur.tolist()]
+    while out[-1][4]:
+        step(cnt, cur, widths, False)
+        out.append(cur.tolist())
+    return out
+
+
+def loop_log(dev, cnt, widths):
+    """The loop of the steering kernel captured as a WHILE node whose
+    class bodies log each pass's (base, count, width): ``(log rows of
+    the live ranks, passes, ms a replay by CUDA events)``."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    cap = cnt.shape[0]
+    cur = torch.zeros(L.CUR_WORDS, dtype=torch.int64, device=dev)
+    log = torch.zeros((cap + 1, 3), dtype=torch.int64, device=dev)
+
+    def body(width):
+        row = (cur[0] - 1).clamp(min=0).reshape(1)
+        w = torch.full((), width, dtype=torch.int64, device=dev)
+        log.index_copy_(0, row, torch.stack([cur[2], cur[3], w])
+                        .reshape(1, 3))
+    for width in widths:
+        body(width)            # warm-up: cur is all zeros
+    g = fc.CountedGraph(torch.cuda.CUDAGraph())
+    with fc.uncounted():
+        with g.capture(L.side_capture(g.graph, dev)):
+            log.zero_()
+            L.emit_loop(cnt, cur, widths, body)
+        L.reset_device_passes(dev)
+        g.replay()
+        torch.cuda.synchronize()
+        passes = L.device_passes(dev)
+        ms = cuda_time(g.replay, iters=3, warmup=1)
+    d = int((cnt > 0).sum())
+    return log[:d].cpu().numpy(), passes, ms
+
+
+def check_advance(dev):
+    """(c): the steering kernel against its plain twin, on count vectors
+    of WAVE_HOT_CAP ranks at each depth of WAVE_DEPTHS: pass by pass (up
+    to 1,025 passes) and as the captured WHILE loop (the offsets,
+    counts and classes of every pass, the pass count); then its time a
+    launch beside its plain twin's and the loop's time a pass.  Returns
+    the kernel's JSON row (launches filled in by main)."""
+    import torch
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    rng = np.random.default_rng(17)
+    widths = L.width_classes(FRAUD_CARDS, WAVE_HOT_CAP)
+    loop_ms = {}
+    for d in WAVE_DEPTHS:
+        counts = np.sort(rng.integers(1, FRAUD_CARDS + 1, d))[::-1]
+        counts[0] = FRAUD_CARDS
+        cnt_h = np.zeros(WAVE_HOT_CAP, np.int32)
+        cnt_h[:d] = counts
+        cnt = torch.from_numpy(cnt_h).to(dev)
+        if d <= 1025:
+            if advance_sequence(cnt, widths, False) \
+                    != advance_sequence(cnt, widths, True):
+                fail(f"phase 17 (c): wavefront_advance differs from its "
+                     f"plain twin at depth {d}")
+        log, passes, ms = loop_log(dev, cnt, widths)
+        off = np.r_[0, np.cumsum(counts)[:-1]]
+        want = np.stack([off, counts, [widths[L.pick_class(widths, int(c))]
+                                       for c in counts]], 1)
+        if passes != d or not np.array_equal(log, want):
+            fail(f"phase 17 (c): the WHILE loop at depth {d} made "
+                 f"{passes} passes or its slices differ")
+        loop_ms[d] = ms
+    cnt = torch.from_numpy(np.r_[np.int32(FRAUD_CARDS), np.full(
+        WAVE_HOT_CAP - 1, 7, np.int32)]).to(dev)
+    cur = torch.zeros(L.CUR_WORDS, dtype=torch.int64, device=dev)
+    L.wavefront_advance(cnt, cur, widths, True)
+
+    def kernel():
+        L.wavefront_advance(cnt, cur, widths, False, count=False)
+
+    def plain():
+        L.advance_plain(cnt, cur, widths, False)
+    # the plain twin is host reads and copies, which a trace may hold no
+    # device record of: both are timed by CUDA events over back-to-back
+    # calls (the plain twin's include its synchronising reads), the
+    # kernel by torch.profiler beside them
+    t = {"kernel": device_ms(kernel), "kernel_events": cuda_time(kernel),
+         "plain": cuda_time(plain)}
+    print(f"phase 17 (c) wavefront_advance: kernel {t['kernel']:.5f} ms "
+          f"device / {t['kernel_events']:.5f} ms events, plain "
+          f"{t['plain']:.5f} ms events")
+    # one pass: two counts read, the cursor's two words read and its six
+    # written
+    bound, by = bound_ms(2 * 4 + 2 * 8 + 6 * 8, 0)
+    per_pass = {d: 1e3 * loop_ms[d] / d for d in WAVE_DEPTHS}
+    print(f"phase 17 (c): wavefront_advance equals its plain twin pass by "
+          f"pass at depths <= 1,025 and as a WHILE loop at depths "
+          f"{list(WAVE_DEPTHS)} (offsets, counts, classes {widths}, pass "
+          f"counts); the loop with a logging body a pass: "
+          + ", ".join(f"depth {d} {per_pass[d]:.3f} us"
+                      for d in WAVE_DEPTHS)
+          + f" (CUDA events over a replay; {smi_line()})")
+    return {"name": "wavefront_loop", "route": "cuda",
+            "source": "windflow_tpu_torch/csrc/wavefront_loop.cu",
+            "replaces": "windflow_tpu/ops/tpu_stateful.py:130 "
+                        "(the lax.while_loop; no Pallas kernel)",
+            "launches": 0, "max_abs_err": 0.0, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def wavefront_runs(dev_name="cuda"):
+    """Phase 17: (a) phase 7 (a)'s fraud detection, fused and unfused,
+    at K = 1 and K = 8, and its kernels-off twin; (b) a general running
+    sum on a uniform stream and on batches one key fills; (c) the
+    steering kernel against its plain twin.  Every run against its numpy
+    oracle with the tail's steps after the first and the cached group
+    replays under ``set_sync_debug_mode("error")``.  Returns (launch
+    counts by label, the kernel's JSON row)."""
+    import torch
+    out = {}
+    n = CAP * WAVE_A_BATCHES
+    rng = np.random.default_rng(2026)
+    table, cards, etype, _ = fraud_data(rng, n)
+    blob_a = frame_blob(cards, np.arange(n), etype.astype(np.float64))
+    score = fraud_oracle(cards, etype, table)
+    recs = {}
+    runs = [(fuse, k, False) for fuse in (False, True) for k in (1, 8)] \
+        + [(True, 1, True), (True, 8, True)]
+    for fuse, k, prof in runs:
+        label = (f"17(a) fraud dense {'fused' if fuse else 'unfused'} "
+                 f"K={k}{' traced' if prof else ''}")
+
+        def build(sink, fuse=fuse, **cfg):
+            return fraud_graph(dev_name, blob_a, table, sink, fuse=fuse,
+                               **cfg)
+        cols, f = wave_run(label, build, k, batches=WAVE_A_BATCHES,
+                           prof=prof)
+        out[label] = f["launches"]
+        nrec = check_fraud(label, cols, cards, etype, table, score)
+        recs[label] = (cat_cols(cols, "card"), cat_cols(cols, "score"))
+        if f["launches"]["wavefront_loop"] != WAVE_A_BATCHES:
+            fail(f"{label}: wavefront_loop launched "
+                 f"{f['launches']['wavefront_loop']} times in "
+                 f"{WAVE_A_BATCHES} batches")
+        if f["strict_steps"] + f["strict_groups"] == 0:
+            fail(f"{label}: no step ran under the strict sync mode")
+        codes = audit_codes(f["graph"])
+        if codes & {"WF906", "WF907"}:
+            fail(f"{label}: the capture audit found "
+                 f"{f['graph'].stats()['IR_audit']['findings']}")
+        sec = f["megastep"]
+        extra = ""
+        if k > 1 and fuse:
+            e = sec["edges"][0] if sec["edges"] else None
+            if sec["refused"] or e is None \
+                    or e["megasteps"] != (WAVE_A_BATCHES - 1) // k \
+                    or f["strict_groups"] != e["megasteps"] - 1 \
+                    or e["kernel_launches_per_group"] != k:
+                fail(f"{label}: the groups of the wavefront tail did not "
+                     f"form as expected ({sec}, {f['strict_groups']} "
+                     "strict replays)")
+            extra = (f"; {e['megasteps']} groups ({f['strict_groups']} "
+                     f"cached replays under the strict mode), "
+                     f"{e['warmup_batches']} warm-up, "
+                     f"{e['fallback_batches']} fallback batches")
+        elif k > 1:
+            # unfused, the staging edge's tail is the stateless cast
+            if [r["operator"] for r in sec["refused"]] != ["cast"]:
+                fail(f"{label}: refusals {sec['refused']}")
+            extra = f"; refused {sec['refused']}"
+        traced = (f", device {f['device_ms']:.3f} ms and "
+                  f"{f['device_ops']:.1f} device operations a batch over "
+                  "the run (torch.profiler)") if prof else ""
+        print(f"phase 17: PipeGraph.run() {label}: {nrec} flagged "
+              f"records match the oracle; audit {sorted(codes)} (no "
+              f"WF906/WF907); a steady batch: wall {f['wall_ms']:.3f} ms "
+              f"(synchronised), CUDA-event span {f['event_ms']:.3f} ms"
+              f"{traced}; {f['passes'] / WAVE_A_BATCHES:.1f} loop passes "
+              f"a batch; first step {f['first_ms']:.1f} ms (loop graph "
+              f"build {f['build_ms']:.1f} ms), capture "
+              f"{f['capture_ms']:.1f} ms; launches {f['launches']}{extra} "
+              f"(information only; {smi_line()})")
+    first = recs["17(a) fraud dense unfused K=1"]
+    for label, r in recs.items():
+        if not all(np.array_equal(a, b) for a, b in zip(first, r)):
+            fail(f"{label}: records differ from the unfused K = 1 run")
+    # the kernels-off twin: the plain host loop, the tail refused by name
+    label = "17(a) fraud dense fused K=8 kernels off"
+    cols, sink = collect()
+    g, _ = fraud_graph(dev_name, blob_a, table, sink, megastep_sweeps=8,
+                       cuda_kernels="0")
+    secs, counts = timed_run(g)
+    out[label] = counts
+    sec = g.stats()["Megastep"]
+    check_fraud(label, cols, cards, etype, table, score)
+    if not all(np.array_equal(a, b) for a, b in zip(
+            first, (cat_cols(cols, "card"), cat_cols(cols, "score")))):
+        fail(f"{label}: records differ from the kernels-on runs")
+    if counts["wavefront_loop"] or sec["edges"] \
+            or "cuda_kernels='0'" not in sec["refused"][0]["reason"]:
+        fail(f"{label}: launches {counts}, megastep {sec}")
+    # its plain loop reads the rank counts on the host: no sanctioned
+    # read covers that any more
+    if "WF906" not in audit_codes(g):
+        fail(f"{label}: the audit did not name the plain loop's host read")
+    print(f"phase 17: PipeGraph.run() {label}: records equal the kernels-"
+          f"on runs; the plane refuses '{sec['refused'][0]['operator']}' "
+          f"({sec['refused'][0]['reason']}); {secs:.3f} s")
+
+    # (b) depth extremes through a general running sum
+    for dist, cap, nb in (("uniform", CAP, WAVE_BATCHES),
+                          ("one key a batch", WAVE_HOT_CAP,
+                           WAVE_HOT_BATCHES)):
+        label = f"17(b) running sum {dist}"
+        if dist == "uniform":
+            keys = rng.integers(0, FRAUD_CARDS, cap * nb)
+        else:
+            keys = np.repeat(rng.integers(0, FRAUD_CARDS, nb), cap)
+        vals = rng.integers(0, 4, cap * nb).astype(np.float32)
+        blob = frame_blob(keys, np.arange(cap * nb), vals)
+
+        def build(sink, blob=blob, cap=cap, **cfg):
+            return wave_sum_graph(dev_name, blob, cap, sink, **cfg)
+        cols, f = wave_run(label, build, 1, batches=nb, depth=True,
+                           prof=False)
+        out[label] = f["launches"]
+        cnt, run_sum = running_oracle(keys, vals)
+        if not (np.array_equal(cat_cols(cols, "key"), keys)
+                and np.array_equal(cat_cols(cols, "n"), cnt)
+                and np.array_equal(cat_cols(cols, "sum"), run_sum)):
+            fail(f"{label}: running counts or sums differ from the oracle")
+        want = [int(np.bincount(keys[i * cap:(i + 1) * cap]).max())
+                for i in range(nb)]
+        if f["depths"] != want or f["passes"] != sum(want):
+            fail(f"{label}: depths {f['depths']} (passes {f['passes']}), "
+                 f"{want} expected")
+        print(f"phase 17: PipeGraph.run() {label}: {cap * nb} records "
+              f"match the oracle at {cap} lanes a batch; depth a batch "
+              f"{f['depths']} (= the hottest key's lanes), "
+              f"{f['passes']} passes; a batch: wall {f['wall_ms']:.3f} ms, "
+              f"CUDA-event span {f['event_ms']:.3f} ms (information only;"
+              f" {smi_line()})")
+    torch.cuda.synchronize()
+    # (c) the steering kernel against its plain twin
+    row = check_advance(torch.device(dev_name, 0)
+                        if dev_name == "cuda" else torch.device(dev_name))
+    return out, row
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -5927,6 +6440,10 @@ DUR_N, DUR_BATCH, DUR_KEYS, DUR_EPOCH = 1 << 20, 16384, 4096, 8
 DUR_B_KEYS = 1024
 #: the state-heavy cell's dense key slots
 DUR_HEAVY_KEYS = 1 << 20
+#: records of the K = 1 stateful mid-window cell (cut in depth for the
+#: script's time limit: it still commits two epochs, and the kill lands
+#: between them)
+DUR_CUT_N = 1 << 19
 #: the host reduce's rescale cells' records (cut in depth: its
 #: per-record path reads ~23,000 tuples/s on the card's host)
 DUR_RESCALE_N = 1 << 18
@@ -6158,7 +6675,7 @@ def durability_runs(dev_name="cuda"):
             fail(f"phase 9 {label}: nothing restored or compared")
         if prev is None:
             baselines[label] = (held["g"], base["read"])
-        dur_line(label, v, DUR_N, shared)
+        dur_line(label, v, kw.get("n", DUR_N), shared)
         return v
 
     # (a) the six families killed mid-epoch, fused (K = 8, wire on)
@@ -6168,8 +6685,12 @@ def durability_runs(dev_name="cuda"):
            shared="(a) window_cb mid_epoch")
     if not v["dedupe_hits"]:
         fail("phase 9 (a) window_cb mid_sink_flush: no dedupe hit")
-    ab("(a) stateful mid_window", "stateful", "mid_window",
-       shared="(a) stateful mid_epoch")
+    # the mid_window kill counts the victim replica's per-batch steps;
+    # at K = 8 the stateful tail folds into groups (its device loop),
+    # whose batches no replica step processes: this cell runs at K = 1
+    # with its own baseline
+    ab("(a) stateful K=1 mid_window", "stateful", "mid_window",
+       megastep_sweeps=1, n=DUR_CUT_N, messages=None)
     # its own baseline: the kill is picked from K = 1's sweeps
     ab("(a) window_cb K=1 mid_epoch", "window_cb", "mid_epoch",
        megastep_sweeps=1)
@@ -6408,6 +6929,12 @@ def main():
     t16 = time.perf_counter()
     run_counts.update(mesh_runs())
     print(f"phase 16: {time.perf_counter() - t16:.1f} s (budget 60 s)")
+    # 17. the stateful wavefront as a device loop, counts read just after
+    #     each run
+    t17 = time.perf_counter()
+    counts17, wave_row = wavefront_runs()
+    run_counts.update(counts17)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s (budget 60 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -6476,6 +7003,12 @@ def main():
         counter = r["name"].split("[")[0]
         r["launches"] = sum(run_counts[label][counter]
                             for label in runs_of[r["name"]])
+    # the wavefront's loop runs in every stateful run with the kernels on
+    # (phases 7, 9 and 17): its launches are every run's
+    wave_row["launches"] = sum(c.get("wavefront_loop", 0)
+                               for c in run_counts.values()
+                               if isinstance(c, dict))
+    rows.append(wave_row)
 
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all "
           "(limit 1,200 s)")

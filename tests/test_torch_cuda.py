@@ -16,14 +16,19 @@ identical bits from call to call and to rtol 1e-5 against the plain
 scatter-add (the declared-sum reassociation tolerance).  The stateful
 and key-compaction checks at the end run the dense associative step,
 the compacted stateful step and the compacted count-window step with no
-synchronising call, count the dense wavefront's one read of its rank
-counts, and check a compacted reduce run's table-kernel launches; the
-running sums are integer-valued, so exact.  The wire and megastep checks
-at the end decode the 13-lane adversarial matrix on the card to the CPU
-decode's bits, replay CB, TB, dense-reduce, associative and
-sorted-reduce megasteps with no synchronising call (records equal to
-K = 1's and the CPU's, kernel launches counted through replays), count
-one ``cudaGraphLaunch`` a megastep, check that emitted batches never
+synchronising call, run the wavefront's device loop (a CUDA graph WHILE
+node, ``kernels/loop_cuda.py``) on the dense, interned and compacted
+steps with no synchronising call, hold its steering kernel against its
+plain twin at depths 1, 2, 1,024, 1,025 and the capacity, refuse a
+synchronising user function by name, audit a plain wavefront on the
+card as WF907, and check a compacted reduce run's table-kernel launches;
+the running sums are integer-valued, so exact.  The wire and megastep
+checks at the end decode the 13-lane adversarial matrix on the card to
+the CPU decode's bits, replay CB, TB, dense-reduce, associative,
+sorted-reduce and wavefront megasteps with no synchronising call
+(records equal to K = 1's and the CPU's, kernel launches counted
+through replays; and a K = 8 wavefront capture, refused by name under
+``cuda_kernels="0"``), count one ``cudaGraphLaunch`` a megastep, check that emitted batches never
 alias the graph's outputs, recapture on a TB ring regrow, and run the
 sorted and dense reduce steps with no synchronising call.  The durable
 state checks round-trip the FFAT CB and TB, stateful and compacted
@@ -766,28 +771,175 @@ def test_cuda_compacted_stateful_step_makes_no_host_read(cuda_device):
     _running_sum_check(op, batches, out)
 
 
+def _wavefront_op(route):
+    """The running-sum wavefront (no associative update) over CB_K keys:
+    dense keys, interned, or compacted (host-fed, key compaction on)."""
+    import windflow_tpu_torch as wt
+    b = (wt.MapGPU_Builder(
+            lambda t, s: ({"key": t["key"], "v0": s + t["v0"]}, s + t["v0"]))
+         .withKeyBy(lambda t: t["key"]).withInitialState(np.float32(0.0))
+         .withNumKeySlots(CB_K).withName("wave"))
+    if route == "dense":
+        b = b.withDenseKeys()
+    return _op_graph(b.build(), compact=route == "compacted")
+
+
 @pytest.mark.cuda
-def test_cuda_dense_wavefront_step_reads_the_rank_counts_once(cuda_device):
-    """The dense wavefront step makes exactly one synchronising call, the
-    read of its per-rank lane counts (``set_sync_debug_mode("warn")``
-    counts them), and equals the running sums."""
-    import warnings
-    op = _stateful_op(dense=True, assoc=False)
+@pytest.mark.parametrize("route", ["dense", "interned", "compacted"])
+def test_cuda_wavefront_steps_make_no_host_read(cuda_device, route):
+    """The wavefront's device loop (a CUDA graph WHILE node) on each key
+    route: the dense step, the interning route's step function (its
+    per-batch key read happens before it, by design) and the compacted
+    step (keys admitted beforehand) make no synchronising call under
+    ``set_sync_debug_mode("error")``, launch the loop once a step, and
+    give the per-key running sums; the depth stays on the card."""
+    from windflow_tpu_torch.batch import DeviceBatch
+    from windflow_tpu_torch.kernels import loop_cuda
+    op = _wavefront_op(route)
     batches = _cb_batches(cuda_device, 3)
+    if route == "compacted":
+        assert op._compactor is not None
+        op._compactor.observe(np.arange(CB_K))
     op._step(batches[0])
     op._step(batches[1])
+    if route != "interned":
+        step, arg = op._step, batches[2]
+    else:
+        assert op._compactor is None and not op.dense_keys
+        # the intern read runs before the strict window
+
+        def step(arg):
+            batch, (keys, uk, us) = arg
+            op._state, pay, ok = op._get_step(CB_CAP)(
+                op._state, batch.payload, batch.valid, keys, uk, us)
+            return DeviceBatch(pay, batch.ts, ok)
+        arg = (batches[2], op._intern_batch(batches[2]))
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
+    fc.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
     try:
-        with warnings.catch_warnings(record=True) as rec:
-            warnings.simplefilter("always")
-            out = op._step(batches[2])
+        out = step(arg)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    syncs = [w for w in rec if "synchroniz" in str(w.message)]
-    assert len(syncs) == 1, [str(w.message) for w in syncs]
-    assert op.last_depth > 1
+    torch.cuda.synchronize()
+    assert fc.launch_counts()["wavefront_loop"] == 1
+    body = next(iter(op._bodies.values()))
+    assert isinstance(body.last_depth, torch.Tensor)
+    assert body.last_depth.is_cuda
+    assert op.last_depth > 1 and loop_cuda.device_passes(cuda_device) > 0
     _running_sum_check(op, batches, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 2, 1024, 1025, "capacity"])
+def test_cuda_wavefront_advance_matches_its_plain_twin(cuda_device, depth):
+    """The steering kernel, launched eagerly pass by pass, writes the
+    plain twin's cursor (slice, class, more) on counts of depth 1, 2,
+    1,024, 1,025 and the capacity; inside a captured WHILE node the loop
+    runs exactly ``depth`` passes and each class body sees its rank's
+    slice."""
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    cap = 4096
+    d = cap if depth == "capacity" else depth
+    rng = np.random.default_rng(d)
+    counts = np.sort(rng.integers(1, 300, d))[::-1].astype(np.int32)
+    counts[0] = 300
+    cnt_h = torch.zeros(cap, dtype=torch.int32)
+    cnt_h[:d] = torch.from_numpy(counts.copy())
+    widths = L.width_classes(300, cap)
+    cnt = cnt_h.to(cuda_device)
+    cur = torch.zeros(L.CUR_WORDS, dtype=torch.int64, device=cuda_device)
+    cur_h = torch.zeros(L.CUR_WORDS, dtype=torch.int64)
+    L.prepare(cuda_device)
+    L.wavefront_advance(cnt, cur, widths, True)
+    L.advance_plain(cnt_h, cur_h, widths, True)
+    passes = 0
+    while True:
+        assert cur.cpu().tolist() == cur_h.tolist()
+        if not int(cur_h[4]):
+            break
+        L.wavefront_advance(cnt, cur, widths, False)
+        L.advance_plain(cnt_h, cur_h, widths, False)
+        passes += 1
+    assert passes == d
+    log = torch.zeros((cap + 1, 3), dtype=torch.int64, device=cuda_device)
+
+    def body(width):
+        row = (cur[0] - 1).clamp(min=0).reshape(1)
+        w = torch.full((), width, dtype=torch.int64, device=cuda_device)
+        log.index_copy_(0, row, torch.stack([cur[2], cur[3], w])
+                        .reshape(1, 3))
+    cur.zero_()
+    for width in widths:
+        body(width)
+    g = fc.CountedGraph(torch.cuda.CUDAGraph())
+    with g.capture(L.side_capture(g.graph, cuda_device)):
+        log.zero_()
+        L.emit_loop(cnt, cur, widths, body)
+    L.reset_device_passes(cuda_device)
+    fc.reset_launch_counts()
+    g.replay()
+    torch.cuda.synchronize()
+    assert L.device_passes(cuda_device) == d
+    assert fc.launch_counts()["wavefront_loop"] == 1
+    off = np.r_[0, np.cumsum(counts)[:-1]]
+    want = np.stack([off, counts, [widths[L.pick_class(widths, int(c))]
+                                   for c in counts]], 1)
+    assert np.array_equal(log[:d].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_wavefront_fn_that_synchronises_raises_naming_it(cuda_device):
+    """A user function that reads a tensor on the host cannot ride the
+    device loop: the first step raises WindFlowError naming the
+    operator, never falling back to the plain loop."""
+    import windflow_tpu_torch as wt
+    op = _op_graph(
+        wt.MapGPU_Builder(lambda t, s: ({"key": t["key"],
+                                         "v0": s + float(t["v0"][0])},
+                                        s + t["v0"]))
+        .withKeyBy(lambda t: t["key"]).withInitialState(np.float32(0.0))
+        .withNumKeySlots(CB_K).withDenseKeys().withName("syncing").build())
+    with pytest.raises(wt.WindFlowError, match="syncing"):
+        op._step(_cb_batches(cuda_device, 1)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_audit_wf907_on_a_plain_wavefront(cuda_device, monkeypatch):
+    """With the kernels on, the dense wavefront's first recorded step
+    launches the loop and audits clean; with its route forced to the
+    plain host loop while the gate holds, the step launches no loop and
+    is WF907 naming ``wavefront_loop`` (and WF902/WF906 for the plain
+    loop's read of the rank counts, which no sanctioned read covers any
+    more), with the same records."""
+    from windflow_tpu_torch.analysis import ir_audit
+    from windflow_tpu_torch.kernels import ffat_cuda
+    from windflow_tpu_torch.ops import gpu_stateful as gst
+    outs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(
+                gst, "_loop_route",
+                lambda kernels, dev: ffat_cuda._gate("wavefront_loop",
+                                                     kernels) and False)
+        op = _wavefront_op("dense")
+        rep = op.replicas[0]
+        rep.emitter = _Collect()
+        batch = _cb_batches(cuda_device, 1)[0]
+        rep.process_device_batch(batch)
+        torch.cuda.synchronize()
+        (facts,) = op._audit_programs[op.name].values()
+        found = ir_audit.program_findings(op.name, facts)
+        if plain:
+            assert sorted(d.code for d in found) == [
+                "WF902", "WF906", "WF907"]
+            assert "wavefront_loop" in next(
+                d for d in found if d.code == "WF907").message
+        else:
+            assert found == [] and facts["launches_by_kernel"][
+                "wavefront_loop"] == 1
+        outs.append(rep.emitter.out[0].payload["v0"].cpu())
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.cuda
@@ -950,6 +1102,13 @@ def _ms_tail(family):
         return (wt.ReduceGPU_Builder(
                     lambda a, b: {"key": a["key"], "v": a["v"] + b["v"]})
                 .withKeyBy(lambda t: t["key"]).withName("w").build())
+    if family == "wavefront":
+        return (wt.MapGPU_Builder(
+                    lambda t, s: ({"key": t["key"], "v": s["acc"] + t["v"]},
+                                  {"acc": s["acc"] + t["v"]}))
+                .withName("w").withKeyBy(lambda t: t["key"])
+                .withInitialState({"acc": np.float32(0.0)})
+                .withNumKeySlots(MS_KEYS).withDenseKeys().build())
     return (wt.MapGPU_Builder(lambda t, s: (t, s)).withName("w")
             .withKeyBy(lambda t: t["key"])
             .withInitialState({"acc": np.float32(0.0)})
@@ -1041,7 +1200,8 @@ def _strict_replays(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["cb", "tb", "dense", "assoc", "sorted"])
+@pytest.mark.parametrize("family", ["cb", "tb", "dense", "assoc", "sorted",
+                                    "wavefront"])
 @pytest.mark.parametrize("wire", [False, True])
 def test_cuda_megastep_replays_sync_free_and_equals_k1(cuda_device,
                                                        monkeypatch, family,
@@ -1067,9 +1227,37 @@ def test_cuda_megastep_replays_sync_free_and_equals_k1(cuda_device,
     # the hand kernels of the route run inside the replays (the TB ring's
     # 64-key (key, pane) ids are beyond the grouping kernel's gate: no
     # kernel on that route at this shape)
-    if family in ("cb", "dense"):
+    if family in ("cb", "dense", "wavefront"):
         assert e["kernel_launches_per_group"] > 0
     cpu, _, _ = _ms_run(family, 4, device="cpu", wire=wire)
+    assert cpu == base
+
+
+@pytest.mark.cuda
+def test_cuda_k8_capture_of_a_wavefront_tail(cuda_device, monkeypatch):
+    """The dense wavefront as a K = 8 megastep tail: the plane folds it
+    (no refusal), one capture holds eight WHILE nodes, every cached group
+    replays with no synchronising call, the loop launches once a logical
+    batch as at K = 1, and the records equal K = 1's and the CPU's; under
+    ``cuda_kernels="0"`` the plane refuses it by name and the records
+    are the same."""
+    fc.reset_launch_counts()
+    base, _, _ = _ms_run("wavefront", 1)
+    launches1 = fc.launch_counts()
+    seen = _strict_replays(monkeypatch)
+    fc.reset_launch_counts()
+    got, sec, _ = _ms_run("wavefront", 8)
+    e = sec["edges"][0]
+    assert sec["refused"] == [] and e["kind"] == "stateful"
+    assert e["megasteps"] >= 1 and seen[0] >= 0 and e["captures"] == 1
+    assert e["kernel_launches_per_group"] == 8
+    assert fc.launch_counts()["wavefront_loop"] \
+        == launches1["wavefront_loop"] == MS_N // MS_CAP
+    assert base and got == base
+    off, osec, _ = _ms_run("wavefront", 8, cuda_kernels="0")
+    assert off == base and osec["edges"] == []
+    assert "cuda_kernels='0'" in osec["refused"][0]["reason"]
+    cpu, _, _ = _ms_run("wavefront", 8, device="cpu")
     assert cpu == base
 
 
@@ -2403,6 +2591,43 @@ def test_cuda_mesh_stateful_step_makes_no_host_read(cuda_device, ingest,
     n = out["n"].cpu().numpy()
     # the second pass over the batch: a key's i-th lane (in lane order
     # within its block layout) sees the first pass's count plus i + 1
+    for key in np.unique(keys):
+        got = np.sort(n[keys == key])
+        cnt = int((keys == key).sum())
+        assert np.array_equal(got, cnt + np.arange(1, cnt + 1))
+    assert state[0].equal_across_data()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data", [1, 2])
+def test_cuda_mesh_wavefront_step_makes_no_host_read(cuda_device, data):
+    """The sharded stateful step over the wavefront body (a general
+    running count, its device loop on every key shard) under the data
+    ingest: no synchronising call, the loop launched once a position a
+    step, and the per-key running counts of the single-device body."""
+    from windflow_tpu_torch.ops.gpu_stateful import _wavefront_body
+    from windflow_tpu_torch.parallel import mesh as M
+    mesh, payload, _, _, valid = _mesh_batch(cuda_device, data)
+    cap, S = valid.shape[0], 64
+
+    def fn(t, s):
+        n = s["n"] + 1
+        return {"key": t["key"], "n": n}, {"n": n}
+    step = M.make_sharded_stateful_step(
+        mesh, cap, S,
+        lambda c, s: _wavefront_body(fn, c, s, False, kernels=True),
+        lambda t: t["key"], True, False, ingest="data")
+    state = [M.shard_state({"n": torch.zeros(S, dtype=torch.int32)}, mesh)]
+
+    def run():
+        state[0], out, ok = step(state[0], payload, valid)
+        return out, ok
+    fc.reset_launch_counts()
+    out, ok = _one_step_no_host_read(run)
+    assert fc.launch_counts()["wavefront_loop"] == 2 * 4
+    assert bool(ok.all())
+    keys = out["key"].cpu().numpy()
+    n = out["n"].cpu().numpy()
     for key in np.unique(keys):
         got = np.sort(n[keys == key])
         cnt = int((keys == key).sum())

@@ -264,6 +264,38 @@ def test_wf907_is_held_per_kernel():
     assert ir_audit.program_findings("p", f) == []
 
 
+def test_wf907_names_a_plain_wavefront_on_the_card():
+    """The stateful wavefront's gate is its route: with the kernels on,
+    a step on the card takes the device loop and launches
+    ``wavefront_loop``.  A recorded CUDA step whose wavefront gate held
+    and that launched no loop ran the plain host loop: WF907 for it;
+    the same facts with the launch, with the kernels off, or on the CPU
+    are clean.  On the CPU a real dense wavefront step counts the gate
+    and no launch."""
+    f = _facts(kernel_gates={"wavefront_loop": 1})
+    (d,) = ir_audit.program_findings("p", f)
+    assert d.code == "WF907" and "wavefront_loop" in d.message
+    assert ir_audit.program_findings("p", _facts(
+        kernel_gates={"wavefront_loop": 1},
+        launches_by_kernel={"wavefront_loop": 1}, kernel_launches=1)) == []
+    assert ir_audit.program_findings("p", _facts(
+        kernel_gates={"wavefront_loop": 1}, kernels_resolved=False)) == []
+    assert ir_audit.program_findings("p", _facts(
+        backend="cpu", kernel_gates={"wavefront_loop": 1})) == []
+    g = wt.PipeGraph("ira_wave", config=wt.Config(device="cpu"))
+    g.add_source(_source("ira_wave_src")).add(
+        wt.MapGPU_Builder(lambda t, s: ({"key": t["key"], "v": t["v"] + s},
+                                        s + t["v"]))
+        .withInitialState(np.float32(0)).withKeyBy(lambda t: t["key"])
+        .withNumKeySlots(8).withDenseKeys().withName("ira_wave_m").build()
+    ).add_sink(wt.Sink_Builder(lambda r: None).build())
+    g.run()
+    facts = _recorded(g, "ira_wave_m")
+    assert facts["kernel_gates"]["wavefront_loop"] >= 1
+    assert "wavefront_loop" not in facts["launches_by_kernel"]
+    assert g.stats()["IR_audit"]["findings"] == []
+
+
 def test_table_gate_counts_only_where_a_launch_follows():
     """The reduce front door checks its leaves before the slot gate: a
     payload with no leaf the table kernel takes keeps its torch scatters

@@ -263,9 +263,14 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
     fc.sliding_fold(torch.ones((2, 5)), torch.ones((2, 5), dtype=torch.bool),
                     2, "sum")
     rc.dense_monoid_table(ids, [torch.ones(4)], ["sum"], [0.0], 4)
-    assert fc.kernel_build_count() == before + 3
+    from windflow_tpu_torch.kernels import loop_cuda
+    cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64)
+    loop_cuda.wavefront_advance(ids, cur, [32], True)
+    assert cur.tolist() == [0, 0, 0, 0, 1, -1]
+    assert fc.kernel_build_count() == before + 4
     assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0,
-                                  "dense_monoid_table": 0}
+                                  "dense_monoid_table": 0,
+                                  "wavefront_loop": 0}
 
 
 def test_kernel_entry_needs_nvcc_and_raises_without(monkeypatch):

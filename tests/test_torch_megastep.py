@@ -10,9 +10,11 @@ family of ``tests/test_megastep.py:42``:
   identical records, and the ``Megastep`` stats section counts
   (``megasteps``, ``batches``, ``fallback_batches``, ``warmup_batches``,
   ``freshness_floor_usec``) equal JAX's;
-* ``stateful`` runs twice: with ``withAssociativeUpdate`` it folds; as
-  JAX's wavefront function it is refused with the named reason (JAX
-  folds its device-loop wavefront) and the records are still equal;
+* ``stateful`` runs twice: with ``withAssociativeUpdate`` and as JAX's
+  wavefront function; both fold (the wavefront's device loop is a WHILE
+  node the card's capture holds, as JAX's scan holds its
+  ``lax.while_loop``); under ``Config(cuda_kernels="0")`` on the card
+  the wavefront is refused with the named reason;
 * K = 8 on a window, wire plus megastep together, a forced TB ring
   regrow (the group body is rebuilt, records equal), "auto" on the CPU,
   K = 1 (no edge), ``round_epoch_to_megastep``, ``tail_kind``'s
@@ -136,7 +138,7 @@ def _counts(edge):
 
 @pytest.mark.parametrize("family", ["window_cb", "window_tb",
                                     "reduce_sorted", "reduce_dense",
-                                    "stateful_assoc"])
+                                    "stateful_assoc", "stateful"])
 def test_k4_equals_k1_and_jax(family):
     base, ms1, _ = _run(wt, family, 1)
     fold, ms4, g = _run(wt, family, 4)
@@ -158,18 +160,27 @@ def test_k4_equals_k1_and_jax(family):
 
 
 def test_stateful_wavefront_is_refused_by_name_records_equal():
-    """JAX folds the dense wavefront (a device loop); the port's reads its
-    per-rank lane counts on the host every step, so the plane refuses it
-    with the reason in the stats, and the records still equal JAX's."""
-    base, ms1, _ = _run(wt, "stateful", 1)
+    """The dense wavefront folds (K = 4 records equal K = 1 and JAX's, one
+    group body) wherever its device loop is in force: on the CPU and
+    with the kernels on.  Under ``cuda_kernels="0"`` on the card its
+    plain version reads its per-rank lane counts on the host, so the
+    plane refuses it with a reason that names the kernels being off."""
+    base, _, _ = _run(wt, "stateful", 1)
     got, ms4, _ = _run(wt, "stateful", 4)
     jgot, jms4, _ = _run(wf, "stateful", 4)
     assert base and _norm(base) == _norm(got) == _norm(jgot)
-    assert ms4["edges"] == []
-    assert [r["operator"] for r in ms4["refused"]] == ["w"]
-    assert "wavefront" in ms4["refused"][0]["reason"]
-    assert "withAssociativeUpdate" in ms4["refused"][0]["reason"]
-    assert jms4["edges"][0]["megasteps"] > 0
+    assert ms4["refused"] == [] and ms4["edges"][0]["kind"] == "stateful"
+    assert ms4["edges"][0]["megasteps"] == jms4["edges"][0]["megasteps"] > 0
+    op = _tail(wt, "stateful")
+    assert ms.tail_kind(op) == ("stateful", None)
+    op.device = torch.device("cuda", 0)
+    assert ms.tail_kind(op) == ("stateful", None)
+    op.config = dataclasses.replace(op.config, cuda_kernels="0")
+    kind, why = ms.tail_kind(op)
+    assert kind is None and why.startswith("stateful wavefront")
+    assert "cuda_kernels='0'" in why
+    op.device = torch.device("cpu")
+    assert ms.tail_kind(op) == ("stateful", None)
 
 
 def test_k8_on_a_window():
@@ -290,9 +301,9 @@ def test_tail_kind_refusals_are_named():
     assert f._fusion_exec is not None
     assert ms.tail_kind(f)[1].startswith("all-stateless fused segment")
     assert g.stats()["Megastep"]["edges"] == []
-    # the wavefront
-    why = ms.tail_kind(_tail(wt, "stateful"))[1]
-    assert why.startswith("stateful wavefront")
+    # the wavefront: its device loop folds (the kernels-off refusal on
+    # the card: test_stateful_wavefront_is_refused_by_name_records_equal)
+    assert ms.tail_kind(_tail(wt, "stateful")) == ("stateful", None)
     assert ms.tail_kind(_tail(wt, "stateful_assoc")) == ("stateful", None)
 
 
@@ -316,12 +327,14 @@ def test_launch_counters_count_each_captured_call_once_a_replay():
     assert cg.launches == {"grouping_rank_hist": 1, "sliding_fold": 2}
     assert cg.launches_per_replay() == 3
     assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0,
-                                  "dense_monoid_table": 1}
+                                  "dense_monoid_table": 1,
+                                  "wavefront_loop": 0}
     for _ in range(3):
         cg.replay()
     assert StubGraph.replays == 3
     assert fc.launch_counts() == {"grouping_rank_hist": 3, "sliding_fold": 6,
-                                  "dense_monoid_table": 1}
+                                  "dense_monoid_table": 1,
+                                  "wavefront_loop": 0}
     fc.reset_launch_counts()
 
 

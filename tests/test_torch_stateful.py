@@ -174,6 +174,114 @@ def test_wavefront_body_all_invalid_batch():
     assert torch.equal(out[0], _t(state))
 
 
+# ---------------------------------------------------------------------------
+# the kernel route's device loop (kernels/loop_cuda.py), its class bodies
+# driven on the CPU by the plain twin of wavefront_advance
+# ---------------------------------------------------------------------------
+
+def _three_routes(fn, cap, slots_n, is_filter, state, payload, valid,
+                  slots):
+    """JAX's while_loop body, the port's class-window loop and its host
+    loop on the same inputs: every output equal, exactly.  Returns the
+    loop route's body."""
+    loop_t = gst._wavefront_body(fn, cap, slots_n, is_filter, loop=True)
+    host_t = gst._wavefront_body(fn, cap, slots_n, is_filter, loop=False)
+    out_j = _both(jst._wavefront_body(fn, cap, slots_n, is_filter), loop_t,
+                  state, payload, valid, slots)
+    out_h = host_t(_t(state), _t(payload), torch.from_numpy(valid),
+                   torch.from_numpy(slots))
+    for a, b in zip(out_j, out_h):
+        _same(a, b)
+    assert loop_t.last_depth == host_t.last_depth
+    return loop_t
+
+
+@pytest.mark.parametrize("dtype,hot,is_filter", BODY_CASES)
+def test_class_loop_body_matches_jax_and_host_loop(dtype, hot, is_filter):
+    state, payload, valid, slots = _step_inputs(7, dtype, hot)
+    if is_filter:
+        state = np.zeros(S, np.int32)
+    fn = _filter_fn if is_filter else _map_fn
+    body = _three_routes(fn, CAP, S, is_filter, state, payload, valid, slots)
+    live = valid & (slots < S)
+    assert body.last_depth == np.bincount(slots[live], minlength=S).max()
+
+
+def _int_stream(seed, cap, slots_n, hot_lanes):
+    """Integer-valued lanes: uniform keys, or one key holding exactly
+    ``hot_lanes`` valid lanes (the rest invalid)."""
+    rng = np.random.default_rng(seed)
+    slots = rng.integers(0, slots_n, cap).astype(np.int32)
+    valid = rng.random(cap) < 0.9
+    if hot_lanes:
+        valid[:] = False
+        valid[rng.choice(cap, hot_lanes, replace=False)] = True
+        slots[valid] = 3
+    v = rng.integers(-50, 50, cap).astype(np.int32)
+    state = rng.integers(-5, 5, slots_n).astype(np.int32)
+    return state, {"key": slots.copy(), "v": v}, valid, slots
+
+
+@pytest.mark.parametrize("hot_lanes,is_filter",
+                         [(0, False), (0, True), (1, False), (1024, False),
+                          (1025, False), (1025, True)])
+def test_class_loop_depth_extremes_match_jax(hot_lanes, is_filter):
+    """Uniform keys and one key holding 1, 1,024 and 1,025 lanes (depth
+    across the host route's RANK_READ boundary) at 2,048 lanes and 64
+    slots: JAX, the class-window loop and the host loop agree exactly,
+    and the depth is the hot key's lane count."""
+    cap, slots_n = 2048, 64
+    state, payload, valid, slots = _int_stream(hot_lanes + 1, cap, slots_n,
+                                               hot_lanes)
+    if is_filter:
+        state = np.zeros(slots_n, np.int32)
+    fn = _filter_fn if is_filter else _map_fn
+    body = _three_routes(fn, cap, slots_n, is_filter, state, payload, valid,
+                         slots)
+    if hot_lanes:
+        assert body.last_depth == hot_lanes
+    # every pass ran one class window: the depth is the pass count
+    assert body.loop.depth == body.last_depth
+
+
+def test_class_loop_state_pytree_matches_jax():
+    """A two-leaf state through the class windows (the dump row is one
+    more row of every leaf)."""
+    _, payload, valid, slots = _step_inputs(3, "int32", True)
+    state = {"s": np.zeros(S, np.float32), "c": np.zeros(S, np.int32)}
+
+    def fn(t, st):
+        new = {"s": st["s"] + t["v"], "c": st["c"] + 1}
+        return {"key": t["key"], "sum": new["s"], "n": new["c"]}, new
+    _three_routes(fn, CAP, S, False, state, payload, valid, slots)
+
+
+def test_width_classes_and_advance_plain():
+    """The classes run from the power of two that holds a rank's most
+    lanes down to 32; the steering twin publishes each rank's slice and
+    the smallest class that holds it, and stops at the first empty
+    rank."""
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    assert L.width_classes(16384, 262144) == [
+        16384, 8192, 4096, 2048, 1024, 512, 256, 128, 64, 32]
+    assert L.width_classes(1000, 4096) == [1024, 512, 256, 128, 64, 32]
+    assert L.width_classes(8, 64) == [8]
+    widths = L.width_classes(100, 200)
+    counts = [100, 64, 33, 32, 1, 0, 7]
+    cnt = torch.tensor(counts, dtype=torch.int32)
+    cur = torch.zeros(L.CUR_WORDS, dtype=torch.int64)
+    seen = []
+    passes = L.run_loop_plain(cnt, cur, widths,
+                              lambda w: seen.append((w, cur.tolist())))
+    assert passes == 5
+    assert [w for w, _ in seen] == [128, 64, 64, 32, 32]
+    assert [c[2:4] for _, c in seen] == [[0, 100], [100, 64], [164, 33],
+                                         [197, 32], [229, 1]]
+    assert cur.tolist()[:2] == [5, 230] and cur.tolist()[4] == 0
+    L.advance_plain(torch.zeros(4, dtype=torch.int32), cur, widths, True)
+    assert cur.tolist() == [0, 0, 0, 0, 0, -1]
+
+
 @pytest.mark.parametrize("dtype,hot,is_filter", BODY_CASES)
 def test_assoc_body_matches_jax(dtype, hot, is_filter):
     state, payload, valid, slots = _step_inputs(11, dtype, hot)

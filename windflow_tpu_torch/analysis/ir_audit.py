@@ -39,6 +39,7 @@ shapes, the kernel gates that held and the kernel launches made.
 * **WF907** a step recorded on CUDA with the kernels resolved on
   (``kernels.resolve_kernels``) in which a kernel's gate held
   (``grouping_supported`` / ``fold_supported`` / ``table_supported``,
+  or a stateful wavefront taking its device loop, ``wavefront_loop``;
   counted per kernel by ``ffat_cuda.gates_open``) while that kernel's
   ``launch_counts()`` entry did not move: its plain version ran on the
   card, whatever the other kernels of the step launched;
@@ -123,8 +124,8 @@ SANCTIONED_HOST_READS = {
         "the 32-step checkpoint",
     ("windows/ffat_gpu.py", "FfatWindowsGPU._flush_tb"):
         "the EOS flush",
-    ("ops/gpu_stateful.py", "_rank_counts"):
-        "the stateful wavefront's per-rank lane counts",
+    ("ops/gpu_stateful.py", "_StatefulGPUBase._read_depth"):
+        "the wavefront's depth, read at stats cadence",
     ("ops/gpu_stateful.py", "_StatefulGPUBase._intern_batch"):
         "the interning route's key and mask reads",
     ("utils/tree.py", "host_copy.<locals>.leaf"):

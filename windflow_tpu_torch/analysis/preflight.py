@@ -888,7 +888,8 @@ def _megastep_pass(graph, ops, edges, upstreams, diags) -> None:
     * a multi-destination staging edge (a split, or a keyed fan-out);
     * a parallel tail, a compacted key space (host admission runs per
       batch), or ``tail_kind``'s reason verbatim (a host operator, a
-      host-interning or wavefront stateful tail, parallel window state);
+      host-interning stateful tail, a wavefront one with the CUDA
+      kernels off, parallel window state);
     * a spec-less source: packed signatures drift batch to batch, so a
       K-group never assembles.
 

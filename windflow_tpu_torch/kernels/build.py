@@ -32,6 +32,7 @@ SOURCES = {
     "grouping_rank_hist": "grouping_rank_hist.cu",
     "sliding_fold": "sliding_fold.cu",
     "dense_monoid_table": "dense_monoid_table.cu",
+    "wavefront_loop": "wavefront_loop.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_ulonglong
 #: the C signature of each library's entry point: (name, argtypes)
 SIGNATURES = {
     "grouping_rank_hist": ("wf_grouping_rank_hist",
@@ -47,6 +49,20 @@ SIGNATURES = {
                      [_P] * 9 + [_I] * 7 + [_P]),
     "dense_monoid_table": ("wf_dense_monoid_table",
                            [_P, _I, _I, _I, _P, _P, _I, _P]),
+    "wavefront_loop": ("wf_wavefront_advance",
+                       [_P, ctypes.c_longlong, _P, _P, ctypes.POINTER(_I),
+                        _I, _U64, _U64, _I, _I, _P]),
+}
+#: further C entry points of a library: kernel name -> {function:
+#: argtypes}, each returning a cudaError_t as int
+EXTRA_ENTRIES = {
+    "wavefront_loop": {
+        "wf_cond_handle": [_P, ctypes.POINTER(_U64)],
+        "wf_cond_add": [_P, _U64, _I, _I, ctypes.POINTER(_P)],
+        "wf_capture_to": [_P, _P],
+        "wf_cond_close": [_P],
+        "wf_body_stream": [ctypes.POINTER(_P)],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -110,17 +126,20 @@ def build_all() -> float:
         for n, p in todo.items():
             lib = ctypes.CDLL(p)
             fn_name, argtypes = SIGNATURES[n]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for name, types in ((fn_name, argtypes),
+                                *EXTRA_ENTRIES.get(n, {}).items()):
+                fn = getattr(lib, name)
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
             _libs[n] = lib
         return last_build_seconds
 
 
-def entry(name: str):
-    """The C entry point of kernel ``name``, building on first use."""
+def entry(name: str, fn_name: str = None):
+    """The C entry point of kernel ``name`` (or its library's function
+    ``fn_name``), building on first use."""
     lib = _libs.get(name)
     if lib is None:
         build_all()
         lib = _libs[name]
-    return getattr(lib, SIGNATURES[name][0])
+    return getattr(lib, fn_name or SIGNATURES[name][0])

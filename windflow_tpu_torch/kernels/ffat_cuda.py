@@ -22,7 +22,8 @@ fold's own combine tree), so kernel and plain version agree bit for bit.
 ``"0"`` is the kill switch — the torch composition of
 ``windows/grouping.py`` and ``windows/ffat_kernels.py`` runs and no
 wrapper is entered.  The third kernel, ``dense_monoid_table``, lives in
-``reduce_cuda.py`` and shares the counters below.
+``reduce_cuda.py``, and the stateful wavefront's device loop,
+``wavefront_loop``, in ``loop_cuda.py``; both share the counters below.
 """
 
 from __future__ import annotations
@@ -66,14 +67,15 @@ _BUILD_COUNT = 0
 #: the launch it makes; a call made while a CUDA graph captures launches
 #: nothing then, and counts once a replay (:class:`CountedGraph`)
 _LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0,
-             "dense_monoid_table": 0}
+             "dense_monoid_table": 0, "wavefront_loop": 0}
 
 
 #: kernel gates that held since import, keyed as :data:`_LAUNCHES`
 #: (``grouping_supported``, ``fold_supported``,
-#: ``reduce_cuda.table_supported`` returning True): the capture audit
-#: reads each kernel's delta over a recorded step beside its launches
-#: (WF907)
+#: ``reduce_cuda.table_supported`` returning True; the stateful
+#: wavefront taking its device loop, ``ops/gpu_stateful.py``): the
+#: capture audit reads each kernel's delta over a recorded step beside its
+#: launches (WF907)
 _GATES_OPEN = dict.fromkeys(_LAUNCHES, 0)
 
 
@@ -128,6 +130,14 @@ def uncounted():
 #: other threads that touch the card (``monitoring/monitor.py``), so the
 #: two never overlap
 capture_lock = threading.Lock()
+#: the CountedGraph this thread is capturing (``current_capture``)
+_capturing = threading.local()
+
+
+def current_capture():
+    """The :class:`CountedGraph` whose capture this thread is inside, or
+    None (the wavefront's device loop attaches its body pool to it)."""
+    return getattr(_capturing, "graph", None)
 
 
 class CountedGraph:
@@ -144,6 +154,9 @@ class CountedGraph:
         self.graph = graph
         #: kernel name -> calls captured (launched once a replay)
         self.launches = {}
+        #: objects that must live as long as the graph (the memory pool
+        #: of a device loop's bodies, ``kernels/loop_cuda.py``)
+        self.keep = []
 
     @contextlib.contextmanager
     def capture(self, ctx):
@@ -158,10 +171,12 @@ class CountedGraph:
             gc.collect()
             collecting = gc.isenabled()
             gc.disable()
+            _capturing.graph = self
             try:
                 with ctx:
                     yield self
             finally:
+                _capturing.graph = None
                 if collecting:
                     gc.enable()
                 after = launch_counts()

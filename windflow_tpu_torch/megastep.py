@@ -35,11 +35,12 @@ Eligible edges: a single-destination host→device staging edge
 (``DeviceStageEmitter``, exact type) on a source replica, feeding the one
 replica, on one channel, of a non-compacted ``FfatWindowsGPU`` (CB or
 TB), a ``ReduceGPU`` (sorted, or dense declared monoid) or a dense-keys
-stateful map/filter with ``withAssociativeUpdate``; fused preludes ride
-inside the tail's step.  :func:`tail_kind` names every refusal; the
-stateful wavefront is one (it reads its per-rank lane counts on the host
-every step), where the JAX package folds it (its wavefront is a device
-loop): records are equal either way, only the eligibility differs.
+stateful map/filter (the associative body, or the wavefront, whose
+device loop, ``kernels/loop_cuda.py``, a capture holds as a WHILE node,
+as the JAX package's scan holds its ``lax.while_loop``); fused preludes
+ride inside the tail's step.  :func:`tail_kind` names every refusal;
+under ``Config(cuda_kernels="0")`` on the card the wavefront is one (its
+plain version reads its per-rank lane counts on the host every step).
 
 Observability: a group counts K dispatches on the tail's step-registry
 handle (one a row) and each capture as a compile, a recapture as a
@@ -131,10 +132,15 @@ def tail_kind(op):
         if not op.dense_keys:
             return None, ("host-interning stateful (per-batch key read; "
                           "declare withDenseKeys)")
-        if op.assoc is None:
-            return None, ("stateful wavefront (reads its per-rank lane "
-                          "counts on the host every step; declare "
-                          "withAssociativeUpdate)")
+        dev = op.device if op.device is not None \
+            else getattr(op.config, "device", "cuda")
+        if op.assoc is None and str(dev).startswith("cuda"):
+            from windflow_tpu_torch.kernels.ffat_cuda import resolve_kernels
+            if not resolve_kernels(op.config):
+                return None, ("stateful wavefront with the CUDA kernels "
+                              "off (Config.cuda_kernels='0': its plain "
+                              "version reads the per-rank lane counts on "
+                              "the host every step)")
         return "stateful", None
     return None, f"unsupported tail operator {type(op).__name__}"
 
@@ -172,7 +178,7 @@ def _row(kind: str):
         def row(step, carry, payload, ts, valid, wm):
             table, ts_t, has, n_drop = step(None, payload, ts, valid)
             return carry + n_drop, (table, ts_t, has)
-    else:   # stateful dense keys, associative body
+    else:   # stateful dense keys: the wavefront or the associative body
         def row(step, carry, payload, ts, valid, wm):
             st, out, out_valid = step(carry, payload, valid, None)
             return st, (out, ts, out_valid)

@@ -27,11 +27,15 @@ Two bodies apply the user function in each key's arrival order:
   rank among its key's lanes (its sorted position less the start of its
   key's run), and one application a rank — lanes of one
   rank hold distinct keys, so their state rows gather and scatter
-  without conflict.  Eager PyTorch has no device loop: the per-rank lane
-  counts come to the host in one read (a second only when one key holds
-  more than ``RANK_READ`` lanes of a batch), the live lanes are ordered
-  by (rank, slot), and ``fn`` runs on each rank's contiguous slice only.
-  That is O(capacity) work where a masked full-width loop would be
+  without conflict.  The live lanes are ordered by (rank, slot) and the
+  lanes of each rank counted; with the kernels on, the card runs the
+  ranks as a device loop (:class:`_ClassLoop`, a CUDA graph WHILE node,
+  the counterpart of the JAX package's ``lax.while_loop``: no host
+  read, so a megastep folds it), each pass a power-of-two window of the
+  rank's slice.  The plain version reads the per-rank lane counts on the
+  host (one read, a second only when one key holds more than
+  ``RANK_READ`` lanes of a batch) and runs ``fn`` on each rank's slice.
+  Either is O(capacity) work where a masked full-width loop would be
   O(depth x capacity); the depth is the hottest key's lane count, so a
   skewed stream wants:
 * :func:`_assoc_body` (``withAssociativeUpdate(lift, comb, project)``):
@@ -46,10 +50,10 @@ and the remap across a checkpoint in the JAX package's blob layout.
 On a mesh (``Config.mesh``) the table is key-sharded (slot ranges per
 key shard) and the step is ``parallel/mesh.make_sharded_stateful_step``
 over the same bodies built for the shard's slot count: dense keys with
-no host read but the wavefront's, interned keys through the interning
-route's tables (compaction does not attach on a mesh).  A checkpoint
-holds the assembled table; a restore re-shards it for the restoring
-mesh.
+no host read (but the plain wavefront's), interned keys through the
+interning route's tables (compaction does not attach on a mesh).  A
+checkpoint holds the assembled table; a restore re-shards it for the
+restoring mesh.
 """
 
 from __future__ import annotations
@@ -141,15 +145,235 @@ def _rank_counts(cnt: torch.Tensor) -> list:
     return head[:int(np.count_nonzero(head))].tolist()
 
 
+class _ClassLoop:
+    """The kernel route of the wavefront: the device loop over width
+    classes (``kernels/loop_cuda.py``, the counterpart of the JAX
+    package's ``lax.while_loop``).
+
+    A pass takes rank r's slice of the lanes ordered by (rank, slot):
+    the class of width ``w`` (the smallest that holds the slice) gathers
+    ``w`` lanes from the slice's first, clamped to the batch, applies the
+    function to all of them and scatters; lanes past the slice's count go
+    to the dump row ``S`` of the state and the dump lane ``capacity`` of
+    the outputs.  On the card outside a capture the loop is a small
+    cached graph over static buffers (the payload, the lane order, the
+    counts, the state table and the outputs: eager code copies in,
+    replays, and clones out); inside a capture (a megastep) it is emitted
+    inline.  On CPU tensors the same class bodies run under the plain
+    twin of the steering kernel, :func:`loop_cuda.run_loop_plain`."""
+
+    def __init__(self, fn, capacity: int, num_slots: int, is_filter: bool,
+                 what: str, name: str) -> None:
+        from windflow_tpu_torch.kernels import loop_cuda
+        self.fn, self.capacity, self.S = fn, capacity, num_slots
+        self.is_filter, self.what, self.name = is_filter, what, name
+        self.widths = loop_cuda.width_classes(num_slots, capacity)
+        #: per device (a mesh body serves every position): the
+        #: standalone CountedGraph, its signature, its static buffers and
+        #: its depth scalar
+        self.cached = {}
+        #: the last loop's depth: a device scalar on the card
+        self.depth = None
+
+    # -- buffers -------------------------------------------------------------
+    def _state_ext(self, state):
+        """The state table with the dump row ``S`` (a copy)."""
+        return tree_map(lambda a: torch.cat([a, a[:1]]), state)
+
+    def _new_outs(self, leaf_spec, dev):
+        cap = self.capacity + 1
+        if self.is_filter:
+            return torch.ones(cap, dtype=torch.bool, device=dev)
+        return [torch.zeros((cap,) + trail, dtype=dt, device=dev)
+                for dt, trail in leaf_spec]
+
+    def _reset_outs(self, outs) -> None:
+        if self.is_filter:
+            outs.fill_(True)
+        else:
+            for o in outs:
+                o.zero_()
+
+    def _cut(self, st, outs, clone: bool):
+        S, cap = self.S, self.capacity
+        f = (lambda a: a.clone()) if clone else (lambda a: a)
+        st = tree_map(lambda a: f(a[:S]), st)
+        if self.is_filter:
+            return st, f(outs[:cap])
+        return st, [f(o[:cap]) for o in outs]
+
+    # -- one class's window --------------------------------------------------
+    def window(self, st, payload, w, w_slots, cur, outs, width: int):
+        """Apply the function to ``width`` lanes from rank r's first
+        (``cur[2]``); the first ``cur[3]`` are the rank's."""
+        cap, S = self.capacity, self.S
+        dev = w.device
+        i = torch.arange(width, device=dev)
+        pos = torch.clamp(cur[2] + i, max=cap - 1)
+        ok = i < cur[3]
+        lane = w[pos]
+        sl = torch.where(ok, w_slots[pos], S)
+        rows = tree_map(lambda a: a[sl], st)
+        rec = tree_map(lambda a: a[lane], payload)
+        res, new = per_record2(self.fn, rec, rows, width)
+        # slots within a rank are distinct; dump lanes all write row S
+        _update_rows(st, new, sl, self.what)
+        dest = torch.where(ok, lane, cap)
+        if self.is_filter:
+            outs.index_copy_(0, dest, res.to(torch.bool).reshape(-1))
+            return
+        for o, r in zip(outs, tree_flatten(res)[0]):
+            o.index_copy_(0, dest, r.to(o.dtype).reshape(
+                (width,) + tuple(o.shape[1:])))
+
+    # -- the loop ------------------------------------------------------------
+    def run(self, state, payload, w, w_slots, cnt, leaf_spec):
+        """``(new state [S], outputs [capacity])`` of one batch's loop."""
+        from windflow_tpu_torch.kernels import loop_cuda
+        dev = cnt.device
+        if dev.type == "cpu":
+            st, outs = self._state_ext(state), self._new_outs(leaf_spec, dev)
+            cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64)
+            self.depth = loop_cuda.run_loop_plain(
+                cnt, cur, self.widths, lambda width: self.window(
+                    st, payload, w, w_slots, cur, outs, width))
+            return self._cut(st, outs, False)
+        if torch.cuda.is_current_stream_capturing():
+            return self._inline(state, payload, w, w_slots, cnt, leaf_spec)
+        return self._replay(state, payload, w, w_slots, cnt, leaf_spec)
+
+    def _inline(self, state, payload, w, w_slots, cnt, leaf_spec):
+        from windflow_tpu_torch.kernels import loop_cuda
+        dev = cnt.device
+        c = self.cached.get(dev)
+        if c is None:
+            raise WindFlowError(
+                f"stateful operator '{self.name}': the wavefront's device "
+                "loop is captured before its first per-batch step warmed "
+                "its class bodies up")
+        st, outs = self._state_ext(state), self._new_outs(leaf_spec, dev)
+        cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64, device=dev)
+        self._emit(c["depth"], st, payload, w, w_slots, cnt, cur, outs)
+        self.depth = c["depth"]
+        return self._cut(st, outs, False)
+
+    def _emit(self, depth, st, payload, w, w_slots, cnt, cur, outs) -> None:
+        from windflow_tpu_torch.kernels import loop_cuda
+        depth.copy_(torch.count_nonzero(cnt))
+        loop_cuda.emit_loop(cnt, cur, self.widths, lambda width: self.window(
+            st, payload, w, w_slots, cur, outs, width))
+
+    def _replay(self, state, payload, w, w_slots, cnt, leaf_spec):
+        sig = (tree_flatten(payload)[1],
+               tuple((l.dtype, tuple(l.shape))
+                     for l in tree_flatten(payload)[0]),
+               tuple((l.dtype, tuple(l.shape))
+                     for l in tree_flatten(state)[0]))
+        c = self.cached.get(cnt.device)
+        if c is None or c["sig"] != sig:
+            c = self._build(state, payload, w, w_slots, cnt, leaf_spec)
+            c["sig"] = sig
+        b = c["static"]
+        for s, a in zip(tree_flatten(b["payload"])[0],
+                        tree_flatten(payload)[0]):
+            s.copy_(a)
+        b["w"].copy_(w)
+        b["w_slots"].copy_(w_slots)
+        b["cnt"].copy_(cnt)
+        for s, a in zip(tree_flatten(b["st"])[0], tree_flatten(state)[0]):
+            s[:self.S].copy_(a)
+        c["graph"].replay()
+        self.depth = c["depth"]
+        return self._cut(b["st"], b["outs"], True)
+
+    def _build(self, state, payload, w, w_slots, cnt, leaf_spec) -> dict:
+        """The static buffers, one eager warm-up of every class body (a
+        function that synchronises with the host raises here, naming the
+        operator), and the capture of the standalone loop graph: the
+        device's cache entry."""
+        import warnings
+
+        from windflow_tpu_torch.kernels import ffat_cuda as fc
+        from windflow_tpu_torch.kernels import loop_cuda
+        dev = cnt.device
+        loop_cuda.prepare(dev)
+        old = self.cached.pop(dev, None)
+        if old is not None:
+            old["graph"].graph.reset()
+        depth = torch.zeros((), dtype=torch.int64, device=dev)
+        b = {"payload": tree_map(torch.clone, payload), "w": w.clone(),
+             "w_slots": w_slots.clone(), "cnt": cnt.clone(),
+             "st": self._state_ext(state),
+             "outs": self._new_outs(leaf_spec, dev),
+             "cur": torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64,
+                                device=dev)}
+        args = (b["st"], b["payload"], b["w"], b["w_slots"], b["cur"],
+                b["outs"])
+        # warm-up: cur is all zeros, so every lane is a dump lane
+        with fc.capture_lock, warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for width in self.widths:
+                    self.window(*args, width)
+            except RuntimeError as e:
+                if "synchroniz" not in str(e):
+                    raise
+                raise WindFlowError(
+                    f"stateful operator '{self.name}': its function "
+                    f"synchronises with the host ({e}), so the wavefront's "
+                    "device loop cannot capture it; keep the function on "
+                    "the device (no .item(), .cpu(), .tolist() or `if` on "
+                    "a tensor)") from e
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        graph = fc.CountedGraph(torch.cuda.CUDAGraph())
+        try:
+            with graph.capture(loop_cuda.side_capture(graph.graph, dev)):
+                self._reset_outs(b["outs"])
+                self._emit(depth, b["st"], b["payload"], b["w"],
+                           b["w_slots"], b["cnt"], b["cur"], b["outs"])
+        except WindFlowError:
+            raise
+        except Exception as e:  # lint: broad-except-ok (re-raised with
+            # the cause, naming the operator)
+            raise WindFlowError(
+                f"stateful operator '{self.name}': capturing the "
+                f"wavefront's device loop failed: {type(e).__name__}: "
+                f"{e}") from e
+        c = {"graph": graph, "static": b, "depth": depth, "sig": None}
+        self.cached[dev] = c
+        return c
+
+
+def _loop_route(kernels: bool, dev) -> bool:
+    """Whether a wavefront step takes the device loop: the kernels
+    resolved on (its gate, counted for the capture audit's WF907) and the
+    batch on the card."""
+    from windflow_tpu_torch.kernels.ffat_cuda import _gate
+    return _gate("wavefront_loop", kernels) and dev.type == "cuda"
+
+
 def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
-                    is_filter: bool):
+                    is_filter: bool, kernels: bool = False,
+                    name: str = "stateful", loop: Optional[bool] = None):
     """``(state, payload, valid, slots) -> (state, payload, valid)``: the
     rank-wavefront apply over resolved slots (lanes with a slot >=
     num_slots are ignored).  The state comes back as a new table; the
-    body's ``last_depth`` is the batch's wavefront depth."""
+    body's ``last_depth`` is the batch's wavefront depth (a device scalar
+    on the kernel route).
+
+    Two routes of one contract: the kernel route (``kernels`` resolved
+    on and the batch on the card, or ``loop=True`` anywhere), the device
+    loop of :class:`_ClassLoop`; and the plain version, the host loop
+    below (the per-rank lane counts read on the host, one slice a rank),
+    which runs on the CPU and under ``Config(cuda_kernels="0")``
+    (``loop=False`` forces it)."""
     S = num_slots
     what = "stateful function"
     spec = {}          # the output carry's structure, from the first call
+    klass = _ClassLoop(fn, capacity, num_slots, is_filter, what, name)
 
     def out_spec(payload, state):
         """The result structure of ``fn`` (the JAX package's
@@ -181,6 +405,20 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
         rank = torch.where(live, rank, capacity)
         cnt = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
         cnt.index_add_(0, rank, torch.ones_like(rank, dtype=torch.int32))
+        use_loop = _loop_route(kernels, dev) if loop is None else loop
+        if use_loop:
+            # live lanes by (rank, slot): each wavefront a contiguous
+            # slice; the loop reads the counts on the device
+            w = order[torch.sort(rank, stable=True).indices]
+            w_slots = slots.to(torch.int64)[w]
+            treedef, leaf_spec = out_spec(payload, state) if not is_filter \
+                else (None, None)
+            st, outs = klass.run(state, payload, w, w_slots, cnt[:capacity],
+                                 leaf_spec)
+            body_fn.last_depth = klass.depth
+            if is_filter:
+                return st, payload, valid & outs
+            return st, tree_unflatten(treedef, outs), valid
         counts = _rank_counts(cnt[:capacity])      # the step's host read
         body_fn.last_depth = len(counts)
         # live lanes by (rank, slot): each wavefront a contiguous slice
@@ -218,6 +456,7 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
         return st, tree_unflatten(treedef, leaves), valid
 
     body_fn.last_depth = 0
+    body_fn.loop = klass
     return body_fn
 
 
@@ -349,8 +588,11 @@ class _StatefulGPUBase(Operator):
             lift, comb, project = self.assoc
             return lambda cap, S: _assoc_body(lift, comb, project, cap, S,
                                               self._is_filter)
-        return lambda cap, S: _wavefront_body(self.fn, cap, S,
-                                              self._is_filter)
+        from windflow_tpu_torch.kernels.ffat_cuda import resolve_kernels
+        kernels = resolve_kernels(self.config)
+        return lambda cap, S: _wavefront_body(
+            self.fn, cap, S, self._is_filter, kernels=kernels,
+            name=self.name)
 
     def _body(self, capacity: int):
         body = self._bodies.get(capacity)
@@ -389,7 +631,13 @@ class _StatefulGPUBase(Operator):
     def last_depth(self) -> int:
         """The last wavefront's depth (the hottest key's lanes in the
         batch); 0 on the associative body."""
-        return max((getattr(b, "last_depth", 0)
+        return self._read_depth()
+
+    def _read_depth(self) -> int:
+        """The kernel route keeps the depth on the card: this is a host
+        read, made at stats cadence only, never in a step."""
+        # wfverify: ok (the wavefront's depth, read at stats cadence)
+        return max((int(getattr(b, "last_depth", 0))
                     for b in self._bodies.values()), default=0)
 
     def _keys(self, payload, capacity: int):
@@ -460,9 +708,13 @@ class _StatefulGPUBase(Operator):
         cap = batch.capacity
         dev = batch.valid.device
         if tree_flatten(self._state)[0][0].device != dev:
-            self._state = tree_map(lambda a: a.to(dev), self._state)
+            # the first step places the initial table; from pageable
+            # memory the copy is staged before it returns, so no wait
+            self._state = tree_map(lambda a: a.to(dev, non_blocking=True),
+                                   self._state)
         if self.dense_keys:
-            # no interning: no host read but the wavefront's rank counts
+            # no interning: no host read (the plain wavefront's rank
+            # counts aside)
             return self._get_step(cap)(self._state, batch.payload,
                                        batch.valid, batch.keys)
         comp = self._compactor
@@ -556,6 +808,8 @@ class _StatefulGPUBase(Operator):
         st = super().dump_stats()
         if self._compactor is not None:
             st["Key_compaction"] = self._compactor.summary()
+        if self.assoc is None and self._bodies:
+            st["Wavefront_depth"] = self.last_depth
         return st
 
 
