@@ -18,8 +18,8 @@ process:
 * the ReduceGPU step on each route — (a) compacted max, (b) compacted
   sum, (c) dense max, (d) sorted max — on a staged, filtered batch:
   wall time on the host clock around a synchronised step (the compacted
-  step's one host read of its miss count included), device time and
-  launches by ``torch.profiler``;
+  steps replay their cached graph: the branch is picked on the card),
+  device time and launches by ``torch.profiler``;
 * the device busy share of a whole ``PipeGraph.run()`` (8 batches) of
   FFAT with the sum combiner and of the reduce's route (a): device time
   of every kernel over the host wall time;
@@ -1070,9 +1070,18 @@ def _megastep_case(label, build, cols_of, k, dev, groups=3):
         walls.append((time.perf_counter() - t0) / 8)
     lo = 9 + 8 * groups
     before = edge.megasteps if edge is not None else 0
+    try:
+        from windflow_tpu_torch.kernels.cond_cuda import standalone_replays
+    except ImportError:     # a package from before the conditional nodes
+        def standalone_replays():
+            return 0
+    regions0 = standalone_replays()
     prof = _launch_profile(lambda: feed(pkts[lo:lo + 8]), 8)
+    # besides one a megastep, one a replay of a standalone
+    # conditional-node graph (the TB fold's, three a per-batch step)
+    regions = standalone_replays() - regions0
     graph_launches = 8 * prof["launch_calls_a_batch"].get(
-        "cudaGraphLaunch", 0)
+        "cudaGraphLaunch", 0) - regions
     ran = (edge.megasteps if edge is not None else 0) - before
     if graph_launches != ran or ran != (1 if k > 1 else 0):
         fail(f"{label} K={k}: {graph_launches} cudaGraphLaunch for {ran} "

@@ -62,6 +62,8 @@ Phases (each exits nonzero on failure; none is skipped):
    * (c) 32 keys, 4 s windows sliding by 1 s, tuples 10 µs apart: the
      ring sizes to 68 panes, 2,177 ids, under the grouping kernel's
      gate; the kernel must launch on every step.
+   Every run's fold goes through its SWITCH node: ``cond_select``
+   launches three times a step (phase 18).
 
 5. drive the columnar ingest path through ``PipeGraph.run()``, 16
    batches of 262,144 tuples each (bench.py ``CONFIGS["tpu"]``'s
@@ -173,9 +175,10 @@ Phases (each exits nonzero on failure; none is skipped):
    by "auto":
    * (a) the six chaos families of ``durability/chaos.py`` through
      ``chaos.run_ab`` at 4,096 keys (``window_compact``: 4,096 sparse
-     int32 ids, a remap slot each), killed mid-epoch and fused;
-     ``window_tb`` and ``reduce``, whose output side is per record on
-     the host, at 524,288 records (cut in depth);
+     int32 ids, a remap slot each), killed mid-epoch and fused, every
+     (a) cell at 524,288 records (cut in depth when phase 18 joined the
+     script: ``window_tb`` and ``reduce``, whose output side is per
+     record on the host, took 122 s and 89 s a cell at 1,048,576);
      ``window_cb`` also killed mid-sink-flush (at least one fence
      dedupe) and restored at K = 1; ``stateful`` also killed mid-window
      at K = 1 on 524,288 records (the kill counts the victim's
@@ -429,6 +432,30 @@ Phases (each exits nonzero on failure; none is skipped):
    captured WHILE loop (slices, classes, pass counts), timed beside its
    plain twin.  Wall, CUDA-event span, device time and operations a
    batch, loop passes and capture ms are printed (information only).
+18. drive the JAX package's two ``lax.cond``s as CUDA graph SWITCH
+   nodes steered by ``cond_select`` (``kernels/cond_cuda.py``,
+   ``csrc/cond_select.cu``), 45 s budget (``cond_runs``): (a) phase 4
+   (a)'s YSB and (b)'s telemetry shapes on frames with a record spec
+   (262,144 tuples a batch, 17 batches: a warm-up and two K = 8 groups),
+   both combiners, at K = 1 and K = 8, each against the numpy TB oracle
+   and the ``cuda_kernels="0"`` twin of its graph and stream (the plain
+   fold route, at K = 1: records do not depend on K), the TB step
+   functions after the first and the cached group replays under
+   ``set_sync_debug_mode("error")``, the capture audit free of
+   WF906/WF907; the fold's device body counters show passes that
+   skipped it; at K = 1 the raw TB steps of the first four batches,
+   built with the kernels on and off, are equal on every lane (unfired
+   ones included) and their body counts equal the passes that fired
+   nothing and those that fired; the YSB generic K = 1 run is traced
+   (device time and operations a batch); (b) phase 7 (d)'s
+   unbounded compacted reduce, max then sum, behind three batches that
+   take each branch (all hit; 4,096 fresh ids, of which the free slots
+   admit 512: misses within the overflow lane; every lane cold), each
+   batch against its oracle and the kernels-off twin, the step after
+   the first under "error", every branch's body counted, no
+   WF906/WF907 with the kernels on and WF906 (the plain route's host
+   read) with them off; (c) ``cond_select`` against its plain twin for
+   every index of 1-, 2- and 3-body switches and out of range, timed.
 
 Before the last line it prints its own seconds in all, the card's name
 and power limit and one
@@ -1251,19 +1278,26 @@ def tb_oracle(keys, ts, vals, win, slide):
         ws.append(w[m])
         vs.append(vals[m])
     k, w = np.concatenate(ks).astype(np.int64), np.concatenate(ws)
-    codes, inv = np.unique(k * tb_wids(ts, slide) + w, return_inverse=True)
-    return codes, np.bincount(inv, weights=np.concatenate(vs)
-                              .astype(np.float64))
+    # the codes are dense (keys x window ids): counted in place, which
+    # sums in array order as np.unique's inverse would
+    code = k * tb_wids(ts, slide) + w
+    size = int(code.max()) + 1
+    codes = np.flatnonzero(np.bincount(code, minlength=size))
+    sums = np.bincount(code, weights=np.concatenate(vs).astype(np.float64),
+                       minlength=size)
+    return codes, sums[codes]
 
 
 def tb_wids(ts, slide):
     return int(ts.max()) // slide + 1
 
 
-def check_tb_records(label, cols, keys, ts, vals, win, slide):
+def check_tb_records(label, cols, keys, ts, vals, win, slide, want=None):
     """The run's window records (columnar sink batches) against
-    ``tb_oracle``, record for record; returns the record count."""
-    codes, sums = tb_oracle(keys, ts, vals, win, slide)
+    ``tb_oracle`` (``want``: its result, computed once for runs of the
+    same data), record for record; returns the record count."""
+    codes, sums = tb_oracle(keys, ts, vals, win, slide) if want is None \
+        else want
     if not cols:
         fail(f"TB {label}: no window records")
     k = np.concatenate([np.asarray(c.cols["key"]) for c in cols])
@@ -1452,9 +1486,13 @@ def tb_runs(dev_name="cuda"):
                 fail(f"TB (c): grouping_rank_hist launched "
                      f"{counts['grouping_rank_hist']} times in {BATCHES} "
                      "steps")
-        elif any(counts.values()):
+        elif any(v for name, v in counts.items() if name != "cond_select"):
             # radix, scatter and stable-sort placements: no kernel
             fail(f"TB {label} launched a kernel off its path: {counts}")
+        # the fold's SWITCH node: three steering launches a step
+        if counts["cond_select"] < 3 * BATCHES:
+            fail(f"TB {label}: cond_select launched "
+                 f"{counts['cond_select']} times in {BATCHES} steps")
     return out
 
 
@@ -1754,9 +1792,13 @@ def columnar_runs(dev_name="cuda"):
                                    "Windows_dropped_on_overflow")]
             if bad != [0, 0, 0]:
                 fail(f"{label}: late / evicted / dropped {bad}")
-            if any(counts.values()):
-                # K*NP+1 (key, pane) ids beyond the kernel gate: the sort
-                fail(f"{label} launched a kernel off its path: {counts}")
+            if any(v for name, v in counts.items()
+                   if name != "cond_select") \
+                    or counts["cond_select"] < 3 * COL_BATCHES:
+                # K*NP+1 (key, pane) ids beyond the kernel gate: the
+                # sort; the fold's SWITCH node steered three times a step
+                fail(f"{label} launched a kernel off its path, or the "
+                     f"fold's steering kernel too rarely: {counts}")
             extra = f"; ring NP {win.NP}"
         else:
             nrec = check_cb_columns(label, cols,
@@ -2729,17 +2771,21 @@ def group_probe(g, rec):
 def megastep_run(label, build, k, wire, folds=True):
     """One phase-8 run of ``build(sink, megastep_sweeps=k,
     wire_compression=wire)`` -> ``(graph, tail operator)``, under
-    ``torch.profiler``'s CUDA activity (to count ``cudaGraphLaunch``):
-    ``(sink batches, facts)``.  At K > 1 the run must fold groups unless
-    ``folds`` is False; every batch is accounted for either way."""
+    ``torch.profiler``'s CUDA activity (to count ``cudaGraphLaunch``:
+    one a megastep, besides one a replay of a standalone conditional-node
+    graph, ``cond_cuda.standalone_replays``): ``(sink batches, facts)``.
+    At K > 1 the run must fold groups unless ``folds`` is False; every
+    batch is accounted for either way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import cond_cuda as cc
     from windflow_tpu_torch.kernels import ffat_cuda as fc
     cols, sink = collect()
     g, op = build(sink, megastep_sweeps=k, wire_compression=wire)
     steps = sync_probe(op)
     rec = {"groups": 0, "group_s": 0.0, "capture_s": 0.0, "emit_s": 0.0}
     fc.reset_launch_counts()
+    regions0 = cc.standalone_replays()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         g.start()
@@ -2748,8 +2794,9 @@ def megastep_run(label, build, k, wire, folds=True):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     counts = fc.launch_counts()
+    regions = cc.standalone_replays() - regions0
     graph_launches = sum(1 for ev in prof.events()
-                         if ev.name == "cudaGraphLaunch")
+                         if ev.name == "cudaGraphLaunch") - regions
     st = g.stats()
     sec = st["Megastep"]
     edge = sec["edges"][0] if sec["edges"] else None
@@ -2784,6 +2831,7 @@ def megastep_run(label, build, k, wire, folds=True):
         "group_ms_a_batch": None if grouped is None else 1e3 * grouped,
         "capture_ms": 1e3 * rec["capture_s"],
         "megastep": edge, "graph_launches": graph_launches,
+        "standalone_replays": regions,
         "wire_bytes_a_tuple": st["Bytes_H2D_total"] / n,
         "logical_bytes_a_tuple": st["Bytes_H2D_logical_total"] / n,
         "encode_ms_a_batch": ws["encode_usec"] / 1e3 / ws["batches"]
@@ -6430,6 +6478,503 @@ def wavefront_runs(dev_name="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the JAX package's lax.conds as CUDA graph conditional nodes
+# ---------------------------------------------------------------------------
+
+#: (a)'s batches a run: a warm-up batch and two K = 8 groups (one
+#: captured, one replayed from the cache)
+COND_BATCHES = 1 + 2 * 8
+#: (a)'s raw TB step outputs held on every lane: the first batches
+COND_RAW = 4
+#: (b)'s prefix: an all-hit batch over this many ids (the compactor
+#: admits them all), then this many fresh ids on one batch's lanes (the
+#: table takes as many as it has free slots: the rest miss, within the
+#: overflow lane), then a batch of fresh ids on every lane (all cold)
+COND_HOT, COND_FEW = 512, 4096
+
+
+def cond_tele_graph(dev_name, blob, sink_fn, sum_combiner, **cfg):
+    """(a)'s telemetry: phase 4 (b)'s shape on frames with a record spec
+    (FrameSource, EVENT time) → MapGPU normalize | FilterGPU drop-NaN →
+    TB windows 60 s / 5 s, lateness 1 s, drop policy, keyed by sensor,
+    generic or ``withSumCombiner`` → columnar Sink.  Returns ``(graph,
+    window operator)``."""
+    import windflow_tpu_torch as wf
+    win = (wf.Ffat_WindowsGPU_Builder(lambda t: t["v0"], lambda a, b: a + b)
+           .withTBWindows(*TELE_WIN).withKeyBy(lambda t: t["key"])
+           .withMaxKeys(TELE_KEYS).withLateness(TELE_LATENESS)
+           .withOverflowPolicy("drop"))
+    win = (win.withSumCombiner() if sum_combiner else win).build()
+    g = wf.PipeGraph("chip_smoke_cond_tele", wf.ExecutionMode.DEFAULT,
+                     wf.TimePolicy.EVENT,
+                     config=wf.Config(device=dev_name,
+                                      punctuation_interval_usec=10 ** 12,
+                                      **cfg))
+    pipe = g.add_source(wf.FrameSource(
+        chunked(blob), nv=1, output_batch_size=CAP,
+        record_spec={"key": np.int32(0), "v0": np.float32(0.0)}))
+    pipe.add(wf.MapGPU_Builder(
+        lambda t: {"key": t["key"], "v0": t["v0"]}).build())
+    pipe.chain(wf.FilterGPU_Builder(lambda t: t["v0"] == t["v0"]).build())
+    pipe.add(win).add_sink(wf.Sink_Builder(sink_fn).withColumnarSink()
+                           .build())
+    return g, win
+
+
+def strict_builds(op, builder, rec):
+    """Wrap the step builder ``builder`` of ``op`` so that every call of
+    a step function it returns, after the operator's first, runs under
+    ``set_sync_debug_mode("error")``.  The step function is the program
+    this phase changes: the operator's own host reads around it (the TB
+    ring's sizing and its rebase before the first firing, the
+    compactor's reseed) are sanctioned reads of ``op._step``."""
+    orig = getattr(op, builder)
+
+    def build(*a, **kw):
+        fn = orig(*a, **kw)
+
+        def step(*sa):
+            if rec["calls"]:
+                out = _strict(fn, *sa)
+                rec["strict_steps"] += 1
+            else:
+                out = fn(*sa)
+            rec["calls"] += 1
+            return out
+        return step
+    setattr(op, builder, build)
+
+
+def cond_rec():
+    return {"calls": 0, "strict_steps": 0, "steps": 0, "groups": 0,
+            "group_s": 0.0, "strict_groups": 0, "capture_s": 0.0,
+            "event_ms": 0.0, "raw": []}
+
+
+def tap_raw(op, rec, n):
+    """Record the first ``n`` per-batch TB step inputs of ``op`` (its
+    state and the batch, cloned before the step runs)."""
+    import torch
+    from windflow_tpu_torch.utils.tree import tree_map
+    orig = op._run_step
+
+    def run(sidx, payload, ts, valid, *args):
+        if len(rec["raw"]) < n:
+            rec["raw"].append((tree_map(torch.clone, op._states[sidx]),
+                               tree_map(torch.clone, payload), ts.clone(),
+                               valid.clone(), args))
+        return orig(sidx, payload, ts, valid, *args)
+    op._run_step = run
+
+
+def pass_fires(out, n_adv, K, MW):
+    """Windows each of a TB step's three passes fired, from its output
+    window ids (a pass's first id is the previous pass's first plus what
+    that pass fired)."""
+    w = out["wid"].reshape(K, 3, MW)[0, :, 0].tolist()
+    a1, a2 = w[1] - w[0], w[2] - w[1]
+    return [a1, a2, int(n_adv) - a1 - a2]
+
+
+def raw_tb_check(label, op, raw, dev):
+    """The recorded batches through the TB step on both routes, built by
+    the operator itself (``_build_step``) with the kernels on and off:
+    every output and state lane equal (unfired lanes included: JAX's
+    no_fold zeros), and the fold's body counters equal to the passes that
+    fired nothing and the passes that fired.  Calls after the kernel
+    step's first run under "error".  Returns the three body counts."""
+    import dataclasses
+
+    import torch
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.utils.tree import tree_flatten
+    from windflow_tpu_torch.windows.ffat_kernels import FOLD_SITE
+    # the class's builder: the instance's is wrapped by strict_builds
+    build = type(op)._build_step
+    kstep = build(op, op._capacity)
+    cfg = op.config
+    op.config = dataclasses.replace(cfg, cuda_kernels="0")
+    try:
+        pstep = build(op, op._capacity)
+    finally:
+        op.config = cfg
+    MW = op.NP // op.D + 2
+    cc.reset_body_counts(dev)
+    fired = []
+    for i, (st, payload, ts, valid, args) in enumerate(raw):
+        call = (lambda f, *a: f(*a)) if i == 0 else _strict
+        ko = call(kstep, st, payload, ts, valid, *args)
+        po = pstep(st, payload, ts, valid, *args)
+        for a, b in zip(tree_flatten(ko)[0], tree_flatten(po)[0]):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"phase 18 {label}: the kernel route's raw TB step "
+                     f"differs from the plain route's at batch {i}")
+        fired += pass_fires(po[1], po[4], op.max_keys, MW)
+    torch.cuda.synchronize()
+    counts = cc.body_counts(dev, FOLD_SITE, 2)
+    want = [sum(f == 0 for f in fired), sum(f > 0 for f in fired), 0]
+    if counts != want:
+        fail(f"phase 18 {label}: fold body counts {counts} on the raw "
+             f"steps, {want} expected from the passes' fires {fired}")
+    return counts, fired
+
+
+def cond_tb_run(label, build, k, kernels, prof=False, raw=0):
+    """One phase-18 (a) run of ``build(sink, **cfg)`` -> ``(graph,
+    window)`` at ``megastep_sweeps=k``: with the kernels on, the TB step
+    functions after the first and the cached group replays under "error"
+    (and, ``raw``, the first batches' step inputs recorded); under
+    ``torch.profiler``'s CUDA activity when ``prof``.  Launch counts and
+    the fold's body counters are set to 0 just before the run and read
+    just after.  Returns ``(columns, facts)``."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.windows.ffat_kernels import FOLD_SITE
+    cols, sink = collect()
+    g, win = build(sink, megastep_sweeps=k,
+                   cuda_kernels="auto" if kernels else "0")
+    rec = cond_rec()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if kernels:
+        strict_builds(win, "_build_step", rec)
+        if raw:
+            tap_raw(win, rec, raw)
+    tracer = profile(activities=[ProfilerActivity.CUDA]) if prof \
+        else contextlib.nullcontext()
+    fc.reset_launch_counts()
+    cc.reset_body_counts(dev)
+    with tracer:
+        t0 = time.perf_counter()
+        g.start()
+        if kernels:
+            strict_groups(g, rec)
+        g.wait_end()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = fc.launch_counts()
+    bodies = cc.body_counts(dev, FOLD_SITE, 2)
+    dev_ms = n_ops = None
+    if prof:
+        evs = [e for e in tracer.key_averages()
+               if e.device_type.name == "CUDA"]
+        dev_ms = sum(_device_us(e) for e in evs) / 1e3 / COND_BATCHES
+        n_ops = sum(e.count for e in evs) / COND_BATCHES
+    return cols, {"secs": secs, "launches": counts, "bodies": bodies,
+                  "rec": rec, "graph": g, "win": win,
+                  "megastep": g.stats()["Megastep"], "device_ms": dev_ms,
+                  "device_ops": n_ops}
+
+
+def same_tb_cols(label, a, b):
+    """Two runs' window records equal, record for record."""
+    def recs(cols):
+        k, w, v = (cat_cols(cols, nm) for nm in ("key", "wid", "value"))
+        order = np.lexsort((w, k))
+        return k[order], w[order], v[order]
+    if not all(np.array_equal(x, y) for x, y in zip(recs(a), recs(b))):
+        fail(f"phase 18 {label}: records differ from the kernels-off twin")
+
+
+def cond_tb_runs(dev_name):
+    """(a): phase 4 (a)'s YSB and (b)'s telemetry shapes on frames, both
+    combiners, K = 1 and K = 8, each against its oracle and the
+    ``cuda_kernels="0"`` twin of its graph and stream; returns launch
+    counts by label."""
+    import torch
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    n = CAP * COND_BATCHES
+    table, ad, etype, ts_y = ysb_data(n)
+    views = etype == 1
+    blob_y = frame_blob(ad, ts_y, etype.astype(np.float64))
+    tk, tv, tts = telemetry_data(n)
+    blob_t = frame_blob(tk, tts, tv.astype(np.float64))
+    fams = {
+        "YSB": (YSB_WIN, (table[ad[views]], ts_y[views],
+                          np.ones(int(views.sum()))),
+                lambda sink, comb, **cfg: ysb_frames_graph(
+                    dev_name, table, blob_y, sink, sum_combiner=comb,
+                    spec=True, **cfg)[::2]),
+        "telemetry": (TELE_WIN, (tk, tts, tv),
+                      lambda sink, comb, **cfg: cond_tele_graph(
+                          dev_name, blob_t, sink, comb, **cfg)),
+    }
+    out = {}
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def checked_run(tag, make, comb, k, kernels, want, oracle_in, win,
+                    prof=False, raw=0):
+        cols, f = cond_tb_run(
+            tag, lambda sink, **cfg: make(sink, comb, **cfg), k, kernels,
+            prof=prof, raw=raw)
+        nrec = check_tb_records(tag, cols, *oracle_in, *win, want=want)
+        st = f["win"].dump_stats()
+        bad = [st[x] for x in ("Late_tuples_dropped", "Pane_cells_evicted",
+                               "Windows_dropped_on_overflow")]
+        if bad != [0, 0, 0]:
+            fail(f"phase 18 {tag}: late / evicted / dropped {bad}")
+        out[tag] = f["launches"]
+        return cols, f, nrec
+
+    for fam, (win, oracle_in, make) in fams.items():
+        want = tb_oracle(*oracle_in, *win)
+        for comb in (False, True):
+            name = f"18(a) {fam} {'sum' if comb else 'generic'}"
+            # the kernels-off twin: the plain fold route on the same
+            # graph and stream (records do not depend on K: phase 8)
+            twin, off, _ = checked_run(f"{name} K=1 kernels off", make,
+                                       comb, 1, False, want, oracle_in, win)
+            if off["launches"]["cond_select"] or any(off["bodies"]):
+                fail(f"phase 18 {name} kernels off: launches "
+                     f"{off['launches']}, bodies {off['bodies']}")
+            k1 = None
+            for k in (1, 8):
+                label = f"{name} K={k}"
+                # traced: the YSB generic step, PERF.md §5's TB shape
+                prof = fam == "YSB" and not comb and k == 1
+                cols, f, nrec = checked_run(
+                    label, make, comb, k, True, want, oracle_in, win,
+                    prof=prof, raw=COND_RAW if k == 1 else 0)
+                same_tb_cols(label, cols, twin)
+                counts, bodies, rec = f["launches"], f["bodies"], f["rec"]
+                if rec["strict_steps"] != rec["calls"] - 1 \
+                        or rec["strict_steps"] == 0:
+                    fail(f"phase 18 {label}: strict steps {rec}")
+                if not (bodies[0] > 0 and bodies[1] > 0 and bodies[2] == 0
+                        and sum(bodies) >= counts["cond_select"] > 0):
+                    fail(f"phase 18 {label}: fold bodies {bodies}, "
+                         f"cond_select {counts['cond_select']}")
+                codes = audit_codes(f["graph"])
+                if codes & {"WF906", "WF907"}:
+                    fail(f"phase 18 {label}: the capture audit found "
+                         f"{f['graph'].stats()['IR_audit']['findings']}")
+                if k == 1:
+                    if counts["cond_select"] != 3 * rec["calls"] \
+                            or sum(bodies) != 3 * rec["calls"]:
+                        fail(f"phase 18 {label}: cond_select "
+                             f"{counts['cond_select']}, bodies {bodies} "
+                             f"over {rec['calls']} step calls")
+                    k1 = counts
+                    raw_counts, fired = raw_tb_check(label, f["win"],
+                                                     rec["raw"], dev)
+                    extra = (f"; raw steps on {COND_RAW} batches equal "
+                             f"the plain route's on every lane, passes "
+                             f"fired {fired}, bodies (no_fold, do_fold) "
+                             f"{raw_counts[:2]}")
+                else:
+                    e = f["megastep"]["edges"]
+                    if not e or e[0]["megasteps"] != 2 \
+                            or rec["strict_groups"] != 1 or counts != k1:
+                        fail(f"phase 18 {label}: megastep {f['megastep']},"
+                             f" {rec['strict_groups']} cached replays, "
+                             f"launches {counts} against K = 1's {k1}")
+                    extra = (f"; {e[0]['megasteps']} groups "
+                             f"({rec['strict_groups']} cached replay under "
+                             f"the strict mode), kernel launches a group "
+                             f"{e[0]['kernel_launches_per_group']}")
+                if prof:
+                    extra += (f"; a batch over the run (torch.profiler): "
+                              f"device {f['device_ms']:.3f} ms and "
+                              f"{f['device_ops']:.1f} operations (PERF.md "
+                              f"§5: 4.88-4.93 ms, 966 kernels; information "
+                              "only)")
+                print(f"phase 18: PipeGraph.run() {label}: {nrec} windows "
+                      f"match the oracle and the kernels-off twin; "
+                      f"{rec['strict_steps']} step calls under the strict "
+                      f"mode; fold bodies (no_fold, do_fold) "
+                      f"{bodies[:2]}, cond_select {counts['cond_select']}"
+                      f"; audit {sorted(codes)}{extra}; {f['secs']:.3f} s, "
+                      f"the twin {off['secs']:.3f} s (information only; "
+                      f"{smi_line()})")
+    return out
+
+
+def cond_reduce_data(rng):
+    """(b)'s keys: the prefix (all hit, few misses, all cold), then phase
+    7 (d)'s Zipf stream of COL_BATCHES batches."""
+    hot = rng.choice(1 << 30, COND_HOT, replace=False) + (1 << 30)
+    fresh = np.arange(COND_FEW + CAP, dtype=np.int64) + (1 << 29)
+    a = hot[rng.integers(0, COND_HOT, CAP)]
+    b = hot[rng.integers(0, COND_HOT, CAP)]
+    b[rng.permutation(CAP)[:COND_FEW]] = fresh[:COND_FEW]
+    c = fresh[COND_FEW:]
+    z = zipf_shift_keys(rng, CAP * COL_BATCHES)
+    return np.concatenate([a, b, c, z]).astype(np.int32)
+
+
+def cond_reduce_runs(dev_name):
+    """(b): the unbounded compacted reduce, declared max then sum, on
+    ``cond_reduce_data``'s stream, against each batch's oracle and its
+    kernels-off twin; returns launch counts by label."""
+    import torch
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.parallel.compaction import (BRANCH_SITE,
+                                                        overflow_cap)
+    rng = np.random.default_rng(1818)
+    keys = cond_reduce_data(rng)
+    nb = len(keys) // CAP
+    vals = rng.integers(-100, 101, len(keys)).astype(np.float32)
+    blob = frame_blob(keys, np.arange(len(keys)), vals)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for monoid in ("max", "sum"):
+        label = f"18(b) compacted reduce {monoid}"
+        runs = {}
+        for kernels in (True, False):
+            tag = label + ("" if kernels else " kernels off")
+            cols, sink = collect()
+            g, red = kc_reduce_graph(dev_name, monoid, blob, sink,
+                                     cuda_kernels="auto" if kernels
+                                     else "0")
+            rec = cond_rec()
+            if kernels:
+                strict_builds(red, "_get_compacted_step", rec)
+            fc.reset_launch_counts()
+            cc.reset_body_counts(dev)
+            t0 = time.perf_counter()
+            g.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = fc.launch_counts()
+            bodies = cc.body_counts(dev, BRANCH_SITE, 3)
+            out[tag] = counts
+            if len(cols) != nb:
+                fail(f"phase 18 {tag}: {len(cols)} sink batches")
+            for i, c in enumerate(cols):
+                sl = slice(i * CAP, (i + 1) * CAP)
+                wk, wv = batch_reduce_oracle(keys[sl], vals[sl], monoid)
+                if not (np.array_equal(np.asarray(c.cols["key"]), wk)
+                        and np.array_equal(np.asarray(c.cols["v0"]), wv)):
+                    fail(f"phase 18 {tag}: batch {i} differs from the "
+                         "oracle")
+            runs[kernels] = (cols, counts, bodies, rec, audit_codes(g),
+                             red._compactor.summary(), secs)
+        cols, counts, bodies, rec, codes, summ, secs = runs[True]
+        if not all(np.array_equal(np.asarray(a.cols[nm]),
+                                  np.asarray(b.cols[nm]))
+                   for a, b in zip(cols, runs[False][0])
+                   for nm in ("key", "v0")):
+            fail(f"phase 18 {label}: records differ from the kernels-off "
+                 "twin")
+        if min(bodies[:3]) < 1 or bodies[3] or sum(bodies) != nb \
+                or counts["cond_select"] != nb \
+                or counts["dense_monoid_table"] != nb:
+            fail(f"phase 18 {label}: bodies (no_miss, ovf_small, "
+                 f"ovf_big, none) {bodies}, launches {counts} in {nb} "
+                 "batches")
+        if rec["strict_steps"] != nb - 1:
+            fail(f"phase 18 {label}: {rec['strict_steps']} strict steps "
+                 f"of {nb}")
+        if codes & {"WF906", "WF907"}:
+            fail(f"phase 18 {label}: the capture audit found {codes}")
+        off = runs[False]
+        if off[1]["cond_select"] or any(off[2]) or "WF906" not in off[4]:
+            fail(f"phase 18 {label} kernels off: launches {off[1]}, "
+                 f"bodies {off[2]}, audit {off[4]} (the plain route's "
+                 "host read must be WF906)")
+        print(f"phase 18: PipeGraph.run() {label}: {nb} batches match the "
+              f"oracle and the kernels-off twin; bodies (no_miss, "
+              f"ovf_small, ovf_big) {bodies[:3]} (overflow lane "
+              f"{overflow_cap(CAP)} lanes); {rec['strict_steps']} steps "
+              f"under the strict mode; audit {sorted(codes)}, kernels off "
+              f"{sorted(off[4])}; compactor hit rate "
+              f"{summ['hit_rate']:.3f}, full-width fallbacks "
+              f"{summ['big_fallbacks']}; launches {counts}; {secs:.3f} s, "
+              f"off {off[6]:.3f} s (information only; {smi_line()})")
+    return out
+
+
+def check_cond_select(dev):
+    """(c): the steering kernel against its plain twin for every index of
+    1-, 2- and 3-body switches and three out-of-range ones, as a captured
+    SWITCH node whose body j writes j + 1 (each replay runs the twin's
+    pick; the device counters equal the twin's); then its time a launch
+    beside the twin's.  Returns the kernel's JSON row (launches filled
+    in by main)."""
+    import torch
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.kernels import ffat_cuda as fc
+    from windflow_tpu_torch.kernels import loop_cuda as L
+    cc.prepare(dev)
+    with fc.uncounted():
+        for nb in (1, 2, 3):
+            for dtype in (torch.int32, torch.int64):
+                site = f"phase 18 (c) {nb} {dtype}"
+                index = torch.zeros((), dtype=dtype, device=dev)
+                res = torch.zeros(1, dtype=torch.int64, device=dev)
+                bodies = [lambda j=j: res.fill_(j + 1) for j in range(nb)]
+                g = fc.CountedGraph(torch.cuda.CUDAGraph())
+                with g.capture(L.side_capture(g.graph, dev)):
+                    cc.emit_switch(index, bodies, site)
+                plain = torch.zeros(nb + 1, dtype=torch.int64)
+                for i in list(range(nb)) + [nb, -1, 1 << 20]:
+                    index.fill_(i)
+                    res.zero_()
+                    g.replay()
+                    pick = cc.cond_select_plain(
+                        torch.tensor(i, dtype=dtype), nb, plain)
+                    if int(res) != (pick + 1 if pick < nb else 0):
+                        fail(f"phase 18 (c): cond_select ran body "
+                             f"{int(res) - 1} for index {i} of {nb} "
+                             f"({dtype}), its plain twin {pick}")
+                if cc.body_counts(dev, site, nb) != plain.tolist():
+                    fail(f"phase 18 (c): device counts "
+                         f"{cc.body_counts(dev, site, nb)}, plain "
+                         f"{plain.tolist()}")
+    index = torch.ones((), dtype=torch.int32, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64)
+
+    def kernel():
+        cc.cond_select(index, 2, site="phase 18 (c) timing", count=False)
+
+    def plain():
+        cc.cond_select_plain(index, 2, counts)
+    # the plain twin is a host read: both by CUDA events over
+    # back-to-back calls, the kernel by torch.profiler beside them
+    t = {"kernel": device_ms(kernel), "kernel_events": cuda_time(kernel),
+         "plain": cuda_time(plain)}
+    print(f"phase 18 (c) cond_select: kernel {t['kernel']:.5f} ms device / "
+          f"{t['kernel_events']:.5f} ms events, plain {t['plain']:.5f} ms "
+          f"events; equal to its plain twin for every index of 1-, 2- and "
+          f"3-body switches and out of range ({smi_line()})")
+    # a launch: the index read, one counter word read and written
+    bound, by = bound_ms(4 + 2 * 8, 0)
+    return {"name": "cond_select", "route": "cuda",
+            "source": "windflow_tpu_torch/csrc/cond_select.cu",
+            "replaces": "windflow_tpu/windows/ffat_kernels.py:733, "
+                        "windflow_tpu/parallel/compaction.py:465-467 "
+                        "(lax.cond)",
+            "launches": 0, "max_abs_err": 0.0, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None}
+
+
+def cond_runs(dev_name="cuda"):
+    """Phase 18: (a) the TB step's fold as a SWITCH node, (b) the
+    compacted reduce's three branches, (c) the steering kernel against
+    its plain twin.  Returns (launch counts by label, the kernel's JSON
+    row)."""
+    import torch
+    out = {}
+    t0 = time.perf_counter()
+    out.update(cond_tb_runs(dev_name))
+    t1 = time.perf_counter()
+    out.update(cond_reduce_runs(dev_name))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    row = check_cond_select(torch.device(dev_name, 0)
+                            if dev_name == "cuda"
+                            else torch.device(dev_name))
+    print(f"phase 18: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s")
+    return out, row
+
+
+# ---------------------------------------------------------------------------
 # phase 9: durable state (checkpoint, kill, restore, diff)
 # ---------------------------------------------------------------------------
 
@@ -6444,6 +6989,10 @@ DUR_HEAVY_KEYS = 1 << 20
 #: script's time limit: it still commits two epochs, and the kill lands
 #: between them)
 DUR_CUT_N = 1 << 19
+#: records of every (a) cell (cut in depth from DUR_N for the script's
+#: time limit once phase 18 joined it: the kill still lands after the
+#: first committed epoch, picked from the cell's baseline)
+DUR_A_N = 1 << 19
 #: the host reduce's rescale cells' records (cut in depth: its
 #: per-record path reads ~23,000 tuples/s on the card's host)
 DUR_RESCALE_N = 1 << 18
@@ -6632,8 +7181,8 @@ def durability_runs(dev_name="cuda"):
     from windflow_tpu_torch.kernels import ffat_cuda as fc
     out = {}
     root = tempfile.mkdtemp(prefix="wf_phase9_")
-    msgs = dur_input(DUR_N, DUR_KEYS)
-    cfg = {"device": dev_name, "n": DUR_N, "keys": DUR_KEYS,
+    msgs = dur_input(DUR_A_N, DUR_KEYS)
+    cfg = {"device": dev_name, "n": DUR_A_N, "keys": DUR_KEYS,
            "output_batch_size": DUR_BATCH, "epoch_sweeps": DUR_EPOCH,
            "messages": msgs}
 
@@ -6675,7 +7224,7 @@ def durability_runs(dev_name="cuda"):
             fail(f"phase 9 {label}: nothing restored or compared")
         if prev is None:
             baselines[label] = (held["g"], base["read"])
-        dur_line(label, v, kw.get("n", DUR_N), shared)
+        dur_line(label, v, kw.get("n", cfg["n"]), shared)
         return v
 
     # (a) the six families killed mid-epoch, fused (K = 8, wire on)
@@ -6757,7 +7306,7 @@ def durability_runs(dev_name="cuda"):
 
     # (d) the state-heavy cell: the stateful family at 1,048,576 slots
     h_msgs = dur_input(DUR_N, DUR_HEAVY_KEYS)
-    cfg["messages"], cfg["keys"] = h_msgs, DUR_HEAVY_KEYS
+    cfg["messages"], cfg["keys"], cfg["n"] = h_msgs, DUR_HEAVY_KEYS, DUR_N
     ab("(d) stateful 1,048,576 slots mid_epoch", "stateful", "mid_epoch")
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -6935,6 +7484,12 @@ def main():
     counts17, wave_row = wavefront_runs()
     run_counts.update(counts17)
     print(f"phase 17: {time.perf_counter() - t17:.1f} s (budget 60 s)")
+    # 18. the JAX package's lax.conds as conditional nodes, counts read
+    #     just after each run
+    t18 = time.perf_counter()
+    counts18, cond_row = cond_runs()
+    run_counts.update(counts18)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s (budget 45 s)")
     if "jax" in sys.modules or "windflow_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     # each kernel row's launches: the runs that make its calls (the
@@ -7009,6 +7564,13 @@ def main():
                                for c in run_counts.values()
                                if isinstance(c, dict))
     rows.append(wave_row)
+    # the steering kernel of the TB fold and of the compacted reduce's
+    # branches launches in every such run with the kernels on: its
+    # launches are every run's
+    cond_row["launches"] = sum(c.get("cond_select", 0)
+                               for c in run_counts.values()
+                               if isinstance(c, dict))
+    rows.append(cond_row)
 
     print(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all "
           "(limit 1,200 s)")

@@ -1072,13 +1072,13 @@ def test_cuda_wire_decode_equals_the_cpu_decode(cuda_device, name):
 MS_N, MS_CAP, MS_KEYS = 16 * 4096, 4096, 64
 
 
-def _ms_blob(gaps=None, seed=71):
+def _ms_blob(gaps=None, seed=71, n=MS_N):
     rng = np.random.default_rng(seed)
-    rec = np.zeros(MS_N, dtype=[("k", "<i8"), ("ts", "<i8"), ("v", "<f8")])
-    rec["k"] = rng.integers(0, MS_KEYS, MS_N)
-    rec["ts"] = np.arange(MS_N, dtype=np.int64) * 50 if gaps is None \
+    rec = np.zeros(n, dtype=[("k", "<i8"), ("ts", "<i8"), ("v", "<f8")])
+    rec["k"] = rng.integers(0, MS_KEYS, n)
+    rec["ts"] = np.arange(n, dtype=np.int64) * 50 if gaps is None \
         else np.cumsum(gaps)
-    rec["v"] = rng.integers(-100, 101, MS_N)
+    rec["v"] = rng.integers(-100, 101, n)
     return rec.tobytes()
 
 
@@ -1121,13 +1121,14 @@ def _ms_tail(family):
 
 
 def _ms_run(family, k, device="cuda", wire=False, gaps=None, tap=None,
-            **cfg):
+            n=MS_N, **cfg):
     """FrameSource → one foldable tail → Sink at ``megastep_sweeps=k``:
     (sorted records, Megastep section, graph).  ``tap(graph)`` runs after
-    the build, before the first batch; ``cfg`` are more Config fields."""
+    the build, before the first batch; ``n`` records (MS_N: 16 batches);
+    ``cfg`` are more Config fields."""
     import windflow_tpu_torch as wt
     out = []
-    blob = _ms_blob(gaps)
+    blob = _ms_blob(gaps, n=n)
     step = MS_CAP * 24 * 3 // 2
 
     def chunks():
@@ -1440,13 +1441,12 @@ def test_cuda_snapshot_restore_round_trips_bit_exact(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cb", "tb", "stateful"])
+@pytest.mark.parametrize("name", ["cb", "tb", "stateful", "compacted"])
 def test_cuda_restored_steps_make_no_host_read(cuda_device, name):
     """The steps between two checkpoints: an operator restored from a
     checkpoint blob steps with no synchronising call (the blob's one
     device-to-host copy is taken at the checkpoint, the restore's copy
-    to the card before the first step).  The compacted reduce's step
-    reads its miss count on purpose and is not among them."""
+    to the card before the first step)."""
     make, batches, _ = _durable_case(name, cuda_device)
     op = make()
     op._step(batches[0])
@@ -2647,3 +2647,162 @@ def test_cuda_make_mesh_refuses_more_devices_than_visible(cuda_device):
         M.make_mesh(n + 1)
     mesh = M.make_mesh(4, devices=["cuda:0"] * 4)
     assert {d.type for d in mesh.devices.ravel()} == {"cuda"}
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's lax.conds as SWITCH nodes (kernels/cond_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbodies", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_cuda_cond_select_matches_its_plain_twin(cuda_device, nbodies,
+                                                 dtype):
+    """The steering kernel against its plain twin for every index of an
+    n-body switch and three out-of-range ones: captured as a SWITCH node
+    whose body j writes j + 1, each replay runs the twin's pick (none
+    out of range), and the device counters equal the twin's."""
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cc.prepare(dev)
+    site = f"card test {nbodies} {dtype}"
+    index = torch.zeros((), dtype=dtype, device=dev)
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    bodies = [lambda j=j: out.fill_(j + 1) for j in range(nbodies)]
+    g = fc.CountedGraph(torch.cuda.CUDAGraph())
+    from windflow_tpu_torch.kernels import loop_cuda
+    with g.capture(loop_cuda.side_capture(g.graph, dev)):
+        cc.emit_switch(index, bodies, site)
+    assert g.launches == {"cond_select": 1}
+    cc.reset_body_counts(dev)
+    plain = torch.zeros(nbodies + 1, dtype=torch.int64)
+    for i in list(range(nbodies)) + [nbodies, -1, 1 << 20]:
+        index.fill_(i)
+        out.zero_()
+        fc.reset_launch_counts()
+        g.replay()
+        pick = cc.cond_select_plain(torch.tensor(i, dtype=dtype), nbodies,
+                                    plain)
+        assert int(out) == (pick + 1 if pick < nbodies else 0)
+        assert fc.launch_counts()["cond_select"] == 1
+    assert cc.body_counts(dev, site, nbodies) == plain.tolist()
+    # eager: the kernel counts its pick and sets no handle
+    cc.cond_select(index, nbodies, site=site)
+    assert cc.body_counts(dev, site, nbodies)[-1] == plain.tolist()[-1] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sum_combiner", [False, True])
+def test_cuda_tb_step_folds_through_its_cached_switch_graph(cuda_device,
+                                                            sum_combiner):
+    """The TB step at K = 1: each fire pass's fold region replays one
+    cached standalone graph (a SWITCH node of no_fold and do_fold) with
+    no synchronising call after the first step; the outputs equal the
+    kill switch's on every lane, and the body counters show the fold
+    skipped on the ordered stream's pre-place passes."""
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.windows import ffat_kernels as tfk
+    dev = torch.device("cuda", torch.cuda.current_device())
+    items = _tb_data(4)
+    ops = {}
+    for kern in ("auto", "0"):
+        g, win = _tb_graph(items, kern, lambda r: None,
+                           sum_combiner=sum_combiner)
+        g._build()
+        ops[kern] = win
+    batches = _tb_batches(cuda_device, 3)
+    cc.reset_body_counts(dev)
+    fc.reset_launch_counts()
+    on = _no_host_read(ops["auto"]._step, batches)
+    assert fc.launch_counts()["cond_select"] == 3 * 3
+    counts = cc.body_counts(dev, tfk.FOLD_SITE, 2)
+    assert sum(counts) == 9 and counts[0] >= 1 and counts[1] >= 1
+    off = _no_host_read(ops["0"]._step, batches)
+    assert fc.launch_counts()["cond_select"] == 3 * 3
+    for a, b in zip(_leaves((on.payload, on.ts, on.valid)),
+                    _leaves((off.payload, off.ts, off.valid))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_tb_k8_capture_holds_the_fold_switch(cuda_device,
+                                                  monkeypatch):
+    """The TB tail at K = 8 over 32 batches (a warm-up, three groups, the
+    rest per batch): the capture holds three SWITCH nodes a row, every
+    cached group replays with no synchronising call, the records equal
+    K = 1's, cond_select launches as often as at K = 1 (3 a step), and
+    the device counters show passes that skipped the fold."""
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.windows import ffat_kernels as tfk
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 2 * MS_N
+    fc.reset_launch_counts()
+    base, _, _ = _ms_run("tb", 1, n=n)
+    launches1 = fc.launch_counts()
+    seen = _strict_replays(monkeypatch)
+    cc.reset_body_counts(dev)
+    fc.reset_launch_counts()
+    got, sec, _ = _ms_run("tb", 8, n=n)
+    e = sec["edges"][0]
+    assert base and got == base
+    assert e["megasteps"] == 3 and seen[0] == 2
+    assert fc.launch_counts()["cond_select"] \
+        == launches1["cond_select"] >= 3 * (n // MS_CAP)
+    assert e["kernel_launches_per_group"] >= 3 * 8
+    skipped, folded, none = cc.body_counts(dev, tfk.FOLD_SITE, 2)
+    assert skipped > 0 and folded > 0 and none == 0
+
+
+def _compacted_batches(device):
+    """Four batches of the compacted reduce's step (keys admitted
+    ``k * 1000 + 7``, k < CB_K): all hit, all hit, 100 misses (within the
+    256-lane overflow lane), 4,000 misses (beyond it)."""
+    from windflow_tpu_torch.parallel.compaction import overflow_cap
+    assert 100 <= overflow_cap(CB_CAP) < 4000
+    out = []
+    for b, n_miss in zip(_cb_batches(device, 4, seed=91), (0, 0, 100, 4000)):
+        keys = b.payload["key"] * 1000 + 7
+        keys[:n_miss] = keys[:n_miss] + 1          # never admitted
+        b.payload["key"] = keys
+        out.append(b)
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_compacted_reduce_branches_run_with_no_host_read(cuda_device):
+    """The compacted reduce's step on the card in each branch, after a
+    first step that captures its cached graph: no synchronising call, the
+    body counters name no_miss, ovf_small and ovf_big in turn, the
+    full-width count ``big`` moves once, and every output equals the
+    kill switch's step (its host read picks the branch)."""
+    from windflow_tpu_torch.kernels import cond_cuda as cc
+    from windflow_tpu_torch.parallel import compaction as tc
+    dev = torch.device("cuda", torch.cuda.current_device())
+    op = _compacted_reduce_op()
+    batches = _compacted_batches(cuda_device)
+    plain = tc.make_compacted_reduce(CB_CAP, op._compactor.slots, "max",
+                                     op.comb, op.key_extractor, False,
+                                     kernels=False)
+    step = op._get_compacted_step(CB_CAP)
+    tables = op._compactor.tables()
+    cst = tc.cstats_init(dev)
+    pst = tc.cstats_init(dev)
+    cc.reset_body_counts(dev)
+    for i, b in enumerate(batches):
+        args = (b.keys, b.payload, b.ts, b.valid, *tables)
+        if i == 0:
+            out = step(*args, cst)
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = step(*args, cst)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        ref = plain(*args, pst)
+        cst, pst = out[3], ref[3]
+        for a, r in zip(_leaves(out), _leaves(ref)):
+            assert torch.equal(a, r)
+        assert cc.body_counts(dev, tc.BRANCH_SITE, 3) == [
+            [1, 0, 0, 0], [2, 0, 0, 0], [2, 1, 0, 0], [2, 1, 1, 0]][i]
+    assert int(cst["big"]) == 1

@@ -270,7 +270,8 @@ def test_cpu_wrappers_take_the_plain_version_and_launch_nothing():
     assert fc.kernel_build_count() == before + 4
     assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0,
                                   "dense_monoid_table": 0,
-                                  "wavefront_loop": 0}
+                                  "wavefront_loop": 0,
+                                  "cond_select": 0}
 
 
 def test_kernel_entry_needs_nvcc_and_raises_without(monkeypatch):

@@ -328,13 +328,15 @@ def test_launch_counters_count_each_captured_call_once_a_replay():
     assert cg.launches_per_replay() == 3
     assert fc.launch_counts() == {"grouping_rank_hist": 0, "sliding_fold": 0,
                                   "dense_monoid_table": 1,
-                                  "wavefront_loop": 0}
+                                  "wavefront_loop": 0,
+                                  "cond_select": 0}
     for _ in range(3):
         cg.replay()
     assert StubGraph.replays == 3
     assert fc.launch_counts() == {"grouping_rank_hist": 3, "sliding_fold": 6,
                                   "dense_monoid_table": 1,
-                                  "wavefront_loop": 0}
+                                  "wavefront_loop": 0,
+                                  "cond_select": 0}
     fc.reset_launch_counts()
 
 

@@ -166,9 +166,11 @@ def test_tb_step_matches_jax(case):
 
 
 def test_tb_step_no_fire_passes_match_the_cond_branch():
-    """JAX folds under lax.cond only when a pass fires; the port folds on
-    every pass.  On an ordered stream under a resolved watermark the
-    pre-place passes fire nothing: the same fired records and counters."""
+    """JAX folds under lax.cond only when a pass fires; the port's plain
+    route folds and selects JAX's no_fold zeros where a pass fired
+    nothing.  On an ordered stream under a resolved watermark the
+    pre-place passes fire nothing: every output lane, unfired lanes
+    included, and the counters are the same."""
     K, P, R, D, NP, cap = 4, 1000, 4, 1, 32, 64
     js, ts_ = _steps(K, P, R, D, NP, cap, None, True, True)
     jst = jfk.make_ffat_tb_state(jnp.zeros((), jnp.float32), K, NP)
@@ -191,9 +193,9 @@ def test_tb_step_no_fire_passes_match_the_cond_branch():
         m = np.asarray(jf).reshape(K, 3, MW)
         assert not m[:, :2].any()          # passes A fired nothing
         np.testing.assert_array_equal(tf.numpy(), m.reshape(-1))
-        sel = m.reshape(-1)
-        np.testing.assert_array_equal(to["value"].numpy()[sel],
-                                      np.asarray(jo["value"])[sel])
+        for f in ("key", "wid", "value"):
+            np.testing.assert_array_equal(to[f].numpy(), np.asarray(jo[f]))
+        assert not to["value"].numpy().reshape(K, 3, MW)[:, :2].any()
         assert int(tn) == int(jn)
         for key in ("n_late", "n_evicted", "n_win_dropped", "win_next"):
             assert int(tst[key]) == int(jst[key])

@@ -106,10 +106,10 @@ def enabled(config=None) -> bool:
 #: the purposeful host reads of the port's steps (ROADMAP "No host reads
 #: in the steps"), by (module under windflow_tpu_torch, function
 #: qualname): a host read, sync or crossing whose stack passes through
-#: one of these is exempt, with its reason
+#: one of these is exempt, with its reason.  None is a branch pick: the
+#: JAX package's lax.conds run on the card as conditional nodes
+#: (kernels/cond_cuda.py), and their plain routes' reads are findings
 SANCTIONED_HOST_READS = {
-    ("parallel/compaction.py", "make_compacted_reduce.<locals>.body"):
-        "the compacted reduce's miss count",
     ("parallel/compaction.py", "KeyCompactor._miss_candidates"):
         "the compactor's reseed read of its consumers' miss rings",
     ("windows/ffat_gpu.py", "FfatWindowsGPU._size_ring"):

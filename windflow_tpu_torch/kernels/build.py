@@ -33,6 +33,7 @@ SOURCES = {
     "sliding_fold": "sliding_fold.cu",
     "dense_monoid_table": "dense_monoid_table.cu",
     "wavefront_loop": "wavefront_loop.cu",
+    "cond_select": "cond_select.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,6 +53,7 @@ SIGNATURES = {
     "wavefront_loop": ("wf_wavefront_advance",
                        [_P, ctypes.c_longlong, _P, _P, ctypes.POINTER(_I),
                         _I, _U64, _U64, _I, _I, _P]),
+    "cond_select": ("wf_cond_select", [_P, _I, _I, _U64, _I, _P, _P]),
 }
 #: further C entry points of a library: kernel name -> {function:
 #: argtypes}, each returning a cudaError_t as int

@@ -22,8 +22,10 @@ fold's own combine tree), so kernel and plain version agree bit for bit.
 ``"0"`` is the kill switch — the torch composition of
 ``windows/grouping.py`` and ``windows/ffat_kernels.py`` runs and no
 wrapper is entered.  The third kernel, ``dense_monoid_table``, lives in
-``reduce_cuda.py``, and the stateful wavefront's device loop,
-``wavefront_loop``, in ``loop_cuda.py``; both share the counters below.
+``reduce_cuda.py``, the stateful wavefront's device loop,
+``wavefront_loop``, in ``loop_cuda.py``, and the steering kernel of the
+port's ``lax.cond``, ``cond_select``, in ``cond_cuda.py``; all share the
+counters below.
 """
 
 from __future__ import annotations
@@ -67,13 +69,15 @@ _BUILD_COUNT = 0
 #: the launch it makes; a call made while a CUDA graph captures launches
 #: nothing then, and counts once a replay (:class:`CountedGraph`)
 _LAUNCHES = {"grouping_rank_hist": 0, "sliding_fold": 0,
-             "dense_monoid_table": 0, "wavefront_loop": 0}
+             "dense_monoid_table": 0, "wavefront_loop": 0,
+             "cond_select": 0}
 
 
 #: kernel gates that held since import, keyed as :data:`_LAUNCHES`
 #: (``grouping_supported``, ``fold_supported``,
 #: ``reduce_cuda.table_supported`` returning True; the stateful
-#: wavefront taking its device loop, ``ops/gpu_stateful.py``): the
+#: wavefront taking its device loop, ``ops/gpu_stateful.py``; a branching
+#: region taking its conditional node, ``kernels/cond_cuda.py``): the
 #: capture audit reads each kernel's delta over a recorded step beside its
 #: launches (WF907)
 _GATES_OPEN = dict.fromkeys(_LAUNCHES, 0)

@@ -1,6 +1,8 @@
 """The stateful wavefront's device loop: ``csrc/wavefront_loop.cu``'s
 wrapper, its plain version, and the capture of a CUDA graph WHILE node
-whose body is a chain of IF nodes.
+whose body is a SWITCH node of width classes.  Its conditional-node
+helpers (:func:`new_handle`, :func:`add_node`, :func:`capturing`,
+:func:`loop_pool`) serve ``kernels/cond_cuda.py`` too.
 
 The counterpart of the ``jax.lax.while_loop`` in
 ``windflow_tpu/ops/tpu_stateful.py`` ``_wavefront_body`` (no Pallas
@@ -273,7 +275,9 @@ class LoopPool:
         self.uses = 0
 
 
-def _loop_pool(graph, device) -> LoopPool:
+def loop_pool(graph, device) -> LoopPool:
+    """The :class:`LoopPool` of ``device`` that ``graph`` (a
+    ``CountedGraph``) keeps, made on first use."""
     for obj in graph.keep:
         if isinstance(obj, LoopPool) \
                 and obj.device == (torch.device(device).index or 0):
@@ -289,6 +293,54 @@ def _call(fn, *args) -> None:
         raise WindFlowError(f"{NAME}: CUDA error {rc} building the loop")
 
 
+def new_handle(stream) -> int:
+    """A conditional handle of the graph ``stream`` is capturing into."""
+    from windflow_tpu_torch.kernels import build
+    h = ctypes.c_ulonglong()
+    _call(build.entry(NAME, "wf_cond_handle"), stream.cuda_stream,
+          ctypes.byref(h))
+    return h.value
+
+
+def add_node(stream, handle: int, kind: int, size: int) -> list:
+    """A conditional node of ``kind`` (IF 0, :data:`_WHILE`,
+    :data:`_SWITCH`) with ``size`` bodies, steered by ``handle``, after
+    the work ``stream`` has captured so far; returns the body graphs."""
+    from windflow_tpu_torch.kernels import build
+    bodies = (ctypes.c_void_p * size)()
+    _call(build.entry(NAME, "wf_cond_add"), stream.cuda_stream, handle,
+          kind, size, bodies)
+    return list(bodies)
+
+
+@contextlib.contextmanager
+def capturing(stream, body_graph):
+    """Capture the torch work of the block, on ``stream``, into a
+    conditional node's body graph."""
+    from windflow_tpu_torch.kernels import build
+    _call(build.entry(NAME, "wf_capture_to"), stream.cuda_stream,
+          body_graph)
+    ok = False
+    try:
+        with torch.cuda.stream(stream):
+            yield
+        ok = True
+    finally:
+        rc = build.entry(NAME, "wf_cond_close")(stream.cuda_stream)
+        if ok and rc != 0:
+            raise WindFlowError(
+                f"{NAME}: CUDA error {rc} closing a conditional body")
+
+
+def body_streams(device) -> tuple:
+    """The side streams :func:`prepare` made for ``device``."""
+    streams = _streams.get(_device(device))
+    if streams is None:
+        raise WindFlowError("wavefront loop: prepare(device) must run "
+                            "before the first capture")
+    return streams
+
+
 def emit_loop(cnt: torch.Tensor, cur: torch.Tensor, widths: List[int],
               class_body: Callable[[int], None]) -> None:
     """Capture the loop into the graph the current stream is capturing
@@ -296,58 +348,24 @@ def emit_loop(cnt: torch.Tensor, cur: torch.Tensor, widths: List[int],
     a WHILE node whose body is ``wavefront_advance`` and a SWITCH node of
     the width classes, body j ``class_body(widths[j])``: torch work on
     the current stream, reading rank r's slice from ``cur[2]``/``cur[3]``."""
-    from windflow_tpu_torch.kernels import build
     graph = fc.current_capture()
     if graph is None or not torch.cuda.is_current_stream_capturing():
         raise WindFlowError("wavefront loop: emit_loop runs inside a "
                             "CountedGraph capture only")
     dev = cnt.device
     _check_args(cnt, cur)
-    streams = _streams.get(dev)
-    if streams is None:
-        raise WindFlowError("wavefront loop: prepare(device) must run "
-                            "before the first capture")
-    s_body, s_cls = streams
-    handle = build.entry(NAME, "wf_cond_handle")
-    cond_add = build.entry(NAME, "wf_cond_add")
-    capture_to = build.entry(NAME, "wf_capture_to")
-    cond_close = build.entry(NAME, "wf_cond_close")
+    s_body, s_cls = body_streams(dev)
     parent = torch.cuda.current_stream(dev)
-
-    def new_handle(stream) -> int:
-        h = ctypes.c_ulonglong()
-        _call(handle, stream.cuda_stream, ctypes.byref(h))
-        return h.value
-
-    def add(stream, h, kind, size):
-        bodies = (ctypes.c_void_p * size)()
-        _call(cond_add, stream.cuda_stream, h, kind, size, bodies)
-        return list(bodies)
-
-    @contextlib.contextmanager
-    def capturing(stream, body_graph):
-        _call(capture_to, stream.cuda_stream, body_graph)
-        ok = False
-        try:
-            with torch.cuda.stream(stream):
-                yield
-            ok = True
-        finally:
-            rc = cond_close(stream.cuda_stream)
-            if ok and rc != 0:
-                raise WindFlowError(
-                    f"{NAME}: CUDA error {rc} closing a loop body")
-
     loop_h = new_handle(parent)
     wavefront_advance(cnt, cur, widths, True, loop_handle=loop_h)
-    with _loop_pool(graph, dev).routing():
-        (while_body,) = add(parent, loop_h, _WHILE, 1)
+    with loop_pool(graph, dev).routing():
+        (while_body,) = add_node(parent, loop_h, _WHILE, 1)
         with capturing(s_body, while_body):
             cls_h = new_handle(s_body)
             wavefront_advance(cnt, cur, widths, False, cls_handle=cls_h,
                               loop_handle=loop_h, count=False,
                               stream=s_body)
-            bodies = add(s_body, cls_h, _SWITCH, len(widths))
+            bodies = add_node(s_body, cls_h, _SWITCH, len(widths))
             for width, body_graph in zip(widths, bodies):
                 with capturing(s_cls, body_graph):
                     class_body(width)

@@ -33,9 +33,15 @@
 
 What differs from JAX, for torch on the card:
 
-* ``lax.cond`` becomes one host read of the miss count per batch
-  (``int(n_miss)``), which picks the branch; the sink's copy back on
-  the same stream waits for the batch anyway;
+* the nested ``lax.cond`` (no miss / the overflow lane / the full
+  width) becomes one 3-body CUDA graph SWITCH node whose branch index,
+  computed from the miss count on the device, the ``cond_select``
+  kernel reads (``kernels/cond_cuda.py``): with the kernels on, the
+  step on the card runs as a cached standalone graph over static
+  buffers (the megastep refuses compacted key spaces), with no host
+  read.  The plain route (``Config(cuda_kernels="0")``) reads the index
+  on the host to pick the branch, and the CPU picks it by the kernel's
+  plain twin;
 * ``jnp.nonzero(size=T)`` becomes the cumsum + ``searchsorted``
   compaction the overflow lane already uses (no host sync);
 * ``dynamic_update_slice`` at a device offset becomes an index put at
@@ -65,6 +71,8 @@ import numpy as np
 import torch
 
 from windflow_tpu_torch.basic import WindFlowError, int32_key
+from windflow_tpu_torch.kernels import cond_cuda as cc
+from windflow_tpu_torch.kernels import ffat_cuda as fc
 from windflow_tpu_torch.kernels import reduce_cuda as rc
 from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.ops.reduce import _bshape, _segmented_reduce
@@ -78,6 +86,9 @@ _SENT = int(KEY_SENTINEL)
 #: miss-candidate ring geometry
 MISS_RING = 64
 MISS_PER_BATCH = 8
+#: the compacted reduce's conditional node in ``cond_cuda``'s body
+#: counters (body 0 no_miss, 1 ovf_small, 2 ovf_big)
+BRANCH_SITE = "compacted reduce"
 #: overflow lane budget as a fraction of the batch capacity
 OVERFLOW_DENOM = 32
 
@@ -214,11 +225,15 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
     ``bounded`` is the ``withMaxKeys`` variant (identity remap over
     ``[0, table_size)``, no table operands).  ``kernels`` routes the
     dense half through ``dense_monoid_table`` where its gates hold (the
-    packed int64 carrier as one multi-column leaf; per-leaf otherwise)."""
+    packed int64 carrier as one multi-column leaf; per-leaf otherwise),
+    and picks JAX's ``lax.cond`` branch — ``no_miss``, ``ovf_small`` or
+    ``ovf_big`` — on the device, through a SWITCH node on the card
+    (``kernels/cond_cuda.py``); with ``kernels`` off the plain route
+    reads the branch index on the host."""
     T = int(table_size)
     ovf = overflow_cap(capacity)
 
-    def body(keys, payload, ts, valid, *rest):
+    def step(select, keys, payload, ts, valid, *rest):
         if bounded:
             (cst,) = rest
             table_keys = table_slots = None
@@ -321,10 +336,10 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
         ckeys = torch.where(dlive, dkeys[didx],
                             torch.full_like(dkeys[didx], I64MAX))
 
-        # wfverify: ok (the compacted reduce's miss count: the one
-        # host read of the step, by design)
-        n_miss = int(n_miss_t)
-        big = n_miss > ovf
+        # the branch index on the device: 0 no miss, 1 the misses fit
+        # the overflow lane, 2 they do not (ovf >= 32, so 2 implies a miss)
+        big = (n_miss_t > ovf).to(torch.int64)
+        branch = (n_miss_t > 0).to(torch.int32) + big.to(torch.int32)
 
         def no_miss():
             def padd(a):
@@ -380,14 +395,32 @@ def make_compacted_reduce(capacity: int, table_size: int, monoid: str,
             return merge(*_segmented_reduce(keys, payload, ts, miss, comb,
                                             capacity))
 
-        if n_miss == 0:
-            out_payload, out_ts, out_valid = no_miss()
-        elif big:
-            out_payload, out_ts, out_valid = ovf_big()
-        else:
-            out_payload, out_ts, out_valid = ovf_small()
-        cst = cstats_update(cst, keys, hit, miss, big=int(big))
+        # each branch fills the same buffers, allocated before the
+        # switch: the node's outputs whatever branch ran
+        out_payload = tree_map(torch.empty_like, payload)
+        out_ts = torch.empty_like(ts)
+        out_valid = torch.empty_like(valid)
+        outs = [out_ts, out_valid] + tree_flatten(out_payload)[0]
+
+        def fill(branch_fn):
+            def run():
+                p, t, v = branch_fn()
+                for o, r in zip(outs, [t, v] + tree_flatten(p)[0]):
+                    o.copy_(r)
+            return run
+
+        select(branch, [fill(no_miss), fill(ovf_small), fill(ovf_big)])
+        cst = cstats_update(cst, keys, hit, miss, big=big)
         return out_payload, out_ts, out_valid, cst
+
+    region = cc.RegionGraph("compacted reduce", lambda *a: step(
+        lambda i, bodies: cc.switch(i, bodies, BRANCH_SITE), *a))
+
+    def body(keys, payload, ts, valid, *rest):
+        if not kernels:
+            return step(cc.switch_plain, keys, payload, ts, valid, *rest)
+        fc._gate("cond_select", valid.device.type == "cuda")
+        return region(keys, payload, ts, valid, *rest)
 
     return body
 

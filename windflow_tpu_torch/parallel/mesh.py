@@ -990,10 +990,12 @@ def make_sharded_ffat_tb_step(mesh: Mesh, capacity: int, K: int, P_usec: int,
         monoid = "sum"
     K_local, gather, bspec, step_cap = _ffat_shard_layout(mesh, capacity, K,
                                                           ingest)
+    # the per-shard steps keep the plain fold route (fold, then the
+    # no_fold zeros selected on the device): no conditional node yet
     steps = _per_column(lambda base: make_ffat_tb_step(
         step_cap, K_local, P_usec, R, D, NP, lift, comb, key_fn,
         drop_tainted=drop_tainted, monoid=monoid, kernels=kernels,
-        grouping=grouping, key_base=base), mesh, K_local)
+        grouping=grouping, key_base=base, cond=False), mesh, K_local)
 
     def fn(state, payload, ts, valid, wm_pane):
         P, T, V = gather(_tree_blocks(payload, mesh, bspec),

@@ -28,7 +28,9 @@ JAX package line by line, so the two produce the same records:
 
 ``kernels=True`` (``Config.cuda_kernels`` resolved by
 ``kernels.resolve_kernels``) routes the grouping and the declared-monoid
-fold through the hand-written kernels where their gates hold.
+fold through the hand-written kernels where their gates hold, and the
+TB step's ``lax.cond`` onto a CUDA graph SWITCH node
+(``kernels/cond_cuda.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from windflow_tpu_torch.kernels import cond_cuda as cc
 from windflow_tpu_torch.kernels import ffat_cuda as fc
 from windflow_tpu_torch.kernels.ffat_cuda import monoid_identity
 from windflow_tpu_torch.utils.dtypes import cast_state_update
@@ -642,6 +645,9 @@ def make_ffat_flush(K: int, P: int, R: int, D: int, comb: Callable,
 
 #: the TB step's pane sentinels (JAX: ``1 << 60``)
 _FAR = 1 << 60
+#: the TB fold's conditional node in ``cond_cuda``'s body counters (body
+#: 0 no_fold, body 1 do_fold)
+FOLD_SITE = "ffat_tb fold"
 
 
 def make_ffat_tb_state(agg_spec, K: int, NP: int, device=None):
@@ -674,7 +680,8 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
                       key_fn: Optional[Callable],
                       drop_tainted: bool = False,
                       monoid: Optional[str] = None, kernels: bool = False,
-                      grouping: str = "rank_scatter", key_base: int = 0):
+                      grouping: str = "rank_scatter", key_base: int = 0,
+                      cond: Optional[bool] = None):
     """Build the time-based FFAT per-batch step ``(state, payload, ts,
     valid, wm_pane) -> (state, out, fired, out_ts, n_advanced)``
     (``make_ffat_tb_step`` of the JAX package, pass for pass).
@@ -692,13 +699,19 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
     what it completed.  ``drop_tainted`` suppresses (and counts) windows
     that lost a data pane to an eviction.
 
-    Where JAX folds under ``lax.cond`` only when a pass fires, this step
-    folds on every pass: reading ``n_fired`` on the host would stall the
-    stream three times a step.  With nothing fired every ``fired`` lane
-    is False and the counters are those of the no-fold branch; only the
-    values of unfired lanes differ, and egress never emits them.  Nothing
-    here reads the device on the host: ``base``, ``win_next`` and
-    ``max_seen`` stay 0-d tensors, the rolls gather by a device
+    JAX folds under ``lax.cond`` only when a pass fires.  Two routes of
+    that contract, with no host read of ``n_fired``: the kernel route
+    (``cond``; by default ``kernels`` and the batch on the card) runs the
+    fold region as a SWITCH node steered by the ``cond_select`` kernel
+    (``kernels/cond_cuda.py``) — body 0 JAX's ``no_fold`` zeros, body 1
+    its ``do_fold`` — inline in a megastep capture and as a cached
+    standalone graph outside one (on host tensors, ``cond=True`` picks
+    the body by the kernel's plain twin); the plain route (the CPU,
+    ``Config(cuda_kernels="0")``, the mesh's per-shard steps: ``cond=
+    False``) folds and then selects the ``no_fold`` zeros on the device
+    where nothing fired.  Either way every output lane equals JAX's.
+    Nothing here reads the device on the host: ``base``, ``win_next``
+    and ``max_seen`` stay 0-d tensors, the rolls gather by a device
     ``arange``, and every other scalar operand is a Python number.
 
     Placement: a declared ``monoid`` scatter-combines lifts straight
@@ -726,21 +739,9 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
         v = tree_map(lambda a: a.index_select(1, idxc), values)
         return f, v
 
-    def fire_pass(cells, cell_valid, base, win_next, frontier, max_seen,
-                  horizon):
-        """Fire windows ending <= frontier whose end pane is in the ring
-        and that start at or before the newest data pane; returns the
-        rolled ring and the pass's outputs."""
-        j = torch.arange(MW, dtype=torch.int64, device=cell_valid.device)
-        w = win_next + j
-        end_local = w * D + R - 1 - base                       # [MW]
-        fire = ((w * D + R) <= frontier) & (end_local < NP) \
-            & (w * D <= max_seen)                              # a prefix
-        # end_local < 0 only when a capacity roll evicted the whole
-        # window: it advances but never emits
-        emitable = fire & (end_local >= 0)
-        eidx = torch.clamp(end_local, 0, NP - 1)
-        n_fired = fire.sum(dtype=torch.int64)
+    def do_fold(cells, cell_valid, eidx, emitable, fire, w, horizon):
+        """JAX's ``do_fold``: the sliding fold, the gathers at the window
+        ends and the taint count: ``(fired, wvals, n_drop)``."""
         sflag, swin = _sliding_reduce(comb, cell_valid, cells, R, axis=1)
         wvals = tree_map(lambda a: a.index_select(1, eidx), swin)
         f = emitable[None, :] & sflag.index_select(1, eidx)
@@ -751,6 +752,68 @@ def make_ffat_tb_step(capacity: int, K: int, P_usec: int, R: int, D: int,
             n_drop = (f & ~clean).sum(dtype=torch.int64) \
                 + gone.sum(dtype=torch.int64)
             f = f & clean
+        return f, wvals, n_drop
+
+    def fold_region(cells, cell_valid, eidx, emitable, fire, w, horizon,
+                    n_fired):
+        """The kernel route's ``lax.cond``: a 2-body switch on
+        ``n_fired > 0`` whose bodies fill buffers allocated before it."""
+        dev = cell_valid.device
+        f = torch.empty((K, MW), dtype=torch.bool, device=dev)
+        wvals = tree_map(lambda a: torch.empty(
+            (K, MW) + tuple(a.shape[2:]), dtype=a.dtype, device=dev), cells)
+        n_drop = torch.empty((), dtype=torch.int64, device=dev)
+        outs = [f, n_drop] + tree_flatten(wvals)[0]
+
+        def no_fold():
+            for o in outs:
+                o.zero_()
+
+        def fold():
+            res = do_fold(cells, cell_valid, eidx, emitable, fire, w,
+                          horizon)
+            for o, r in zip(outs, [res[0], res[2]]
+                            + tree_flatten(res[1])[0]):
+                o.copy_(r)
+        cc.switch((n_fired > 0).to(torch.int32), [no_fold, fold],
+                  FOLD_SITE)
+        return f, wvals, n_drop
+
+    fold_graph = cc.RegionGraph("ffat_tb fold", fold_region)
+
+    def fire_pass(cells, cell_valid, base, win_next, frontier, max_seen,
+                  horizon):
+        """Fire windows ending <= frontier whose end pane is in the ring
+        and that start at or before the newest data pane; returns the
+        rolled ring and the pass's outputs."""
+        dev = cell_valid.device
+        j = torch.arange(MW, dtype=torch.int64, device=dev)
+        w = win_next + j
+        end_local = w * D + R - 1 - base                       # [MW]
+        fire = ((w * D + R) <= frontier) & (end_local < NP) \
+            & (w * D <= max_seen)                              # a prefix
+        # end_local < 0 only when a capacity roll evicted the whole
+        # window: it advances but never emits
+        emitable = fire & (end_local >= 0)
+        eidx = torch.clamp(end_local, 0, NP - 1)
+        n_fired = fire.sum(dtype=torch.int64)
+        on_node = cond if cond is not None \
+            else (kernels and dev.type == "cuda")
+        if on_node:
+            fc._gate("cond_select", dev.type == "cuda")
+            f, wvals, n_drop = fold_graph(cells, cell_valid, eidx,
+                                          emitable, fire, w, horizon,
+                                          n_fired)
+        else:
+            # the plain route: fold, then JAX's no_fold zeros where the
+            # pass fired nothing (its fired lanes and taint count are
+            # already zero there)
+            f, wvals, n_drop = do_fold(cells, cell_valid, eidx, emitable,
+                                       fire, w, horizon)
+            any_fired = n_fired > 0
+            wvals = tree_map(lambda a: torch.where(
+                any_fired, a, torch.zeros((), dtype=a.dtype, device=dev)),
+                wvals)
         new_next = win_next + n_fired
         shift = torch.clamp(new_next * D - base, 0, NP)
         cell_valid, cells = roll_left(cell_valid, cells, shift)
