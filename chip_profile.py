@@ -452,7 +452,7 @@ def _columnar_host_split(dev, blob, policy, batches=2):
         rec.blocks = []
         t = [time.perf_counter()]
         for lo in range(0, len(chunk), CHUNK_BYTES):
-            rep._ingest(rep._carry + chunk[lo:lo + CHUNK_BYTES])
+            rep._ingest(chunk[lo:lo + CHUNK_BYTES])
         t.append(time.perf_counter())
         # one lane of room more than the batch: the pack does not ship
         em = DeviceStageEmitter([(_Inbox(), 0)], CAP + 1, dev)

@@ -942,6 +942,18 @@ def test_cross_thread_drain_is_caught(debug_mode):
     assert len(caught) == 1 and "Replica.drain" in str(caught[0])
 
 
+def test_cross_thread_dispatch_is_caught(debug_mode):
+    from windflow_tpu_torch.batch import HostBatch
+    from windflow_tpu_torch.ops.map_op import Map
+    op = Map(lambda t: t, name="m")
+    rep = op.build_replicas(wt.ExecutionMode.DEFAULT,
+                            wt.TimePolicy.INGRESS)[0]
+    dbg.enter(rep.stats, "Replica._dispatch")
+    caught = _in_thread(lambda: rep._dispatch(HostBatch([], [], 0)))
+    dbg.exit_(rep.stats)
+    assert len(caught) == 1 and "Replica._dispatch" in str(caught[0])
+
+
 def test_debug_guard_is_exception_safe(debug_mode):
     from windflow_tpu_torch.batch import HostBatch
     from windflow_tpu_torch.ops.map_op import Map
@@ -957,11 +969,9 @@ def test_debug_guard_is_exception_safe(debug_mode):
                             wt.TimePolicy.INGRESS)[0]
     with pytest.raises(Boom):
         rep._dispatch(HostBatch([{"v": 1}], [0], 0))
-
-    def sample():
-        rep.stats.start_sample()
-        rep.stats.end_sample()
-    assert _in_thread(sample) == []
+    # the raise left no stale dispatch guard: another thread's dispatch
+    # (an empty batch) enters it cleanly
+    assert _in_thread(lambda: rep._dispatch(HostBatch([], [], 0))) == []
 
 
 def test_pipeline_runs_clean_under_debug_flag(debug_mode):

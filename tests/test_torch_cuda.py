@@ -65,7 +65,10 @@ reshard executor into the static carry of a captured K = 8 body replays
 equal to the eager steps after the same move (and a rebinding move,
 the JAX package's functional ``.at[].set``, would not); and the keyed
 TB replicas' steps between executor ticks, and an in-place row move,
-make no synchronising call but the move's one ring-clock read.
+make no synchronising call but the move's one ring-clock read.  The host
+spans at the end: a K = 8 TB capture has the same nodes with the spans
+on as off, and in a ``profile()`` capture each group's ``dispatched``
+stamp lies within 0.1 ms of its ``wf:megastep.launch`` span's start.
 """
 
 import gc
@@ -2806,3 +2809,97 @@ def test_cuda_compacted_reduce_branches_run_with_no_host_read(cuda_device):
         assert cc.body_counts(dev, tc.BRANCH_SITE, 3) == [
             [1, 0, 0, 0], [2, 0, 0, 0], [2, 1, 0, 0], [2, 1, 1, 0]][i]
     assert int(cst["big"]) == 1
+
+
+# ---------------------------------------------------------------------------
+# Host spans (monitoring/recorder.py) around the megastep on the card
+
+def _graph_nodes(graph) -> int:
+    """Nodes of a captured (and kept) torch CUDA graph, by libcuda's
+    ``cuGraphGetNodes``."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                             ctypes.byref(n))
+    assert rc == 0, f"cuGraphGetNodes returned {rc}"
+    return n.value
+
+
+@pytest.mark.cuda
+def test_cuda_megastep_capture_has_the_same_nodes_with_spans(cuda_device,
+                                                             monkeypatch,
+                                                             tmp_path):
+    """A K = 8 TB megastep captured with the host spans off and with them
+    on (``tracing_enabled``): the same records, the same node count in
+    the captured graph, the same launches a group; the spans ran around
+    the capture and none entered it."""
+    import inspect
+    if "keep_graph" not in inspect.signature(
+            torch.cuda.CUDAGraph.__new__).parameters:
+        pytest.skip("this torch cannot keep a captured graph to count "
+                    "its nodes (CUDAGraph(keep_graph=True))")
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        # pybind's __init__ makes the graph: keep_graph goes there
+        def __init__(self, keep_graph=False):
+            super().__init__(True)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Kept)
+    nodes, out = {}, {}
+    for on in (False, True):
+        got, sec, g = _ms_run("tb", 8, n=MS_CAP * 24, tracing_enabled=on,
+                              log_dir=str(tmp_path))
+        edge = g._megastep_plane.edges[0]
+        assert sec["edges"][0]["megasteps"] >= 2
+        assert sec["edges"][0]["captures"] == 1
+        nodes[on] = _graph_nodes(edge._group.graph.graph)
+        out[on] = (got, sec["edges"][0]["kernel_launches_per_group"])
+        spans = g.stats()["Spans"]
+        assert spans["enabled"] is on
+        if on:
+            assert spans["spans"]["wf:megastep.launch"]["count"] \
+                == sec["edges"][0]["megasteps"]
+    assert nodes[False] == nodes[True] > 0
+    assert out[False] == out[True] and out[False][0]
+
+
+@pytest.mark.cuda
+def test_cuda_recorder_stamps_and_launch_spans_share_a_clock(cuda_device,
+                                                             tmp_path):
+    """In a ``profile()`` capture, each group's ``dispatched`` stamp in
+    ``dump_trace()``'s events and the start of the group's
+    ``wf:megastep.launch`` span (the capture's clock) differ by under
+    0.1 ms: the recorder's stamps and the profiler's share one clock."""
+    import json
+    import os
+
+    def tap(g):
+        tap.dir = g.profile(duration_ms=60_000,
+                            log_dir=str(tmp_path / "prof"))
+    _, sec, g = _ms_run("tb", 8, tap=tap, n=MS_CAP * 64,
+                        trace_sample_every=1)
+    path = g.dump_trace(str(tmp_path / "ms_trace.json"))
+    with open(path.replace("_trace.json", "_events.json")) as f:
+        events = json.load(f)
+    stamps = sorted({e["t_usec"] for e in events
+                     if e["stage"] == "dispatched" and e["shared_k"] == 8})
+    with open(os.path.join(tap.dir, "ms_cuda_profile.json")) as f:
+        prof = json.load(f)
+    base_us = prof.get("baseTimeNanoseconds", 0) / 1e3
+    # the host's range (the device's mirror is a gpu_user_annotation)
+    starts = np.array(sorted(e["ts"] + base_us for e in prof["traceEvents"]
+                             if e.get("name") == "wf:megastep.launch"
+                             and e.get("ph") == "X"
+                             and e.get("cat") == "user_annotation"))
+    megasteps = sec["edges"][0]["megasteps"]
+    assert megasteps >= 4 and len(stamps) == len(starts) == megasteps
+    i = np.clip(np.searchsorted(starts, stamps), 1, len(starts) - 1)
+    near = np.where(np.abs(starts[i] - stamps) < np.abs(starts[i - 1]
+                                                         - stamps),
+                    starts[i], starts[i - 1])
+    off = np.asarray(stamps) - near
+    print(f"dispatched - launch span start, µs: median "
+          f"{float(np.median(off)):.3f}, min {float(off.min()):.3f}, max "
+          f"{float(off.max()):.3f}, over {len(off)} groups")
+    assert np.all(np.abs(off) < 100.0)

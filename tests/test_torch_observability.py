@@ -286,7 +286,10 @@ PORTED = ("Flight_recorder", "Latency", "Gauges", "Health", "Device",
 
 def test_stats_sections_have_jax_keys(traced_runs):
     st, jst = traced_runs[wt][1], traced_runs[wf][1]
-    assert set(st) == set(jst)
+    # the port's host spans (monitoring/recorder.py) have no JAX twin:
+    # off in this run (no tracing_enabled, no profiler)
+    assert set(st) == set(jst) | {"Spans"}
+    assert st["Spans"] == {"enabled": False}
     for sec in PORTED:
         # the port's Preflight section also lists the passes that ran
         extra = {"passes"} if sec == "Preflight" else set()

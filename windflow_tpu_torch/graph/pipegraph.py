@@ -46,6 +46,11 @@ carries the JAX package's sections (``Flight_recorder``, ``Latency``,
 ``Latency_plane``, ``Tenant``, ``Roofline``, ``Gauges``, ``Health``,
 ``Device``, ``Sweep``, ``Shard``, ...); a telemetry read never takes the
 pipeline down, and a section that failed says so under ``"error"``.
+Under ``Config.tracing_enabled``, or while a ``torch.profiler`` capture
+records, each sweep runs with the host spans on (``wf:sweep`` and, inside
+it, the source tick's, the staging's, the megastep group's, each
+dispatch's and the sink's; ``monitoring/recorder.py``), read as
+``stats()["Spans"]`` and, in a capture, as ``record_function`` ranges.
 ``start()`` runs the preflight checker first (``check()``,
 ``windflow_tpu_torch/analysis``) under ``Config.preflight``, before any
 replica, staging buffer or capture exists; ``stats()["Preflight"]``
@@ -99,6 +104,7 @@ from windflow_tpu_torch.fusion.chains import edge_degrees
 from windflow_tpu_torch.fusion.executor import (apply_fusion,
                                                 attribute_member_stats)
 from windflow_tpu_torch.graph.multipipe import MultiPipe
+from windflow_tpu_torch.monitoring import recorder as flightrec
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.chained import ChainedGPU
 from windflow_tpu_torch.ops.source import Source, SourceReplica
@@ -151,6 +157,8 @@ class PipeGraph:
         self._roofline = None
         #: the monitoring thread run() starts under Config.tracing_enabled
         self._monitor = None
+        #: the host spans of the sweeps (step() turns them on)
+        self._spans = flightrec.SpanTable()
         #: the last postmortem bundle written; the lock serializes the
         #: writers (a watchdog auto-bundle and the stall/crash path)
         self._postmortem_dir = None
@@ -678,14 +686,31 @@ class PipeGraph:
     def step(self) -> bool:
         """One scheduler sweep: pull a chunk from each live source (unless
         backpressured), then drain every replica in topological order.
-        Returns True on any progress."""
+        Returns True on any progress.  Under ``Config.tracing_enabled``,
+        or while a ``torch.profiler`` capture records, the sweep runs
+        with the graph's host spans on (``wf:sweep`` and the spans inside
+        it, ``monitoring/recorder.py``; ``stats()["Spans"]``)."""
+        prof = flightrec.profiler_recording()
+        if not (prof or self.config.tracing_enabled):
+            return self._sweep()
+        tab = self._spans
+        tab.enabled = True
+        tab.profiling = prof
+        prev = flightrec.activate(tab)
+        try:
+            with tab.span("wf:sweep"):
+                return self._sweep()
+        finally:
+            flightrec.activate(prev)
+
+    def _sweep(self) -> bool:
         progress = False
         throttled = self._backpressured()
         if throttled:
             self._throttle_events += 1
         for sr in self._source_replicas:
             if not sr.exhausted and not throttled:
-                if sr.tick(self._tick_chunk(sr)):
+                if self._tick(sr):
                     progress = True
                 sr.maybe_punctuate()
         limit = self.config.sweep_drain_limit
@@ -716,7 +741,7 @@ class PipeGraph:
                 break
             ticked = False
             for sr in self._source_replicas:
-                if not sr.exhausted and sr.tick(self._tick_chunk(sr)):
+                if not sr.exhausted and self._tick(sr):
                     ticked = True
             if not ticked:
                 break
@@ -725,7 +750,7 @@ class PipeGraph:
         if not progress:
             # never deadlock on our own throttle
             for sr in self._source_replicas:
-                if not sr.exhausted and sr.tick(self._tick_chunk(sr)):
+                if not sr.exhausted and self._tick(sr):
                     progress = True
         if self._durability is not None:
             # epoch cadence: counts sweeps and, every
@@ -740,6 +765,11 @@ class PipeGraph:
             # plan and applies what fires (between megasteps too)
             self._reshard.on_sweep()
         return progress
+
+    def _tick(self, sr) -> bool:
+        # the source's own span (wf:tick:<op>) feeds its service time
+        with sr._service:
+            return sr.tick(self._tick_chunk(sr))
 
     def _tick_chunk(self, sr) -> int:
         chunk = self.config.source_tick_chunk \
@@ -1072,6 +1102,7 @@ class PipeGraph:
             "Bytes_D2H_total": sum(r.stats.d2h_bytes for r in reps),
             "Flight_recorder": (self._recorder.summary()
                                 if self._recorder is not None else off),
+            "Spans": self._spans.summary(),
             "Preflight": self._preflight_section(),
             "Latency": self._latency_section(),
             "Latency_plane": self._latency_plane_section(),

@@ -7,6 +7,10 @@ from the user, parses them to columns in C++ (``native/wf_host.cpp``
 ``io/parse.py`` when the native library is off) and hands whole columns
 to the staging emitter (``DeviceStageEmitter.emit_columns``), so a batch
 travels from bytes to the card's memory with no per-tuple Python work.
+A tick's host spans (``monitoring/recorder.span``): ``wf:source.fetch``
+(the user's iterator), ``wf:source.parse`` (the carry and the parse),
+``wf:source.columns`` (frontier, key lane, value casts) and
+``wf:stage.pack`` (the staging emitter, a megastep group's run included).
 
 Record wire format (``fmt="frames"``): little-endian ``int64 key, int64
 ts, nv × float64 values``.  CSV (``fmt="csv"``): ``key,ts,v0[,v1...]``
@@ -23,6 +27,7 @@ from windflow_tpu_torch import native
 from windflow_tpu_torch.basic import (RoutingMode, TimePolicy, WindFlowError,
                                       current_time_usecs)
 from windflow_tpu_torch.meta import adapt
+from windflow_tpu_torch.monitoring.recorder import span
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.source import BaseSourceReplica, Source
 
@@ -42,13 +47,14 @@ class FrameSourceReplica(BaseSourceReplica):
         if self._exhausted:
             return False
         try:
-            chunk = next(self._chunks)
+            with span("wf:source.fetch"):
+                chunk = next(self._chunks)
         except StopIteration:
             self._flush_carry()
             self._exhausted = True
             self._terminate()
             return True
-        self._ingest(self._carry + chunk)
+        self._ingest(chunk)
         return True
 
     def _flush_carry(self) -> None:
@@ -57,45 +63,53 @@ class FrameSourceReplica(BaseSourceReplica):
                 # a file without a trailing newline still ends in a
                 # complete record; an unterminated frame is partial
                 self._carry += b"\n"
-            self._ingest(self._carry, final=True)
+            self._ingest(b"", final=True)
 
-    def _ingest(self, buf: bytes, final: bool = False) -> None:
+    def _ingest(self, chunk: bytes, final: bool = False) -> None:
+        """Parse the carried partial record and ``chunk``, then stage the
+        records' columns; a partial record at the end is carried."""
         nv = self.op.nv
         parser = native.parse_frames if self.op.fmt == "frames" \
             else native.parse_csv
-        keys, tss, vals, consumed = parser(buf, nv)
-        self._carry = b"" if final else buf[consumed:]
+        with span("wf:source.parse"):
+            buf = self._carry + chunk
+            keys, tss, vals, consumed = parser(buf, nv)
+            self._carry = b"" if final else buf[consumed:]
         n = len(keys)
         if n == 0:
             return
-        if self.time_policy == TimePolicy.INGRESS:
-            # the chunk's records arrived with it: one arrival stamp,
-            # monotone against earlier chunks
-            base = max(current_time_usecs(), self._last_ts)
-            tss = np.full(n, base, dtype=np.int64)
-            row_wms = tss
-        else:
-            # per-row frontier: the running max event ts, so the staging
-            # emitter can stamp batches that split this chunk exactly
-            row_wms = np.maximum(np.maximum.accumulate(tss),
-                                 max(self._last_ts, 0))
-        self._last_ts = max(self._last_ts, int(tss.max()))
-        self._advance_wm(self._last_ts)
-        self.stats.outputs_sent += n
-        # int32 key lanes when the keys fit (the JAX package's rule,
-        # kept as is so both packages stage the same dtypes); wider keys
-        # keep int64
-        keys = keys.astype(np.int64)
-        if len(keys) and np.int32(keys.max() >> 31) == (keys.min() >> 31) \
-                and -(1 << 31) <= keys.min() and keys.max() < (1 << 31):
-            keys = keys.astype(np.int32)
-        cols = {"key": keys}
-        vd = self.op.value_dtype
-        for i, name in enumerate(self.op.fields):
-            cols[name] = np.ascontiguousarray(vals[:, i].astype(vd,
-                                                                copy=False))
-        self.emitter.emit_columns(cols, tss, self.current_wm,
-                                  row_wms=row_wms)
+        with span("wf:source.columns"):
+            if self.time_policy == TimePolicy.INGRESS:
+                # the chunk's records arrived with it: one arrival stamp,
+                # monotone against earlier chunks
+                base = max(current_time_usecs(), self._last_ts)
+                tss = np.full(n, base, dtype=np.int64)
+                row_wms = tss
+            else:
+                # per-row frontier: the running max event ts, so the
+                # staging emitter can stamp batches that split this chunk
+                # exactly
+                row_wms = np.maximum(np.maximum.accumulate(tss),
+                                     max(self._last_ts, 0))
+            self._last_ts = max(self._last_ts, int(tss.max()))
+            self._advance_wm(self._last_ts)
+            self.stats.outputs_sent += n
+            # int32 key lanes when the keys fit (the JAX package's rule,
+            # kept as is so both packages stage the same dtypes); wider
+            # keys keep int64
+            keys = keys.astype(np.int64)
+            if len(keys) and np.int32(keys.max() >> 31) \
+                    == (keys.min() >> 31) \
+                    and -(1 << 31) <= keys.min() and keys.max() < (1 << 31):
+                keys = keys.astype(np.int32)
+            cols = {"key": keys}
+            vd = self.op.value_dtype
+            for i, name in enumerate(self.op.fields):
+                cols[name] = np.ascontiguousarray(
+                    vals[:, i].astype(vd, copy=False))
+        with span("wf:stage.pack"):
+            self.emitter.emit_columns(cols, tss, self.current_wm,
+                                      row_wms=row_wms)
         self._count_toward_punctuation(n)
 
 

@@ -50,7 +50,11 @@ are stamped on the host at the group's launch, as in the JAX package:
 the sampled wait falls in the group, ``device_done`` after a CUDA event
 recorded behind the replay has been waited on; each stamp carries
 ``shared_k = K``.  Nothing of the recorder enters the capture: the
-captured body is the same with the recorder on or off.
+captured body is the same with the recorder on or off.  A group's host
+spans (``wf:megastep.stack``: the super-buffer; ``wf:megastep.launch``:
+the stamps, copy-in, copy, replay and clones; ``wf:megastep.emit``: the
+drain and the cadence hooks) wrap host code around the replay, and none
+enters the capture either.
 """
 
 from __future__ import annotations
@@ -438,71 +442,75 @@ class MegastepEdge:
         group, self._q = self._q, []
         carry = self._carry_init()
         g = self._group_for(step, group[0], carry)
-        nwords = group[0].buf.shape[0]
-        pool = group[0].pool
-        sup = pool.acquire(self.k * nwords)
-        for i, p in enumerate(group):
-            sup[i * nwords:(i + 1) * nwords] = p.buf
-            p.pool.release(p.buf, None)     # host copy done: no gate
-        host = torch.from_numpy(sup.view(np.int32).reshape(self.k, nwords))
-        if self.kind == "ffat_tb":
+        with flightrec.span("wf:megastep.stack"):
+            nwords = group[0].buf.shape[0]
+            pool = group[0].pool
+            sup = pool.acquire(self.k * nwords)
             for i, p in enumerate(group):
-                self._wm_np[i] = p.wm_pane
-        # the trace lane at group times: collected and dispatched as the
-        # group launches (emitted→dispatched is each batch's real wait
-        # for its group), each stamp shared by the K batches
-        ring = rep.ring
-        traced = [p.trace for p in group if p.trace is not None] \
-            if ring is not None else ()
-        if traced:
-            t_disp = current_time_usecs()
-            for tr in traced:
-                ring.record(tr[0], flightrec.COLLECTED, t_disp,
-                            shared=self.k)
-                ring.record(tr[0], flightrec.DISPATCHED, t_disp,
-                            shared=self.k)
-        if g.graph is None:
-            carry, ys = g.body(carry, host.clone(),
-                               torch.from_numpy(self._wm_np.copy())
-                               if self.kind == "ffat_tb" else None)
-            pool.release(sup, None)
-        else:
-            dev = self.op.device
-            stream = torch.cuda.current_stream(dev)
-            if carry is not None:
-                # the live state is not the graph's carry after warm-up
-                # or a per-batch ship: copy it in
-                for s, c in zip(tree_flatten(g.carry)[0],
-                                tree_flatten(carry)[0]):
-                    if s is not c:
-                        s.copy_(c)
-            g.x.copy_(host, non_blocking=True)
-            gate = torch.cuda.Event()
-            gate.record(stream)
-            if g.wm is not None:
-                wm_host = torch.empty(self.k, dtype=torch.int64,
-                                      pin_memory=True)
-                wm_host.numpy()[:] = self._wm_np
-                g.wm.copy_(wm_host, non_blocking=True)
-            g.graph.replay()
-            pool.release(sup, gate)
-            carry = g.carry
-            # the graph's outputs are rewritten by the next replay: one
-            # clone a leaf, so nothing downstream views graph memory
-            ys = tree_map(torch.clone, g.ys)
-        if traced and self._stamp_device_done(traced, ys) \
-                and rep.latency is not None:
-            self._note_freshness(group, ys)
-        self._commit_carry(carry)
-        self.megasteps += 1
-        self.batches += self.k
-        for p in group:
-            if p.ts_max is not None and p.ts_min is not None \
-                    and p.ts_max >= p.ts_min > 0:
-                self._span_sum_usec += p.ts_max - p.ts_min
-                self._span_n += 1
-        self._emit(group, ys)
-        self._post_hooks()
+                sup[i * nwords:(i + 1) * nwords] = p.buf
+                p.pool.release(p.buf, None)     # host copy done: no gate
+            host = torch.from_numpy(
+                sup.view(np.int32).reshape(self.k, nwords))
+            if self.kind == "ffat_tb":
+                for i, p in enumerate(group):
+                    self._wm_np[i] = p.wm_pane
+        with flightrec.span("wf:megastep.launch"):
+            # the trace lane at group times: collected and dispatched as the
+            # group launches (emitted→dispatched is each batch's real wait
+            # for its group), each stamp shared by the K batches
+            ring = rep.ring
+            traced = [p.trace for p in group if p.trace is not None] \
+                if ring is not None else ()
+            if traced:
+                t_disp = current_time_usecs()
+                for tr in traced:
+                    ring.record(tr[0], flightrec.COLLECTED, t_disp,
+                                shared=self.k)
+                    ring.record(tr[0], flightrec.DISPATCHED, t_disp,
+                                shared=self.k)
+            if g.graph is None:
+                carry, ys = g.body(carry, host.clone(),
+                                   torch.from_numpy(self._wm_np.copy())
+                                   if self.kind == "ffat_tb" else None)
+                pool.release(sup, None)
+            else:
+                dev = self.op.device
+                stream = torch.cuda.current_stream(dev)
+                if carry is not None:
+                    # the live state is not the graph's carry after warm-up
+                    # or a per-batch ship: copy it in
+                    for s, c in zip(tree_flatten(g.carry)[0],
+                                    tree_flatten(carry)[0]):
+                        if s is not c:
+                            s.copy_(c)
+                g.x.copy_(host, non_blocking=True)
+                gate = torch.cuda.Event()
+                gate.record(stream)
+                if g.wm is not None:
+                    wm_host = torch.empty(self.k, dtype=torch.int64,
+                                          pin_memory=True)
+                    wm_host.numpy()[:] = self._wm_np
+                    g.wm.copy_(wm_host, non_blocking=True)
+                g.graph.replay()
+                pool.release(sup, gate)
+                carry = g.carry
+                # the graph's outputs are rewritten by the next replay: one
+                # clone a leaf, so nothing downstream views graph memory
+                ys = tree_map(torch.clone, g.ys)
+            if traced and self._stamp_device_done(traced, ys) \
+                    and rep.latency is not None:
+                self._note_freshness(group, ys)
+        with flightrec.span("wf:megastep.emit"):
+            self._commit_carry(carry)
+            self.megasteps += 1
+            self.batches += self.k
+            for p in group:
+                if p.ts_max is not None and p.ts_min is not None \
+                        and p.ts_max >= p.ts_min > 0:
+                    self._span_sum_usec += p.ts_max - p.ts_min
+                    self._span_n += 1
+            self._emit(group, ys)
+            self._post_hooks()
 
     def _stamp_device_done(self, traced, ys) -> bool:
         """``device_done`` for the group's traced batches when the

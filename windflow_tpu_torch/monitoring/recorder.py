@@ -32,12 +32,31 @@ This module records it a batch at a time:
 
 With ``Config.flight_recorder`` off no recorder is built: replicas hold
 ``ring = None`` and emitters ``flight = None``.
+
+* **Host spans.**  Where the batch stamps say when, the spans say where
+  the host's one thread spends a sweep.  :func:`span` opens a named span
+  of the graph's :class:`SpanTable` (``count``, ``total_ns`` and
+  ``self_ns`` a name; self time is the span less the spans nested in
+  it); while a ``torch.profiler`` capture records, each span also opens
+  ``record_function(<name>)``, so the capture holds the spans on the
+  clock of the card's kernels and copies.  ``PipeGraph.step`` turns the
+  spans on for a sweep under ``Config.tracing_enabled`` or while a
+  profiler records; off, :func:`span` is one attribute check that
+  returns the shared no-op :data:`NO_SPAN` and reads no clock.  The
+  spans are those of the thread that runs the sweep (the host worker
+  pool's threads record none).  A replica's own span
+  (:class:`ServiceSpan`: ``wf:drain:<op>`` a dispatch, ``wf:tick:<op>``
+  a source tick) always takes its two clock reads, which feed the
+  replica's service histogram, and joins the table when the spans are
+  on.  ``stats()["Spans"]`` is :meth:`SpanTable.summary`.
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -304,3 +323,191 @@ def write_chrome_trace(events: List[dict], path: str,
     with open(path, "w") as f:
         json.dump(chrome_trace_from_events(events, metadata), f)
     return path
+
+
+# -- host spans ---------------------------------------------------------------
+
+class _NoSpan:
+    """The context every :func:`span` returns while spans are off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+#: the shared no-op span
+NO_SPAN = _NoSpan()
+
+
+class _Active(threading.local):
+    #: the table of the sweep running on this thread, None when its
+    #: spans are off
+    table = None
+
+
+_active = _Active()
+
+
+def span(name: str):
+    """A context manager timing ``name`` in the running sweep's
+    :class:`SpanTable`; :data:`NO_SPAN` while spans are off."""
+    tab = _active.table
+    if tab is None:
+        return NO_SPAN
+    return tab.span(name)
+
+
+def activate(table: Optional["SpanTable"]) -> Optional["SpanTable"]:
+    """Make ``table`` this thread's span table (None: spans off);
+    returns the previous one, for the caller to restore."""
+    prev = _active.table
+    _active.table = table
+    return prev
+
+
+def note_staged(n: int = 1) -> None:
+    """Count ``n`` batches staged into the running sweep's table (the
+    per-batch denominator of its spans)."""
+    tab = _active.table
+    if tab is not None:
+        tab.batches_staged += n
+
+
+_tprof = None
+
+
+def profiler_recording() -> bool:
+    """True while a ``torch.profiler`` capture records (torch's own
+    flag, set by the profiler's start and cleared by its stop)."""
+    global _tprof
+    if _tprof is None:
+        from torch.autograd import profiler
+        _tprof = profiler
+    return bool(getattr(_tprof, "_is_profiler_enabled", False))
+
+
+class _Span:
+    """One name's span of a table, made once and entered again at every
+    site of that name."""
+
+    __slots__ = ("table", "name", "index")
+
+    def __init__(self, table: "SpanTable", name: str, index: int) -> None:
+        self.table = table
+        self.name = name
+        self.index = index
+
+    def __enter__(self):
+        self.table.enter(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.table.exit()
+        return False
+
+
+class SpanTable:
+    """Graph-scoped host spans: per name, ``count``, ``total_ns`` and
+    ``self_ns`` (the span's time less that of the spans nested in it),
+    and the stack of open spans.  ``clock`` is injectable (the tests')."""
+
+    def __init__(self, clock=time.perf_counter_ns) -> None:
+        self.clock = clock
+        #: True once a sweep ran with the spans on
+        self.enabled = False
+        #: open ``record_function`` beside each span (a profiler records)
+        self.profiling = False
+        #: batches staged while the spans were on
+        self.batches_staged = 0
+        self._spans = {}
+        self.names: List[str] = []
+        self.count: List[int] = []
+        self.total_ns: List[int] = []
+        self.self_ns: List[int] = []
+        #: open spans: [index, start, nested ns, record_function or None]
+        self._stack: list = []
+
+    def span(self, name: str) -> _Span:
+        s = self._spans.get(name)
+        if s is None:
+            s = _Span(self, name, len(self.names))
+            self.names.append(name)
+            self.count.append(0)
+            self.total_ns.append(0)
+            self.self_ns.append(0)
+            self._spans[name] = s
+        return s
+
+    def enter(self, s: _Span) -> None:
+        rf = None
+        if self.profiling:
+            profiler_recording()        # loads torch's profiler module
+            rf = _tprof.record_function(s.name)
+            rf.__enter__()
+        self._stack.append([s.index, self.clock(), 0, rf])
+
+    def exit(self) -> int:
+        """Close the innermost span; returns its duration in ns."""
+        t1 = self.clock()
+        i, t0, nested, rf = self._stack.pop()
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        dur = t1 - t0
+        self.count[i] += 1
+        self.total_ns[i] += dur
+        self.self_ns[i] += dur - nested
+        if self._stack:
+            self._stack[-1][2] += dur
+        return dur
+
+    def summary(self) -> dict:
+        """``stats()["Spans"]``: ``{"enabled": False}`` until the spans
+        have been on."""
+        if not self.enabled:
+            return {"enabled": False}
+        rows = list(zip(self.names, self.count, self.total_ns,
+                        self.self_ns))
+        return {"enabled": True, "batches_staged": self.batches_staged,
+                "spans": {n: {"count": c, "total_ms": t / 1e6,
+                              "self_ms": s / 1e6}
+                          for n, c, t, s in rows}}
+
+
+class ServiceSpan:
+    """A replica's own span (``wf:drain:<op>`` around each dispatch,
+    ``wf:tick:<op>`` around a source's tick).  Its two clock reads are
+    always taken and feed ``stats``' service time and histogram; while
+    the spans are on the same reads are the table's.  One thread drives a
+    replica, so one instance serves every entry."""
+
+    __slots__ = ("name", "stats", "_t0", "_tab")
+
+    def __init__(self, name: str, stats) -> None:
+        self.name = name
+        self.stats = stats
+        self._t0 = 0
+        self._tab = None
+
+    def __enter__(self):
+        tab = _active.table
+        self._tab = tab
+        if tab is None:
+            self._t0 = time.perf_counter_ns()
+        else:
+            tab.enter(tab.span(self.name))
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        tab = self._tab
+        if tab is None:
+            dur = time.perf_counter_ns() - self._t0
+        else:
+            self._tab = None
+            dur = tab.exit()
+        if exc_type is None:
+            self.stats.add_service(dur / 1e3)
+        return False

@@ -5,20 +5,21 @@ A replica records its inputs, outputs, transfer bytes and service times;
 device replicas also count their step launches.  Beside the lifetime
 counters and the running average, every replica keeps log-bucketed
 latency histograms (``monitoring/recorder.py``): ``service_hist`` holds
-every per-batch service span, and sinks fill ``e2e_hist`` with
-staged→sunk latencies from the flight recorder's trace lane.  Both
-surface as ``p50/p95/p99`` here and, merged, in ``PipeGraph.stats()``.
+every service span, and sinks fill ``e2e_hist`` with staged→sunk
+latencies from the flight recorder's trace lane.  Both surface as
+``p50/p95/p99`` here and, merged, in ``PipeGraph.stats()``.
 
-A service span is host time: the step's Python and launch work, not the
-device work it enqueued (that is the flight recorder's ``device_done``).
+A service span is the replica's own host span
+(``recorder.ServiceSpan``): an operator's dispatch of one batch
+(``wf:drain:<op>``), a source's tick (``wf:tick:<op>``).  It is host
+time: the step's Python and launch work, not the device work it enqueued
+(that is the flight recorder's ``device_done``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
-from windflow_tpu_torch.analysis import debug_concurrency as _dbg
 from windflow_tpu_torch.basic import current_time_usecs
 from windflow_tpu_torch.monitoring.recorder import LatencyHistogram
 
@@ -52,23 +53,13 @@ class StatsRecord:
     #: lane
     e2e_hist: LatencyHistogram = dataclasses.field(
         default_factory=LatencyHistogram)
-    _t0: float = 0.0
 
-    def start_sample(self) -> None:
-        if _dbg.ENABLED:
-            # a stats record belongs to one replica, driven by one thread
-            # at a time: an overlapping bracket from another thread means
-            # two threads drive the same replica
-            _dbg.enter(self, "StatsRecord.start_sample")
-        self._t0 = time.perf_counter()
-
-    def end_sample(self) -> None:
-        dur = (time.perf_counter() - self._t0) * 1e6
-        self.service_time_usec += dur
+    def add_service(self, usec: float) -> None:
+        """One service span: the replica's own host span
+        (``monitoring/recorder.ServiceSpan``)."""
+        self.service_time_usec += usec
         self.num_service_samples += 1
-        self.service_hist.add(dur)
-        if _dbg.ENABLED:
-            _dbg.exit_(self)
+        self.service_hist.add(usec)
 
     def avg_service_time_usec(self) -> float:
         if self.num_service_samples == 0:

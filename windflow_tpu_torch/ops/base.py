@@ -10,6 +10,9 @@ EOS, and terminates.  A replica keeps its ``StatsRecord``
 (``monitoring/stats.py``) and, with the flight recorder on, its span
 ring: ``_dispatch`` stamps ``collected`` on a
 traced batch and, at a sink, ``sunk`` plus the staged→sunk latency.
+Each dispatch of a batch runs inside the replica's own host span
+(``wf:drain:<op>``, ``monitoring/recorder.ServiceSpan``), whose clock
+reads feed the stats record's service time.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ class Replica:
     #: replicas whose user function may mutate its input copy a shared
     #: (multicast) tuple first (reference ``copyOnWrite``, map.hpp:57-215)
     copy_on_shared = False
+    #: the replica's own span is ``wf:<span_kind>:<operator>``
+    span_kind = "drain"
 
     def __init__(self, op: "Operator", index: int) -> None:
         self.op = op
@@ -55,6 +60,10 @@ class Replica:
         self._hooked_wm = WM_NONE
         self.stats = StatsRecord(operator_name=op.name, replica_index=index,
                                  is_gpu=op.is_gpu)
+        #: the replica's own host span: each dispatch's two clock reads
+        #: feed the stats record's service time and histogram
+        self._service = flightrec.ServiceSpan(
+            f"wf:{self.span_kind}:{op.name}", self.stats)
         #: flight-recorder span ring (monitoring/recorder.py), bound by
         #: PipeGraph._build when Config.flight_recorder is on; None
         #: leaves one `is not None` check a batch
@@ -138,13 +147,12 @@ class Replica:
 
     def _dispatch(self, msg) -> None:
         if _dbg.ENABLED:
-            # the stats bracket (start_sample enters a guard, end_sample
-            # leaves it) spans this method; an operator raising mid-batch
-            # must not leave a stale entry behind
-            try:
+            # a stats record belongs to one replica, driven by one thread
+            # at a time: an overlapping dispatch from another thread means
+            # two threads drive the same replica (exception safe: an
+            # operator raising mid-batch leaves no stale entry behind)
+            with _dbg.entry_guard(self.stats, "Replica._dispatch"):
                 return self._dispatch_impl(msg)
-            finally:
-                _dbg.exit_(self.stats)
         return self._dispatch_impl(msg)
 
     def _dispatch_impl(self, msg) -> None:
@@ -160,30 +168,29 @@ class Replica:
         if tr is not None:
             self.ring.record(tr[0], flightrec.COLLECTED,
                              current_time_usecs())
-        self.stats.start_sample()
-        if isinstance(msg, DeviceBatch):
-            self._advance_wm(msg.watermark)
-            self.stats.inputs_received += msg.known_size or 0
-            self.process_device_batch(msg)
-        else:
-            if not isinstance(msg, HostBatch):
-                raise WindFlowError(
-                    f"operator '{self.op.name}' received {type(msg)}")
-            self._advance_wm(msg.watermark)
-            self.stats.inputs_received += len(msg)
-            # a multicast batch is shared by sibling replicas: an
-            # in-place-capable operator mutates a private copy
-            cow = msg.shared and self.copy_on_shared
-            for item, ts, tid in zip(msg.items, msg.tss,
-                                     msg.ids_or_nones()):
-                if cow:
-                    item = copy.deepcopy(item)
-                self.cur_tid = tid
-                self.context._set_context(ts, msg.watermark)
-                self.process_single(item, ts, msg.watermark)
-            self.cur_tid = None
-        self._maybe_hook_wm()
-        self.stats.end_sample()
+        with self._service:
+            if isinstance(msg, DeviceBatch):
+                self._advance_wm(msg.watermark)
+                self.stats.inputs_received += msg.known_size or 0
+                self.process_device_batch(msg)
+            else:
+                if not isinstance(msg, HostBatch):
+                    raise WindFlowError(
+                        f"operator '{self.op.name}' received {type(msg)}")
+                self._advance_wm(msg.watermark)
+                self.stats.inputs_received += len(msg)
+                # a multicast batch is shared by sibling replicas: an
+                # in-place-capable operator mutates a private copy
+                cow = msg.shared and self.copy_on_shared
+                for item, ts, tid in zip(msg.items, msg.tss,
+                                         msg.ids_or_nones()):
+                    if cow:
+                        item = copy.deepcopy(item)
+                    self.cur_tid = tid
+                    self.context._set_context(ts, msg.watermark)
+                    self.process_single(item, ts, msg.watermark)
+                self.cur_tid = None
+            self._maybe_hook_wm()
         if tr is not None and self.op.is_terminal:
             # the staged→sunk span closes at sink receipt (a deferred
             # columnar sink copies later)

@@ -1,7 +1,9 @@
 """Sink operator (the port of ``windflow_tpu/ops/sink.py``; reference
 ``sink.hpp:56-``): the user function receives each tuple, and ``None``
 once at end-of-stream.  Columnar mode (``withColumnarSink``) delivers one
-:class:`SinkColumns` per device batch instead of per-record dicts."""
+:class:`SinkColumns` per device batch instead of per-record dicts.  A
+device batch's host spans: ``wf:egress`` (the device-to-host copy) and
+``wf:sink`` (the user's function)."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Any, Callable, Optional
 
 from windflow_tpu_torch.basic import RoutingMode
 from windflow_tpu_torch.meta import adapt
+from windflow_tpu_torch.monitoring.recorder import span
 from windflow_tpu_torch.ops.base import Operator, Replica
 
 
@@ -47,18 +50,23 @@ class SinkReplica(Replica):
                 self._deliver_columns(pend)
             return
         from windflow_tpu_torch.batch import device_to_host
-        hb = device_to_host(batch)
-        for item, ts in zip(hb.items, hb.tss):
-            self.context._set_context(ts, batch.watermark)
-            self._fn(item, self.context)
+        with span("wf:egress"):
+            hb = device_to_host(batch)
+        with span("wf:sink"):
+            for item, ts in zip(hb.items, hb.tss):
+                self.context._set_context(ts, batch.watermark)
+                self._fn(item, self.context)
 
     def _deliver_columns(self, batches):
         from windflow_tpu_torch.batch import device_to_columns_multi
-        for b, (cols, tss) in zip(batches,
-                                  device_to_columns_multi(batches)):
-            if len(tss):
-                self.context._set_context(int(tss[-1]), b.watermark)
-                self._fn(SinkColumns(cols, tss, b.watermark), self.context)
+        with span("wf:egress"):
+            got = device_to_columns_multi(batches)
+        with span("wf:sink"):
+            for b, (cols, tss) in zip(batches, got):
+                if len(tss):
+                    self.context._set_context(int(tss[-1]), b.watermark)
+                    self._fn(SinkColumns(cols, tss, b.watermark),
+                             self.context)
 
     def on_eos(self):
         if self._pending:

@@ -23,6 +23,9 @@ class BaseSourceReplica(Replica):
     every ``punctuation_interval_usec`` of wall clock, or every
     ``punctuation_amount`` tuples when that is > 0."""
 
+    #: a source's own span is its tick (``PipeGraph._tick``)
+    span_kind = "tick"
+
     def __init__(self, op: Operator, index: int) -> None:
         super().__init__(op, index)
         self._tid_seq = 0

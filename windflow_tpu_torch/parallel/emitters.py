@@ -465,7 +465,8 @@ class DeviceStageEmitter(Emitter):
     ``flush`` ships the open columnar builder, then the buffered chunks,
     then the record path's open batch.  ``packed_batches``,
     ``chunked_batches`` and ``record_batches`` count what each route
-    staged.
+    staged; while the host spans are on, each staged batch also counts
+    in the span table's ``batches_staged`` (``recorder.note_staged``).
 
     Wire plane (``wire.py``, enabled by ``wire.attach_wire``): a finished
     packed buffer is re-encoded lane by lane into a pooled wire buffer,
@@ -636,6 +637,7 @@ class DeviceStageEmitter(Emitter):
             self.stats.h2d_bytes += buf.nbytes
             self.stats.h2d_logical_bytes += logical_nbytes
         self.packed_batches += 1
+        flightrec.note_staged()
         pkt = _StagedPacket(buf, fmt, wm, self._frontier, self._b_ts_min,
                             self._b_ts_max, b.n, b.pool, self._b_treedef,
                             self._b_dtypes, b.capacity,
@@ -699,6 +701,7 @@ class DeviceStageEmitter(Emitter):
             self.stats.h2d_bytes += transfer_nbytes(db)
             self.stats.h2d_logical_bytes += transfer_nbytes(db)
         self.chunked_batches += 1
+        flightrec.note_staged()
         self._ship(db)
 
     def flush(self, wm):
@@ -741,6 +744,7 @@ class DeviceStageEmitter(Emitter):
             self.stats.h2d_bytes += transfer_nbytes(db)
             self.stats.h2d_logical_bytes += transfer_nbytes(db)
         self.record_batches += 1
+        flightrec.note_staged()
         self._ship(db)
 
     def _ship_records_packed(self) -> bool:
