@@ -5047,7 +5047,9 @@ def serving_runs(dev_name="cuda"):
                                      else None)
                 p14_run(f"(d) {fmt} {'native' if nat else 'numpy'}", g, n,
                         out, need=("grouping_rank_hist", "sliding_fold"),
-                        native_need=(f"parse_{fmt}",) if nat else ())
+                        native_need=(
+                            ("scan_frames", "pack_frames") if fmt == "frames"
+                            else ("parse_csv",)) if nat else ())
                 if not nat and native.call_counts():
                     fail("phase 14 (d): WF_TPU_NO_NATIVE run entered the "
                          "native library")

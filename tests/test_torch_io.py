@@ -16,6 +16,13 @@ Seeded numpy input goes through both packages:
   watermark, frontier and timestamp extrema, on a stream with per-row
   frontiers, on a mixed record-and-columnar stream, and on a lane that is
   not packable (the chunk route);
+* the frame source's direct route (frames written straight into the
+  packed staging buffer) against the column route fed the numpy
+  parser's columns of the same bytes, buffer for buffer and bit for bit
+  (keys of every width, NaN and infinities, out-of-order ts, records and
+  batches split across chunks, a key width that changes), and where the
+  route engages: frames into a plain staging emitter only, with the same
+  results as the column route everywhere;
 * the DeviceSource families of tests/test_device_source.py;
 * the declared floating-point sum (CB and TB): the same bits on two runs,
   within rtol 1e-5 of the JAX package (its sequential scatter-add and the
@@ -23,6 +30,7 @@ Seeded numpy input goes through both packages:
 """
 
 import dataclasses
+import zlib
 
 import numpy as np
 import pytest
@@ -447,6 +455,229 @@ def test_columnar_sources_need_the_card_unless_asked():
         g.add_source(src).add_sink(wt.Sink_Builder(lambda t: None).build())
         with pytest.raises(wt.WindFlowError, match="CUDA"):
             g.run()
+
+
+# ---------------------------------------------------------------------------
+# the direct route: frames written straight into the staging buffer
+# ---------------------------------------------------------------------------
+
+DIRECT_CAP, DIRECT_N = 64, 700
+#: NaN (both signs), the infinities, a signed zero, float32 overflow and
+#: underflow, and a value between two float32s
+_SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 1e300,
+                      1e-300, 1.0 + 2.0 ** -30])
+_FIELDS = {1: ["v0"],
+           5: ["event_type", "ad_type", "user_id", "page_id", "ip"]}
+
+
+def _direct_blob(keys_kind, nv, ts_kind, seed):
+    """Frames whose keys fit int32 (non-negative or negative), are wider
+    than int32, mix signs (an int64 lane by the rule), or switch width
+    twice along the stream; values with NaN, infinities and values
+    float32 cannot hold; ts monotone or out of order (a few negative)."""
+    rng = np.random.default_rng(seed)
+    n = DIRECT_N
+    lo, hi = {"int32": (0, 2 ** 31), "negative": (-2 ** 31, 0),
+              "wide": (-2 ** 40, 2 ** 40), "mixed": (-5, 5),
+              "switch": (0, 2 ** 31)}[keys_kind]
+    keys = rng.integers(lo, hi, n)
+    if keys_kind == "switch":
+        keys[250:450] = rng.integers(2 ** 31, 2 ** 40, 200)
+    tss = (np.arange(n, dtype=np.int64) * 3 + 10 if ts_kind == "monotone"
+           else rng.integers(-50, 3 * n, n))
+    vals = rng.standard_normal((n, nv)) * 1e3
+    vals.flat[rng.choice(n * nv, 40, replace=False)] = \
+        rng.choice(_SPECIALS, 40)
+    return _frames(keys, tss, vals)
+
+
+def _direct_chunks(blob, nv, chunking, seed):
+    """Chunk sizes drawn from the seed: whole records (some chunks larger
+    than a batch), or any byte count (records split across chunks, some
+    chunks shorter than one record)."""
+    rng = np.random.default_rng(seed + 1)
+    rec = parse.frame_record_bytes(nv)
+    view, bounds, pos = memoryview(blob), [], 0
+    while pos < len(blob):
+        step = (int(rng.integers(1, 3 * DIRECT_CAP)) * rec
+                if chunking == "whole"
+                else int(rng.choice([int(rng.integers(1, rec)),
+                                     int(rng.integers(1, 3 * DIRECT_CAP
+                                                      * rec))])))
+        bounds.append((pos, pos + step))
+        pos += step
+    return lambda: (view[a:b] for a, b in bounds)
+
+
+def _stage_frames(chunks_fn, nv, value_dtype, cap):
+    """Drive one FrameSource replica (EVENT time) into a plain staging
+    emitter; returns what it shipped, in order, and the replica: each
+    packed batch's buffer and stamps, or a chunk-route batch's view."""
+    from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+    src = wt.FrameSource(chunks_fn, nv=nv, fields=_FIELDS[nv],
+                         value_dtype=value_dtype, output_batch_size=cap)
+    rep = src.replica_class(src, 0)
+    rep.time_policy = wt.TimePolicy.EVENT
+    em = DeviceStageEmitter([(_Capture(), 0)], cap, torch.device("cpu"))
+    shipped = []
+    em._ship_packed = lambda p: shipped.append(
+        ("packed", p.buf.copy(), p.wm, p.frontier, p.ts_min, p.ts_max, p.n,
+         p.dtypes, p.treedef, p.fmt))
+    em._ship = lambda db: shipped.append(("batch", _batch_view(db)))
+    rep.emitter = em
+    rep.start()
+    while not rep.exhausted:
+        rep.tick(0)
+    return shipped, rep
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered in cast")
+@pytest.mark.parametrize("chunking", ["whole", "split"])
+@pytest.mark.parametrize("ts_kind", ["monotone", "out_of_order"])
+@pytest.mark.parametrize("value_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nv", [1, 5])
+@pytest.mark.parametrize("keys_kind", ["int32", "negative", "wide", "mixed",
+                                       "switch"])
+@pytest.mark.parametrize("cap", [DIRECT_CAP, 100])
+def test_direct_route_stages_the_bytes_of_the_column_route(
+        cap, keys_kind, nv, value_dtype, ts_kind, chunking, monkeypatch):
+    """The direct route against the column route fed the numpy parser's
+    columns of the same bytes: the same packed buffers, bit for bit, with
+    the same stamps, sizes, dtypes and lane structure.  float64 values do
+    not pack: both sides take the chunk route.  At 64 rows a batch every
+    lane starts a cache line (the native pass streams 16-row blocks); at
+    100 some do not (plain stores throughout)."""
+    from windflow_tpu_torch import native as tnative
+    seed = zlib.crc32(f"{keys_kind} {nv} {ts_kind} {chunking}".encode())
+    blob = _direct_blob(keys_kind, nv, ts_kind, seed)
+    chunks = _direct_chunks(blob, nv, chunking, seed)
+    monkeypatch.setenv("WF_TPU_NO_NATIVE", "1")
+    want, ref = _stage_frames(chunks, nv, value_dtype, cap)
+    monkeypatch.delenv("WF_TPU_NO_NATIVE")
+    tnative.reset_call_counts()
+    got, rep = _stage_frames(chunks, nv, value_dtype, cap)
+    packs = value_dtype is np.float32
+    assert ref.direct_rows == 0
+    assert rep.direct_rows == (DIRECT_N if packs else 0)
+    assert rep.stats.outputs_sent == ref.stats.outputs_sent == DIRECT_N
+    assert ("pack_frames" in tnative.call_counts()) is packs
+    assert len(got) == len(want) >= -(-DIRECT_N // cap)
+    for g, w in zip(got, want):
+        assert g[0] == w[0] == ("packed" if packs else "batch")
+        if packs:
+            assert g[1].dtype == w[1].dtype and g[1].shape == w[1].shape
+            np.testing.assert_array_equal(g[1], w[1])
+            assert g[2:] == w[2:]
+        else:
+            gl, wl = g[1], w[1]
+            assert list(gl[0]) == list(wl[0])
+            for k in wl[0]:
+                assert gl[0][k].dtype == wl[0][k].dtype, k
+                assert gl[0][k].tobytes() == wl[0][k].tobytes(), k
+            np.testing.assert_array_equal(gl[1], wl[1])
+            assert gl[2:] == wl[2:]
+    if keys_kind == "switch" and packs:
+        # each change of the key lane's width finalizes the open batch
+        assert {g[7][g[8][1].index("key")] for g in got} \
+            == {"int32", "int64"}
+        assert len(got) > -(-DIRECT_N // cap)
+
+
+ROUTE_CAP, ROUTE_N, ROUTE_KEYS = 64, 1000, 8
+#: the cases of test_direct_route_engages_where_the_packed_route_would:
+#: the one that takes the direct route, then each that bypasses it
+ROUTE_CASES = ["device", "csv", "ingress", "host", "probe", "keyed", "mesh",
+               "no_native"]
+
+
+def _route_blob(fmt):
+    rng = np.random.default_rng(31)
+    keys = rng.integers(0, ROUTE_KEYS, ROUTE_N)
+    tss = np.arange(ROUTE_N, dtype=np.int64) * 5
+    vals = rng.integers(-9, 10, (ROUTE_N, 2)).astype(np.float64)
+    if fmt == "frames":
+        return _frames(keys, tss, vals)
+    return "".join(f"{k},{t},{a:g},{z:g}\n" for k, t, (a, z) in zip(
+        keys.tolist(), tss.tolist(), vals.tolist())).encode()
+
+
+def _route_run(case):
+    """One graph a case, fed 997-byte chunks (records split across
+    chunks, batches across chunks): the sink's rows, sorted, and the
+    source replica.  Fields ``a`` and ``z`` put the key lane between
+    the value lanes."""
+    from windflow_tpu_torch.parallel import mesh as M
+    fmt = "csv" if case == "csv" else "frames"
+    policy = wt.TimePolicy.INGRESS if case == "ingress" \
+        else wt.TimePolicy.EVENT
+    kw = {"mesh": M.make_mesh(4, devices=["cpu"] * 4)} \
+        if case == "mesh" else {}
+    g = wt.PipeGraph(f"route_{case}", wt.ExecutionMode.DEFAULT, policy,
+                     config=_port_cfg(**kw))
+    src = wt.FrameSource(_chunks(_route_blob(fmt), 997), nv=2,
+                         fields=["a", "z"], fmt=fmt,
+                         output_batch_size=ROUTE_CAP)
+    out = []
+    pipe = g.add_source(src)
+    if case == "host":
+        pipe.add_sink(wt.Sink_Builder(lambda t: out.append(
+            (t["key"], t["a"], t["z"])) if t is not None else None).build())
+    else:
+        if case in ("keyed", "mesh"):
+            pipe.add(wt.ReduceGPU_Builder(lambda x, y: {
+                n: torch.maximum(x[n], y[n]) for n in ("key", "a", "z")})
+                .withKeyBy(lambda t: t["key"]).withMaxKeys(ROUTE_KEYS)
+                .withMonoidCombiner("max")
+                .withParallelism(2 if case == "keyed" else 1).build())
+        else:
+            if case != "probe":     # a map ahead: a fused tail, no probe
+                pipe.add(wt.MapGPU_Builder(lambda t: {
+                    "key": t["key"], "a": t["a"] * 2.0, "z": t["z"]})
+                    .build())
+            pipe.add(wt.Ffat_WindowsGPU_Builder(
+                lambda t: t["a"] - t["z"], lambda x, y: x + y)
+                .withCBWindows(16, 4).withKeyBy(lambda t: t["key"])
+                .withMaxKeys(ROUTE_KEYS).build())
+
+        def sink(c):
+            if c is not None:
+                out.extend(zip(*(np.asarray(c.cols[n]).tolist()
+                                 for n in sorted(c.cols))))
+        pipe.add_sink(wt.Sink_Builder(sink).withColumnarSink().build())
+    g.run()
+    return sorted(out), g, src.replicas[0]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_direct_route_engages_where_the_packed_route_would(case,
+                                                          monkeypatch):
+    """Frames into a plain staging emitter take the direct route, every
+    row of them; CSV, INGRESS time, a host destination, a key probe, the
+    keyed and the aligned-mesh staging emitters and WF_TPU_NO_NATIVE
+    take the column route, none.  Each graph's results equal the same
+    graph's with the direct route shut (the column route alone)."""
+    from windflow_tpu_torch.io.frames import FrameSourceReplica
+    from windflow_tpu_torch.parallel import emitters as E
+    if case == "no_native":
+        monkeypatch.setenv("WF_TPU_NO_NATIVE", "1")
+    got, g, rep = _route_run(case)
+    ing = g.stats()["Staging"]["Ingest"]
+    direct = case == "device"
+    assert ing["rows"] == rep.stats.outputs_sent == ROUTE_N
+    assert ing["direct_rows"] == rep.direct_rows == (ROUTE_N if direct
+                                                     else 0)
+    assert ing["direct_share"] == (1.0 if direct else 0.0)
+    assert (ing["direct_chunks"] > 0) is direct
+    em = {"host": E.ForwardEmitter, "keyed": E.KeyedDeviceStageEmitter,
+          "mesh": E.AlignedMeshStageEmitter}.get(case, E.DeviceStageEmitter)
+    assert type(rep.emitter) is em
+    assert (getattr(rep.emitter, "_shard_probe", None) is not None) \
+        is (case in ("probe", "mesh"))
+    monkeypatch.setattr(FrameSourceReplica, "_takes_direct",
+                        lambda self: False)
+    want, g0, rep0 = _route_run(case)
+    assert rep0.direct_rows == 0 and len(want) > 0
+    assert got == want
 
 
 # ---------------------------------------------------------------------------

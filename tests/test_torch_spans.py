@@ -8,7 +8,9 @@
   eager megastep body) under a CPU ``torch.profiler``: the capture holds
   every ``wf:`` span, each nested in a ``wf:sweep``; ``stats()["Spans"]``
   counts the chunks ticked, the packed batches and the megasteps, and
-  the self times add up to the sweeps' time;
+  the self times add up to the sweeps' time; its frames take the
+  direct route, whose native passes open ``wf:source.parse`` inside
+  ``wf:stage.pack``, and the three ingest spans still open;
 * the service spans: ``service_usec_per_operator`` now holds the source's
   ticks, with the spans on or off, and the host worker pool's threads
   time their dispatches without touching the sweep's table;
@@ -238,8 +240,10 @@ def test_counts_match_chunks_batches_and_megasteps(profiled):
     counts = {k: v["count"] for k, v in sp["spans"].items()}
     # the fetch and the tick run once more: the fetch that ends the stream
     assert counts["wf:source.fetch"] == counts["wf:tick:src"] == CHUNKS + 1
-    assert counts["wf:source.parse"] == counts["wf:source.columns"] \
-        == counts["wf:stage.pack"] == CHUNKS
+    assert counts["wf:source.columns"] == counts["wf:stage.pack"] == CHUNKS
+    # the direct route: the first pass a chunk, then one native pass a
+    # slice (each chunk fills two batches)
+    assert counts["wf:source.parse"] == CHUNKS + N // CAP
     em = _emitter(g)
     assert sp["batches_staged"] == em.packed_batches == N // CAP
     edge = g.stats()["Megastep"]["edges"][0]
@@ -251,6 +255,27 @@ def test_counts_match_chunks_batches_and_megasteps(profiled):
     # every span nests in a sweep: the self times add up to the sweeps'
     tab = g._spans
     assert sum(tab.self_ns) == _row(tab, "wf:sweep")[1]
+
+
+def test_direct_route_opens_the_three_ingest_spans(profiled):
+    """The graph's frames take the direct route (every row), and its
+    ingest spans open and add up inside the sweeps: the benchmark's
+    ``ingest_host_ms_per_batch`` (their self ms over the batches staged)
+    reads a number."""
+    _, g, _ = profiled
+    st = g.stats()
+    assert st["Staging"]["Ingest"]["direct_share"] == 1.0
+    assert st["Staging"]["Ingest"]["direct_rows"] == N
+    sp = st["Spans"]
+    names = ("wf:source.parse", "wf:source.columns", "wf:stage.pack")
+    assert all(sp["spans"][n]["count"] >= 1 for n in names)
+    tab = g._spans
+    ingest_ns = sum(_row(tab, n)[2] for n in names)
+    assert 0 < ingest_ns <= _row(tab, "wf:sweep")[1]
+    assert sp["batches_staged"] > 0
+    per_batch = sum(sp["spans"][n]["self_ms"] for n in names) \
+        / sp["batches_staged"]
+    assert per_batch > 0
 
 
 def test_records_equal_with_the_spans_on_and_off(profiled):

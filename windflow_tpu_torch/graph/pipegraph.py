@@ -903,6 +903,21 @@ class PipeGraph:
         return self._guarded(self, lambda: wire_section(self),
                              error_section={"enabled": None})
 
+    def _ingest_section(self) -> dict:
+        """``stats()["Staging"]["Ingest"]``: the rows and chunks the
+        frame sources' direct route wrote straight into the staging
+        buffers (``io/frames.py``), and the rows those sources handed
+        over in all."""
+        from windflow_tpu_torch.io.frames import FrameSourceReplica
+        reps = [r for r in self._source_replicas
+                if isinstance(r, FrameSourceReplica)]
+        rows = sum(r.stats.outputs_sent for r in reps)
+        direct = sum(r.direct_rows for r in reps)
+        return {"direct_rows": direct,
+                "direct_chunks": sum(r.direct_chunks for r in reps),
+                "rows": rows,
+                "direct_share": round(direct / rows, 4) if rows else 0.0}
+
     def _ir_audit_section(self) -> dict:
         """The capture audit (``analysis/ir_audit.py``): WF9xx findings
         over this graph's recorded step bodies and captures, re-read
@@ -1087,7 +1102,8 @@ class PipeGraph:
             "Thread_pinning": "OFF",
             "Host_worker_threads": cfg.host_worker_threads,
             "Staging_pool": _staging_pool_stats(),
-            "Staging": {"Wire": self._wire_section()},
+            "Staging": {"Wire": self._wire_section(),
+                        "Ingest": self._ingest_section()},
             "Stage_prefetch_depth": cfg.stage_prefetch_depth,
             "Stage_prefetch_ticks": self._prefetch_ticks,
             "Dropped_tuples": self.get_num_dropped_tuples(),

@@ -12,6 +12,26 @@ A tick's host spans (``monitoring/recorder.span``): ``wf:source.fetch``
 ``wf:source.columns`` (frontier, key lane, value casts) and
 ``wf:stage.pack`` (the staging emitter, a megastep group's run included).
 
+**The direct route.**  Frames under EVENT time, into a plain
+``DeviceStageEmitter`` whose packed route would take the chunk
+(``takes_frames``), with the native library loaded, build no columns at
+all: one native pass a slice writes the records straight into the open
+packed staging buffer (``DeviceStageEmitter.emit_frames``,
+``PackedBatchBuilder.append_frames``, ``native.pack_frames``), with the
+key lane's width, the lane order and every stamp as the column route
+gives them.  A first pass over the chunk (``native.scan_frames``) reads
+the key range, which picks the key lane's width, and the ts maximum.
+The chunk is read in place; a record split across two chunks is rebuilt
+from the carried tail and the head of the next.  The spans narrow:
+``wf:source.parse`` is the carry and the first pass here, and each
+slice's native pass, nested in ``wf:stage.pack``; ``wf:source.columns``
+is the frontier and watermark bookkeeping; ``wf:stage.pack`` the
+emitter's slicing and finalize.  Every other source keeps the column
+route (CSV, INGRESS time, ``WF_TPU_NO_NATIVE``, host destinations, the
+keyed and aligned-mesh staging emitters, a key probe, a buffered
+chunk).  ``direct_rows`` and ``direct_chunks`` count what the direct
+route took (``stats()["Staging"]["Ingest"]``).
+
 Record wire format (``fmt="frames"``): little-endian ``int64 key, int64
 ts, nv × float64 values``.  CSV (``fmt="csv"``): ``key,ts,v0[,v1...]``
 lines.
@@ -30,6 +50,17 @@ from windflow_tpu_torch.meta import adapt
 from windflow_tpu_torch.monitoring.recorder import span
 from windflow_tpu_torch.ops.base import Operator
 from windflow_tpu_torch.ops.source import BaseSourceReplica, Source
+from windflow_tpu_torch.parallel.emitters import DeviceStageEmitter
+from windflow_tpu_torch.utils.tree import tree_flatten
+
+_INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
+
+
+def _key_fits_int32(lo: int, hi: int) -> bool:
+    """The column route's rule for an int32 key lane (the JAX package's,
+    kept as is so both packages stage the same dtypes): every key in
+    ``[0, 2**31)``, or every key in ``[-2**31, 0)``."""
+    return (lo >> 31) == (hi >> 31) and _INT32_MIN <= lo and hi < _INT32_END
 
 
 class FrameSourceReplica(BaseSourceReplica):
@@ -37,6 +68,10 @@ class FrameSourceReplica(BaseSourceReplica):
         super().__init__(op, index)
         self._chunks = None
         self._carry = b""
+        #: rows and chunks the direct route staged
+        self.direct_rows = 0
+        self.direct_chunks = 0
+        self._layouts = None
 
     def start(self) -> None:
         self._chunks = iter(self.op.chunks_fn(self.context))
@@ -66,6 +101,79 @@ class FrameSourceReplica(BaseSourceReplica):
             self._ingest(b"", final=True)
 
     def _ingest(self, chunk: bytes, final: bool = False) -> None:
+        if self._takes_direct():
+            self._ingest_direct(chunk, final)
+        else:
+            self._ingest_columns(chunk, final)
+
+    def _takes_direct(self) -> bool:
+        op = self.op
+        return op.fmt == "frames" \
+            and self.time_policy == TimePolicy.EVENT \
+            and type(self.emitter) is DeviceStageEmitter \
+            and len({"key", *op.fields}) == op.nv + 1 \
+            and self.emitter.takes_frames(op.value_dtype) \
+            and native.is_available()
+
+    def _layout(self, wide: bool):
+        """``(treedef, dtypes, lanes)`` of the direct route: the lane
+        structure ``emit_columns`` flattens ``{"key", *fields}`` to (by
+        sorted name), and each frame field's lane in it, the key's
+        first."""
+        if self._layouts is None:
+            op = self.op
+            names = ["key", *op.fields]
+            treedef = tree_flatten(dict.fromkeys(names, 0))[1]
+            order = sorted(names)
+            lanes = [order.index(nm) for nm in names]
+            vd = str(op.value_dtype)
+            self._layouts = tuple(
+                (treedef, tuple(kd if nm == "key" else vd for nm in order),
+                 lanes) for kd in ("int32", "int64"))
+        return self._layouts[wide]
+
+    def _ingest_direct(self, chunk, final: bool) -> None:
+        """The direct route (module docstring): the same rows, lanes and
+        stamps as :meth:`_ingest_columns`, written straight into the
+        staging buffer."""
+        nv = self.op.nv
+        rec = native.frame_record_bytes(nv)
+        with span("wf:source.parse"):
+            raw = np.frombuffer(chunk, np.uint8)
+            segs = []
+            if self._carry:
+                need = rec - len(self._carry)
+                if len(raw) < need:
+                    self._carry = b"" if final \
+                        else self._carry + raw.tobytes()
+                    return
+                segs.append((np.frombuffer(
+                    self._carry + raw[:need].tobytes(), np.uint8), 1))
+                raw = raw[need:]
+            m = len(raw) // rec
+            if m:
+                segs.append((raw, m))
+            # a copy: the user may reuse the chunk's memory
+            self._carry = b"" if final else raw[m * rec:].tobytes()
+            if not segs:
+                return
+            scans = [native.scan_frames(r, k, nv) for r, k in segs]
+        n = sum(k for _, k in segs)
+        with span("wf:source.columns"):
+            floor = max(self._last_ts, 0)
+            self._last_ts = max(self._last_ts, max(s[2] for s in scans))
+            self._advance_wm(self._last_ts)
+            self.stats.outputs_sent += n
+            wide = not _key_fits_int32(min(s[0] for s in scans),
+                                       max(s[1] for s in scans))
+            treedef, dtypes, lanes = self._layout(wide)
+            self.direct_rows += n
+            self.direct_chunks += 1
+        with span("wf:stage.pack"):
+            self.emitter.emit_frames(segs, nv, treedef, dtypes, lanes, floor)
+        self._count_toward_punctuation(n)
+
+    def _ingest_columns(self, chunk: bytes, final: bool = False) -> None:
         """Parse the carried partial record and ``chunk``, then stage the
         records' columns; a partial record at the end is carried."""
         nv = self.op.nv
@@ -94,13 +202,10 @@ class FrameSourceReplica(BaseSourceReplica):
             self._last_ts = max(self._last_ts, int(tss.max()))
             self._advance_wm(self._last_ts)
             self.stats.outputs_sent += n
-            # int32 key lanes when the keys fit (the JAX package's rule,
-            # kept as is so both packages stage the same dtypes); wider
-            # keys keep int64
+            # int32 key lanes when the keys fit, wider keys keep int64
             keys = keys.astype(np.int64)
-            if len(keys) and np.int32(keys.max() >> 31) \
-                    == (keys.min() >> 31) \
-                    and -(1 << 31) <= keys.min() and keys.max() < (1 << 31):
+            if len(keys) and _key_fits_int32(int(keys.min()),
+                                             int(keys.max())):
                 keys = keys.astype(np.int32)
             cols = {"key": keys}
             vd = self.op.value_dtype

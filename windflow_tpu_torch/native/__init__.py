@@ -4,7 +4,9 @@
 
 The native layer mirrors the reference's C++ runtime surface (keyby
 hashing, the watermark plumbing): bulk ingest parsing
-(:func:`parse_frames`, :func:`parse_csv`), key partitioning
+(:func:`parse_frames`, :func:`parse_csv`), frames written straight into
+a packed staging buffer (:func:`scan_frames`, :func:`pack_frames`), key
+partitioning
 (:func:`keyby_partition`), the watermark fold (:func:`min_watermark`)
 and the log-structured KV store behind ``persistent/kv.py`` (the
 ``wf_kv_*`` entry points of :func:`lib`).
@@ -20,7 +22,10 @@ their own copy, and a reader never opens a half-written library.
 
 Every wrapper keeps the JAX package's numpy fallback, the plain twin the
 tests hold the native path against; ``WF_TPU_NO_NATIVE=1`` (read at every
-call) selects it.  A fallback that nobody asked for is visible:
+call) selects it.  The two staging wrappers have no twin: their one
+caller (``io/frames.py``) takes them only while the library is loaded,
+and the parse-and-cast route otherwise, which the tests hold them
+against.  A fallback that nobody asked for is visible:
 :func:`is_available` is False and :func:`build_error` says why, and
 :func:`call_counts` counts the calls that entered the library (per
 wrapper; ``kv_open`` and ``kv_put`` for the native KV store).
@@ -118,6 +123,8 @@ def _bind(L: ctypes.CDLL) -> ctypes.CDLL:
         "wf_keyby_partition": (None, [p, i8, i4, p, p]),
         "wf_frame_record_bytes": (i8, [i4]),
         "wf_parse_frames": (i8, [p, i8, i4, p, p, p, i8]),
+        "wf_scan_frames": (None, [p, i8, i4, p]),
+        "wf_pack_frames": (None, [p, i4, i8, i8, p, p, i4, i8, p]),
         "wf_parse_csv": (i8, [p, i8, i4, p, p, p, i8, p]),
         "wf_min_watermark": (i8, [p, i4, i8]),
         "wf_kv_open": (p, [c, i4]),
@@ -234,6 +241,43 @@ def parse_frames(buf: bytes, nv: int, max_records: int = 2 ** 62):
                             _ptr(vals), n)
     assert got == n
     return keys, tss, vals, n * rec
+
+
+def scan_frames(raw: np.ndarray, nrec: int, nv: int):
+    """``(key_min, key_max, ts_max)`` over the first ``nrec >= 1`` whole
+    records of the frames in ``raw`` (a uint8 view).  Native only."""
+    if not 1 <= nrec <= raw.size // frame_record_bytes(nv):
+        raise ValueError(f"{nrec} records of {frame_record_bytes(nv)} "
+                         f"bytes in a buffer of {raw.size}")
+    _count("scan_frames")
+    out = np.empty(3, np.int64)
+    lib().wf_scan_frames(_ptr(raw), nrec, nv, _ptr(out))
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def pack_frames(raw: np.ndarray, nv: int, rec0: int, take: int,
+                dst: np.ndarray, lane_off: np.ndarray, key_words: int,
+                run_max: int):
+    """Write records ``[rec0, rec0 + take)`` of the frames in ``raw`` (a
+    uint8 view) into the uint32 staging buffer ``dst``: the key at word
+    ``lane_off[0]`` on (int32 when ``key_words`` is 1, else int64), value
+    ``v`` cast to float32 at ``lane_off[1 + v]``, the int64 ts at
+    ``lane_off[1 + nv]``.  ``run_max`` is the running ts maximum before
+    the slice; returns ``(ts_min, ts_max, running maximum at the slice's
+    last row)``.  Native only."""
+    if take < 1 or (rec0 + take) * frame_record_bytes(nv) > raw.size:
+        raise ValueError(f"records [{rec0}, {rec0 + take}) beyond a "
+                         f"buffer of {raw.size} bytes")
+    words = [key_words] + [1] * nv + [2]
+    if len(lane_off) != nv + 2 or dst.dtype != np.uint32 or any(
+            o < 0 or o + w * take > dst.size
+            for o, w in zip(lane_off.tolist(), words)):
+        raise ValueError("a lane runs past the staging buffer")
+    _count("pack_frames")
+    out = np.empty(3, np.int64)
+    lib().wf_pack_frames(_ptr(raw), nv, rec0, take, _ptr(dst),
+                         _ptr(lane_off), key_words, run_max, _ptr(out))
+    return int(out[0]), int(out[1]), int(out[2])
 
 
 def parse_csv(buf: bytes, nv: int, max_records: int = 2 ** 62):

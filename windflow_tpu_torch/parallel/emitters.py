@@ -458,6 +458,9 @@ class DeviceStageEmitter(Emitter):
       packed offsets (``staging.PackedBatchBuilder``); a full buffer ships
       as one non-blocking copy (``batch.stage_packed``).  Other lanes
       accumulate as chunks and ship through ``batch.columns_to_device``.
+    * Frames (``emit_frames``, a frame source's direct route) skip the
+      columns: one native pass a slice writes the records straight into
+      the packed builder, sliced and stamped as the packed columns are.
 
     Watermark lane: a chunk-level ``wm`` is valid only after the chunk's
     LAST row, so a batch that splits a chunk is stamped with the running
@@ -580,39 +583,90 @@ class DeviceStageEmitter(Emitter):
     def _emit_columns_packed(self, leaves, treedef, tss, wm, row_wms):
         tss = np.ascontiguousarray(tss, np.int64)
         dtypes = tuple(str(l.dtype) for l in leaves)
-        if self._builder is not None and (treedef != self._b_treedef
-                                          or dtypes != self._b_dtypes):
-            self._finalize_builder()    # lane structure changed
+        self._check_structure(treedef, dtypes)
         m = len(tss)
         pos = 0
         while pos < m:
             if self._builder is None:
-                self._b_treedef = treedef
-                self._b_dtypes = dtypes
-                self._builder = staging.PackedBatchBuilder(
-                    dtypes, self.output_batch_size,
-                    pool=staging.pool_for(self.device))
-                self._b_ts_min = None
-                self._b_ts_max = None
+                self._open_builder(treedef, dtypes)
             take = min(self._builder.room, m - pos)
             sl = slice(pos, pos + take)
             tsl = tss[sl]
             self._builder.append([l[sl] for l in leaves], tsl)
-            lo, hi = int(tsl.min()), int(tsl.max())
-            if self._b_ts_min is None or lo < self._b_ts_min:
-                self._b_ts_min = lo
-            if self._b_ts_max is None or hi > self._b_ts_max:
-                self._b_ts_max = hi
+            self._note_ts(int(tsl.min()), int(tsl.max()))
             if row_wms is not None:
-                w = int(np.max(row_wms[sl]))
-                if w != WM_NONE and w > self._b_wm:
-                    self._b_wm = w
+                self._note_row_wm(int(np.max(row_wms[sl])))
             elif pos + take == m and wm != WM_NONE and wm > self._b_wm:
                 # a chunk-level wm is valid only after the chunk's last row
                 self._b_wm = wm
             pos += take
             if self._builder.room == 0:
                 self._finalize_builder()
+
+    def takes_frames(self, value_dtype) -> bool:
+        """Whether :meth:`emit_frames` may take the next chunk of frames
+        whose values stage as ``value_dtype``: where ``emit_columns``
+        would take the packed route (no key probe to feed, no chunk
+        buffered) and the native pass writes the values' dtype (float32;
+        float64 values do not pack)."""
+        return self._shard_probe is None and not self._col_chunks \
+            and value_dtype == np.float32
+
+    def emit_frames(self, segments, nv, treedef, dtypes, lanes, floor):
+        """The frame route of ``emit_columns`` (``io/frames.py``): whole
+        ``io.frames`` records go straight into the open packed builder,
+        one native pass a slice (``PackedBatchBuilder.append_frames``),
+        with no columns between.  ``segments`` are ``(raw, nrec)`` uint8
+        views of whole records, in arrival order; ``treedef`` and
+        ``dtypes`` are the lane structure ``emit_columns`` flattens the
+        chunk's columns to, ``lanes`` each frame field's lane in it (the
+        key's first), ``floor`` the row frontier's floor (the ``row_wms``
+        of ``emit_columns`` are the running ts maximum from it).  Slices,
+        stamps and finalizes as ``_emit_columns_packed``; each native
+        pass runs in the span ``wf:source.parse``.  The caller checks
+        :meth:`takes_frames` first."""
+        self._check_structure(treedef, dtypes)
+        run = floor
+        for raw, m in segments:
+            pos = 0
+            while pos < m:
+                if self._builder is None:
+                    self._open_builder(treedef, dtypes)
+                take = min(self._builder.room, m - pos)
+                with flightrec.span("wf:source.parse"):
+                    lo, hi, run = self._builder.append_frames(
+                        raw, nv, pos, take, lanes, run)
+                self._note_ts(lo, hi)
+                self._note_row_wm(run)
+                pos += take
+                if self._builder.room == 0:
+                    self._finalize_builder()
+
+    def _check_structure(self, treedef, dtypes) -> None:
+        if self._builder is not None and (treedef != self._b_treedef
+                                          or dtypes != self._b_dtypes):
+            self._finalize_builder()    # lane structure changed
+
+    def _open_builder(self, treedef, dtypes) -> None:
+        self._b_treedef = treedef
+        self._b_dtypes = dtypes
+        self._builder = staging.PackedBatchBuilder(
+            dtypes, self.output_batch_size,
+            pool=staging.pool_for(self.device))
+        self._b_ts_min = None
+        self._b_ts_max = None
+
+    def _note_ts(self, lo: int, hi: int) -> None:
+        """Fold a slice's data-ts extrema into the open batch's."""
+        if self._b_ts_min is None or lo < self._b_ts_min:
+            self._b_ts_min = lo
+        if self._b_ts_max is None or hi > self._b_ts_max:
+            self._b_ts_max = hi
+
+    def _note_row_wm(self, w: int) -> None:
+        """The row frontier at a slice's last row stamps the open batch."""
+        if w != WM_NONE and w > self._b_wm:
+            self._b_wm = w
 
     def _finalize_builder(self, fallback_wm: int = WM_NONE) -> None:
         """Finish the open packed batch (wire-encoded when the plane is

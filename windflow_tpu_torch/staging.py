@@ -16,6 +16,8 @@ The port of ``windflow_tpu/staging.py``:
 * :class:`PackedBatchBuilder` — streams SoA rows into one pooled buffer
   at their final packed offsets: every payload lane, the timestamp lane
   and the fill count ride ONE host buffer and ONE host→device copy.
+  ``append_frames`` writes rows straight from ``io.frames`` records in
+  one native pass (``native.pack_frames``), with no columns between.
 * :func:`size_class` — the pool size of a data-dependent buffer: wire
   buffers (``wire.py``) vary in size with the data, so they are
   acquired at their size class and the pool's exact-size slots recycle
@@ -40,6 +42,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from windflow_tpu_torch import native
 from windflow_tpu_torch.analysis import debug_concurrency as _dbg
 from windflow_tpu_torch.analysis.hotpath import hot_path
 
@@ -114,7 +117,11 @@ class StagingPool:
 
     def _alloc(self, nwords: int) -> np.ndarray:
         if not self.pinned:
-            return np.empty(nwords, np.uint32)
+            # 64-byte aligned, as the pinned buffers are (page-aligned):
+            # the native frame pass streams whole cache lines into either
+            raw = np.empty(nwords + 16, np.uint32)
+            lead = (-raw.ctypes.data % 64) // 4
+            return raw[lead:lead + nwords]
         import torch
         # the numpy view keeps the pinned tensor alive (ndarray.base)
         return torch.empty(nwords, dtype=torch.int32,
@@ -251,7 +258,7 @@ class PackedBatchBuilder:
     timestamp lane and the fill-count word are implicit."""
 
     __slots__ = ("capacity", "dtypes", "_words", "_offsets", "total",
-                 "buf", "n", "pool", "_lane_dtypes")
+                 "buf", "n", "pool", "_lane_dtypes", "_frame_off")
 
     def __init__(self, dtypes: Sequence, capacity: int,
                  pool: Optional[StagingPool] = None) -> None:
@@ -270,6 +277,9 @@ class PackedBatchBuilder:
         self.capacity = capacity
         self.buf = self.pool.acquire(self.total)
         self.n = 0
+        #: each lane's word offset at row ``n``, in frame order
+        #: (``append_frames``)
+        self._frame_off = np.empty(len(self._words), np.int64)
 
     @property
     def room(self) -> int:
@@ -297,6 +307,33 @@ class PackedBatchBuilder:
             lo = off + w * self.n
             self.buf[lo:lo + w * m] = src
         self.n += m
+
+    @hot_path
+    def append_frames(self, raw: np.ndarray, nv: int, rec0: int, take: int,
+                      lanes: Sequence[int], run_max: int):
+        """Write frame records ``[rec0, rec0 + take)`` of ``raw`` (a uint8
+        view of whole ``io.frames`` records) as ``take`` rows in one
+        native pass (``native.pack_frames``): ``lanes[0]`` is the key's
+        lane (int32 or int64), ``lanes[1 + v]`` value ``v``'s
+        (float32).
+        Returns the slice's ``(ts_min, ts_max)`` and the running ts
+        maximum at its last row, from ``run_max`` before it."""
+        if _dbg.ENABLED:
+            with _dbg.entry_guard(self, "PackedBatchBuilder.append"):
+                return self._append_frames_impl(raw, nv, rec0, take, lanes,
+                                                run_max)
+        return self._append_frames_impl(raw, nv, rec0, take, lanes, run_max)
+
+    @hot_path
+    def _append_frames_impl(self, raw, nv, rec0, take, lanes, run_max):
+        offs, words, lane_off = self._offsets, self._words, self._frame_off
+        for j, i in enumerate(lanes):
+            lane_off[j] = offs[i] + words[i] * self.n
+        lane_off[-1] = offs[-1] + 2 * self.n
+        got = native.pack_frames(raw, nv, rec0, take, self.buf, lane_off,
+                                 words[lanes[0]], run_max)
+        self.n += take
+        return got
 
     @hot_path
     def finish(self) -> np.ndarray:
