@@ -69,6 +69,9 @@ make no synchronising call but the move's one ring-clock read.  The host
 spans at the end: a K = 8 TB capture has the same nodes with the spans
 on as off, and in a ``profile()`` capture each group's ``dispatched``
 stamp lies within 0.1 ms of its ``wf:megastep.launch`` span's start.
+DSPBench FraudDetection's predictor at the end: at K = 8 on the card its
+alerts equal the literal float64 reference's (``reference/
+fraud_dspbench.py``), and its table is the operator's, updated in place.
 """
 
 import gc
@@ -2903,3 +2906,97 @@ def test_cuda_recorder_stamps_and_launch_spans_share_a_clock(cuda_device,
           f"{float(np.median(off)):.3f}, min {float(off.min()):.3f}, max "
           f"{float(off.max()):.3f}, over {len(off)} groups")
     assert np.all(np.abs(off) < 100.0)
+
+
+# ---------------------------------------------------------------------------
+# DSPBench FraudDetection's predictor (models/fraud_detection.py) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_dspbench_fraud_k8_matches_the_literal_reference(cuda_device):
+    """DSPBench's windowed missProbability scorer at K = 8 on the card,
+    over 20,000 transactions of 1,500 cards in batches of 1,024: the plane
+    folds the wavefront tail, the alerts (stream index, card, window)
+    equal the literal float64 reference's and each score lies within
+    1e-6 of it (a transaction within 1e-6 of the threshold excused from
+    the set), the state is
+    still the operator's table with its dump row (updated in place), and
+    the device counters read every lane."""
+    import windflow_tpu_torch as wt
+    from reference import fraud_dspbench as literal
+    from windflow_tpu_torch.models import fraud_detection as fd
+    from windflow_tpu_torch.ops import gpu_stateful as gst
+    rng = np.random.default_rng(24)
+    n, cards = 20000, 1500
+    transition = rng.dirichlet(np.full(18, 12.0), size=18)
+    card, state = rng.integers(0, cards, n), rng.integers(0, 18, n)
+    f = np.zeros(n, np.dtype([("key", "<i8"), ("ts", "<i8"),
+                              ("v", "<f8", (2,))]))
+    f["key"], f["ts"], f["v"][:, 1] = card, np.arange(n), state
+    blob = f.tobytes()
+    got = []
+
+    def sink(cols, ctx=None):
+        if cols is not None:
+            got.append((np.asarray(cols.tss), np.asarray(cols.cols["card"]),
+                        np.asarray(cols.cols["score"]),
+                        np.stack([np.asarray(cols.cols[f"s{i}"])
+                                  for i in range(5)], 1)))
+    src = wt.FrameSource(lambda: (blob[i:i + 65536]
+                                  for i in range(0, len(blob), 65536)),
+                         nv=2, fields=["transaction_id", "state"],
+                         output_batch_size=1024)
+    g = fd.build_dspbench(src, transition, sink, cards=cards,
+                          config=wt.Config(device="cuda",
+                                           punctuation_interval_usec=10**12,
+                                           megastep_sweeps=8))
+    g.run()
+    st = g.stats()
+    edge = st["Megastep"]["edges"][0]
+    assert st["Megastep"]["refused"] == [] and edge["megasteps"] >= 1
+    assert st["Stateful"]["markov_predictor"]["lanes"] == n
+    op = next(o for o in g._operators if o.name == "markov_predictor")
+    assert gst._dump_tables(op._state, cards) is not None
+    idx, gcard, gscore, gstates = (np.concatenate(a) for a in zip(*got))
+    ref = {s["index"]: s for s in literal.predict(
+        zip(card.tolist(), state.tolist()), transition)}
+    border = {i for i, s in ref.items() if abs(s["score"] - 0.96) <= 1e-6}
+    want = {i for i, s in ref.items() if s["outlier"]} - border
+    assert len(set(idx.tolist())) == len(idx)
+    assert set(idx.tolist()) - border == want and len(want) > 100
+    for i, c, sc, sts in zip(idx.tolist(), gcard.tolist(), gscore.tolist(),
+                             gstates.tolist()):
+        assert c == ref[i]["card"] and tuple(sts) == ref[i]["states"]
+        assert abs(sc - ref[i]["score"]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_egress_reuses_one_pinned_buffer_and_owns_its_columns(
+        cuda_device):
+    """Columnar egress from the card lands in the thread's page-locked
+    buffer, reused by the next delivery; the columns it returned before
+    keep their values, on the slice route and the gather route."""
+    from windflow_tpu_torch import batch as tbatch
+    n = 262144
+
+    def dev_batch(base, valid, size):
+        return tbatch.DeviceBatch(
+            {"a": torch.arange(n, dtype=torch.int32, device=cuda_device)
+             + base},
+            torch.arange(n, dtype=torch.int64, device=cuda_device) + base,
+            valid.to(cuda_device), size=size)
+
+    full = torch.ones(n, dtype=torch.bool)
+    holes = torch.arange(n) % 3 == 0
+    first = tbatch.device_to_columns_multi(
+        [dev_batch(0, full, n), dev_batch(5, holes, None)])
+    buf = tbatch._egress_host.buf
+    assert buf.is_pinned()
+    tbatch.device_to_columns_multi(
+        [dev_batch(100, full, n), dev_batch(200, full, n)])
+    assert tbatch._egress_host.buf.data_ptr() == buf.data_ptr()
+    (a0, t0), (a1, t1) = first
+    assert np.array_equal(a0["a"], np.arange(n)) and np.array_equal(
+        t0, np.arange(n))
+    want = np.flatnonzero(holes.numpy())
+    assert np.array_equal(a1["a"], want + 5) and np.array_equal(t1, want + 5)

@@ -286,9 +286,11 @@ PORTED = ("Flight_recorder", "Latency", "Gauges", "Health", "Device",
 
 def test_stats_sections_have_jax_keys(traced_runs):
     st, jst = traced_runs[wt][1], traced_runs[wf][1]
-    # the port's host spans (monitoring/recorder.py) have no JAX twin:
-    # off in this run (no tracing_enabled, no profiler)
-    assert set(st) == set(jst) | {"Spans"}
+    # the port's host spans (monitoring/recorder.py) and the wavefront's
+    # device counters have no JAX twin: spans off in this run (no
+    # tracing_enabled, no profiler), no stateful operator
+    assert set(st) == set(jst) | {"Spans", "Stateful"}
+    assert st["Stateful"] == {}
     assert st["Spans"] == {"enabled": False}
     for sec in PORTED:
         # the port's Preflight section also lists the passes that ran

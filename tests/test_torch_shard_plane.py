@@ -251,6 +251,24 @@ def test_device_keyby_sketch_on_the_card_no_extra_dispatch(tmp_path):
     assert load["tuples"] == [int(c) for c in _expected_shard_counts(par=2)]
 
 
+def test_dense_stateful_step_sketches_on_the_card(tmp_path):
+    """A plain staging edge into a dense-keys stateful operator: the
+    step's own keys feed the sketch on the device, so the edge keeps no
+    host key probe (and frames into it may take the direct route); the
+    load counts every tuple and names the hot key."""
+    g = wt.PipeGraph("dense_st", config=_cfg(wt, tmp_path))
+    src = (wt.Source_Builder(_records).withOutputBatchSize(CAP)
+           .withName("src").build())
+    g.add_source(src).add(_stateful(wt, 1)).add_sink(
+        wt.Sink_Builder(lambda t: None).withName("snk").build())
+    g.run()
+    assert getattr(src.replicas[0].emitter, "_shard_probe", None) is None
+    load = g.stats()["Shard"]["per_op"]["st"]["load"]
+    assert load["total_tuples"] == N and load["batches"] == N_BATCHES
+    assert load["hot_keys"][0]["key"] == HOT_KEY
+    assert "host_update_usec" not in load
+
+
 @pytest.mark.parametrize("par", [1, 2], ids=["chain_sketch", "keyby_once"])
 def test_chain_sketch_as_in_jax(tmp_path, par):
     """A chained pair forwarding a KEYBY consumer's keys: at parallelism

@@ -108,3 +108,30 @@ def test_filtered_egress_selects_valid_lanes_only():
     cols, tss = tbatch.device_to_columns(db)
     assert cols["a"].tolist() == [0, 2, 3] and tss.tolist() == [0, 2, 3]
     assert tbatch.transfer_nbytes(db) == 6 * 4 + 6 * 8 + 6
+
+
+@pytest.mark.parametrize("valid", [[1, 1, 1, 1, 0, 0], [1, 0, 1, 1, 0, 0]])
+def test_egress_from_a_reused_buffer_owns_its_columns(valid):
+    """Egress from a card lands in one page-locked buffer per thread that
+    the next delivery overwrites: the unpacked columns are copies of it,
+    on the slice route (a known all-valid prefix) and the gather route."""
+    db = tbatch.DeviceBatch({"a": torch.arange(6, dtype=torch.int32) + 10,
+                             "f": torch.arange(6, dtype=torch.float64)},
+                            torch.arange(6, dtype=torch.int64) * 7,
+                            torch.tensor(valid, dtype=torch.bool),
+                            size=4 if valid[1] else None)
+    leaves, treedef = tree_flatten(db.payload)
+    raw = torch.cat([tbatch._to_words(l) for l in leaves]
+                    + [tbatch._to_words(db.ts),
+                       tbatch._to_words(db.valid)]).numpy().copy()
+    specs = [np.dtype(np.float64) if l.dtype == torch.float64
+             else np.dtype(np.int32) for l in leaves]
+    cols, tss = tbatch._egress_unpack(raw, specs, treedef, 6,
+                                      db.known_size, reused=True)
+    want = np.flatnonzero(valid)
+    for c in (*cols.values(), tss):
+        assert not np.shares_memory(c, raw)
+    raw[:] = -1                                  # the next delivery
+    assert cols["a"].tolist() == (want + 10).tolist()
+    assert cols["f"].tolist() == want.astype(float).tolist()
+    assert tss.tolist() == (want * 7).tolist()

@@ -11,12 +11,14 @@
 Staging packs every lane of a batch into one uint32 host buffer
 (``staging.PackedBatchBuilder``), moves it with ONE ``non_blocking`` copy,
 and re-types the lanes on the device with ``.view(dtype)``.  Egress packs
-the lanes on the device and moves them back with one copy.
+the lanes on the device and moves them back with one copy, from a card
+into a page-locked host buffer that each thread reuses.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -333,8 +335,29 @@ def _to_words(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
+#: per thread, the page-locked int32 buffer a card's egress lands in
+_egress_host = threading.local()
+
+
+def _egress_buffer(words: int) -> torch.Tensor:
+    """The calling thread's page-locked egress buffer, at least ``words``
+    int32 words long (grown to the next power of two, kept for reuse):
+    a copy into it runs at the link's speed, where a fresh pageable
+    array is faulted in and filled through CUDA's own staging buffer
+    on every delivery."""
+    buf = getattr(_egress_host, "buf", None)
+    if buf is None or buf.shape[0] < words:
+        size = 1 << max(20, (words - 1).bit_length())
+        buf = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        _egress_host.buf = buf
+    return buf
+
+
 def _egress_unpack(raw: np.ndarray, specs, treedef, cap: int,
-                   n: Optional[int]):
+                   n: Optional[int], reused: bool = False):
+    """One batch's columns from its packed words.  ``reused``: ``raw``
+    views a buffer the next delivery overwrites, so every column is
+    copied out of it (a gather copies anyway)."""
     def take(off, d):
         if d == np.bool_:
             return raw[off:off + cap].astype(np.bool_), off + cap
@@ -350,6 +373,10 @@ def _egress_unpack(raw: np.ndarray, specs, treedef, cap: int,
     valid = raw[off:off + cap].astype(np.bool_)
     if n is not None and bool(valid[:n].all()):
         sel = slice(None, n)
+        if reused:
+            return (tree_unflatten(treedef, [c[sel].copy()
+                                             for c in cols_flat]),
+                    tss[sel].copy())
     else:
         sel = np.nonzero(valid)[0]
     return tree_unflatten(treedef, [c[sel] for c in cols_flat]), tss[sel]
@@ -358,8 +385,9 @@ def _egress_unpack(raw: np.ndarray, specs, treedef, cap: int,
 def device_to_columns_multi(batches):
     """Columnar egress of several device batches in ONE device→host copy:
     each batch's lanes are packed into int32 words on the device and the
-    packed buffers ride one concatenated copy.  Returns ``(cols, tss)``
-    per batch, in order."""
+    packed buffers ride one concatenated copy, from a card into the
+    thread's page-locked buffer.  Returns ``(cols, tss)`` per batch, in
+    order; the arrays own their memory or view a fresh host copy."""
     out = [None] * len(batches)
     packed, metas = [], []
     for i, b in enumerate(batches):
@@ -375,12 +403,18 @@ def device_to_columns_multi(batches):
                       buf.shape[0]))
         packed.append(buf)
     if packed:
-        raw_all = (packed[0] if len(packed) == 1
-                   else torch.cat(packed)).cpu().numpy()  # ONE copy
+        flat = packed[0] if len(packed) == 1 else torch.cat(packed)
+        reused = flat.is_cuda
+        if reused:
+            host = _egress_buffer(flat.shape[0])[:flat.shape[0]]
+            host.copy_(flat)                                  # ONE copy
+            raw_all = host.numpy()
+        else:
+            raw_all = flat.cpu().numpy()
         off = 0
         for i, treedef, specs, cap, n, nwords in metas:
             out[i] = _egress_unpack(raw_all[off:off + nwords], specs,
-                                    treedef, cap, n)
+                                    treedef, cap, n, reused)
             off += nwords
     return out
 

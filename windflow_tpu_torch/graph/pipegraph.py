@@ -1132,10 +1132,23 @@ class PipeGraph:
             "IR_audit": self._ir_audit_section(),
             "Megastep": (plane.summary() if plane is not None
                          else {"k": 1, "edges": [], "refused": []}),
+            "Stateful": self._stateful_section(),
             "Durability": self._durability_section(),
             "Reshard": self._reshard_section(),
             "Operators": [op.dump_stats() for op in self._operators],
         }
+
+    def _stateful_section(self) -> dict:
+        """Per wavefront operator, the ``batches``, ``passes`` and
+        ``lanes`` its steps counted on the device (one read each)."""
+        from windflow_tpu_torch.ops.gpu_stateful import _StatefulGPUBase
+        out = {}
+        for op in self._operators:
+            if isinstance(op, _StatefulGPUBase):
+                counts = op.wavefront_counts()
+                if counts is not None:
+                    out[op.name] = counts
+        return out
 
     def dump_stats(self, log_dir: Optional[str] = None) -> str:
         """Write ``stats()`` as ``{name}_stats.json`` (``tools/

@@ -119,15 +119,29 @@ def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 
 
+#: set on this thread inside :func:`uncounted`
+_quiet = threading.local()
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches inside leave the counters as they were: a graph's warm-up
-    on scratch data (``megastep.py``) runs kernels that serve no batch."""
+    on scratch data (``megastep.py``) runs kernels that serve no batch.
+    The device counters of the stateful steps (:func:`counting`) skip it
+    too."""
     before = launch_counts()
+    was = getattr(_quiet, "on", False)
+    _quiet.on = True
     try:
         yield
     finally:
+        _quiet.on = was
         _LAUNCHES.update(before)
+
+
+def counting() -> bool:
+    """False inside :func:`uncounted` on this thread."""
+    return not getattr(_quiet, "on", False)
 
 
 #: held by every capture (``CountedGraph.capture``) and by readers on

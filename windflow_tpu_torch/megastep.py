@@ -18,9 +18,11 @@ has two implementations of one contract:
   buffers: the ``[K, nwords]`` int32 input, the ``[K]`` int64 ``wm_pane``
   of a time-window tail (a host int in the per-batch step, which a graph
   would bake in), and the carry (the tail's state), whose final value
-  the graph's last nodes copy back into it.  The graph's ``[K, ...]``
-  outputs are overwritten by the next replay, so the drain clones them
-  once a group: nothing emitted downstream is a view of graph memory.
+  the graph's last nodes copy back into it (a stateful tail's carry is
+  its operator's table, which the wavefront updates in place).  The
+  graph's ``[K, ...]`` outputs are overwritten by the next replay, so
+  the drain clones them once a group: nothing emitted downstream is a
+  view of graph memory.
 
 Correctness stance — the per-batch path IS the reference: the body calls
 the tail's own step, so a group's K outputs are record for record what K
@@ -365,12 +367,18 @@ class MegastepEdge:
                         device=dev)
         wm = torch.zeros(self.k, dtype=torch.int64, device=dev) \
             if self.kind == "ffat_tb" else None
-        static = None if carry is None else tree_map(torch.clone, carry)
+        # a stateful tail's carry is the operator's table itself: the
+        # wavefront updates it in place (nothing the size of the key
+        # space is copied in or out), and the warm-up's all-invalid rows
+        # leave its rows as they are; other carries start as a copy
+        shared = self.kind == "stateful"
+        static = carry if shared or carry is None \
+            else tree_map(torch.clone, carry)
         try:
             side = torch.cuda.Stream(device=dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), uncounted():
-                body(None if static is None
+                body(static if shared or static is None
                      else tree_map(torch.clone, static), x, wm)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = CountedGraph(torch.cuda.CUDAGraph())

@@ -651,14 +651,20 @@ class ShardLedger:
                 # a plain staging edge into a keyed device consumer whose
                 # extraction runs in its step: probe the host records
                 # (not for a fused tail: its extractor reads post-prelude
-                # records, this edge stages the chain head's)
+                # records, this edge stages the chain head's); a
+                # dense-keys stateful step extracts the keys on the card
+                # anyway, so the sketch rides that step, as a chain's
                 kx = consumer.key_extractor
                 if consumer.is_keyed and kx is not None \
                         and consumer.is_gpu \
                         and consumer._fused_prelude is None:
                     sk = self._sketch_for(consumer, consumer.parallelism,
                                           "splitmix")
-                    em._shard_probe = HostKeyProbe(sk, kx)
+                    if getattr(consumer, "dense_keys", False) \
+                            and getattr(consumer, "mesh", None) is None:
+                        consumer.attach_shard_sketch(sk)
+                    else:
+                        em._shard_probe = HostKeyProbe(sk, kx)
 
         for op in g._operators:
             for rep in op.replicas:

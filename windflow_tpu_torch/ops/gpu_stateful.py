@@ -6,8 +6,12 @@ stateful ``Map_GPU`` / ``Filter_GPU``, ``map_gpu.hpp:78-102``,
 The state is a dense pytree of ``[num_key_slots, ...]`` tensors on the
 OPERATOR, shared by its replicas (the keyed edges send each key to one
 replica, and the host scheduler steps replicas one at a time: the role
-of the reference's spinlock).  A key reaches its slot by one of three
-routes, picked per operator as in the JAX package:
+of the reference's spinlock).  Each leaf is the first ``num_key_slots``
+rows of a table allocated once with one row more, the wavefront's dump
+row (:func:`_state_table`): the wavefront updates the operator's table
+in place, so a step's work follows the batch, never the key space.  A
+key reaches its slot by one of three routes, picked per operator as in
+the JAX package:
 
 * **dense keys** (``withDenseKeys``): the extractor returns the slot;
   out-of-range keys are masked invalid;
@@ -25,8 +29,8 @@ Two bodies apply the user function in each key's arrival order:
 * :func:`_wavefront_body` (``fn(record, state) -> (record, state)``, or
   ``(keep, state)`` for a filter): lanes sorted by slot, each lane's
   rank among its key's lanes (its sorted position less the start of its
-  key's run), and one application a rank — lanes of one
-  rank hold distinct keys, so their state rows gather and scatter
+  key's run, a scan over the batch), and one application a rank — lanes
+  of one rank hold distinct keys, so their state rows gather and scatter
   without conflict.  The live lanes are ordered by (rank, slot) and the
   lanes of each rank counted; with the kernels on, the card runs the
   ranks as a device loop (:class:`_ClassLoop`, a CUDA graph WHILE node,
@@ -37,7 +41,8 @@ Two bodies apply the user function in each key's arrival order:
   ``RANK_READ`` lanes of a batch) and runs ``fn`` on each rank's slice.
   Either is O(capacity) work where a masked full-width loop would be
   O(depth x capacity); the depth is the hottest key's lane count, so a
-  skewed stream wants:
+  skewed stream wants (each step adds its batch, passes and live lanes
+  to the body's device counter, ``stats()["Stateful"]``):
 * :func:`_assoc_body` (``withAssociativeUpdate(lift, comb, project)``):
   ``state' = comb(state, lift(record))`` folded per key by a segmented
   inclusive scan with ``lax.associative_scan``'s combine tree, then
@@ -73,8 +78,7 @@ from windflow_tpu_torch.utils.tree import (per_record, per_record2,
                                            tree_flatten, tree_map,
                                            tree_unflatten)
 from windflow_tpu_torch.windows.ffat_kernels import _b, associative_scan
-from windflow_tpu_torch.windows.grouping import (auto_order, invert_perm,
-                                                order_and_hist)
+from windflow_tpu_torch.windows.grouping import auto_order, invert_perm
 
 #: pads the interning route's sorted key table
 KEY_SENTINEL = 2**31 - 1
@@ -98,6 +102,50 @@ def _broadcast_state(proto, num_slots: int, device=None):
         a = _as_tensor(x).to(device)
         return a.unsqueeze(0).repeat((num_slots,) + (1,) * a.ndim)
     return tree_map(rep, proto)
+
+
+def _rows(tables, num_slots: int):
+    """The first ``num_slots`` rows of every leaf (views)."""
+    return tree_map(lambda a: a[:num_slots], tables)
+
+
+def _state_table(proto, num_slots: int, device=None):
+    """An operator's state: the ``[num_slots, ...]`` views of tables
+    allocated once with the dump row ``num_slots`` after them."""
+    return _rows(_broadcast_state(proto, num_slots + 1, device), num_slots)
+
+
+def _extended(state):
+    """``state`` (plain ``[S, ...]`` tables) copied into ``[S + 1, ...]``
+    tables, the last row a dump row."""
+    return tree_map(lambda a: torch.cat([a, a[:1]]), state)
+
+
+def _dump_tables(state, num_slots: int):
+    """The ``[num_slots + 1, ...]`` tables whose first rows the leaves of
+    ``state`` are (an operator's table, :func:`_state_table`), or None for
+    tables without the dump row (a mesh shard's, a caller's)."""
+    leaves, treedef = tree_flatten(state)
+    out = []
+    for a in leaves:
+        b = a._base
+        if b is None:
+            return None
+        head = (b.shape[0], b.shape[1:], b.dtype, b.data_ptr())
+        # wfverify: ok (shapes, dtypes and addresses: host values)
+        if head != (num_slots + 1, a.shape[1:], a.dtype, a.data_ptr()) \
+                or not b.is_contiguous():
+            return None
+        out.append(b)
+    return tree_unflatten(treedef, out)
+
+
+def _place_state(state, device, num_slots: int):
+    """``state`` on ``device``, its dump row moved with it."""
+    def move(tree):
+        return tree_map(lambda a: a.to(device, non_blocking=True), tree)
+    full = _dump_tables(state, num_slots)
+    return move(state) if full is None else _rows(move(full), num_slots)
 
 
 def _slot_key(valid, slots, S: int):
@@ -155,12 +203,16 @@ class _ClassLoop:
     ``w`` lanes from the slice's first, clamped to the batch, applies the
     function to all of them and scatters; lanes past the slice's count go
     to the dump row ``S`` of the state and the dump lane ``capacity`` of
-    the outputs.  On the card outside a capture the loop is a small
-    cached graph over static buffers (the payload, the lane order, the
-    counts, the state table and the outputs: eager code copies in,
-    replays, and clones out); inside a capture (a megastep) it is emitted
-    inline.  On CPU tensors the same class bodies run under the plain
-    twin of the steering kernel, :func:`loop_cuda.run_loop_plain`."""
+    the outputs.  An operator's table holds the dump row
+    (:func:`_state_table`) and is updated in place; a table without it (a
+    mesh shard's, a caller's) is copied once into one that has it.  On
+    the card outside a capture the loop is a small cached graph over
+    static buffers (the payload, the lane order, the counts and the
+    outputs: eager code copies them in, replays, and clones the outputs
+    out; the state buffer is the operator's table itself); inside a
+    capture (a megastep) it is emitted inline.  On CPU tensors the same
+    class bodies run under the plain twin of the steering kernel,
+    :func:`loop_cuda.run_loop_plain`."""
 
     def __init__(self, fn, capacity: int, num_slots: int, is_filter: bool,
                  what: str, name: str) -> None:
@@ -176,9 +228,13 @@ class _ClassLoop:
         self.depth = None
 
     # -- buffers -------------------------------------------------------------
-    def _state_ext(self, state):
-        """The state table with the dump row ``S`` (a copy)."""
-        return tree_map(lambda a: torch.cat([a, a[:1]]), state)
+    def _tables(self, state):
+        """``(tables with the dump row, whether they are the caller's)``:
+        the operator's own, or a copy with the dump row added."""
+        full = _dump_tables(state, self.S)
+        if full is not None:
+            return full, True
+        return _extended(state), False
 
     def _new_outs(self, leaf_spec, dev):
         cap = self.capacity + 1
@@ -194,13 +250,12 @@ class _ClassLoop:
             for o in outs:
                 o.zero_()
 
-    def _cut(self, st, outs, clone: bool):
-        S, cap = self.S, self.capacity
+    def _cut_outs(self, outs, clone: bool):
+        cap = self.capacity
         f = (lambda a: a.clone()) if clone else (lambda a: a)
-        st = tree_map(lambda a: f(a[:S]), st)
         if self.is_filter:
-            return st, f(outs[:cap])
-        return st, [f(o[:cap]) for o in outs]
+            return f(outs[:cap])
+        return [f(o[:cap]) for o in outs]
 
     # -- one class's window --------------------------------------------------
     def window(self, st, payload, w, w_slots, cur, outs, width: int):
@@ -228,34 +283,33 @@ class _ClassLoop:
 
     # -- the loop ------------------------------------------------------------
     def run(self, state, payload, w, w_slots, cnt, leaf_spec):
-        """``(new state [S], outputs [capacity])`` of one batch's loop."""
+        """``(new state [S], outputs [capacity])`` of one batch's loop: the
+        new state is ``state`` itself, updated in place, when it is an
+        operator's table."""
         from windflow_tpu_torch.kernels import loop_cuda
         dev = cnt.device
+        if dev.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+            return self._replay(state, payload, w, w_slots, cnt, leaf_spec)
+        st, own = self._tables(state)
+        outs = self._new_outs(leaf_spec, dev)
+        cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64, device=dev)
         if dev.type == "cpu":
-            st, outs = self._state_ext(state), self._new_outs(leaf_spec, dev)
-            cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64)
             self.depth = loop_cuda.run_loop_plain(
                 cnt, cur, self.widths, lambda width: self.window(
                     st, payload, w, w_slots, cur, outs, width))
-            return self._cut(st, outs, False)
-        if torch.cuda.is_current_stream_capturing():
-            return self._inline(state, payload, w, w_slots, cnt, leaf_spec)
-        return self._replay(state, payload, w, w_slots, cnt, leaf_spec)
-
-    def _inline(self, state, payload, w, w_slots, cnt, leaf_spec):
-        from windflow_tpu_torch.kernels import loop_cuda
-        dev = cnt.device
-        c = self.cached.get(dev)
-        if c is None:
-            raise WindFlowError(
-                f"stateful operator '{self.name}': the wavefront's device "
-                "loop is captured before its first per-batch step warmed "
-                "its class bodies up")
-        st, outs = self._state_ext(state), self._new_outs(leaf_spec, dev)
-        cur = torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64, device=dev)
-        self._emit(c["depth"], st, payload, w, w_slots, cnt, cur, outs)
-        self.depth = c["depth"]
-        return self._cut(st, outs, False)
+        else:
+            c = self.cached.get(dev)
+            if c is None:
+                raise WindFlowError(
+                    f"stateful operator '{self.name}': the wavefront's "
+                    "device loop is captured before its first per-batch "
+                    "step warmed its class bodies up")
+            self._emit(c["depth"], st, payload, w, w_slots, cnt, cur, outs)
+            self.depth = c["depth"]
+        # wfverify: ok (own: whether the table has its dump row, a host
+        # value of its shape and address)
+        return (state if own else _rows(st, self.S)), \
+            self._cut_outs(outs, False)
 
     def _emit(self, depth, st, payload, w, w_slots, cnt, cur, outs) -> None:
         from windflow_tpu_torch.kernels import loop_cuda
@@ -264,14 +318,19 @@ class _ClassLoop:
             st, payload, w, w_slots, cur, outs, width))
 
     def _replay(self, state, payload, w, w_slots, cnt, leaf_spec):
+        full = _dump_tables(state, self.S)
         sig = (tree_flatten(payload)[1],
                tuple((l.dtype, tuple(l.shape))
                      for l in tree_flatten(payload)[0]),
                tuple((l.dtype, tuple(l.shape))
-                     for l in tree_flatten(state)[0]))
+                     for l in tree_flatten(state)[0]),
+               # the graph is bound to the operator's table it updates
+               None if full is None
+               else tuple(l.data_ptr() for l in tree_flatten(full)[0]))
         c = self.cached.get(cnt.device)
         if c is None or c["sig"] != sig:
-            c = self._build(state, payload, w, w_slots, cnt, leaf_spec)
+            c = self._build(state, full, payload, w, w_slots, cnt,
+                            leaf_spec)
             c["sig"] = sig
         b = c["static"]
         for s, a in zip(tree_flatten(b["payload"])[0],
@@ -280,17 +339,24 @@ class _ClassLoop:
         b["w"].copy_(w)
         b["w_slots"].copy_(w_slots)
         b["cnt"].copy_(cnt)
-        for s, a in zip(tree_flatten(b["st"])[0], tree_flatten(state)[0]):
-            s[:self.S].copy_(a)
+        if full is None:
+            # a table without the dump row: through the graph's own copy
+            for s, a in zip(tree_flatten(b["st"])[0],
+                            tree_flatten(state)[0]):
+                s[:self.S].copy_(a)
         c["graph"].replay()
         self.depth = c["depth"]
-        return self._cut(b["st"], b["outs"], True)
+        new = state if full is not None \
+            else tree_map(lambda a: a[:self.S].clone(), b["st"])
+        return new, self._cut_outs(b["outs"], True)
 
-    def _build(self, state, payload, w, w_slots, cnt, leaf_spec) -> dict:
+    def _build(self, state, full, payload, w, w_slots, cnt,
+               leaf_spec) -> dict:
         """The static buffers, one eager warm-up of every class body (a
         function that synchronises with the host raises here, naming the
         operator), and the capture of the standalone loop graph: the
-        device's cache entry."""
+        device's cache entry.  The state buffer is ``full`` (the
+        operator's table), else a copy with the dump row."""
         import warnings
 
         from windflow_tpu_torch.kernels import ffat_cuda as fc
@@ -303,13 +369,14 @@ class _ClassLoop:
         depth = torch.zeros((), dtype=torch.int64, device=dev)
         b = {"payload": tree_map(torch.clone, payload), "w": w.clone(),
              "w_slots": w_slots.clone(), "cnt": cnt.clone(),
-             "st": self._state_ext(state),
+             "st": full if full is not None else self._tables(state)[0],
              "outs": self._new_outs(leaf_spec, dev),
              "cur": torch.zeros(loop_cuda.CUR_WORDS, dtype=torch.int64,
                                 device=dev)}
         args = (b["st"], b["payload"], b["w"], b["w_slots"], b["cur"],
                 b["outs"])
-        # warm-up: cur is all zeros, so every lane is a dump lane
+        # warm-up: cur is all zeros, so every lane is a dump lane (the
+        # table's rows [0, S) are left as they are)
         with fc.capture_lock, warnings.catch_warnings():
             warnings.simplefilter("ignore")
             prev = torch.cuda.get_sync_debug_mode()
@@ -360,9 +427,13 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
                     name: str = "stateful", loop: Optional[bool] = None):
     """``(state, payload, valid, slots) -> (state, payload, valid)``: the
     rank-wavefront apply over resolved slots (lanes with a slot >=
-    num_slots are ignored).  The state comes back as a new table; the
-    body's ``last_depth`` is the batch's wavefront depth (a device scalar
-    on the kernel route).
+    num_slots are ignored).  An operator's table (:func:`_state_table`)
+    is updated in place and comes back as the same tensors; any other
+    table is copied once and the copy comes back.  No step allocates,
+    fills or scans anything with ``num_slots`` rows then.  The body's
+    ``last_depth`` is the batch's wavefront depth (a device scalar on the
+    kernel route); ``counts`` holds per device the int64 ``[batches,
+    passes, lanes]`` the steps added on the device (:func:`_count_step`).
 
     Two routes of one contract: the kernel route (``kernels`` resolved
     on and the batch on the card, or ``loop=True`` anywhere), the device
@@ -374,6 +445,7 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
     what = "stateful function"
     spec = {}          # the output carry's structure, from the first call
     klass = _ClassLoop(fn, capacity, num_slots, is_filter, what, name)
+    tallies = {}
 
     def out_spec(payload, state):
         """The result structure of ``fn`` (the JAX package's
@@ -393,18 +465,22 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
     def body_fn(state, payload, valid, slots):
         dev = valid.device
         sort_key = _slot_key(valid, slots, S)
-        order, hist = order_and_hist(sort_key, S + 1)
-        order = order.long()
+        order = auto_order(sort_key, S + 1).long()
         s_slots = sort_key[order]
         live = s_slots < S
         # rank = the lane's occurrence index within its key's run: its
-        # sorted position less the run's start (the histogram's
-        # exclusive running sum)
-        start = torch.cumsum(hist, 0) - hist
-        rank = torch.arange(capacity, device=dev) - start[s_slots.long()]
-        rank = torch.where(live, rank, capacity)
+        # sorted position less the run's start, looked up by the run's
+        # number (a running sum of the run starts over the batch); lanes
+        # that start no run write the spare entry ``capacity``
+        pos = torch.arange(capacity, device=dev)
+        starts = _seg_starts(s_slots)
+        run = torch.cumsum(starts, 0) - 1
+        first = torch.empty(capacity + 1, dtype=torch.int64, device=dev)
+        first.index_copy_(0, torch.where(starts, run, capacity), pos)
+        rank = torch.where(live, pos - first[run], capacity)
         cnt = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
         cnt.index_add_(0, rank, torch.ones_like(rank, dtype=torch.int32))
+        _count_step(tallies, cnt[:capacity])
         use_loop = _loop_route(kernels, dev) if loop is None else loop
         if use_loop:
             # live lanes by (rank, slot): each wavefront a contiguous
@@ -425,7 +501,8 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
         w = order[torch.sort(rank, stable=True).indices]
         w_slots = slots.to(torch.int64)[w]
         w_payload = tree_map(lambda a: a[w], payload)
-        st = tree_map(torch.clone, state)
+        st = state if _dump_tables(state, S) is not None \
+            else tree_map(torch.clone, state)
         outs = []
         off = 0
         for c in counts:
@@ -457,7 +534,30 @@ def _wavefront_body(fn: Callable, capacity: int, num_slots: int,
 
     body_fn.last_depth = 0
     body_fn.loop = klass
+    body_fn.counts = tallies
     return body_fn
+
+
+def _count_step(counts: dict, cnt) -> None:
+    """Add one step's ``[1, passes, lanes]`` to its device's counter in
+    ``counts`` (made on the step's first, eager call), on the device: the
+    passes are the live ranks (one pass of the loop each), the lanes
+    their sum.  A graph warm-up on scratch data (``ffat_cuda.uncounted``)
+    adds nothing."""
+    from windflow_tpu_torch.kernels.ffat_cuda import counting
+    if not counting():
+        return
+    acc = counts.get(cnt.device)
+    if acc is None:
+        if cnt.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise WindFlowError("stateful counters: the first step of a "
+                                "body runs eagerly, before any capture")
+        acc = torch.zeros(3, dtype=torch.int64, device=cnt.device)
+        counts[cnt.device] = acc
+    acc.add_(torch.stack([torch.ones((), dtype=torch.int64,
+                                     device=cnt.device),
+                          torch.count_nonzero(cnt),
+                          cnt.sum(dtype=torch.int64)]))
 
 
 def _assoc_body(lift: Callable, comb: Callable, project: Callable,
@@ -540,17 +640,41 @@ class _StatefulGPUBase(Operator):
         #: (lift, comb, project): the associative body replaces the
         #: wavefront; ``fn`` is then unused
         self.assoc = assoc
-        self._state = _broadcast_state(initial_state, num_key_slots)
+        self._state = _state_table(initial_state, num_key_slots)
         self._interner = KeyInterner()
         self._steps = {}      # per-capacity step cache
         self._bodies = {}
         #: compaction stats of the compacted route (device tensors)
         self._cstats = None
+        #: the shard plane's sketch, updated in the dense-keys step, and
+        #: its device state (made at the first step)
+        self._sketch = None
+        self._sk_state = None
 
     def key_space(self):
         # dense extractors are bounded by the slot table; interned key
         # spaces are not (slots follow arrival order)
         return self.num_key_slots if self.dense_keys else None
+
+    def attach_shard_sketch(self, sketch) -> None:
+        """Fold the shard plane's sketch update into the dense-keys step
+        (graph build): the keys the step extracts on the card feed it,
+        so the staging edge keeps no host key probe."""
+        self._sketch = sketch
+        sketch.register_device_state(lambda: self._sk_state)
+
+    def _update_sketch(self, keys, valid) -> None:
+        """One batch into the device sketch (no host read; a graph's
+        warm-up on scratch data, ``ffat_cuda.uncounted``, adds nothing)."""
+        from windflow_tpu_torch.kernels.ffat_cuda import counting
+        from windflow_tpu_torch.monitoring.shard_ledger import (
+            device_sketch_init, device_sketch_update)
+        if not counting():
+            return
+        if self._sk_state is None:
+            self._sk_state = device_sketch_init(self.parallelism,
+                                                keys.device)
+        device_sketch_update(self._sk_state, keys, valid, self.parallelism)
 
     # -- key compaction --------------------------------------------------------
     def enable_compaction(self, comp) -> None:
@@ -640,6 +764,19 @@ class _StatefulGPUBase(Operator):
         return max((int(getattr(b, "last_depth", 0))
                     for b in self._bodies.values()), default=0)
 
+    def wavefront_counts(self) -> Optional[dict]:
+        """``{batches, passes, lanes}`` the wavefront's steps added up on
+        the device (the megastep's replays included): a host read, made
+        at stats cadence only.  None on the associative body or before a
+        step."""
+        accs = [a for b in self._bodies.values()
+                for a in getattr(b, "counts", {}).values()]
+        if self.assoc is not None or not accs:
+            return None
+        # wfverify: ok (the wavefront's counters, read at stats cadence)
+        tot = [sum(v) for v in zip(*(a.tolist() for a in accs))]
+        return dict(zip(("batches", "passes", "lanes"), tot))
+
     def _keys(self, payload, capacity: int):
         return per_record(self.key_extractor, payload,
                           capacity).to(torch.int32)
@@ -668,6 +805,8 @@ class _StatefulGPUBase(Operator):
                         keys = None
                     if keys is None:
                         keys = self._keys(payload, capacity)
+                    if self._sketch is not None:
+                        self._update_sketch(keys, valid)
                     ok = valid & (keys >= 0) & (keys < S)
                     return body(state, payload, ok, keys)
             else:
@@ -710,8 +849,7 @@ class _StatefulGPUBase(Operator):
         if tree_flatten(self._state)[0][0].device != dev:
             # the first step places the initial table; from pageable
             # memory the copy is staged before it returns, so no wait
-            self._state = tree_map(lambda a: a.to(dev, non_blocking=True),
-                                   self._state)
+            self._state = _place_state(self._state, dev, self.num_key_slots)
         if self.dense_keys:
             # no interning: no host read (the plain wavefront's rank
             # counts aside)
@@ -792,7 +930,8 @@ class _StatefulGPUBase(Operator):
             from windflow_tpu_torch.parallel.mesh import shard_state
             self._state = shard_state(blob["state"], self.mesh)
         else:
-            self._state = place_tree(blob["state"], self._state_device())
+            self._state = _rows(_extended(place_tree(
+                blob["state"], self._state_device())), self.num_key_slots)
         self._interner._ids = dict(blob["interner"])
         cblob = blob.get("compactor")
         if cblob is not None and self._compactor is not None:
